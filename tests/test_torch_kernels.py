@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only PyTorch is installed. On a machine with a CUDA card and nvcc:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -q
+
+(``--noconftest`` skips tests/conftest.py, which configures JAX.) Without a
+card every test here skips: a CUDA kernel has no CPU mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from zelll_tpu_torch.core import (
+    SENTINEL_KEY,
+    GridInfo,
+    aabb_from_positions,
+    build,
+    compute_keys,
+    sort_by_key,
+)
+from zelll_tpu_torch.ops.lag_pairs import (
+    combine_count,
+    count_term,
+    lag_coverage_ok,
+    lj_term,
+    pair_lag_reduce,
+    pair_lag_reduce_plain,
+    split_f64,
+)
+from zelll_tpu_torch.utils.datagen import (
+    generate_points_lattice,
+    generate_points_random,
+    lj_box,
+)
+
+CUTOFF = 10.0
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_lag_reduce_kernel_matches_plain_on_card(cuda_device):
+    """K1 against its plain version on the same sorted CUDA tensors (the
+    benchmark's thin box, and a jittered lattice): counts exact, f32
+    energies to 1e-6 and f64 totals to 1e-10 (f64 sums in another order),
+    the same lags, sentinel rows inert."""
+    n = 20_000
+    pts = generate_points_random(n, lj_box(n, CUTOFF))
+    hi, lo = split_f64(torch.as_tensor(pts, device=cuda_device))
+    info = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
+    keys, _, shi, slo = sort_by_key(compute_keys(hi, info), hi, lo)
+    padded = keys.clone()
+    padded[-500:] = SENTINEL_KEY
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    for k, L in ((keys, 256), (keys, 32), (padded, 256)):
+        for plo in (None, slo):
+            for term, out in ((lj_term, None), (count_term, torch.int32)):
+                before = pair_lag_reduce.launches
+                got = pair_lag_reduce(shi, k, info.strides, csq, plo, L=L, term=term,
+                                      out_dtype=out)
+                assert pair_lag_reduce.launches == before + 1
+                want = pair_lag_reduce_plain(shi, k, info.strides, csq, plo, L=L,
+                                             term=term, out_dtype=out)
+                torch.cuda.synchronize()
+                if out is None:
+                    assert got.dtype == torch.float32
+                    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+                else:
+                    assert combine_count(got) == combine_count(want)
+    assert bool(lag_coverage_ok(keys, info.strides, 256))
+    assert not bool(lag_coverage_ok(keys, info.strides, 32))
+
+    # f64 totals to 1e-10 (both sides sum the same f32 terms in f64). On the
+    # uniform cloud a few nearly coincident pairs carry the LJ total; on the
+    # jittered lattice every pair term is of one size, so a wrong term or a
+    # lost partial shows.
+    lat = generate_points_lattice(n, lj_box(n, CUTOFF))
+    lhi, llo = split_f64(torch.as_tensor(lat, device=cuda_device))
+    linfo = GridInfo.create(aabb_from_positions(lhi), CUTOFF, auto_order=True)
+    lkeys, _, lshi, lslo = sort_by_key(compute_keys(lhi, linfo), lhi, llo)
+    for args in ((shi, keys, info.strides, csq, slo), (lshi, lkeys, linfo.strides, csq, llo)):
+        for plo in (None, args[4]):
+            got = pair_lag_reduce(*args[:4], plo, L=256, out_dtype=torch.float64)
+            want = pair_lag_reduce_plain(*args[:4], plo, L=256, out_dtype=torch.float64)
+            assert got.dtype == torch.float64
+            np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+
+    # 2D points, one slot, no slot (no launch)
+    pts2 = np.random.default_rng(1).uniform(0, 1, (3000, 2)) * [5.0, 200.0]
+    g2 = build(torch.as_tensor(pts2, dtype=torch.float32, device=cuda_device), 1.0)
+    args2 = (g2.sorted_pos, g2.bins.sorted_keys, g2.info.strides, 1.0)
+    got = pair_lag_reduce(*args2, L=128, term=count_term, out_dtype=torch.int32)
+    want = pair_lag_reduce_plain(*args2, L=128, term=count_term, out_dtype=torch.int32)
+    assert combine_count(got) == combine_count(want) > 0
+    np.testing.assert_allclose(float(pair_lag_reduce(*args2, L=128)),
+                               float(pair_lag_reduce_plain(*args2, L=128)), rtol=1e-6)
+    assert float(pair_lag_reduce(shi[:1], keys[:1], info.strides, csq)) == 0.0
+    before = pair_lag_reduce.launches
+    assert float(pair_lag_reduce(shi[:0], keys[:0], info.strides, csq)) == 0.0
+    assert pair_lag_reduce.launches == before
+    with pytest.raises(ValueError):
+        pair_lag_reduce(shi, keys, info.strides, csq, L=64, term=lambda d: d)
+    with pytest.raises(ValueError):
+        pair_lag_reduce(shi.double(), keys, info.strides, csq, L=64)
+    with pytest.raises(ValueError):
+        pair_lag_reduce(shi.t().contiguous().t(), keys, info.strides, csq, L=64)

@@ -1,0 +1,62 @@
+"""zelll_tpu_torch: cell lists in PyTorch with hand-written CUDA kernels.
+
+The PyTorch/CUDA port of ``zelll_tpu``, which stays the reference. The
+entry points take the JAX package's arguments (without ``interpret``) plus
+``device``: inputs that are not tensors go to CUDA unless ``device`` says
+otherwise, a tensor keeps its device, and CPU tensors run the plain
+PyTorch versions of the kernels.
+
+The benchmark step, n points, cutoff 10, a full rebuild per call:
+
+    from zelll_tpu_torch import fused_lj_rebuild_energy, split_f64
+    hi, lo = split_f64(torch.as_tensor(points_f64, device="cuda"))
+    energy, coverage_ok = fused_lj_rebuild_energy(hi, 10.0, lo, L=256)
+"""
+
+from .core import (
+    SENTINEL_KEY,
+    Aabb,
+    Bins,
+    CellGridData,
+    GridInfo,
+    aabb_from_positions,
+    bin_and_sort,
+    build,
+    build_bins,
+)
+from .ops import (
+    combine_count,
+    count_term,
+    fused_count_pairs,
+    fused_lj_energy,
+    fused_lj_rebuild_energy,
+    fused_pair_sum,
+    lag_coverage_ok,
+    lj_term,
+    pair_lag_reduce,
+    split_f64,
+    suggest_lag,
+)
+
+__all__ = [
+    "SENTINEL_KEY",
+    "Aabb",
+    "Bins",
+    "CellGridData",
+    "GridInfo",
+    "aabb_from_positions",
+    "bin_and_sort",
+    "build",
+    "build_bins",
+    "combine_count",
+    "count_term",
+    "fused_count_pairs",
+    "fused_lj_energy",
+    "fused_lj_rebuild_energy",
+    "fused_pair_sum",
+    "lag_coverage_ok",
+    "lj_term",
+    "pair_lag_reduce",
+    "split_f64",
+    "suggest_lag",
+]

@@ -1,0 +1,292 @@
+"""The lag-window pair reduction over key-sorted particles (kernel K1).
+
+PyTorch counterpart of ``zelll_tpu/ops/pallas_pairs.py`` for the reduction
+the main path runs (`pair_lag_reduce`) and its host helpers.
+
+After sorting by flat cell key, every cutoff partner j < i of particle i
+satisfies ``key_j >= key_i - W`` with ``W = sum(strides)``, so all of them
+lie within a bounded lag behind i in slot order. A pair is counted once, by
+its larger slot: for lag in 1..L, pairs (i, i - lag) masked by the key
+window and by ``dsq < cutoff^2``. The pair list never exists.
+
+`pair_lag_reduce` launches the hand-written CUDA kernel
+(``csrc/lag_reduce.cu``) for CUDA tensors and runs
+`pair_lag_reduce_plain` for CPU tensors. There is no fallback between the
+two: a CUDA input the kernel cannot take raises.
+
+Split precision: with f32 coordinates in a large box ``x_i - x_j`` loses
+small separations to cancellation. ``sorted_pos_lo`` carries the f32 low
+parts of the f64 coordinates (`split_f64`), and
+``d = (hi_i - hi_j) + (lo_i - lo_j)`` recovers f64-grade distances.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..core.geometry import SENTINEL_KEY, key_window
+from ._build import NVCC_FLAGS, build_shared, nvcc
+
+__all__ = [
+    "pair_lag_reduce",
+    "pair_lag_reduce_plain",
+    "lag_coverage_ok",
+    "suggest_lag",
+    "split_f64",
+    "lj_term",
+    "count_term",
+    "combine_count",
+    "load_kernel",
+]
+
+# Padding-row keys start here: above every real key, below int32 overflow
+# even after per-slot spacing.
+_PAD_KEY_BASE = int(np.iinfo(np.int32).max) // 2
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "lag_reduce.cu"
+
+
+def lj_term(dsq):
+    t = 1.0 / dsq
+    t3 = t * t * t
+    return 4.0 * t3 * (t3 - 1.0)
+
+
+def count_term(dsq):
+    return torch.ones_like(dsq)
+
+
+# The terms the CUDA kernel implements, by the enum value it takes.
+_KERNEL_TERMS = {lj_term: 0, count_term: 1}
+
+
+def split_f64(x64: torch.Tensor):
+    """Split f64 values into (hi, lo) f32 tensors with hi + lo == x64 to
+    f32x2 precision."""
+    hi = x64.to(torch.float32)
+    lo = (x64 - hi.to(torch.float64)).to(torch.float32)
+    return hi, lo
+
+
+def lag_coverage_ok(sorted_keys: torch.Tensor, strides, L: int) -> torch.Tensor:
+    """True iff lag bound L covers every in-window pair:
+    ``key[i] - key[i-L] > W`` for every real row i (SENTINEL_KEY rows, which
+    sort last and hold no real pairs, are excluded)."""
+    w = key_window(strides).to(sorted_keys.device)
+    if sorted_keys.shape[0] <= L:
+        return torch.ones((), dtype=torch.bool, device=sorted_keys.device)
+    later = sorted_keys[L:]
+    return ((later - sorted_keys[:-L] > w) | (later == SENTINEL_KEY)).all()
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def suggest_lag(sorted_keys_host, strides_host, granule: int = 128) -> int:
+    """Smallest granule multiple L with full coverage (host-side helper).
+    SENTINEL_KEY rows are excluded as in `lag_coverage_ok`."""
+    w = int(np.sum(_host(strides_host)))
+    keys = _host(sorted_keys_host)
+    n = len(keys)
+    L = granule
+    while L < n and not np.all(
+        (keys[L:] - keys[:-L] > w) | (keys[L:] == SENTINEL_KEY)
+    ):
+        L *= 2
+    return min(L, ((n + granule - 1) // granule) * granule)
+
+
+def _pad_spacing(n: int) -> int:
+    """The largest padding-key spacing that cannot overflow int32."""
+    return max(1, (_INT32_MAX - _PAD_KEY_BASE - 1) // max(n, 1))
+
+
+def _desentinel(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """Replace every SENTINEL_KEY of (n,) keys with strictly ascending
+    spaced keys from _PAD_KEY_BASE: the key rule of the JAX package's
+    ``_pad_and_desentinel`` with no tail padding. K1 applies the same rule
+    as it loads each key.
+
+    Ascending padding keys end the key window after ceil(W / spacing) lags
+    instead of holding it open over a whole padding run. They stay above
+    every real key, so no real-vs-padding pair enters the window."""
+    n = sorted_keys.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=sorted_keys.device)
+    pad = (_PAD_KEY_BASE + iota * _pad_spacing(n)).to(torch.int32)
+    return torch.where(sorted_keys == SENTINEL_KEY, pad, sorted_keys)
+
+
+def combine_count(packed) -> int:
+    """The exact pair count from the (hi, lo) int32 pair returned by an
+    integer `pair_lag_reduce`; a scalar (float) count is rounded."""
+    v = np.asarray(_host(packed))
+    if v.ndim == 0:
+        return int(round(float(v)))
+    return (int(v[0]) << 16) + int(v[1])
+
+
+def _pack_count(total: torch.Tensor) -> torch.Tensor:
+    """int64 total -> (hi, lo) int32 with total == (hi << 16) + lo."""
+    return torch.stack([total >> 16, total & 0xFFFF]).to(torch.int32)
+
+
+def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                          sorted_pos_lo=None, *, L: int = 256,
+                          term: Callable = lj_term, out_dtype=None):
+    """Plain PyTorch version of K1, vectorised over slots, one lag at a time.
+
+    Same masks, separations and terms as the kernel; any ``term`` callable
+    works here. Float sums are taken in f64 per lag; integer ones in int64.
+    """
+    n = sorted_pos.shape[0]
+    dtype = sorted_pos.dtype
+    out_dtype = out_dtype or dtype
+    integer = not out_dtype.is_floating_point
+    keys = _desentinel(sorted_keys)
+    w = key_window(strides).to(keys.device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=sorted_pos.device)
+    total = torch.zeros((), dtype=torch.int64 if integer else torch.float64,
+                        device=sorted_pos.device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break  # keys ascend: no later lag can be in window
+        dsq = torch.zeros((n - lag,), dtype=dtype, device=sorted_pos.device)
+        for a in range(sorted_pos.shape[1]):
+            d = sorted_pos[lag:, a] - sorted_pos[:-lag, a]
+            if sorted_pos_lo is not None:
+                d = d + (sorted_pos_lo[lag:, a] - sorted_pos_lo[:-lag, a])
+            dsq = dsq + d * d
+        mask = keymask & (dsq < csq)
+        vals = term(torch.where(mask, dsq, torch.ones_like(dsq)))
+        v = torch.where(mask, vals, torch.zeros_like(vals)).to(out_dtype)
+        total += v.sum(dtype=total.dtype)
+    if integer:
+        return _pack_count(total)
+    return total.to(out_dtype)
+
+
+def load_kernel():
+    """Build (at first use) and load the K1 library. Returns the ctypes
+    library; its build log is ``load_kernel.log``."""
+    if load_kernel.lib is None:
+        path, log = build_shared(_SRC, nvcc(), NVCC_FLAGS, "lag_reduce")
+        lib = ctypes.CDLL(str(path))
+        vp = ctypes.c_void_p
+        lib.zelll_lag_reduce.argtypes = [
+            vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, vp, vp,
+        ]
+        lib.zelll_lag_reduce.restype = ctypes.c_int
+        lib.zelll_lag_reduce_block.argtypes = []
+        lib.zelll_lag_reduce_block.restype = ctypes.c_int
+        load_kernel.lib, load_kernel.log = lib, log
+    return load_kernel.lib
+
+
+load_kernel.lib = None
+load_kernel.log = ""
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"K1 takes {name} as a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+                     *, L, term, out_dtype):
+    """Launch K1 on the current stream and sum its per-block partials."""
+    device = sorted_pos.device
+    n, dim = sorted_pos.shape
+    if term not in _KERNEL_TERMS:
+        raise ValueError(
+            "the CUDA kernel implements lj_term and count_term only; run "
+            "other terms through pair_lag_reduce_plain or on CPU tensors"
+        )
+    if out_dtype not in (torch.float32, torch.float64, torch.int32):
+        raise ValueError(f"K1 writes float32, float64 or int32 sums, not {out_dtype}")
+    if not 1 <= dim <= 3 or n >= 2**31:
+        raise ValueError(f"K1 takes 1 <= dim <= 3 and n < 2^31; got {(n, dim)}")
+    _check_cuda("sorted_pos", sorted_pos, torch.float32, (n, dim), device)
+    if sorted_pos_lo is not None:
+        _check_cuda("sorted_pos_lo", sorted_pos_lo, torch.float32, (n, dim), device)
+    _check_cuda("sorted_keys", sorted_keys, torch.int32, (n,), device)
+    integer = out_dtype == torch.int32
+    acc = torch.int64 if integer else torch.float64
+    if n == 0:
+        total = torch.zeros((), dtype=acc, device=device)
+        return _pack_count(total) if integer else total.to(out_dtype)
+    lib = load_kernel()
+    w_key = key_window(strides).reshape(1)
+    block = lib.zelll_lag_reduce_block()
+    partial = torch.empty((-(-n // block),), dtype=acc, device=device)
+    csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
+    err = lib.zelll_lag_reduce(
+        sorted_pos.data_ptr(),
+        None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
+        sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
+        _KERNEL_TERMS[term], int(integer), partial.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    pair_lag_reduce.launches += 1
+    total = partial.sum()
+    return _pack_count(total) if integer else total.to(out_dtype)
+
+
+def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
+                    sorted_pos_lo=None, *, M: int = 1024, L: int = 256,
+                    term: Callable = lj_term, out_dtype=None, device=None):
+    """Sum ``term(dsq)`` over all unique cutoff pairs of key-sorted particles.
+
+    ``sorted_keys`` (int32) must ascend, SENTINEL_KEY rows last. L is the lag
+    bound: the reduction considers lags 1..L exactly, as the TPU kernel
+    does, so its output is defined even where `lag_coverage_ok` is False.
+    ``M`` (the TPU kernel's block rows) is accepted for the JAX package's
+    signature and has no effect here.
+
+    ``sorted_pos_lo`` (f32 low parts, see `split_f64`) selects
+    split-precision separations. ``out_dtype`` defaults to the positions'
+    dtype; an integer ``out_dtype`` returns the (hi, lo) int32 pair that
+    `combine_count` turns into the exact total. Float terms are summed in
+    f64 and the total is then cast, so with f32 positions
+    ``out_dtype=torch.float64`` returns the f64 sum of the f32 terms.
+
+    CUDA tensors run kernel K1, which takes f32 coordinates and the terms
+    `lj_term` and `count_term`, and raises on anything else. CPU tensors
+    run `pair_lag_reduce_plain`.
+    """
+    del M
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    strides = torch.as_tensor(strides, dtype=torch.int32, device=device)
+    if sorted_pos_lo is not None:
+        sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
+    if device.type == "cuda":
+        return _lag_reduce_cuda(
+            sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+            L=L, term=term, out_dtype=out_dtype or sorted_pos.dtype)
+    return pair_lag_reduce_plain(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, L=L,
+        term=term, out_dtype=out_dtype)
+
+
+# Kernel launches since the last reset; only a launch of K1 adds to it.
+pair_lag_reduce.launches = 0
