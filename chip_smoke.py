@@ -7,9 +7,11 @@ Run from the root of a checkout, on a machine with one CUDA card, ``nvcc``
     python3 chip_smoke.py
 
 It builds every kernel from the sources in the checkout, holds each against
-its plain PyTorch version on the card, drives the benchmark's main path at
-n = 1e7 (a full rebuild per step: keys -> sort -> fused LJ energy), checks
-the f64-grade energy and the pair count against the exact-f64 oracle at
+its plain PyTorch version on the card, and drives both legs of the
+benchmark's main path at n = 1e7 with a full rebuild per step: the thin box
+(keys -> sort -> lag reduction, K1) and the cubic box (keys -> sort ->
+window bounds -> segment-tile reduction, K6). It checks the f64-grade
+energy and the pair count of each leg against the exact-f64 oracle at
 n = 1e6, and prints one JSON line per phase. Any failed phase exits
 non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -21,13 +23,15 @@ That rate counts an FMA as two operations, so the operations bound counts
 the FP32 instructions the function needs (with FMA contraction, which K1
 itself gives up) at half of it.
 
-K1 is held to its plain version on the benchmark's uniform cloud, whose LJ
-total is carried by a few nearly coincident pairs, and on a jittered
-lattice with a minimum separation, whose pair terms are all of similar
-size, so that a wrong term or a lost partial shows. Both sides sum the same
-f32 terms in f64 and differ only in the order of the sums: their f64
-totals (``out_dtype=torch.float64``) must agree to 1e-10, and the pair
-counts exactly.
+Each kernel is held to its plain version on the benchmark's uniform cloud,
+whose LJ total is carried by a few nearly coincident pairs, and on a
+jittered lattice with a minimum separation, whose pair terms are all of
+similar size, so that a wrong term or a lost partial shows. Both sides sum
+the same f32 terms in f64 and differ only in the order of the sums: their
+f64 totals (``out_dtype=torch.float64``) must agree to 1e-10, and the pair
+counts exactly. ``lj_term_fast`` uses rsqrtf in K6 and torch.rsqrt in the
+plain version; each may be 2 ulp off, and t^3 = r^-6 multiplies the
+relative error by 6, so its totals must agree to 6 x 4 x 2^-23.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ L_MAIN = 256  # the benchmark's lag bound (bench.py's default)
 N_MAIN = 10_000_000
 N_CHECK = 200_000
 N_PARITY = 1_000_000
+N_TILE_CHECK = 200_000
 STEPS = 10
+CB = 8  # the tile path's padding granule (tile_lj_rebuild_energy's default)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F32_INSTR_PER_S = PEAK_F32_FLOPS / 2  # one FMA is two flops
@@ -60,8 +66,12 @@ PEAK_F32_INSTR_PER_S = PEAK_F32_FLOPS / 2  # one FMA is two flops
 # product, and the f64 add, counted as 2 (FP64 runs at half the rate).
 INSTR_PER_CANDIDATE = {True: 3 * 4 + 1, False: 3 * 2 + 1}
 INSTR_PER_PAIR = 5 + 5 + 2
+# K6's cubic step runs lj_term_fast: rsqrt, r*r, t*t*t, t3 - 1, 4*t3, the
+# product, and the f64 add, counted as 2.
+INSTR_PER_PAIR_FAST = 1 + 1 + 2 + 1 + 1 + 1 + 2
 TOL_REL = 1e-6  # against the exact-f64 oracle
-TOL_KERNEL = 1e-10  # K1 against its plain version, f64 totals
+TOL_KERNEL = 1e-10  # a kernel against its plain version, f64 totals
+TOL_FAST = 6 * 4 * 2.0**-23  # the same with lj_term_fast (see above)
 
 
 def emit(phase: str, **fields) -> None:
@@ -97,6 +107,39 @@ def max_rel(cases: dict) -> float:
     return max(c[m]["rel_err"] for c in cases.values() for m in ("split", "f32"))
 
 
+def max_tile_rel(cases: dict) -> float:
+    """The largest lj_term rel_err over the cases of `tile_vs_plain`."""
+    return max(m["rel_err"] for c in cases.values() for m in c.values()
+               if isinstance(m, dict))
+
+
+def ptxas_summary(log: str) -> list:
+    """The distinct register and spill lines of a build log."""
+    return sorted({ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln})
+
+
+def profile_steps(step, steps: int = 3) -> dict:
+    """Device time per step by kernel under torch.profiler, and the share
+    of the wall time the card was busy."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for i in range(steps):
+            step(i)
+        end.record()
+        end.synchronize()
+    by_kernel = sorted(((e.self_device_time_total / (steps * 1e3), e.key[:90])
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       reverse=True)
+    busy_ms = sum(ms for ms, _ in by_kernel)
+    wall_ms = start.elapsed_time(end) / steps
+    return dict(step_ms=wall_ms,
+                device_busy_share=busy_ms / wall_ms if busy_ms else "not measured",
+                ms_per_step_by_kernel=[[round(ms, 4), k] for ms, k in by_kernel[:12]])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -106,11 +149,17 @@ def main() -> None:
     from zelll_tpu_torch.core import (
         GridInfo, aabb_from_positions, compute_keys, key_window, sort_by_key,
     )
-    from zelll_tpu_torch.ops import lag_pairs
-    from zelll_tpu_torch.ops.fused import fused_lj_rebuild_energy
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY, half_stencil
+    from zelll_tpu_torch.ops import lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops.fused import auto_lj_energy, fused_lj_rebuild_energy
     from zelll_tpu_torch.ops.lag_pairs import (
-        combine_count, count_term, lag_coverage_ok, pair_lag_reduce,
-        pair_lag_reduce_plain, split_f64,
+        _pad_and_desentinel, combine_count, count_term, lag_coverage_ok, lj_term,
+        lj_term_fast, pair_lag_reduce, pair_lag_reduce_plain, split_f64,
+    )
+    from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
+    from zelll_tpu_torch.ops.tile_pairs import (
+        reduce_tiles, reduce_tiles_plain, tile_inputs, tile_lj_rebuild_energy,
+        tile_pair_reduce, tile_pair_reduce_plain,
     )
     from zelll_tpu_torch.utils.datagen import (
         generate_points_lattice, generate_points_random, lj_box,
@@ -133,14 +182,15 @@ def main() -> None:
 
     # -- 2. build every kernel (and the oracle) at once ------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        kernel = pool.submit(lag_pairs.load_kernel)
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(lag_pairs.load_kernel), pool.submit(tile_pairs.load_kernel)]
         have_oracle = pool.submit(oracle.available)
-        kernel.result()
+        for b in builds:
+            b.result()
         check(have_oracle.result(), "the oracle did not build")
-    ptxas = [ln.strip() for ln in lag_pairs.load_kernel.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, lag_reduce_ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0,
+         lag_reduce_ptxas=ptxas_summary(lag_pairs.load_kernel.log),
+         tile_reduce_ptxas=ptxas_summary(tile_pairs.load_kernel.log))
 
     def sorted_inputs(pts64: np.ndarray):
         """The main path's own keys, sort and gather, on the card."""
@@ -201,6 +251,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     main = {}
     pair_lag_reduce.launches = 0
+    tile_pair_reduce.launches = 0
     for split in (True, False):
         plo = lo if split else None
         e0, ok0 = fused_lj_rebuild_energy(hi, CUTOFF, plo, L=L_MAIN)  # warm-up
@@ -233,25 +284,12 @@ def main() -> None:
     check(launches > 0, "the main path never launched K1")
     peak_bytes = torch.cuda.max_memory_allocated()
     emit("main_path", n=N_MAIN, L=L_MAIN, steps=STEPS, modes=main,
-         lag_reduce_launches=launches, max_memory_allocated=peak_bytes)
+         lag_reduce_launches=launches, tile_reduce_launches=tile_pair_reduce.launches,
+         max_memory_allocated=peak_bytes)
 
     # where a split step's device time goes, by kernel, and the busy share
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for i in range(3):
-            fused_lj_rebuild_energy(hi + (i % 2) * 1e-6, CUTOFF, lo, L=L_MAIN)
-        end.record()
-        end.synchronize()
-    by_kernel = sorted(((e.self_device_time_total / 3e3, e.key[:90])
-                        for e in prof.key_averages() if e.self_device_time_total > 0),
-                       reverse=True)
-    busy_ms = sum(ms for ms, _ in by_kernel)
-    wall_ms = start.elapsed_time(end) / 3
-    emit("profile", mode="split", step_ms=wall_ms,
-         device_busy_share=busy_ms / wall_ms if busy_ms else "not measured",
-         ms_per_step_by_kernel=[[round(ms, 4), k] for ms, k in by_kernel[:12]])
+    emit("profile", mode="split", **profile_steps(
+        lambda i: fused_lj_rebuild_energy(hi + (i % 2) * 1e-6, CUTOFF, lo, L=L_MAIN)))
 
     # K1 alone at the main path's shapes, its bound, the sort, the plain version
     hi_s, lo_s, shi, slo, keys, strides = sorted_inputs(pts)
@@ -309,7 +347,234 @@ def main() -> None:
          count_rel_err_vs_oracle=count_err, oracle_pairs=n_ref,
          f32_energy_rel_err_vs_oracle=rel(float(e_f32), e_ref))
 
-    # -- 6. every ported kernel -------------------------------------------------
+    # -- 6. K6 against its plain version, n = 2e5 ---------------------------------
+    def padded_keys(keys):
+        n = keys.shape[0]
+        return _pad_and_desentinel(keys, max(-(-n // (CHUNK * CB)) * CB, CB) * CHUNK)
+
+    def probe_maxj(keys, strides):
+        """Per-band window capacities measured on this data, as bench.py's
+        cubic mode probes them."""
+        return suggest_maxj(padded_keys(keys), segment_bands(strides), per_band=True)
+
+    def tile_vs_plain(shi, slo, keys, strides, maxj, *, bandmasks=(False, True),
+                      fast=False, packed=True, expect_ok=True):
+        """K6 and its plain version on identical sorted inputs: counts
+        exact, f64 lj_term totals to TOL_KERNEL (lj_term_fast to
+        TOL_FAST), the same coverage flag."""
+        out = {}
+        f64 = torch.float64
+        for bandmask in bandmasks:
+            for split in (True, False):
+                lo = slo if split else None
+                kw = dict(MAXJ=maxj, bandmask=bandmask, packed=packed)
+                tag = f"{'masked' if bandmask else 'maskless'}_{'split' if split else 'f32'}"
+                e_k, ok_k = tile_pair_reduce(shi, keys, strides, csq, lo, out_dtype=f64, **kw)
+                e_p, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, lo,
+                                                   out_dtype=f64, **kw)
+                cnt = dict(term=count_term, out_dtype=torch.int32, **kw)
+                c_k = combine_count(tile_pair_reduce(shi, keys, strides, csq, lo, **cnt)[0])
+                c_p = combine_count(tile_pair_reduce_plain(shi, keys, strides, csq, lo,
+                                                           **cnt)[0])
+                e_k, e_p = float(e_k), float(e_p)
+                check(bool(ok_k) == bool(ok_p) == expect_ok,
+                      f"K6 coverage flags {bool(ok_k)} / {bool(ok_p)} ({tag})")
+                check(c_k == c_p, f"K6 count {c_k} != plain {c_p} ({tag})")
+                check(np.isfinite(e_k) and rel(e_k, e_p) <= TOL_KERNEL,
+                      f"K6 energy {e_k} vs plain {e_p} ({tag})")
+                case = dict(energy=e_k, plain_energy=e_p, abs_err=abs(e_k - e_p),
+                            rel_err=rel(e_k, e_p), pairs=c_k, ok=bool(ok_k))
+                if fast:
+                    fk = float(tile_pair_reduce(shi, keys, strides, csq, lo, out_dtype=f64,
+                                                term=lj_term_fast, **kw)[0])
+                    fp = float(tile_pair_reduce_plain(shi, keys, strides, csq, lo,
+                                                      out_dtype=f64, term=lj_term_fast,
+                                                      **kw)[0])
+                    check(rel(fk, fp) <= TOL_FAST, f"K6 lj_term_fast {fk} vs plain {fp}")
+                    case["fast_rel_err"] = rel(fk, fp)
+                out[tag] = case
+        return out
+
+    def cube(n):
+        """bench.py's cubic cloud: uniform, density 0.01, default_rng(0)."""
+        side = (n / 0.01) ** (1 / 3)
+        return np.random.default_rng(0).uniform(0, side, (n, 3)), side
+
+    pts, side = cube(N_TILE_CHECK)
+    _, _, shi, slo, keys, strides = sorted_inputs(pts)
+    maxj = probe_maxj(keys, strides)
+    tcases = {"uniform": tile_vs_plain(shi, slo, keys, strides, maxj)}
+    tcases["maxj_1"] = tile_vs_plain(shi, slo, keys, strides, 1, bandmasks=(True,),
+                                     expect_ok=False)
+    padded = keys.clone()
+    padded[-1000:] = SENTINEL_KEY
+    tcases["sentinel_tail"] = tile_vs_plain(shi, slo, padded, strides, maxj)
+    _, _, shi, slo, keys, strides = sorted_inputs(
+        generate_points_lattice(N_TILE_CHECK, (side, side, side)))
+    tcases["lattice"] = tile_vs_plain(shi, slo, keys, strides, probe_maxj(keys, strides),
+                                      fast=True)
+    # K10: int32 keys past 2^24 (packed=False): two dense blobs in opposite
+    # corners of a 2,600 box
+    rng = np.random.default_rng(1)
+    blob = (N_TILE_CHECK / 2 / 0.01) ** (1 / 3)
+    blobs = np.concatenate([rng.uniform(0, blob, (N_TILE_CHECK // 2, 3)),
+                            2600.0 - rng.uniform(0, blob, (N_TILE_CHECK // 2, 3))])
+    _, _, shi, slo, keys, strides = sorted_inputs(blobs)
+    max_key = int(keys.max())
+    check(max_key >= 1 << 24, f"the blob grid's keys stop at {max_key}")
+    bmaxj = max(probe_maxj(keys, strides))
+    tcases["int32_keys"] = tile_vs_plain(shi, slo, keys, strides, bmaxj, bandmasks=(True,),
+                                         packed=False)
+    tcases["int32_keys_packed_flag"] = tile_vs_plain(
+        shi, slo, keys, strides, bmaxj, bandmasks=(True,), expect_ok=False)
+    del shi, slo, keys
+    emit("tile_vs_plain", n=N_TILE_CHECK, maxj=maxj, cases=tcases,
+         max_rel_err=max_tile_rel(tcases), blob_max_key=max_key)
+
+    # -- 7. the cubic main path at n = 1e7 (bench.py's cubic mode) -------------------
+    pts, side = cube(N_MAIN)
+    pos = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    del pts
+    cinfo = GridInfo.create(aabb_from_positions(pos), CUTOFF, auto_order=True)
+    ckeys, _ = torch.sort(compute_keys(pos, cinfo))
+    cmaxj = probe_maxj(ckeys, cinfo.strides)
+    del ckeys
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair_lag_reduce.launches = 0
+    tile_pair_reduce.launches = 0
+    step_kw = dict(MAXJ=cmaxj, kahan=False, term=lj_term_fast, safe_term=False)
+    c, ok_c = tile_lj_rebuild_energy(pos, CUTOFF, MAXJ=cmaxj, term=count_term,
+                                     out_dtype=torch.int32)
+    cpairs = combine_count(c)
+    check(bool(ok_c), f"tile coverage failed at MAXJ={cmaxj}")
+    e0, ok0 = tile_lj_rebuild_energy(pos, CUTOFF, **step_kw)  # warm-up
+    check(bool(ok0), f"tile coverage failed at MAXJ={cmaxj}")
+    energies, oks = [], []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    for i in range(STEPS):
+        p = pos + (i % 2) * 1e-6  # per-step jitter, as bench.py applies
+        e, ok = tile_lj_rebuild_energy(p, CUTOFF, **step_kw)
+        energies.append(e)
+        oks.append(ok)
+    end.record()
+    end.synchronize()
+    cubic_host_ms = (time.perf_counter() - t_host) * 1e3 / STEPS
+    cubic_ms = start.elapsed_time(end) / STEPS
+    tile_launches = tile_pair_reduce.launches
+    k1_in_cubic = pair_lag_reduce.launches
+    check(all(bool(o) for o in oks), "tile coverage failed inside the timed steps")
+    check(all(np.isfinite(float(x)) for x in energies), "non-finite cubic energy")
+    check(tile_launches > 0, "the cubic main path never launched K6")
+    emit("cubic_main_path", n=N_MAIN, side=side, steps=STEPS, MAXJ=cmaxj,
+         cubic_step_ms=cubic_ms, cubic_host_step_ms=cubic_host_ms, pairs=cpairs,
+         cubic_pairs_per_sec=cpairs / (cubic_ms * 1e-3),
+         energy_per_atom=float(e0) / N_MAIN, tile_reduce_launches=tile_launches,
+         lag_reduce_launches=k1_in_cubic,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit("cubic_profile", mode="f32", **profile_steps(
+        lambda i: tile_lj_rebuild_energy(pos + (i % 2) * 1e-6, CUTOFF, **step_kw)))
+
+    # -- 8. K6 alone at the cubic path's shapes, its bound, the plain version ------
+    def tile_prep(x, maxj):
+        """What tile_lj_rebuild_energy does before K6: keys, sort, gathers
+        into planes, padded keys, window bounds and the disjoint trim."""
+        info = GridInfo.create(aabb_from_positions(x), CUTOFF, auto_order=True)
+        skeys, perm = torch.sort(compute_keys(x, info))
+        planes = x.t().index_select(1, perm).contiguous()
+        return tile_inputs(planes, skeys, info.strides, CB=CB, MAXJ=maxj,
+                           bandmask=False), skeys, info
+
+    inp, skeys, info = tile_prep(pos, cmaxj)
+    check(bool(inp.coverage_ok), "tile coverage failed for K6 alone")
+    # half-stencil candidates from the cell table: same-cell pairs plus the
+    # products of the counts of each half-stencil neighbour pair of cells
+    cell_keys, counts = torch.unique_consecutive(skeys, return_counts=True)
+    candidates = int((counts * (counts - 1) // 2).sum())
+    for off in half_stencil(info).tolist():
+        nb = cell_keys + off
+        idx = torch.searchsorted(cell_keys, nb).clamp(max=cell_keys.shape[0] - 1)
+        hit = cell_keys[idx] == nb
+        candidates += int((counts * torch.where(hit, counts[idx], 0)).sum())
+    tiles = int(inp.bounds[:, 2::3].sum())
+    evaluations = tiles * CHUNK * CHUNK
+    csq32 = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    k6_ms = cuda_ms(lambda: reduce_tiles(inp, csq32, term=lj_term_fast), 10)
+    k6_plain_ms = cuda_ms(lambda: reduce_tiles_plain(inp, csq32, term=lj_term_fast,
+                                                     safe_term=False), 1)
+    prep_ms = cuda_ms(lambda: tile_prep(pos, cmaxj), 10)
+    n_bytes = N_MAIN * 4 * (3 + 1) + inp.bounds.numel() * 4
+    ops = candidates * INSTR_PER_CANDIDATE[False] + cpairs * INSTR_PER_PAIR_FAST
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_INSTR_PER_S * 1e3
+    k6_bound = max(t_bytes, t_ops)
+    k6_bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    # the main path's own call, and a lattice, against the plain version
+    f64 = torch.float64
+    k6_compare = {}
+    for tag, x in (("uniform", pos), ("lattice", None)):
+        if x is None:
+            del inp, skeys
+            x = torch.as_tensor(generate_points_lattice(N_MAIN, (side, side, side)),
+                                dtype=torch.float32, device=dev)
+            linfo = GridInfo.create(aabb_from_positions(x), CUTOFF, auto_order=True)
+            lmaxj = probe_maxj(torch.sort(compute_keys(x, linfo))[0], linfo.strides)
+            inp, _, _ = tile_prep(x, lmaxj)
+            check(bool(inp.coverage_ok), "tile coverage failed on the lattice")
+        case = {}
+        for term, tol in ((lj_term_fast, TOL_FAST), (lj_term, TOL_KERNEL)):
+            got = float(reduce_tiles(inp, csq32, term=term, out_dtype=f64))
+            want = float(reduce_tiles_plain(inp, csq32, term=term, out_dtype=f64,
+                                            safe_term=False))
+            check(np.isfinite(got) and rel(got, want) <= tol,
+                  f"K6 {term.__name__} {got} vs plain {want} ({tag}, n = 1e7)")
+            case[term.__name__] = dict(energy=got, plain_energy=want,
+                                       abs_err=abs(got - want), rel_err=rel(got, want))
+        c_k = combine_count(reduce_tiles(inp, csq32, term=count_term, out_dtype=torch.int32))
+        c_p = combine_count(reduce_tiles_plain(inp, csq32, term=count_term,
+                                               out_dtype=torch.int32))
+        check(c_k == c_p, f"K6 count {c_k} != plain {c_p} ({tag}, n = 1e7)")
+        case["pairs"] = c_k
+        k6_compare[tag] = case
+    del inp, x, pos
+    # the uniform totals are carried by a few near pairs: the kernel line
+    # reports the lattice's absolute error, whose terms are all of one size
+    tile_max_abs_err = k6_compare["lattice"]["lj_term"]["abs_err"]
+    emit("tile_reduce_alone", n=N_MAIN, mode="f32 maskless lj_term_fast", MAXJ=cmaxj,
+         ms=k6_ms, plain_ms=k6_plain_ms, keys_sort_bounds_ms=prep_ms,
+         bound_ms=k6_bound, bound_by=k6_bound_by, bytes=n_bytes, fp32_instructions=ops,
+         share_of_bound=k6_bound / k6_ms, candidates=candidates,
+         candidates_per_slot=candidates / N_MAIN, cutoff_pairs=cpairs,
+         tile_evaluations=evaluations, evaluations_per_candidate=evaluations / candidates,
+         step_ms=cubic_ms, compare=k6_compare, lattice_max_abs_err=tile_max_abs_err)
+
+    # -- 9. cubic f64-grade parity with the exact-f64 oracle, n = 1e6 ---------------
+    pts, side = cube(N_PARITY)
+    e_ref, n_ref = oracle.lj_energy(pts, CUTOFF)
+    hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+    pinfo = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
+    pmaxj = probe_maxj(torch.sort(compute_keys(hi, pinfo))[0], pinfo.strides)
+    e, ok = tile_lj_rebuild_energy(hi, CUTOFF, lo, MAXJ=pmaxj, kahan=True)
+    c, ok_c = tile_lj_rebuild_energy(hi, CUTOFF, lo, MAXJ=pmaxj, term=count_term,
+                                     out_dtype=torch.int32)
+    e_auto, path = auto_lj_energy(pts, CUTOFF, split=True, device=dev)
+    energy_err = rel(float(e), e_ref)
+    count_err = rel(combine_count(c), n_ref)
+    check(bool(ok) and bool(ok_c), "tile coverage failed at the cubic parity size")
+    check(energy_err <= TOL_REL, f"cubic energy_rel_err_vs_oracle {energy_err}")
+    check(count_err <= TOL_REL, f"cubic count_rel_err_vs_oracle {count_err}")
+    check(path.startswith("tile(MAXJ="), f"auto_lj_energy took {path} on the cube")
+    # the same f32 terms summed in f64, each total rounded to f32 once
+    check(rel(e_auto, float(e)) <= 2.0**-22, f"auto_lj_energy {e_auto} vs {float(e)}")
+    emit("cubic_parity", n=N_PARITY, side=side, MAXJ=pmaxj,
+         energy_rel_err_vs_oracle=energy_err, count_rel_err_vs_oracle=count_err,
+         oracle_pairs=n_ref, auto_path=path,
+         auto_energy_rel_err_vs_oracle=rel(e_auto, e_ref))
+
+    # -- 10. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     print(json.dumps({"kernels": [{
         "name": "lag_reduce",
@@ -323,9 +588,22 @@ def main() -> None:
         "bound_ms": split_k1["bound_ms"],
         "bound_by": split_k1["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "tile_reduce",
+        "route": "cuda",
+        "source": "zelll_tpu_torch/csrc/tile_reduce.cu",
+        "replaces": "zelll_tpu/ops/tile_pairs.py:259",
+        "also_replaces": "zelll_tpu/ops/tile_pairs.py:67 (packed=False)",
+        "launches": tile_launches,
+        "max_abs_err": tile_max_abs_err,
+        "ms": k6_ms,
+        "plain_ms": k6_plain_ms,
+        "bound_ms": k6_bound,
+        "bound_by": k6_bound_by,
+        "library_ms": None,
     }]}), flush=True)
 
-    # -- 7. the card, then the contract line ------------------------------------
+    # -- 11. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -22,14 +22,18 @@ from zelll_tpu_torch.core import (
     sort_by_key,
 )
 from zelll_tpu_torch.ops.lag_pairs import (
+    _pad_and_desentinel,
     combine_count,
     count_term,
     lag_coverage_ok,
     lj_term,
+    lj_term_fast,
     pair_lag_reduce,
     pair_lag_reduce_plain,
     split_f64,
 )
+from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
+from zelll_tpu_torch.ops.tile_pairs import tile_pair_reduce, tile_pair_reduce_plain
 from zelll_tpu_torch.utils.datagen import (
     generate_points_lattice,
     generate_points_random,
@@ -37,6 +41,10 @@ from zelll_tpu_torch.utils.datagen import (
 )
 
 CUTOFF = 10.0
+# lj_term_fast on the card against its plain version: rsqrtf and
+# torch.rsqrt may each be 2 ulp off, and t3 = r^-6 multiplies that
+# relative error by 6 (no cancellation in t3 - 1 at separations >= 2)
+TOL_FAST = 6 * 4 * 2.0**-23
 
 
 @pytest.fixture
@@ -112,3 +120,80 @@ def test_lag_reduce_kernel_matches_plain_on_card(cuda_device):
         pair_lag_reduce(shi.double(), keys, info.strides, csq, L=64)
     with pytest.raises(ValueError):
         pair_lag_reduce(shi.t().contiguous().t(), keys, info.strides, csq, L=64)
+
+
+def _sorted_cube(pts, device):
+    """Keys, sort and gather of the main path, on the card."""
+    hi, lo = split_f64(torch.as_tensor(pts, device=device))
+    info = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
+    keys, _, shi, slo = sort_by_key(compute_keys(hi, info), hi, lo)
+    return shi, slo, keys, info.strides
+
+
+def _maxj(keys, strides, CB=8):
+    n = keys.shape[0]
+    C = max(-(-n // (CHUNK * CB)) * CB, CB) * CHUNK
+    return suggest_maxj(_pad_and_desentinel(keys, C), segment_bands(strides), per_band=True)
+
+
+@pytest.mark.gpu
+def test_tile_reduce_kernel_matches_plain_on_card(cuda_device):
+    """K6 against its plain version on the same sorted CUDA tensors: a
+    jittered cubic lattice at the benchmark's density (f64 totals to
+    1e-10, counts exact, masked and maskless, split and f32, lj_term_fast
+    to TOL_FAST), an undersized MAXJ, and int32 keys past 2^24 (K10)."""
+    n = 200_000
+    side = (n / 0.01) ** (1 / 3)
+    shi, slo, keys, strides = _sorted_cube(
+        generate_points_lattice(n, (side, side, side)), cuda_device)
+    maxj = _maxj(keys, strides)
+    csq = CUTOFF**2
+    f64 = torch.float64
+    for bandmask in (True, False):
+        for plo in (None, slo):
+            for term, out, rtol in ((lj_term, f64, 1e-10), (lj_term_fast, f64, TOL_FAST),
+                                    (count_term, torch.int32, 0)):
+                kw = dict(MAXJ=maxj, term=term, out_dtype=out, bandmask=bandmask)
+                before = tile_pair_reduce.launches
+                got, ok = tile_pair_reduce(shi, keys, strides, csq, plo, **kw)
+                assert tile_pair_reduce.launches == before + 1
+                want, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, plo, **kw)
+                torch.cuda.synchronize()
+                assert bool(ok) and bool(ok_p)
+                if out == torch.int32:
+                    assert combine_count(got) == combine_count(want) > 0
+                else:
+                    assert got.dtype == f64
+                    np.testing.assert_allclose(float(got), float(want), rtol=rtol)
+    one = dict(MAXJ=1, term=count_term, out_dtype=torch.int32)
+    got, ok = tile_pair_reduce(shi, keys, strides, csq, **one)
+    want, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, **one)
+    assert not bool(ok) and not bool(ok_p)
+    assert combine_count(got) == combine_count(want)
+
+    # K10: two blobs in opposite corners of a 2,600 box, keys past 2^24
+    rng = np.random.default_rng(1)
+    blob = (1e5 / 0.01) ** (1 / 3)
+    pts = np.concatenate([rng.uniform(0, blob, (100_000, 3)),
+                          2600.0 - rng.uniform(0, blob, (100_000, 3))])
+    bhi, blo, bkeys, bstrides = _sorted_cube(pts, cuda_device)
+    assert int(bkeys.max()) >= 1 << 24
+    m = max(_maxj(bkeys, bstrides))
+    for term, out in ((lj_term, f64), (count_term, torch.int32)):
+        kw = dict(MAXJ=m, packed=False, term=term, out_dtype=out)
+        got, ok = tile_pair_reduce(bhi, bkeys, bstrides, csq, blo, **kw)
+        want, ok_p = tile_pair_reduce_plain(bhi, bkeys, bstrides, csq, blo, **kw)
+        assert bool(ok) and bool(ok_p)
+        if out == torch.int32:
+            assert combine_count(got) == combine_count(want) > 0
+        else:
+            np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+    _, ok = tile_pair_reduce(bhi, bkeys, bstrides, csq, blo, MAXJ=m)
+    assert not bool(ok)  # the packed flag: f32 keys would round
+
+    with pytest.raises(ValueError):
+        tile_pair_reduce(shi, keys, strides, csq, MAXJ=maxj, term=lambda d: d)
+    with pytest.raises(ValueError):
+        tile_pair_reduce(shi, keys, strides, csq, MAXJ=maxj, min_islot=5)
+    with pytest.raises(ValueError):
+        tile_pair_reduce(shi.double(), keys, strides, csq, MAXJ=maxj)

@@ -12,7 +12,8 @@ import torch
 
 import zelll_tpu.oracle as jax_oracle
 from zelll_tpu.utils import datagen as jax_datagen
-from zelll_tpu_torch import fused_lj_rebuild_energy, oracle
+from zelll_tpu_torch import auto_lj_energy, fused_lj_rebuild_energy, oracle
+from zelll_tpu_torch import tile_lj_rebuild_energy, tile_pair_reduce
 from zelll_tpu_torch.ops.lag_pairs import pair_lag_reduce
 from zelll_tpu_torch.utils import datagen
 
@@ -60,6 +61,10 @@ def test_import_without_jax_and_compute_on_cpu():
         "pts = np.random.default_rng(0).uniform(0, 4, (300, 3))\n"
         "e, ok = z.fused_lj_rebuild_energy(pts, 1.0, device='cpu')\n"
         "assert bool(ok) and np.isfinite(float(e))\n"
+        "e, ok = z.tile_lj_rebuild_energy(pts, 1.0, device='cpu')\n"
+        "assert bool(ok) and np.isfinite(float(e))\n"
+        "e, path = z.auto_lj_energy(pts, 1.0, max_thin_lag=0, device='cpu')\n"
+        "assert path.startswith('tile') and np.isfinite(e)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'zelll_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -94,6 +99,14 @@ def test_default_device_without_cuda_raises(monkeypatch):
         fused_lj_rebuild_energy(pts, 1.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pair_lag_reduce(pts, np.zeros(100, np.int32), np.ones(3, np.int32), 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tile_lj_rebuild_energy(pts, 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        auto_lj_energy(pts, 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tile_pair_reduce(pts, np.zeros(100, np.int32), np.ones(3, np.int32), 1.0)
     # a CPU tensor selects the plain path
     e, _ = fused_lj_rebuild_energy(torch.as_tensor(pts), 1.0)
+    assert e.device.type == "cpu"
+    e, _ = tile_lj_rebuild_energy(torch.as_tensor(pts), 1.0)
     assert e.device.type == "cpu"

@@ -11,6 +11,14 @@ The benchmark step, n points, cutoff 10, a full rebuild per call:
     from zelll_tpu_torch import fused_lj_rebuild_energy, split_f64
     hi, lo = split_f64(torch.as_tensor(points_f64, device="cuda"))
     energy, coverage_ok = fused_lj_rebuild_energy(hi, 10.0, lo, L=256)
+
+The cubic-box step, through the segment-tile kernel (K6), with per-band
+window capacities probed from the data:
+
+    from zelll_tpu_torch import tile_lj_rebuild_energy
+    energy, coverage_ok = tile_lj_rebuild_energy(pos_f32, 10.0, MAXJ=maxj)
+
+`auto_lj_energy` picks between the two steps by itself.
 """
 
 from .core import (
@@ -25,6 +33,7 @@ from .core import (
     build_bins,
 )
 from .ops import (
+    auto_lj_energy,
     combine_count,
     count_term,
     fused_count_pairs,
@@ -33,9 +42,14 @@ from .ops import (
     fused_pair_sum,
     lag_coverage_ok,
     lj_term,
+    lj_term_fast,
     pair_lag_reduce,
     split_f64,
     suggest_lag,
+    tile_count_pairs,
+    tile_lj_energy,
+    tile_lj_rebuild_energy,
+    tile_pair_reduce,
 )
 
 __all__ = [
@@ -48,6 +62,7 @@ __all__ = [
     "bin_and_sort",
     "build",
     "build_bins",
+    "auto_lj_energy",
     "combine_count",
     "count_term",
     "fused_count_pairs",
@@ -56,7 +71,12 @@ __all__ = [
     "fused_pair_sum",
     "lag_coverage_ok",
     "lj_term",
+    "lj_term_fast",
     "pair_lag_reduce",
     "split_f64",
     "suggest_lag",
+    "tile_count_pairs",
+    "tile_lj_energy",
+    "tile_lj_rebuild_energy",
+    "tile_pair_reduce",
 ]

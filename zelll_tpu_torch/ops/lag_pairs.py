@@ -40,6 +40,7 @@ __all__ = [
     "suggest_lag",
     "split_f64",
     "lj_term",
+    "lj_term_fast",
     "count_term",
     "combine_count",
     "load_kernel",
@@ -55,6 +56,16 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "lag_reduce.cu"
 
 def lj_term(dsq):
     t = 1.0 / dsq
+    t3 = t * t * t
+    return 4.0 * t3 * (t3 - 1.0)
+
+
+def lj_term_fast(dsq):
+    """LJ through the reciprocal square root instead of a true division:
+    a few ulp on the reciprocal, for the f32 headline mode. Parity modes
+    keep `lj_term`."""
+    r = torch.rsqrt(dsq)
+    t = r * r
     t3 = t * t * t
     return 4.0 * t3 * (t3 - 1.0)
 
@@ -109,19 +120,22 @@ def _pad_spacing(n: int) -> int:
     return max(1, (_INT32_MAX - _PAD_KEY_BASE - 1) // max(n, 1))
 
 
-def _desentinel(sorted_keys: torch.Tensor) -> torch.Tensor:
-    """Replace every SENTINEL_KEY of (n,) keys with strictly ascending
-    spaced keys from _PAD_KEY_BASE: the key rule of the JAX package's
-    ``_pad_and_desentinel`` with no tail padding. K1 applies the same rule
-    as it loads each key.
+def _pad_and_desentinel(sorted_keys: torch.Tensor, ntot: int) -> torch.Tensor:
+    """Extend (n,) keys to ``ntot`` slots and replace every padding key
+    (SENTINEL_KEY rows and the appended tail) with strictly ascending keys
+    spaced by ``_pad_spacing(ntot)`` from _PAD_KEY_BASE.
 
-    Ascending padding keys end the key window after ceil(W / spacing) lags
+    Ascending padding keys end a key window after ceil(W / spacing) slots
     instead of holding it open over a whole padding run. They stay above
-    every real key, so no real-vs-padding pair enters the window."""
+    every real key, so no real-vs-padding pair enters a window. K1 applies
+    the same rule with ``ntot = n`` as it loads each key."""
     n = sorted_keys.shape[0]
-    iota = torch.arange(n, dtype=torch.int64, device=sorted_keys.device)
-    pad = (_PAD_KEY_BASE + iota * _pad_spacing(n)).to(torch.int32)
-    return torch.where(sorted_keys == SENTINEL_KEY, pad, sorted_keys)
+    tail = torch.full((ntot - n,), SENTINEL_KEY, dtype=torch.int32,
+                      device=sorted_keys.device)
+    keys = torch.cat([sorted_keys.to(torch.int32), tail])
+    iota = torch.arange(ntot, dtype=torch.int64, device=sorted_keys.device)
+    pad = (_PAD_KEY_BASE + iota * _pad_spacing(ntot)).to(torch.int32)
+    return torch.where(keys == SENTINEL_KEY, pad, keys)
 
 
 def combine_count(packed) -> int:
@@ -150,7 +164,7 @@ def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
     dtype = sorted_pos.dtype
     out_dtype = out_dtype or dtype
     integer = not out_dtype.is_floating_point
-    keys = _desentinel(sorted_keys)
+    keys = _pad_and_desentinel(sorted_keys, n)
     w = key_window(strides).to(keys.device)
     csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=sorted_pos.device)
     total = torch.zeros((), dtype=torch.int64 if integer else torch.float64,

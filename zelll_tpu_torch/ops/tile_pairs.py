@@ -1,0 +1,482 @@
+"""The segment-tile pair reduction over key-sorted particles (kernel K6,
+which also covers K10).
+
+PyTorch counterpart of ``zelll_tpu/ops/tile_pairs.py`` for the reduction
+the cubic main path runs (`tile_pair_reduce`, `tile_lj_rebuild_energy`).
+
+The lag kernel (`ops.lag_pairs`) is tight for thin boxes, but its
+contiguous lag window degenerates on cubic and wide boxes. The tile
+reduction visits, for every 128-slot chunk of the key-sorted order, only
+the slot ranges that can hold cutoff partners: `ops.segments` splits the
+half stencil into <= 5 disjoint key-difference bands and locates, per chunk
+and band, the one contiguous window of j-chunks that holds every partner.
+Each (own chunk, j-chunk) pair is one 128 x 128 tile of separations, masked
+by the slot bound, the key band (with ``bandmask``), the slot triangle in
+band 0 and the cutoff. Every pair is counted once, by its larger slot.
+
+`tile_pair_reduce` launches the hand-written CUDA kernel
+(``csrc/tile_reduce.cu``) for CUDA tensors and the plain PyTorch version
+for CPU tensors; there is no fallback between the two. The TPU package has
+two kernels here: a packed one whose keys ride as f32 (exact below 2^24)
+and an int32-key one for larger grids (``packed=False``). The CUDA kernel
+reads int32 keys in both cases, so ``packed`` decides only whether the
+coverage flag carries the 2^24 key-exactness term, as it does in JAX.
+
+Split precision: ``sorted_pos_lo`` carries the f32 low parts of f64
+coordinates, and ``d = (hi_i - hi_j) + (lo_i - lo_j)`` recovers f64-grade
+separations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from .._device import resolve_device
+from ..core.binning import compute_keys
+from ..core.geometry import GridInfo, aabb_from_positions
+from ._build import NVCC_FLAGS, build_shared, nvcc
+from .lag_pairs import (
+    _PAD_KEY_BASE,
+    _pack_count,
+    _pad_and_desentinel,
+    count_term,
+    lj_term,
+    lj_term_fast,
+)
+from .segments import (
+    CHUNK,
+    chunk_bounds,
+    num_segments,
+    segment_bands,
+    trim_windows_disjoint,
+    windows_disjoint,
+)
+
+__all__ = [
+    "TileInputs",
+    "tile_inputs",
+    "reduce_tiles",
+    "reduce_tiles_plain",
+    "tile_pair_reduce",
+    "tile_pair_reduce_plain",
+    "tile_lj_rebuild_energy",
+    "tile_lj_energy",
+    "tile_count_pairs",
+    "load_kernel",
+]
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "tile_reduce.cu"
+
+# The terms the CUDA kernel implements, by the enum value it takes.
+_KERNEL_TERMS = {lj_term: 0, lj_term_fast: 1, count_term: 2}
+
+# Own chunks per step of the plain version: a (1024, 128, 128) f32 tile is
+# 64 MiB, so memory stays bounded at any n.
+_PLAIN_BATCH = 1024
+
+
+def _norm_maxj(MAXJ, S: int, nc_pad: int) -> tuple:
+    """A MAXJ capacity spec as a length-S tuple of per-band window sizes,
+    each clamped to the array's chunk count."""
+    if isinstance(MAXJ, int):
+        MAXJ = (MAXJ,) * S
+    MAXJ = tuple(int(m) for m in MAXJ)
+    if len(MAXJ) != S:
+        raise ValueError(
+            f"per-band MAXJ needs {S} entries (one per stencil band), "
+            f"got {len(MAXJ)}"
+        )
+    if any(m < 1 for m in MAXJ):
+        raise ValueError(f"MAXJ entries must be >= 1, got {MAXJ}")
+    return tuple(min(m, nc_pad) for m in MAXJ)
+
+
+def _key_exact_f32(keys_p: torch.Tensor, cov_ok: torch.Tensor) -> torch.Tensor:
+    """The packed layout's flag term: f32 keys are exact only below 2^24,
+    and negative keys (out-of-box rows) must stay exact too."""
+    kreal_max = torch.where(keys_p < _PAD_KEY_BASE, keys_p,
+                            torch.full_like(keys_p, -1)).max()
+    return cov_ok & (kreal_max < (1 << 24)) & (keys_p.min() > -(1 << 24))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileInputs:
+    """What the tile reduction reads, built by `tile_inputs`.
+
+    * ``pos``          (dim, n) sorted coordinate planes
+    * ``lo``           (dim, n) low parts (split mode) or None
+    * ``keys``         (C,) int32 keys padded by `_pad_and_desentinel`,
+                       C = nc_pad * CHUNK
+    * ``bounds``       (nc_pad, 3 S) int32: (jlo, toff, jnum) per band
+    * ``bands``        (S, 2) int32 key-difference bands
+    * ``bandmask``     whether the tiles test the key band
+    * ``coverage_ok``  False iff a result would drop pairs
+    """
+
+    pos: torch.Tensor
+    lo: torch.Tensor | None
+    keys: torch.Tensor
+    bounds: torch.Tensor
+    bands: torch.Tensor
+    bandmask: bool
+    coverage_ok: torch.Tensor
+
+
+def tile_inputs(pos_planes: torch.Tensor, sorted_keys: torch.Tensor, strides,
+                lo_planes: torch.Tensor | None = None, *, CB: int = 8,
+                MAXJ=4, packed: bool = True,
+                bandmask: bool = True) -> TileInputs:
+    """Pad the keys, locate every chunk's band windows and fold the
+    coverage flag, as the JAX package's ``_packed_core`` and
+    ``_tile_pair_reduce_impl`` do before their kernels.
+
+    ``CB`` (the TPU kernel's chunks per program) fixes the padding:
+    ``nc_pad = ceil(n / (128 CB)) CB`` chunks. That sets the MAXJ clamp and
+    the padding-key spacing, hence the flag, exactly as in JAX; it has no
+    effect on the CUDA grid. Without ``bandmask`` the windows are trimmed
+    pairwise disjoint and the flag also requires that they are.
+    """
+    dim, n = pos_planes.shape
+    S = num_segments(dim)
+    nc_pad = max(-(-n // (CHUNK * CB)) * CB, CB)
+    MAXJ = _norm_maxj(MAXJ, S, nc_pad)
+    keys_p = _pad_and_desentinel(sorted_keys, nc_pad * CHUNK)
+    bands = segment_bands(torch.as_tensor(strides, device=keys_p.device))
+    jlo, toff, jnum, cov_ok = chunk_bounds(keys_p, bands, MAXJ)
+    if not bandmask:
+        # a j-chunk shared by two bands' windows would be counted twice by
+        # a maskless tile: trim the windows disjoint (coverage-preserving)
+        # and keep the invariant in the flag
+        toff, jnum = trim_windows_disjoint(jlo, toff, jnum, tuple(range(S)))
+        cov_ok = cov_ok & windows_disjoint(jlo, toff, jnum)
+    if packed and pos_planes.dtype == torch.float32:
+        cov_ok = _key_exact_f32(keys_p, cov_ok)
+    bounds = torch.stack([jlo, toff, jnum], dim=-1).reshape(nc_pad, 3 * S)
+    return TileInputs(pos=pos_planes, lo=lo_planes, keys=keys_p,
+                      bounds=bounds.contiguous(), bands=bands,
+                      bandmask=bandmask, coverage_ok=cov_ok)
+
+
+def _out_types(dtype, out_dtype):
+    out_dtype = out_dtype or dtype
+    integer = not out_dtype.is_floating_point
+    return out_dtype, integer, torch.int64 if integer else torch.float64
+
+
+def _finish(total: torch.Tensor, out_dtype, integer: bool) -> torch.Tensor:
+    return _pack_count(total) if integer else total.to(out_dtype)
+
+
+def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
+                       out_dtype=None, safe_term: bool = True, payload=None,
+                       min_islot=0) -> torch.Tensor:
+    """Plain PyTorch version of K6 over the same windows, masks and terms.
+
+    Own chunks go in batches; for each (band, window step) the batch's
+    j-chunks are gathered and one (batch, 128, 128) tile of separations is
+    built. Any ``term`` works. With ``payload`` (one sorted (n,) plane),
+    ``term`` receives (dsq, own payload, j payload); ``min_islot`` keeps
+    only pairs whose larger slot is at or above it. Float terms are summed
+    in f64 and integer ones in int64, as in the kernel.
+    """
+    pos, lo = inp.pos, inp.lo
+    dim, n = pos.shape
+    device, dtype = pos.device, pos.dtype
+    out_dtype, integer, acc = _out_types(dtype, out_dtype)
+    nc_pad = inp.bounds.shape[0]
+    S = inp.bands.shape[0]
+    C = nc_pad * CHUNK
+    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
+    planes = pos if lo is None else torch.cat([pos, lo])
+    padded = torch.zeros((planes.shape[0], C), dtype=dtype, device=device)
+    padded[:, :n] = planes
+    if payload is not None:
+        pay = torch.zeros((C,), dtype=dtype, device=device)
+        pay[:n] = torch.as_tensor(payload, device=device)
+    keys = inp.keys.to(torch.int64)
+    lane = torch.arange(CHUNK, device=device)
+    tri = lane[None, :] < lane[:, None]  # (row i, column j): j's lane < i's
+    total = torch.zeros((), dtype=acc, device=device)
+    nc_real = -(-n // CHUNK)  # chunks past it hold no own slot
+    for c0 in range(0, nc_real, _PLAIN_BATCH):
+        c1 = min(c0 + _PLAIN_BATCH, nc_real)
+        own_c = torch.arange(c0, c1, device=device)
+        own_s = own_c[:, None] * CHUNK + lane  # (b, 128) slots
+        own_ok = own_s < n
+        if not (isinstance(min_islot, int) and min_islot == 0):
+            own_ok = own_ok & (own_s >= torch.as_tensor(min_islot, device=device))
+        own = padded[:, own_s][:, :, :, None]  # (D, b, 128, 1)
+        own_k = keys[own_s][:, :, None]
+        for s in range(S):
+            jlo, toff, jnum = inp.bounds[c0:c1, 3 * s:3 * s + 3].long().unbind(1)
+            lo_s, hi_s = inp.bands[s].long().unbind(0)
+            for t in range(int(jnum.max()) if jnum.numel() else 0):
+                jc = torch.clamp(jlo + toff + t, max=nc_pad - 1)
+                j_s = jc[:, None] * CHUNK + lane  # (b, 128)
+                j_ok = (j_s < n) & (t < jnum)[:, None]
+                jp = padded[:, j_s][:, :, None, :]  # (D, b, 1, 128)
+                dsq = None
+                for a in range(dim):
+                    d = own[a] - jp[a]
+                    if lo is not None:
+                        d = d + (own[a + dim] - jp[a + dim])
+                    dsq = d * d if dsq is None else dsq + d * d
+                m = own_ok[:, :, None] & j_ok[:, None, :] & (dsq < csq)
+                if inp.bandmask:
+                    diff = own_k - keys[j_s][:, None, :]
+                    m = m & (diff >= lo_s) & (diff <= hi_s)
+                if s == 0:
+                    before = (jc < own_c)[:, None, None]
+                    same = (jc == own_c)[:, None, None]
+                    m = m & (before | (same & tri))
+                safe = torch.where(m, dsq, torch.ones_like(dsq)) if safe_term else dsq
+                if payload is not None:
+                    tv = term(safe, pay[own_s][:, :, None], pay[j_s][:, None, :])
+                else:
+                    tv = term(safe)
+                v = torch.where(m, tv, torch.zeros_like(tv)).to(out_dtype)
+                total += v.sum(dtype=acc)
+    return _finish(total, out_dtype, integer)
+
+
+def load_kernel():
+    """Build (at first use) and load the K6 library. Returns the ctypes
+    library; its build log is ``load_kernel.log``."""
+    if load_kernel.lib is None:
+        path, log = build_shared(_SRC, nvcc(), NVCC_FLAGS, "tile_reduce")
+        lib = ctypes.CDLL(str(path))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.zelll_tile_reduce.argtypes = [
+            vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp, vp,
+        ]
+        lib.zelll_tile_reduce.restype = ci
+        lib.zelll_tile_reduce_chunk.argtypes = []
+        lib.zelll_tile_reduce_chunk.restype = ci
+        if lib.zelll_tile_reduce_chunk() != CHUNK:
+            raise RuntimeError("tile_reduce.cu was built for another chunk size")
+        load_kernel.lib, load_kernel.log = lib, log
+    return load_kernel.lib
+
+
+load_kernel.lib = None
+load_kernel.log = ""
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"K6 takes {name} as a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
+                 out_dtype=None) -> torch.Tensor:
+    """Launch K6 on the current stream and sum its per-chunk partials.
+
+    Takes f32 planes on a CUDA device and the terms `lj_term`,
+    `lj_term_fast` and `count_term`; raises on anything else. Every kahan
+    mode of the JAX package sums the same way here: f64 per thread, a fixed
+    fold per block, one partial per own chunk.
+    """
+    if term not in _KERNEL_TERMS:
+        raise ValueError(
+            "the CUDA kernel implements lj_term, lj_term_fast and count_term "
+            "only; run other terms through tile_pair_reduce_plain or on CPU "
+            "tensors"
+        )
+    if out_dtype not in (None, torch.float32, torch.float64, torch.int32):
+        raise ValueError(f"K6 writes float32, float64 or int32 sums, not {out_dtype}")
+    pos = inp.pos
+    device = pos.device
+    dim, n = pos.shape
+    out_dtype, integer, acc = _out_types(pos.dtype, out_dtype)
+    S = inp.bands.shape[0]
+    nc_pad = inp.bounds.shape[0]
+    if device.type != "cuda":
+        raise ValueError(f"K6 runs on a CUDA device, not {device}")
+    if not 1 <= dim <= 3 or nc_pad * CHUNK >= 2**31:
+        raise ValueError(f"K6 takes 1 <= dim <= 3 and fewer than 2^31 slots; got {(dim, n)}")
+    _check_cuda("pos", pos, torch.float32, (dim, n), device)
+    if inp.lo is not None:
+        _check_cuda("lo", inp.lo, torch.float32, (dim, n), device)
+    _check_cuda("keys", inp.keys, torch.int32, (nc_pad * CHUNK,), device)
+    _check_cuda("bounds", inp.bounds, torch.int32, (nc_pad, 3 * S), device)
+    _check_cuda("bands", inp.bands, torch.int32, (S, 2), device)
+    if n == 0:
+        return _finish(torch.zeros((), dtype=acc, device=device), out_dtype, integer)
+    lib = load_kernel()
+    partial = torch.empty((-(-n // CHUNK),), dtype=acc, device=device)
+    csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
+    err = lib.zelll_tile_reduce(
+        pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
+        inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
+        n, dim, S, csq, _KERNEL_TERMS[term], int(integer), int(inp.bandmask),
+        partial.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
+    tile_pair_reduce.launches += 1
+    return _finish(partial.sum(), out_dtype, integer)
+
+
+def _planes(x: torch.Tensor | None) -> torch.Tensor | None:
+    """(n, dim) rows -> (dim, n) contiguous planes, the layout K6 reads."""
+    return None if x is None else x.t().contiguous()
+
+
+def _tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
+                      sorted_pos_lo, sorted_payload, *, CB, MAXJ, term,
+                      out_dtype, min_islot, kahan, OH, packed, bandmask,
+                      safe_term, device, plain: bool):
+    if bandmask is None:
+        bandmask = not packed  # the packed path defaults to the maskless body
+    if sorted_payload is not None and not packed:
+        raise ValueError("sorted_payload needs the packed layout")
+    if not packed and (not bandmask or not safe_term or kahan == "program"):
+        raise ValueError("bandmask=False / safe_term=False / "
+                         'kahan="program" need the packed layout')
+    if CB < 1:
+        raise ValueError(f"CB must be >= 1, got {CB}")
+    if not packed and not isinstance(MAXJ, int):
+        raise ValueError("per-band MAXJ tuples need the packed layout; "
+                         "pass packed=True")
+    if CHUNK % OH or OH % 8:
+        raise ValueError("OH must divide 128 and be a multiple of 8")
+    if packed and OH != CHUNK:
+        raise ValueError("OH row groups apply to the non-packed layout "
+                         "only; pass packed=False with OH != 128")
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    if sorted_pos_lo is not None:
+        sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
+    distributed = not (isinstance(min_islot, int) and min_islot == 0)
+    kernel = device.type == "cuda" and not plain
+    if kernel and (sorted_payload is not None or distributed):
+        raise ValueError(
+            "the CUDA kernel takes no sorted_payload and only min_islot=0; "
+            "run these through tile_pair_reduce_plain"
+        )
+    inp = tile_inputs(_planes(sorted_pos), sorted_keys, strides,
+                      _planes(sorted_pos_lo), CB=CB, MAXJ=MAXJ, packed=packed,
+                      bandmask=bandmask)
+    total = _reduce(inp, cutoff_sq, kernel, term=term, out_dtype=out_dtype,
+                    safe_term=safe_term, payload=sorted_payload,
+                    min_islot=min_islot)
+    return total, inp.coverage_ok
+
+
+def _reduce(inp: TileInputs, cutoff_sq, kernel: bool, **kw) -> torch.Tensor:
+    """K6 for ``kernel``, else its plain version (which alone reads
+    ``safe_term``, ``payload`` and ``min_islot``)."""
+    if kernel:
+        return reduce_tiles(inp, cutoff_sq, term=kw["term"], out_dtype=kw["out_dtype"])
+    return reduce_tiles_plain(inp, cutoff_sq, **kw)
+
+
+def tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
+                     sorted_pos_lo=None, sorted_payload=None, *, CB: int = 8,
+                     MAXJ=4, term: Callable = lj_term, out_dtype=None,
+                     min_islot=0, kahan=True, OH: int = 128, packed: bool = True,
+                     bandmask: bool | None = None, safe_term: bool = True,
+                     device=None):
+    """Sum ``term(dsq)`` over all unique cutoff pairs of key-sorted
+    particles, any box shape (the sibling of `pair_lag_reduce`).
+
+    Returns (total, coverage_ok). coverage_ok is False iff some chunk's
+    partner window needs more than MAXJ j-chunks (or, packed and f32, a key
+    reaches 2^24; or, maskless, two bands' windows overlap): rerun with a
+    larger MAXJ, ``packed=False`` or ``bandmask=True``, and never trust a
+    result with a false flag. ``MAXJ`` may be a per-band tuple
+    (`segments.suggest_maxj(per_band=True)`) on the packed path. Integer
+    ``out_dtype`` returns the (hi, lo) int32 pair of `combine_count`.
+
+    The JAX package's arguments keep their meaning for the result:
+    ``bandmask=None`` is False on the packed path and True otherwise;
+    ``packed`` decides the 2^24 key term of the flag; ``CB`` fixes the
+    padding (`tile_inputs`) and need not be a multiple of 8 (a TPU
+    scalar-memory rule); ``OH`` is validated and has no other effect;
+    every ``kahan`` mode sums in f64 (tighter than the TPU's f32 Kahan);
+    ``safe_term=False`` changes nothing, since masked lanes are selected
+    out, never multiplied.
+
+    CUDA tensors run kernel K6, which takes f32 coordinates, the terms
+    `lj_term`, `lj_term_fast` and `count_term`, no ``sorted_payload`` and
+    ``min_islot=0``, and raises on anything else. CPU tensors run
+    `reduce_tiles_plain`, which takes them all.
+    """
+    return _tile_pair_reduce(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+        sorted_payload, CB=CB, MAXJ=MAXJ, term=term, out_dtype=out_dtype,
+        min_islot=min_islot, kahan=kahan, OH=OH, packed=packed,
+        bandmask=bandmask, safe_term=safe_term, device=device, plain=False)
+
+
+def tile_pair_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                           sorted_pos_lo=None, sorted_payload=None, *,
+                           CB: int = 8, MAXJ=4, term: Callable = lj_term,
+                           out_dtype=None, min_islot=0, kahan=True,
+                           OH: int = 128, packed: bool = True,
+                           bandmask: bool | None = None,
+                           safe_term: bool = True, device=None):
+    """`tile_pair_reduce` through its plain PyTorch version on any device
+    (the yardstick K6 is held to on the card)."""
+    return _tile_pair_reduce(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+        sorted_payload, CB=CB, MAXJ=MAXJ, term=term, out_dtype=out_dtype,
+        min_islot=min_islot, kahan=kahan, OH=OH, packed=packed,
+        bandmask=bandmask, safe_term=safe_term, device=device, plain=True)
+
+
+# Kernel launches since the last reset; only a launch of K6 adds to it.
+tile_pair_reduce.launches = 0
+
+
+def tile_lj_rebuild_energy(positions, cutoff, positions_lo=None, *, CB: int = 8,
+                           MAXJ=8, term: Callable = lj_term, kahan=True,
+                           out_dtype=None, bandmask: bool = False,
+                           safe_term: bool = True, device=None):
+    """The cubic-box step (the tile sibling of `fused_lj_rebuild_energy`):
+    cell keys -> one sort -> one gather into coordinate planes -> the tile
+    reduction, packed semantics. ``positions_lo`` (f32 low parts from
+    `split_f64`) selects split-precision separations. ``MAXJ`` may be a
+    per-band tuple. Returns (total, coverage_ok).
+    """
+    del kahan
+    device = resolve_device(device, positions)
+    positions = torch.as_tensor(positions, device=device)
+    info = GridInfo.create(aabb_from_positions(positions), cutoff,
+                           auto_order=True)
+    sorted_keys, perm = torch.sort(compute_keys(positions, info))
+    planes = positions.t().index_select(1, perm).contiguous()
+    lo_planes = None
+    if positions_lo is not None:
+        lo = torch.as_tensor(positions_lo, device=device)
+        lo_planes = lo.t().index_select(1, perm).contiguous()
+    inp = tile_inputs(planes, sorted_keys, info.strides, lo_planes, CB=CB,
+                      MAXJ=MAXJ, packed=True, bandmask=bandmask)
+    csq = torch.as_tensor(cutoff, dtype=positions.dtype) ** 2
+    total = _reduce(inp, csq, device.type == "cuda", term=term,
+                    out_dtype=out_dtype, safe_term=safe_term)
+    return total, inp.coverage_ok
+
+
+def tile_lj_energy(sorted_pos, sorted_keys, strides, cutoff_sq,
+                   sorted_pos_lo=None, **kw):
+    return tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
+                            sorted_pos_lo, term=lj_term, **kw)
+
+
+def tile_count_pairs(sorted_pos, sorted_keys, strides, cutoff_sq, **kw):
+    """Returns ((hi, lo) int32 pair, coverage_ok); `combine_count` gives
+    the exact count."""
+    return tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
+                            term=count_term, out_dtype=torch.int32, **kw)
