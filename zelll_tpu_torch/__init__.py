@@ -19,6 +19,16 @@ window capacities probed from the data:
     energy, coverage_ok = tile_lj_rebuild_energy(pos_f32, 10.0, MAXJ=maxj)
 
 `auto_lj_energy` picks between the two steps by itself.
+
+Molecular dynamics, a full rebuild per step, the forces through the lag
+forces kernel (K3) for thin boxes or the tile forces kernel (K7) for cubic
+ones; the skin loops reuse the grid while no particle has moved more than
+half the skin:
+
+    from zelll_tpu_torch import MDState, md_run_skin, md_step_cubic_tile
+    state = MDState.create(pos_f32, vel_f32)           # on the card
+    state, ok, energy, rebuilds = md_run_skin(state, 10.0, 1e-4, steps=50)
+    state, ok = md_step_cubic_tile(cube_state, 10.0, 1e-4, MAXJ=maxj9)
 """
 
 from .core import (
@@ -32,6 +42,17 @@ from .core import (
     build,
     build_bins,
 )
+from .models import (
+    MDState,
+    MDStateSplit,
+    md_run,
+    md_run_skin,
+    md_run_skin_tile,
+    md_run_vv,
+    md_step,
+    md_step_cubic_tile,
+    md_step_split,
+)
 from .ops import (
     auto_lj_energy,
     combine_count,
@@ -42,13 +63,17 @@ from .ops import (
     fused_pair_sum,
     lag_coverage_ok,
     lj_term,
+    lj_force_factor,
+    lj_force_factor_fast,
     lj_term_fast,
+    pair_lag_forces,
     pair_lag_reduce,
     split_f64,
     suggest_lag,
     tile_count_pairs,
     tile_lj_energy,
     tile_lj_rebuild_energy,
+    tile_pair_forces,
     tile_pair_reduce,
 )
 
@@ -62,6 +87,15 @@ __all__ = [
     "bin_and_sort",
     "build",
     "build_bins",
+    "MDState",
+    "MDStateSplit",
+    "md_run",
+    "md_run_skin",
+    "md_run_skin_tile",
+    "md_run_vv",
+    "md_step",
+    "md_step_cubic_tile",
+    "md_step_split",
     "auto_lj_energy",
     "combine_count",
     "count_term",
@@ -71,12 +105,16 @@ __all__ = [
     "fused_pair_sum",
     "lag_coverage_ok",
     "lj_term",
+    "lj_force_factor",
+    "lj_force_factor_fast",
     "lj_term_fast",
+    "pair_lag_forces",
     "pair_lag_reduce",
     "split_f64",
     "suggest_lag",
     "tile_count_pairs",
     "tile_lj_energy",
     "tile_lj_rebuild_energy",
+    "tile_pair_forces",
     "tile_pair_reduce",
 ]

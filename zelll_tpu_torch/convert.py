@@ -16,7 +16,7 @@ from .core.binning import Bins
 from .core.geometry import Aabb, GridInfo
 from .core.grid import CellGridData
 
-__all__ = ["grid_from_numpy", "sorted_inputs_from_numpy"]
+__all__ = ["grid_from_numpy", "sorted_inputs_from_numpy", "md_state_from_numpy"]
 
 
 def grid_from_numpy(grid, *, device=None) -> CellGridData:
@@ -64,3 +64,29 @@ def sorted_inputs_from_numpy(sorted_pos, sorted_pos_lo, sorted_keys, strides,
 
     return (t(sorted_pos), t(sorted_keys, torch.int32), t(strides, torch.int32),
             t(sorted_pos_lo))
+
+
+def md_state_from_numpy(positions, velocities, *, split: bool = False,
+                        device=None):
+    """The port's MD state from the JAX package's, given as arrays.
+
+    ``split=False``: an `MDState` of the two (n, dim) arrays, dtypes kept.
+    ``split=True``: an `MDStateSplit`, from f64 positions (split with
+    `split_f64`, bitwise as the JAX package splits them) or from the
+    (pos_hi, pos_lo) pair of a JAX ``MDStateSplit``; velocities in f32.
+    """
+    from .models.lj_md import MDState, MDStateSplit
+
+    device = resolve_device(device)
+
+    def t(x, dtype=None):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    if not split:
+        return MDState(positions=t(positions), velocities=t(velocities))
+    if isinstance(positions, (tuple, list)):
+        hi, lo = positions
+        return MDStateSplit(pos_hi=t(hi, torch.float32), pos_lo=t(lo, torch.float32),
+                            velocities=t(velocities, torch.float32))
+    return MDStateSplit.from_f64(t(positions, torch.float64), t(velocities),
+                                 device=device)

@@ -95,28 +95,35 @@ def sort_by_key(keys: torch.Tensor, *cols: torch.Tensor, stable: bool = False):
 
 
 def _cell_table(sorted_keys: torch.Tensor, max_cells: int):
+    """The CSR table of the first ``max_cells`` occupied cells of ascending
+    keys. Every row carries the index of its cell (sentinel rows a larger
+    one), a non-decreasing sequence, so each cell's rows are found by two
+    searches: no scatter, and no count read back from the device (boolean
+    indexing would read one)."""
     n = sorted_keys.shape[0]
     device = sorted_keys.device
-    iota = torch.arange(n, dtype=torch.int32, device=device)
     valid_sorted = sorted_keys != SENTINEL_KEY
     is_start = torch.ones_like(valid_sorted)
     is_start[1:] = sorted_keys[1:] != sorted_keys[:-1]
     is_start &= valid_sorted
-    seg_id = torch.cumsum(is_start, 0, dtype=torch.int32) - 1
     num_cells = is_start.sum(dtype=torch.int32)
-    # rows of sentinel particles or beyond the table's capacity are dropped
-    keep = valid_sorted & (seg_id < max_cells)
-    seg = seg_id[keep].long()
-    cell_keys = torch.full((max_cells,), SENTINEL_KEY, dtype=torch.int32,
-                           device=device)
-    cell_keys[seg] = sorted_keys[keep]
-    cell_starts = torch.full((max_cells,), n, dtype=torch.int32, device=device)
-    starts = keep & is_start
-    cell_starts[seg_id[starts].long()] = iota[starts]
-    cell_counts = torch.zeros((max_cells,), dtype=torch.int32, device=device)
-    cell_counts.index_add_(0, seg, torch.ones_like(seg, dtype=torch.int32))
     num_valid = valid_sorted.sum(dtype=torch.int32)
-    return cell_keys, cell_starts, cell_counts, num_cells, num_valid
+    if n == 0:
+        return (torch.full((max_cells,), SENTINEL_KEY, dtype=torch.int32, device=device),
+                torch.zeros((max_cells,), dtype=torch.int32, device=device),
+                torch.zeros((max_cells,), dtype=torch.int32, device=device),
+                num_cells, num_valid)
+    cell_of_row = torch.cumsum(is_start, 0, dtype=torch.int32) - 1
+    cell_of_row = torch.where(valid_sorted, cell_of_row, torch.full_like(
+        cell_of_row, torch.iinfo(torch.int32).max))
+    cells = torch.arange(max_cells, dtype=torch.int32, device=device)
+    first = torch.searchsorted(cell_of_row, cells).to(torch.int32)
+    counts = torch.searchsorted(cell_of_row, cells, right=True).to(torch.int32) - first
+    occupied = cells < num_cells
+    cell_keys = torch.where(occupied, sorted_keys[first.clamp(max=n - 1).long()],
+                            torch.full_like(first, SENTINEL_KEY))
+    cell_starts = torch.where(occupied, first, torch.full_like(first, n))
+    return cell_keys, cell_starts, counts, num_cells, num_valid
 
 
 def bin_and_sort(
@@ -127,12 +134,15 @@ def bin_and_sort(
     valid=None,
     info: GridInfo | None = None,
     need_perm: bool = True,
+    stacked: bool = True,
     auto_order: bool = False,
     stable: bool | None = None,
     device=None,
 ):
     """Bin (n, N) positions into occupied cells; also return the positions
-    in sorted (cell-grouped) order.
+    in sorted (cell-grouped) order: one (n, N) tensor, or with
+    ``stacked=False`` a tuple of N sorted (n,) planes (rows of one
+    (N, n) tensor), the layout the tile kernels read.
 
     ``max_cells`` defaults to n (never overflows). ``info`` reuses a given
     grid geometry; otherwise it is computed from the data. Columns beyond
@@ -158,7 +168,12 @@ def bin_and_sort(
     keys = compute_keys(positions[:, :sdim], info, valid)
     if stable is None:
         stable = need_perm
-    sorted_keys, perm, sorted_pos = sort_by_key(keys, positions, stable=stable)
+    if stacked:
+        sorted_keys, perm, sorted_pos = sort_by_key(keys, positions,
+                                                    stable=stable)
+    else:
+        sorted_keys, perm = torch.sort(keys, stable=stable)
+        sorted_pos = tuple(positions.t().index_select(1, perm))
     perm = perm.to(torch.int32) if need_perm else torch.arange(
         n, dtype=torch.int32, device=device)
     cell_keys, cell_starts, cell_counts, num_cells, num_valid = _cell_table(

@@ -120,7 +120,13 @@ class GridInfo:
         fewest cells (a stable sort: ties keep axis order), so the key window
         depends on the two smallest extents whatever the box's orientation.
         """
-        cutoff = torch.as_tensor(cutoff, dtype=aabb.inf.dtype, device=aabb.device)
+        if isinstance(cutoff, torch.Tensor) and cutoff.device == aabb.device:
+            cutoff = cutoff.to(aabb.inf.dtype)
+        else:
+            # a fill, not a copy from host memory: a copy would wait for
+            # the device's queue
+            cutoff = torch.full((), float(cutoff), dtype=aabb.inf.dtype,
+                                device=aabb.device)
         extent = (aabb.sup - aabb.inf) / cutoff
         shape = torch.floor(extent).to(torch.int32) + 1
         if auto_order:

@@ -9,11 +9,13 @@ and renames it into place, so concurrent processes cannot see half a file.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
@@ -64,3 +66,23 @@ def build_shared(src: Path, compiler: str, flags, name: str) -> tuple[Path, str]
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     return out, log.read_text() if log.exists() else ""
+
+
+def kernel_loader(src: Path, name: str, bind: Callable[[ctypes.CDLL], None]):
+    """A loader for the CUDA library built from ``src``: the first call
+    builds it with nvcc (`build_shared`), loads it with ctypes and lets
+    ``bind`` declare its C functions; later calls return the same library.
+    The loader keeps the library as ``.lib`` and its build log (ptxas'
+    registers and spills) as ``.log``."""
+
+    def load() -> ctypes.CDLL:
+        if load.lib is None:
+            path, log = build_shared(src, nvcc(), NVCC_FLAGS, name)
+            lib = ctypes.CDLL(str(path))
+            bind(lib)
+            load.lib, load.log = lib, log
+        return load.lib
+
+    load.lib = None
+    load.log = ""
+    return load

@@ -1,7 +1,9 @@
-"""The lag-window pair reduction over key-sorted particles (kernel K1).
+"""The lag-window pair reduction (kernel K1) and pair forces (kernel K3)
+over key-sorted particles.
 
 PyTorch counterpart of ``zelll_tpu/ops/pallas_pairs.py`` for the reduction
-the main path runs (`pair_lag_reduce`) and its host helpers.
+the main path runs (`pair_lag_reduce`), the forces of the thin-box MD loops
+(`pair_lag_forces`) and their host helpers.
 
 After sorting by flat cell key, every cutoff partner j < i of particle i
 satisfies ``key_j >= key_i - W`` with ``W = sum(strides)``, so all of them
@@ -11,8 +13,9 @@ window and by ``dsq < cutoff^2``. The pair list never exists.
 
 `pair_lag_reduce` launches the hand-written CUDA kernel
 (``csrc/lag_reduce.cu``) for CUDA tensors and runs
-`pair_lag_reduce_plain` for CPU tensors. There is no fallback between the
-two: a CUDA input the kernel cannot take raises.
+`pair_lag_reduce_plain` for CPU tensors; `pair_lag_forces` does the same
+with ``csrc/lag_forces.cu`` and `pair_lag_forces_plain`. There is no
+fallback between the two: a CUDA input a kernel cannot take raises.
 
 Split precision: with f32 coordinates in a large box ``x_i - x_j`` loses
 small separations to cancellation. ``sorted_pos_lo`` carries the f32 low
@@ -31,19 +34,24 @@ import torch
 
 from .._device import resolve_device
 from ..core.geometry import SENTINEL_KEY, key_window
-from ._build import NVCC_FLAGS, build_shared, nvcc
+from ._build import kernel_loader
+from .lj import lj_force_factor, lj_force_factor_fast
 
 __all__ = [
     "pair_lag_reduce",
     "pair_lag_reduce_plain",
+    "pair_lag_forces",
+    "pair_lag_forces_plain",
     "lag_coverage_ok",
     "suggest_lag",
     "split_f64",
+    "split_cutoff_test",
     "lj_term",
     "lj_term_fast",
     "count_term",
     "combine_count",
     "load_kernel",
+    "load_forces_kernel",
 ]
 
 # Padding-row keys start here: above every real key, below int32 overflow
@@ -51,7 +59,9 @@ __all__ = [
 _PAD_KEY_BASE = int(np.iinfo(np.int32).max) // 2
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "lag_reduce.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SRC = _CSRC / "lag_reduce.cu"
+_FORCES_SRC = _CSRC / "lag_forces.cu"
 
 
 def lj_term(dsq):
@@ -76,6 +86,31 @@ def count_term(dsq):
 
 # The terms the CUDA kernel implements, by the enum value it takes.
 _KERNEL_TERMS = {lj_term: 0, count_term: 1}
+
+
+# Split mode's tie band: |dsq - csq| <= _TIE_BAND * csq holds every pair
+# whose f32 dsq can fall on the other side of the cutoff from its f64 dsq
+# (the f32 dsq of split separations is within 6 x 2^-24 of it).
+_TIE_BAND = 1e-6
+
+
+def split_cutoff_test(inside, dsq, csq, hi_i, hi_j, lo_i, lo_j):
+    """The cutoff test of split coordinates, f64-grade: pairs whose f32
+    ``dsq`` lies within the tie band of ``csq`` are decided on the f64
+    dsq of their split separations, ((hi_i - hi_j) + (lo_i - lo_j)) per
+    axis in f64; the rest keep ``inside`` (``dsq < csq``). ``hi_i`` ..
+    ``lo_j`` are per-axis sequences of broadcastable tensors. The forces
+    kernels (K3, K7) apply the same rule in the same order of operations.
+    The JAX package decides every pair on the f32 dsq, which flips pairs
+    within about 4e-7 of the cutoff (ROADMAP queue 3)."""
+    csq32 = torch.as_tensor(csq, dtype=dsq.dtype)
+    band = torch.as_tensor(_TIE_BAND, dtype=dsq.dtype) * csq32
+    near = (dsq - csq32).abs() <= band
+    dsq64 = None
+    for hi, hj, li, lj in zip(hi_i, hi_j, lo_i, lo_j):
+        d = (hi.double() - hj.double()) + (li.double() - lj.double())
+        dsq64 = d * d if dsq64 is None else dsq64 + d * d
+    return torch.where(near, dsq64 < float(csq), inside)
 
 
 def split_f64(x64: torch.Tensor):
@@ -188,33 +223,28 @@ def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
     return total.to(out_dtype)
 
 
-def load_kernel():
-    """Build (at first use) and load the K1 library. Returns the ctypes
-    library; its build log is ``load_kernel.log``."""
-    if load_kernel.lib is None:
-        path, log = build_shared(_SRC, nvcc(), NVCC_FLAGS, "lag_reduce")
-        lib = ctypes.CDLL(str(path))
-        vp = ctypes.c_void_p
-        lib.zelll_lag_reduce.argtypes = [
-            vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, vp, vp,
-        ]
-        lib.zelll_lag_reduce.restype = ctypes.c_int
-        lib.zelll_lag_reduce_block.argtypes = []
-        lib.zelll_lag_reduce_block.restype = ctypes.c_int
-        load_kernel.lib, load_kernel.log = lib, log
-    return load_kernel.lib
+def _bind_reduce(lib) -> None:
+    vp = ctypes.c_void_p
+    lib.zelll_lag_reduce.argtypes = [
+        vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, vp, vp,
+    ]
+    lib.zelll_lag_reduce.restype = ctypes.c_int
+    lib.zelll_lag_reduce_block.argtypes = []
+    lib.zelll_lag_reduce_block.restype = ctypes.c_int
 
 
-load_kernel.lib = None
-load_kernel.log = ""
+# Build (at first use) and load the K1 library; its build log is
+# ``load_kernel.log``.
+load_kernel = kernel_loader(_SRC, "lag_reduce", _bind_reduce)
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device):
+def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device,
+                kernel: str = "K1"):
     if t.device != device or t.dtype != dtype or not t.is_contiguous() \
             or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"K1 takes {name} as a contiguous {dtype} tensor of shape "
+            f"{kernel} takes {name} as a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})"
         )
@@ -304,3 +334,175 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 # Kernel launches since the last reset; only a launch of K1 adds to it.
 pair_lag_reduce.launches = 0
+
+
+# The force factors the K3 kernel implements, by the enum value it takes.
+_KERNEL_GFNS = {lj_force_factor: 0, lj_force_factor_fast: 1}
+
+
+def pair_lag_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                          sorted_pos_lo=None, sorted_payload=None, *,
+                          L: int = 256, gfn: Callable = lj_force_factor,
+                          out_dtype=None):
+    """Plain PyTorch version of K3, vectorised over slots, one lag at a time.
+
+    Same masks, separations and force factor as the kernel: for each lag,
+    the pairs (i, i - lag) in the key window with ``0 < dsq < cutoff^2``
+    add ``g d`` to i and ``-g d`` to i - lag. Any ``gfn`` works here; with
+    ``sorted_payload`` ((n, P), sorted order) it receives
+    ``(dsq, own_0.., j_0..)``, own being the larger slot. The f32 (or
+    f64) products are summed in f64 and the result is cast to
+    ``out_dtype`` (default: the positions' dtype).
+    """
+    n, dim = sorted_pos.shape
+    device, dtype = sorted_pos.device, sorted_pos.dtype
+    keys = _pad_and_desentinel(sorted_keys, n)
+    w = key_window(strides).to(device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
+    pay = None if sorted_payload is None else \
+        torch.as_tensor(sorted_payload, device=device).to(dtype)
+    forces = torch.zeros((n, dim), dtype=torch.float64, device=device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break  # keys ascend: no later lag can be in window
+        d = sorted_pos[lag:] - sorted_pos[:-lag]
+        if sorted_pos_lo is not None:
+            d = d + (sorted_pos_lo[lag:] - sorted_pos_lo[:-lag])
+        dsq = d[:, 0] * d[:, 0]
+        for a in range(1, dim):
+            dsq = dsq + d[:, a] * d[:, a]
+        inside = dsq < csq
+        if sorted_pos_lo is not None:
+            inside = split_cutoff_test(
+                inside, dsq, csq, sorted_pos[lag:].unbind(1),
+                sorted_pos[:-lag].unbind(1), sorted_pos_lo[lag:].unbind(1),
+                sorted_pos_lo[:-lag].unbind(1))
+        mask = keymask & inside & (dsq > 0)
+        safe = torch.where(mask, dsq, torch.ones_like(dsq))
+        if pay is None:
+            gv = gfn(safe)
+        else:
+            gv = gfn(safe, *pay[lag:].unbind(1), *pay[:-lag].unbind(1))
+        g = torch.where(mask, gv, torch.zeros_like(gv)).to(dtype)
+        c = (g[:, None] * d).to(torch.float64)
+        forces[lag:] += c
+        forces[:-lag] -= c
+    return forces.to(out_dtype or dtype)
+
+
+def _bind_forces(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.zelll_lag_forces.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, vp, vp,
+    ]
+    lib.zelll_lag_forces.restype = ci
+
+
+# Build (at first use) and load the K3 library; its build log is
+# ``load_forces_kernel.log``.
+load_forces_kernel = kernel_loader(_FORCES_SRC, "lag_forces", _bind_forces)
+
+
+def _lag_forces_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
+                     sorted_pos_lo, *, L, gfn, out_dtype):
+    """Launch K3 on the current stream. Returns (n, 3) forces, a view of
+    the (3, n) planes the kernel writes."""
+    device = sorted_pos.device
+    n, dim = sorted_pos.shape
+    if gfn not in _KERNEL_GFNS:
+        raise ValueError(
+            "the CUDA kernel implements lj_force_factor and "
+            "lj_force_factor_fast only; run other force factors through "
+            "pair_lag_forces_plain or on CPU tensors"
+        )
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K3 writes float32 or float64 forces, not {out_dtype}")
+    if n >= 2**31:
+        raise ValueError(f"K3 takes n < 2^31; got {n}")
+    # the kernel reads (3, n) planes: rows of any layout are copied once
+    planes = sorted_pos.t().contiguous()
+    _check_cuda("sorted_pos.t()", planes, torch.float32, (dim, n), device, "K3")
+    lo_planes = None
+    if sorted_pos_lo is not None:
+        lo_planes = sorted_pos_lo.t().contiguous()
+        _check_cuda("sorted_pos_lo.t()", lo_planes, torch.float32, (dim, n),
+                    device, "K3")
+    _check_cuda("sorted_keys", sorted_keys, torch.int32, (n,), device, "K3")
+    out = torch.empty((dim, n), dtype=out_dtype, device=device)
+    if n == 0:
+        return out.t()
+    lib = load_forces_kernel()
+    w_key = key_window(strides).reshape(1)
+    csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
+    err = lib.zelll_lag_forces(
+        planes.data_ptr(), None if lo_planes is None else lo_planes.data_ptr(),
+        sorted_keys.data_ptr(), w_key.data_ptr(), n, L, _pad_spacing(n), csq,
+        _KERNEL_GFNS[gfn], int(out_dtype == torch.float64), out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    pair_lag_forces.launches += 1
+    return out.t()
+
+
+def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
+                    sorted_pos_lo=None, sorted_payload=None, *, M: int = 1024,
+                    L: int = 256, gfn: Callable | None = None, mi_box=None,
+                    key_reach=None, out_dtype=None, device=None):
+    """Per-particle pair forces in sorted-slot order (3-D).
+
+    f_i is the sum over unique cutoff pairs (p, p - lag), lag = 1..L, that
+    hold i, of ``gfn(dsq) * (p_p - p_(p-lag))`` with the opposite
+    contribution on the smaller slot, over pairs in the key window
+    ``key_j >= key_i - W`` with ``0 < dsq < cutoff_sq`` (coincident
+    particles are excluded). The lag set is exactly 1..L, so the output is
+    defined where `lag_coverage_ok` is False. ``M`` (the TPU kernel's
+    block rows) is accepted and has no effect. ``gfn`` defaults to
+    `ops.lj.lj_force_factor`.
+
+    ``sorted_pos_lo`` (f32 low parts, see `split_f64`) selects
+    split-precision separations. ``out_dtype`` defaults to the positions'
+    dtype; with f32 positions ``out_dtype=torch.float64`` returns the f64
+    sums of the f32 terms. Returns (n, 3) forces aligned with
+    ``sorted_pos``.
+
+    CUDA tensors run kernel K3, which takes f32 coordinates and the force
+    factors `lj_force_factor` and `lj_force_factor_fast`, and raises on
+    anything else (``sorted_payload`` included). CPU tensors run
+    `pair_lag_forces_plain`, which also takes ``sorted_payload`` and any
+    ``gfn``. ``mi_box``/``key_reach`` (minimum image) are not ported yet
+    and raise on either device.
+    """
+    del M
+    if gfn is None:
+        gfn = lj_force_factor
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    if mi_box is not None or key_reach is not None:
+        raise ValueError("mi_box / key_reach (minimum-image forces) are not "
+                         "ported yet (periodic boxes, ROADMAP queue 1)")
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    if sorted_pos.ndim != 2 or sorted_pos.shape[1] != 3:
+        raise ValueError("pair_lag_forces is 3-D only; got positions of "
+                         f"shape {tuple(sorted_pos.shape)}")
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    strides = torch.as_tensor(strides, dtype=torch.int32, device=device)
+    if sorted_pos_lo is not None:
+        sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
+    if device.type == "cuda":
+        if sorted_payload is not None:
+            raise ValueError("the CUDA kernel takes no sorted_payload; run "
+                             "it through pair_lag_forces_plain")
+        return _lag_forces_cuda(
+            sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, L=L,
+            gfn=gfn, out_dtype=out_dtype or sorted_pos.dtype)
+    return pair_lag_forces_plain(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+        sorted_payload, L=L, gfn=gfn, out_dtype=out_dtype)
+
+
+# Kernel launches since the last reset; only a launch of K3 adds to it.
+pair_lag_forces.launches = 0

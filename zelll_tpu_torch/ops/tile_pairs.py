@@ -1,8 +1,10 @@
-"""The segment-tile pair reduction over key-sorted particles (kernel K6,
-which also covers K10).
+"""The segment-tile pair reduction (kernel K6, which also covers K10) and
+pair forces (kernel K7, which also covers K11) over key-sorted particles.
 
 PyTorch counterpart of ``zelll_tpu/ops/tile_pairs.py`` for the reduction
-the cubic main path runs (`tile_pair_reduce`, `tile_lj_rebuild_energy`).
+the cubic main path runs (`tile_pair_reduce`, `tile_lj_rebuild_energy`)
+and the forces of the cubic MD loops (`tile_pair_forces`,
+`tile_forces_core`).
 
 The lag kernel (`ops.lag_pairs`) is tight for thin boxes, but its
 contiguous lag window degenerates on cubic and wide boxes. The tile
@@ -12,15 +14,20 @@ half stencil into <= 5 disjoint key-difference bands and locates, per chunk
 and band, the one contiguous window of j-chunks that holds every partner.
 Each (own chunk, j-chunk) pair is one 128 x 128 tile of separations, masked
 by the slot bound, the key band (with ``bandmask``), the slot triangle in
-band 0 and the cutoff. Every pair is counted once, by its larger slot.
+band 0 and the cutoff. Every pair is counted once, by its larger slot. The
+forces use the full stencil instead (``full=True``: 9 mirrored bands in
+3-D, no triangle), so each particle meets every partner and only its own
+side is written.
 
 `tile_pair_reduce` launches the hand-written CUDA kernel
 (``csrc/tile_reduce.cu``) for CUDA tensors and the plain PyTorch version
-for CPU tensors; there is no fallback between the two. The TPU package has
-two kernels here: a packed one whose keys ride as f32 (exact below 2^24)
-and an int32-key one for larger grids (``packed=False``). The CUDA kernel
-reads int32 keys in both cases, so ``packed`` decides only whether the
-coverage flag carries the 2^24 key-exactness term, as it does in JAX.
+for CPU tensors; `tile_pair_forces` does the same with
+``csrc/tile_forces.cu``. There is no fallback between the two. The TPU
+package has two kernels for each: a packed one whose keys ride as f32
+(exact below 2^24) and an int32-key one for larger grids
+(``packed=False``). The CUDA kernels read int32 keys in both cases, so
+``packed`` decides only whether the coverage flag carries the 2^24
+key-exactness term, as it does in JAX.
 
 Split precision: ``sorted_pos_lo`` carries the f32 low parts of f64
 coordinates, and ``d = (hi_i - hi_j) + (lo_i - lo_j)`` recovers f64-grade
@@ -39,7 +46,7 @@ import torch
 from .._device import resolve_device
 from ..core.binning import compute_keys
 from ..core.geometry import GridInfo, aabb_from_positions
-from ._build import NVCC_FLAGS, build_shared, nvcc
+from ._build import kernel_loader
 from .lag_pairs import (
     _PAD_KEY_BASE,
     _pack_count,
@@ -47,9 +54,12 @@ from .lag_pairs import (
     count_term,
     lj_term,
     lj_term_fast,
+    split_cutoff_test,
 )
+from .lj import lj_force_factor, lj_force_factor_fast
 from .segments import (
     CHUNK,
+    band_order,
     chunk_bounds,
     num_segments,
     segment_bands,
@@ -67,13 +77,21 @@ __all__ = [
     "tile_lj_rebuild_energy",
     "tile_lj_energy",
     "tile_count_pairs",
+    "forces_tiles",
+    "forces_tiles_plain",
+    "tile_forces_core",
+    "tile_pair_forces",
+    "tile_pair_forces_plain",
     "load_kernel",
+    "load_forces_kernel",
 ]
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "tile_reduce.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
-# The terms the CUDA kernel implements, by the enum value it takes.
+# The terms and force factors the CUDA kernels implement, by the enum
+# value each takes.
 _KERNEL_TERMS = {lj_term: 0, lj_term_fast: 1, count_term: 2}
+_KERNEL_GFNS = {lj_force_factor: 0, lj_force_factor_fast: 1}
 
 # Own chunks per step of the plain version: a (1024, 128, 128) f32 tile is
 # 64 MiB, so memory stays bounded at any n.
@@ -129,30 +147,35 @@ class TileInputs:
 
 def tile_inputs(pos_planes: torch.Tensor, sorted_keys: torch.Tensor, strides,
                 lo_planes: torch.Tensor | None = None, *, CB: int = 8,
-                MAXJ=4, packed: bool = True,
-                bandmask: bool = True) -> TileInputs:
+                MAXJ=4, packed: bool = True, bandmask: bool = True,
+                full: bool = False) -> TileInputs:
     """Pad the keys, locate every chunk's band windows and fold the
     coverage flag, as the JAX package's ``_packed_core`` and
-    ``_tile_pair_reduce_impl`` do before their kernels.
+    ``_tile_pair_reduce_impl`` do before their kernels (``full=True``: as
+    ``_packed_forces_core`` and ``tile_pair_forces`` do, over the full
+    stencil's mirrored bands).
 
     ``CB`` (the TPU kernel's chunks per program) fixes the padding:
     ``nc_pad = ceil(n / (128 CB)) CB`` chunks. That sets the MAXJ clamp and
     the padding-key spacing, hence the flag, exactly as in JAX; it has no
     effect on the CUDA grid. Without ``bandmask`` the windows are trimmed
-    pairwise disjoint and the flag also requires that they are.
+    pairwise disjoint (in `band_order`) and the flag also requires that
+    they are.
     """
     dim, n = pos_planes.shape
-    S = num_segments(dim)
+    S = num_segments(dim, full=full)
     nc_pad = max(-(-n // (CHUNK * CB)) * CB, CB)
     MAXJ = _norm_maxj(MAXJ, S, nc_pad)
     keys_p = _pad_and_desentinel(sorted_keys, nc_pad * CHUNK)
-    bands = segment_bands(torch.as_tensor(strides, device=keys_p.device))
-    jlo, toff, jnum, cov_ok = chunk_bounds(keys_p, bands, MAXJ)
+    bands = segment_bands(torch.as_tensor(strides, device=keys_p.device),
+                          full=full)
+    jlo, toff, jnum, cov_ok = chunk_bounds(keys_p, bands, MAXJ, half=not full)
     if not bandmask:
         # a j-chunk shared by two bands' windows would be counted twice by
         # a maskless tile: trim the windows disjoint (coverage-preserving)
         # and keep the invariant in the flag
-        toff, jnum = trim_windows_disjoint(jlo, toff, jnum, tuple(range(S)))
+        toff, jnum = trim_windows_disjoint(jlo, toff, jnum,
+                                           band_order(dim, full=full))
         cov_ok = cov_ok & windows_disjoint(jlo, toff, jnum)
     if packed and pos_planes.dtype == torch.float32:
         cov_ok = _key_exact_f32(keys_p, cov_ok)
@@ -244,34 +267,29 @@ def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
     return _finish(total, out_dtype, integer)
 
 
-def load_kernel():
-    """Build (at first use) and load the K6 library. Returns the ctypes
-    library; its build log is ``load_kernel.log``."""
-    if load_kernel.lib is None:
-        path, log = build_shared(_SRC, nvcc(), NVCC_FLAGS, "tile_reduce")
-        lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.zelll_tile_reduce.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp, vp,
-        ]
-        lib.zelll_tile_reduce.restype = ci
-        lib.zelll_tile_reduce_chunk.argtypes = []
-        lib.zelll_tile_reduce_chunk.restype = ci
-        if lib.zelll_tile_reduce_chunk() != CHUNK:
-            raise RuntimeError("tile_reduce.cu was built for another chunk size")
-        load_kernel.lib, load_kernel.log = lib, log
-    return load_kernel.lib
+def _bind_reduce(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.zelll_tile_reduce.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp, vp,
+    ]
+    lib.zelll_tile_reduce.restype = ci
+    lib.zelll_tile_reduce_chunk.argtypes = []
+    lib.zelll_tile_reduce_chunk.restype = ci
+    if lib.zelll_tile_reduce_chunk() != CHUNK:
+        raise RuntimeError("tile_reduce.cu was built for another chunk size")
 
 
-load_kernel.lib = None
-load_kernel.log = ""
+# Build (at first use) and load the K6 library; its build log is
+# ``load_kernel.log``.
+load_kernel = kernel_loader(_CSRC / "tile_reduce.cu", "tile_reduce", _bind_reduce)
 
 
-def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device):
+def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device,
+                kernel: str = "K6"):
     if t.device != device or t.dtype != dtype or not t.is_contiguous() \
             or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"K6 takes {name} as a contiguous {dtype} tensor of shape "
+            f"{kernel} takes {name} as a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {device}; got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})"
         )
@@ -480,3 +498,256 @@ def tile_count_pairs(sorted_pos, sorted_keys, strides, cutoff_sq, **kw):
     the exact count."""
     return tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
                             term=count_term, out_dtype=torch.int32, **kw)
+
+
+def forces_tiles_plain(inp: TileInputs, cutoff_sq, *,
+                       gfn: Callable = lj_force_factor, out_dtype=None,
+                       safe_term: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K7 over the same full-stencil windows,
+    masks and force factor (``inp`` from ``tile_inputs(full=True)``).
+
+    Own chunks go in batches; for each (band, window step) the batch's
+    j-chunks are gathered and one (batch, 128, 128) tile of separations is
+    built, masked by the slot bound, the key band (with ``bandmask``) and
+    ``0 < dsq < cutoff^2`` (f64-grade near the cutoff in split mode, see
+    `lag_pairs.split_cutoff_test`). Each own slot sums ``g d`` over its row in
+    f64. Any ``gfn`` works. Returns (dim, n) force planes in
+    ``out_dtype`` (default: the coordinates' dtype).
+    """
+    pos, lo = inp.pos, inp.lo
+    dim, n = pos.shape
+    device, dtype = pos.device, pos.dtype
+    nc_pad = inp.bounds.shape[0]
+    S = inp.bands.shape[0]
+    C = nc_pad * CHUNK
+    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
+    planes = pos if lo is None else torch.cat([pos, lo])
+    padded = torch.zeros((planes.shape[0], C), dtype=dtype, device=device)
+    padded[:, :n] = planes
+    keys = inp.keys.to(torch.int64)
+    lane = torch.arange(CHUNK, device=device)
+    forces = torch.zeros((dim, n), dtype=torch.float64, device=device)
+    nc_real = -(-n // CHUNK)  # chunks past it hold no own slot
+    for c0 in range(0, nc_real, _PLAIN_BATCH):
+        c1 = min(c0 + _PLAIN_BATCH, nc_real)
+        own_s = torch.arange(c0, c1, device=device)[:, None] * CHUNK + lane
+        own_ok = own_s < n
+        own = padded[:, own_s][:, :, :, None]  # (D, b, 128, 1)
+        own_k = keys[own_s][:, :, None]
+        acc = torch.zeros((dim, c1 - c0, CHUNK), dtype=torch.float64, device=device)
+        for s in range(S):
+            jlo, toff, jnum = inp.bounds[c0:c1, 3 * s:3 * s + 3].long().unbind(1)
+            lo_s, hi_s = inp.bands[s].long().unbind(0)
+            for t in range(int(jnum.max()) if jnum.numel() else 0):
+                jc = torch.clamp(jlo + toff + t, max=nc_pad - 1)
+                j_s = jc[:, None] * CHUNK + lane  # (b, 128)
+                j_ok = (j_s < n) & (t < jnum)[:, None]
+                jp = padded[:, j_s][:, :, None, :]  # (D, b, 1, 128)
+                d = []
+                dsq = None
+                for a in range(dim):
+                    da = own[a] - jp[a]
+                    if lo is not None:
+                        da = da + (own[a + dim] - jp[a + dim])
+                    d.append(da)
+                    dsq = da * da if dsq is None else dsq + da * da
+                inside = dsq < csq
+                if lo is not None:
+                    inside = split_cutoff_test(
+                        inside, dsq, csq, own[:dim], jp[:dim], own[dim:], jp[dim:])
+                m = own_ok[:, :, None] & j_ok[:, None, :] & inside & (dsq > 0)
+                if inp.bandmask:
+                    diff = own_k - keys[j_s][:, None, :]
+                    m = m & (diff >= lo_s) & (diff <= hi_s)
+                gv = gfn(torch.where(m, dsq, torch.ones_like(dsq)) if safe_term else dsq)
+                g = torch.where(m, gv, torch.zeros_like(gv))
+                for a in range(dim):
+                    acc[a] += (g * d[a]).to(torch.float64).sum(-1)
+        s0, s1 = c0 * CHUNK, min(c1 * CHUNK, n)
+        forces[:, s0:s1] = acc.reshape(dim, -1)[:, :s1 - s0]
+    return forces.to(out_dtype or dtype)
+
+
+def _bind_forces(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.zelll_tile_forces.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp, vp,
+    ]
+    lib.zelll_tile_forces.restype = ci
+    lib.zelll_tile_forces_chunk.argtypes = []
+    lib.zelll_tile_forces_chunk.restype = ci
+    if lib.zelll_tile_forces_chunk() != CHUNK:
+        raise RuntimeError("tile_forces.cu was built for another chunk size")
+
+
+# Build (at first use) and load the K7 library; its build log is
+# ``load_forces_kernel.log``.
+load_forces_kernel = kernel_loader(_CSRC / "tile_forces.cu", "tile_forces",
+                                   _bind_forces)
+
+
+def forces_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
+                 out_dtype=None) -> torch.Tensor:
+    """Launch K7 on the current stream. Returns (dim, n) force planes.
+
+    Takes ``inp`` from ``tile_inputs(full=True)`` with f32 planes on a
+    CUDA device, and the force factors `lj_force_factor` and
+    `lj_force_factor_fast`; raises on anything else. ``out_dtype``
+    float32 (the default) or float64 (the f64 sums of the f32 terms).
+    """
+    if gfn not in _KERNEL_GFNS:
+        raise ValueError(
+            "the CUDA kernel implements lj_force_factor and "
+            "lj_force_factor_fast only; run other force factors through "
+            "tile_pair_forces_plain or on CPU tensors"
+        )
+    pos = inp.pos
+    device = pos.device
+    dim, n = pos.shape
+    out_dtype = out_dtype or pos.dtype
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K7 writes float32 or float64 forces, not {out_dtype}")
+    S = inp.bands.shape[0]
+    nc_pad = inp.bounds.shape[0]
+    if device.type != "cuda":
+        raise ValueError(f"K7 runs on a CUDA device, not {device}")
+    if not 1 <= dim <= 3 or S != num_segments(dim, full=True) \
+            or nc_pad * CHUNK >= 2**31:
+        raise ValueError("K7 takes 1 <= dim <= 3, the full stencil's bands "
+                         f"and fewer than 2^31 slots; got {(dim, n)}, S = {S}")
+    _check_cuda("pos", pos, torch.float32, (dim, n), device, "K7")
+    if inp.lo is not None:
+        _check_cuda("lo", inp.lo, torch.float32, (dim, n), device, "K7")
+    _check_cuda("keys", inp.keys, torch.int32, (nc_pad * CHUNK,), device, "K7")
+    _check_cuda("bounds", inp.bounds, torch.int32, (nc_pad, 3 * S), device, "K7")
+    _check_cuda("bands", inp.bands, torch.int32, (S, 2), device, "K7")
+    out = torch.empty((dim, n), dtype=out_dtype, device=device)
+    if n == 0:
+        return out
+    lib = load_forces_kernel()
+    csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
+    err = lib.zelll_tile_forces(
+        pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
+        inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
+        n, dim, S, csq, _KERNEL_GFNS[gfn], int(out_dtype == torch.float64),
+        int(inp.bandmask), out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K7 launch failed: CUDA error {err}")
+    tile_pair_forces.launches += 1
+    return out
+
+
+def _forces(inp: TileInputs, cutoff_sq, kernel: bool, *, gfn, out_dtype,
+            safe_term) -> torch.Tensor:
+    """K7 for ``kernel``, else its plain version (which alone reads
+    ``safe_term``)."""
+    if kernel:
+        return forces_tiles(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype)
+    return forces_tiles_plain(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype,
+                              safe_term=safe_term)
+
+
+def tile_forces_core(planes: torch.Tensor, sorted_keys: torch.Tensor, strides,
+                     cutoff_sq, lo_planes: torch.Tensor | None = None, *,
+                     CB: int = 8, MAXJ=6, gfn: Callable = lj_force_factor,
+                     packed: bool = True, bandmask: bool = True,
+                     safe_term: bool = True, out_dtype=None,
+                     plain: bool = False):
+    """The forces pipeline over coordinate planes, the counterpart of the
+    JAX package's ``_packed_forces_core``: (dim, n) sorted planes (and
+    their low parts) in, ((dim, n) force planes, coverage_ok) out, so the
+    MD loops never stack or transpose their state.
+
+    Pads the keys, locates the full-stencil windows (trimmed disjoint in
+    ``band_order(dim, full=True)`` without ``bandmask``), folds the flag
+    and runs K7 on CUDA tensors, or the plain version on CPU tensors or
+    with ``plain=True``.
+    """
+    inp = tile_inputs(planes, sorted_keys, strides, lo_planes, CB=CB, MAXJ=MAXJ,
+                      packed=packed, bandmask=bandmask, full=True)
+    kernel = planes.device.type == "cuda" and not plain
+    forces = _forces(inp, cutoff_sq, kernel, gfn=gfn, out_dtype=out_dtype,
+                     safe_term=safe_term)
+    return forces, inp.coverage_ok
+
+
+def _tile_pair_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
+                      sorted_pos_lo, *, CB, MAXJ, gfn, packed, bandmask,
+                      safe_term, out_dtype, device, plain: bool):
+    if gfn is None:
+        gfn = lj_force_factor
+    if bandmask is None:
+        bandmask = not packed  # the packed path defaults to the maskless body
+    if not packed and (not bandmask or not safe_term):
+        raise ValueError("bandmask=False / safe_term=False need the packed "
+                         "layout; pass packed=True")
+    if not packed and not isinstance(MAXJ, int):
+        raise ValueError("per-band MAXJ tuples need the packed layout; "
+                         "pass packed=True")
+    if CB < 1:
+        raise ValueError(f"CB must be >= 1, got {CB}")
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    if sorted_pos_lo is not None:
+        sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
+    forces, ok = tile_forces_core(
+        _planes(sorted_pos), sorted_keys, strides, cutoff_sq,
+        _planes(sorted_pos_lo), CB=CB, MAXJ=MAXJ, gfn=gfn, packed=packed,
+        bandmask=bandmask, safe_term=safe_term, out_dtype=out_dtype,
+        plain=plain)
+    return forces.t(), ok
+
+
+def tile_pair_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
+                     sorted_pos_lo=None, *, CB: int = 8, MAXJ=6,
+                     gfn: Callable | None = None, packed: bool = True,
+                     bandmask: bool | None = None, safe_term: bool = True,
+                     out_dtype=None, device=None):
+    """Per-particle pair forces in sorted-slot order, any box shape (the
+    sibling of `lag_pairs.pair_lag_forces`).
+
+    f_i is the sum over cutoff partners j of ``gfn(dsq) * (p_i - p_j)``
+    (``0 < dsq < cutoff_sq``): the full stencil's mirrored bands give each
+    particle both sides of its pairs directly. ``gfn`` defaults to
+    `ops.lj.lj_force_factor`. Returns ((n, dim) forces, a view of (dim, n)
+    planes, and coverage_ok); never trust forces with a False flag.
+
+    The JAX package's arguments keep their meaning: ``bandmask=None`` is
+    False on the packed path and True otherwise; ``packed`` decides the
+    2^24 key term of the flag, and ``packed=False`` refuses
+    ``bandmask=False``, ``safe_term=False`` and per-band MAXJ tuples;
+    ``MAXJ`` may be a per-band tuple (9 entries in 3-D, see
+    ``segments.suggest_maxj(half=False, per_band=True)``); ``CB`` fixes
+    the padding (`tile_inputs`); ``safe_term=False`` changes nothing,
+    since masked lanes are selected out. ``out_dtype`` defaults to the
+    coordinates' dtype.
+
+    CUDA tensors run kernel K7, which takes f32 coordinates and the force
+    factors `lj_force_factor` and `lj_force_factor_fast`, and raises on
+    anything else. CPU tensors run `forces_tiles_plain`.
+    """
+    return _tile_pair_forces(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, CB=CB,
+        MAXJ=MAXJ, gfn=gfn, packed=packed, bandmask=bandmask,
+        safe_term=safe_term, out_dtype=out_dtype, device=device, plain=False)
+
+
+def tile_pair_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                           sorted_pos_lo=None, *, CB: int = 8, MAXJ=6,
+                           gfn: Callable | None = None, packed: bool = True,
+                           bandmask: bool | None = None,
+                           safe_term: bool = True, out_dtype=None,
+                           device=None):
+    """`tile_pair_forces` through its plain PyTorch version on any device
+    (the yardstick K7 is held to on the card)."""
+    return _tile_pair_forces(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, CB=CB,
+        MAXJ=MAXJ, gfn=gfn, packed=packed, bandmask=bandmask,
+        safe_term=safe_term, out_dtype=out_dtype, device=device, plain=True)
+
+
+# Kernel launches since the last reset; only a launch of K7 adds to it.
+tile_pair_forces.launches = 0

@@ -17,7 +17,7 @@ import numpy as np
 
 from ..ops._build import GXX_FLAGS, build_shared
 
-__all__ = ["available", "lj_energy", "chacha12_u64"]
+__all__ = ["available", "lj_energy", "forces", "chacha12_u64"]
 
 _SRC = Path(__file__).parent / "cell_lists.cpp"
 
@@ -32,6 +32,8 @@ def _load():
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.zelll_oracle_lj.argtypes = [f64p, i64, ctypes.c_double, f64p, i64p]
     lib.zelll_oracle_lj.restype = None
+    lib.zelll_oracle_forces.argtypes = [f64p, i64, ctypes.c_double, f64p]
+    lib.zelll_oracle_forces.restype = None
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
     lib.zelll_chacha12_u64.argtypes = [u32p, ctypes.c_uint64, i64, u64p]
@@ -66,6 +68,17 @@ def lj_energy(positions, cutoff: float) -> tuple[float, int]:
     p = ctypes.c_int64()
     lib.zelll_oracle_lj(ptr, pos.shape[0], cutoff, ctypes.byref(e), ctypes.byref(p))
     return e.value, p.value
+
+
+def forces(positions, cutoff: float) -> np.ndarray:
+    """Exact f64 per-particle LJ forces, (n, 3) in input order: the sum over
+    cutoff partners j of 24 t (2t - 1) / dsq (p_i - p_j), t = dsq^-3."""
+    lib = _load()
+    pos, ptr = _pos_ptr(positions)
+    out = np.zeros_like(pos)
+    lib.zelll_oracle_forces(ptr, pos.shape[0], cutoff,
+                            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+    return out
 
 
 def chacha12_u64(key_words: np.ndarray, start_u32: int, n: int) -> np.ndarray:

@@ -32,6 +32,7 @@ import numpy as np
 __all__ = [
     "StdRng", "generate_points_random", "generate_points_lattice", "DEFAULT_SEED",
     "lj_box",
+    "lattice_cloud",
 ]
 
 DEFAULT_SEED = 3079380797442975911
@@ -191,3 +192,19 @@ def lj_box(n: int, cutoff: float = 10.0) -> tuple[float, float, float]:
     b = 3.0 * cutoff
     c = (n / conc) / a / b
     return (a, b, c)
+
+
+def lattice_cloud(n: int, box, rng: np.random.Generator) -> np.ndarray:
+    """A perturbed lattice filling ``box`` (from the origin) with about n
+    points: spacing a = (volume / n)^(1/3), floor(box / a) points per axis,
+    each moved by up to 0.05 a per axis from ``rng``, so no two points
+    overlap. The start state of the MD protocol (the JAX package's
+    ``benchmarks/steady_state.py``)."""
+    vol = float(np.prod(box))
+    a = (vol / n) ** (1 / 3)
+    dims = [max(int(np.floor(b / a)), 1) for b in box]
+    g = np.stack(
+        np.meshgrid(*(np.arange(d) for d in dims), indexing="ij"), -1
+    ).reshape(-1, 3) * a
+    g = g + rng.uniform(-0.05 * a, 0.05 * a, g.shape)
+    return g.astype(np.float64)
