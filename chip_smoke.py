@@ -17,8 +17,15 @@ v ~ normal(0, 0.3), dt = 1e-4, cutoff 10): the thin box through
 `md_step`, `md_step_split` and the Verlet-skin `md_run_skin` (forces by
 K3), the cubic box through `md_step_cubic_tile` and `md_run_skin_tile`
 (forces by K7), and holds the f64-grade forces of both kernels to the
-exact-f64 oracle at n = 1e6. It prints one JSON line per phase. Any failed
-phase exits non-zero. The last line is the contract line
+exact-f64 oracle at n = 1e6. Then the reference-parity API: the
+per-particle kernel K2 against its plain version (n = 2e5, f32 and f64),
+`CellGrid` on the card at n = 1e6 in f64 (build, both `rebuild` paths,
+`coordination_numbers` through K2, `pairs`, `lj_energy`, `virial`,
+`stress`, point queries), each held to the exact-f64 oracle, its edges
+(a cube at a wide lag, iteration and the per-cell surface, `md_step` in
+2-D and `auto_lj_energy` in 4-D against the port's own CPU run), and K2
+alone at n = 1e7. It prints one JSON line per phase. Any failed phase
+exits non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as nvidia-smi reports them.
 
@@ -88,6 +95,10 @@ INSTR_PER_PAIR_FAST = 1 + 1 + 2 + 1 + 1 + 1 + 2
 # the division by rsqrt and r*r.
 INSTR_PER_FORCE_PAIR = 5 + 2 + 1 + 1 + 2 + 3 + 6
 INSTR_PER_FORCE_PAIR_FAST = 1 + 1 + 2 + 1 + 1 + 2 + 3 + 6
+# K2 with the count term per cutoff pair: one f64 add at each end, each
+# counted as 2 (FP64 runs at half the FP32 rate). Its candidates cost what
+# K1's f32 ones do, twice that in f64.
+INSTR_PER_COUNT_PAIR = 2 * 2
 TOL_REL = 1e-6  # against the exact-f64 oracle
 TOL_KERNEL = 1e-10  # a kernel against its plain version, f64 totals
 TOL_FAST = 6 * 4 * 2.0**-23  # the same with lj_term_fast (see above)
@@ -372,18 +383,24 @@ def forces_vs_plain(dev, n: int) -> dict:
 
 
 def reset_launches() -> None:
-    from zelll_tpu_torch.ops.lag_pairs import pair_lag_forces, pair_lag_reduce
+    from zelll_tpu_torch.ops.lag_pairs import (
+        pair_lag_forces, pair_lag_per_particle, pair_lag_reduce,
+    )
     from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
 
-    for fn in (pair_lag_reduce, pair_lag_forces, tile_pair_reduce, tile_pair_forces):
+    for fn in (pair_lag_reduce, pair_lag_forces, pair_lag_per_particle, tile_pair_reduce,
+               tile_pair_forces):
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from zelll_tpu_torch.ops.lag_pairs import pair_lag_forces, pair_lag_reduce
+    from zelll_tpu_torch.ops.lag_pairs import (
+        pair_lag_forces, pair_lag_per_particle, pair_lag_reduce,
+    )
     from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
 
     return dict(lag_reduce=pair_lag_reduce.launches, lag_forces=pair_lag_forces.launches,
+                lag_per_particle=pair_lag_per_particle.launches,
                 tile_reduce=tile_pair_reduce.launches,
                 tile_forces=tile_pair_forces.launches)
 
@@ -658,6 +675,282 @@ def forces_parity(dev, n: int) -> dict:
     return out
 
 
+def per_particle_vs_plain(dev, n: int) -> dict:
+    """K2 against its plain version on identical sorted inputs, n = 2e5 on
+    the thin box: the uniform cloud, a jittered lattice, and the lattice
+    with a `CellGrid`-style padded tail (SENTINEL_KEY keys on far, spread
+    coordinates), in f32 and f64. `count_term` exactly; `lj_term` to
+    TOL_KERNEL of max |out| in f64 (1e-6 in f32: the same f64 sums, each
+    rounded to f32 once); an undersized L drops the same pairs on both
+    sides."""
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY
+    from zelll_tpu_torch.ops.lag_pairs import (
+        count_term, lj_term, pair_lag_per_particle, pair_lag_per_particle_plain,
+    )
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
+
+    csq = CUTOFF**2
+    box = lj_box(n, CUTOFF)
+    cases, worst, lattice_f64_lj_err = {}, 0.0, 0.0
+    for tag, pts in (("uniform", generate_points_random(n, box)),
+                     ("lattice", generate_points_lattice(n, box))):
+        shi, slo, keys, info, _ = sort_split(pts, dev)
+        inputs = [(tag, keys, None)]
+        if tag == "lattice":
+            tail = keys.clone()
+            tail[-1000:] = SENTINEL_KEY
+            k = torch.arange(1, 1001, dtype=torch.float64, device=dev)
+            far = torch.stack([1e12 + k * 2.0**17, 1e12 + 0 * k, 1e12 + 0 * k], 1)
+            inputs.append(("lattice sentinel_tail", tail, far))
+        for name, k_in, far in inputs:
+            for dtype in (torch.float32, torch.float64):
+                pos = shi if dtype == torch.float32 else shi.double() + slo.double()
+                if far is not None:
+                    pos = pos.clone()
+                    pos[-1000:] = far.to(dtype)
+                for L in (L_MAIN, 16):
+                    for term in (count_term, lj_term):
+                        what = f"{name} {str(dtype)[6:]} L{L} {term.__name__}"
+                        got = pair_lag_per_particle(pos, k_in, info.strides, csq, L=L,
+                                                    term=term)
+                        want = pair_lag_per_particle_plain(pos, k_in, info.strides, csq,
+                                                           L=L, term=term)
+                        torch.cuda.synchronize()
+                        check(got.dtype == dtype and got.shape == (n,),
+                              f"K2 output {got.dtype} {tuple(got.shape)} ({what})")
+                        err = float((got.double() - want.double()).abs().max())
+                        scale = float(want.double().abs().max())
+                        if term is count_term:
+                            check(err == 0.0, f"K2 counts off their plain version by "
+                                  f"{err} ({what})")
+                            cases[what] = dict(coordination_total=float(want.double().sum()))
+                        else:
+                            tol = TOL_KERNEL if dtype == torch.float64 else 1e-6
+                            check(np.isfinite(err) and err <= tol * scale,
+                                  f"K2 lj_term off its plain version: {err} > {tol} x "
+                                  f"{scale} ({what})")
+                            cases[what] = dict(max_abs_err=err, max_abs_out=scale,
+                                               err_over_max=err / scale)
+                            worst = max(worst, err / scale)
+                            if name == "lattice" and dtype == torch.float64 and L == L_MAIN:
+                                lattice_f64_lj_err = err
+            full = cases[f"{name} float64 L{L_MAIN} count_term"]["coordination_total"]
+            short = cases[f"{name} float64 L16 count_term"]["coordination_total"]
+            check(short < full, f"L = 16 dropped no pairs ({name}): {short} vs {full}")
+    return dict(n=n, cases=cases, max_err_over_max=worst,
+                lattice_f64_lj_max_abs_err=lattice_f64_lj_err)
+
+
+def host_ms(fn):
+    """Host-clock ms of ``fn`` ending in a device synchronise, and its
+    result (the API's methods read their results back anyway)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def pair_codes(i, j, n: int) -> np.ndarray:
+    """Unordered pairs as sorted int64 codes min * n + max."""
+    i, j = np.asarray(i, np.int64), np.asarray(j, np.int64)
+    return np.sort(np.minimum(i, j) * n + np.maximum(i, j))
+
+
+def api_main_path(dev, n: int) -> dict:
+    """The reference-parity API on the card (f64), on the main path's thin
+    box at n = 1e6: build, `rebuild` (the same positions: the fast path;
+    jittered: the slow path), `coordination_numbers` (K2),
+    `pairs(within_cutoff=True)`, `lj_energy`, `virial`, `stress` and
+    `query_neighbors_batch`, each timed on the host clock, then held to the
+    exact-f64 oracle: the pair set and the coordination numbers exactly,
+    the energy to TOL_REL, 16 of 4096 point queries as candidate sets. The
+    launch counts are zeroed just before and read just after."""
+    from zelll_tpu_torch import CellGrid, oracle
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    box = lj_box(n, CUTOFF)
+    pts = generate_points_random(n, box)
+    moved = pts + np.random.default_rng(2).uniform(-1e-3, 1e-3, pts.shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms = {}
+    ms["build"], cg = host_ms(lambda: CellGrid(pts, CUTOFF, device=dev))
+    table = cg.grid_data.bins.cell_keys
+    ms["rebuild_same"], _ = host_ms(lambda: cg.rebuild(pts))
+    fast = cg.grid_data.bins.cell_keys is table
+    ms["rebuild_moved"], _ = host_ms(lambda: cg.rebuild(moved))
+    slow = cg.grid_data.bins.cell_keys is not table
+    ms["coordination_numbers"], coord = host_ms(cg.coordination_numbers)
+    ms["pairs_within_cutoff"], (pi, pj) = host_ms(lambda: cg.pairs(within_cutoff=True))
+    ms["lj_energy"], energy = host_ms(cg.lj_energy)
+    ms["virial"], virial = host_ms(cg.virial)
+    ms["stress"], stress = host_ms(cg.stress)
+    rng = np.random.default_rng(3)
+    lo, hi = moved.min(0), moved.max(0)
+    queries = rng.uniform(lo - CUTOFF, hi + CUTOFF, (4096, 3))
+    ms["query_neighbors_batch_4096"], (qids, qok) = host_ms(
+        lambda: cg.query_neighbors_batch(queries))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(fast, "rebuild with unchanged positions did not keep the cell table")
+    check(slow, "rebuild with moved positions kept the old cell table")
+    check(launches["lag_per_particle"] > 0, "the API path never launched K2")
+
+    oi, oj = oracle.pairs(moved, CUTOFF)
+    same_pairs = np.array_equal(pair_codes(pi, pj, n), pair_codes(oi, oj, n))
+    check(same_pairs, f"pairs(within_cutoff=True): {len(pi)} pairs, the oracle {len(oi)}")
+    want_coord = np.bincount(np.concatenate([oi, oj]), minlength=n)
+    check(np.array_equal(coord, want_coord), "coordination_numbers differ from the "
+          f"oracle's pairs at {int((coord != want_coord).sum())} particles")
+    e_ref, n_ref = oracle.lj_energy(moved, CUTOFF)
+    energy_err = rel(energy, e_ref)
+    check(n_ref == len(oi) and energy_err <= TOL_REL,
+          f"CellGrid lj_energy {energy} vs oracle {e_ref}")
+    trace_err = rel(float(np.trace(stress)), virial)
+    check(np.isfinite(virial) and trace_err <= 1e-9,
+          f"trace(stress) {np.trace(stress)} vs virial {virial}")
+    picked = rng.choice(4096, 16, replace=False)
+    for q in picked:
+        want = oracle.query_neighbors(moved, CUTOFF, queries[q])
+        check((want is None) == (not qok[q]), f"query {q}: valid {qok[q]}, oracle {want}")
+        if want is not None:
+            check(np.array_equal(np.sort(qids[q]), np.sort(want)),
+                  f"query {q}: {len(qids[q])} candidates, the oracle {len(want)}")
+    # where one chunk loop's time goes (lj_energy: ~n / 10 / 256 chunks)
+    prof = profile_steps(lambda i: cg.lj_energy(), 1)
+    num_cells = int(cg.grid_data.bins.num_cells)
+    return dict(n=n, box=box, ms=ms, launches=launches, max_memory_allocated=peak,
+                lj_energy_profile=prof,
+                K=cg._K, occupied_cells=num_cells,
+                chunk_loop_iterations=-(-num_cells // cg._chunk()),
+                pairs=len(pi), oracle_pairs=n_ref, pair_set_equal=same_pairs,
+                coordination_equal=True, energy=energy,
+                energy_rel_err_vs_oracle=energy_err, virial=virial,
+                trace_stress_rel_err_vs_virial=trace_err,
+                queries_valid=int(np.sum(qok)), queries_checked=len(picked))
+
+
+def api_edges(dev) -> dict:
+    """The rest of the API on the card: `coordination_numbers` on a cube at
+    n = 1e5 (a wide lag) against the oracle's pairs; `__iter__` and the
+    per-cell surface at n = 2e3 against brute force; `md_step` with dim = 2
+    and `auto_lj_energy` with dim = 4 at n ~ 1e4 against the port's own CPU
+    run of the same inputs, to 1e-12."""
+    from zelll_tpu_torch import CellGrid, MDState, auto_lj_energy, md_step, oracle
+
+    out = {}
+    n = 100_000
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.random.default_rng(4).uniform(0, side, (n, 3))
+    cg = CellGrid(cube, CUTOFF, device=dev)
+    ms, coord = host_ms(cg.coordination_numbers)
+    oi, oj = oracle.pairs(cube, CUTOFF)
+    check(np.array_equal(coord, np.bincount(np.concatenate([oi, oj]), minlength=n)),
+          "cube coordination_numbers differ from the oracle's pairs")
+    from zelll_tpu_torch.ops.lag_pairs import suggest_lag
+
+    g = cg.grid_data
+    out["cube_coordination"] = dict(n=n, side=side, ms=ms, pairs=len(oi),
+                                    L=suggest_lag(g.bins.sorted_keys, g.info.strides))
+
+    n = 2000
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0, 1, (n, 3)) * [30.0, 30.0, 60.0]
+    cg = CellGrid(pts, CUTOFF, device=dev)
+    d = pts[:, None] - pts[None]
+    dsq = (d * d).sum(-1)
+    iu, ju = np.nonzero(np.triu(dsq < CUTOFF**2, 1))
+    within = set(zip(iu.tolist(), ju.tolist()))
+    items = list(cg)
+    ids = np.array([[a, b] for (a, _), (b, _) in items], np.int64)
+    coords = np.array([[p, q] for (_, p), (_, q) in items])
+    cand = list(zip(ids.min(1).tolist(), ids.max(1).tolist()))
+    check(len(set(cand)) == len(cand) and within <= set(cand),
+          "__iter__ repeats a pair or misses a cutoff pair")
+    check(np.array_equal(coords, pts[ids]), "__iter__ yields wrong coordinates")
+    strides = cg.grid_data.info.strides.cpu().numpy().astype(np.int64)
+    keys = np.floor((pts - pts.min(0)) / CUTOFF).astype(np.int64) @ strides
+    members, per_cell = {}, []
+    for cell in cg.cells():
+        for i, _ in cell:
+            members[i] = cell.index
+        per_cell += [(min(a, b), max(a, b)) for (a, _), (b, _) in cell.particle_pairs()]
+    check(sorted(members) == list(range(n))
+          and all(keys[i] == k for i, k in members.items()),
+          "cells() does not partition the particles by key")
+    check(sorted(per_cell) == sorted(cand), "per-cell pairs differ from __iter__")
+    for i in (0, 7, 1999):
+        got = sorted(k for k, _ in cg.neighbors(pts[i]))
+        check(got == np.nonzero(dsq[i] <= CUTOFF**2)[0].tolist(),
+              f"neighbors({i}) differs from brute force")
+    out["iteration_and_cells"] = dict(n=n, candidates=len(cand), cutoff_pairs=len(within),
+                                      cells=len(set(members.values())))
+
+    side = 100
+    g2 = np.stack(np.meshgrid(np.arange(side), np.arange(side), indexing="ij"), -1)
+    pts2 = g2.reshape(-1, 2) * 1.1 + rng.uniform(-0.05, 0.05, (side * side, 2))
+    vel2 = rng.normal(0, 0.2, pts2.shape)
+    runs = []
+    for where in (dev, "cpu"):
+        st, ok = md_step(MDState.create(pts2, vel2, device=where), 1.6, 1e-3, K=8)
+        runs.append((st.positions.cpu().numpy(), st.velocities.cpu().numpy(), bool(ok)))
+    (pg, vg, okg), (pc, vc, okc) = runs
+    md_err = max(float(np.abs(pg - pc).max() / np.abs(pc).max()),
+                 float(np.abs(vg - vc).max() / np.abs(vc).max()))
+    check(okg and okc and md_err <= 1e-12, f"md_step dim = 2: card vs CPU {md_err}")
+    out["md_step_dim2"] = dict(n=len(pts2), rel_err_card_vs_cpu=md_err)
+    pts4 = np.random.default_rng(6).uniform(0, 1, (10_000, 4)) * [40.0, 40.0, 40.0, 4.0]
+    e_g, path_g = auto_lj_energy(pts4, 1.0, max_thin_lag=0, device=dev)
+    e_c, path_c = auto_lj_energy(pts4, 1.0, max_thin_lag=0, device="cpu")
+    e_err = rel(e_g, e_c)
+    check(path_g == path_c and path_g.startswith("xla(K=") and e_err <= 1e-12,
+          f"auto_lj_energy dim = 4: {e_g} ({path_g}) vs CPU {e_c} ({path_c})")
+    out["auto_lj_energy_dim4"] = dict(n=len(pts4), path=path_g, energy=e_g,
+                                      rel_err_card_vs_cpu=e_err)
+    return out
+
+
+def per_particle_alone(dev, n: int) -> dict:
+    """K2 alone on the thin box's sorted inputs (n = 1e7, the main path's
+    keys), f32 and f64 coordinates, `count_term` (the API's term): its ms,
+    one plain call's ms, the work of the function and its bound, and the
+    kernel against the plain version. The bound counts each unique pair
+    once: the half-stencil candidates and, per cutoff pair, the term and
+    the two adds; FP64 instructions count twice (half the FP32 rate)."""
+    from zelll_tpu_torch.ops.lag_pairs import pair_lag_per_particle, pair_lag_per_particle_plain
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    pts = generate_points_random(n, lj_box(n, CUTOFF))
+    shi, slo, keys, info, _ = sort_split(pts, dev)
+    del pts
+    strides = info.strides
+    csq = CUTOFF**2
+    candidates = stencil_candidates(keys, info)
+    out = dict(n=n, candidates=candidates, candidates_per_slot=candidates / n)
+    for tag, pos in (("f32", shi), ("f64", shi.double() + slo.double())):
+        ms = cuda_ms(lambda: pair_lag_per_particle(pos, keys, strides, csq, L=L_MAIN), 10)
+        plain_ms, want = once_ms(lambda: pair_lag_per_particle_plain(
+            pos, keys, strides, csq, L=L_MAIN))
+        got = pair_lag_per_particle(pos, keys, strides, csq, L=L_MAIN)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        check(err == 0.0, f"K2 {tag} counts at n = {n} off the plain version by {err}")
+        pairs = int(round(float(want.double().sum()))) // 2
+        size = 4 if tag == "f32" else 8
+        width = 1 if tag == "f32" else 2
+        b = bound(n * (4 * size + 4),
+                  width * candidates * INSTR_PER_CANDIDATE[False]
+                  + pairs * INSTR_PER_COUNT_PAIR)
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms,
+                        pairs=pairs, max_abs_err=err)
+    return out
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -702,7 +995,8 @@ def main() -> None:
     t0 = time.perf_counter()
     loaders = {"lag_reduce": lag_pairs.load_kernel, "tile_reduce": tile_pairs.load_kernel,
                "lag_forces": lag_pairs.load_forces_kernel,
-               "tile_forces": tile_pairs.load_forces_kernel}
+               "tile_forces": tile_pairs.load_forces_kernel,
+               "lag_per_particle": lag_pairs.load_per_particle_kernel}
     with ThreadPoolExecutor(len(loaders) + 1) as pool:
         builds = [pool.submit(load) for load in loaders.values()]
         have_oracle = pool.submit(oracle.available)
@@ -1082,9 +1376,23 @@ def main() -> None:
     # -- 13. f64-grade forces against the exact-f64 oracle, n = 1e6 ----------------
     emit("forces_parity", **forces_parity(dev, N_PARITY))
 
-    # -- 14. every ported kernel ---------------------------------------------------
+    # -- 14. K2 against its plain version, n = 2e5 ----------------------------------
+    k2_check = per_particle_vs_plain(dev, N_CHECK)
+    emit("per_particle_vs_plain", **k2_check)
+
+    # -- 15. the reference-parity API on the card: CellGrid at n = 1e6 --------------
+    api = api_main_path(dev, N_PARITY)
+    emit("api_main_path", **api)
+    emit("api_edges", **api_edges(dev))
+
+    # -- 16. K2 alone at n = 1e7 ----------------------------------------------------
+    k2 = per_particle_alone(dev, N_MAIN)
+    emit("per_particle_alone", **k2)
+
+    # -- 17. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     f32_k3 = k3["f32"]
+    f64_k2 = k2["f64"]
     print(json.dumps({"kernels": [{
         "name": "lag_reduce",
         "route": "cuda",
@@ -1135,9 +1443,21 @@ def main() -> None:
         "bound_ms": k7["bound_ms"],
         "bound_by": k7["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "lag_per_particle",
+        "route": "cuda",
+        "source": "zelll_tpu_torch/csrc/lag_per_particle.cu",
+        "replaces": "zelll_tpu/ops/pallas_pairs.py:401",
+        "launches": api["launches"]["lag_per_particle"],
+        "max_abs_err": k2_check["lattice_f64_lj_max_abs_err"],
+        "ms": f64_k2["ms"],
+        "plain_ms": f64_k2["plain_ms"],
+        "bound_ms": f64_k2["bound_ms"],
+        "bound_by": f64_k2["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
 
-    # -- 15. the card, then the contract line -----------------------------------
+    # -- 18. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

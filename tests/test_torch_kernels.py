@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K3, K6, K7) against their plain PyTorch
+"""The port's CUDA kernels (K1, K2, K3, K6, K7) against their plain PyTorch
 versions on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -31,6 +31,8 @@ from zelll_tpu_torch.ops.lag_pairs import (
     lj_term_fast,
     pair_lag_forces,
     pair_lag_forces_plain,
+    pair_lag_per_particle,
+    pair_lag_per_particle_plain,
     pair_lag_reduce,
     pair_lag_reduce_plain,
     split_f64,
@@ -383,3 +385,59 @@ def test_md_steps_never_sync_on_card(cuda_device):
     assert all(bool(f) for f in flags)
     assert pair_lag_forces.launches == k3 + 5
     assert tile_pair_forces.launches == k7 + 3
+
+
+@pytest.mark.gpu
+def test_per_particle_kernel_matches_plain_on_card(cuda_device):
+    """K2 against its plain version on the same sorted CUDA tensors (the
+    benchmark's thin box and a jittered lattice, n = 5e4), f32 and f64:
+    counts exact, f64 LJ sums to 1e-10 of the largest, f32 to 1e-6; an
+    undersized L drops the same pairs on both sides; sentinel rows inert.
+    Then `CellGrid.coordination_numbers` on the card, through K2, against
+    brute force."""
+    from zelll_tpu_torch import CellGrid
+
+    n = 50_000
+    csq = CUTOFF**2
+    cases = {
+        "uniform": _thin(generate_points_random(n, lj_box(n, CUTOFF)), cuda_device),
+        "lattice": _thin(generate_points_lattice(n, lj_box(n, CUTOFF)), cuda_device),
+    }
+    for name, (shi, slo, keys, strides) in cases.items():
+        pos64 = shi.double() + slo.double()
+        padded = keys.clone()
+        padded[-500:] = SENTINEL_KEY
+        for pos in (shi, pos64):
+            for k, L in ((keys, 256), (keys, 16), (padded, 256)):
+                for term in (count_term, lj_term):
+                    before = pair_lag_per_particle.launches
+                    got = pair_lag_per_particle(pos, k, strides, csq, L=L, term=term)
+                    assert pair_lag_per_particle.launches == before + 1
+                    want = pair_lag_per_particle_plain(pos, k, strides, csq, L=L,
+                                                       term=term)
+                    torch.cuda.synchronize()
+                    assert got.dtype == pos.dtype and got.shape == (n,)
+                    if term is count_term:
+                        assert torch.equal(got, want), (name, pos.dtype, L)
+                    else:
+                        rel = 1e-10 if pos.dtype == torch.float64 else 1e-6
+                        err = float((got.double() - want.double()).abs().max())
+                        assert err <= rel * float(want.double().abs().max()), err
+        full = pair_lag_per_particle(pos64, keys, strides, csq, L=256)
+        short = pair_lag_per_particle(pos64, keys, strides, csq, L=16)
+        assert float(short.sum()) < float(full.sum())
+    with pytest.raises(ValueError):
+        pair_lag_per_particle(shi, keys, strides, csq, term=lambda d: d)
+    with pytest.raises(ValueError):
+        pair_lag_per_particle(shi.half(), keys, strides, csq)
+    with pytest.raises(ValueError):
+        pair_lag_per_particle(shi[:, :2].contiguous(), keys, strides, csq)
+
+    pts = np.random.default_rng(3).uniform(0, 1, (3000, 3)) * [6.0, 6.0, 40.0]
+    cg = CellGrid(pts, cutoff=1.0, device=cuda_device)
+    before = pair_lag_per_particle.launches
+    got = cg.coordination_numbers()
+    assert pair_lag_per_particle.launches == before + 1
+    d = pts[:, None] - pts[None]
+    dsq = (d * d).sum(-1)
+    np.testing.assert_array_equal(got, ((dsq < 1.0) & (dsq > 0)).sum(1))

@@ -181,14 +181,24 @@ def test_md_step_cubic_tile_two_dimensions():
 
 
 def test_md_refuses_what_is_not_ported():
+    """`md_run_vv` is 3-D only, as in the JAX package. `md_step` with
+    dim != 3 (the bucketed pair_forces path, once refused here) matches
+    JAX's, and so does `md_run` over it, flags included."""
     pts, vel = lattice((5, 5), 1.1, 0.05, 9, 0.1)
     st = port_state(pts, vel)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        lj_md.md_step(st, 1.6, 1e-3)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        lj_md.md_run(st, 1.6, 1e-3, steps=1)
     with pytest.raises(ValueError, match="3D-only"):
         lj_md.md_run_vv(st, 1.6, 1e-3, steps=1)
+    pts, vel = lattice((14, 14), 1.1, 0.05, 12, 0.2)
+    st, ok = lj_md.md_step(port_state(pts, vel), 1.6, 1e-3, K=8)
+    jst, jok = jax_md.md_step(jax_state(pts, vel), 1.6, 1e-3, K=8, interpret=True)
+    assert bool(ok) and bool(jok)
+    assert_same_rows((st.positions, st.velocities), (jst.positions, jst.velocities))
+    _, ok = lj_md.md_step(port_state(pts, vel), 1.6, 1e-3, K=1)
+    assert not bool(ok)  # two particles share a cell: K = 1 is too small
+    st, ok, e = lj_md.md_run(port_state(pts, vel), 1.6, 1e-3, steps=2)
+    jst, jok, je = jax_md.md_run(jax_state(pts, vel), 1.6, 1e-3, steps=2, interpret=True)
+    assert bool(ok) == bool(jok)
+    np.testing.assert_allclose(float(e), float(je), rtol=1e-9)
 
 
 def test_states_and_their_devices():

@@ -13,10 +13,14 @@ import torch
 
 import zelll_tpu.oracle as jax_oracle
 from zelll_tpu.utils import datagen as jax_datagen
-from zelll_tpu_torch import auto_lj_energy, fused_lj_rebuild_energy, oracle
+from zelll_tpu_torch import CellGrid, auto_lj_energy, fused_lj_rebuild_energy, oracle
 from zelll_tpu_torch import tile_lj_rebuild_energy, tile_pair_forces, tile_pair_reduce
 from zelll_tpu_torch.models import MDState, MDStateSplit
-from zelll_tpu_torch.ops.lag_pairs import pair_lag_forces, pair_lag_reduce
+from zelll_tpu_torch.ops.lag_pairs import (
+    pair_lag_forces,
+    pair_lag_per_particle,
+    pair_lag_reduce,
+)
 from zelll_tpu_torch.utils import datagen
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,6 +48,16 @@ def test_datagen_numpy_stream_equals_native():
 def test_oracle_matches_reference_oracle():
     pts = np.random.default_rng(0).uniform(0, 1, (5000, 3)) * [20.0, 20.0, 60.0]
     assert oracle.lj_energy(pts, 1.5) == jax_oracle.lj_energy(pts, 1.5)
+    i, j = oracle.pairs(pts, 1.5, cap=10)  # past its first cap, it retries
+    ji, jj = jax_oracle.pairs(pts, 1.5)
+    np.testing.assert_array_equal(i, ji)
+    np.testing.assert_array_equal(j, jj)
+    assert len(i) == oracle.lj_energy(pts, 1.5)[1]
+    for q in (pts[0], [10.0, 10.0, 30.0], [99.0, 99.0, 999.0]):
+        got, want = oracle.query_neighbors(pts, 1.5, q), jax_oracle.query_neighbors(pts, 1.5, q)
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got, want)
 
 
 def test_oracle_forces_match_reference_oracle():
@@ -98,6 +112,9 @@ def test_import_without_jax_and_compute_on_cpu():
         "assert bool(ok) and float(e) < 0\n"
         "st, ok = z.md_step_cubic_tile(st, 1.6, 1e-4)\n"
         "assert bool(ok) and st.positions.shape == (216, 3)\n"
+        "cg = z.CellGrid(pts, 1.0, device='cpu')\n"
+        "assert len(cg.pairs(True)[0]) == cg.coordination_numbers().sum() // 2\n"
+        "assert np.isfinite(cg.lj_energy()) and cg.stress().shape == (3, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'zelll_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -146,8 +163,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
         MDState.create(pts)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MDStateSplit.from_f64(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CellGrid(pts)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pair_lag_per_particle(pts, np.zeros(100, np.int32), np.ones(3, np.int32), 1.0)
     # a CPU tensor selects the plain path
     e, _ = fused_lj_rebuild_energy(torch.as_tensor(pts), 1.0)
     assert e.device.type == "cpu"
     e, _ = tile_lj_rebuild_energy(torch.as_tensor(pts), 1.0)
     assert e.device.type == "cpu"
+    assert CellGrid(torch.as_tensor(pts), 1.0).grid_data.device.type == "cpu"

@@ -224,9 +224,13 @@ def test_auto_lj_energy_cubic_split_and_high_dim():
     e, path = auto_lj_energy(pts, 1.0, split=True, max_thin_lag=128, device="cpu")
     assert path.startswith("tile(MAXJ=(")
     np.testing.assert_allclose(e, _brute(pts, 1.0)[1], rtol=1e-6)
+    # a wide box in 4 dimensions takes the bucketed pair_sum path, as in JAX
     wide4 = np.random.default_rng(7).uniform(0, 1, (200, 4)) * 8.0
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        auto_lj_energy(wide4, 1.0, max_thin_lag=0, device="cpu")
+    e, path = auto_lj_energy(wide4, 1.0, max_thin_lag=0, device="cpu")
+    je, jpath = jax_auto(wide4, 1.0, max_thin_lag=0, interpret=True)
+    assert path == jpath and path.startswith("xla(K=")
+    np.testing.assert_allclose(e, je, rtol=1e-12)
+    np.testing.assert_allclose(e, _brute(wide4, 1.0)[1], rtol=1e-10)
 
 
 def test_plain_takes_payload_min_islot_and_any_term():

@@ -29,8 +29,18 @@ half the skin:
     state = MDState.create(pos_f32, vel_f32)           # on the card
     state, ok, energy, rebuilds = md_run_skin(state, 10.0, 1e-4, steps=50)
     state, ok = md_step_cubic_tile(cube_state, 10.0, 1e-4, MAXJ=maxj9)
+
+The reference-parity `CellGrid` (the Rust library's Python binding), on
+the card or, with ``device="cpu"``, on the plain path:
+
+    from zelll_tpu_torch import CellGrid
+    cg = CellGrid(points, cutoff=10.0)                 # f64, on the card
+    i, j = cg.pairs(within_cutoff=True)
+    coordination = cg.coordination_numbers()           # kernel K2
 """
 
+from .api import CellGrid, GridCell
+from .config import ZelllConfig
 from .core import (
     SENTINEL_KEY,
     Aabb,
@@ -41,6 +51,13 @@ from .core import (
     bin_and_sort,
     build,
     build_bins,
+    count_pairs,
+    generate_pointcloud,
+    materialize_pairs,
+    pair_forces,
+    pair_sum,
+    query_neighbors,
+    rebuild,
 )
 from .models import (
     MDState,
@@ -67,6 +84,7 @@ from .ops import (
     lj_force_factor_fast,
     lj_term_fast,
     pair_lag_forces,
+    pair_lag_per_particle,
     pair_lag_reduce,
     split_f64,
     suggest_lag,
@@ -78,6 +96,9 @@ from .ops import (
 )
 
 __all__ = [
+    "CellGrid",
+    "GridCell",
+    "ZelllConfig",
     "SENTINEL_KEY",
     "Aabb",
     "Bins",
@@ -87,6 +108,13 @@ __all__ = [
     "bin_and_sort",
     "build",
     "build_bins",
+    "count_pairs",
+    "generate_pointcloud",
+    "materialize_pairs",
+    "pair_forces",
+    "pair_sum",
+    "query_neighbors",
+    "rebuild",
     "MDState",
     "MDStateSplit",
     "md_run",
@@ -109,6 +137,7 @@ __all__ = [
     "lj_force_factor_fast",
     "lj_term_fast",
     "pair_lag_forces",
+    "pair_lag_per_particle",
     "pair_lag_reduce",
     "split_f64",
     "suggest_lag",

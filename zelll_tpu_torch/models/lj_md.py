@@ -14,9 +14,11 @@ State comes back in cell-key order with an unspecified order among equal
 keys (the sorts are unstable); compare states as sets of rows.
 
 Where the JAX package runs ``lax.scan`` and ``lax.cond`` on the device,
-these are Python loops. Each step enqueues its kernels without reading
-anything back, except the skin loops' drift test: one device-to-host read
-per step decides whether to rebuild.
+these are Python loops. Each 3-D step enqueues its kernels without
+reading anything back, except the skin loops' drift test: one
+device-to-host read per step decides whether to rebuild. `md_step` in
+other dimensions reads the number of occupied cells once per step (the
+bucketed ``core.pairs`` loop).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import torch
 from .._device import resolve_device
 from ..core.binning import bin_and_sort
 from ..core.geometry import GridInfo, aabb_from_positions
+from ..core.grid import CellGridData
+from ..core.pairs import pair_forces
 from ..ops.lag_pairs import (
     lag_coverage_ok,
     lj_term,
@@ -129,18 +133,24 @@ def md_step(state: MDState, cutoff, dt, *, M: int = 4096, L: int = 256,
     one-force-evaluation form): v += dt f(x); x += dt v.
 
     Returns (new_state, coverage_ok), the state in sorted order. 3-D runs
-    the lag forces kernel (K3); other dimensions take the JAX package's
-    bucketed ``core.pairs`` path (with ``K`` its cell capacity), which the
-    port does not have yet.
+    the lag forces kernel (K3); other dimensions take the bucketed
+    ``core.pairs.pair_forces`` path with ``K`` its cell capacity, and
+    coverage_ok says whether every cell fits in K. That path reads the
+    number of occupied cells back to the host once.
     """
     pos, vel = state.positions, state.velocities
     if pos.shape[1] != 3:
-        raise NotImplementedError(
-            "md_step with dim != 3 takes the bucketed core.pairs.pair_forces "
-            "path, which the port does not have yet (ROADMAP queue 1, "
-            "slice 4)"
-        )
-    del K
+        bins, spos = bin_and_sort(pos, cutoff, need_perm=True)
+        perm = bins.perm.long()
+        svel = vel[perm]
+        grid = CellGridData(bins=bins, sorted_pos=spos, sorted_ids=bins.perm)
+        # pair_forces returns input order; re-sort to the new sorted order
+        f = pair_forces(grid, lj_force_factor, K=K, chunk=64,
+                        cutoff_sq=_csq(cutoff, pos.dtype))[perm]
+        vel_new = svel + dt * f
+        pos_new = spos + dt * vel_new
+        return MDState(positions=pos_new, velocities=vel_new), \
+            bins.max_cell_count() <= K
     cols, keys, strides = _sort_rows(torch.cat([pos, vel], 1), cutoff)
     spos, svel = cols[:, :3], cols[:, 3:]
     f = pair_lag_forces(spos, keys, strides, _csq(cutoff, pos.dtype), M=M, L=L,

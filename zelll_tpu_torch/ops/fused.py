@@ -19,7 +19,8 @@ import torch
 from .._device import resolve_device
 from ..core.binning import bin_and_sort, compute_keys, sort_by_key
 from ..core.geometry import GridInfo, aabb_from_positions
-from ..core.grid import CellGridData
+from ..core.grid import CellGridData, build
+from ..core.pairs import pair_sum
 from .lag_pairs import (
     combine_count,
     count_term,
@@ -30,6 +31,7 @@ from .lag_pairs import (
     split_f64,
     suggest_lag,
 )
+from .lj import lj
 from .segments import CHUNK, segment_bands, suggest_maxj
 from .tile_pairs import tile_lj_rebuild_energy
 
@@ -127,11 +129,13 @@ def auto_lj_energy(positions, cutoff, *, max_thin_lag: int = 2048,
             raise RuntimeError(f"lag coverage failed at the suggested L={L}")
         return float(e), f"fused(L={L})"
     if positions.shape[1] > 3:
-        raise NotImplementedError(
-            "wide boxes with more than 3 dimensions take the bucketed "
-            "pair_sum path, which the port does not have yet (ROADMAP "
-            "queue 1, slice 4)"
-        )
+        # segment bands are defined for dim <= 3; higher-N wide boxes take
+        # the bucketed path (the reference is generic over N, lib.rs:132)
+        grid = build(positions, cutoff)
+        K = int(grid.bins.max_cell_count())
+        e = pair_sum(grid, lj, K=K, chunk=min(256, grid.bins.max_cells),
+                     cutoff_sq=cutoff * cutoff)
+        return float(e), f"xla(K={K})"
     # Wide or cubic box: the segment-tile step. Probe the window capacity
     # on the keys computed above; the flag and the growth loop still guard
     # density drift (never drop pairs silently).

@@ -1,9 +1,11 @@
-"""The lag-window pair reduction (kernel K1) and pair forces (kernel K3)
-over key-sorted particles.
+"""The lag-window pair reduction (kernel K1), pair forces (kernel K3) and
+per-particle sums (kernel K2) over key-sorted particles.
 
 PyTorch counterpart of ``zelll_tpu/ops/pallas_pairs.py`` for the reduction
 the main path runs (`pair_lag_reduce`), the forces of the thin-box MD loops
-(`pair_lag_forces`) and their host helpers.
+(`pair_lag_forces`), the per-particle sums behind
+`CellGrid.coordination_numbers` (`pair_lag_per_particle`) and their host
+helpers.
 
 After sorting by flat cell key, every cutoff partner j < i of particle i
 satisfies ``key_j >= key_i - W`` with ``W = sum(strides)``, so all of them
@@ -14,7 +16,9 @@ window and by ``dsq < cutoff^2``. The pair list never exists.
 `pair_lag_reduce` launches the hand-written CUDA kernel
 (``csrc/lag_reduce.cu``) for CUDA tensors and runs
 `pair_lag_reduce_plain` for CPU tensors; `pair_lag_forces` does the same
-with ``csrc/lag_forces.cu`` and `pair_lag_forces_plain`. There is no
+with ``csrc/lag_forces.cu`` and `pair_lag_forces_plain`, and
+`pair_lag_per_particle` with ``csrc/lag_per_particle.cu`` and
+`pair_lag_per_particle_plain`. There is no
 fallback between the two: a CUDA input a kernel cannot take raises.
 
 Split precision: with f32 coordinates in a large box ``x_i - x_j`` loses
@@ -42,6 +46,8 @@ __all__ = [
     "pair_lag_reduce_plain",
     "pair_lag_forces",
     "pair_lag_forces_plain",
+    "pair_lag_per_particle",
+    "pair_lag_per_particle_plain",
     "lag_coverage_ok",
     "suggest_lag",
     "split_f64",
@@ -52,6 +58,7 @@ __all__ = [
     "combine_count",
     "load_kernel",
     "load_forces_kernel",
+    "load_per_particle_kernel",
 ]
 
 # Padding-row keys start here: above every real key, below int32 overflow
@@ -62,6 +69,7 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SRC = _CSRC / "lag_reduce.cu"
 _FORCES_SRC = _CSRC / "lag_forces.cu"
+_PER_PARTICLE_SRC = _CSRC / "lag_per_particle.cu"
 
 
 def lj_term(dsq):
@@ -506,3 +514,125 @@ def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 # Kernel launches since the last reset; only a launch of K3 adds to it.
 pair_lag_forces.launches = 0
+
+
+def pair_lag_per_particle_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                                *, L: int = 256, term: Callable = count_term):
+    """Plain PyTorch version of K2, vectorised over slots, one lag at a time.
+
+    Same pair set and terms as the kernel: for each lag, the pairs
+    (i, i - lag) in the key window with ``0 < dsq < cutoff^2`` add
+    ``term(dsq)`` to both ends. Any ``term`` works here. The terms are
+    summed in f64 and the result is cast to the positions' dtype.
+    """
+    n, dim = sorted_pos.shape
+    device, dtype = sorted_pos.device, sorted_pos.dtype
+    keys = _pad_and_desentinel(sorted_keys, n)
+    w = key_window(strides).to(device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
+    out = torch.zeros((n,), dtype=torch.float64, device=device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break  # keys ascend: no later lag can be in window
+        d = sorted_pos[lag:, 0] - sorted_pos[:-lag, 0]
+        dsq = d * d
+        for a in range(1, dim):
+            d = sorted_pos[lag:, a] - sorted_pos[:-lag, a]
+            dsq = dsq + d * d
+        mask = keymask & (dsq < csq) & (dsq > 0)
+        vals = term(torch.where(mask, dsq, torch.ones_like(dsq)))
+        c = torch.where(mask, vals, torch.zeros_like(vals)).to(torch.float64)
+        out[lag:] += c
+        out[:-lag] += c
+    return out.to(dtype)
+
+
+def _bind_per_particle(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.zelll_lag_per_particle.argtypes = [
+        vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, vp, vp,
+    ]
+    lib.zelll_lag_per_particle.restype = ci
+
+
+# Build (at first use) and load the K2 library; its build log is
+# ``load_per_particle_kernel.log``.
+load_per_particle_kernel = kernel_loader(_PER_PARTICLE_SRC, "lag_per_particle",
+                                         _bind_per_particle)
+
+
+def _lag_per_particle_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, *, L,
+                           term):
+    """Launch K2 on the current stream. Returns (n,) sums in the positions'
+    dtype."""
+    device = sorted_pos.device
+    n, dim = sorted_pos.shape
+    dtype = sorted_pos.dtype
+    if term not in _KERNEL_TERMS:
+        raise ValueError(
+            "the CUDA kernel implements lj_term and count_term only; run "
+            "other terms through pair_lag_per_particle_plain or on CPU tensors"
+        )
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K2 takes float32 or float64 coordinates, not {dtype}")
+    if n >= 2**31:
+        raise ValueError(f"K2 takes n < 2^31; got {n}")
+    # the kernel reads (3, n) planes: rows of any layout are copied once
+    planes = sorted_pos.t().contiguous()
+    _check_cuda("sorted_pos.t()", planes, dtype, (dim, n), device, "K2")
+    _check_cuda("sorted_keys", sorted_keys, torch.int32, (n,), device, "K2")
+    out = torch.empty((n,), dtype=dtype, device=device)
+    if n == 0:
+        return out
+    lib = load_per_particle_kernel()
+    w_key = key_window(strides).reshape(1)
+    # cutoff^2 rounded to the coordinates' dtype, as the plain version does
+    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
+    err = lib.zelll_lag_per_particle(
+        planes.data_ptr(), sorted_keys.data_ptr(), w_key.data_ptr(), n, L,
+        _pad_spacing(n), csq, _KERNEL_TERMS[term], int(dtype == torch.float64),
+        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+    pair_lag_per_particle.launches += 1
+    return out
+
+
+def pair_lag_per_particle(sorted_pos, sorted_keys, strides, cutoff_sq, *,
+                          M: int = 1024, L: int = 256,
+                          term: Callable = count_term, device=None):
+    """Per-particle sums over cutoff partners, in sorted-slot order (3-D):
+    ``out_i = sum term(dsq)`` over the partners j = i -/+ lag, lag = 1..L,
+    of the unique pairs in the key window ``key_j >= key_i - W`` (j the
+    smaller slot) with ``0 < dsq < cutoff_sq``. Both ends of a pair
+    receive its term; coincident particles are excluded. The default term
+    gives coordination numbers; `lj_term` halved gives per-particle
+    energies. The lag set is exactly 1..L, so the output is defined where
+    `lag_coverage_ok` is False. ``M`` (the TPU kernel's block rows) is
+    accepted and has no effect. Returns (n,) in the positions' dtype.
+
+    CUDA tensors run kernel K2, which takes f32 or f64 coordinates and the
+    terms `lj_term` and `count_term`, and raises on anything else. CPU
+    tensors run `pair_lag_per_particle_plain`.
+    """
+    del M
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    if sorted_pos.ndim != 2 or sorted_pos.shape[1] != 3:
+        raise ValueError("pair_lag_per_particle is 3-D only; got positions of "
+                         f"shape {tuple(sorted_pos.shape)}")
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    strides = torch.as_tensor(strides, dtype=torch.int32, device=device)
+    if device.type == "cuda":
+        return _lag_per_particle_cuda(sorted_pos, sorted_keys, strides,
+                                      cutoff_sq, L=L, term=term)
+    return pair_lag_per_particle_plain(sorted_pos, sorted_keys, strides,
+                                       cutoff_sq, L=L, term=term)
+
+
+# Kernel launches since the last reset; only a launch of K2 adds to it.
+pair_lag_per_particle.launches = 0

@@ -8,15 +8,19 @@ epsilon = sigma = 1, as LAMMPS ``pair_style lj/cut``):
 `lj_force_factor` is the scalar g with force on i from j equal to
 ``g * (p_i - p_j)``; the forces kernels (K3 in ``ops.lag_pairs``, K7 in
 ``ops.tile_pairs``) evaluate it per pair in the same operation order.
-``lj_energy``/``lj_forces`` over a grid need the bucketed ``core.pairs``
-path, which the port does not have yet.
+`lj_energy`/`lj_forces` sum over a grid through the bucketed
+``core.pairs`` path.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["lj", "lj_force_factor", "lj_force_factor_fast"]
+from ..core.grid import CellGridData
+from ..core.pairs import pair_forces, pair_sum
+
+__all__ = ["lj", "lj_force_factor", "lj_force_factor_fast", "lj_energy",
+           "lj_forces"]
 
 
 def lj(dsq):
@@ -43,3 +47,21 @@ def lj_force_factor_fast(dsq):
     inv = r * r
     t = inv * inv * inv
     return 24.0 * t * (2.0 * t - 1.0) * inv
+
+
+def lj_energy(grid: CellGridData, *, K: int, cutoff=None, chunk: int = 256,
+              accum_dtype=None):
+    """Total LJ potential energy over cutoff-filtered unique pairs.
+
+    The distance filter is strict `<`, like the reference benchmark
+    (benches/lj.rs:83-90).
+    """
+    c = grid.info.cutoff if cutoff is None else cutoff
+    return pair_sum(grid, lj, K=K, chunk=chunk, cutoff_sq=c * c,
+                    accum_dtype=accum_dtype)
+
+
+def lj_forces(grid: CellGridData, *, K: int, cutoff=None, chunk: int = 256):
+    """Per-particle LJ forces (input particle order)."""
+    c = grid.info.cutoff if cutoff is None else cutoff
+    return pair_forces(grid, lj_force_factor, K=K, chunk=chunk, cutoff_sq=c * c)

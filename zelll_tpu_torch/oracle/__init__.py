@@ -17,7 +17,8 @@ import numpy as np
 
 from ..ops._build import GXX_FLAGS, build_shared
 
-__all__ = ["available", "lj_energy", "forces", "chacha12_u64"]
+__all__ = ["available", "lj_energy", "pairs", "query_neighbors", "forces",
+           "chacha12_u64"]
 
 _SRC = Path(__file__).parent / "cell_lists.cpp"
 
@@ -32,6 +33,11 @@ def _load():
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.zelll_oracle_lj.argtypes = [f64p, i64, ctypes.c_double, f64p, i64p]
     lib.zelll_oracle_lj.restype = None
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.zelll_oracle_pairs.argtypes = [f64p, i64, ctypes.c_double, i32p, i32p, i64]
+    lib.zelll_oracle_pairs.restype = i64
+    lib.zelll_oracle_query.argtypes = [f64p, i64, ctypes.c_double, f64p, i32p, i64]
+    lib.zelll_oracle_query.restype = i64
     lib.zelll_oracle_forces.argtypes = [f64p, i64, ctypes.c_double, f64p]
     lib.zelll_oracle_forces.restype = None
     u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -68,6 +74,44 @@ def lj_energy(positions, cutoff: float) -> tuple[float, int]:
     p = ctypes.c_int64()
     lib.zelll_oracle_lj(ptr, pos.shape[0], cutoff, ctypes.byref(e), ctypes.byref(p))
     return e.value, p.value
+
+
+def pairs(positions, cutoff: float, cap: int | None = None):
+    """Cutoff-filtered unique pairs as (i, j) int32 arrays."""
+    lib = _load()
+    pos, ptr = _pos_ptr(positions)
+    n = pos.shape[0]
+    cap = cap or max(64, n * 40)
+    i = np.empty(cap, np.int32)
+    j = np.empty(cap, np.int32)
+    total = lib.zelll_oracle_pairs(
+        ptr, n, cutoff,
+        i.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        j.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
+    )
+    if total > cap:
+        return pairs(positions, cutoff, cap=int(total))
+    return i[:total], j[:total]
+
+
+def query_neighbors(positions, cutoff: float, q):
+    """Full-space candidate neighbours of q (own cell and the 26 around
+    it, no distance filter), or None if q is too far outside the grid."""
+    lib = _load()
+    pos, ptr = _pos_ptr(positions)
+    qa = np.ascontiguousarray(q, np.float64)
+    if qa.shape != (3,):
+        raise ValueError(f"the oracle takes one (3,) query point, got {qa.shape}")
+    cap = pos.shape[0]
+    out = np.empty(cap, np.int32)
+    total = lib.zelll_oracle_query(
+        ptr, pos.shape[0], cutoff,
+        qa.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
+    )
+    if total < 0:
+        return None
+    return out[:total]
 
 
 def forces(positions, cutoff: float) -> np.ndarray:
