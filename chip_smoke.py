@@ -24,7 +24,14 @@ per-particle kernel K2 against its plain version (n = 2e5, f32 and f64),
 `stress`, point queries), each held to the exact-f64 oracle, its edges
 (a cube at a wide lag, iteration and the per-cell surface, `md_step` in
 2-D and `auto_lj_energy` in 4-D against the port's own CPU run), and K2
-alone at n = 1e7. It prints one JSON line per phase. Any failed phase
+alone at n = 1e7. Then the queries and the psssh workload: the query join
+K12 against its plain version (n = 2e5, count, nearest and sdf, f32 and
+f64), the psssh ``eval`` protocol (a 64^3 query grid, cutoffs 1-10, on a
+2000-atom and a 200,000-atom synthetic protein) held to a numpy SDF over
+the oracle's candidates, both batched samplers at the psssh benchmark's
+defaults, `CellGrid`'s batch counts and nearest distances at n = 1e6
+against the oracle, and K12 alone at the eval size. It prints one JSON
+line per phase. Any failed phase
 exits non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as nvidia-smi reports them.
@@ -99,6 +106,23 @@ INSTR_PER_FORCE_PAIR_FAST = 1 + 1 + 2 + 1 + 1 + 2 + 3 + 6
 # counted as 2 (FP64 runs at half the FP32 rate). Its candidates cost what
 # K1's f32 ones do, twice that in f64.
 INSTR_PER_COUNT_PAIR = 2 * 2
+# K12 per query-particle candidate in a query's band ranges: the same 7
+# as a half-stencil candidate above. Per particle inside the cutoff: count
+# 1 add, nearest 1 min; sdf the d > 0 test, rsqrt, d = dsq rs, -d/r, two
+# exps (a multiply and ex2 each), c1 (2), c3, c2, the 3 value sums and the 9
+# gradient FMAs. FP64 instructions count twice (half the FP32 rate).
+INSTR_PER_JOIN_PAIR = {"count": 1, "nearest": 1,
+                       "sdf": 1 + 1 + 1 + 1 + 4 + 2 + 1 + 1 + 3 + 9}
+# The psssh protocols (the JAX package's benchmarks/sdf_queries.py and
+# psssh_sample.py): a 64^3 query grid over the structure's box, cutoffs
+# 1, 2, 5 and 10; 1024 chains, 200 burn-in draws, 50 draws at cutoff 4.
+EVAL_L = 64
+EVAL_CUTOFFS = (1.0, 2.0, 5.0, 10.0)
+N_PROTEIN = 2000
+N_PROTEIN_LARGE = 200_000
+N_JOIN_QUERIES = 4096
+SAMPLE_CHAINS, SAMPLE_BURNIN, SAMPLE_DRAWS, SAMPLE_CUTOFF = 1024, 200, 50, 4.0
+TOL_SDF_F32 = 1e-4  # f32 SDF sums of ~1e3 terms in another order, 2-ulp exp
 TOL_REL = 1e-6  # against the exact-f64 oracle
 TOL_KERNEL = 1e-10  # a kernel against its plain version, f64 totals
 TOL_FAST = 6 * 4 * 2.0**-23  # the same with lj_term_fast (see above)
@@ -167,13 +191,14 @@ def profile_steps(step, steps: int = 3) -> dict:
             step(i)
         end.record()
         end.synchronize()
+    device = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     by_kernel = sorted(((e.self_device_time_total / (steps * 1e3), e.key[:90])
-                        for e in prof.key_averages() if e.self_device_time_total > 0),
-                       reverse=True)
+                        for e in device), reverse=True)
     busy_ms = sum(ms for ms, _ in by_kernel)
     wall_ms = start.elapsed_time(end) / steps
     return dict(step_ms=wall_ms,
                 device_busy_share=busy_ms / wall_ms if busy_ms else "not measured",
+                device_ops_per_step=sum(e.count for e in device) / steps,
                 ms_per_step_by_kernel=[[round(ms, 4), k] for ms, k in by_kernel[:12]])
 
 
@@ -383,17 +408,21 @@ def forces_vs_plain(dev, n: int) -> dict:
 
 
 def reset_launches() -> None:
+    """Zero every kernel's launch count, and the join's fallback count."""
+    from zelll_tpu_torch.ops.join import join_reduce
     from zelll_tpu_torch.ops.lag_pairs import (
         pair_lag_forces, pair_lag_per_particle, pair_lag_reduce,
     )
     from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
 
     for fn in (pair_lag_reduce, pair_lag_forces, pair_lag_per_particle, tile_pair_reduce,
-               tile_pair_forces):
+               tile_pair_forces, join_reduce):
         fn.launches = 0
+    join_reduce.fallbacks = 0
 
 
 def read_launches() -> dict:
+    from zelll_tpu_torch.ops.join import join_reduce
     from zelll_tpu_torch.ops.lag_pairs import (
         pair_lag_forces, pair_lag_per_particle, pair_lag_reduce,
     )
@@ -402,7 +431,8 @@ def read_launches() -> dict:
     return dict(lag_reduce=pair_lag_reduce.launches, lag_forces=pair_lag_forces.launches,
                 lag_per_particle=pair_lag_per_particle.launches,
                 tile_reduce=tile_pair_reduce.launches,
-                tile_forces=tile_pair_forces.launches)
+                tile_forces=tile_pair_forces.launches,
+                join_reduce=join_reduce.launches, join_fallbacks=join_reduce.fallbacks)
 
 
 def time_steps(step, state, steps: int):
@@ -951,6 +981,361 @@ def per_particle_alone(dev, n: int) -> dict:
 
 
 
+# -- slice 8: the query join (K12) and the psssh workload ----------------------
+
+
+def protein(n: int, seed: int = 0):
+    """The benchmarks' synthetic globular structure at their density: 2000
+    atoms in a 15 A ball, the radius scaled as n^(1/3) for other sizes."""
+    from zelll_tpu_torch.utils.datagen import synthetic_protein
+
+    return synthetic_protein(n, 15.0 * (n / N_PROTEIN) ** (1 / 3), seed=seed)
+
+
+def join_inputs(pos, radii, queries, cutoff: float, dtype, dev, tail: int = 0):
+    """Sorted join inputs on the card, as `SmoothDistanceField` and
+    `query_join_reduce` prepare them: (query planes, query keys, particle
+    planes x, y, z, r, 1/r, particle keys, strides, cutoff^2), with
+    ``tail`` far rows of SENTINEL_KEY after the atoms, as `CellGrid` pads."""
+    from zelll_tpu_torch.core import build
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY
+    from zelll_tpu_torch.ops.join import sort_queries
+
+    g = build(torch.as_tensor(pos, device=dev), cutoff)
+    info = g.info
+    qplanes, qkeys, _, _ = sort_queries(torch.as_tensor(queries, device=dev), info.origin,
+                                        info.shape, info.strides, cutoff, dtype, dev)
+    sp = g.sorted_pos.to(dtype)
+    r = torch.as_tensor(radii, device=dev)[g.bins.perm.long()].to(dtype)
+    far = 1e12 + torch.arange(tail, device=dev, dtype=dtype) * 1e5
+    zeros, ones = torch.zeros_like(far), torch.ones_like(far)
+    pplanes = [torch.cat([sp[:, 0], far]), torch.cat([sp[:, 1], zeros]),
+               torch.cat([sp[:, 2], zeros]), torch.cat([r, ones]), torch.cat([1 / r, ones])]
+    pkeys = torch.cat([g.bins.sorted_keys,
+                       torch.full((tail,), SENTINEL_KEY, dtype=torch.int32, device=dev)])
+    return qplanes, qkeys, pplanes, pkeys, info.strides, torch.tensor(
+        cutoff, dtype=dtype, device=dev) ** 2
+
+
+def join_instances():
+    from zelll_tpu_torch.ops.join import _count_term, _nearest_term
+    from zelll_tpu_torch.ops.sdf_join import NACC, sdf_term
+
+    return {"count": (_count_term, "sum", 1, 0), "nearest": (_nearest_term, "min", 1, 0),
+            "sdf": (sdf_term, "sum", NACC, 2)}
+
+
+def join_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |got - want|, max |want|) over the finite entries of ``want``;
+    an infinite entry (a query with no particle in range, nearest) must be
+    matched exactly."""
+    finite = torch.isfinite(want)
+    same_inf = bool((got[~finite] == want[~finite]).all())
+    if not bool(finite.any()):
+        return (0.0 if same_inf else float("inf")), 0.0
+    diff = (got.double() - want.double())[finite].abs().max()
+    return (float(diff) if same_inf else float("inf"),
+            float(want.double()[finite].abs().max()))
+
+
+def join_vs_plain(dev, n: int) -> dict:
+    """K12 against its plain version on identical sorted inputs: a synthetic
+    protein and a jittered lattice of n atoms (coordinates on a 2^-10 grid,
+    so that a query at an atom + (cutoff, 0, 0) lies exactly at the cutoff),
+    cutoff 10, 4096 queries: uniform over the box and one cutoff around it,
+    100 at atoms (d == 0), 100 exactly at the cutoff, 196 at +-1e9, and a
+    tail of 1000 SENTINEL_KEY rows on the particle side. count, nearest and
+    sdf in f32 and f64: counts and minima exact, f64 SDF sums to TOL_KERNEL
+    of the largest, f32 to TOL_SDF_F32."""
+    from zelll_tpu_torch.ops.join import join_reduce, join_reduce_plain
+    from zelll_tpu_torch.utils.datagen import generate_points_lattice
+
+    rng = np.random.default_rng(12)
+    side = (n / 0.1) ** (1 / 3)
+    structures = {"protein": protein(n)[0],
+                  "lattice": generate_points_lattice(n, (side, side, side))}
+    cases, worst, lattice_err = {}, 0.0, 0.0
+    for name, pos in structures.items():
+        pos = np.round(pos * 1024) / 1024
+        radii = rng.uniform(1.0, 2.0, n)
+        at = rng.choice(n, 200, replace=False)
+        lo, hi = pos.min(0), pos.max(0)
+        queries = np.concatenate([
+            rng.uniform(lo - CUTOFF, hi + CUTOFF, (N_JOIN_QUERIES - 396, 3)),
+            pos[at[:100]], pos[at[100:]] + [CUTOFF, 0.0, 0.0],
+            np.array([[1e9, -1e9, 1e9], [-1e9, 1e9, -1e9]] * 98)])
+        for dtype in (torch.float32, torch.float64):
+            qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, queries, CUTOFF, dtype,
+                                                       dev, tail=1000)
+            for inst, (term, reducer, n_out, npl) in join_instances().items():
+                kw = dict(term=term, n_out=n_out, reducer=reducer)
+                got, ok = join_reduce(qp, qk, pp[:3 + npl], pk, strides, csq, **kw)
+                want, ok_p = join_reduce_plain(qp, qk, pp[:3 + npl], pk, strides, csq, **kw)
+                torch.cuda.synchronize()
+                tag = f"{name} {str(dtype)[6:]} {inst}"
+                check(bool(ok) and bool(ok_p), f"K12 key flags false ({tag})")
+                err, scale = join_err(got, want)
+                if inst == "sdf":
+                    tol = TOL_KERNEL if dtype == torch.float64 else TOL_SDF_F32
+                    check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+                          f"K12 {tag}: max |err| {err} of {scale}")
+                    if dtype == torch.float64:
+                        worst = max(worst, err / scale)
+                        if name == "lattice":
+                            lattice_err = err
+                else:
+                    check(torch.equal(got, want), f"K12 {tag} differs from its plain version")
+                first = got[:, 0].double()
+                cases[tag] = dict(max_abs_err=err, max_abs=scale,
+                                  first_output_total=float(first[torch.isfinite(first)].sum()))
+    return dict(n=n, cutoff=CUTOFF, queries=N_JOIN_QUERIES, cases=cases,
+                sdf_f64_max_err_over_max=worst, lattice_f64_sdf_max_abs_err=lattice_err)
+
+
+def sdf_reference(pos, radii, cutoff: float, query, ids):
+    """The field's value and gradient at one query from its oracle candidates,
+    in numpy f64 straight from the math (numdual.rs:11-61); (nan, nan) where
+    no atom is within the cutoff."""
+    d_vec = query[None, :] - pos[ids]
+    dsq = d_vec[:, 0] * d_vec[:, 0] + d_vec[:, 1] * d_vec[:, 1] + d_vec[:, 2] * d_vec[:, 2]
+    within = dsq <= cutoff * cutoff
+    live = within & (dsq > 0)
+    r = radii[ids]
+    d = np.sqrt(np.where(live, dsq, 1.0))
+    e1 = np.where(live, np.exp(-d / r), 0.0)
+    e3 = np.where(live, np.exp(-d), 0.0)
+    z = (within & (dsq == 0)).astype(float)
+    u = d_vec / d[:, None]
+    s1, s2, s3 = (e1 + z).sum(), ((e3 + z) * r).sum(), (e3 + z).sum()
+    if s1 == 0:
+        return np.nan, np.full(3, np.nan)
+    a1 = ((e1 / r)[:, None] * u).sum(0)
+    a2 = ((e3 * r)[:, None] * u).sum(0)
+    a3 = (e3[:, None] * u).sum(0)
+    sigma, ln1 = s2 / s3, np.log(s1)
+    return -sigma * ln1, ln1 * (a2 * s3 - s2 * a3) / (s3 * s3) + sigma * a1 / s1
+
+
+def sdf_eval_main_path(dev) -> dict:
+    """The psssh ``eval`` protocol (`psssh.eval_grid`, the reference's
+    cli.rs:150-195) on the card in f64: a 64^3 query grid over the
+    structure's box, cutoffs 1, 2, 5 and 10, on the 2000-atom synthetic
+    protein and on 200,000 atoms at its density (~70 A). us/query by the host
+    clock (what eval_grid returns) and by CUDA events, K12's share of the
+    evaluate call, peak memory; then 4096 sampled queries held to a numpy f64
+    SDF over `oracle.query_neighbors_batch` candidates (value and gradient
+    to TOL_KERNEL of the largest, valid equal to the oracle's None). The
+    launch and fallback counts are zeroed just before each cutoff's two
+    eval_grid runs (warm-up and timed) and read just after, before any
+    timing or checking call: two K12 launches per cutoff, no fallback."""
+    from zelll_tpu_torch import SmoothDistanceField, oracle
+    from zelll_tpu_torch.models.psssh import eval_grid
+    from zelll_tpu_torch.ops.join import join_reduce, sort_queries
+    from zelll_tpu_torch.ops.sdf_join import NACC, sdf_term
+
+    out = {}
+    rng = np.random.default_rng(13)
+    for n in (N_PROTEIN, N_PROTEIN_LARGE):
+        pos, radii = protein(n)
+        runs = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches = {}
+        for cutoff in EVAL_CUTOFFS:
+            sdf = SmoothDistanceField(pos, radii, cutoff=cutoff, device=dev)
+            torch.cuda.synchronize()
+            reset_launches()
+            eval_grid(sdf, EVAL_L)  # warm-up: the first launch loads the kernel
+            grid, vals, grads, dt = eval_grid(sdf, EVAL_L)
+            main = read_launches()
+            check(main["join_reduce"] == 2 and main["join_fallbacks"] == 0,
+                  f"the eval path (n = {n}, cutoff {cutoff}) ran {main}, not two K12 "
+                  "launches and no fallback")
+            for k, v in main.items():
+                launches[k] = launches.get(k, 0) + v
+            q = EVAL_L**3
+            ev_ms = cuda_ms(lambda: sdf.evaluate(grid), 3)
+            jd = sdf._join
+            qp, qk, _, _ = sort_queries(torch.as_tensor(grid, device=dev), jd.origin,
+                                        jd.shape, jd.strides, cutoff, torch.float64, dev)
+            k12_ms = cuda_ms(lambda: join_reduce(qp, qk, list(jd.pplanes), jd.pkeys,
+                                                 jd.strides, jd.cutoff**2, term=sdf_term,
+                                                 n_out=NACC), 5)
+            picked = rng.choice(q, N_JOIN_QUERIES, replace=False)
+            cands = oracle.query_neighbors_batch(pos, cutoff, grid[picked])
+            ref_v = np.full(len(picked), np.nan)
+            ref_g = np.full((len(picked), 3), np.nan)
+            for k, (qi, ids) in enumerate(zip(picked, cands)):
+                if ids is not None:
+                    ref_v[k], ref_g[k] = sdf_reference(pos, radii, cutoff, grid[qi], ids)
+            _, _, valid = sdf.evaluate(grid[picked])
+            want_valid = np.array([ids is not None for ids in cands])
+            check(np.array_equal(valid, want_valid),
+                  f"valid differs from the oracle at {int((valid != want_valid).sum())} queries")
+            v, g = vals[picked], grads[picked]
+            defined = np.isfinite(ref_v)
+            check(np.array_equal(np.isfinite(v), defined),
+                  f"n = {n}, cutoff {cutoff}: the field is defined at other queries")
+            v_err = float(np.abs(v[defined] - ref_v[defined]).max() / np.abs(ref_v[defined]).max()
+                          ) if defined.any() else 0.0
+            g_err = float(np.abs(g[defined] - ref_g[defined]).max() / np.abs(ref_g[defined]).max()
+                          ) if defined.any() else 0.0
+            check(v_err <= TOL_KERNEL and g_err <= TOL_KERNEL,
+                  f"n = {n}, cutoff {cutoff}: value err {v_err}, gradient err {g_err}")
+            runs[str(cutoff)] = dict(
+                us_per_query_host=dt / q * 1e6, ns_total_host=dt * 1e9,
+                us_per_query_events=ev_ms / q * 1e3, evaluate_ms_events=ev_ms,
+                k12_ms=k12_ms, k12_share_of_evaluate=k12_ms / ev_ms,
+                defined=int(np.isfinite(vals).sum()), checked=len(picked),
+                checked_defined=int(defined.sum()), value_err_over_max=v_err,
+                gradient_err_over_max=g_err)
+        out[f"n{n}"] = dict(n=n, radius=15.0 * (n / N_PROTEIN) ** (1 / 3), queries=EVAL_L**3,
+                            cutoffs=runs, launches=launches,
+                            max_memory_allocated=torch.cuda.max_memory_allocated())
+    return out
+
+
+def psssh_sample_main_path(dev) -> dict:
+    """`sample_surface` on the 2000-atom protein with the defaults of the JAX
+    package's benchmarks/psssh_sample.py (1024 chains, 200 burn-in, 50 draws,
+    cutoff 4) for the HMC and lockstep NUTS samplers: draws/s on the host
+    clock, K12 launches (zeroed just before each run, read just after), and
+    the sample quality of tests/test_psssh.py: >= 95 % valid, median
+    |sdf - 1.05| < 0.5."""
+    from zelll_tpu_torch import SmoothDistanceField
+    from zelll_tpu_torch.models.psssh import sample_surface
+
+    pos, radii = protein(N_PROTEIN)
+    sdf = SmoothDistanceField(pos, radii, cutoff=SAMPLE_CUTOFF, device=dev)
+    out = {}
+    for sampler in ("hmc", "nuts-batched"):
+        torch.cuda.synchronize()
+        reset_launches()
+        ms, pts = host_ms(lambda: sample_surface(
+            sdf, chains=SAMPLE_CHAINS, burnin=SAMPLE_BURNIN, draws=SAMPLE_DRAWS, seed=0,
+            sampler=sampler))
+        launches = read_launches()
+        vals, _, ok = sdf.evaluate(pts)
+        median = float(np.median(np.abs(vals[ok] - sdf.surface_radius)))
+        check(pts.shape == (SAMPLE_CHAINS * SAMPLE_DRAWS, 3) and np.isfinite(pts).all(),
+              f"{sampler}: samples of shape {pts.shape}")
+        check(launches["join_reduce"] > 0, f"{sampler} never launched K12")
+        check(launches["join_fallbacks"] == 0, f"{sampler} took the join's fallback")
+        check(ok.mean() >= 0.95 and median < 0.5,
+              f"{sampler}: {ok.mean():.3f} valid, median |sdf - 1.05| {median}")
+        out[sampler] = dict(seconds=ms / 1e3, draws=len(pts),
+                            draws_per_s=len(pts) / (ms / 1e3), valid_share=float(ok.mean()),
+                            median_abs_sdf_minus_level=median, launches=launches)
+    # where one leapfrog step's gradient call goes: host ms per call, and
+    # the device's kernels and busy share under the profiler
+    vgrad = sdf.hmc_vgrad_fn()
+    q = torch.as_tensor(pos[:SAMPLE_CHAINS] + 0.5, device=dev)
+    calls = 100
+    vgrad_ms, _ = host_ms(lambda: [vgrad(q) for _ in range(calls)])
+    return dict(n=N_PROTEIN, cutoff=SAMPLE_CUTOFF, chains=SAMPLE_CHAINS,
+                burnin=SAMPLE_BURNIN, draws=SAMPLE_DRAWS, samplers=out,
+                vgrad_host_ms_per_call=vgrad_ms / calls,
+                vgrad_profile=profile_steps(lambda i: vgrad(q), 20))
+
+
+def api_queries(dev, n: int) -> dict:
+    """`CellGrid.count_neighbors_batch` and `nearest_neighbor_distances` in
+    f64 on the API phase's thin box (n = 1e6), 64^3 queries on a lattice over
+    the box and one cutoff around it, each timed on the host clock; 4096
+    sampled queries held to a numpy f64 filter over the oracle's candidates
+    (counts and distances exactly, valid equal to the oracle's None); no
+    join fallback."""
+    from zelll_tpu_torch import CellGrid, oracle
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    pts = generate_points_random(n, lj_box(n, CUTOFF))
+    cg = CellGrid(pts, CUTOFF, device=dev)
+    lo, hi = pts.min(0) - CUTOFF, pts.max(0) + CUTOFF
+    axes = [np.linspace(lo[a], hi[a], EVAL_L) for a in range(3)]
+    queries = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    torch.cuda.synchronize()
+    reset_launches()
+    ms = {}
+    ms["count_neighbors_batch"], (counts, valid) = host_ms(
+        lambda: cg.count_neighbors_batch(queries))
+    ms["nearest_neighbor_distances"], (dists, valid2) = host_ms(
+        lambda: cg.nearest_neighbor_distances(queries))
+    launches = read_launches()
+    check(launches["join_reduce"] == 2, f"the API queries launched K12 {launches}")
+    check(launches["join_fallbacks"] == 0, "the API queries took the join's fallback")
+    check(np.array_equal(valid, valid2), "the two API queries disagree on valid")
+    picked = np.random.default_rng(14).choice(len(queries), N_JOIN_QUERIES, replace=False)
+    cands = oracle.query_neighbors_batch(pts, CUTOFF, queries[picked])
+    for qi, ids in zip(picked, cands):
+        check((ids is None) == (not valid[qi]), f"query {qi}: valid {valid[qi]}, oracle {ids}")
+        if ids is None:
+            check(counts[qi] == 0 and np.isinf(dists[qi]), f"invalid query {qi} saw particles")
+            continue
+        d = queries[qi][None, :] - pts[ids]
+        dsq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        inside = dsq[dsq <= CUTOFF * CUTOFF]
+        check(counts[qi] == len(inside), f"query {qi}: count {counts[qi]}, oracle {len(inside)}")
+        want = float(np.sqrt(inside.min())) if len(inside) else np.inf
+        check(dists[qi] == want, f"query {qi}: nearest {dists[qi]}, oracle {want}")
+    return dict(n=n, queries=len(queries), ms=ms, launches=launches,
+                valid=int(valid.sum()), with_neighbours=int((counts > 0).sum()),
+                checked=len(picked))
+
+
+def join_alone(dev) -> dict:
+    """K12 alone at the eval protocol's size (200,000 atoms, a 64^3 query
+    grid, cutoff 10), count, nearest and sdf in f32 and f64, timed with CUDA
+    events; candidates per query (the particles in each query's 9 band
+    ranges, what the kernel visits), within-cutoff pairs, the bound (bytes
+    in and out; operations per candidate and per pair as INSTR_PER_* count
+    them) and the share; the plain version timed once per f64 instance."""
+    from zelll_tpu_torch.ops.join import join_reduce, join_reduce_plain
+    from zelll_tpu_torch.ops.segments import segment_bands
+
+    pos, radii = protein(N_PROTEIN_LARGE)
+    lo, hi = pos.min(0), pos.max(0)
+    axes = [np.linspace(lo[a], hi[a], EVAL_L) for a in range(3)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, grid, CUTOFF, dtype, dev)
+        bands = segment_bands(strides, full=True).long()
+        keys64, q64 = pk.long(), qk.long()
+        candidates = 0
+        for lo_s, hi_s in bands.tolist():
+            candidates += int((torch.searchsorted(keys64, q64 - lo_s, right=True)
+                               - torch.searchsorted(keys64, q64 - hi_s)).sum())
+        nq, npart = len(grid), len(pos)
+        size = dtype.itemsize
+        width = 1 if dtype == torch.float32 else 2
+        tag = str(dtype)[6:]
+        pairs = None
+        for inst, (term, reducer, n_out, npl) in join_instances().items():
+            kw = dict(term=term, n_out=n_out, reducer=reducer)
+            planes = pp[:3 + npl]
+            ms = cuda_ms(lambda: join_reduce(qp, qk, planes, pk, strides, csq, **kw), 10)
+            res, _ = join_reduce(qp, qk, planes, pk, strides, csq, **kw)
+            if inst == "count":
+                pairs = int(res.double().sum())
+            b = bound(nq * (4 * size + n_out * size) + npart * ((3 + npl) * size + 4),
+                      width * (candidates * INSTR_PER_CANDIDATE[False]
+                               + pairs * INSTR_PER_JOIN_PAIR[inst]))
+            case = dict(ms=ms, **b, share_of_bound=b["bound_ms"] / ms)
+            if dtype == torch.float64:
+                case["plain_ms"], want = once_ms(lambda: join_reduce_plain(
+                    qp, qk, planes, pk, strides, csq, **kw))
+                err, scale = join_err(res, want[0])
+                check(err <= TOL_KERNEL * scale if inst == "sdf" else torch.equal(res, want[0]),
+                      f"K12 {inst} at the eval size: max |err| {err} of {scale}")
+                case["max_abs_err"] = err
+            out.setdefault(tag, {})[inst] = case
+        out[tag]["candidates"] = candidates
+        out[tag]["candidates_per_query"] = candidates / len(grid)
+        out[tag]["pairs"] = pairs
+        out[tag]["pairs_per_query"] = pairs / len(grid)
+    return dict(n=N_PROTEIN_LARGE, queries=len(grid), cutoff=CUTOFF, **out)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -961,7 +1346,7 @@ def main() -> None:
         GridInfo, aabb_from_positions, compute_keys, key_window, sort_by_key,
     )
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
-    from zelll_tpu_torch.ops import lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops import join, lag_pairs, tile_pairs
     from zelll_tpu_torch.ops.fused import auto_lj_energy, fused_lj_rebuild_energy
     from zelll_tpu_torch.ops.lag_pairs import (
         _pad_and_desentinel, combine_count, count_term, lag_coverage_ok, lj_term,
@@ -996,7 +1381,8 @@ def main() -> None:
     loaders = {"lag_reduce": lag_pairs.load_kernel, "tile_reduce": tile_pairs.load_kernel,
                "lag_forces": lag_pairs.load_forces_kernel,
                "tile_forces": tile_pairs.load_forces_kernel,
-               "lag_per_particle": lag_pairs.load_per_particle_kernel}
+               "lag_per_particle": lag_pairs.load_per_particle_kernel,
+               "join_reduce": join.load_kernel}
     with ThreadPoolExecutor(len(loaders) + 1) as pool:
         builds = [pool.submit(load) for load in loaders.values()]
         have_oracle = pool.submit(oracle.available)
@@ -1389,8 +1775,19 @@ def main() -> None:
     k2 = per_particle_alone(dev, N_MAIN)
     emit("per_particle_alone", **k2)
 
-    # -- 17. every ported kernel ---------------------------------------------------
+    # -- 17. the query join (K12) and the psssh workload ----------------------------
+    jv = join_vs_plain(dev, N_CHECK)
+    emit("join_vs_plain", **jv)
+    sdf_eval = sdf_eval_main_path(dev)
+    emit("sdf_eval_main_path", **sdf_eval)
+    emit("psssh_sample_main_path", **psssh_sample_main_path(dev))
+    emit("api_queries", **api_queries(dev, N_PARITY))
+    k12 = join_alone(dev)
+    emit("join_alone", **k12)
+
+    # -- 18. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
+    k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
     f64_k2 = k2["f64"]
     print(json.dumps({"kernels": [{
@@ -1455,9 +1852,22 @@ def main() -> None:
         "bound_ms": f64_k2["bound_ms"],
         "bound_by": f64_k2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "join_reduce",
+        "route": "cuda",
+        "source": "zelll_tpu_torch/csrc/join_reduce.cu",
+        "replaces": "zelll_tpu/ops/join.py:66",
+        "launches": sdf_eval[f"n{N_PROTEIN_LARGE}"]["launches"]["join_reduce"],
+        "max_abs_err": jv["lattice_f64_sdf_max_abs_err"],
+        "ms": k12_sdf["ms"],
+        "plain_ms": k12_sdf["plain_ms"],
+        "bound_ms": k12_sdf["bound_ms"],
+        "bound_by": k12_sdf["bound_by"],
+        "share_of_bound": k12_sdf["share_of_bound"],
+        "library_ms": None,
     }]}), flush=True)
 
-    # -- 18. the card, then the contract line -----------------------------------
+    # -- 19. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -22,6 +22,7 @@ Everything runs on CPU tensors and calls no JAX."""
 import numpy as np
 import pytest
 import torch
+from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch import CellGrid
 

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.core.binning import bin_and_sort as jax_bin_and_sort
 from zelll_tpu_torch.core import SENTINEL_KEY, bin_and_sort, build, build_bins

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.core import build as jax_build
 from zelll_tpu.ops.lj import lj as jax_lj

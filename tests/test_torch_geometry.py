@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.core import geometry as jgeo
 from zelll_tpu_torch.core import build_bins

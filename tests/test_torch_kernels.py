@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3, K6, K7) against their plain PyTorch
-versions on the card.
+"""The port's CUDA kernels (K1, K2, K3, K6, K7, K12) against their plain
+PyTorch versions on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with a CUDA card and nvcc:
@@ -441,3 +441,98 @@ def test_per_particle_kernel_matches_plain_on_card(cuda_device):
     d = pts[:, None] - pts[None]
     dsq = (d * d).sum(-1)
     np.testing.assert_array_equal(got, ((dsq < 1.0) & (dsq > 0)).sum(1))
+
+
+def _join_case(pos, queries, cutoff, dtype, device):
+    """Sorted join inputs on the card: (query planes, query keys, particle
+    planes with the (r, 1/r) payload, particle keys with a SENTINEL_KEY tail
+    of far rows as `CellGrid` pads, strides, cutoff^2)."""
+    from zelll_tpu_torch.ops.join import sort_queries
+
+    n = len(pos)
+    g = build(torch.as_tensor(pos, device=device), cutoff)
+    info = g.info
+    qplanes, qkeys, _, _ = sort_queries(torch.as_tensor(queries, device=device),
+                                        info.origin, info.shape, info.strides,
+                                        cutoff, dtype, device)
+    sp = g.sorted_pos.to(dtype)
+    r = torch.as_tensor(np.random.default_rng(n).uniform(1.0, 2.0, n),
+                        device=device)[g.bins.perm.long()].to(dtype)
+    tail = 300
+    far = 1e12 + torch.arange(tail, device=device, dtype=dtype) * 1e5
+    pplanes = [torch.cat([sp[:, a], far if a == 0 else torch.zeros_like(far)])
+               for a in range(3)]
+    pplanes += [torch.cat([r, torch.ones_like(far)]),
+                torch.cat([1 / r, torch.ones_like(far)])]
+    pkeys = torch.cat([g.bins.sorted_keys,
+                       torch.full((tail,), SENTINEL_KEY, dtype=torch.int32,
+                                  device=device)])
+    csq = torch.tensor(cutoff, dtype=dtype, device=device) ** 2
+    return qplanes, qkeys, pplanes, pkeys, info.strides, csq
+
+
+@pytest.mark.gpu
+def test_join_kernel_matches_plain_on_card(cuda_device):
+    """K12 against its plain version on the same sorted CUDA tensors: a
+    synthetic protein and a jittered lattice (n = 2e4, coordinates on a
+    2^-10 grid so that a query at an atom + (cutoff, 0, 0) lies exactly at
+    the cutoff), 4096 queries with exact atom positions (d == 0), points
+    exactly at the cutoff, far points at +-1e9 and a SENTINEL_KEY particle
+    tail; the count, nearest and sdf instances in f32 and f64. Counts and
+    minima exact (the inclusive <= shows at the cutoff queries); f64 SDF
+    sums to 1e-10 of the largest; f32 ones to 1e-4 of it (f32 sums of ~1e3
+    terms in another order, 2-ulp exp and rsqrt)."""
+    from zelll_tpu_torch.ops.join import (
+        _count_term, _nearest_term, join_reduce, join_reduce_plain,
+    )
+    from zelll_tpu_torch.ops.sdf_join import NACC, sdf_term
+    from zelll_tpu_torch.utils.datagen import synthetic_protein
+
+    n, cutoff = 20_000, 5.0
+    rng = np.random.default_rng(11)
+    protein, _ = synthetic_protein(n, 15.0 * (n / 2000) ** (1 / 3))
+    lattice = generate_points_lattice(n, (60.0, 60.0, 60.0))
+    instances = ((_count_term, "sum", 1, 0), (_nearest_term, "min", 1, 0),
+                 (sdf_term, "sum", NACC, 2))
+    for name, pos in (("protein", protein), ("lattice", lattice)):
+        pos = np.round(pos * 1024) / 1024
+        lo, hi = pos.min(0), pos.max(0)
+        at = rng.choice(n, 200, replace=False)
+        queries = np.concatenate([
+            rng.uniform(lo - cutoff, hi + cutoff, (3500, 3)),
+            pos[at[:100]],                       # d == 0
+            pos[at[100:]] + [cutoff, 0.0, 0.0],  # exactly at the cutoff
+            [[1e9, -1e9, 1e9], [-1e9, 1e9, -1e9]] * 98,
+        ])[:4095]                                # not a multiple of 128
+        for dtype in (torch.float64, torch.float32):
+            qp, qk, pp, pk, strides, csq = _join_case(pos, queries, cutoff,
+                                                      dtype, cuda_device)
+            for term, reducer, n_out, npl in instances:
+                pl = pp[:3 + npl]
+                before = join_reduce.launches
+                got, ok = join_reduce(qp, qk, pl, pk, strides, csq, term=term,
+                                      n_out=n_out, reducer=reducer)
+                assert join_reduce.launches == before + 1
+                want, ok_p = join_reduce_plain(qp, qk, pl, pk, strides, csq,
+                                               term=term, n_out=n_out,
+                                               reducer=reducer)
+                torch.cuda.synchronize()
+                assert bool(ok) and bool(ok_p)
+                assert got.shape == (len(queries), n_out) and got.dtype == dtype
+                tag = (name, dtype, term.__name__)
+                if term is sdf_term:
+                    tol = 1e-10 if dtype == torch.float64 else 1e-4
+                    err = float((got.double() - want.double()).abs().max())
+                    assert err <= tol * float(want.double().abs().max()), (tag, err)
+                    assert torch.isfinite(got).all(), tag
+                else:
+                    assert torch.equal(got, want), tag
+                if term is _count_term:
+                    # queries at d == 0 and at the cutoff see their atom
+                    assert float(got.min()) >= 0 and float(got.max()) > 1
+    with pytest.raises(ValueError):
+        join_reduce(qp, qk, pp[:3], pk, strides, csq, n_out=1,
+                    term=lambda dsq, d, p, w: [w.to(dsq.dtype)])
+    with pytest.raises(ValueError):
+        join_reduce(qp, qk, pp[:3], pk, strides, csq, term=_count_term,
+                    n_out=1, reducer="max")

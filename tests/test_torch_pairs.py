@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from xla_release import release_xla_executables  # noqa: F401
 
 import zelll_tpu.core as jcore
 from zelll_tpu.config import ZelllConfig as JaxConfig

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.ops import segments as jseg
 from zelll_tpu.ops.pallas_pairs import _pad_and_desentinel as jax_pad

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from xla_release import release_xla_executables  # noqa: F401
 
 import zelll_tpu.oracle as jax_oracle
 from zelll_tpu.utils import datagen as jax_datagen

@@ -37,6 +37,17 @@ the card or, with ``device="cpu"``, on the plain path:
     cg = CellGrid(points, cutoff=10.0)                 # f64, on the card
     i, j = cg.pairs(within_cutoff=True)
     coordination = cg.coordination_numbers()           # kernel K2
+    counts, valid = cg.count_neighbors_batch(queries)  # kernel K12
+
+The psssh surface-sampling workload: the smooth distance field of a
+structure, evaluated in batches through the query join (K12), and sampled
+near its iso-surface by lockstep HMC or NUTS chains:
+
+    from zelll_tpu_torch import SmoothDistanceField
+    from zelll_tpu_torch.models.psssh import eval_grid, sample_surface
+    sdf = SmoothDistanceField(atoms, radii, cutoff=10.0)
+    values, grads, valid = sdf.evaluate(queries)
+    points = sample_surface(sdf, chains=1024, burnin=200, draws=50)
 """
 
 from .api import CellGrid, GridCell
@@ -60,8 +71,11 @@ from .core import (
     rebuild,
 )
 from .models import (
+    ELEMENT_RADII,
     MDState,
     MDStateSplit,
+    SmoothDistanceField,
+    hmc_sample_batched,
     md_run,
     md_run_skin,
     md_run_skin_tile,
@@ -69,20 +83,26 @@ from .models import (
     md_step,
     md_step_cubic_tile,
     md_step_split,
+    nuts_sample,
+    nuts_sample_batched,
 )
 from .ops import (
     auto_lj_energy,
     combine_count,
+    count_neighbors,
     count_term,
     fused_count_pairs,
     fused_lj_energy,
     fused_lj_rebuild_energy,
     fused_pair_sum,
+    grid_join_reduce,
+    join_reduce,
     lag_coverage_ok,
     lj_term,
     lj_force_factor,
     lj_force_factor_fast,
     lj_term_fast,
+    nearest_dsq,
     pair_lag_forces,
     pair_lag_per_particle,
     pair_lag_reduce,
@@ -115,8 +135,11 @@ __all__ = [
     "pair_sum",
     "query_neighbors",
     "rebuild",
+    "ELEMENT_RADII",
     "MDState",
     "MDStateSplit",
+    "SmoothDistanceField",
+    "hmc_sample_batched",
     "md_run",
     "md_run_skin",
     "md_run_skin_tile",
@@ -124,18 +147,24 @@ __all__ = [
     "md_step",
     "md_step_cubic_tile",
     "md_step_split",
+    "nuts_sample",
+    "nuts_sample_batched",
     "auto_lj_energy",
     "combine_count",
+    "count_neighbors",
     "count_term",
     "fused_count_pairs",
     "fused_lj_energy",
     "fused_lj_rebuild_energy",
     "fused_pair_sum",
+    "grid_join_reduce",
+    "join_reduce",
     "lag_coverage_ok",
     "lj_term",
     "lj_force_factor",
     "lj_force_factor_fast",
     "lj_term_fast",
+    "nearest_dsq",
     "pair_lag_forces",
     "pair_lag_per_particle",
     "pair_lag_reduce",

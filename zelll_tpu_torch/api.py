@@ -34,9 +34,10 @@ Per-cell surface (reference `src/cellgrid/iters.rs:121-291`):
 ``particle_pairs()`` — host-side views over the CSR cell table (one
 device-to-host pull of the table, cached per build).
 
-Extensions: ``query_neighbors_batch``, ``pairs``, ``coordination_numbers``
-(kernel K2 on the card), ``lj_energy``, ``virial``, ``stress``,
-``positions``, ``grid_data``.
+Extensions: ``query_neighbors_batch``, ``count_neighbors_batch`` and
+``nearest_neighbor_distances`` (kernel K12 on the card), ``pairs``,
+``coordination_numbers`` (kernel K2 on the card), ``lj_energy``,
+``virial``, ``stress``, ``positions``, ``grid_data``.
 
 The grid lives on ``device`` (CUDA unless the caller passes
 ``device="cpu"``) and holds f64 coordinates. Every method returns numpy
@@ -488,20 +489,72 @@ class CellGrid:
         return out, ok
 
     def count_neighbors_batch(self, points: np.ndarray):
-        """Within-cutoff (<=) neighbor count per query point, one fused join
-        pass in the JAX package (kernel K12). Not ported yet: K12 comes with
-        the queries (ROADMAP queue 1, slice 8)."""
-        raise NotImplementedError(
-            "count_neighbors_batch runs the join kernel K12, which is not "
-            "ported yet (ROADMAP queue 1, slice 8)")
+        """Within-cutoff (<=) neighbour count per query point.
+
+        The batched ``len(self.neighbors(p))``: on 3-D grids one join pass
+        (`ops.join.count_neighbors`, kernel K12 on the card); other
+        dimensions, and a plain join whose flag fails on the CPU (counted
+        in `ops.join.join_reduce.fallbacks`), take the query path; on the
+        card K12 answers or this raises. Returns (counts (Q,) int64,
+        valid (Q,)).
+        """
+        points = np.asarray(points, np.float64).reshape(-1, self._pts.shape[1])
+        if self._grid is None:
+            return (np.zeros(len(points), np.int64),
+                    np.zeros(len(points), bool))
+        if self._pts.shape[1] == 3:
+            from .ops.join import count_neighbors, join_reduce
+
+            c, valid, ok = count_neighbors(
+                self._grid, torch.as_tensor(points, device=self._device))
+            if bool(ok):
+                return c.cpu().numpy().astype(np.int64), valid.cpu().numpy()
+            if c.is_cuda:
+                raise RuntimeError("the join's flag failed on the card")
+            join_reduce.fallbacks += 1
+        dsq, ok = self._candidate_dsq(points)
+        csq = self._cutoff * self._cutoff
+        counts = np.array([int((d <= csq).sum()) for d in dsq], np.int64)
+        return counts, ok
 
     def nearest_neighbor_distances(self, points: np.ndarray):
         """Distance to the nearest particle within the cutoff per query
-        point, one fused min-join pass in the JAX package (kernel K12). Not
-        ported yet (ROADMAP queue 1, slice 8)."""
-        raise NotImplementedError(
-            "nearest_neighbor_distances runs the join kernel K12, which is "
-            "not ported yet (ROADMAP queue 1, slice 8)")
+        point (np.inf where none is).
+
+        One min-join pass on 3-D grids (`ops.join.nearest_dsq`, kernel K12
+        on the card); other dimensions, and a plain join whose flag fails
+        on the CPU (counted in `ops.join.join_reduce.fallbacks`), take the
+        query path; on the card K12 answers or this raises. Returns
+        (dist (Q,), valid (Q,))."""
+        points = np.asarray(points, np.float64).reshape(-1, self._pts.shape[1])
+        if self._grid is None:
+            return (np.full(len(points), np.inf),
+                    np.zeros(len(points), bool))
+        if self._pts.shape[1] == 3:
+            from .ops.join import join_reduce, nearest_dsq
+
+            nd, valid, ok = nearest_dsq(
+                self._grid, torch.as_tensor(points, device=self._device))
+            if bool(ok):
+                return np.sqrt(nd.cpu().numpy()), valid.cpu().numpy()
+            if nd.is_cuda:
+                raise RuntimeError("the join's flag failed on the card")
+            join_reduce.fallbacks += 1
+        dsq, ok = self._candidate_dsq(points)
+        csq = self._cutoff * self._cutoff
+        dist = np.full(len(points), np.inf)
+        for qi, d in enumerate(dsq):
+            d = d[d <= csq]
+            if len(d):
+                dist[qi] = float(np.sqrt(d.min()))
+        return dist, ok
+
+    def _candidate_dsq(self, points: np.ndarray):
+        """Squared distances (full dimension) from each query point to its
+        query-path candidates, and the valid mask."""
+        ids_list, ok = self.query_neighbors_batch(points)
+        return ([((self._pts[ids] - points[qi]) ** 2).sum(-1)
+                 for qi, ids in enumerate(ids_list)], ok)
 
     def pairs(self, within_cutoff: bool = False):
         """Unique pairs as (i, j) numpy index arrays (one device pass).

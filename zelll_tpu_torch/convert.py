@@ -16,7 +16,8 @@ from .core.binning import Bins
 from .core.geometry import Aabb, GridInfo
 from .core.grid import CellGridData
 
-__all__ = ["grid_from_numpy", "sorted_inputs_from_numpy", "md_state_from_numpy"]
+__all__ = ["grid_from_numpy", "sorted_inputs_from_numpy", "md_state_from_numpy",
+           "sdf_from_numpy"]
 
 
 def grid_from_numpy(grid, *, device=None) -> CellGridData:
@@ -90,3 +91,17 @@ def md_state_from_numpy(positions, velocities, *, split: bool = False,
                             velocities=t(velocities, torch.float32))
     return MDStateSplit.from_f64(t(positions, torch.float64), t(velocities),
                                  device=device)
+
+
+def sdf_from_numpy(positions, radii, cutoff: float, surface_radius: float = 1.05,
+                   k_force: float = 10.0, *, device=None):
+    """The port's `SmoothDistanceField` from the state of the JAX package's,
+    given as arrays: its atoms (``grid.sorted_pos``) and their radii in the
+    same order (``radii_sorted[:-1]``), with its cutoff, surface radius and
+    force constant."""
+    from .models.sdf import SmoothDistanceField
+
+    return SmoothDistanceField(np.array(positions, np.float64),
+                               np.array(radii, np.float64), cutoff=cutoff,
+                               surface_radius=surface_radius, k_force=k_force,
+                               device=device)

@@ -1,4 +1,6 @@
-"""End-to-end workloads built on the port's kernels: LJ molecular dynamics."""
+"""End-to-end workloads built on the port's kernels: LJ molecular dynamics,
+the smooth distance field and its samplers (psssh; the CLI is
+``python -m zelll_tpu_torch.models.psssh``)."""
 
 from .lj_md import (
     MDState,
@@ -11,6 +13,8 @@ from .lj_md import (
     md_step_cubic_tile,
     md_step_split,
 )
+from .nuts import hmc_sample_batched, nuts_sample, nuts_sample_batched
+from .sdf import ELEMENT_RADII, SmoothDistanceField, element_radius
 
 __all__ = [
     "MDState",
@@ -22,4 +26,10 @@ __all__ = [
     "md_step",
     "md_step_cubic_tile",
     "md_step_split",
+    "hmc_sample_batched",
+    "nuts_sample",
+    "nuts_sample_batched",
+    "ELEMENT_RADII",
+    "SmoothDistanceField",
+    "element_radius",
 ]

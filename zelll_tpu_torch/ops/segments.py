@@ -1,4 +1,5 @@
-"""Per-chunk lag-segment bounds for the segment-tile kernel (K6).
+"""Per-chunk lag-segment bounds for the segment-tile kernel (K6), and the
+per-query-chunk windows of the query join's plain version (`join_bounds`).
 
 PyTorch counterpart of ``zelll_tpu/ops/segments.py``, in plain torch.
 
@@ -46,6 +47,7 @@ __all__ = [
     "trim_windows_disjoint",
     "windows_disjoint",
     "chunk_bounds",
+    "join_bounds",
 ]
 
 CHUNK = 128
@@ -319,3 +321,88 @@ def chunk_bounds(sorted_keys: torch.Tensor, bands: torch.Tensor, max_j,
     gtoff = glo_c - parent
     gjnum = torch.clamp(ghi_c - glo_c + 1, min=0)
     return jlo, toff, jnum, gtoff, gjnum, coverage_ok
+
+
+def join_bounds(q_keys: torch.Tensor, p_keys: torch.Tensor, bands: torch.Tensor,
+                max_j: int | None = None):
+    """Per-query-chunk, per-band windows over a second sorted array: the
+    join sibling of `chunk_bounds`, for the plain version of the join
+    kernel (`ops.join`). Query chunks come from ``q_keys`` (sorted query
+    keys) and partner windows are located in ``p_keys`` (sorted particle
+    keys). Both are (C,) int32 ascending with C a multiple of CHUNK;
+    padding rows carry `lag_pairs._pad_and_desentinel` keys.
+
+    With ``max_j=None`` returns (lo, num, coverage_ok):
+      lo  (NCq, S) int32: first partner particle chunk (absolute index),
+      num (NCq, S) int32: number of partner chunks,
+      coverage_ok: the key preconditions (both arrays ascending, real keys
+          below the padding base).
+
+    With ``max_j`` set returns (jlo, toff, jnum, coverage_ok) as
+    `chunk_bounds` does: jlo the clamped window base (the window
+    [jlo, jlo + max_j) lies in range; pass max_j <= NCp), toff the first
+    partner chunk inside it, and coverage_ok also False when some window
+    needs more than max_j chunks.
+
+    A (query, particle) pair whose key difference q - p lies in band s
+    satisfies lo[cq, s] <= c_p < lo[cq, s] + num[cq, s].
+    """
+    Cq, Cp = q_keys.shape[0], p_keys.shape[0]
+    assert Cq % CHUNK == 0 and Cp % CHUNK == 0
+    ncq, ncp = Cq // CHUNK, Cp // CHUNK
+    device = q_keys.device
+    b = bands.to(device=device, dtype=_I32)  # (S, 2)
+    S = b.shape[0]
+    pad_base = torch.full((), _PAD_KEY_BASE, dtype=_I32, device=device)
+    int_min = torch.full((), -(2**31), dtype=_I32, device=device)
+
+    kq = q_keys.to(_I32).reshape(ncq, CHUNK)
+    realq = kq < pad_base
+    q_has = realq[:, 0]
+    q_kmax = torch.where(realq, kq, int_min).amax(1)
+    q_kmin = kq[:, 0]
+
+    kp = p_keys.to(_I32).reshape(ncp, CHUNK)
+    realp = kp < pad_base
+    p_has = realp[:, 0]
+    p_kmax_real = torch.where(realp, kp, int_min).amax(1)
+    p_real_max = p_kmax_real.max()
+    # padding-only particle chunks keep their padding kmax, so the searched
+    # array stays ascending
+    p_kmax_eff = torch.where(p_has, p_kmax_real, kp[:, -1])
+    p_kmin = kp[:, 0]
+
+    # Real query keys stay unclamped: out-of-box queries carry keys outside
+    # the particle key range, and clamping would shift their windows. Only
+    # padding query chunks (keys ~2^30, whose band offsets could overflow)
+    # take a safe in-range constant; their windows are emptied below.
+    safe = p_real_max + 1
+    kmin_q = torch.where(q_has, q_kmin, safe)
+    kmax_q = torch.where(q_has, q_kmax, safe)
+
+    qlo = kmin_q[None, :] - b[:, 1][:, None]  # smallest partner key (S, NCq)
+    qhi = kmax_q[None, :] - b[:, 0][:, None]  # largest partner key
+
+    lo = _searchsorted(p_kmax_eff, qlo.reshape(-1), right=False)
+    hi = _searchsorted(p_kmin, qhi.reshape(-1), right=True)
+    lo = lo.reshape(S, ncq).T  # (NCq, S)
+    hi = hi.reshape(S, ncq).T - 1  # inclusive
+    hi = torch.where(q_has[:, None], hi, lo - 1)  # padding query chunks: empty
+
+    num = torch.clamp(hi - lo + 1, min=0)
+    coverage_ok = (
+        (p_real_max < pad_base)
+        & (q_keys[1:] >= q_keys[:-1]).all()
+        & (p_keys[1:] >= p_keys[:-1]).all()
+    )
+    if max_j is None:
+        return lo, num, coverage_ok
+
+    assert max_j <= ncp, "clamp max_j to the particle chunk count first"
+    coverage_ok = coverage_ok & (num.max() <= max_j)
+    jnum = torch.clamp(num, max=max_j)
+    # clamp the window base so [jlo, jlo + max_j) stays in range: whenever
+    # jnum > 0 the clamped window still covers [lo, lo + jnum)
+    jlo = torch.clamp(lo, 0, max(ncp - max_j, 0))
+    toff = lo - jlo
+    return jlo, toff, jnum, coverage_ok

@@ -17,8 +17,8 @@ import numpy as np
 
 from ..ops._build import GXX_FLAGS, build_shared
 
-__all__ = ["available", "lj_energy", "pairs", "query_neighbors", "forces",
-           "chacha12_u64"]
+__all__ = ["available", "lj_energy", "pairs", "query_neighbors",
+           "query_neighbors_batch", "forces", "chacha12_u64"]
 
 _SRC = Path(__file__).parent / "cell_lists.cpp"
 
@@ -38,6 +38,9 @@ def _load():
     lib.zelll_oracle_pairs.restype = i64
     lib.zelll_oracle_query.argtypes = [f64p, i64, ctypes.c_double, f64p, i32p, i64]
     lib.zelll_oracle_query.restype = i64
+    lib.zelll_oracle_query_batch.argtypes = [f64p, i64, ctypes.c_double, f64p, i64,
+                                             i64p, i32p, i64]
+    lib.zelll_oracle_query_batch.restype = i64
     lib.zelll_oracle_forces.argtypes = [f64p, i64, ctypes.c_double, f64p]
     lib.zelll_oracle_forces.restype = None
     u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -112,6 +115,30 @@ def query_neighbors(positions, cutoff: float, q):
     if total < 0:
         return None
     return out[:total]
+
+
+def query_neighbors_batch(positions, cutoff: float, queries) -> list:
+    """`query_neighbors` for (Q, 3) query points against one grid build: a
+    list of Q candidate id arrays, None where a query is too far outside
+    the grid."""
+    lib = _load()
+    pos, ptr = _pos_ptr(positions)
+    qs = np.ascontiguousarray(queries, np.float64).reshape(-1, 3)
+    counts = np.empty(len(qs), np.int64)
+    cap = 27 * 16 * len(qs)
+    for _ in range(2):  # a second pass when the first buffer was short
+        out = np.empty(max(cap, 1), np.int32)
+        total = lib.zelll_oracle_query_batch(
+            ptr, pos.shape[0], cutoff,
+            qs.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(qs),
+            counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
+        )
+        if total <= cap:
+            break
+        cap = total
+    ends = np.cumsum(np.maximum(counts, 0))
+    return [None if c < 0 else out[e - c:e] for c, e in zip(counts, ends)]
 
 
 def forces(positions, cutoff: float) -> np.ndarray:

@@ -164,13 +164,12 @@ int64_t zelll_oracle_pairs(const double* pos, int64_t n, double cutoff,
   return count;
 }
 
-// Full-space neighborhood candidates of a query point (query_neighbors
-// semantics: own cell + 26 neighbors, no distance filter). Returns the
-// count, or -1 if the query is too far outside the grid (None analogue).
-int64_t zelll_oracle_query(const double* pos, int64_t n, double cutoff,
-                           const double* q, int32_t* out, int64_t cap) {
-  Grid g;
-  g.build(pos, n, cutoff);
+// Full-space neighborhood candidates of a query point against a built grid
+// (query_neighbors semantics: own cell + 26 neighbors, no distance filter),
+// written to out up to cap. Returns the count, or -1 if the query is too
+// far outside the grid (None analogue).
+static int64_t query_into(const Grid& g, const double* q, int32_t* out,
+                          int64_t cap) {
   if (!g.try_cell_index(q)) return -1;
   int64_t key = g.flat_key(q);
   int64_t count = 0;
@@ -185,6 +184,31 @@ int64_t zelll_oracle_query(const double* pos, int64_t n, double cutoff,
   emit(key);
   for (int s = 0; s < 26; ++s) emit(key + g.full_stencil[s]);
   return count;
+}
+
+int64_t zelll_oracle_query(const double* pos, int64_t n, double cutoff,
+                           const double* q, int32_t* out, int64_t cap) {
+  Grid g;
+  g.build(pos, n, cutoff);
+  return query_into(g, q, out, cap);
+}
+
+// The candidates of nq query points against one grid build: counts[k] is
+// query k's count (-1: too far outside), and the ids follow one another
+// in out (up to cap in all). Returns the number of ids needed.
+int64_t zelll_oracle_query_batch(const double* pos, int64_t n, double cutoff,
+                                 const double* qs, int64_t nq, int64_t* counts,
+                                 int32_t* out, int64_t cap) {
+  Grid g;
+  g.build(pos, n, cutoff);
+  int64_t total = 0;
+  for (int64_t k = 0; k < nq; ++k) {
+    const int64_t room = total < cap ? cap - total : 0;
+    const int64_t c = query_into(g, qs + 3 * k, out + (room ? total : 0), room);
+    counts[k] = c;
+    if (c > 0) total += c;
+  }
+  return total;
 }
 
 // ChaCha12 u64 stream (rand 0.8 StdRng layout: 64-bit block counter in

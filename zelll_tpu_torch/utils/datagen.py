@@ -33,6 +33,7 @@ __all__ = [
     "StdRng", "generate_points_random", "generate_points_lattice", "DEFAULT_SEED",
     "lj_box",
     "lattice_cloud",
+    "synthetic_protein",
 ]
 
 DEFAULT_SEED = 3079380797442975911
@@ -208,3 +209,27 @@ def lattice_cloud(n: int, box, rng: np.random.Generator) -> np.ndarray:
     ).reshape(-1, 3) * a
     g = g + rng.uniform(-0.05 * a, 0.05 * a, g.shape)
     return g.astype(np.float64)
+
+
+def synthetic_protein(n: int = 2000, radius: float = 15.0, seed: int = 0):
+    """A synthetic globular structure: n atoms uniform in a ball of
+    ``radius`` around the origin, with the vdW radii of C, N, O and H drawn
+    at 50/15/20/15 %. Returns (positions (n, 3), radii (n,)). The JAX
+    package's SDF benchmarks' default structure (its
+    ``benchmarks/sdf_queries.py``); 2000 atoms in 15 A is about 0.14 atoms
+    per cubic Angstrom, and ``radius = 15 (n / 2000)^(1/3)`` keeps that
+    density at other sizes."""
+    rng = np.random.default_rng(seed)
+    r = radius * rng.random(n) ** (1 / 3)
+    theta = np.arccos(2 * rng.random(n) - 1)
+    phi = 2 * np.pi * rng.random(n)
+    pos = np.stack(
+        [
+            r * np.sin(theta) * np.cos(phi),
+            r * np.sin(theta) * np.sin(phi),
+            r * np.cos(theta),
+        ],
+        -1,
+    )
+    radii = rng.choice([1.7, 1.55, 1.52, 1.09], n, p=[0.5, 0.15, 0.2, 0.15])
+    return pos, radii
