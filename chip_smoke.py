@@ -30,7 +30,16 @@ f64), the psssh ``eval`` protocol (a 64^3 query grid, cutoffs 1-10, on a
 2000-atom and a 200,000-atom synthetic protein) held to a numpy SDF over
 the oracle's candidates, both batched samplers at the psssh benchmark's
 defaults, `CellGrid`'s batch counts and nearest distances at n = 1e6
-against the oracle, and K12 alone at the eval size. It prints one JSON
+against the oracle, and K12 alone at the eval size. Then the open-boundary
+observables: the stress kernels K4 and K8 and the histogram kernels K5 and
+K9 against their plain versions (n = 2e5), the observables protocols at
+n = 1e7 through the entry points (`virial_rebuild`, `fused_stress_open`
+on both paths, `pair_distance_histogram` on both paths and species
+partial, `md_run_langevin` over the thin MD start state with the pressure
+tensor and histogram of its end state, and `CellGrid.distance_histogram`
+at n = 1e6), each call's launches counted alone, their f64-grade parity
+with the exact-f64 oracle at n = 1e6, and each kernel alone at n = 1e7
+against its bound. It prints one JSON
 line per phase. Any failed phase
 exits non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -59,6 +68,11 @@ bounds count the work of the function once per unique pair, as K6's does:
 the half-stencil candidates, and for each cutoff pair the force factor
 and g d on both sides (3 multiplies, 6 adds), so a kernel that evaluates
 each pair from both ends cannot look better than it is.
+
+The stress kernels (K4, K8) are held to their plain versions on f64
+outputs like the forces kernels; the histogram kernels (K5, K9) on exact
+counts. Their bounds count the half-stencil candidates and, per cutoff
+pair, the stress products or the binary search over the edges.
 """
 
 from __future__ import annotations
@@ -106,6 +120,12 @@ INSTR_PER_FORCE_PAIR_FAST = 1 + 1 + 2 + 1 + 1 + 2 + 3 + 6
 # counted as 2 (FP64 runs at half the FP32 rate). Its candidates cost what
 # K1's f32 ones do, twice that in f64.
 INSTR_PER_COUNT_PAIR = 2 * 2
+# The stress kernels (K4, K8) per cutoff pair: the force factor (11, as
+# above), g d_a for 3 axes, (g d_a) d_b for the 6 components, and 6 f64
+# adds counted twice. The histogram kernels (K5, K9) per pair inside the
+# cutoff: the binary search's ceil(log2 K) FP32 compares (the bin's shared
+# atomic runs on another pipe).
+INSTR_PER_STRESS_PAIR = 11 + 3 + 6 + 6 * 2
 # K12 per query-particle candidate in a query's band ranges: the same 7
 # as a half-stencil candidate above. Per particle inside the cutoff: count
 # 1 add, nearest 1 min; sdf the d > 0 test, rsqrt, d = dsq rs, -d/r, two
@@ -133,6 +153,21 @@ MD_DT = 1e-4
 MD_SKIN = 0.5
 MD_STEPS = 10
 SKIN_STEPS = 50
+# The observables protocols (the JAX package's benchmarks/observables_bench.py
+# and rdf_bench.py): a cube at MAXJ 24 for the stress and virial, K = 32
+# edges over [0, 10] and MAXJ 12 for the tile histogram, 5 timed calls each.
+OBS_MAXJ = 24
+HIST_K = 32
+HIST_MAXJ = 12
+OBS_REPS = 5
+# Langevin NVT over the thin MD start state: the start's own temperature
+# (v ~ normal(0, 0.3)), gamma 1, a few steps
+NVT_KT = 0.09
+NVT_GAMMA = 1.0
+NVT_STEPS = 5
+TOL_SPLIT = 2e-6  # split stress and virial against the f64 oracle (tpu_parity)
+TOL_HIST = 1e-4  # split histograms: cumulative deviation over the total
+PLAIN_LIMIT_S = 10.0  # a plain pass slower than this at n = 1e7 is timed at 1e6
 
 
 def emit(phase: str, **fields) -> None:
@@ -407,32 +442,57 @@ def forces_vs_plain(dev, n: int) -> dict:
                 blob_max_key=max_key, max_err_over_max=worst)
 
 
-def reset_launches() -> None:
-    """Zero every kernel's launch count, and the join's fallback count."""
+def _kernel_wrappers():
+    """Every kernel wrapper by its name in the launch counts."""
     from zelll_tpu_torch.ops.join import join_reduce
     from zelll_tpu_torch.ops.lag_pairs import (
-        pair_lag_forces, pair_lag_per_particle, pair_lag_reduce,
+        pair_lag_forces, pair_lag_hist, pair_lag_per_particle, pair_lag_reduce,
+        pair_lag_stress,
     )
-    from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
+    from zelll_tpu_torch.ops.tile_pairs import (
+        tile_pair_forces, tile_pair_hist, tile_pair_reduce, tile_pair_stress,
+    )
 
-    for fn in (pair_lag_reduce, pair_lag_forces, pair_lag_per_particle, tile_pair_reduce,
-               tile_pair_forces, join_reduce):
+    return dict(lag_reduce=pair_lag_reduce, lag_forces=pair_lag_forces,
+                lag_per_particle=pair_lag_per_particle, lag_stress=pair_lag_stress,
+                lag_hist=pair_lag_hist, tile_reduce=tile_pair_reduce,
+                tile_forces=tile_pair_forces, tile_stress=tile_pair_stress,
+                tile_hist=tile_pair_hist, join_reduce=join_reduce)
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch count, the join's fallback count and the
+    histogram ladder's retries."""
+    from zelll_tpu_torch import CellGrid
+    from zelll_tpu_torch.ops.join import join_reduce
+
+    for fn in _kernel_wrappers().values():
         fn.launches = 0
     join_reduce.fallbacks = 0
+    CellGrid.distance_histogram.retries = 0
 
 
 def read_launches() -> dict:
+    from zelll_tpu_torch import CellGrid
     from zelll_tpu_torch.ops.join import join_reduce
-    from zelll_tpu_torch.ops.lag_pairs import (
-        pair_lag_forces, pair_lag_per_particle, pair_lag_reduce,
-    )
-    from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
 
-    return dict(lag_reduce=pair_lag_reduce.launches, lag_forces=pair_lag_forces.launches,
-                lag_per_particle=pair_lag_per_particle.launches,
-                tile_reduce=tile_pair_reduce.launches,
-                tile_forces=tile_pair_forces.launches,
-                join_reduce=join_reduce.launches, join_fallbacks=join_reduce.fallbacks)
+    return dict(**{name: fn.launches for name, fn in _kernel_wrappers().items()},
+                join_fallbacks=join_reduce.fallbacks,
+                hist_ladder_retries=CellGrid.distance_histogram.retries)
+
+
+def counted(fn, kernel: str):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after: its result, which must have come from exactly one launch of
+    ``kernel`` and nothing else."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    others = sum(v for k, v in counts.items() if k != kernel)
+    check(counts[kernel] == 1 and others == 0,
+          f"expected one launch of {kernel} alone, counted {counts}")
+    return out
 
 
 def time_steps(step, state, steps: int):
@@ -1336,6 +1396,584 @@ def join_alone(dev) -> dict:
     return dict(n=N_PROTEIN_LARGE, queries=len(grid), cutoff=CUTOFF, **out)
 
 
+# -- slice 6a: the open-boundary observables (K4, K5, K8, K9) -------------------
+
+
+def cube_points(n: int, seed: int = 0):
+    """bench.py's cubic cloud: uniform, density 0.01. Returns (points, side)."""
+    side = (n / 0.01) ** (1 / 3)
+    return np.random.default_rng(seed).uniform(0, side, (n, 3)), side
+
+
+def hist_edges_sq(K: int, dtype=torch.float32) -> torch.Tensor:
+    """rdf_bench.py's edges, linspace(0, cutoff, K), squared in ``dtype``."""
+    return torch.as_tensor(np.linspace(0.0, CUTOFF, K), dtype=dtype) ** 2
+
+
+def stress_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(max |got - want|, max |want|) over the components, in f64."""
+    torch.cuda.synchronize()
+    return (float((got.double() - want.double()).abs().max()),
+            float(want.double().abs().max()))
+
+
+def obs_vs_plain(dev, n: int) -> dict:
+    """K4, K5, K8 and K9 against their plain versions on identical sorted
+    inputs at n = 2e5: the uniform cloud, the jittered lattice (only it
+    fails a wrong term) and the lattice with a SENTINEL_KEY tail, each in
+    split and f32; thin boxes for K4/K5, cubes for K8/K9. Stress on f64
+    outputs, max |d sigma| <= TOL_KERNEL max |sigma| (TOL_FAST_FORCES with
+    the fast factor); histograms at K = 16, 32 and 64, species-partial and,
+    on the tile path, masked, maskless and MAXJ = 1: counts exactly equal,
+    and the same flags."""
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY
+    from zelll_tpu_torch.ops.lag_pairs import (
+        SpeciesPairMask, combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
+        pair_lag_stress, pair_lag_stress_plain,
+    )
+    from zelll_tpu_torch.ops.lj import lj_force_factor, lj_force_factor_fast
+    from zelll_tpu_torch.ops.tile_pairs import (
+        tile_pair_hist, tile_pair_hist_plain, tile_pair_stress, tile_pair_stress_plain,
+    )
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
+
+    f64 = torch.float64
+    csq = CUTOFF**2
+    factors = ((lj_force_factor, TOL_KERNEL), (lj_force_factor_fast, TOL_FAST_FORCES))
+    species = torch.as_tensor(np.random.default_rng(7).integers(0, 3, n), device=dev)
+    out = {"K4": {}, "K5": {}, "K8": {}, "K9": {}}
+    worst = 0.0
+
+    def inputs(pts):
+        shi, slo, keys, info, _ = sort_split(pts, dev)
+        tail = keys.clone()
+        tail[-1000:] = SENTINEL_KEY
+        return (shi, slo, keys, info.strides), (shi, slo, tail, info.strides)
+
+    def stress_case(kernel, got, want, tol, what):
+        nonlocal worst
+        err, scale = stress_err(got, want)
+        check(np.isfinite(err) and scale > 0 and err <= tol * scale,
+              f"{kernel} stress off its plain version ({what}): {err} > {tol} x {scale}")
+        worst = max(worst, err / scale)
+        out[kernel][what] = dict(max_abs_err=err, max_abs_stress=scale)
+
+    def hist_case(kernel, got, want, what):
+        c, w = combine_count_vec(got), combine_count_vec(want)
+        check(np.array_equal(c, w), f"{kernel} counts differ from its plain version ({what})")
+        out[kernel][what] = dict(pairs=int(c[-1]))
+
+    thin = lj_box(n, CUTOFF)
+    cases = {}
+    for tag, pts in (("uniform", generate_points_random(n, thin)),
+                     ("lattice", generate_points_lattice(n, thin))):
+        cases[tag], tail = inputs(pts)
+    cases["sentinel_tail"] = tail
+    for tag, (shi, slo, keys, strides) in cases.items():
+        for mode, lo in (("split", slo), ("f32", None)):
+            for gfn, tol in factors:
+                kw = dict(L=L_MAIN, gfn=gfn, out_dtype=f64)
+                stress_case("K4", pair_lag_stress(shi, keys, strides, csq, lo, **kw),
+                            pair_lag_stress_plain(shi, keys, strides, csq, lo, **kw), tol,
+                            f"{tag} {mode} {gfn.__name__}")
+            for K in (16, 32, 64):
+                esq = hist_edges_sq(K)
+                hist_case("K5", pair_lag_hist(shi, keys, strides, esq, lo, L=L_MAIN),
+                          pair_lag_hist_plain(shi, keys, strides, esq, lo, L=L_MAIN),
+                          f"{tag} {mode} K{K}")
+            esq = hist_edges_sq(HIST_K)
+            kw = dict(L=L_MAIN, pair_mask=SpeciesPairMask(0, 2))
+            hist_case("K5", pair_lag_hist(shi, keys, strides, esq, lo, species, **kw),
+                      pair_lag_hist_plain(shi, keys, strides, esq, lo, species, **kw),
+                      f"{tag} {mode} species(0, 2)")
+
+    pts, side = cube_points(n)
+    cases = {}
+    for tag, p in (("uniform", pts), ("lattice", generate_points_lattice(n, (side,) * 3))):
+        cases[tag], tail = inputs(p)
+    cases["sentinel_tail"] = tail
+    for tag, (shi, slo, keys, strides) in cases.items():
+        maxj = probe_maxj(keys, strides)
+        for mode, lo in (("split", slo), ("f32", None)):
+            for bandmask in (False, True):
+                bm = "masked" if bandmask else "maskless"
+                for gfn, tol in factors:
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, gfn=gfn, out_dtype=f64)
+                    got, ok = tile_pair_stress(shi, keys, strides, csq, lo, **kw)
+                    want, ok_p = tile_pair_stress_plain(shi, keys, strides, csq, lo, **kw)
+                    check(bool(ok) and bool(ok_p), f"K8 flags {bool(ok)}/{bool(ok_p)} ({tag})")
+                    stress_case("K8", got, want, tol, f"{tag} {mode} {bm} {gfn.__name__}")
+                for K in (16, 32, 64):
+                    kw = dict(MAXJ=maxj, bandmask=bandmask)
+                    got, ok = tile_pair_hist(shi, keys, strides, hist_edges_sq(K), lo, **kw)
+                    want, ok_p = tile_pair_hist_plain(shi, keys, strides, hist_edges_sq(K),
+                                                      lo, **kw)
+                    check(bool(ok) and bool(ok_p), f"K9 flags {bool(ok)}/{bool(ok_p)} ({tag})")
+                    hist_case("K9", got, want, f"{tag} {mode} {bm} K{K}")
+            kw = dict(MAXJ=maxj, pair_mask=SpeciesPairMask(1, 1))
+            esq = hist_edges_sq(HIST_K)
+            got, _ = tile_pair_hist(shi, keys, strides, esq, lo, species, **kw)
+            want, _ = tile_pair_hist_plain(shi, keys, strides, esq, lo, species, **kw)
+            hist_case("K9", got, want, f"{tag} {mode} species(1, 1)")
+            kw = dict(MAXJ=1, bandmask=True)
+            got, ok = tile_pair_hist(shi, keys, strides, esq, lo, **kw)
+            want, ok_p = tile_pair_hist_plain(shi, keys, strides, esq, lo, **kw)
+            check(not bool(ok) and not bool(ok_p), f"K9 flags at MAXJ = 1 ({tag})")
+            hist_case("K9", got, want, f"{tag} {mode} MAXJ1")
+            got, ok = tile_pair_stress(shi, keys, strides, csq, lo, out_dtype=f64, **kw)
+            want, ok_p = tile_pair_stress_plain(shi, keys, strides, csq, lo, out_dtype=f64,
+                                                **kw)
+            check(not bool(ok) and not bool(ok_p), f"K8 flags at MAXJ = 1 ({tag})")
+            stress_case("K8", got, want, TOL_KERNEL, f"{tag} {mode} MAXJ1")
+    # the kernel line's errors: the lattice, whose stress terms are all of
+    # one size (a few near pairs carry the uniform cloud's)
+    lattice = {k: max(c["max_abs_err"] for w, c in out[k].items() if w.startswith("lattice"))
+               for k in ("K4", "K8")}
+    return dict(n=n, cases=out, max_err_over_max=worst, lattice_max_abs_err=lattice)
+
+
+def observables_main_path(dev, n: int) -> dict:
+    """The observables protocols at n = 1e7 through the entry points, each
+    call counted alone (launch counts zeroed just before it and read just
+    after, each exact) and then timed: device ms by CUDA events, host ms
+    where the call reads back, and the energy step beside it
+    (observables_bench.py's x_over_baseline). The thin box: `virial_rebuild`
+    (K1 with lj_virial_term), `fused_stress_open` f32 and split (K4),
+    `pair_distance_histogram` (K5) and its species partial. The cube:
+    the tile virial (K6), `fused_stress_open(path="tile")` (K8),
+    `pair_distance_histogram(path="tile")` (K9) and its species partial.
+    NVT: `md_run_langevin` over the thin MD start state (K3), then the
+    pressure tensor of the end state (K4) and its histogram (K5). API:
+    `CellGrid.distance_histogram` at n = 1e6 in f64 (K5)."""
+    from zelll_tpu_torch import CellGrid
+    from zelll_tpu_torch.models import md_run_langevin
+    from zelll_tpu_torch.ops.fused import fused_lj_rebuild_energy
+    from zelll_tpu_torch.ops.lag_pairs import lj_term, split_f64
+    from zelll_tpu_torch.ops.lj import lj_virial_term
+    from zelll_tpu_torch.ops.rdf import pair_distance_histogram
+    from zelll_tpu_torch.ops.tile_pairs import tile_lj_rebuild_energy
+    from zelll_tpu_torch.ops.virial import (
+        fused_stress_open, kinetic_stress, pressure_tensor, virial_rebuild,
+    )
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    edges = np.linspace(0.0, CUTOFF, HIST_K)
+    launches = {}
+    out = {}
+
+    def run(name, fn, kernel, *, host=False):
+        """One counted call, its flag, then OBS_REPS timed calls."""
+        result = counted(fn, kernel)
+        check(bool(result[1]), f"{name}: the coverage flag dropped")
+        launches[kernel] = launches.get(kernel, 0) + 1
+        row = dict(kernel=kernel, launches=1, ms=cuda_ms(fn, OBS_REPS))
+        if host:
+            t = time.perf_counter()
+            for _ in range(OBS_REPS):
+                fn()
+            torch.cuda.synchronize()
+            row["host_ms"] = (time.perf_counter() - t) * 1e3 / OBS_REPS
+        out[name] = row
+        return result
+
+    box = lj_box(n, CUTOFF)
+    pts = generate_points_random(n, box)
+    hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+    pos = hi
+    del pts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    energy = run("thin_energy", lambda: fused_lj_rebuild_energy(pos, CUTOFF, L=L_MAIN),
+                 "lag_reduce")
+    w = run("thin_virial", lambda: virial_rebuild(pos, CUTOFF, L=L_MAIN), "lag_reduce")
+    sig = run("thin_stress_f32", lambda: fused_stress_open(pos, CUTOFF, L=L_MAIN),
+              "lag_stress")
+    sig_s = run("thin_stress_split",
+                lambda: fused_stress_open(pos, CUTOFF, L=L_MAIN, positions_lo=lo),
+                "lag_stress")
+    species = torch.as_tensor(np.random.default_rng(9).integers(0, 3, n), device=dev)
+    h = run("thin_hist", lambda: pair_distance_histogram(pos, edges, L=L_MAIN),
+            "lag_hist", host=True)
+    hs = run("thin_hist_species", lambda: pair_distance_histogram(
+        pos, edges, L=L_MAIN, species=species, pair=(0, 1)), "lag_hist", host=True)
+    thin_check = dict(
+        energy=float(energy[0]), virial=float(w[0]),
+        stress_f32_trace_rel_err_vs_virial=rel(float(torch.trace(sig[0])), float(w[0])),
+        stress_split_trace=float(torch.trace(sig_s[0])), hist_pairs=int(h[0].sum()),
+        species_pairs=int(hs[0].sum()))
+    check(thin_check["stress_f32_trace_rel_err_vs_virial"] <= 1e-4,
+          f"trace(stress) vs virial on the thin box: {thin_check}")
+    check(0 < hs[0].sum() < h[0].sum(), f"thin histograms: {thin_check}")
+    del pos, hi, lo, species
+    peak_thin = torch.cuda.max_memory_allocated()
+
+    cpts, side = cube_points(n)
+    cpos = torch.as_tensor(cpts, dtype=torch.float32, device=dev)
+    del cpts
+    species = torch.as_tensor(np.random.default_rng(10).integers(0, 3, n), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ce = run("cubic_energy", lambda: tile_lj_rebuild_energy(cpos, CUTOFF, MAXJ=OBS_MAXJ,
+                                                            term=lj_term), "tile_reduce")
+    cw = run("cubic_virial", lambda: tile_lj_rebuild_energy(
+        cpos, CUTOFF, MAXJ=OBS_MAXJ, term=lj_virial_term), "tile_reduce")
+    csig = run("cubic_stress", lambda: fused_stress_open(cpos, CUTOFF, path="tile",
+                                                         MAXJ=OBS_MAXJ), "tile_stress")
+    ch = run("cubic_hist", lambda: pair_distance_histogram(
+        cpos, edges, path="tile", MAXJ=HIST_MAXJ), "tile_hist", host=True)
+    chs = run("cubic_hist_species", lambda: pair_distance_histogram(
+        cpos, edges, path="tile", MAXJ=HIST_MAXJ, species=species, pair=(2, 2)),
+        "tile_hist", host=True)
+    cubic_check = dict(
+        energy=float(ce[0]), virial=float(cw[0]),
+        stress_trace_rel_err_vs_virial=rel(float(torch.trace(csig[0])), float(cw[0])),
+        hist_pairs=int(ch[0].sum()), species_pairs=int(chs[0].sum()))
+    check(cubic_check["stress_trace_rel_err_vs_virial"] <= 1e-4,
+          f"trace(stress) vs virial on the cube: {cubic_check}")
+    check(0 < chs[0].sum() < ch[0].sum(), f"cubic histograms: {cubic_check}")
+    del cpos, species
+    peak_cubic = torch.cuda.max_memory_allocated()
+    for name, base in (("thin", "thin_energy"), ("cubic", "cubic_energy")):
+        for k, row in out.items():
+            if k.startswith(name) and k != base:
+                row["x_over_energy_step"] = row["ms"] / out[base]["ms"]
+
+    # NVT: Langevin steps over the thin MD protocol's start state
+    mpts, st, _ = md_states(n, lj_box(n, CUTOFF), dev)
+    volume = float(np.prod(mpts.max(0) - mpts.min(0)))
+    del mpts
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    st, ok, temps = md_run_langevin(st, CUTOFF, MD_DT, NVT_KT, NVT_GAMMA, gen,
+                                    steps=NVT_STEPS, L=L_MAIN, record_temperature=True)
+    end.record()
+    end.synchronize()
+    nvt_host = (time.perf_counter() - t_host) * 1e3 / NVT_STEPS
+    counts = read_launches()
+    check(counts["lag_forces"] == NVT_STEPS and
+          sum(counts.values()) == NVT_STEPS, f"md_run_langevin launched {counts}")
+    launches["lag_forces"] = launches.get("lag_forces", 0) + NVT_STEPS
+    temps = temps.cpu().numpy().tolist()
+    check(bool(ok) and all(np.isfinite(temps)) and 0.5 * NVT_KT < temps[-1] < 2 * NVT_KT,
+          f"md_run_langevin: ok {bool(ok)}, temperatures {temps}")
+    sig_nvt = run("nvt_stress", lambda: fused_stress_open(st.positions, CUTOFF, L=L_MAIN),
+                  "lag_stress")
+    p_tensor = pressure_tensor(sig_nvt[0].double(), kinetic_stress(st.velocities).double(),
+                               volume)
+    h_nvt = run("nvt_hist", lambda: pair_distance_histogram(st.positions, edges, L=L_MAIN),
+                "lag_hist", host=True)
+    p_np = p_tensor.cpu().numpy()
+    check(np.isfinite(p_np).all() and np.allclose(p_np, p_np.T) and h_nvt[0].sum() > 0,
+          f"NVT end state: pressure tensor {p_np.tolist()}")
+    nvt = dict(n=st.positions.shape[0], steps=NVT_STEPS, kT=NVT_KT, gamma=NVT_GAMMA,
+               dt=MD_DT, step_ms=start.elapsed_time(end) / NVT_STEPS,
+               host_step_ms=nvt_host, temperatures=temps,
+               pressure_tensor=p_np.tolist(), pressure=float(np.trace(p_np)) / 3,
+               hist_pairs=int(h_nvt[0].sum()))
+    del st
+
+    # API: CellGrid.distance_histogram in f64 on the API cell's box
+    n_api = N_PARITY
+    api_pts = generate_points_random(n_api, lj_box(n_api, CUTOFF))
+    cg = CellGrid(api_pts, CUTOFF, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    api_ms, api_hist = host_ms(lambda: cg.distance_histogram(edges))
+    counts = read_launches()
+    check(counts["lag_hist"] == 1 and sum(counts.values()) == 1,
+          f"CellGrid.distance_histogram launched {counts}")
+    launches["lag_hist"] = launches.get("lag_hist", 0) + 1
+    out["api_distance_histogram"] = dict(kernel="lag_hist", launches=1, host_ms=api_ms,
+                                         n=n_api, pairs=int(api_hist.sum()))
+    return dict(n=n, calls=out, launches=launches, thin=thin_check, cubic=cubic_check,
+                cubic_side=side, nvt=nvt, max_memory_allocated=max(peak_thin, peak_cubic))
+
+
+def oracle_stress(pts: np.ndarray, i: np.ndarray, j: np.ndarray) -> np.ndarray:
+    """The exact f64 stress over the given pairs (in row blocks)."""
+    sig = np.zeros((3, 3))
+    for s in range(0, len(i), 1 << 22):
+        d = pts[i[s:s + (1 << 22)]] - pts[j[s:s + (1 << 22)]]
+        dsq = (d * d).sum(1)
+        inv = 1.0 / dsq
+        t = inv**3
+        g = 24 * t * (2 * t - 1) * inv
+        sig += np.einsum("p,pa,pb->ab", g, d, d)
+    return sig
+
+
+def oracle_shells(pts: np.ndarray, i: np.ndarray, j: np.ndarray, edges) -> tuple:
+    """Shell counts of the given pairs on ``edges`` by their f64 dsq
+    (summed axis by axis, as the f64 kernels do), and whether any dsq lies
+    within 4 ulp of a squared edge (a tie that another rounding could
+    move across the edge)."""
+    esq = np.asarray(edges, np.float64) ** 2
+    counts = np.zeros(len(esq) - 1, np.int64)
+    tie = False
+    for s in range(0, len(i), 1 << 22):
+        d = pts[i[s:s + (1 << 22)]] - pts[j[s:s + (1 << 22)]]
+        dsq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        k = np.searchsorted(esq, dsq, side="right")
+        counts += np.bincount(k, minlength=len(esq) + 1)[1:len(esq)]
+        # the nearest edge of each dsq is the one at or below it, or above
+        near = np.minimum(np.abs(dsq - esq[np.maximum(k - 1, 0)]),
+                          np.abs(esq[np.minimum(k, len(esq) - 1)] - dsq))
+        tie |= bool((near <= 4 * np.spacing(esq.max())).any())
+    return counts, tie
+
+
+def obs_parity(dev, n: int) -> dict:
+    """The observables against the exact-f64 oracle at n = 1e6 (sums over
+    `oracle.pairs`): split stress on both paths and the split virial within
+    TOL_SPLIT of max |sigma| (of |W|); the f32 rows within tpu_parity.py's
+    f32_tol against the f64 stress of the f32 coordinates; split histograms
+    within TOL_HIST of the total in cumulative deviation; and
+    `CellGrid.distance_histogram` (f64) equal to the oracle's shell counts
+    on tie-free edges."""
+    from zelll_tpu_torch import CellGrid, oracle
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+    from zelll_tpu_torch.ops.rdf import pair_distance_histogram
+    from zelll_tpu_torch.ops.virial import fused_stress_open, virial_rebuild
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    edges = np.linspace(0.0, CUTOFF, 17)
+    out = {}
+    thin_pts = generate_points_random(n, lj_box(n, CUTOFF))
+    cube_pts, side = cube_points(n)
+    for name, pts, path, kw in (("thin", thin_pts, "lag", dict(L=L_MAIN)),
+                                ("cubic", cube_pts, "tile", dict(MAXJ=OBS_MAXJ))):
+        hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+        hi64 = hi.double().cpu().numpy()
+        f32_tol = max(float(np.max(pts.max(0) - pts.min(0))) * 2**-24 / CUTOFF * 300, 3e-5)
+        oi, oj = oracle.pairs(pts, CUTOFF)
+        ref = oracle_stress(pts, oi, oj)
+        scale = float(np.abs(ref).max())
+        oi32, oj32 = oracle.pairs(hi64, CUTOFF)
+        ref32 = oracle_stress(hi64, oi32, oj32)
+        sig, ok = fused_stress_open(hi, CUTOFF, path=path, positions_lo=lo, **kw)
+        sig32, ok32 = fused_stress_open(hi, CUTOFF, path=path, **kw)
+        check(bool(ok) and bool(ok32), f"{name} parity: a stress flag dropped")
+        row = dict(path=path, oracle_pairs=len(oi),
+                   stress_split_err=float(np.abs(sig.double().cpu().numpy() - ref).max())
+                   / scale,
+                   stress_f32_err=float(np.abs(sig32.double().cpu().numpy() - ref32).max())
+                   / float(np.abs(ref32).max()), f32_tol=f32_tol)
+        check(row["stress_split_err"] <= TOL_SPLIT, f"{name} split stress vs oracle: {row}")
+        check(row["stress_f32_err"] <= f32_tol, f"{name} f32 stress vs oracle: {row}")
+        if path == "lag":
+            w, okw = virial_rebuild(hi, CUTOFF, lo, L=L_MAIN)
+            row["virial_split_err"] = rel(float(w), float(np.trace(ref)))
+            check(bool(okw) and row["virial_split_err"] <= TOL_SPLIT,
+                  f"{name} split virial vs oracle: {row}")
+        counts, okh = pair_distance_histogram(hi, edges, positions_lo=lo, path=path, **kw)
+        ref_counts, _ = oracle_shells(pts, oi, oj, edges)
+        cum, cum_ref = np.cumsum(counts), np.cumsum(ref_counts)
+        row["hist_split_cum_dev"] = float(np.abs(cum - cum_ref).max()) / max(cum_ref[-1], 1)
+        check(okh and row["hist_split_cum_dev"] <= TOL_HIST, f"{name} split hist: {row}")
+        out[name] = row
+    # CellGrid on the API cell's box, f64: tie-free edges (the f64 kernel
+    # bins exactly the oracle's dsq)
+    edges_api = np.linspace(0.05, CUTOFF, 23) - 1e-7
+    oi, oj = oracle.pairs(thin_pts, CUTOFF)
+    want, tie = oracle_shells(thin_pts, oi, oj, edges_api)
+    check(not tie, "the API parity edges are not tie-free")
+    got = CellGrid(thin_pts, CUTOFF, device=dev).distance_histogram(edges_api)
+    check(np.array_equal(got, want), f"CellGrid.distance_histogram: {got} vs {want}")
+    out["cellgrid_distance_histogram"] = dict(equal=True, pairs=int(got.sum()))
+    return dict(n=n, cube_side=side, **out)
+
+
+def timed_launches(fn, wrapper) -> tuple:
+    """`cuda_ms` of ``fn`` over 10 runs and the launches ``wrapper`` counted
+    in them (one warm-up and the 10 timed runs: 11)."""
+    wrapper.launches = 0
+    ms = cuda_ms(fn, 10)
+    return ms, wrapper.launches
+
+
+def plain_time(plain_ms_at, n: int) -> dict:
+    """The device ms of one plain pass at n (``plain_ms_at(m)`` prepares m
+    points and times the pass alone), or at 1e6 where the pass at 1e6 says
+    one at n would take over PLAIN_LIMIT_S."""
+    ms6 = plain_ms_at(N_PARITY)
+    if ms6 * n / N_PARITY / 1e3 > PLAIN_LIMIT_S:
+        return dict(plain_ms=ms6, plain_n=N_PARITY)
+    return dict(plain_ms=plain_ms_at(n), plain_n=n)
+
+
+def stress_alone(dev, n: int) -> dict:
+    """K4 (thin box) and K8 (cube, maskless, MAXJ 24) alone at n = 1e7 on the
+    protocols' sorted inputs, f32 and split: ms and the launches counted
+    in the timed runs, the work of the function (its half-stencil
+    candidates and cutoff pairs) and its bound, the share of it, one plain
+    pass (at 1e6 where one at 1e7 would take over 10 s), and the kernel
+    against the plain version at n = 1e6."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        combine_count, count_term, pair_lag_reduce, pair_lag_stress, pair_lag_stress_plain,
+    )
+    from zelll_tpu_torch.ops.tile_pairs import (
+        stress_tiles, stress_tiles_plain, tile_inputs, tile_pair_reduce, tile_pair_stress,
+    )
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    out = {}
+
+    def thin(m):
+        return sort_split(generate_points_random(m, lj_box(m, CUTOFF)), dev)
+
+    shi, slo, keys, info, _ = thin(n)
+    strides = info.strides
+    pairs = combine_count(pair_lag_reduce(shi, keys, strides, csq, slo, L=L_MAIN,
+                                          term=count_term, out_dtype=torch.int32))
+    candidates = stencil_candidates(keys, info)
+    for tag, lo in (("f32", None), ("split", slo)):
+        ms, launches = timed_launches(
+            lambda: pair_lag_stress(shi, keys, strides, csq, lo, L=L_MAIN), pair_lag_stress)
+        b = bound(n * 4 * ((6 if lo is not None else 3) + 1),
+                  candidates * INSTR_PER_CANDIDATE[lo is not None]
+                  + pairs * INSTR_PER_STRESS_PAIR)
+        out[f"K4_{tag}"] = dict(ms=ms, launches=launches, **b,
+                                share_of_bound=b["bound_ms"] / ms)
+    del shi, slo, keys
+
+    def k4_plain(m):
+        h, lo_, k, inf, _ = thin(m)
+        return once_ms(lambda: pair_lag_stress_plain(h, k, inf.strides, csq, lo_,
+                                                     L=L_MAIN))[0]
+
+    out["K4_split"].update(plain_time(k4_plain, n))
+    out.update(K4_pairs=pairs, K4_candidates=candidates)
+
+    pts, _ = cube_points(n)
+    shi, slo, keys, info, _ = sort_split(pts, dev)
+    del pts
+    strides = info.strides
+    inp = tile_inputs(shi.t().contiguous(), keys, strides, CB=CB, MAXJ=OBS_MAXJ,
+                      bandmask=False)
+    inp_s = tile_inputs(shi.t().contiguous(), keys, strides, slo.t().contiguous(), CB=CB,
+                        MAXJ=OBS_MAXJ, bandmask=False)
+    check(bool(inp.coverage_ok), f"K8 coverage failed alone at MAXJ = {OBS_MAXJ}")
+    cpairs = combine_count(tile_pair_reduce(shi, keys, strides, csq, MAXJ=OBS_MAXJ,
+                                            term=count_term, out_dtype=torch.int32)[0])
+    ccand = stencil_candidates(keys, info)
+    for tag, x in (("f32", inp), ("split", inp_s)):
+        ms, launches = timed_launches(lambda: stress_tiles(x, csq), tile_pair_stress)
+        b = bound(n * 4 * ((6 if x.lo is not None else 3) + 1) + x.bounds.numel() * 4,
+                  ccand * INSTR_PER_CANDIDATE[x.lo is not None] + cpairs * INSTR_PER_STRESS_PAIR)
+        out[f"K8_{tag}"] = dict(ms=ms, launches=launches, **b,
+                                share_of_bound=b["bound_ms"] / ms)
+    out.update(K8_pairs=cpairs, K8_candidates=ccand,
+               K8_tile_evaluations=int(inp.bounds[:, 2::3].sum()) * 128 * 128)
+    del inp, inp_s, shi, slo, keys
+
+    def k8_plain(m):
+        p, _ = cube_points(m)
+        h, _, k, inf, _ = sort_split(p, dev)
+        x = tile_inputs(h.t().contiguous(), k, inf.strides, CB=CB, MAXJ=OBS_MAXJ,
+                        bandmask=False)
+        return once_ms(lambda: stress_tiles_plain(x, csq))[0]
+
+    out["K8_f32"].update(plain_time(k8_plain, n))
+    # the kernels against their plain versions at the parity size (f64 sums)
+    shi, slo, keys, info, _ = thin(N_PARITY)
+    got = pair_lag_stress(shi, keys, info.strides, csq, slo, L=L_MAIN, out_dtype=torch.float64)
+    want = pair_lag_stress_plain(shi, keys, info.strides, csq, slo, L=L_MAIN,
+                                 out_dtype=torch.float64)
+    out["K4_vs_plain_1e6"] = stress_err(got, want)
+    check(out["K4_vs_plain_1e6"][0] <= TOL_KERNEL * out["K4_vs_plain_1e6"][1], "K4 at 1e6")
+    p, _ = cube_points(N_PARITY)
+    h, _, k, inf, _ = sort_split(p, dev)
+    x = tile_inputs(h.t().contiguous(), k, inf.strides, CB=CB, MAXJ=OBS_MAXJ, bandmask=False)
+    out["K8_vs_plain_1e6"] = stress_err(stress_tiles(x, csq, out_dtype=torch.float64),
+                                        stress_tiles_plain(x, csq, out_dtype=torch.float64))
+    check(out["K8_vs_plain_1e6"][0] <= TOL_KERNEL * out["K8_vs_plain_1e6"][1], "K8 at 1e6")
+    return dict(n=n, MAXJ=OBS_MAXJ, **out)
+
+
+def hist_alone(dev, n: int) -> dict:
+    """K5 (thin box) and K9 (cube, maskless, MAXJ 12) alone at n = 1e7 on the
+    protocols' sorted inputs, K = 32, f32 and split: ms and the launches
+    counted in the timed runs, the work of the function (candidates, and
+    ceil(log2 K) compares per cutoff pair) and its bound, the share of it,
+    one plain pass (at 1e6 where one at 1e7 would take over 10 s), and the
+    counts against the plain version."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
+    )
+    from zelll_tpu_torch.ops.tile_pairs import (
+        hist_tiles, hist_tiles_plain, tile_inputs, tile_pair_hist,
+    )
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    esq = hist_edges_sq(HIST_K).to(dev)
+    per_pair = int(np.ceil(np.log2(HIST_K)))
+    out = {}
+
+    def thin(m):
+        return sort_split(generate_points_random(m, lj_box(m, CUTOFF)), dev)
+
+    shi, slo, keys, info, _ = thin(n)
+    strides = info.strides
+    pairs = int(combine_count_vec(pair_lag_hist(shi, keys, strides, esq, slo, L=L_MAIN))[-1])
+    candidates = stencil_candidates(keys, info)
+    for tag, lo in (("f32", None), ("split", slo)):
+        ms, launches = timed_launches(
+            lambda: pair_lag_hist(shi, keys, strides, esq, lo, L=L_MAIN), pair_lag_hist)
+        b = bound(n * 4 * ((6 if lo is not None else 3) + 1) + HIST_K * 8,
+                  candidates * INSTR_PER_CANDIDATE[lo is not None] + pairs * per_pair)
+        out[f"K5_{tag}"] = dict(ms=ms, launches=launches, **b,
+                                share_of_bound=b["bound_ms"] / ms)
+    got = combine_count_vec(pair_lag_hist(shi, keys, strides, esq, L=L_MAIN))
+    plain_ms, want = once_ms(lambda: pair_lag_hist_plain(shi, keys, strides, esq, L=L_MAIN))
+    check(np.array_equal(got, combine_count_vec(want)), f"K5 counts at n = {n}")
+    out["K5_f32"].update(plain_ms=plain_ms, plain_n=n)
+    out.update(K5_pairs=pairs, K5_candidates=candidates)
+    del shi, slo, keys
+
+    pts, _ = cube_points(n)
+    shi, slo, keys, info, _ = sort_split(pts, dev)
+    del pts
+    inp = tile_inputs(shi.t().contiguous(), keys, info.strides, CB=CB, MAXJ=HIST_MAXJ,
+                      bandmask=False)
+    inp_s = tile_inputs(shi.t().contiguous(), keys, info.strides, slo.t().contiguous(),
+                        CB=CB, MAXJ=HIST_MAXJ, bandmask=False)
+    check(bool(inp.coverage_ok), f"K9 coverage failed alone at MAXJ = {HIST_MAXJ}")
+    cpairs = int(combine_count_vec(hist_tiles(inp, esq))[-1])
+    ccand = stencil_candidates(keys, info)
+    for tag, x in (("f32", inp), ("split", inp_s)):
+        ms, launches = timed_launches(lambda: hist_tiles(x, esq), tile_pair_hist)
+        b = bound(n * 4 * ((6 if x.lo is not None else 3) + 1) + x.bounds.numel() * 4
+                  + HIST_K * 8, ccand * INSTR_PER_CANDIDATE[x.lo is not None]
+                  + cpairs * per_pair)
+        out[f"K9_{tag}"] = dict(ms=ms, launches=launches, **b,
+                                share_of_bound=b["bound_ms"] / ms)
+    out.update(K9_pairs=cpairs, K9_candidates=ccand,
+               K9_tile_evaluations=int(inp.bounds[:, 2::3].sum()) * 128 * 128)
+    del inp, inp_s, shi, slo, keys
+
+    def k9_plain(m):
+        p, _ = cube_points(m)
+        h, _, k, inf, _ = sort_split(p, dev)
+        x = tile_inputs(h.t().contiguous(), k, inf.strides, CB=CB, MAXJ=HIST_MAXJ,
+                        bandmask=False)
+        got = combine_count_vec(hist_tiles(x, esq))
+        ms, want = once_ms(lambda: hist_tiles_plain(x, esq))
+        check(np.array_equal(got, combine_count_vec(want)), f"K9 counts at n = {m}")
+        return ms
+
+    out["K9_f32"].update(plain_time(k9_plain, n))
+    return dict(n=n, K=HIST_K, MAXJ=HIST_MAXJ, **out)
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1382,7 +2020,11 @@ def main() -> None:
                "lag_forces": lag_pairs.load_forces_kernel,
                "tile_forces": tile_pairs.load_forces_kernel,
                "lag_per_particle": lag_pairs.load_per_particle_kernel,
-               "join_reduce": join.load_kernel}
+               "join_reduce": join.load_kernel,
+               "lag_stress": lag_pairs.load_stress_kernel,
+               "lag_hist": lag_pairs.load_hist_kernel,
+               "tile_stress": tile_pairs.load_stress_kernel,
+               "tile_hist": tile_pairs.load_hist_kernel}
     with ThreadPoolExecutor(len(loaders) + 1) as pool:
         builds = [pool.submit(load) for load in loaders.values()]
         have_oracle = pool.submit(oracle.available)
@@ -1576,12 +2218,7 @@ def main() -> None:
                 out[tag] = case
         return out
 
-    def cube(n):
-        """bench.py's cubic cloud: uniform, density 0.01, default_rng(0)."""
-        side = (n / 0.01) ** (1 / 3)
-        return np.random.default_rng(0).uniform(0, side, (n, 3)), side
-
-    pts, side = cube(N_TILE_CHECK)
+    pts, side = cube_points(N_TILE_CHECK)
     shi, slo, keys, info, _ = sort_split(pts, dev)
     maxj = probe_maxj(keys, info.strides)
     tcases = {"uniform": tile_vs_plain(shi, slo, keys, info.strides, maxj)}
@@ -1613,7 +2250,7 @@ def main() -> None:
          max_rel_err=max_tile_rel(tcases), blob_max_key=max_key)
 
     # -- 7. the cubic main path at n = 1e7 (bench.py's cubic mode) -------------------
-    pts, side = cube(N_MAIN)
+    pts, side = cube_points(N_MAIN)
     pos = torch.as_tensor(pts, dtype=torch.float32, device=dev)
     del pts
     cinfo = GridInfo.create(aabb_from_positions(pos), CUTOFF, auto_order=True)
@@ -1721,7 +2358,7 @@ def main() -> None:
          step_ms=cubic_ms, compare=k6_compare, lattice_max_abs_err=tile_max_abs_err)
 
     # -- 9. cubic f64-grade parity with the exact-f64 oracle, n = 1e6 ---------------
-    pts, side = cube(N_PARITY)
+    pts, side = cube_points(N_PARITY)
     e_ref, n_ref = oracle.lj_energy(pts, CUTOFF)
     hi, lo = split_f64(torch.as_tensor(pts, device=dev))
     pinfo = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
@@ -1785,7 +2422,18 @@ def main() -> None:
     k12 = join_alone(dev)
     emit("join_alone", **k12)
 
-    # -- 18. every ported kernel ---------------------------------------------------
+    # -- 18. the open-boundary observables (K4, K5, K8, K9) ------------------------
+    ov = obs_vs_plain(dev, N_CHECK)
+    emit("obs_vs_plain", **ov)
+    obs = observables_main_path(dev, N_MAIN)
+    emit("observables_main_path", **obs)
+    emit("obs_parity", **obs_parity(dev, N_PARITY))
+    sa = stress_alone(dev, N_MAIN)
+    emit("stress_alone", **sa)
+    ha = hist_alone(dev, N_MAIN)
+    emit("hist_alone", **ha)
+
+    # -- 19. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
@@ -1865,9 +2513,30 @@ def main() -> None:
         "bound_by": k12_sdf["bound_by"],
         "share_of_bound": k12_sdf["share_of_bound"],
         "library_ms": None,
-    }]}), flush=True)
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": f"zelll_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": obs["launches"][name],
+        "max_abs_err": err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "plain_n": row.get("plain_n", N_MAIN),
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "share_of_bound": row["share_of_bound"],
+        "library_ms": None,
+    } for name, replaces, row, err in (
+        ("lag_stress", "zelll_tpu/ops/pallas_pairs.py:1018", sa["K4_split"],
+         ov["lattice_max_abs_err"]["K4"]),
+        ("lag_hist", "zelll_tpu/ops/pallas_pairs.py:1314", ha["K5_f32"], 0),
+        ("tile_stress", "zelll_tpu/ops/tile_pairs.py:735", sa["K8_f32"],
+         ov["lattice_max_abs_err"]["K8"]),
+        ("tile_hist", "zelll_tpu/ops/tile_pairs.py:453", ha["K9_f32"], 0),
+    ))]}), flush=True)
 
-    # -- 19. the card, then the contract line -----------------------------------
+    # -- 20. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

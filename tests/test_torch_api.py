@@ -230,8 +230,8 @@ def test_doctest_contract():
 def test_inputs_and_later_slices():
     """Generic iterables skip bad items (reference lib.rs:40-58), tensors
     and arrays are taken as they are, dim >= 2; the batch queries of slice
-    8 answer (held to brute force), and the method whose kernels belong to
-    a later slice raises and names the slice."""
+    8 and the distance histogram of slice 6a answer (held to brute
+    force)."""
     items = [[0.0, 0.0, 0.0], "garbage", [1.0, 1.0, 1.0], [1, 2], None, (0.5, 0.5, 0.5)]
     assert len(CellGrid(iter(items), 1.0, device="cpu").positions) == 3
     pts = np.random.default_rng(4).uniform(0, 3, (60, 3))
@@ -248,5 +248,7 @@ def test_inputs_and_later_slices():
     dsq = ((pts[:4, None] - pts[None]) ** 2).sum(-1)
     np.testing.assert_array_equal(counts, (dsq <= 0.49).sum(1))
     assert valid.all() and not dists.any()  # each query is a particle
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t.distance_histogram(np.linspace(0, 1, 5))
+    edges = np.linspace(0, 1, 5)
+    iu = np.triu_indices(len(pts), 1)
+    want = np.histogram(np.sqrt(((pts[iu[0]] - pts[iu[1]]) ** 2).sum(-1)), bins=edges)[0]
+    np.testing.assert_array_equal(t.distance_histogram(edges), want)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3, K6, K7, K12) against their plain
-PyTorch versions on the card.
+"""The port's CUDA kernels (K1 to K9 and K12) against their plain PyTorch
+versions on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with a CUDA card and nvcc:
@@ -23,27 +23,37 @@ from zelll_tpu_torch.core import (
     sort_by_key,
 )
 from zelll_tpu_torch.ops.lag_pairs import (
+    SpeciesPairMask,
     _pad_and_desentinel,
     combine_count,
+    combine_count_vec,
     count_term,
     lag_coverage_ok,
     lj_term,
     lj_term_fast,
     pair_lag_forces,
     pair_lag_forces_plain,
+    pair_lag_hist,
+    pair_lag_hist_plain,
     pair_lag_per_particle,
     pair_lag_per_particle_plain,
     pair_lag_reduce,
     pair_lag_reduce_plain,
+    pair_lag_stress,
+    pair_lag_stress_plain,
     split_f64,
 )
-from zelll_tpu_torch.ops.lj import lj_force_factor, lj_force_factor_fast
+from zelll_tpu_torch.ops.lj import lj_force_factor, lj_force_factor_fast, lj_virial_term
 from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
 from zelll_tpu_torch.ops.tile_pairs import (
     tile_pair_forces,
     tile_pair_forces_plain,
+    tile_pair_hist,
+    tile_pair_hist_plain,
     tile_pair_reduce,
     tile_pair_reduce_plain,
+    tile_pair_stress,
+    tile_pair_stress_plain,
 )
 from zelll_tpu_torch.utils.datagen import (
     generate_points_lattice,
@@ -536,3 +546,228 @@ def test_join_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(ValueError):
         join_reduce(qp, qk, pp[:3], pk, strides, csq, term=_count_term,
                     n_out=1, reducer="max")
+
+
+# -- the observables kernels: stress (K4, K8) and histograms (K5, K9) ---------
+
+
+def _sorted_at(pts, device, edge=CUTOFF):
+    """Split, keyed on a grid of cell edge ``edge``, sorted on the card."""
+    hi, lo = split_f64(torch.as_tensor(pts, device=device))
+    info = GridInfo.create(aabb_from_positions(hi), edge, auto_order=True)
+    keys, _, shi, slo = sort_by_key(compute_keys(hi, info), hi, lo)
+    return shi, slo, keys, info.strides
+
+
+def _observable_inputs(device, n, box):
+    """The three inputs each observables kernel is held to: the uniform
+    cloud with 500 duplicated points (coincident pairs), the jittered
+    lattice (pair terms of one size, where a wrong term shows) and the
+    lattice with a SENTINEL_KEY tail."""
+    pts = generate_points_random(n, box)
+    pts[-500:] = pts[:500]
+    uniform = _sorted_at(pts, device)
+    lattice = _sorted_at(generate_points_lattice(n, box), device)
+    tail = lattice[2].clone()
+    tail[-1000:] = SENTINEL_KEY
+    return {"uniform": uniform, "lattice": lattice,
+            "sentinel_tail": (lattice[0], lattice[1], tail, lattice[3])}
+
+
+def _integer_lattice(shape):
+    """Integer points on a grid of spacing 1: integer squared distances,
+    exactly on the integer squared edges, so a wrong edge compare shows."""
+    g = np.stack(np.meshgrid(*[np.arange(k) for k in shape], indexing="ij"), -1)
+    return g.reshape(-1, 3).astype(np.float64)
+
+
+def _assert_stress(got, want, rel):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= rel * float(want.double().abs().max()), err
+
+
+@pytest.mark.gpu
+def test_lag_stress_kernel_matches_plain_on_card(cuda_device):
+    """K4 against its plain version on the same sorted CUDA tensors: f64
+    stress to 1e-10 of the largest component (TOL_FAST_FORCES with the
+    fast factor), split, f32 and f64 coordinates, coincident points, a
+    sentinel tail and an undersized L; K1's virial term against its plain
+    version and against the trace."""
+    n = 50_000
+    csq = CUTOFF**2
+    f64 = torch.float64
+    for tag, (shi, slo, keys, strides) in _observable_inputs(
+            cuda_device, n, lj_box(n, CUTOFF)).items():
+        for plo in (slo, None):
+            for gfn, tol in ((lj_force_factor, 1e-10), (lj_force_factor_fast, TOL_FAST_FORCES)):
+                for L in (256, 16):
+                    kw = dict(L=L, gfn=gfn, out_dtype=f64)
+                    before = pair_lag_stress.launches
+                    got = pair_lag_stress(shi, keys, strides, csq, plo, **kw)
+                    assert pair_lag_stress.launches == before + 1
+                    _assert_stress(got, pair_lag_stress_plain(shi, keys, strides, csq,
+                                                              plo, **kw), tol)
+        pos64 = shi.double() + slo.double()
+        got = pair_lag_stress(pos64, keys, strides, csq)
+        assert got.dtype == f64
+        _assert_stress(got, pair_lag_stress_plain(pos64, keys, strides, csq), 1e-10)
+        w = pair_lag_reduce(shi, keys, strides, csq, slo, term=lj_virial_term, out_dtype=f64)
+        w_p = pair_lag_reduce_plain(shi, keys, strides, csq, slo, term=lj_virial_term,
+                                    out_dtype=f64)
+        np.testing.assert_allclose(float(w), float(w_p), rtol=1e-10)
+        trace = torch.trace(pair_lag_stress(shi, keys, strides, csq, slo, out_dtype=f64))
+        if tag != "uniform":  # coincident pairs: the virial keeps their inf
+            np.testing.assert_allclose(float(trace), float(w), rtol=1e-6)
+    with pytest.raises(ValueError):
+        pair_lag_stress(shi, keys, strides, csq, gfn=lambda d: d)
+    with pytest.raises(ValueError):
+        pair_lag_stress(shi, keys, strides, csq, min_islot=5)
+    with pytest.raises(ValueError):
+        pair_lag_stress(shi, keys, strides, csq, None, keys.float(),
+                        pair_weight=lambda a, b: a)
+
+
+@pytest.mark.gpu
+def test_lag_hist_kernel_matches_plain_on_card(cuda_device):
+    """K5 against its plain version on the same sorted CUDA tensors: counts
+    exact at K = 16, 32 and 64, split, f32 and f64 coordinates, a species
+    pair mask, coincident points, a sentinel tail, an undersized L, and an
+    integer lattice whose squared distances fall exactly on the edges."""
+    n = 50_000
+    csq = CUTOFF**2
+    for tag, (shi, slo, keys, strides) in _observable_inputs(
+            cuda_device, n, lj_box(n, CUTOFF)).items():
+        spec = torch.as_tensor(np.random.default_rng(2).integers(0, 3, n),
+                               device=cuda_device)
+        for plo in (slo, None):
+            for K in (16, 32, 64):
+                for L in (256, 16):
+                    esq = torch.linspace(0, CUTOFF, K, dtype=torch.float64).float() ** 2
+                    before = pair_lag_hist.launches
+                    got = pair_lag_hist(shi, keys, strides, esq, plo, L=L)
+                    assert pair_lag_hist.launches == before + 1
+                    want = pair_lag_hist_plain(shi, keys, strides, esq, plo, L=L)
+                    assert got.dtype == torch.int32 and got.shape == (2, K)
+                    np.testing.assert_array_equal(combine_count_vec(got),
+                                                  combine_count_vec(want))
+        pos64 = shi.double() + slo.double()
+        esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64) ** 2
+        for pos, pay, mask in ((pos64, None, None), (shi, spec.float(), SpeciesPairMask(0, 2)),
+                               (pos64, spec.double(), SpeciesPairMask(1, 1))):
+            got = pair_lag_hist(pos, keys, strides, esq, None, pay, pair_mask=mask)
+            want = pair_lag_hist_plain(pos, keys, strides, esq, None, pay, pair_mask=mask)
+            c = combine_count_vec(got)
+            np.testing.assert_array_equal(c, combine_count_vec(want))
+            assert c[-1] > 0
+    shi, slo, keys, strides = _sorted_at(_integer_lattice((12, 12, 200)), cuda_device, 3.0)
+    esq = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 9.0], device=cuda_device)
+    for pos in (shi, shi.double()):
+        got = combine_count_vec(pair_lag_hist(pos, keys, strides, esq.to(pos.dtype), L=1024))
+        want = combine_count_vec(pair_lag_hist_plain(pos, keys, strides, esq.to(pos.dtype),
+                                                     L=1024))
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        pair_lag_hist(shi, keys, strides, esq, None, spec.float(), pair_mask=lambda a, b: a == b)
+    with pytest.raises(ValueError):
+        pair_lag_hist(shi, keys, strides, esq, min_islot=3)
+
+
+@pytest.mark.gpu
+def test_tile_stress_kernel_matches_plain_on_card(cuda_device):
+    """K8 against its plain version on the same sorted CUDA tensors: a
+    cube at the benchmark's density (uniform with coincident points, the
+    jittered lattice and a sentinel tail), masked and maskless, split, f32
+    and f64, both force factors, and an undersized MAXJ (the same flag and
+    the same partial sums); K6's virial term against its plain version."""
+    n = 50_000
+    side = (n / 0.01) ** (1 / 3)
+    csq = CUTOFF**2
+    f64 = torch.float64
+    for tag, (shi, slo, keys, strides) in _observable_inputs(
+            cuda_device, n, (side, side, side)).items():
+        maxj = _maxj(keys, strides)
+        for bandmask in (False, True):
+            for plo in (slo, None):
+                for gfn, tol in ((lj_force_factor, 1e-10),
+                                 (lj_force_factor_fast, TOL_FAST_FORCES)):
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, gfn=gfn, out_dtype=f64)
+                    before = tile_pair_stress.launches
+                    got, ok = tile_pair_stress(shi, keys, strides, csq, plo, **kw)
+                    assert tile_pair_stress.launches == before + 1
+                    want, ok_p = tile_pair_stress_plain(shi, keys, strides, csq, plo, **kw)
+                    assert bool(ok) and bool(ok_p)
+                    _assert_stress(got, want, tol)
+            kw = dict(MAXJ=maxj, bandmask=bandmask, term=lj_virial_term, out_dtype=f64)
+            w, _ = tile_pair_reduce(shi, keys, strides, csq, slo, **kw)
+            w_p, _ = tile_pair_reduce_plain(shi, keys, strides, csq, slo, **kw)
+            np.testing.assert_allclose(float(w), float(w_p), rtol=1e-10)
+        pos64 = shi.double() + slo.double()
+        got, _ = tile_pair_stress(pos64, keys, strides, csq, MAXJ=maxj)
+        want, _ = tile_pair_stress_plain(pos64, keys, strides, csq, MAXJ=maxj)
+        assert got.dtype == f64
+        _assert_stress(got, want, 1e-10)
+        kw = dict(MAXJ=1, bandmask=True, out_dtype=f64)
+        got, ok = tile_pair_stress(shi, keys, strides, csq, slo, **kw)
+        want, ok_p = tile_pair_stress_plain(shi, keys, strides, csq, slo, **kw)
+        assert not bool(ok) and not bool(ok_p)
+        _assert_stress(got, want, 1e-10)
+    with pytest.raises(ValueError):
+        tile_pair_stress(shi, keys, strides, csq, MAXJ=maxj, gfn=lambda d: d)
+    with pytest.raises(ValueError):
+        tile_pair_stress(shi, keys, strides, csq, MAXJ=maxj, min_islot=5)
+
+
+@pytest.mark.gpu
+def test_tile_hist_kernel_matches_plain_on_card(cuda_device):
+    """K9 against its plain version on the same sorted CUDA tensors: counts
+    exact on the cube's three inputs, masked and maskless, split, f32 and
+    f64, K = 16 and 64, a species pair mask, an undersized MAXJ, and an
+    integer lattice whose squared distances fall exactly on the edges."""
+    n = 50_000
+    side = (n / 0.01) ** (1 / 3)
+    for tag, (shi, slo, keys, strides) in _observable_inputs(
+            cuda_device, n, (side, side, side)).items():
+        maxj = _maxj(keys, strides)
+        spec = torch.as_tensor(np.random.default_rng(3).integers(0, 3, n),
+                               device=cuda_device)
+        for bandmask in (False, True):
+            for plo in (slo, None):
+                for K in (16, 64):
+                    esq = torch.linspace(0, CUTOFF, K, dtype=torch.float64).float() ** 2
+                    kw = dict(MAXJ=maxj, bandmask=bandmask)
+                    before = tile_pair_hist.launches
+                    got, ok = tile_pair_hist(shi, keys, strides, esq, plo, **kw)
+                    assert tile_pair_hist.launches == before + 1
+                    want, ok_p = tile_pair_hist_plain(shi, keys, strides, esq, plo, **kw)
+                    assert bool(ok) and bool(ok_p)
+                    np.testing.assert_array_equal(combine_count_vec(got),
+                                                  combine_count_vec(want))
+        pos64 = shi.double() + slo.double()
+        esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64) ** 2
+        for pos, pay, mask, m in ((pos64, None, None, maxj),
+                                  (shi, spec.float(), SpeciesPairMask(0, 2), maxj),
+                                  (pos64, spec.double(), SpeciesPairMask(1, 1), maxj),
+                                  (shi, None, None, 1)):
+            kw = dict(MAXJ=m, bandmask=m == 1, pair_mask=mask)
+            got, ok = tile_pair_hist(pos, keys, strides, esq.to(pos.dtype), None, pay, **kw)
+            want, ok_p = tile_pair_hist_plain(pos, keys, strides, esq.to(pos.dtype), None,
+                                              pay, **kw)
+            assert bool(ok) == bool(ok_p) == (m != 1)
+            np.testing.assert_array_equal(combine_count_vec(got), combine_count_vec(want))
+    shi, slo, keys, strides = _sorted_at(_integer_lattice((40, 40, 40)), cuda_device, 3.0)
+    esq = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 9.0], device=cuda_device)
+    maxj = _maxj(keys, strides)
+    for pos in (shi, shi.double()):
+        for bandmask in (False, True):
+            kw = dict(MAXJ=maxj, bandmask=bandmask)
+            got, ok = tile_pair_hist(pos, keys, strides, esq.to(pos.dtype), **kw)
+            want, ok_p = tile_pair_hist_plain(pos, keys, strides, esq.to(pos.dtype), **kw)
+            assert bool(ok) == bool(ok_p)
+            np.testing.assert_array_equal(combine_count_vec(got), combine_count_vec(want))
+    with pytest.raises(ValueError):
+        tile_pair_hist(shi, keys, strides, torch.linspace(0, 9, 65, device=cuda_device))
+    with pytest.raises(ValueError):
+        tile_pair_hist(shi, keys, strides, esq, min_islot=3)
+

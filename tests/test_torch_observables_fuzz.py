@@ -1,0 +1,184 @@
+"""Seeded random configurations through the port's observables kernels,
+held to numpy brute force. Each seed draws a dimension (1 to 3), a box
+shape (cubic, thin or slab), a density, a cutoff (points closer than 0.02
+cutoff are dropped, since their f32 LJ terms overflow), the coordinate
+mode (f32, split f32 hi/lo far from the origin, or f64), the tile
+options, a tail of padding rows (SENTINEL_KEY, far from every particle)
+on odd seeds, and for the histograms 1 to 64 ascending edges and, on half
+the seeds, a species pair mask. It checks:
+
+* the plain K4 (`pair_lag_stress` at `suggest_lag`'s L) and K8
+  (`tile_pair_stress`, masked or maskless, at `suggest_maxj`'s capacity):
+  flag up, every component within 1e-9 of the sum of its |terms| of a
+  brute force that repeats the port's per-pair rounding (so only the order
+  of the f64 sums differs);
+* the plain K5 (`pair_lag_hist`) and K9 (`tile_pair_hist`): flag up and
+  cumulative counts exactly the brute force's.
+
+Everything runs the plain versions on CPU tensors and calls no JAX."""
+
+import numpy as np
+import pytest
+import torch
+from xla_release import release_xla_executables  # noqa: F401
+
+from zelll_tpu_torch.core import SENTINEL_KEY, build
+from zelll_tpu_torch.ops import segments as seg
+from zelll_tpu_torch.ops.lag_pairs import (
+    SpeciesPairMask,
+    _pad_and_desentinel,
+    combine_count_vec,
+    lag_coverage_ok,
+    pair_lag_hist,
+    pair_lag_stress,
+    split_f64,
+    suggest_lag,
+)
+from zelll_tpu_torch.ops.tile_pairs import tile_pair_hist, tile_pair_stress
+
+SEEDS = range(222)
+SHAPES = {"cubic": (1.0, 1.0, 1.0), "thin": (0.25, 0.25, 4.0),
+          "slab": (2.0, 2.0, 0.2)}
+MODES = ("f32", "split", "f64")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the cases are small, and the test
+    workers share the host's cores (tests/test_torch_forces_fuzz.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _case(seed):
+    """The sorted inputs of one seed: a dict of tensors and options."""
+    rng = np.random.default_rng(11000 + seed)
+    dim = int(rng.integers(1, 4))
+    cutoff = float(rng.uniform(0.7, 1.6))
+    aspect = np.asarray(SHAPES[list(SHAPES)[seed % len(SHAPES)]][-dim:])
+    mode = MODES[(seed // 2) % len(MODES)]
+    n = int(rng.integers(30, 300))
+    density = float(rng.uniform(0.5, 4.0))  # particles per cutoff^dim
+    side = (n / density / np.prod(aspect)) ** (1.0 / dim) * cutoff
+    extent = np.maximum(side * aspect, 0.5 * cutoff)
+    offset = 3000.0 if mode == "split" else rng.uniform(-5, 5)
+    pts = rng.uniform(0, 1, (n, dim)) * extent
+    # drop the later point of each pair closer than 0.02 cutoff: LJ terms of
+    # nearer pairs overflow f32 (the stress tests hold coincident pairs)
+    dist = np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1))
+    pts = pts[~np.triu(dist < 0.02 * cutoff, 1).any(0)] + offset
+    n = len(pts)
+    n_pad = int(rng.integers(1, 40)) if seed % 2 else 0
+    allp = np.concatenate([pts, 1.0e6 + 100.0 * np.arange(n_pad)[:, None] * np.ones(dim)])
+    if mode == "f32":
+        allp = allp.astype(np.float32)
+    g = build(allp, cutoff, valid=np.arange(len(allp)) < n, device="cpu")
+    hi, lo = g.sorted_pos, None
+    if mode == "split":
+        hi, lo = split_f64(g.sorted_pos)
+    species = rng.integers(0, 3, len(allp))[g.bins.perm.numpy()]
+    K = int(rng.integers(1, 65))
+    edges = np.sort(rng.uniform(0, cutoff, K))
+    edges[-1] = cutoff
+    if rng.integers(0, 2):
+        edges[0] = 0.0
+    return dict(
+        dim=dim, cutoff=cutoff, pos=hi, lo=lo, keys=g.bins.sorted_keys,
+        strides=g.info.strides, real=(g.bins.sorted_keys != SENTINEL_KEY).numpy(),
+        species=species, pair=tuple(sorted(rng.integers(0, 3, 2))) if seed % 4 < 2 else None,
+        edges_sq=edges.astype(np.float32 if mode != "f64" else np.float64) ** 2,
+        CB=int(rng.choice([1, 2, 4])), bandmask=bool(rng.integers(0, 2)))
+
+
+def _pairs(c, mask=None):
+    """(d, dsq) of every unique pair of real sorted slots in the port's
+    rounding: d = p_j - p_i per axis (split: (hi_j - hi_i) + (lo_j -
+    lo_i)), dsq summed axis by axis in the coordinates' dtype."""
+    p = c["pos"].numpy()
+    i, j = np.triu_indices(len(p), 1)
+    keep = c["real"][i] & c["real"][j]
+    if mask is not None:
+        keep &= mask(c["species"][i], c["species"][j])
+    i, j = i[keep], j[keep]
+    d = p[j] - p[i]
+    if c["lo"] is not None:
+        lo = c["lo"].numpy()
+        d = d + (lo[j] - lo[i])
+    dsq = d[:, 0] * d[:, 0]
+    for a in range(1, p.shape[1]):
+        dsq = dsq + d[:, a] * d[:, a]
+    return d, dsq
+
+
+def _maxj(c):
+    n = c["pos"].shape[0]
+    C = max(-(-n // (seg.CHUNK * c["CB"])) * c["CB"], c["CB"]) * seg.CHUNK
+    keys = _pad_and_desentinel(c["keys"], C)
+    return seg.suggest_maxj(keys, seg.segment_bands(c["strides"]), per_band=True)
+
+
+def _tile(fn, c, *args, **kw):
+    """A tile entry point at the suggested capacity: maskless when the
+    seed asks and the windows allow it (the flag), else masked."""
+    kw.update(CB=c["CB"], MAXJ=_maxj(c))
+    out, ok = fn(*args, bandmask=c["bandmask"], **kw)
+    if c["bandmask"] or bool(ok):
+        return out, ok
+    # maskless tiles also need pairwise disjoint windows, which a chunk
+    # straddling a key jump may lack even after the trim
+    return fn(*args, bandmask=True, **kw)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stress_vs_bruteforce(seed):
+    c = _case(seed)
+    t = np.float64 if c["pos"].dtype == torch.float64 else np.float32
+    d, dsq = _pairs(c)
+    m = (dsq < t(c["cutoff"] ** 2)) & (dsq > 0)
+    d, dsq = d[m], dsq[m]
+    inv = t(1) / dsq
+    tt = inv * inv * inv
+    g = t(24) * tt * (t(2) * tt - t(1)) * inv
+    dim = c["dim"]
+    ref, mag = np.zeros((dim, dim)), np.zeros((dim, dim))
+    for a in range(dim):
+        for b in range(a, dim):
+            v = ((g * d[:, a]) * d[:, b]).astype(np.float64)
+            ref[a, b] = ref[b, a] = v.sum()
+            mag[a, b] = mag[b, a] = np.abs(v).sum()
+    args = (c["pos"], c["keys"], c["strides"], c["cutoff"] ** 2, c["lo"])
+    L = suggest_lag(c["keys"], c["strides"])
+    assert bool(lag_coverage_ok(c["keys"], c["strides"], L))
+    lag = pair_lag_stress(*args, L=L, out_dtype=torch.float64).numpy()
+    tile, ok = _tile(tile_pair_stress, c, *args, out_dtype=torch.float64)
+    assert bool(ok)
+    assert np.isfinite(mag).all()
+    for got in (lag, tile.numpy()):
+        assert got.shape == (dim, dim)
+        assert np.all(np.abs(got - ref) <= 1e-9 * mag)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_hist_vs_bruteforce(seed):
+    c = _case(seed)
+    pair, mask, payload = c["pair"], None, None
+    if pair is not None:
+        a, b = pair
+        payload = torch.as_tensor(c["species"], dtype=c["pos"].dtype)
+
+        def mask(wi, wj):
+            return ((wi == a) & (wj == b)) | ((wi == b) & (wj == a))
+
+    _, dsq = _pairs(c, mask)
+    esq = c["edges_sq"]
+    want = np.array([(dsq < e).sum() for e in esq], np.int64)
+    args = (c["pos"], c["keys"], c["strides"], esq, c["lo"], payload)
+    kw = dict(pair_mask=None if pair is None else SpeciesPairMask(*pair))
+    L = suggest_lag(c["keys"], c["strides"])
+    lag = pair_lag_hist(*args, L=L, **kw)
+    tile, ok = _tile(tile_pair_hist, c, *args, **kw)
+    assert bool(ok)
+    np.testing.assert_array_equal(combine_count_vec(lag), want)
+    np.testing.assert_array_equal(combine_count_vec(tile), want)

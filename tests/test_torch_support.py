@@ -116,6 +116,15 @@ def test_import_without_jax_and_compute_on_cpu():
         "cg = z.CellGrid(pts, 1.0, device='cpu')\n"
         "assert len(cg.pairs(True)[0]) == cg.coordination_numbers().sum() // 2\n"
         "assert np.isfinite(cg.lj_energy()) and cg.stress().shape == (3, 3)\n"
+        "h = cg.distance_histogram(np.linspace(0, 1, 5))\n"
+        "assert h.sum() == len(cg.pairs(True)[0])\n"
+        "s, ok = z.fused_stress_open(pts, 1.0, path='tile', device='cpu')\n"
+        "w, _ = z.virial_rebuild(pts, 1.0, device='cpu')\n"
+        "assert bool(ok) and abs(float(s.trace()) - float(w)) <= 1e-9 * abs(float(w))\n"
+        "c, ok = z.pair_distance_histogram(pts, [0, 0.5, 1.0], device='cpu')\n"
+        "assert ok and c.sum() == h.sum()\n"
+        "st, ok = z.md_run_langevin(st, 1.6, 1e-4, 0.1, 1.0, 0, steps=2)\n"
+        "assert bool(ok) and st.positions.shape == (216, 3)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'zelll_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

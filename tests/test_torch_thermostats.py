@@ -1,0 +1,102 @@
+"""The port's NVT thermostats (zelll_tpu_torch.models.thermostats) on the
+CPU, mirroring tests/test_thermostats.py. The port draws its noise from a
+torch.Generator and the JAX package from a PRNG key, so the two random
+streams differ: these tests hold the port to the same statistics and
+limits as the JAX tests hold the JAX package, and to the JAX package's
+deterministic functions exactly."""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+from xla_release import release_xla_executables  # noqa: F401
+
+from zelll_tpu.models.thermostats import berendsen_rescale as jax_berendsen_rescale
+from zelll_tpu.models.thermostats import kinetic_temperature as jax_kinetic_temperature
+from zelll_tpu_torch.models.lj_md import MDState, md_run
+from zelll_tpu_torch.models.thermostats import (
+    berendsen_rescale,
+    kinetic_temperature,
+    md_run_langevin,
+    ou_step,
+)
+
+
+def lattice(k=6, spacing=1.2, jitter=0.02, seed=0):
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*([np.arange(k)] * 3), indexing="ij"), -1).reshape(-1, 3)
+    pts = g * spacing + 0.5 * spacing
+    pts += rng.uniform(-jitter, jitter, pts.shape) * spacing
+    return pts
+
+
+def _state(pts, vel):
+    return MDState.create(pts.astype(np.float32), vel.astype(np.float32), device="cpu")
+
+
+def test_zero_gamma_reduces_to_nve():
+    pts = lattice()
+    vel = np.random.default_rng(1).normal(0, 0.05, pts.shape)
+    cutoff, dt, steps = 1.5, 1e-3, 5
+    gen = torch.Generator().manual_seed(0)
+    st_nvt, ok1 = md_run_langevin(_state(pts, vel), cutoff, dt, kT=0.1, gamma=0.0,
+                                  generator=gen, steps=steps)
+    st_nve, ok2, _ = md_run(_state(pts, vel), cutoff, dt, steps=steps)
+    assert bool(ok1) and bool(ok2)
+    assert torch.equal(st_nvt.positions, st_nve.positions)
+    assert torch.equal(st_nvt.velocities, st_nve.velocities)
+
+
+def test_ou_step_statistics():
+    """The exact OU step equilibrates a large ensemble to kT."""
+    gen = torch.Generator().manual_seed(42)
+    v = torch.zeros((20000, 3))
+    kT, gamma, dt = 0.35, 2.0, 0.5
+    for _ in range(40):
+        v = ou_step(v, gen, kT, gamma, dt)
+    assert v.dtype == torch.float32
+    t = float(kinetic_temperature(v))
+    assert abs(t - kT) < 0.02 * kT
+    # the velocity distribution is normal(0, sqrt(kT)) per component
+    assert abs(float(v.mean())) < 0.01
+    assert abs(float(v.std()) - np.sqrt(kT)) < 0.01 * np.sqrt(kT)
+
+
+def test_langevin_thermalizes_lattice():
+    """A cold LJ lattice heats to the target temperature under Langevin
+    (loose band: small system, short run), and the same generator state
+    gives the same trajectory."""
+    pts = lattice(k=5, spacing=1.1)
+    kT = 0.05
+    runs = []
+    for _ in range(2):
+        st, ok, temps = md_run_langevin(
+            _state(pts, np.zeros_like(pts)), 1.4, 2e-3, kT=kT, gamma=20.0,
+            generator=torch.Generator().manual_seed(3), steps=120,
+            record_temperature=True)
+        runs.append((st, temps))
+        assert bool(ok) and temps.shape == (120,)
+        tail = float(temps[-30:].mean())
+        # virial sharing with the potential keeps T near (not exactly at) kT
+        assert 0.4 * kT < tail < 2.5 * kT
+        assert torch.isfinite(st.positions).all()
+    assert torch.equal(runs[0][0].positions, runs[1][0].positions)
+    assert torch.equal(runs[0][1], runs[1][1])
+    # an int seed makes a generator on the state's device
+    st, ok = md_run_langevin(_state(pts, np.zeros_like(pts)), 1.4, 2e-3, kT=kT,
+                             gamma=20.0, generator=3, steps=2)
+    assert bool(ok) and st.positions.shape == pts.shape
+
+
+def test_berendsen_rescale_direction():
+    rng = np.random.default_rng(5)
+    v = rng.normal(0, 1.0, (500, 3)).astype(np.float32)
+    t0 = float(kinetic_temperature(torch.as_tensor(v)))
+    np.testing.assert_allclose(t0, float(jax_kinetic_temperature(jnp.asarray(v))),
+                               rtol=1e-6)
+    v2 = berendsen_rescale(torch.as_tensor(v), kT_target=0.5 * t0, tau=10.0, dt=1.0)
+    assert float(kinetic_temperature(v2)) < t0  # cooling toward the target
+    np.testing.assert_allclose(
+        v2.numpy(), np.asarray(jax_berendsen_rescale(jnp.asarray(v), 0.5 * t0, 10.0, 1.0)),
+        rtol=1e-6)
+    v3 = berendsen_rescale(torch.as_tensor(v), kT_target=2.0 * t0, tau=10.0, dt=1.0)
+    assert float(kinetic_temperature(v3)) > t0

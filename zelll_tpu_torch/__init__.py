@@ -48,6 +48,17 @@ near its iso-surface by lockstep HMC or NUTS chains:
     sdf = SmoothDistanceField(atoms, radii, cutoff=10.0)
     values, grads, valid = sdf.evaluate(queries)
     points = sample_surface(sdf, chains=1024, burnin=200, draws=50)
+
+The observables, open boundaries: the stress tensor in one fused pass
+(K4 on thin boxes, K8 with ``path="tile"``), pair-distance histograms (K5,
+K9) and a Langevin NVT trajectory over `md_step`:
+
+    from zelll_tpu_torch import fused_stress_open, pair_distance_histogram
+    sigma, ok = fused_stress_open(pos_f32, 10.0, positions_lo=lo)
+    shells, ok = pair_distance_histogram(pos_f32, np.linspace(0, 10, 32))
+    state, ok, temps = md_run_langevin(state, 10.0, 1e-4, kT=1.0, gamma=1.0,
+                                       generator=gen, steps=10,
+                                       record_temperature=True)
 """
 
 from .api import CellGrid, GridCell
@@ -82,6 +93,7 @@ from .models import (
     md_run_vv,
     md_step,
     md_step_cubic_tile,
+    md_run_langevin,
     md_step_split,
     nuts_sample,
     nuts_sample_batched,
@@ -95,6 +107,8 @@ from .ops import (
     fused_lj_energy,
     fused_lj_rebuild_energy,
     fused_pair_sum,
+    fused_stress_open,
+    fused_virial,
     grid_join_reduce,
     join_reduce,
     lag_coverage_ok,
@@ -103,16 +117,22 @@ from .ops import (
     lj_force_factor_fast,
     lj_term_fast,
     nearest_dsq,
+    pair_distance_histogram,
     pair_lag_forces,
+    pair_lag_hist,
     pair_lag_per_particle,
     pair_lag_reduce,
+    pair_lag_stress,
     split_f64,
     suggest_lag,
     tile_count_pairs,
     tile_lj_energy,
     tile_lj_rebuild_energy,
     tile_pair_forces,
+    tile_pair_hist,
     tile_pair_reduce,
+    tile_pair_stress,
+    virial_rebuild,
 )
 
 __all__ = [
@@ -146,6 +166,7 @@ __all__ = [
     "md_run_vv",
     "md_step",
     "md_step_cubic_tile",
+    "md_run_langevin",
     "md_step_split",
     "nuts_sample",
     "nuts_sample_batched",
@@ -157,6 +178,8 @@ __all__ = [
     "fused_lj_energy",
     "fused_lj_rebuild_energy",
     "fused_pair_sum",
+    "fused_stress_open",
+    "fused_virial",
     "grid_join_reduce",
     "join_reduce",
     "lag_coverage_ok",
@@ -165,14 +188,20 @@ __all__ = [
     "lj_force_factor_fast",
     "lj_term_fast",
     "nearest_dsq",
+    "pair_distance_histogram",
     "pair_lag_forces",
+    "pair_lag_hist",
     "pair_lag_per_particle",
     "pair_lag_reduce",
+    "pair_lag_stress",
     "split_f64",
     "suggest_lag",
     "tile_count_pairs",
     "tile_lj_energy",
     "tile_lj_rebuild_energy",
     "tile_pair_forces",
+    "tile_pair_hist",
     "tile_pair_reduce",
+    "tile_pair_stress",
+    "virial_rebuild",
 ]

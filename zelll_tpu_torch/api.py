@@ -36,7 +36,8 @@ device-to-host pull of the table, cached per build).
 
 Extensions: ``query_neighbors_batch``, ``count_neighbors_batch`` and
 ``nearest_neighbor_distances`` (kernel K12 on the card), ``pairs``,
-``coordination_numbers`` (kernel K2 on the card), ``lj_energy``,
+``coordination_numbers`` (kernel K2 on the card), ``distance_histogram``
+(kernels K5 and K9 on the card), ``lj_energy``,
 ``virial``, ``stress``, ``positions``, ``grid_data``.
 
 The grid lives on ``device`` (CUDA unless the caller passes
@@ -582,12 +583,43 @@ class CellGrid:
         return g.unsort(out).cpu().numpy().astype(np.int64)[: len(self._pts)]
 
     def distance_histogram(self, edges) -> np.ndarray:
-        """Histogram of unique pair distances over shells, one fused pass in
-        the JAX package (kernels K5 and K9). Not ported yet: they come with
-        the observables (ROADMAP queue 1, slice 6)."""
-        raise NotImplementedError(
-            "distance_histogram runs the histogram kernels K5 and K9, which "
-            "are not ported yet (ROADMAP queue 1, slice 6)")
+        """Histogram of unique pair distances over shells
+        ``edges[k] <= r < edges[k+1]``: one fused pass, no pair list (see
+        `ops.rdf`). ``edges[-1]`` may exceed the grid cutoff: the histogram
+        bins at its own range. It probes the lag bound there and takes the
+        lag kernel (K5) for L <= 2048, else the tile kernel (K9), growing
+        MAXJ from 8 until the flag holds, as the JAX method does (each
+        growth counts in ``CellGrid.distance_histogram.retries``). Returns
+        (K-1,) int64."""
+        edges = np.asarray(edges, np.float64).reshape(-1)
+        if self._grid is None or len(self._pts) < 2:
+            return np.zeros(max(len(edges) - 1, 0), np.int64)
+        if self._pts.shape[1] != 3:
+            raise ValueError(
+                "distance_histogram runs on the fused 3D kernels; for "
+                f"dim={self._pts.shape[1]} use core.pairs' bucketed tools")
+        from .core.binning import bin_and_sort
+        from .ops.lag_pairs import suggest_lag
+        from .ops.rdf import pair_distance_histogram
+
+        pos = torch.as_tensor(self._pts, dtype=self._grid.sorted_pos.dtype,
+                              device=self._device)
+        bins, _ = bin_and_sort(pos, float(edges[-1]), max_cells=1, need_perm=False,
+                               auto_order=True)
+        L = suggest_lag(bins.sorted_keys, bins.info.strides)
+        if L <= 2048:
+            counts, ok = pair_distance_histogram(pos, edges, M=max(1024, L), L=L)
+            if not ok:
+                raise RuntimeError(f"lag coverage failed at the suggested L={L}")
+            return np.asarray(counts, np.int64)
+        MAXJ = 8
+        while True:
+            counts, ok = pair_distance_histogram(pos, edges, path="tile", MAXJ=MAXJ)
+            if ok or MAXJ >= _round_capacity(len(self._pts)) // 128:
+                break
+            MAXJ *= 2
+            CellGrid.distance_histogram.retries += 1
+        return np.asarray(counts, np.int64)
 
     def lj_energy(self) -> float:
         """Total LJ potential over cutoff-filtered pairs (fused on device)."""
@@ -653,3 +685,8 @@ class CellGrid:
     def __repr__(self):
         cells = int(self._grid.num_cells) if self._grid is not None else 0
         return f"CellGrid(n={len(self._pts)}, cutoff={self._cutoff}, cells={cells})"
+
+
+# Times the tile MAXJ ladder of `CellGrid.distance_histogram` grew since the
+# last reset.
+CellGrid.distance_histogram.retries = 0

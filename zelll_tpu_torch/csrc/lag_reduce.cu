@@ -9,7 +9,8 @@
 //
 // with dsq accumulated from 0 axis by axis, and in split mode each axis'
 // separation d = (hi_i - hi_j) + (lo_i - lo_j). Terms: LJ 4 t3 (t3 - 1),
-// t = 1/dsq by true division, or count (1). There is no dsq > 0 exclusion:
+// t = 1/dsq by true division, the LJ pair virial 24 t3 (2 t3 - 1), or
+// count (1). There is no dsq > 0 exclusion:
 // coincident real particles count, as in the reference.
 //
 // What it does not copy: the TPU kernel's rolling VMEM window, lane rolls and
@@ -60,6 +61,7 @@ constexpr int kBlock = 256;
 constexpr int kMaxDim = 3;
 constexpr int kTermLj = 0;
 constexpr int kTermCount = 1;
+constexpr int kTermVirial = 2;
 constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
 constexpr int32_t kPadKeyBase = kSentinelKey / 2;
 
@@ -77,6 +79,11 @@ __device__ __forceinline__ float term_value(float dsq) {
     const float t = 1.0f / dsq;
     const float t3 = t * t * t;
     return 4.0f * t3 * (t3 - 1.0f);
+  }
+  if (TERM == kTermVirial) {
+    const float t = 1.0f / dsq;
+    const float t3 = t * t * t;
+    return 24.0f * t3 * (2.0f * t3 - 1.0f);
   }
   return 1.0f;
 }
@@ -184,7 +191,7 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* keys,
                      void* stream) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (term != kTermLj && term != kTermCount))
+      (term != kTermLj && term != kTermCount && term != kTermVirial))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* p = static_cast<const float*>(pos);
   const auto* l = static_cast<const float*>(lo);
@@ -195,6 +202,9 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* keys,
   if (l != nullptr) {
     if (term == kTermLj)
       launch<true, kTermLj>(p, l, k, w, n, dim, L, spacing, csq, io, partial, s);
+    else if (term == kTermVirial)
+      launch<true, kTermVirial>(p, l, k, w, n, dim, L, spacing, csq, io,
+                                partial, s);
     else
       launch<true, kTermCount>(p, l, k, w, n, dim, L, spacing, csq, io, partial,
                                s);
@@ -202,6 +212,9 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* keys,
     if (term == kTermLj)
       launch<false, kTermLj>(p, l, k, w, n, dim, L, spacing, csq, io, partial,
                             s);
+    else if (term == kTermVirial)
+      launch<false, kTermVirial>(p, l, k, w, n, dim, L, spacing, csq, io,
+                                 partial, s);
     else
       launch<false, kTermCount>(p, l, k, w, n, dim, L, spacing, csq, io,
                                 partial, s);

@@ -17,7 +17,8 @@
 // separation d = (hi_i - hi_j) + (lo_i - lo_j). The windows and bands come
 // from ops/segments.py on the torch side (chunk_bounds, trimmed disjoint
 // for the maskless body). Terms: LJ 4 t3 (t3 - 1) with t = 1/dsq by true
-// division, the same with t = rsqrtf(dsq)^2, or count (1).
+// division, the same with t = rsqrtf(dsq)^2, the LJ pair virial
+// 24 t3 (2 t3 - 1) with t = 1/dsq, or count (1).
 //
 // What it does not copy: the packed 8-row f32 blocks with f32 keys, the
 // per-band DMA windows and their semaphores, the (128,1)->(128,128) lane
@@ -68,6 +69,7 @@ constexpr int kMaxDim = 3;
 constexpr int kTermLj = 0;
 constexpr int kTermLjFast = 1;
 constexpr int kTermCount = 2;
+constexpr int kTermVirial = 3;
 
 template <int TERM>
 __device__ __forceinline__ float term_value(float dsq) {
@@ -81,6 +83,11 @@ __device__ __forceinline__ float term_value(float dsq) {
     const float t = r * r;
     const float t3 = t * t * t;
     return 4.0f * t3 * (t3 - 1.0f);
+  }
+  if (TERM == kTermVirial) {
+    const float t = 1.0f / dsq;
+    const float t3 = t * t * t;
+    return 24.0f * t3 * (2.0f * t3 - 1.0f);
   }
   return 1.0f;
 }
@@ -229,6 +236,8 @@ void launch_term(const Args& a, int term, bool bandmask, bool int_out,
     launch_mask<SPLIT, kTermLj>(a, bandmask, int_out, blocks, s);
   else if (term == kTermLjFast)
     launch_mask<SPLIT, kTermLjFast>(a, bandmask, int_out, blocks, s);
+  else if (term == kTermVirial)
+    launch_mask<SPLIT, kTermVirial>(a, bandmask, int_out, blocks, s);
   else
     launch_mask<SPLIT, kTermCount>(a, bandmask, int_out, blocks, s);
 }
@@ -251,7 +260,8 @@ int zelll_tile_reduce(const void* pos, const void* lo, const void* keys,
                       int S, float csq, int term, int int_out, int bandmask,
                       void* partial, void* stream) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
-      (term != kTermLj && term != kTermLjFast && term != kTermCount))
+      (term != kTermLj && term != kTermLjFast && term != kTermCount &&
+       term != kTermVirial))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);

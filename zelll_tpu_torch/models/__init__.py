@@ -1,5 +1,5 @@
-"""End-to-end workloads built on the port's kernels: LJ molecular dynamics,
-the smooth distance field and its samplers (psssh; the CLI is
+"""End-to-end workloads built on the port's kernels: LJ molecular dynamics
+and its Langevin thermostat, the smooth distance field and its samplers (psssh; the CLI is
 ``python -m zelll_tpu_torch.models.psssh``)."""
 
 from .lj_md import (
@@ -15,6 +15,12 @@ from .lj_md import (
 )
 from .nuts import hmc_sample_batched, nuts_sample, nuts_sample_batched
 from .sdf import ELEMENT_RADII, SmoothDistanceField, element_radius
+from .thermostats import (
+    berendsen_rescale,
+    kinetic_temperature,
+    md_run_langevin,
+    ou_step,
+)
 
 __all__ = [
     "MDState",
@@ -32,4 +38,8 @@ __all__ = [
     "ELEMENT_RADII",
     "SmoothDistanceField",
     "element_radius",
+    "berendsen_rescale",
+    "kinetic_temperature",
+    "md_run_langevin",
+    "ou_step",
 ]

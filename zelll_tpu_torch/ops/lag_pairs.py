@@ -1,11 +1,13 @@
-"""The lag-window pair reduction (kernel K1), pair forces (kernel K3) and
-per-particle sums (kernel K2) over key-sorted particles.
+"""The lag-window pair reduction (kernel K1), pair forces (kernel K3),
+per-particle sums (kernel K2), the stress tensor (kernel K4) and the
+pair-distance histogram (kernel K5) over key-sorted particles.
 
 PyTorch counterpart of ``zelll_tpu/ops/pallas_pairs.py`` for the reduction
 the main path runs (`pair_lag_reduce`), the forces of the thin-box MD loops
 (`pair_lag_forces`), the per-particle sums behind
-`CellGrid.coordination_numbers` (`pair_lag_per_particle`) and their host
-helpers.
+`CellGrid.coordination_numbers` (`pair_lag_per_particle`), the observables
+of `ops.virial` and `ops.rdf` (`pair_lag_stress`, `pair_lag_hist`) and their
+host helpers.
 
 After sorting by flat cell key, every cutoff partner j < i of particle i
 satisfies ``key_j >= key_i - W`` with ``W = sum(strides)``, so all of them
@@ -18,8 +20,10 @@ window and by ``dsq < cutoff^2``. The pair list never exists.
 `pair_lag_reduce_plain` for CPU tensors; `pair_lag_forces` does the same
 with ``csrc/lag_forces.cu`` and `pair_lag_forces_plain`, and
 `pair_lag_per_particle` with ``csrc/lag_per_particle.cu`` and
-`pair_lag_per_particle_plain`. There is no
-fallback between the two: a CUDA input a kernel cannot take raises.
+`pair_lag_per_particle_plain`, `pair_lag_stress` with ``csrc/lag_stress.cu``
+and `pair_lag_stress_plain`, and `pair_lag_hist` with ``csrc/lag_hist.cu``
+and `pair_lag_hist_plain`. There is no fallback between the two: a CUDA
+input a kernel cannot take raises.
 
 Split precision: with f32 coordinates in a large box ``x_i - x_j`` loses
 small separations to cancellation. ``sorted_pos_lo`` carries the f32 low
@@ -39,7 +43,7 @@ import torch
 from .._device import resolve_device
 from ..core.geometry import SENTINEL_KEY, key_window
 from ._build import kernel_loader
-from .lj import lj_force_factor, lj_force_factor_fast
+from .lj import lj_force_factor, lj_force_factor_fast, lj_virial_term
 
 __all__ = [
     "pair_lag_reduce",
@@ -48,6 +52,11 @@ __all__ = [
     "pair_lag_forces_plain",
     "pair_lag_per_particle",
     "pair_lag_per_particle_plain",
+    "pair_lag_stress",
+    "pair_lag_stress_plain",
+    "pair_lag_hist",
+    "pair_lag_hist_plain",
+    "SpeciesPairMask",
     "lag_coverage_ok",
     "suggest_lag",
     "split_f64",
@@ -56,9 +65,12 @@ __all__ = [
     "lj_term_fast",
     "count_term",
     "combine_count",
+    "combine_count_vec",
     "load_kernel",
     "load_forces_kernel",
     "load_per_particle_kernel",
+    "load_stress_kernel",
+    "load_hist_kernel",
 ]
 
 # Padding-row keys start here: above every real key, below int32 overflow
@@ -70,6 +82,8 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SRC = _CSRC / "lag_reduce.cu"
 _FORCES_SRC = _CSRC / "lag_forces.cu"
 _PER_PARTICLE_SRC = _CSRC / "lag_per_particle.cu"
+_STRESS_SRC = _CSRC / "lag_stress.cu"
+_HIST_SRC = _CSRC / "lag_hist.cu"
 
 
 def lj_term(dsq):
@@ -93,7 +107,7 @@ def count_term(dsq):
 
 
 # The terms the CUDA kernel implements, by the enum value it takes.
-_KERNEL_TERMS = {lj_term: 0, count_term: 1}
+_KERNEL_TERMS = {lj_term: 0, count_term: 1, lj_virial_term: 2}
 
 
 # Split mode's tie band: |dsq - csq| <= _TIE_BAND * csq holds every pair
@@ -190,8 +204,16 @@ def combine_count(packed) -> int:
     return (int(v[0]) << 16) + int(v[1])
 
 
+def combine_count_vec(packed) -> np.ndarray:
+    """Vector sibling of `combine_count`: (2, K) int32 (hi, lo) planes ->
+    (K,) int64 counts, exact past 2^31 per bin."""
+    v = np.asarray(_host(packed), np.int64)
+    return (v[0] << 16) + v[1]
+
+
 def _pack_count(total: torch.Tensor) -> torch.Tensor:
-    """int64 total -> (hi, lo) int32 with total == (hi << 16) + lo."""
+    """int64 total(s) -> (hi, lo) int32 with total == (hi << 16) + lo: a
+    (2,) pair for a scalar, (2, K) planes for (K,) totals."""
     return torch.stack([total >> 16, total & 0xFFFF]).to(torch.int32)
 
 
@@ -265,8 +287,9 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     n, dim = sorted_pos.shape
     if term not in _KERNEL_TERMS:
         raise ValueError(
-            "the CUDA kernel implements lj_term and count_term only; run "
-            "other terms through pair_lag_reduce_plain or on CPU tensors"
+            "the CUDA kernel implements lj_term, count_term and "
+            "lj_virial_term only; run other terms through "
+            "pair_lag_reduce_plain or on CPU tensors"
         )
     if out_dtype not in (torch.float32, torch.float64, torch.int32):
         raise ValueError(f"K1 writes float32, float64 or int32 sums, not {out_dtype}")
@@ -319,8 +342,8 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     ``out_dtype=torch.float64`` returns the f64 sum of the f32 terms.
 
     CUDA tensors run kernel K1, which takes f32 coordinates and the terms
-    `lj_term` and `count_term`, and raises on anything else. CPU tensors
-    run `pair_lag_reduce_plain`.
+    `lj_term`, `count_term` and `ops.virial.lj_virial_term`, and raises on
+    anything else. CPU tensors run `pair_lag_reduce_plain`.
     """
     del M
     if L < 1:
@@ -488,9 +511,7 @@ def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
         gfn = lj_force_factor
     if L < 1:
         raise ValueError(f"L must be >= 1, got {L}")
-    if mi_box is not None or key_reach is not None:
-        raise ValueError("mi_box / key_reach (minimum-image forces) are not "
-                         "ported yet (periodic boxes, ROADMAP queue 1)")
+    _refuse_minimage(mi_box, key_reach)
     device = resolve_device(device, sorted_pos)
     sorted_pos = torch.as_tensor(sorted_pos, device=device)
     if sorted_pos.ndim != 2 or sorted_pos.shape[1] != 3:
@@ -569,7 +590,7 @@ def _lag_per_particle_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, *, L,
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     dtype = sorted_pos.dtype
-    if term not in _KERNEL_TERMS:
+    if term not in (lj_term, count_term):
         raise ValueError(
             "the CUDA kernel implements lj_term and count_term only; run "
             "other terms through pair_lag_per_particle_plain or on CPU tensors"
@@ -636,3 +657,428 @@ def pair_lag_per_particle(sorted_pos, sorted_keys, strides, cutoff_sq, *,
 
 # Kernel launches since the last reset; only a launch of K2 adds to it.
 pair_lag_per_particle.launches = 0
+
+
+# -- observables: the stress tensor (K4) and the histogram (K5) --------------
+
+# The six components the stress kernels write, (a, b) with a <= b over three
+# axes, and their positions in a symmetric 3 x 3 tensor.
+_COMP_INDEX = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
+
+
+def symmetric_stress(comps: torch.Tensor, dim: int) -> torch.Tensor:
+    """(6,) kernel components (xx, xy, xz, yy, yz, zz) -> the symmetric
+    (dim, dim) tensor of the first ``dim`` axes (no host sync)."""
+    rows = [comps[_COMP_INDEX[a][b]] for a in range(dim) for b in range(dim)]
+    return torch.stack(rows).reshape(dim, dim)
+
+
+class SpeciesPairMask:
+    """Pair mask over one payload plane of species values: keeps exactly the
+    unordered species pairs {a, b} (the JAX package's
+    ``rdf._species_mask``). The histogram kernels K5 and K9 take it as a
+    mask id and (a, b); any other mask callable runs on CPU tensors only."""
+
+    __slots__ = ("a", "b")
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def __call__(self, wi, wj):
+        return ((wi == self.a) & (wj == self.b)) | ((wi == self.b) & (wj == self.a))
+
+    def __repr__(self):
+        return f"SpeciesPairMask({self.a!r}, {self.b!r})"
+
+
+# Pair-mask ids of the histogram kernels; 2 is left for the periodic keep
+# mask (the JAX package's rdf._pbc_keep).
+_MASK_NONE = 0
+_MASK_SPECIES = 1
+
+
+def _is_default_islot(min_islot) -> bool:
+    return isinstance(min_islot, int) and min_islot == 0
+
+
+def _payload_rows(sorted_payload, n: int, dtype, device):
+    """The payload as (n, P) rows in the coordinates' dtype, or None."""
+    if sorted_payload is None:
+        return None
+    return torch.as_tensor(sorted_payload, device=device).to(dtype).reshape(n, -1)
+
+
+def _lag_pair_mask(mask, lag: int, pay, min_islot, pair_mask):
+    """``mask`` of the lag's pairs (i, i - lag), i >= lag, narrowed by the
+    ownership rule (slot i >= min_islot) and the payload pair mask."""
+    if not _is_default_islot(min_islot):
+        own = torch.arange(lag, lag + mask.shape[0], device=mask.device)
+        mask = mask & (own >= torch.as_tensor(min_islot, device=mask.device))
+    if pair_mask is not None:
+        mask = mask & pair_mask(*pay[lag:].unbind(1), *pay[:-lag].unbind(1))
+    return mask
+
+
+def _lag_separations(sorted_pos, sorted_pos_lo, lag: int):
+    """(d, dsq) of the lag's pairs: d = p_i - p_(i-lag) per axis (split:
+    (hi_i - hi_j) + (lo_i - lo_j)), dsq summed axis by axis."""
+    d = sorted_pos[lag:] - sorted_pos[:-lag]
+    if sorted_pos_lo is not None:
+        d = d + (sorted_pos_lo[lag:] - sorted_pos_lo[:-lag])
+    dsq = d[:, 0] * d[:, 0]
+    for a in range(1, d.shape[1]):
+        dsq = dsq + d[:, a] * d[:, a]
+    return d, dsq
+
+
+def pair_lag_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                          sorted_pos_lo=None, sorted_payload=None, *,
+                          L: int = 256, gfn: Callable = lj_force_factor,
+                          min_islot=0, pair_mask=None, pair_weight=None,
+                          out_dtype=None):
+    """Plain PyTorch version of K4, vectorised over slots, one lag at a time.
+
+    Same pairs, separations and products as the kernel: for each lag, the
+    pairs (i, i - lag) in the key window with ``0 < dsq < cutoff^2`` add
+    ``(g d_a) d_b`` to sigma_ab, g = gfn(dsq) in the coordinates' dtype.
+    Any ``gfn`` works here, and so do the payload rules of the JAX kernel:
+    ``pair_mask`` and the multiplicative ``pair_weight`` receive
+    ``(own_0.., j_0..)`` of ``sorted_payload`` ((n, P), own being the larger
+    slot), and ``min_islot`` keeps pairs whose larger slot is at or above
+    it. The products are summed in f64 and the (dim, dim) result is cast to
+    ``out_dtype`` (default: the positions' dtype).
+    """
+    n, dim = sorted_pos.shape
+    device, dtype = sorted_pos.device, sorted_pos.dtype
+    keys = _pad_and_desentinel(sorted_keys, n)
+    w = key_window(strides).to(device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
+    pay = _payload_rows(sorted_payload, n, dtype, device)
+    sig = torch.zeros((dim, dim), dtype=torch.float64, device=device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break  # keys ascend: no later lag can be in window
+        d, dsq = _lag_separations(sorted_pos, sorted_pos_lo, lag)
+        mask = _lag_pair_mask(keymask & (dsq < csq) & (dsq > 0), lag, pay,
+                              min_islot, pair_mask)
+        gv = gfn(torch.where(mask, dsq, torch.ones_like(dsq)))
+        g = torch.where(mask, gv, torch.zeros_like(gv)).to(dtype)
+        if pair_weight is not None:
+            g = g * pair_weight(*pay[lag:].unbind(1), *pay[:-lag].unbind(1)).to(dtype)
+        for a in range(dim):
+            gd = g * d[:, a]
+            for b in range(a, dim):
+                sig[a, b] += (gd * d[:, b]).sum(dtype=torch.float64)
+    sig = torch.triu(sig) + torch.triu(sig, 1).t()
+    return sig.to(out_dtype or dtype)
+
+
+def _bind_stress(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.zelll_lag_stress.argtypes = [
+        vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, ci, ci, vp, vp,
+    ]
+    lib.zelll_lag_stress.restype = ci
+    lib.zelll_lag_stress_block.argtypes = []
+    lib.zelll_lag_stress_block.restype = ci
+
+
+# Build (at first use) and load the K4 library; its build log is
+# ``load_stress_kernel.log``.
+load_stress_kernel = kernel_loader(_STRESS_SRC, "lag_stress", _bind_stress)
+
+
+def _check_coords(kernel: str, sorted_pos, sorted_pos_lo):
+    """The coordinate types the observables kernels take: f32 (optionally
+    with f32 low parts) or f64, 1 <= dim <= 3, n < 2^31."""
+    n, dim = sorted_pos.shape
+    dtype = sorted_pos.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{kernel} takes float32 or float64 coordinates, not {dtype}")
+    if sorted_pos_lo is not None and dtype != torch.float32:
+        raise ValueError(f"{kernel} takes low parts with float32 coordinates only")
+    if not 1 <= dim <= 3 or n >= 2**31:
+        raise ValueError(f"{kernel} takes 1 <= dim <= 3 and n < 2^31; got {(n, dim)}")
+
+
+def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+                     *, L, gfn, out_dtype):
+    """Launch K4 on the current stream and sum its per-block partials."""
+    device = sorted_pos.device
+    n, dim = sorted_pos.shape
+    dtype = sorted_pos.dtype
+    if gfn not in _KERNEL_GFNS:
+        raise ValueError(
+            "the CUDA kernel implements lj_force_factor and "
+            "lj_force_factor_fast only; run other force factors through "
+            "pair_lag_stress_plain or on CPU tensors"
+        )
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K4 writes float32 or float64 stress, not {out_dtype}")
+    _check_coords("K4", sorted_pos, sorted_pos_lo)
+    _check_cuda("sorted_pos", sorted_pos, dtype, (n, dim), device, "K4")
+    if sorted_pos_lo is not None:
+        _check_cuda("sorted_pos_lo", sorted_pos_lo, torch.float32, (n, dim), device, "K4")
+    _check_cuda("sorted_keys", sorted_keys, torch.int32, (n,), device, "K4")
+    if n == 0:
+        return torch.zeros((dim, dim), dtype=out_dtype, device=device)
+    lib = load_stress_kernel()
+    w_key = key_window(strides).reshape(1)
+    block = lib.zelll_lag_stress_block()
+    partial = torch.empty((-(-n // block), 6), dtype=torch.float64, device=device)
+    # cutoff^2 rounded to the coordinates' dtype, as the plain version does
+    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
+    err = lib.zelll_lag_stress(
+        sorted_pos.data_ptr(),
+        None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
+        sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
+        _KERNEL_GFNS[gfn], int(dtype == torch.float64), partial.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
+    pair_lag_stress.launches += 1
+    return symmetric_stress(partial.sum(0), dim).to(out_dtype)
+
+
+def _observable_args(sorted_pos, sorted_keys, strides, sorted_pos_lo, device):
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    strides = torch.as_tensor(strides, dtype=torch.int32, device=device)
+    if sorted_pos_lo is not None:
+        sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
+    return device, sorted_pos, sorted_keys, strides, sorted_pos_lo
+
+
+def _refuse_minimage(mi_box, key_reach) -> None:
+    if mi_box is not None or key_reach is not None:
+        raise ValueError("mi_box / key_reach (minimum-image pairs) are not "
+                         "ported yet (periodic boxes, ROADMAP queue 1)")
+
+
+def pair_lag_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
+                    sorted_pos_lo=None, sorted_payload=None, *,
+                    gfn: Callable | None = None, M: int = 1024, L: int = 256,
+                    min_islot=0, pair_mask=None, pair_weight=None, mi_box=None,
+                    key_reach=None, out_dtype=None, device=None):
+    """Configurational stress tensor sigma_ab = sum_pairs gfn(dsq) d_a d_b
+    over the unique pairs (i, i - lag), lag = 1..L, in the key window with
+    ``0 < dsq < cutoff_sq`` (d = p_i - p_(i-lag); coincident pairs are
+    excluded, since gfn(0) = inf). A direct fused pair sum: the pair list
+    never exists. Returns a symmetric (dim, dim) tensor whose trace is the
+    scalar virial. The lag set is exactly 1..L, so the result is defined
+    where `lag_coverage_ok` is False. ``gfn`` defaults to
+    `ops.lj.lj_force_factor`; ``M`` is accepted and has no effect.
+
+    ``sorted_pos_lo`` (f32 low parts, see `split_f64`) selects
+    split-precision separations; the cutoff is decided on their f32 dsq,
+    as in the JAX kernel. ``out_dtype`` defaults to the positions' dtype;
+    with f32 positions ``out_dtype=torch.float64`` returns the f64 sums of
+    the f32 products.
+
+    CUDA tensors run kernel K4, which takes f32 (optionally split) or f64
+    coordinates, 1 <= dim <= 3, the force factors `lj_force_factor` and
+    `lj_force_factor_fast`, and no payload rule (``sorted_payload``,
+    ``pair_mask``, ``pair_weight``, ``min_islot``); it raises on anything
+    else. CPU tensors run `pair_lag_stress_plain`, which takes them all.
+    ``mi_box``/``key_reach`` (minimum image) are not ported yet and raise
+    on either device.
+    """
+    del M
+    gfn = gfn or lj_force_factor
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    _refuse_minimage(mi_box, key_reach)
+    if (sorted_payload is None) != (pair_mask is None and pair_weight is None):
+        raise ValueError("pair_mask/pair_weight and sorted_payload go together")
+    device, sorted_pos, sorted_keys, strides, sorted_pos_lo = _observable_args(
+        sorted_pos, sorted_keys, strides, sorted_pos_lo, device)
+    if device.type == "cuda":
+        if sorted_payload is not None or not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel takes no payload rule "
+                             "(sorted_payload, pair_mask, pair_weight) and only "
+                             "min_islot=0; run these through pair_lag_stress_plain")
+        return _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
+                                sorted_pos_lo, L=L, gfn=gfn,
+                                out_dtype=out_dtype or sorted_pos.dtype)
+    return pair_lag_stress_plain(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
+        L=L, gfn=gfn, min_islot=min_islot, pair_mask=pair_mask,
+        pair_weight=pair_weight, out_dtype=out_dtype)
+
+
+# Kernel launches since the last reset; only a launch of K4 adds to it.
+pair_lag_stress.launches = 0
+
+
+def hist_edges(edges_sq, dtype, device) -> torch.Tensor:
+    """(K,) squared edges in the coordinates' dtype on ``device``; raises
+    unless K >= 1 and the edges ascend (ties allowed), which the kernels'
+    binary search needs (one host read of the edges)."""
+    edges = torch.as_tensor(edges_sq).reshape(-1).to(dtype)
+    if edges.numel() == 0:
+        raise ValueError("a histogram needs at least one edge")
+    host = edges.cpu()
+    if bool((host[1:] < host[:-1]).any()):
+        raise ValueError("histogram edges must ascend")
+    return edges.to(device)
+
+
+def _cumulative_counts(first: torch.Tensor) -> torch.Tensor:
+    """Per-pair first-bin counts (K,) int64 -> the (2, K) int32 hi/lo planes
+    of the cumulative counts (`combine_count_vec`)."""
+    return _pack_count(first.cumsum(0))
+
+
+def pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
+                        sorted_pos_lo=None, sorted_payload=None, *,
+                        L: int = 256, min_islot=0, pair_mask=None):
+    """Plain PyTorch version of K5, vectorised over slots, one lag at a time.
+
+    Same pairs, separations and bins as the kernel: each pair (i, i - lag)
+    in the key window with ``dsq < edges_sq[-1]`` (no dsq > 0 test) goes to
+    the first bin whose edge is above its dsq, and the prefix sum over the
+    bins gives ``count_k = #pairs with dsq < edges_sq[k]``. ``pair_mask``
+    receives ``(own_0.., j_0..)`` of ``sorted_payload``; ``min_islot`` keeps
+    pairs whose larger slot is at or above it. Returns (2, K) int32 hi/lo
+    planes (`combine_count_vec`).
+    """
+    n, dim = sorted_pos.shape
+    device, dtype = sorted_pos.device, sorted_pos.dtype
+    edges = hist_edges(edges_sq, dtype, device)
+    K = edges.shape[0]
+    keys = _pad_and_desentinel(sorted_keys, n)
+    w = key_window(strides).to(device)
+    pay = _payload_rows(sorted_payload, n, dtype, device)
+    first = torch.zeros((K + 1,), dtype=torch.int64, device=device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break  # keys ascend: no later lag can be in window
+        _, dsq = _lag_separations(sorted_pos, sorted_pos_lo, lag)
+        mask = _lag_pair_mask(keymask & (dsq < edges[-1]), lag, pay, min_islot,
+                              pair_mask)
+        b = torch.where(mask, torch.searchsorted(edges, dsq, right=True), K)
+        first.index_add_(0, b, torch.ones_like(b))
+    return _cumulative_counts(first[:K])
+
+
+def _bind_hist(lib) -> None:
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.zelll_lag_hist.argtypes = [
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cd, cd, ci, vp, vp,
+    ]
+    lib.zelll_lag_hist.restype = ci
+    lib.zelll_lag_hist_max_bins.argtypes = []
+    lib.zelll_lag_hist_max_bins.restype = ci
+
+
+# Build (at first use) and load the K5 library; its build log is
+# ``load_hist_kernel.log``.
+load_hist_kernel = kernel_loader(_HIST_SRC, "lag_hist", _bind_hist)
+
+
+def mask_plane(kernel: str, pair_mask, sorted_payload, n: int, dtype, device):
+    """What a histogram kernel takes for ``pair_mask``: (mask id, a, b, the
+    (n,) payload plane or None). Raises on any mask but `SpeciesPairMask`
+    over one payload column."""
+    if pair_mask is None:
+        return _MASK_NONE, 0.0, 0.0, None
+    if not isinstance(pair_mask, SpeciesPairMask):
+        raise ValueError(
+            f"the CUDA kernel {kernel} takes no pair mask but SpeciesPairMask "
+            "(ops.rdf's species pairs); run other masks on CPU tensors")
+    plane = torch.as_tensor(sorted_payload, device=device)
+    if plane.ndim == 2 and plane.shape[1] == 1:
+        plane = plane[:, 0]
+    if tuple(plane.shape) != (n,):
+        raise ValueError(f"{kernel}'s species mask reads one payload plane of "
+                         f"{n} values; got shape {tuple(plane.shape)}")
+    return (_MASK_SPECIES, float(pair_mask.a), float(pair_mask.b),
+            plane.to(dtype).contiguous())
+
+
+def _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges, sorted_pos_lo,
+                   sorted_payload, *, L, pair_mask):
+    """Launch K5 on the current stream: (2, K) int32 hi/lo planes."""
+    device = sorted_pos.device
+    n, dim = sorted_pos.shape
+    dtype = sorted_pos.dtype
+    K = edges.shape[0]
+    _check_coords("K5", sorted_pos, sorted_pos_lo)
+    mask, ma, mb, plane = mask_plane("K5", pair_mask, sorted_payload, n, dtype, device)
+    _check_cuda("sorted_pos", sorted_pos, dtype, (n, dim), device, "K5")
+    if sorted_pos_lo is not None:
+        _check_cuda("sorted_pos_lo", sorted_pos_lo, torch.float32, (n, dim), device, "K5")
+    _check_cuda("sorted_keys", sorted_keys, torch.int32, (n,), device, "K5")
+    first = torch.zeros((K,), dtype=torch.int64, device=device)
+    if n == 0:
+        return _cumulative_counts(first)
+    lib = load_hist_kernel()
+    if K > lib.zelll_lag_hist_max_bins():
+        raise ValueError(f"K5 takes at most {lib.zelll_lag_hist_max_bins()} "
+                         f"edges; got {K}")
+    w_key = key_window(strides).reshape(1)
+    err = lib.zelll_lag_hist(
+        sorted_pos.data_ptr(),
+        None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
+        None if plane is None else plane.data_ptr(), sorted_keys.data_ptr(),
+        w_key.data_ptr(), edges.data_ptr(), n, dim, L, _pad_spacing(n), K, mask,
+        ma, mb, int(dtype == torch.float64), first.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: CUDA error {err}")
+    pair_lag_hist.launches += 1
+    return _cumulative_counts(first)
+
+
+def pair_lag_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=None,
+                  sorted_payload=None, *, M: int = 1024, L: int = 256,
+                  min_islot=0, pair_mask=None, mi_box=None, key_reach=None,
+                  device=None):
+    """Cumulative pair-distance histogram over the unique pairs (i, i - lag),
+    lag = 1..L, in the key window: ``out[k] = #pairs with dsq <
+    edges_sq[k]``, the effective cutoff being ``edges_sq[-1]`` (the grid the
+    keys were built with must use a cutoff >= its root). There is no
+    dsq > 0 test: coincident pairs count in every bin above 0. Edges must
+    ascend. Returns (2, K) int32 (hi, lo) planes; `combine_count_vec` gives
+    the exact counts, and adjacent differences the shell counts. ``M`` is
+    accepted and has no effect.
+
+    ``sorted_pos_lo`` selects split-precision separations (the bins see
+    their f32 dsq, as in the JAX kernel). ``pair_mask`` + ``sorted_payload``
+    mask candidate pairs (receiving ``(own_0.., j_0..)``); ``min_islot`` is
+    the distributed ownership rule.
+
+    CUDA tensors run kernel K5, which takes f32 (optionally split) or f64
+    coordinates, 1 <= dim <= 3, at most 2048 edges, no mask or a
+    `SpeciesPairMask` over one payload plane, and ``min_islot=0``; it
+    raises on anything else. CPU tensors run `pair_lag_hist_plain`.
+    ``mi_box``/``key_reach`` are not ported yet and raise on either device.
+    """
+    del M
+    if L < 1:
+        raise ValueError(f"L must be >= 1, got {L}")
+    _refuse_minimage(mi_box, key_reach)
+    if (sorted_payload is None) != (pair_mask is None):
+        raise ValueError("pair_mask and sorted_payload go together")
+    device, sorted_pos, sorted_keys, strides, sorted_pos_lo = _observable_args(
+        sorted_pos, sorted_keys, strides, sorted_pos_lo, device)
+    if device.type == "cuda":
+        if not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel takes only min_islot=0; run "
+                             "others through pair_lag_hist_plain")
+        edges = hist_edges(edges_sq, sorted_pos.dtype, device)
+        return _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges,
+                              sorted_pos_lo, sorted_payload, L=L,
+                              pair_mask=pair_mask)
+    return pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
+                               sorted_pos_lo, sorted_payload, L=L,
+                               min_islot=min_islot, pair_mask=pair_mask)
+
+
+# Kernel launches since the last reset; only a launch of K5 adds to it.
+pair_lag_hist.launches = 0

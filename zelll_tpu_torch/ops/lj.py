@@ -19,8 +19,8 @@ import torch
 from ..core.grid import CellGridData
 from ..core.pairs import pair_forces, pair_sum
 
-__all__ = ["lj", "lj_force_factor", "lj_force_factor_fast", "lj_energy",
-           "lj_forces"]
+__all__ = ["lj", "lj_force_factor", "lj_force_factor_fast", "lj_virial_term",
+           "lj_energy", "lj_forces"]
 
 
 def lj(dsq):
@@ -47,6 +47,19 @@ def lj_force_factor_fast(dsq):
     inv = r * r
     t = inv * inv * inv
     return 24.0 * t * (2.0 * t - 1.0) * inv
+
+
+def lj_virial_term(dsq):
+    """w(dsq) = lj_force_factor(dsq) * dsq = 24 t (2t - 1), t = dsq^-3.
+
+    The per-pair virial f_ij . r_ij of the dimensionless LJ potential,
+    simplified so that it takes one division fewer than composing
+    `lj_force_factor` with a multiply. ``ops.virial`` exports it under the
+    JAX package's name; it lives here so that the kernels' term tables
+    (`ops.lag_pairs`, `ops.tile_pairs`) can name it.
+    """
+    t = (1.0 / dsq) ** 3
+    return 24.0 * t * (2.0 * t - 1.0)
 
 
 def lj_energy(grid: CellGridData, *, K: int, cutoff=None, chunk: int = 256,

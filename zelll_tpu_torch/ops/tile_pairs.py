@@ -1,10 +1,12 @@
-"""The segment-tile pair reduction (kernel K6, which also covers K10) and
-pair forces (kernel K7, which also covers K11) over key-sorted particles.
+"""The segment-tile pair reduction (kernel K6, which also covers K10), pair
+forces (kernel K7, which also covers K11), the stress tensor (kernel K8)
+and the pair-distance histogram (kernel K9) over key-sorted particles.
 
 PyTorch counterpart of ``zelll_tpu/ops/tile_pairs.py`` for the reduction
-the cubic main path runs (`tile_pair_reduce`, `tile_lj_rebuild_energy`)
-and the forces of the cubic MD loops (`tile_pair_forces`,
-`tile_forces_core`).
+the cubic main path runs (`tile_pair_reduce`, `tile_lj_rebuild_energy`),
+the forces of the cubic MD loops (`tile_pair_forces`, `tile_forces_core`)
+and the observables of `ops.virial` and `ops.rdf` (`tile_pair_stress`,
+`tile_pair_hist`).
 
 The lag kernel (`ops.lag_pairs`) is tight for thin boxes, but its
 contiguous lag window degenerates on cubic and wide boxes. The tile
@@ -22,7 +24,9 @@ side is written.
 `tile_pair_reduce` launches the hand-written CUDA kernel
 (``csrc/tile_reduce.cu``) for CUDA tensors and the plain PyTorch version
 for CPU tensors; `tile_pair_forces` does the same with
-``csrc/tile_forces.cu``. There is no fallback between the two. The TPU
+``csrc/tile_forces.cu``, `tile_pair_stress` with ``csrc/tile_stress.cu`` and
+`tile_pair_hist` with ``csrc/tile_hist.cu``. There is no fallback between
+the two. The TPU
 package has two kernels for each: a packed one whose keys ride as f32
 (exact below 2^24) and an int32-key one for larger grids
 (``packed=False``). The CUDA kernels read int32 keys in both cases, so
@@ -49,14 +53,19 @@ from ..core.geometry import GridInfo, aabb_from_positions
 from ._build import kernel_loader
 from .lag_pairs import (
     _PAD_KEY_BASE,
+    _cumulative_counts,
+    _is_default_islot,
     _pack_count,
     _pad_and_desentinel,
     count_term,
+    hist_edges,
     lj_term,
     lj_term_fast,
+    mask_plane,
     split_cutoff_test,
+    symmetric_stress,
 )
-from .lj import lj_force_factor, lj_force_factor_fast
+from .lj import lj_force_factor, lj_force_factor_fast, lj_virial_term
 from .segments import (
     CHUNK,
     band_order,
@@ -82,15 +91,25 @@ __all__ = [
     "tile_forces_core",
     "tile_pair_forces",
     "tile_pair_forces_plain",
+    "stress_tiles",
+    "stress_tiles_plain",
+    "tile_pair_stress",
+    "tile_pair_stress_plain",
+    "hist_tiles",
+    "hist_tiles_plain",
+    "tile_pair_hist",
+    "tile_pair_hist_plain",
     "load_kernel",
     "load_forces_kernel",
+    "load_stress_kernel",
+    "load_hist_kernel",
 ]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 # The terms and force factors the CUDA kernels implement, by the enum
 # value each takes.
-_KERNEL_TERMS = {lj_term: 0, lj_term_fast: 1, count_term: 2}
+_KERNEL_TERMS = {lj_term: 0, lj_term_fast: 1, count_term: 2, lj_virial_term: 3}
 _KERNEL_GFNS = {lj_force_factor: 0, lj_force_factor_fast: 1}
 
 # Own chunks per step of the plain version: a (1024, 128, 128) f32 tile is
@@ -195,46 +214,45 @@ def _finish(total: torch.Tensor, out_dtype, integer: bool) -> torch.Tensor:
     return _pack_count(total) if integer else total.to(out_dtype)
 
 
-def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
-                       out_dtype=None, safe_term: bool = True, payload=None,
-                       min_islot=0) -> torch.Tensor:
-    """Plain PyTorch version of K6 over the same windows, masks and terms.
+def _half_tiles(inp: TileInputs, payload=None, min_islot=0):
+    """The plain versions' walk over the half-stencil windows (K6, K8, K9).
 
     Own chunks go in batches; for each (band, window step) the batch's
     j-chunks are gathered and one (batch, 128, 128) tile of separations is
-    built. Any ``term`` works. With ``payload`` (one sorted (n,) plane),
-    ``term`` receives (dsq, own payload, j payload); ``min_islot`` keeps
-    only pairs whose larger slot is at or above it. Float terms are summed
-    in f64 and integer ones in int64, as in the kernel.
+    built. Yields (d, dsq, m, own payload, j payload) per tile: the per-axis
+    separations (split: (hi_i - hi_j) + (lo_i - lo_j)), dsq summed axis by
+    axis, and the mask of the slot bounds, ``min_islot`` (the larger slot
+    at or above it), the key band (with ``bandmask``) and the slot triangle
+    in band 0, without the cutoff. The payload tiles are (b, 128, 1) and
+    (b, 1, 128) views of the one sorted (n,) plane, or None.
     """
     pos, lo = inp.pos, inp.lo
     dim, n = pos.shape
     device, dtype = pos.device, pos.dtype
-    out_dtype, integer, acc = _out_types(dtype, out_dtype)
     nc_pad = inp.bounds.shape[0]
     S = inp.bands.shape[0]
     C = nc_pad * CHUNK
-    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
     planes = pos if lo is None else torch.cat([pos, lo])
-    padded = torch.zeros((planes.shape[0], C), dtype=dtype, device=device)
+    padded = torch.zeros((planes.shape[0], C), dtype=planes.dtype, device=device)
     padded[:, :n] = planes
+    pay = None
     if payload is not None:
         pay = torch.zeros((C,), dtype=dtype, device=device)
-        pay[:n] = torch.as_tensor(payload, device=device)
+        pay[:n] = torch.as_tensor(payload, device=device).reshape(-1)
     keys = inp.keys.to(torch.int64)
     lane = torch.arange(CHUNK, device=device)
     tri = lane[None, :] < lane[:, None]  # (row i, column j): j's lane < i's
-    total = torch.zeros((), dtype=acc, device=device)
     nc_real = -(-n // CHUNK)  # chunks past it hold no own slot
     for c0 in range(0, nc_real, _PLAIN_BATCH):
         c1 = min(c0 + _PLAIN_BATCH, nc_real)
         own_c = torch.arange(c0, c1, device=device)
         own_s = own_c[:, None] * CHUNK + lane  # (b, 128) slots
         own_ok = own_s < n
-        if not (isinstance(min_islot, int) and min_islot == 0):
+        if not _is_default_islot(min_islot):
             own_ok = own_ok & (own_s >= torch.as_tensor(min_islot, device=device))
         own = padded[:, own_s][:, :, :, None]  # (D, b, 128, 1)
         own_k = keys[own_s][:, :, None]
+        own_w = None if pay is None else pay[own_s][:, :, None]
         for s in range(S):
             jlo, toff, jnum = inp.bounds[c0:c1, 3 * s:3 * s + 3].long().unbind(1)
             lo_s, hi_s = inp.bands[s].long().unbind(0)
@@ -243,13 +261,15 @@ def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
                 j_s = jc[:, None] * CHUNK + lane  # (b, 128)
                 j_ok = (j_s < n) & (t < jnum)[:, None]
                 jp = padded[:, j_s][:, :, None, :]  # (D, b, 1, 128)
+                d = []
                 dsq = None
                 for a in range(dim):
-                    d = own[a] - jp[a]
+                    da = own[a] - jp[a]
                     if lo is not None:
-                        d = d + (own[a + dim] - jp[a + dim])
-                    dsq = d * d if dsq is None else dsq + d * d
-                m = own_ok[:, :, None] & j_ok[:, None, :] & (dsq < csq)
+                        da = da + (own[a + dim] - jp[a + dim])
+                    d.append(da)
+                    dsq = da * da if dsq is None else dsq + da * da
+                m = own_ok[:, :, None] & j_ok[:, None, :]
                 if inp.bandmask:
                     diff = own_k - keys[j_s][:, None, :]
                     m = m & (diff >= lo_s) & (diff <= hi_s)
@@ -257,13 +277,32 @@ def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
                     before = (jc < own_c)[:, None, None]
                     same = (jc == own_c)[:, None, None]
                     m = m & (before | (same & tri))
-                safe = torch.where(m, dsq, torch.ones_like(dsq)) if safe_term else dsq
-                if payload is not None:
-                    tv = term(safe, pay[own_s][:, :, None], pay[j_s][:, None, :])
-                else:
-                    tv = term(safe)
-                v = torch.where(m, tv, torch.zeros_like(tv)).to(out_dtype)
-                total += v.sum(dtype=acc)
+                j_w = None if pay is None else pay[j_s][:, None, :]
+                yield d, dsq, m, own_w, j_w
+
+
+def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
+                       out_dtype=None, safe_term: bool = True, payload=None,
+                       min_islot=0) -> torch.Tensor:
+    """Plain PyTorch version of K6 over the same windows, masks and terms
+    (`_half_tiles`), each tile masked by the cutoff.
+
+    Any ``term`` works. With ``payload`` (one sorted (n,) plane), ``term``
+    receives (dsq, own payload, j payload); ``min_islot`` keeps only pairs
+    whose larger slot is at or above it. Float terms are summed in f64 and
+    integer ones in int64, as in the kernel.
+    """
+    pos = inp.pos
+    device, dtype = pos.device, pos.dtype
+    out_dtype, integer, acc = _out_types(dtype, out_dtype)
+    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
+    total = torch.zeros((), dtype=acc, device=device)
+    for _, dsq, m, own_w, j_w in _half_tiles(inp, payload, min_islot):
+        m = m & (dsq < csq)
+        safe = torch.where(m, dsq, torch.ones_like(dsq)) if safe_term else dsq
+        tv = term(safe) if payload is None else term(safe, own_w, j_w)
+        v = torch.where(m, tv, torch.zeros_like(tv)).to(out_dtype)
+        total += v.sum(dtype=acc)
     return _finish(total, out_dtype, integer)
 
 
@@ -300,15 +339,16 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
     """Launch K6 on the current stream and sum its per-chunk partials.
 
     Takes f32 planes on a CUDA device and the terms `lj_term`,
-    `lj_term_fast` and `count_term`; raises on anything else. Every kahan
+    `lj_term_fast`, `count_term` and `ops.virial.lj_virial_term`; raises on
+    anything else. Every kahan
     mode of the JAX package sums the same way here: f64 per thread, a fixed
     fold per block, one partial per own chunk.
     """
     if term not in _KERNEL_TERMS:
         raise ValueError(
-            "the CUDA kernel implements lj_term, lj_term_fast and count_term "
-            "only; run other terms through tile_pair_reduce_plain or on CPU "
-            "tensors"
+            "the CUDA kernel implements lj_term, lj_term_fast, count_term and "
+            "lj_virial_term only; run other terms through "
+            "tile_pair_reduce_plain or on CPU tensors"
         )
     if out_dtype not in (None, torch.float32, torch.float64, torch.int32):
         raise ValueError(f"K6 writes float32, float64 or int32 sums, not {out_dtype}")
@@ -427,7 +467,8 @@ def tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     out, never multiplied.
 
     CUDA tensors run kernel K6, which takes f32 coordinates, the terms
-    `lj_term`, `lj_term_fast` and `count_term`, no ``sorted_payload`` and
+    `lj_term`, `lj_term_fast`, `count_term` and `lj_virial_term`, no
+    ``sorted_payload`` and
     ``min_islot=0``, and raises on anything else. CPU tensors run
     `reduce_tiles_plain`, which takes them all.
     """
@@ -751,3 +792,371 @@ def tile_pair_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 # Kernel launches since the last reset; only a launch of K7 adds to it.
 tile_pair_forces.launches = 0
+
+
+# -- observables: the stress tensor (K8) and the histogram (K9) --------------
+
+# The histogram kernels' limits, kept on both devices as the JAX package
+# keeps them: K <= 64 edges, and sum(MAXJ) <= 255 (its 8-bit packed
+# accumulator).
+TILE_HIST_MAX_BINS = 64
+TILE_HIST_MAX_TILES = 255
+
+
+def stress_tiles_plain(inp: TileInputs, cutoff_sq, *,
+                       gfn: Callable = lj_force_factor, out_dtype=None,
+                       safe_term: bool = True, payload=None, pair_mask=None,
+                       pair_weight=None, min_islot=0) -> torch.Tensor:
+    """Plain PyTorch version of K8 over the same windows and masks as K6's
+    (`_half_tiles`): the pairs with ``0 < dsq < cutoff^2`` add
+    ``(g d_a) d_b`` to sigma_ab, g = gfn(dsq) in the coordinates' dtype.
+    Any ``gfn`` works, and so do the JAX kernel's payload rules over one
+    sorted (n,) plane: ``pair_mask(own, j)``, the multiplicative
+    ``pair_weight(own, j)`` and ``min_islot``. Sums in f64; returns the
+    symmetric (dim, dim) tensor in ``out_dtype`` (default: the
+    coordinates' dtype).
+    """
+    dim = inp.pos.shape[0]
+    device, dtype = inp.pos.device, inp.pos.dtype
+    csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
+    sig = torch.zeros((dim, dim), dtype=torch.float64, device=device)
+    for d, dsq, m, own_w, j_w in _half_tiles(inp, payload, min_islot):
+        m = m & (dsq < csq) & (dsq > 0)
+        if pair_mask is not None:
+            m = m & pair_mask(own_w, j_w)
+        gv = gfn(torch.where(m, dsq, torch.ones_like(dsq)) if safe_term else dsq)
+        g = torch.where(m, gv, torch.zeros_like(gv)).to(dtype)
+        if pair_weight is not None:
+            g = g * pair_weight(own_w, j_w).to(dtype)
+        for a in range(dim):
+            gd = g * d[a]
+            for b in range(a, dim):
+                sig[a, b] += (gd * d[b]).sum(dtype=torch.float64)
+    sig = torch.triu(sig) + torch.triu(sig, 1).t()
+    return sig.to(out_dtype or dtype)
+
+
+def _check_tile_observable(kernel: str, inp: TileInputs):
+    """The inputs the observables kernels K8 and K9 take: f32 (optionally
+    split) or f64 planes on a CUDA device, 1 <= dim <= 3, the half
+    stencil's bands, fewer than 2^31 slots."""
+    pos = inp.pos
+    device = pos.device
+    dim, n = pos.shape
+    S = inp.bands.shape[0]
+    nc_pad = inp.bounds.shape[0]
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} runs on a CUDA device, not {device}")
+    if pos.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{kernel} takes float32 or float64 planes, not {pos.dtype}")
+    if inp.lo is not None and pos.dtype != torch.float32:
+        raise ValueError(f"{kernel} takes low parts with float32 planes only")
+    if not 1 <= dim <= 3 or S != num_segments(dim) or nc_pad * CHUNK >= 2**31:
+        raise ValueError(f"{kernel} takes 1 <= dim <= 3, the half stencil's bands "
+                         f"and fewer than 2^31 slots; got {(dim, n)}, S = {S}")
+    _check_cuda("pos", pos, pos.dtype, (dim, n), device, kernel)
+    if inp.lo is not None:
+        _check_cuda("lo", inp.lo, torch.float32, (dim, n), device, kernel)
+    _check_cuda("keys", inp.keys, torch.int32, (nc_pad * CHUNK,), device, kernel)
+    _check_cuda("bounds", inp.bounds, torch.int32, (nc_pad, 3 * S), device, kernel)
+    _check_cuda("bands", inp.bands, torch.int32, (S, 2), device, kernel)
+
+
+def _bind_stress(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.zelll_tile_stress.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, ci, vp, vp,
+    ]
+    lib.zelll_tile_stress.restype = ci
+    lib.zelll_tile_stress_chunk.argtypes = []
+    lib.zelll_tile_stress_chunk.restype = ci
+    if lib.zelll_tile_stress_chunk() != CHUNK:
+        raise RuntimeError("tile_stress.cu was built for another chunk size")
+
+
+# Build (at first use) and load the K8 library; its build log is
+# ``load_stress_kernel.log``.
+load_stress_kernel = kernel_loader(_CSRC / "tile_stress.cu", "tile_stress",
+                                   _bind_stress)
+
+
+def stress_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
+                 out_dtype=None) -> torch.Tensor:
+    """Launch K8 on the current stream and sum its per-chunk partials.
+
+    Takes ``inp`` from `tile_inputs` (the half stencil) with f32 (optionally
+    split) or f64 planes on a CUDA device, and the force factors
+    `lj_force_factor` and `lj_force_factor_fast`; raises on anything else.
+    Returns the symmetric (dim, dim) stress in ``out_dtype`` (default: the
+    planes' dtype; float64 gives the f64 sums of f32 products).
+    """
+    if gfn not in _KERNEL_GFNS:
+        raise ValueError(
+            "the CUDA kernel implements lj_force_factor and "
+            "lj_force_factor_fast only; run other force factors through "
+            "tile_pair_stress_plain or on CPU tensors"
+        )
+    pos = inp.pos
+    dim, n = pos.shape
+    out_dtype = out_dtype or pos.dtype
+    if out_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K8 writes float32 or float64 stress, not {out_dtype}")
+    _check_tile_observable("K8", inp)
+    if n == 0:
+        return torch.zeros((dim, dim), dtype=out_dtype, device=pos.device)
+    lib = load_stress_kernel()
+    partial = torch.empty((-(-n // CHUNK), 6), dtype=torch.float64, device=pos.device)
+    csq = float(torch.as_tensor(cutoff_sq, dtype=pos.dtype))
+    err = lib.zelll_tile_stress(
+        pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
+        inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
+        n, dim, inp.bands.shape[0], csq, _KERNEL_GFNS[gfn], int(inp.bandmask),
+        int(pos.dtype == torch.float64), partial.data_ptr(),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K8 launch failed: CUDA error {err}")
+    tile_pair_stress.launches += 1
+    return symmetric_stress(partial.sum(0), dim).to(out_dtype)
+
+
+def _observable_inputs(sorted_pos, sorted_keys, strides, sorted_pos_lo, *, CB,
+                       MAXJ, bandmask, device):
+    """Device, (n, dim) positions and the half-stencil `TileInputs` of the
+    observables' tile entry points (the packed layout's flag)."""
+    if CB < 1:
+        raise ValueError(f"CB must be >= 1, got {CB}")
+    device = resolve_device(device, sorted_pos)
+    sorted_pos = torch.as_tensor(sorted_pos, device=device)
+    sorted_keys = torch.as_tensor(sorted_keys, device=device)
+    if sorted_pos_lo is not None:
+        sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
+    inp = tile_inputs(_planes(sorted_pos), sorted_keys, strides,
+                      _planes(sorted_pos_lo), CB=CB, MAXJ=MAXJ, packed=True,
+                      bandmask=bandmask)
+    return device, sorted_pos, inp
+
+
+def _tile_pair_stress(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
+                      sorted_payload, *, gfn, CB, MAXJ, min_islot, pair_mask,
+                      bandmask, safe_term, pair_weight, out_dtype, device,
+                      plain: bool):
+    gfn = gfn or lj_force_factor
+    if (sorted_payload is None) != (pair_mask is None and pair_weight is None):
+        raise ValueError("pair_mask/pair_weight and sorted_payload go together")
+    device, sorted_pos, inp = _observable_inputs(
+        sorted_pos, sorted_keys, strides, sorted_pos_lo, CB=CB, MAXJ=MAXJ,
+        bandmask=bandmask, device=device)
+    if device.type == "cuda" and not plain:
+        if sorted_payload is not None or not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel takes no payload rule "
+                             "(sorted_payload, pair_mask, pair_weight) and only "
+                             "min_islot=0; run these through tile_pair_stress_plain")
+        sig = stress_tiles(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype)
+    else:
+        sig = stress_tiles_plain(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype,
+                                 safe_term=safe_term, payload=sorted_payload,
+                                 pair_mask=pair_mask, pair_weight=pair_weight,
+                                 min_islot=min_islot)
+    return sig, inp.coverage_ok
+
+
+def tile_pair_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
+                     sorted_pos_lo=None, sorted_payload=None, *,
+                     gfn: Callable | None = None, CB: int = 8, MAXJ=8,
+                     min_islot=0, pair_mask=None, bandmask: bool = False,
+                     safe_term: bool = True, pair_weight=None, out_dtype=None,
+                     device=None):
+    """Configurational stress tensor sigma_ab = sum_pairs gfn(dsq) d_a d_b
+    over the unique pairs of the half-stencil windows with
+    ``0 < dsq < cutoff_sq``, any box shape (the sibling of
+    `lag_pairs.pair_lag_stress`): a direct fused pair sum. Returns
+    ((dim, dim), coverage_ok); never trust a result with a false flag.
+
+    The JAX package's arguments keep their meaning: ``bandmask=False``
+    (the default) runs the maskless body over windows trimmed disjoint,
+    and its flag also requires that they are; ``MAXJ`` may be a per-band
+    tuple; ``CB`` fixes the padding (`tile_inputs`); ``safe_term=False``
+    changes nothing on the card, where masked lanes are selected out.
+    ``sorted_payload`` (one sorted (n,) plane) feeds ``pair_mask(own, j)``
+    and the multiplicative ``pair_weight(own, j)``; ``min_islot`` is the
+    ownership rule. ``out_dtype`` defaults to the coordinates' dtype.
+
+    CUDA tensors run kernel K8, which takes f32 (optionally split) or f64
+    coordinates, the force factors `lj_force_factor` and
+    `lj_force_factor_fast`, no payload rule and ``min_islot=0``, and raises
+    on anything else. CPU tensors run `stress_tiles_plain`.
+    """
+    return _tile_pair_stress(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
+        gfn=gfn, CB=CB, MAXJ=MAXJ, min_islot=min_islot, pair_mask=pair_mask,
+        bandmask=bandmask, safe_term=safe_term, pair_weight=pair_weight,
+        out_dtype=out_dtype, device=device, plain=False)
+
+
+def tile_pair_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
+                           sorted_pos_lo=None, sorted_payload=None, *,
+                           gfn: Callable | None = None, CB: int = 8, MAXJ=8,
+                           min_islot=0, pair_mask=None, bandmask: bool = False,
+                           safe_term: bool = True, pair_weight=None,
+                           out_dtype=None, device=None):
+    """`tile_pair_stress` through its plain PyTorch version on any device
+    (the yardstick K8 is held to on the card)."""
+    return _tile_pair_stress(
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
+        gfn=gfn, CB=CB, MAXJ=MAXJ, min_islot=min_islot, pair_mask=pair_mask,
+        bandmask=bandmask, safe_term=safe_term, pair_weight=pair_weight,
+        out_dtype=out_dtype, device=device, plain=True)
+
+
+# Kernel launches since the last reset; only a launch of K8 adds to it.
+tile_pair_stress.launches = 0
+
+
+def hist_tiles_plain(inp: TileInputs, edges_sq, *, payload=None, pair_mask=None,
+                     min_islot=0) -> torch.Tensor:
+    """Plain PyTorch version of K9 over the same windows and masks as K6's
+    (`_half_tiles`): each pair with ``dsq < edges_sq[-1]`` (no dsq > 0
+    test) goes to the first bin whose edge is above its dsq, and the prefix
+    sum gives ``count_k = #pairs with dsq < edges_sq[k]``. ``pair_mask(own,
+    j)`` reads one sorted (n,) payload plane; ``min_islot`` keeps pairs
+    whose larger slot is at or above it. Returns (2, K) int32 hi/lo planes.
+    """
+    edges = hist_edges(edges_sq, inp.pos.dtype, inp.pos.device)
+    K = edges.shape[0]
+    first = torch.zeros((K + 1,), dtype=torch.int64, device=inp.pos.device)
+    for _, dsq, m, own_w, j_w in _half_tiles(inp, payload, min_islot):
+        m = m & (dsq < edges[-1])
+        if pair_mask is not None:
+            m = m & pair_mask(own_w, j_w)
+        b = torch.where(m, torch.searchsorted(edges, dsq, right=True), K)
+        first.index_add_(0, b.reshape(-1), torch.ones_like(b).reshape(-1))
+    return _cumulative_counts(first[:K])
+
+
+def _bind_hist(lib) -> None:
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.zelll_tile_hist.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cd, cd, ci, ci, vp, vp,
+    ]
+    lib.zelll_tile_hist.restype = ci
+    lib.zelll_tile_hist_chunk.argtypes = []
+    lib.zelll_tile_hist_chunk.restype = ci
+    if lib.zelll_tile_hist_chunk() != CHUNK:
+        raise RuntimeError("tile_hist.cu was built for another chunk size")
+
+
+# Build (at first use) and load the K9 library; its build log is
+# ``load_hist_kernel.log``.
+load_hist_kernel = kernel_loader(_CSRC / "tile_hist.cu", "tile_hist", _bind_hist)
+
+
+def hist_tiles(inp: TileInputs, edges_sq, *, payload=None,
+               pair_mask=None) -> torch.Tensor:
+    """Launch K9 on the current stream: (2, K) int32 hi/lo planes.
+
+    Takes ``inp`` from `tile_inputs` (the half stencil) with f32 (optionally
+    split) or f64 planes on a CUDA device, K <= 64 ascending edges, and no
+    mask or a `lag_pairs.SpeciesPairMask` over one payload plane; raises on
+    anything else.
+    """
+    pos = inp.pos
+    dim, n = pos.shape
+    _check_tile_observable("K9", inp)
+    edges = hist_edges(edges_sq, pos.dtype, pos.device)
+    K = edges.shape[0]
+    if K > TILE_HIST_MAX_BINS:
+        raise ValueError(f"tile histogram: K = {K} > {TILE_HIST_MAX_BINS} edges")
+    mask, ma, mb, plane = mask_plane("K9", pair_mask, payload, n, pos.dtype,
+                                     pos.device)
+    first = torch.zeros((K,), dtype=torch.int64, device=pos.device)
+    if n == 0:
+        return _cumulative_counts(first)
+    lib = load_hist_kernel()
+    err = lib.zelll_tile_hist(
+        pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
+        None if plane is None else plane.data_ptr(), inp.keys.data_ptr(),
+        inp.bounds.data_ptr(), inp.bands.data_ptr(), edges.data_ptr(), n, dim,
+        inp.bands.shape[0], K, mask, ma, mb, int(inp.bandmask),
+        int(pos.dtype == torch.float64), first.data_ptr(),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K9 launch failed: CUDA error {err}")
+    tile_pair_hist.launches += 1
+    return _cumulative_counts(first)
+
+
+def _tile_pair_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo,
+                    sorted_payload, *, CB, MAXJ, min_islot, pair_mask, bandmask,
+                    device, plain: bool):
+    if (sorted_payload is None) != (pair_mask is None):
+        raise ValueError("pair_mask and sorted_payload go together")
+    K = torch.as_tensor(edges_sq).numel()
+    if K > TILE_HIST_MAX_BINS:
+        raise ValueError(f"tile histogram: K = {K} > {TILE_HIST_MAX_BINS} edges")
+    if CB < 1:
+        raise ValueError(f"CB must be >= 1, got {CB}")
+    n, dim = torch.as_tensor(sorted_pos).shape
+    nc_pad = max(-(-n // (CHUNK * CB)) * CB, CB)
+    if sum(_norm_maxj(MAXJ, num_segments(dim), nc_pad)) > TILE_HIST_MAX_TILES:
+        raise ValueError(
+            f"tile histogram: sum(MAXJ) > {TILE_HIST_MAX_TILES}, the JAX "
+            "kernel's 8-bit packed accumulator field capacity; use smaller "
+            "per-band capacities")
+    device, sorted_pos, inp = _observable_inputs(
+        sorted_pos, sorted_keys, strides, sorted_pos_lo, CB=CB, MAXJ=MAXJ,
+        bandmask=bandmask, device=device)
+    if device.type == "cuda" and not plain:
+        if not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel takes only min_islot=0; run "
+                             "others through tile_pair_hist_plain")
+        packed = hist_tiles(inp, edges_sq, payload=sorted_payload, pair_mask=pair_mask)
+    else:
+        packed = hist_tiles_plain(inp, edges_sq, payload=sorted_payload,
+                                  pair_mask=pair_mask, min_islot=min_islot)
+    return packed, inp.coverage_ok
+
+
+def tile_pair_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=None,
+                   sorted_payload=None, *, CB: int = 8, MAXJ=8, min_islot=0,
+                   pair_mask=None, bandmask: bool = False, device=None):
+    """Cumulative pair-distance histogram over the unique pairs of the
+    half-stencil windows, any box shape (the sibling of
+    `lag_pairs.pair_lag_hist`): ``out[k] = #pairs with dsq <
+    edges_sq[k]``, the effective cutoff being ``edges_sq[-1]``, which the
+    binning grid must have used. Returns ((2, K) int32 hi/lo planes, see
+    `lag_pairs.combine_count_vec`, coverage_ok).
+
+    As in the JAX package, K <= 64 and sum(MAXJ) <= 255 (after clamping to
+    the chunk count) on both devices. ``bandmask=False`` (the default) runs
+    the maskless body over disjoint-trimmed windows; small or dense grids
+    can trip that flag and must rerun with ``bandmask=True``.
+    ``sorted_payload`` (one sorted (n,) plane) feeds ``pair_mask(own, j)``;
+    ``min_islot`` is the ownership rule.
+
+    CUDA tensors run kernel K9, which takes f32 (optionally split) or f64
+    coordinates, no mask or a `lag_pairs.SpeciesPairMask`, and
+    ``min_islot=0``, and raises on anything else. CPU tensors run
+    `hist_tiles_plain`.
+    """
+    return _tile_pair_hist(
+        sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo, sorted_payload,
+        CB=CB, MAXJ=MAXJ, min_islot=min_islot, pair_mask=pair_mask,
+        bandmask=bandmask, device=device, plain=False)
+
+
+def tile_pair_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
+                         sorted_pos_lo=None, sorted_payload=None, *, CB: int = 8,
+                         MAXJ=8, min_islot=0, pair_mask=None,
+                         bandmask: bool = False, device=None):
+    """`tile_pair_hist` through its plain PyTorch version on any device (the
+    yardstick K9 is held to on the card)."""
+    return _tile_pair_hist(
+        sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo, sorted_payload,
+        CB=CB, MAXJ=MAXJ, min_islot=min_islot, pair_mask=pair_mask,
+        bandmask=bandmask, device=device, plain=True)
+
+
+# Kernel launches since the last reset; only a launch of K9 adds to it.
+tile_pair_hist.launches = 0
