@@ -333,11 +333,30 @@ def newton_share(f: torch.Tensor) -> float:
     return float(f.sum(0).abs().max()) / float(f.abs().sum())
 
 
+def prune_cases(shi: torch.Tensor, slo: torch.Tensor) -> dict:
+    """Sorted split coordinates that fail a prune of K3 or K7 that is not
+    conservative, made from a sorted lattice whose keys the caller keeps:
+    the facing clusters of `cluster_gap` (boxes one cutoff apart, pairs at
+    cutoff (1 -+ 2^-23) and (1 -+ 2^-25) across the gap), and the lattice
+    moved by up to a skin of 0.5 since its keys were built."""
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+    from zelll_tpu_torch.utils.datagen import cluster_gap
+
+    pts = shi.double() + slo.double()
+    gap = cluster_gap(pts.cpu().numpy(), CUTOFF, (128 * 8, 128 * 40))
+    drift = pts + torch.as_tensor(np.random.default_rng(5).uniform(
+        -0.25, 0.25, tuple(pts.shape)), device=pts.device)
+    return {"cluster_gap": split_f64(torch.as_tensor(gap, device=shi.device)),
+            "drifted": split_f64(drift)}
+
+
 def forces_vs_plain(dev, n: int) -> dict:
     """K3 and K7 against their plain versions on identical sorted inputs,
     f64 outputs on both sides, max |df| <= TOL_KERNEL max |f_plain|
-    (TOL_FAST_FORCES with the fast factor); Newton's third law on the
-    lattices; K3 against K7 on one thin box."""
+    (TOL_FAST_FORCES with the fast factor), on the uniform cloud, the
+    lattice, a sentinel tail, an undersized MAXJ or L and the two
+    `prune_cases`; Newton's third law on the lattices; K3 against K7 on one
+    thin box."""
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
     from zelll_tpu_torch.ops.lag_pairs import pair_lag_forces, pair_lag_forces_plain
     from zelll_tpu_torch.ops.lj import lj_force_factor, lj_force_factor_fast
@@ -357,14 +376,14 @@ def forces_vs_plain(dev, n: int) -> dict:
               f"> {tol} x {scale}")
         return dict(max_abs_err=err, max_abs_force=scale, err_over_max=err / scale)
 
-    def lag_cases(shi, slo, keys, strides, tag):
+    def lag_cases(shi, slo, keys, strides, tag, L=L_MAIN):
         out = {}
         for lo in (slo, None):
             for gfn, tol in factors:
                 what = f"{tag} {'split' if lo is not None else 'f32'} {gfn.__name__}"
-                got = pair_lag_forces(shi, keys, strides, csq, lo, L=L_MAIN, gfn=gfn,
+                got = pair_lag_forces(shi, keys, strides, csq, lo, L=L, gfn=gfn,
                                       out_dtype=f64)
-                want = pair_lag_forces_plain(shi, keys, strides, csq, lo, L=L_MAIN,
+                want = pair_lag_forces_plain(shi, keys, strides, csq, lo, L=L,
                                              gfn=gfn, out_dtype=f64)
                 out[what] = compare("K3", got, want, tol, what)
         return out
@@ -378,6 +397,11 @@ def forces_vs_plain(dev, n: int) -> dict:
     padded = keys.clone()
     padded[-1000:] = SENTINEL_KEY
     k3.update(lag_cases(shi, slo, padded, info.strides, "lattice sentinel_tail"))
+    # the lag bound below the key window, and the inputs that fail a prune
+    # that is not conservative
+    k3.update(lag_cases(shi, slo, keys, info.strides, "lattice L64", L=64))
+    for tag, case in prune_cases(shi, slo).items():
+        k3.update(lag_cases(*case, keys, info.strides, f"lattice {tag}"))
     f3 = pair_lag_forces(shi, keys, info.strides, csq, slo, L=L_MAIN, out_dtype=f64)
     k3_newton = newton_share(f3)
     check(k3_newton <= TOL_NEWTON, f"K3 forces on the lattice sum to {k3_newton}")
@@ -421,6 +445,9 @@ def forces_vs_plain(dev, n: int) -> dict:
     padded[-1000:] = SENTINEL_KEY
     k7.update(tile_cases(shi, slo, padded, info.strides, "lattice sentinel_tail",
                          maxj=maxj, factors=factors[:1]))
+    for tag, case in prune_cases(shi, slo).items():
+        k7.update(tile_cases(*case, keys, info.strides, f"lattice {tag}", maxj=maxj,
+                             factors=factors[:1]))
     # K11: int32 keys past 2^24 (packed=False): two dense blobs in opposite
     # corners of a 2,600 box
     rng = np.random.default_rng(1)
@@ -639,9 +666,12 @@ def md_profile(dev, n: int) -> dict:
 
 def lag_forces_alone(dev, n: int) -> dict:
     """K3 alone on the thin MD start state's sorted inputs (n = 1e7): its
-    ms, one plain call's ms, the work of the function and its bound, and
-    the kernel against the plain version (f64 outputs)."""
+    ms, one plain call's ms, the work of the function and its bound, the
+    lane evaluations its cluster prune leaves, its ptxas lines, and the
+    kernel against the plain version (f64 outputs)."""
     from zelll_tpu_torch.core import key_window
+    from zelll_tpu_torch.ops import lag_pairs
+    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, lag_cluster_entries
     from zelll_tpu_torch.ops.lag_pairs import (
         combine_count, count_term, pair_lag_forces, pair_lag_forces_plain, pair_lag_reduce,
     )
@@ -660,8 +690,14 @@ def lag_forces_alone(dev, n: int) -> dict:
     window = int(torch.clamp(slots - first, max=L_MAIN).sum())
     out = dict(n=n, pairs=pairs, candidates=candidates, candidates_per_slot=candidates / n,
                lag_window_pairs=window, evaluations=2 * window,
-               evaluations_per_candidate=2 * window / candidates)
+               evaluations_per_candidate=2 * window / candidates,
+               ptxas=ptxas_summary(lag_pairs.load_forces_kernel.log))
     for tag, lo in (("f32", None), ("split", slo)):
+        # the lanes the prune leaves: each own cluster's sweep entries, once
+        # for each of its 32 lanes (ops/cluster_prune.py, the kernel's boxes)
+        entries = lag_cluster_entries(shi.t(), None if lo is None else lo.t(), keys,
+                                      strides, csq, L_MAIN)
+        pruned = int(entries.sum()) * CLUSTER
         ms = cuda_ms(lambda: pair_lag_forces(shi, keys, strides, csq, lo, L=L_MAIN), 10)
         plain_ms, want = once_ms(lambda: pair_lag_forces_plain(
             shi, keys, strides, csq, lo, L=L_MAIN, out_dtype=torch.float64))
@@ -672,15 +708,21 @@ def lag_forces_alone(dev, n: int) -> dict:
                   candidates * INSTR_PER_CANDIDATE[lo is not None]
                   + pairs * INSTR_PER_FORCE_PAIR)
         out[tag] = dict(ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms,
-                        max_abs_err=err, max_abs_force=scale)
+                        max_abs_err=err, max_abs_force=scale,
+                        sweep_entries_per_slot=int(entries.sum()) / n,
+                        pruned_evaluations=pruned,
+                        pruned_evaluations_per_candidate=pruned / candidates)
     return out
 
 
 def tile_forces_alone(dev, n: int) -> dict:
     """K7 alone on the cubic MD start state's sorted inputs (n = 1e7, f32,
     maskless, the exact factor, as `md_step_cubic_tile` runs it): its ms,
-    one plain call's ms, the work and the bound, and the kernel against
-    the plain version (f64 outputs)."""
+    one plain call's ms, the work and the bound, the lane evaluations of
+    full 128 x 128 tiles and those its cluster prune leaves, its ptxas lines,
+    and the kernel against the plain version (f64 outputs)."""
+    from zelll_tpu_torch.ops import tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, tile_cluster_entries
     from zelll_tpu_torch.ops.lag_pairs import combine_count, count_term
     from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
     from zelll_tpu_torch.ops.tile_pairs import (
@@ -705,6 +747,10 @@ def tile_forces_alone(dev, n: int) -> dict:
     pairs = combine_count(reduce_tiles(half, csq, term=count_term, out_dtype=torch.int32))
     candidates = stencil_candidates(keys, info)
     evaluations = int(inp.bounds[:, 2::3].sum()) * CHUNK * CHUNK
+    # the lanes the prune leaves: each own cluster's sweep entries, once for
+    # each of its 32 lanes (ops/cluster_prune.py, the kernel's boxes)
+    entries = int(tile_cluster_entries(inp, csq).sum())
+    pruned = entries * CLUSTER
     ms = cuda_ms(lambda: forces_tiles(inp, csq), 10)
     plain_ms, want = once_ms(lambda: forces_tiles_plain(inp, csq, out_dtype=torch.float64))
     got = forces_tiles(inp, csq, out_dtype=torch.float64)
@@ -718,8 +764,11 @@ def tile_forces_alone(dev, n: int) -> dict:
                 plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms, pairs=pairs,
                 candidates=candidates, candidates_per_slot=candidates / n,
                 tile_evaluations=evaluations,
-                evaluations_per_candidate=evaluations / candidates, max_abs_err=err,
-                max_abs_force=scale, newton_share=newton)
+                evaluations_per_candidate=evaluations / candidates,
+                sweep_entries_per_slot=entries / n, pruned_evaluations=pruned,
+                pruned_evaluations_per_candidate=pruned / candidates, max_abs_err=err,
+                max_abs_force=scale, newton_share=newton,
+                ptxas=ptxas_summary(tile_pairs.load_forces_kernel.log))
 
 
 def forces_parity(dev, n: int) -> dict:
@@ -1343,28 +1392,63 @@ def api_queries(dev, n: int) -> dict:
 
 
 def join_alone(dev) -> dict:
-    """K12 alone at the eval protocol's size (200,000 atoms, a 64^3 query
-    grid, cutoff 10), count, nearest and sdf in f32 and f64, timed with CUDA
-    events; candidates per query (the particles in each query's 9 band
+    """K12 alone at the samplers' size (one gradient call: 1024 queries
+    over the 2000-atom protein, cutoff 4, f64 sdf; device time from the
+    profiler, the whole call's from CUDA events) and at the eval
+    protocol's size (200,000 atoms, a 64^3 query grid, cutoff 10), count,
+    nearest and sdf in f32 and f64, timed with CUDA events; candidates per query (the particles in each query's 9 band
     ranges, what the kernel visits), within-cutoff pairs, the bound (bytes
     in and out; operations per candidate and per pair as INSTR_PER_* count
     them) and the share; the plain version timed once per f64 instance."""
     from zelll_tpu_torch.ops.join import join_reduce, join_reduce_plain
     from zelll_tpu_torch.ops.segments import segment_bands
 
-    pos, radii = protein(N_PROTEIN_LARGE)
-    lo, hi = pos.min(0), pos.max(0)
-    axes = [np.linspace(lo[a], hi[a], EVAL_L) for a in range(3)]
-    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
-    out = {}
-    for dtype in (torch.float32, torch.float64):
-        qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, grid, CUTOFF, dtype, dev)
+    def band_candidates(qk, pk, strides):
         bands = segment_bands(strides, full=True).long()
         keys64, q64 = pk.long(), qk.long()
         candidates = 0
         for lo_s, hi_s in bands.tolist():
             candidates += int((torch.searchsorted(keys64, q64 - lo_s, right=True)
                                - torch.searchsorted(keys64, q64 - hi_s)).sum())
+        return candidates
+
+    # the samplers' size: one gradient call's join, f64 sdf, the psssh
+    # protein with 1024 chains at its atoms + 0.5 (as psssh_sample_main_path's
+    # vgrad_profile), cutoff 4
+    pos, radii = protein(N_PROTEIN)
+    qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, pos[:SAMPLE_CHAINS] + 0.5,
+                                               SAMPLE_CUTOFF, torch.float64, dev)
+    instances = join_instances()
+    count = dict(zip(("term", "reducer", "n_out"), instances["count"][:3]))
+    pairs = int(join_reduce(qp, qk, pp[:3], pk, strides, csq, **count)[0].double().sum())
+    candidates = band_candidates(qk, pk, strides)
+    term, reducer, n_out, npl = instances["sdf"]
+    kw = dict(term=term, n_out=n_out, reducer=reducer, keys_sorted=True)
+
+    def call():
+        return join_reduce(qp, qk, pp[:3 + npl], pk, strides, csq, **kw)
+
+    # at this size the wrapper's host time exceeds the kernel's, so CUDA
+    # events around calls time the host: the kernel's own device time comes
+    # from the profiler (CUPTI), the call's from the events
+    call_ms = cuda_ms(call, 100)
+    by_kernel = profile_steps(lambda i: call(), 20)["ms_per_step_by_kernel"]
+    ms = sum(m for m, k in by_kernel if "join_kernel" in k)
+    check(ms > 0, f"the profiler saw no K12 launch at the samplers' size: {by_kernel}")
+    b = bound(SAMPLE_CHAINS * (4 * 8 + n_out * 8) + len(pos) * ((3 + npl) * 8 + 4),
+              2 * (candidates * INSTR_PER_CANDIDATE[False] + pairs * INSTR_PER_JOIN_PAIR["sdf"]))
+    sampler = dict(atoms=len(pos), queries=SAMPLE_CHAINS, cutoff=SAMPLE_CUTOFF,
+                   dtype="float64", instance="sdf", ms=ms, call_ms=call_ms, **b,
+                   share_of_bound=b["bound_ms"] / ms, candidates=candidates, pairs=pairs)
+
+    pos, radii = protein(N_PROTEIN_LARGE)
+    lo, hi = pos.min(0), pos.max(0)
+    axes = [np.linspace(lo[a], hi[a], EVAL_L) for a in range(3)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3)
+    out = {"sampler_size": sampler}
+    for dtype in (torch.float32, torch.float64):
+        qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, grid, CUTOFF, dtype, dev)
+        candidates = band_candidates(qk, pk, strides)
         nq, npart = len(grid), len(pos)
         size = dtype.itemsize
         width = 1 if dtype == torch.float32 else 2

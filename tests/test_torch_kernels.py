@@ -56,6 +56,7 @@ from zelll_tpu_torch.ops.tile_pairs import (
     tile_pair_stress_plain,
 )
 from zelll_tpu_torch.utils.datagen import (
+    cluster_gap,
     generate_points_lattice,
     generate_points_random,
     lj_box,
@@ -239,31 +240,50 @@ def _assert_forces(got, want, rel):
     assert err <= rel * float(want.double().abs().max()), err
 
 
+def _prune_cases(shi, slo, keys, strides):
+    """The two inputs that fail a prune of the forces kernels that is not
+    conservative (sorted inputs of a lattice, keys kept): the facing
+    clusters of `cluster_gap` (boxes one cutoff apart, pairs at cutoff
+    (1 -+ 2^-23) and (1 -+ 2^-25) across the gap, resolved by f32 at one
+    site and by the split low parts only at the other), and the lattice
+    moved by up to a skin of 0.5 since its keys were built."""
+    pts = shi.double() + slo.double()
+    gap = cluster_gap(pts.cpu().numpy(), CUTOFF, (128 * 8, 128 * 40))
+    drift = pts + torch.as_tensor(np.random.default_rng(5).uniform(
+        -0.25, 0.25, tuple(pts.shape)), device=pts.device)
+    return {"cluster_gap": (*split_f64(torch.as_tensor(gap, device=shi.device)), keys, strides),
+            "drifted": (*split_f64(drift), keys, strides)}
+
+
 @pytest.mark.gpu
 def test_lag_forces_kernel_matches_plain_on_card(cuda_device):
     """K3 against its plain version on the same sorted CUDA tensors (the
-    benchmark's thin box and a jittered lattice, n = 2e5): f64 forces to
+    benchmark's thin box and a jittered lattice, n = 2e5, and the lattice's
+    facing clusters and drifted state of `_prune_cases`): f64 forces to
     1e-10 of the largest (sums in another order), lj_force_factor_fast to
-    its rsqrt bound, padding rows inert, Newton's third law on the lattice,
-    and K3 against K7 on the same thin box."""
+    its rsqrt bound, L = 64 (below the key window: the lag bound
+    binds) and 256, padding rows inert, Newton's third law on the lattice, and K3
+    against K7 on the same thin box."""
     n = 200_000
     cases = {
         "uniform": _thin(generate_points_random(n, lj_box(n, CUTOFF)), cuda_device),
         "lattice": _thin(generate_points_lattice(n, lj_box(n, CUTOFF)), cuda_device),
     }
+    cases.update(_prune_cases(*cases["lattice"]))
     csq = CUTOFF**2
     f64 = torch.float64
     for name, (shi, slo, keys, strides) in cases.items():
         for plo in (None, slo):
             for gfn, rel in ((lj_force_factor, 1e-10), (lj_force_factor_fast, TOL_FAST_FORCES)):
-                before = pair_lag_forces.launches
-                got = pair_lag_forces(shi, keys, strides, csq, plo, L=256, gfn=gfn,
-                                      out_dtype=f64)
-                assert pair_lag_forces.launches == before + 1
-                want = pair_lag_forces_plain(shi, keys, strides, csq, plo, L=256,
-                                             gfn=gfn, out_dtype=f64)
-                assert got.shape == (n, 3) and got.dtype == f64
-                _assert_forces(got, want, rel)
+                for L in (64, 256):
+                    before = pair_lag_forces.launches
+                    got = pair_lag_forces(shi, keys, strides, csq, plo, L=L, gfn=gfn,
+                                          out_dtype=f64)
+                    assert pair_lag_forces.launches == before + 1
+                    want = pair_lag_forces_plain(shi, keys, strides, csq, plo, L=L,
+                                                 gfn=gfn, out_dtype=f64)
+                    assert got.shape == (n, 3) and got.dtype == f64
+                    _assert_forces(got, want, rel)
         f32 = pair_lag_forces(shi, keys, strides, csq, slo, L=256)
         assert f32.dtype == torch.float32
         _assert_forces(f32, want, 1e-6)
@@ -299,7 +319,8 @@ def test_tile_forces_kernel_matches_plain_on_card(cuda_device):
     """K7 against its plain version on the same sorted CUDA tensors: a
     uniform cube and a jittered cubic lattice at the benchmark's density
     (n = 2e5; masked and maskless, split and f32, f64 forces to 1e-10 of
-    the largest, lj_force_factor_fast to its rsqrt bound), an undersized
+    the largest, lj_force_factor_fast to its rsqrt bound), the lattice's
+    facing clusters and drifted state of `_prune_cases`, an undersized
     MAXJ, and int32 keys past 2^24 (K11, packed=False)."""
     n = 200_000
     side = (n / 0.01) ** (1 / 3)
@@ -311,6 +332,7 @@ def test_tile_forces_kernel_matches_plain_on_card(cuda_device):
         "lattice": _sorted_cube(generate_points_lattice(n, (side, side, side)),
                                 cuda_device),
     }
+    cubes.update(_prune_cases(*cubes["lattice"]))
     for name, (shi, slo, keys, strides) in cubes.items():
         maxj = _full_maxj(keys, strides)
         for bandmask in (True, False):

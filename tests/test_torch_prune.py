@@ -1,0 +1,149 @@
+"""The geometric prune of the forces kernels K3 and K7, in its plain
+PyTorch mirror (`ops.cluster_prune`), held to brute force.
+
+Every pair that the cutoff keeps (f32 coordinates, and split ones with the
+f64 tie rule of `lag_pairs.split_cutoff_test`) must lie near its own
+cluster's box, on the facing clusters of `utils.datagen.cluster_gap` (boxes
+exactly one cutoff apart, pairs a few ulp either side of it), on a state
+moved by up to a skin since its keys were built, and on the uniform cloud.
+The mirror's partner ranges (K3) and sweep entries (K3 and K7) are checked
+against brute-force windows. Everything runs on CPU tensors and calls no
+JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+from xla_release import release_xla_executables  # noqa: F401
+
+from zelll_tpu_torch.core import GridInfo, aabb_from_positions, compute_keys, key_window
+from zelll_tpu_torch.ops.cluster_prune import (
+    CLUSTER,
+    cluster_boxes,
+    lag_cluster_entries,
+    lag_ranges,
+    near_cluster,
+    prune_threshold,
+    tile_cluster_entries,
+)
+from zelll_tpu_torch.ops.lag_pairs import _pad_and_desentinel, split_cutoff_test, split_f64
+from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
+from zelll_tpu_torch.ops.tile_pairs import tile_inputs
+from zelll_tpu_torch.utils.datagen import (
+    cluster_gap,
+    generate_points_lattice,
+    generate_points_random,
+    lj_box,
+)
+
+CUTOFF = 10.0
+CSQ = torch.tensor(CUTOFF**2, dtype=torch.float32)
+N = 1500
+L_SHORT = 64  # below the thin box's key window: the lag bound binds
+
+
+def _sorted(pts):
+    """f64 points sorted by cell key: (f64 points, keys, strides)."""
+    hi, _ = split_f64(torch.as_tensor(pts))
+    info = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
+    keys, perm = torch.sort(compute_keys(hi, info), stable=True)
+    return np.asarray(pts)[perm.numpy()], keys, info.strides
+
+
+def _case(data: str, kernel: str):
+    box = lj_box(N, CUTOFF) if kernel == "lag" else ((N / 0.01) ** (1 / 3),) * 3
+    pts = generate_points_random(N, box) if data == "uniform" else \
+        generate_points_lattice(N, box)
+    pts, keys, strides = _sorted(pts)
+    if data == "cluster_gap":
+        pts = cluster_gap(pts, CUTOFF, (128, 512))
+    elif data == "drifted":  # moved by up to a skin of 0.5 after the sort
+        pts = pts + np.random.default_rng(3).uniform(-0.25, 0.25, pts.shape)
+    hi, lo = split_f64(torch.as_tensor(pts))
+    return hi, lo, keys, strides
+
+
+def _counted(hi, lo):
+    """(n, n) pairs that the cutoff keeps, as the plain versions decide."""
+    d = [hi[:, None, a] - hi[None, :, a] for a in range(3)]
+    if lo is not None:
+        d = [d[a] + (lo[:, None, a] - lo[None, :, a]) for a in range(3)]
+    dsq = d[0] * d[0]
+    dsq = dsq + d[1] * d[1]
+    dsq = dsq + d[2] * d[2]
+    inside = dsq < CSQ
+    if lo is not None:
+        inside = split_cutoff_test(inside, dsq, CSQ, hi[:, None].unbind(-1),
+                                   hi[None].unbind(-1), lo[:, None].unbind(-1),
+                                   lo[None].unbind(-1))
+    return inside & (dsq > 0)
+
+
+def _near(hi, lo, thr):
+    """(n, n): slot j passes the gap test of slot i's cluster."""
+    mn, mx, lomax = cluster_boxes(hi.t(), None if lo is None else lo.t())
+    own = torch.arange(hi.shape[0]) // CLUSTER
+    box = [x[:, own, None] for x in (mn, mx, lomax)]
+    return near_cluster(*box, hi.t()[:, None, :],
+                        None if lo is None else lo.t()[:, None, :], thr)
+
+
+@pytest.mark.parametrize("kernel", ["lag", "tile"])
+@pytest.mark.parametrize("data", ["cluster_gap", "drifted", "uniform"])
+def test_prune_keeps_every_counted_pair(data, kernel):
+    hi, lo, keys, strides = _case(data, kernel)
+    n = hi.shape[0]
+    own = torch.arange(n)
+    for split in (False, True):
+        plo = lo if split else None
+        counted = _counted(hi, plo)
+        near = _near(hi, plo, prune_threshold(CSQ, split))
+        assert not bool((counted & ~near).any()), (data, kernel, split)
+        if data == "cluster_gap":
+            # sharp: the facing pair at cutoff (1 - 2^-23) counts at the
+            # first site, and at the second in split mode, where a prune
+            # without the margin (the f32 test on the high parts) drops it
+            assert bool(counted[128 + 31, 128 + 32])
+            assert bool(counted[512 + 31, 512 + 32]) == split
+            if split:
+                bare = _near(hi, None, prune_threshold(CSQ, False))
+                assert bool((counted & ~bare).any())
+        else:
+            assert float(near.float().mean()) < 0.9  # the prune bites
+
+        if kernel == "lag":
+            # the partner ranges against the window, pair by pair
+            k = _pad_and_desentinel(keys, n).long()
+            w = int(key_window(strides))
+            lag = own[:, None] - own[None, :]  # i - j
+            window = (((lag >= 1) & (lag <= L_SHORT) & (k[None, :] >= k[:, None] - w))
+                      | ((lag <= -1) & (lag >= -L_SHORT) & (k[:, None] >= k[None, :] - w)))
+            jlo, jhi = lag_ranges(keys, strides, L_SHORT)
+            ranged = (own[None, :] >= jlo[:, None]) & (own[None, :] <= jhi[:, None])
+            assert torch.equal(ranged & (lag != 0), window)
+            first = jlo[::CLUSTER]
+            last = jhi[torch.clamp(torch.arange(0, n, CLUSTER) + CLUSTER - 1, max=n - 1)]
+            union = (own[None, :] >= first[:, None]) & (own[None, :] <= last[:, None])
+            want = (union & near[::CLUSTER]).sum(1)
+            got = lag_cluster_entries(hi.t(), None if plo is None else plo.t(), keys,
+                                      strides, CSQ, L_SHORT)
+        else:
+            full = segment_bands(strides, full=True)
+            C = -(-n // (CHUNK * 8)) * 8 * CHUNK
+            maxj = suggest_maxj(_pad_and_desentinel(keys, C), full, half=False,
+                                per_band=True)
+            inp = tile_inputs(hi.t().contiguous(), keys, strides,
+                              None if plo is None else plo.t().contiguous(),
+                              MAXJ=maxj, bandmask=False, full=True)
+            assert bool(inp.coverage_ok)
+            b = inp.bounds.long()
+            jc = own // CHUNK
+            window = torch.zeros((n // CHUNK + 1, n), dtype=torch.bool)
+            for s in range(full.shape[0]):
+                first = b[:, 3 * s] + b[:, 3 * s + 1]
+                window |= ((jc[None, :] >= first[:n // CHUNK + 1, None])
+                           & (jc[None, :] < (first + b[:, 3 * s + 2])[:n // CHUNK + 1, None]))
+            cl_chunk = torch.arange(0, n, CLUSTER) // CHUNK
+            want = (window[cl_chunk] & near[::CLUSTER]).sum(1)
+            got = tile_cluster_entries(inp, CSQ)
+        assert torch.equal(got, want), (data, kernel, split)

@@ -1,7 +1,9 @@
-// K3 on Hopper: per-particle pair forces over key-sorted particles.
+// K3 on Hopper: per-particle pair forces over key-sorted particles, as a
+// pruned cluster-pair sweep.
 //
 // Replaces the TPU kernel zelll_tpu/ops/pallas_pairs.py::_make_forces_kernel
-// (:583, via pair_lag_forces). It computes the same function:
+// (:583, via pair_lag_forces :763; pallas_call :873). It computes the same
+// function:
 //
 //   f_i = sum over unique pairs (p, q = p - lag), lag = 1..L, that hold i,
 //         of +g d for i == p and -g d for i == q, where
@@ -15,26 +17,20 @@
 // its split separations instead, so that no pair flips at the cutoff (the
 // TPU kernel decides on the f32 dsq). Force factors: LJ
 // 24 t (2t - 1) inv with inv = 1/dsq by true division, or inv =
-// rsqrtf(dsq)^2; t = inv^3.
+// rsqrtf(dsq)^2; t = inv^3. Padding rows (SENTINEL_KEY) read as ascending
+// spaced keys above every real key, K1's rule (lag_reduce.cu), and the
+// index bounds 0 <= j < n replace the TPU's spread tail coordinates.
 //
 // What it does not copy: the TPU kernel's Horner shift accumulator, which
 // lands the j-side contributions at their window slots because Mosaic has
-// no scatter, and its rolling VMEM window and sequential grid. Here one
-// thread owns one sorted slot i and walks both of its partner lists:
-// backwards over j = i - lag while key_j >= key_i - W, and forwards over
-// k = i + lag while key_i >= key_k - W, each for at most L lags (the exact
-// lag set of the TPU kernel, so the result is defined where the coverage
-// flag is False). Keys ascend, so each walk stops at its first partner out
-// of window. Every pair is evaluated twice, once from each end, and both
-// evaluations agree bitwise: IEEE subtraction is exactly antisymmetric,
-// also in the split form, so dsq, g and |d| are the same from both sides
-// and action equals reaction per pair. There are no float atomics, and the
-// result is deterministic. The index bounds 0 <= j and k < n replace the
-// TPU's spread tail coordinates; padding rows (SENTINEL_KEY) read as
-// ascending spaced keys above every real key, K1's rule (lag_reduce.cu).
+// no scatter, and its rolling VMEM window and sequential grid.
 //
-// Accumulation: each thread sums its f32 products g d in f64 and writes
-// f32 planes, or f64 planes when asked (the checks compare f64 sums).
+// The partners of slot i form one slot range. Keys ascend, so the slots j
+// behind i in its window (key_j >= key_i - W, i - j <= L) are
+// [jlo_i, i - 1] and those ahead (key_i >= key_k - W, k - i <= L) are
+// [i + 1, jhi_i]; each lane finds jlo_i and jhi_i by binary search over
+// the keys once. The lag set is exactly 1..L, so the result is defined
+// where the coverage flag is False.
 //
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane + 3 force planes) x n, 280 MB at n = 1e7 in f32 mode,
@@ -43,17 +39,67 @@
 // candidate (13 in split mode) plus 11 for the force factor and 9 for
 // g d on both sides of each cutoff pair. At the benchmark's density (132
 // candidates and 21 cutoff pairs per slot) that is about 0.4 ms at
-// 33.5 T instructions/s, so it is bound by operations. This design walks
-// every in-window pair from both ends, about twice that work, plus the
-// lag-window candidates that are not stencil candidates; a Newton
-// half-pair form with a shared-memory j-side window is left for later.
-// No single PyTorch call computes this function.
+// 33.5 T instructions/s, so it is bound by operations, that is by the
+// instructions issued per evaluated lane. A thread that walks each of its
+// two partner lists itself issues scalar global loads (the key and 3 or 6
+// coordinates per step) that no other lane shares, runs its warp to the
+// longest walk, and takes the force branch whenever any lane of the warp
+// has a pair.
+//
+// Design: a cluster-pair sweep (Pall and Hess, Comput. Phys. Commun. 184
+// (2013) 2641), as K7's (tile_forces.cu). A warp owns a cluster of 32
+// consecutive slots and keeps its own coordinates and range in registers;
+// warps run on their own (no block barrier). Each warp
+//   1. reduces its cluster's axis-aligned box over the real slots (< n)
+//      by shuffles, from the coordinates of this launch (the skin loop
+//      moves them between rebuilds), and in split mode the largest |lo|
+//      per axis;
+//   2. walks the union of its lanes' ranges, [jlo of its first slot, jhi
+//      of its last real slot] (jlo and jhi ascend with i, and each range
+//      holds its own slot, so the union is one range): a j-cluster outside
+//      every lane's lag bound and key window is never loaded. Lane t loads
+//      slot j0 + t and tests the point against the own box (below); a
+//      ballot compacts the survivors, in slot order, into the warp's buffer
+//      in shared memory as float4 (x, y, z, slot), plus the low parts in
+//      split mode;
+//   3. sweeps the buffer 32 entries at a time: phase A reads each entry by
+//      a broadcast, tests jlo_i <= j <= jhi_i and dsq, and sets bit q of the
+//      lane's hit mask (in split mode up to the prune threshold, so the tie
+//      band goes to phase B); phase B walks each lane's own hits in
+//      ascending q, recomputes d and dsq bitwise, applies the exact cutoff
+//      rule (split: the f64 tie decision) and adds g d. The force factor
+//      and its f64 sums run once per hit and lane. (Sweeps of 64 entries,
+//      K7's choice, measured slower here on the card in f32 mode, which
+//      the MD loops run most.)
+// Every pair is evaluated from both ends, and both evaluations agree
+// bitwise: IEEE subtraction is exactly antisymmetric, also in the split
+// form, so dsq, g and |d| are the same from both sides and action equals
+// reaction per pair. Only the i side is written: no scatter, no float
+// atomics, and each lane adds its terms in a fixed order, so the result is
+// deterministic. On the thin MD start state (8,617,716 points) the warps
+// evaluate 2.71 lanes per half-stencil candidate (chip_smoke.py's
+// lag_forces_alone counts them from the same boxes in torch,
+// ops/cluster_prune.py), about as many as two per-thread walks do (2.69):
+// the thin box is 3 cells across, so the gap test drops little that the
+// key window keeps. The gain is in the cost per evaluated lane: a
+// broadcast read in place of scalar loads, and the force factor once per
+// hit.
+//
+// The prune drops no pair that counts, by the argument of tile_forces.cu:
+// with the gap g = max(mn - b, b - mx, 0) per axis in f32, g <= |d| for
+// every own point by monotone rounding, so gsq <= dsq, and "keep iff gsq <
+// csq" is exact in f32 mode; in split mode each axis' gap is first reduced
+// by fl(lomax + |lo_b|), which bounds the low parts' difference, and the
+// threshold is fl(csq (1 + 2^-19)), above the 1e-6 csq tie band.
+//
+// Accumulation: each lane sums its f32 products g d in f64 and writes
+// f32 planes, or f64 planes when asked (the checks compare f64 sums).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. No --use_fast_math (it would break
 // the true division); --fmad=false rounds every product and sum on its own,
 // as the plain PyTorch version does, so dsq and hence the pair masks match
-// it bitwise on identical sorted inputs.
+// it bitwise on identical sorted inputs, and the prune's bound holds.
 
 #include <cuda_runtime.h>
 
@@ -61,13 +107,20 @@
 
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 128;
+constexpr int kWarp = 32;
+constexpr int kWarps = kBlock / kWarp;
+constexpr int kBuf = 2 * kWarp;  // a warp's buffer: one sweep + one cluster
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
 constexpr int32_t kPadKeyBase = kSentinelKey / 2;
 // Split mode's tie band around the cutoff (_TIE_BAND in lag_pairs.py)
 constexpr float kTieBand = 1e-6f;
+// Split mode's prune threshold csq (1 + 2^-19), above the tie band
+// (ops/cluster_prune.py's SPLIT_MARGIN)
+constexpr float kSplitMargin = 1.0f + 0x1p-19f;
 
 // A padding row's key is replaced by kPadKeyBase + slot * spacing, where
 // spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below int32 overflow.
@@ -102,89 +155,243 @@ struct Args {
   void* out;              // (3, n) planes of float or double
 };
 
-struct Own {
-  float x, y, z;     // hi parts
-  float lx, ly, lz;  // lo parts (split mode)
+__device__ __forceinline__ float4 load_slot(const float* planes, int64_t n,
+                                            int j) {
+  return make_float4(planes[j], planes[n + j], planes[2 * n + j],
+                     __int_as_float(j));
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v = fminf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+struct Box {
+  float3 mn, mx, lomax;
 };
 
-// g d of the pair (i, j) seen from i, added to i's sums when the pair is
-// inside the cutoff and not coincident. Masks select; nothing multiplies
-// by a mask, so the inf of a masked-out dsq = 0 never reaches a sum.
-template <bool SPLIT, int GFN>
-__device__ __forceinline__ void add_pair(const Own& o, const Args& a,
-                                         int64_t j, double& fx, double& fy,
-                                         double& fz) {
-  const int64_t n = a.n;
-  float dx = o.x - a.pos[j];
-  float dy = o.y - a.pos[n + j];
-  float dz = o.z - a.pos[2 * n + j];
+template <bool SPLIT>
+__device__ __forceinline__ float axis_gap(float mn, float mx, float lomax,
+                                          float b, float bl) {
+  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);
+  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);
+  return g;
+}
+
+template <bool SPLIT>
+__device__ __forceinline__ bool near_box(const Box& box, float4 b, float4 bl,
+                                         float thr) {
+  const float gx = axis_gap<SPLIT>(box.mn.x, box.mx.x, box.lomax.x, b.x, bl.x);
+  const float gy = axis_gap<SPLIT>(box.mn.y, box.mx.y, box.lomax.y, b.y, bl.y);
+  const float gz = axis_gap<SPLIT>(box.mn.z, box.mx.z, box.lomax.z, b.z, bl.z);
+  float gsq = gx * gx;
+  gsq = gsq + gy * gy;
+  gsq = gsq + gz * gz;
+  return gsq < thr;
+}
+
+struct Own {
+  float4 h;            // x, y, z (w unused)
+  float4 l;            // low parts (split mode)
+  bool real;           // slot < n
+  int jlo;             // first partner slot
+  unsigned span;       // jhi - jlo
+  double fx, fy, fz;
+};
+
+template <bool SPLIT>
+__device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
+                                          float& dx, float& dy, float& dz) {
+  dx = o.h.x - b.x;
+  dy = o.h.y - b.y;
+  dz = o.h.z - b.z;
   if (SPLIT) {
-    dx = dx + (o.lx - a.lo[j]);
-    dy = dy + (o.ly - a.lo[n + j]);
-    dz = dz + (o.lz - a.lo[2 * n + j]);
+    dx = dx + (o.l.x - bl.x);
+    dy = dy + (o.l.y - bl.y);
+    dz = dz + (o.l.z - bl.z);
   }
   float dsq = dx * dx;
   dsq = dsq + dy * dy;
   dsq = dsq + dz * dz;
-  bool inside = dsq < a.csq;
-  if (SPLIT && fabsf(dsq - a.csq) <= kTieBand * a.csq) {
-    // near the cutoff the f32 dsq may fall on the wrong side: decide on the
-    // f64 dsq of the split separations (split_cutoff_test in lag_pairs.py)
-    const double ex = (static_cast<double>(o.x) - static_cast<double>(a.pos[j])) +
-                      (static_cast<double>(o.lx) - static_cast<double>(a.lo[j]));
-    const double ey =
-        (static_cast<double>(o.y) - static_cast<double>(a.pos[n + j])) +
-        (static_cast<double>(o.ly) - static_cast<double>(a.lo[n + j]));
-    const double ez =
-        (static_cast<double>(o.z) - static_cast<double>(a.pos[2 * n + j])) +
-        (static_cast<double>(o.lz) - static_cast<double>(a.lo[2 * n + j]));
-    double dsq64 = ex * ex;
-    dsq64 = dsq64 + ey * ey;
-    dsq64 = dsq64 + ez * ez;
-    inside = dsq64 < static_cast<double>(a.csq);
+  return dsq;
+}
+
+// Phase A of a sweep, entry q: the lane's hit bit.
+template <bool SPLIT>
+__device__ __forceinline__ bool may_count(const Own& o, float4 b, float4 b_lo,
+                                          float csq, float thr) {
+  float dx, dy, dz;
+  const float dsq = pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+  // the lag bound and key window: jlo_i <= j <= jhi_i
+  const bool in_range =
+      static_cast<unsigned>(__float_as_int(b.w) - o.jlo) <= o.span;
+  // f32 mode: exactly the cutoff rule; split mode: up to the prune
+  // threshold, which covers the tie band, decided in phase B
+  return in_range && dsq < (SPLIT ? thr : csq) && dsq > 0.0f;
+}
+
+// Sweep entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
+// FULL: cnt == 32, unrolled).
+template <bool SPLIT, int GFN, bool FULL>
+__device__ __forceinline__ void sweep(Own& o, const float4* bh,
+                                      const float4* bl, int cnt, float csq,
+                                      float thr) {
+  // phase A: one broadcast read per entry, the lane's hit bits
+  unsigned hits = 0u;
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kWarp; ++q)
+      if (may_count<SPLIT>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0), csq, thr))
+        hits |= 1u << q;
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < cnt; ++q)
+      if (may_count<SPLIT>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0), csq, thr))
+        hits |= 1u << q;
   }
-  if (inside && dsq > 0.0f) {
-    const float g = force_factor<GFN>(dsq);
-    fx += static_cast<double>(g * dx);
-    fy += static_cast<double>(g * dy);
-    fz += static_cast<double>(g * dz);
+  if (!o.real) hits = 0u;
+  // phase B: each lane's own hits, in ascending q
+  while (hits != 0u) {
+    const int q = __ffs(hits) - 1;
+    hits &= hits - 1u;
+    const float4 b = bh[q];
+    const float4 b_lo = SPLIT ? bl[q] : make_float4(0, 0, 0, 0);
+    float dx, dy, dz;
+    const float dsq = pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+    bool inside = true;
+    if (SPLIT) {
+      inside = dsq < csq;
+      if (fabsf(dsq - csq) <= kTieBand * csq) {
+        // near the cutoff the f32 dsq may fall on the wrong side: decide on
+        // the f64 dsq of the split separations (split_cutoff_test in
+        // lag_pairs.py)
+        const double ex = (static_cast<double>(o.h.x) - static_cast<double>(b.x)) +
+                          (static_cast<double>(o.l.x) - static_cast<double>(b_lo.x));
+        const double ey = (static_cast<double>(o.h.y) - static_cast<double>(b.y)) +
+                          (static_cast<double>(o.l.y) - static_cast<double>(b_lo.y));
+        const double ez = (static_cast<double>(o.h.z) - static_cast<double>(b.z)) +
+                          (static_cast<double>(o.l.z) - static_cast<double>(b_lo.z));
+        double dsq64 = ex * ex;
+        dsq64 = dsq64 + ey * ey;
+        dsq64 = dsq64 + ez * ez;
+        inside = dsq64 < static_cast<double>(csq);
+      }
+    }
+    if (inside) {
+      const float g = force_factor<GFN>(dsq);
+      o.fx += static_cast<double>(g * dx);
+      o.fy += static_cast<double>(g * dy);
+      o.fz += static_cast<double>(g * dz);
+    }
   }
 }
 
 template <bool SPLIT, int GFN, typename Out>
 __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= a.n) return;
+  __shared__ float4 buf_hi[kWarps][kBuf];
+  __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;
+  if (base >= a.n) return;  // the whole warp leaves together
+  const int i = base + lane;
   const int64_t n = a.n;
-  const int32_t w = *a.w_key;
-  const int32_t key_i = load_key(a.keys, i, a.spacing);
+  float4* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
   Own o;
-  o.x = a.pos[i];
-  o.y = a.pos[n + i];
-  o.z = a.pos[2 * n + i];
-  if (SPLIT) {
-    o.lx = a.lo[i];
-    o.ly = a.lo[n + i];
-    o.lz = a.lo[2 * n + i];
+  o.real = i < a.n;
+  o.h = o.real ? load_slot(a.pos, n, i) : make_float4(0, 0, 0, 0);
+  o.l = SPLIT && o.real ? load_slot(a.lo, n, i) : make_float4(0, 0, 0, 0);
+  o.fx = o.fy = o.fz = 0.0;
+  // the lane's partner range [jlo, jhi] by binary search over the keys
+  const int32_t w_key = *a.w_key;
+  int jlo = 0, jhi = -1;
+  if (o.real) {
+    const int32_t key_i = load_key(a.keys, i, a.spacing);
+    // smallest j in [max(i - L, 0), i] with key_j >= key_i - W (j = i holds)
+    const int32_t lo_key = key_i - w_key;
+    int l = i > a.L ? i - a.L : 0, r = i;
+    while (l < r) {
+      const int m = l + (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else l = m + 1;
+    }
+    jlo = l;
+    // largest k in [i, min(i + L, n - 1)] with key_k - W <= key_i (k = i holds)
+    l = i;
+    r = a.n - 1 - i > a.L ? i + a.L : a.n - 1;
+    while (l < r) {
+      const int m = r - (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) - w_key <= key_i) l = m; else r = m - 1;
+    }
+    jhi = l;
   }
-  double fx = 0.0, fy = 0.0, fz = 0.0;
-  // partners behind: pairs (i, j = i - lag), in window iff key_j >= key_i - W
-  const int32_t lo_key = key_i - w;
-  const int jmin = i > a.L ? i - a.L : 0;
-  for (int j = i - 1; j >= jmin; --j) {
-    if (load_key(a.keys, j, a.spacing) < lo_key) break;
-    add_pair<SPLIT, GFN>(o, a, j, fx, fy, fz);
+  o.jlo = jlo;
+  o.span = static_cast<unsigned>(jhi - jlo);
+  // the union of the lanes' ranges: jlo and jhi ascend with i
+  const int first = __shfl_sync(kAll, jlo, 0);
+  const int last = __reduce_max_sync(kAll, o.real ? jhi : -1);
+  const float inf = __int_as_float(0x7f800000);
+  Box box;
+  box.mn = make_float3(warp_min(o.real ? o.h.x : inf), warp_min(o.real ? o.h.y : inf),
+                       warp_min(o.real ? o.h.z : inf));
+  box.mx = make_float3(warp_max(o.real ? o.h.x : -inf), warp_max(o.real ? o.h.y : -inf),
+                       warp_max(o.real ? o.h.z : -inf));
+  box.lomax = make_float3(0.0f, 0.0f, 0.0f);
+  if (SPLIT)
+    box.lomax = make_float3(warp_max(o.real ? fabsf(o.l.x) : 0.0f),
+                            warp_max(o.real ? fabsf(o.l.y) : 0.0f),
+                            warp_max(o.real ? fabsf(o.l.z) : 0.0f));
+  const float thr = SPLIT ? a.csq * kSplitMargin : a.csq;
+  const unsigned below = (1u << lane) - 1u;
+  int cnt = 0;  // entries in the buffer, warp-uniform
+  for (int j0 = first; j0 <= last; j0 += kWarp) {
+    const int j = j0 + lane;
+    const bool valid = j <= last;
+    const float4 b = valid ? load_slot(a.pos, n, j) : make_float4(0, 0, 0, 0);
+    const float4 b_lo =
+        SPLIT && valid ? load_slot(a.lo, n, j) : make_float4(0, 0, 0, 0);
+    const bool keep = valid && near_box<SPLIT>(box, b, b_lo, thr);
+    const unsigned mask = __ballot_sync(kAll, keep);
+    if (mask == 0u) continue;
+    if (keep) {
+      const int at = cnt + __popc(mask & below);
+      bh[at] = b;
+      if (SPLIT) bl[at] = b_lo;
+    }
+    cnt += __popc(mask);
+    if (cnt >= kWarp) {
+      __syncwarp();
+      sweep<SPLIT, GFN, true>(o, bh, bl, kWarp, a.csq, thr);
+      __syncwarp();
+      // move the remainder to the front of the buffer
+      cnt -= kWarp;
+      float4 rh = bh[kWarp + lane], rl;
+      if (SPLIT) rl = bl[kWarp + lane];
+      __syncwarp();
+      if (lane < cnt) {
+        bh[lane] = rh;
+        if (SPLIT) bl[lane] = rl;
+      }
+      __syncwarp();
+    }
   }
-  // partners ahead: pairs (k = i + lag, i), in window iff key_i >= key_k - W
-  const int kmax = a.n - 1 - i > a.L ? i + a.L : a.n - 1;
-  for (int k = i + 1; k <= kmax; ++k) {
-    if (load_key(a.keys, k, a.spacing) - w > key_i) break;
-    add_pair<SPLIT, GFN>(o, a, k, fx, fy, fz);
+  if (cnt > 0) {
+    __syncwarp();
+    sweep<SPLIT, GFN, false>(o, bh, bl, cnt, a.csq, thr);
   }
-  Out* out = static_cast<Out*>(a.out);
-  out[i] = static_cast<Out>(fx);
-  out[n + i] = static_cast<Out>(fy);
-  out[2 * n + i] = static_cast<Out>(fz);
+  if (o.real) {
+    Out* out = static_cast<Out*>(a.out);
+    out[i] = static_cast<Out>(o.fx);
+    out[n + i] = static_cast<Out>(o.fy);
+    out[2 * n + i] = static_cast<Out>(o.fz);
+  }
 }
 
 template <bool SPLIT, int GFN>
@@ -220,7 +427,7 @@ int zelll_lag_forces_block() { return kBlock; }
 int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int L, int spacing, float csq,
                      int gfn, int f64_out, void* out, void* stream) {
-  if (n <= 0 || L < 1 || spacing < 1 ||
+  if (n <= 0 || n > kSentinelKey - 2 * kWarp || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
       (gfn != kGfnLj && gfn != kGfnLjFast))
     return static_cast<int>(cudaErrorInvalidValue);

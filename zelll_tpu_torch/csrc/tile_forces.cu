@@ -1,10 +1,11 @@
 // K7 on Hopper: per-particle pair forces by segment tiles over key-sorted
-// particles, any box shape.
+// particles, any box shape, as a pruned cluster-pair sweep.
 //
 // Replaces the TPU kernels zelll_tpu/ops/tile_pairs.py::
-// _make_tile_forces_kernel_packed (:1025, via _packed_forces_core and
-// tile_pair_forces) and ::_make_tile_forces_kernel (:1295, the int32-key
-// form behind tile_pair_forces(packed=False)). Both compute one function:
+// _make_tile_forces_kernel_packed (:1025, via _packed_forces_core :1223 and
+// tile_pair_forces; pallas_call :1262) and ::_make_tile_forces_kernel
+// (:1295, the int32-key form behind tile_pair_forces(packed=False);
+// pallas_call :1624). Both compute one function:
 //
 //   f_i = sum over bands s < S (the full, mirrored stencil: S = 1, 3, 9
 //         for dim = 1, 2, 3) and j-chunks jc of the band's window
@@ -16,50 +17,96 @@
 //                                       coincident particles)
 //     d = pos_i - pos_j, g = gfn(dsq)
 //
-// with dsq accumulated axis by axis, and in split mode each axis'
+// with dsq = (dx dx + dy dy) + dz dz, and in split mode each axis'
 // separation d = (hi_i - hi_j) + (lo_i - lo_j); in split mode a pair whose
 // f32 dsq lies within 1e-6 csq of the cutoff is decided on the f64 dsq of
-// its split separations (as K3 does). The windows and bands come
-// from ops/segments.py on the torch side (chunk_bounds with half=False,
-// trimmed disjoint in band_order(full=True) for the maskless body). Force
-// factors: LJ 24 t (2t - 1) inv with inv = 1/dsq by true division, or
-// inv = rsqrtf(dsq)^2; t = inv^3.
+// its split separations (as K3 does). The windows and bands come from
+// ops/segments.py on the torch side (chunk_bounds with half=False, trimmed
+// disjoint in band_order(full=True) for the maskless body). Force factors:
+// LJ 24 t (2t - 1) inv with inv = 1/dsq by true division, or inv =
+// rsqrtf(dsq)^2; t = inv^3. The windows stay exactly the plain version's,
+// so the result is defined where the coverage flag is False.
 //
 // What it does not copy: the packed 8-row f32 blocks with f32 keys, the
 // per-band DMA windows and their semaphores, the lane broadcasts, and the
 // deferred (128, 128) g d accumulators that the TPU kernel folds with one
 // ones-vector matrix product per chunk. Keys stay int32 here, so one kernel
-// serves both TPU layouts; the index bound replaces the spread coordinates
-// of the TPU's padding rows.
-//
-// Design: K6's (tile_reduce.cu). One block of 128 threads per own chunk;
-// thread t owns slot i = 128c + t and keeps its coordinates in registers.
-// For each j-chunk of each band window, the block stages the chunk's
-// coordinates and keys in shared memory as float4, then every thread runs
-// over the 128 lanes and adds g d to its own sums. The bands are mirrored,
-// so every pair is met from both ends and only the i side is written: no
-// slot triangle, no scatter, no atomics, a deterministic result. Masks
-// select, never multiply, so an inf from a masked-out dsq = 0 cannot reach
-// a sum (safe_term changes nothing).
-//
-// Accumulation: each thread sums its f32 products g d in f64 and writes
-// (dim, n) planes of f32, or f64 when asked (the checks compare f64 sums).
+// serves both TPU layouts.
 //
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
-// 1 key plane + 3 force planes) x n, 280 MB at n = 1e7 in f32 mode,
-// 84 us at 3.35 TB/s. Operations, counted once per unique pair as for K3
-// (lag_forces.cu): 7 FP32 instructions per half-stencil candidate (13
-// split) plus 20 per cutoff pair, about 0.4 ms at the benchmark's density,
-// so it is bound by operations. This design evaluates every lane of every
-// tile of 9 windows, about 20 times the half-stencil candidates, with a
-// barrier per tile; tighter windows, register blocking and asynchronous
-// staging are left for later. No single PyTorch call computes it.
+// 1 key plane + 3 force planes) x n, 280 MB at n = 1e7 in f32 mode, 84 us
+// at 3.35 TB/s. Operations, counted once per unique pair: 7 FP32
+// instructions per half-stencil candidate (13 split) plus 20 per cutoff
+// pair, about 0.4 ms at the benchmark's density: it is bound by operations,
+// that is by the instructions issued per evaluated lane. Evaluating all
+// 128 x 128 lanes of every j-chunk of the 9 windows costs 19.7 lanes per
+// half-stencil candidate on the MD cube (a 128-slot chunk spans about 13
+// cells along the key's fastest axis, a particle's partners 3), and a warp
+// that runs the force factor inline takes that branch whenever any of its
+// lanes has a pair.
+//
+// Design: a cluster-pair sweep (Pall and Hess, Comput. Phys. Commun. 184
+// (2013) 2641). A warp owns a cluster of 32 consecutive slots, i = 128 c +
+// 32 w + lane, and keeps its own coordinates in registers; the 4 warps of
+// a block share chunk c's windows but otherwise run on their own (no block
+// barrier). Each warp
+//   1. reduces its cluster's axis-aligned box over the real slots (< n)
+//      by shuffles, from the coordinates of this launch (the skin loops
+//      move them between rebuilds), and in split mode the largest |lo|
+//      per axis;
+//   2. walks the j-chunks of every window in order, stopping at n: lane t
+//      loads slot t of each of the chunk's 4 clusters (all loads in flight
+//      at once) and tests each point against the own box (below). A ballot
+//      per cluster compacts the survivors, in slot order, into the warp's
+//      buffer in shared memory as float4 (x, y, z, key bits), plus the low
+//      parts in split mode;
+//   3. sweeps the buffer 64 entries at a time: phase A reads each entry by
+//      a broadcast (one shared-memory transaction for the warp), computes
+//      dsq and sets bit q of the lane's 64-bit hit mask where dsq is below
+//      the cutoff (in split mode below the prune threshold, so that the tie
+//      band goes to phase B); phase B walks each lane's own hits in
+//      ascending q, recomputes d and dsq bitwise as in phase A, drops
+//      dsq == 0 (the own slot, coincident particles), applies the exact
+//      cutoff rule (split: the f64 tie decision) and adds g d. The force
+//      factor and its f64 sums thus run once per hit and lane, not once per
+//      entry for the whole warp. With the band mask the buffer is swept at
+//      the end of each band, so the band is uniform in a sweep.
+// Every pair is met from both ends (the bands are mirrored) and only the i
+// side is written: no scatter, no atomics, and each lane adds its terms in
+// a fixed order, so the result is deterministic. Masks select, never
+// multiply, so an inf from a masked-out dsq = 0 cannot reach a sum. On the
+// cubic MD start state (9,938,375 points) the prune leaves 2.46 lane
+// evaluations per half-stencil candidate: each own cluster sweeps about 331
+// entries (chip_smoke.py's tile_forces_alone counts them from the same
+// boxes in torch, ops/cluster_prune.py). Sweeps of 64 entries measured
+// faster than sweeps of 32 (fewer phase B rounds set by the lane with the
+// most hits), and loading a j-chunk's 4 clusters at once faster than one
+// cluster at a time (variants timed in one call on the card).
+//
+// The prune, and why it drops no pair. With the own box [mn, mx] per axis
+// and a j point b, the gap per axis is g = max(mn - b, b - mx, 0) in f32.
+// Rounding to nearest is monotone and |fl(o - b)| = fl(|o - b|), so for
+// every own point o, g <= |fl(o - b)| = |d|; dsq is a monotone function of
+// |dx|, |dy|, |dz| evaluated in the same order, so gsq <= dsq. In f32 mode
+// a pair counts only if dsq < csq, so "keep iff gsq < csq" is exact: no
+// margin is needed. In split mode d = fl(h + l) with h = fl(hi_o - hi_b),
+// l = fl(lo_o - lo_b): |d| >= fl(|h| - |l|) >= fl(g - L), where L =
+// fl(lomax + |lo_b|) >= |l| (lomax: the own cluster's largest |lo| on the
+// axis), so g' = max(fl(g - L), 0) keeps gsq' <= dsq whatever the low
+// parts hold. A split pair counts only if dsq < csq or its f32 dsq lies in
+// the tie band, dsq <= csq + fl(1e-6 csq) (Sterbenz: dsq - csq is exact
+// there), and the threshold fl(csq (1 + 2^-19)) >= csq (1 + 1.85e-6) lies
+// above that band. So a j point the prune drops holds no pair that the
+// plain version counts, for any data, in either mode.
+//
+// Accumulation: each lane sums its f32 products g d in f64 and writes
+// (dim, n) planes of f32, or f64 when asked (the checks compare f64 sums).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. No --use_fast_math (it would break
 // the true division); --fmad=false rounds every product and sum on its own,
 // as the plain PyTorch version does, so dsq and hence the pair masks match
-// it bitwise on identical inputs.
+// it bitwise on identical inputs, and the prune's bound above holds.
 
 #include <cuda_runtime.h>
 
@@ -67,13 +114,22 @@
 
 namespace {
 
-constexpr int kChunk = 128;  // slots per chunk = threads per block
+constexpr int kChunk = 128;   // slots per chunk = threads per block
+constexpr int kWarp = 32;     // slots per cluster
+constexpr int kClusters = kChunk / kWarp;  // per chunk: warps per block
+constexpr int kSweep = 64;    // entries per sweep
+// a warp's buffer: a remainder (< kSweep) and a j-chunk's survivors
+constexpr int kBuf = kSweep + kChunk;
 constexpr int kMaxBands = 9;
 constexpr int kMaxDim = 3;
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
+constexpr unsigned kAll = 0xffffffffu;
 // Split mode's tie band around the cutoff (_TIE_BAND in lag_pairs.py)
 constexpr float kTieBand = 1e-6f;
+// Split mode's prune threshold csq (1 + 2^-19), above the tie band (see the
+// note at the top; ops/cluster_prune.py's SPLIT_MARGIN)
+constexpr float kSplitMargin = 1.0f + 0x1p-19f;
 
 template <int GFN>
 __device__ __forceinline__ float force_factor(float dsq) {
@@ -102,7 +158,7 @@ struct Args {
 };
 
 // Coordinates of slot j (< n) from the planes; absent axes read 0, which
-// adds exactly 0 to dsq.
+// adds exactly 0 to dsq and to the box gap.
 __device__ __forceinline__ float4 load_slot(const float* planes, int n,
                                             int dim, int j, int32_t key) {
   float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(key));
@@ -114,91 +170,256 @@ __device__ __forceinline__ float4 load_slot(const float* planes, int n,
   return v;
 }
 
-template <bool SPLIT, int GFN, bool BANDMASK, typename Out>
-__global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
-  // the staged j-chunk: x, y, z and the key's bits per lane; split mode
-  // adds the low parts
-  __shared__ float4 jhi[kChunk];
-  __shared__ float4 jlo[SPLIT ? kChunk : 1];
-  const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  const int i = c * kChunk + t;
-  const bool own_real = i < a.n;
-  const int32_t own_key = a.keys[i];  // keys cover every launched chunk
-  const float4 oh = load_slot(a.pos, a.n, a.dim, i, own_key);
-  const float4 ol =
-      SPLIT ? load_slot(a.lo, a.n, a.dim, i, 0) : make_float4(0, 0, 0, 0);
-  double fx = 0.0, fy = 0.0, fz = 0.0;
-  for (int s = 0; s < a.S; ++s) {
-    const int32_t* w = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
-    const int first = w[0] + w[1];
-    const int num = w[2];
-    const int32_t band_lo = a.bands[2 * s];
-    const int32_t band_hi = a.bands[2 * s + 1];
-    for (int jt = 0; jt < num; ++jt) {
-      const int j0 = (first + jt) * kChunk;
-      const int32_t jkey = a.keys[j0 + t];
-      jhi[t] = load_slot(a.pos, a.n, a.dim, j0 + t, jkey);
-      if (SPLIT) jlo[t] = load_slot(a.lo, a.n, a.dim, j0 + t, 0);
-      __syncthreads();
-      // lanes at or past n hold no particle
-      const int lanes = min(kChunk, a.n - j0);
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v = fminf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+// The own cluster's box, and in split mode its largest |lo| per axis.
+struct Box {
+  float3 mn, mx, lomax;
+};
+
+// The gap of one axis between the own box and a j coordinate, less the
+// low parts' reach in split mode (the note at the top).
+template <bool SPLIT>
+__device__ __forceinline__ float axis_gap(float mn, float mx, float lomax,
+                                          float b, float bl) {
+  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);
+  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);
+  return g;
+}
+
+template <bool SPLIT>
+__device__ __forceinline__ bool near_box(const Box& box, float4 b, float4 bl,
+                                         float thr) {
+  const float gx = axis_gap<SPLIT>(box.mn.x, box.mx.x, box.lomax.x, b.x, bl.x);
+  const float gy = axis_gap<SPLIT>(box.mn.y, box.mx.y, box.lomax.y, b.y, bl.y);
+  const float gz = axis_gap<SPLIT>(box.mn.z, box.mx.z, box.lomax.z, b.z, bl.z);
+  float gsq = gx * gx;
+  gsq = gsq + gy * gy;
+  gsq = gsq + gz * gz;
+  return gsq < thr;
+}
+
+// A warp's state: its own slot's coordinates and key, the sums, and its
+// compaction buffer in shared memory.
+struct Own {
+  float4 h;    // x, y, z, key bits
+  float4 l;    // low parts (split mode)
+  bool real;   // slot < n
+  double fx, fy, fz;
+};
+
+// The separation and dsq of own slot o and entry (b, bl), in the order of
+// the plain version.
+template <bool SPLIT>
+__device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
+                                          float& dx, float& dy, float& dz) {
+  dx = o.h.x - b.x;
+  dy = o.h.y - b.y;
+  dz = o.h.z - b.z;
+  if (SPLIT) {
+    dx = dx + (o.l.x - bl.x);
+    dy = dy + (o.l.y - bl.y);
+    dz = dz + (o.l.z - bl.z);
+  }
+  float dsq = dx * dx;
+  dsq = dsq + dy * dy;
+  dsq = dsq + dz * dz;
+  return dsq;
+}
+
+// Phase A of a sweep, entry q: the lane's hit bit.
+template <bool SPLIT, bool BANDMASK>
+__device__ __forceinline__ bool may_count(const Own& o, float4 b, float4 b_lo,
+                                          float csq, float thr, int32_t band_lo,
+                                          int32_t band_hi) {
+  float dx, dy, dz;
+  const float dsq = pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+  // f32 mode: the cutoff; split mode: the prune threshold, which covers
+  // the tie band; phase B decides the tie band and drops dsq == 0
+  bool hit = dsq < (SPLIT ? thr : csq);
+  if (BANDMASK) {
+    const long long diff = static_cast<long long>(__float_as_int(o.h.w)) -
+                           static_cast<long long>(__float_as_int(b.w));
+    hit = hit && diff >= band_lo && diff <= band_hi;
+  }
+  return hit;
+}
+
+// Sweep entries [0, cnt) of the warp's buffer (cnt <= kSweep,
+// warp-uniform; FULL: cnt == kSweep, unrolled).
+template <bool SPLIT, int GFN, bool BANDMASK, bool FULL>
+__device__ __forceinline__ void sweep(Own& o, const float4* bh,
+                                      const float4* bl, int cnt, float csq,
+                                      float thr, int32_t band_lo,
+                                      int32_t band_hi) {
+  // phase A: one broadcast read per entry, the lane's hit bits
+  unsigned long long hits = 0ull;
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kSweep; ++q)
+      if (may_count<SPLIT, BANDMASK>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0),
+                                     csq, thr, band_lo, band_hi))
+        hits |= 1ull << q;
+  } else {
 #pragma unroll 4
-      for (int q = 0; q < lanes; ++q) {
-        const float4 b = jhi[q];
-        const float4 bl = SPLIT ? jlo[q] : make_float4(0, 0, 0, 0);
-        float dx = oh.x - b.x;
-        float dy = oh.y - b.y;
-        float dz = oh.z - b.z;
-        if (SPLIT) {
-          dx = dx + (ol.x - bl.x);
-          dy = dy + (ol.y - bl.y);
-          dz = dz + (ol.z - bl.z);
-        }
-        float dsq = dx * dx;
-        dsq = dsq + dy * dy;
-        dsq = dsq + dz * dz;
-        bool inside = dsq < a.csq;
-        if (SPLIT && fabsf(dsq - a.csq) <= kTieBand * a.csq) {
-          // near the cutoff the f32 dsq may fall on the wrong side: decide
-          // on the f64 dsq of the split separations (split_cutoff_test in
-          // lag_pairs.py); absent axes add 0
-          const double ex =
-              (static_cast<double>(oh.x) - static_cast<double>(b.x)) +
-              (static_cast<double>(ol.x) - static_cast<double>(bl.x));
-          const double ey =
-              (static_cast<double>(oh.y) - static_cast<double>(b.y)) +
-              (static_cast<double>(ol.y) - static_cast<double>(bl.y));
-          const double ez =
-              (static_cast<double>(oh.z) - static_cast<double>(b.z)) +
-              (static_cast<double>(ol.z) - static_cast<double>(bl.z));
-          double dsq64 = ex * ex;
-          dsq64 = dsq64 + ey * ey;
-          dsq64 = dsq64 + ez * ez;
-          inside = dsq64 < static_cast<double>(a.csq);
-        }
-        bool m = own_real && inside && dsq > 0.0f;
-        if (BANDMASK) {
-          const long long diff = static_cast<long long>(own_key) -
-                                 static_cast<long long>(__float_as_int(b.w));
-          m = m && diff >= band_lo && diff <= band_hi;
-        }
-        if (m) {
-          const float g = force_factor<GFN>(dsq);
-          fx += static_cast<double>(g * dx);
-          fy += static_cast<double>(g * dy);
-          fz += static_cast<double>(g * dz);
-        }
+    for (int q = 0; q < cnt; ++q)
+      if (may_count<SPLIT, BANDMASK>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0),
+                                     csq, thr, band_lo, band_hi))
+        hits |= 1ull << q;
+  }
+  if (!o.real) hits = 0ull;
+  // phase B: each lane's own hits, in ascending q
+  while (hits != 0ull) {
+    const int q = __ffsll(static_cast<long long>(hits)) - 1;
+    hits &= hits - 1ull;
+    const float4 b = bh[q];
+    const float4 b_lo = SPLIT ? bl[q] : make_float4(0, 0, 0, 0);
+    float dx, dy, dz;
+    const float dsq = pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+    bool inside = dsq > 0.0f;
+    if (SPLIT) {
+      inside = inside && dsq < csq;
+      if (fabsf(dsq - csq) <= kTieBand * csq) {
+        // near the cutoff the f32 dsq may fall on the wrong side: decide
+        // on the f64 dsq of the split separations (split_cutoff_test in
+        // lag_pairs.py); absent axes add 0
+        const double ex = (static_cast<double>(o.h.x) - static_cast<double>(b.x)) +
+                          (static_cast<double>(o.l.x) - static_cast<double>(b_lo.x));
+        const double ey = (static_cast<double>(o.h.y) - static_cast<double>(b.y)) +
+                          (static_cast<double>(o.l.y) - static_cast<double>(b_lo.y));
+        const double ez = (static_cast<double>(o.h.z) - static_cast<double>(b.z)) +
+                          (static_cast<double>(o.l.z) - static_cast<double>(b_lo.z));
+        double dsq64 = ex * ex;
+        dsq64 = dsq64 + ey * ey;
+        dsq64 = dsq64 + ez * ez;
+        inside = dsq > 0.0f && dsq64 < static_cast<double>(csq);
       }
-      __syncthreads();
+    }
+    if (inside) {
+      const float g = force_factor<GFN>(dsq);
+      o.fx += static_cast<double>(g * dx);
+      o.fy += static_cast<double>(g * dy);
+      o.fz += static_cast<double>(g * dz);
     }
   }
-  if (own_real) {
+}
+
+template <bool SPLIT, int GFN, bool BANDMASK, typename Out>
+__global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
+  __shared__ float4 buf_hi[kClusters][kBuf];
+  __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
+  const int c = blockIdx.x;
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int i = c * kChunk + threadIdx.x;
+  float4* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  Own o;
+  o.real = i < a.n;
+  o.h = load_slot(a.pos, a.n, a.dim, i, a.keys[i]);  // keys cover the chunk
+  o.l = SPLIT ? load_slot(a.lo, a.n, a.dim, i, 0) : make_float4(0, 0, 0, 0);
+  o.fx = o.fy = o.fz = 0.0;
+  // a cluster past n holds no particle (the whole warp leaves together)
+  if (c * kChunk + w * kWarp >= a.n) return;
+  const float inf = __int_as_float(0x7f800000);
+  Box box;
+  box.mn = make_float3(warp_min(o.real ? o.h.x : inf), warp_min(o.real ? o.h.y : inf),
+                       warp_min(o.real ? o.h.z : inf));
+  box.mx = make_float3(warp_max(o.real ? o.h.x : -inf), warp_max(o.real ? o.h.y : -inf),
+                       warp_max(o.real ? o.h.z : -inf));
+  box.lomax = make_float3(0.0f, 0.0f, 0.0f);
+  if (SPLIT)
+    box.lomax = make_float3(warp_max(o.real ? fabsf(o.l.x) : 0.0f),
+                            warp_max(o.real ? fabsf(o.l.y) : 0.0f),
+                            warp_max(o.real ? fabsf(o.l.z) : 0.0f));
+  const float thr = SPLIT ? a.csq * kSplitMargin : a.csq;
+  const unsigned below = (1u << lane) - 1u;
+  int cnt = 0;  // entries in the buffer, warp-uniform
+  int32_t band_lo = 0, band_hi = 0;
+  for (int s = 0; s < a.S; ++s) {
+    const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
+    const int first = win[0] + win[1];
+    const int num = win[2];
+    band_lo = a.bands[2 * s];
+    band_hi = a.bands[2 * s + 1];
+    for (int jc = first; jc < first + num; ++jc) {
+      if (jc * kChunk >= a.n) break;  // later clusters lie past n too
+      // the j-chunk's 4 clusters: all loads in flight at once, then the
+      // survivors of each appended in slot order
+      float4 b[kClusters], b_lo[kClusters];
+      bool keep[kClusters];
+#pragma unroll
+      for (int k = 0; k < kClusters; ++k) {
+        const int j = jc * kChunk + k * kWarp + lane;
+        b[k] = load_slot(a.pos, a.n, a.dim, j, BANDMASK && j < a.n ? a.keys[j] : 0);
+        b_lo[k] = SPLIT ? load_slot(a.lo, a.n, a.dim, j, 0) : make_float4(0, 0, 0, 0);
+        keep[k] = j < a.n;
+      }
+#pragma unroll
+      for (int k = 0; k < kClusters; ++k) {
+        keep[k] = keep[k] && near_box<SPLIT>(box, b[k], b_lo[k], thr);
+        const unsigned mask = __ballot_sync(kAll, keep[k]);
+        if (keep[k]) {
+          const int at = cnt + __popc(mask & below);
+          bh[at] = b[k];
+          if (SPLIT) bl[at] = b_lo[k];
+        }
+        cnt += __popc(mask);
+      }
+      if (cnt >= kSweep) {
+        __syncwarp();
+        int base = 0;
+        for (; cnt - base >= kSweep; base += kSweep)
+          sweep<SPLIT, GFN, BANDMASK, true>(o, bh + base, bl + base, kSweep, a.csq, thr, band_lo,
+                                      band_hi);
+        __syncwarp();
+        // move the remainder to the front of the buffer
+        cnt -= base;
+        float4 rh[kSweep / kWarp], rl[kSweep / kWarp];
+#pragma unroll
+        for (int k = 0; k < kSweep / kWarp; ++k) {
+          rh[k] = bh[base + k * kWarp + lane];
+          rl[k] = SPLIT ? bl[base + k * kWarp + lane] : make_float4(0, 0, 0, 0);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < kSweep / kWarp; ++k) {
+          if (k * kWarp + lane < cnt) {
+            bh[k * kWarp + lane] = rh[k];
+            if (SPLIT) bl[k * kWarp + lane] = rl[k];
+          }
+        }
+        __syncwarp();
+      }
+    }
+    if (BANDMASK && cnt > 0) {
+      // the band is uniform within a sweep
+      __syncwarp();
+      sweep<SPLIT, GFN, BANDMASK, false>(o, bh, bl, cnt, a.csq, thr, band_lo, band_hi);
+      __syncwarp();
+      cnt = 0;
+    }
+  }
+  if (cnt > 0) {
+    __syncwarp();
+    sweep<SPLIT, GFN, BANDMASK, false>(o, bh, bl, cnt, a.csq, thr, band_lo, band_hi);
+  }
+  if (o.real) {
     Out* out = static_cast<Out*>(a.out);
     const int64_t n = a.n;
-    out[i] = static_cast<Out>(fx);
-    if (a.dim > 1) out[n + i] = static_cast<Out>(fy);
-    if (a.dim > 2) out[2 * n + i] = static_cast<Out>(fz);
+    out[i] = static_cast<Out>(o.fx);
+    if (a.dim > 1) out[n + i] = static_cast<Out>(o.fy);
+    if (a.dim > 2) out[2 * n + i] = static_cast<Out>(o.fz);
   }
 }
 

@@ -1,0 +1,144 @@
+"""The geometric prune of the forces kernels K3 and K7
+(``csrc/lag_forces.cu``, ``csrc/tile_forces.cu``) in plain PyTorch.
+
+Both kernels give each warp a cluster of ``CLUSTER`` consecutive sorted
+slots, reduce the cluster's axis-aligned box over its real slots (< n), and
+keep a partner slot j for the cluster's sweep only if the f32 gap between j
+and the box, squared and summed in the kernels' order, is below the
+threshold: ``cutoff^2`` with f32 coordinates, ``cutoff^2 (1 + 2^-19)`` in
+split mode, where each axis' gap is first reduced by the largest low part
+of the cluster plus j's own (the kernels' source notes say why no pair that
+counts is dropped). This module repeats those operations, so that the
+card's measurements can count the lane evaluations the prune leaves
+(``chip_smoke.py``) and the CPU tests can hold the rule to brute force. The
+kernels compute their boxes themselves, from the coordinates of each
+launch; nothing here is on their path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.geometry import key_window
+from .lag_pairs import _pad_and_desentinel
+from .segments import CHUNK
+
+CLUSTER = 32  # slots per cluster: one warp's own slots
+# Split mode's prune threshold is cutoff^2 times this (above the 1e-6 tie
+# band of `lag_pairs.split_cutoff_test`)
+SPLIT_MARGIN = 1.0 + 2.0**-19
+_BATCH = 16384  # own clusters per step of the counts
+
+
+def prune_threshold(cutoff_sq, split: bool, device=None) -> torch.Tensor:
+    """The f32 threshold the kernels compare a squared gap with."""
+    csq = torch.as_tensor(cutoff_sq, dtype=torch.float32, device=device)
+    if not split:
+        return csq
+    return csq * torch.tensor(SPLIT_MARGIN, dtype=torch.float32, device=device)
+
+
+def cluster_boxes(planes: torch.Tensor, lo: torch.Tensor | None = None):
+    """Per-cluster boxes of (dim, n) f32 planes: (mn, mx, lomax), each
+    (dim, ceil(n / CLUSTER)); ``lomax`` is the largest |lo| per axis (zeros
+    without ``lo``). Slots past n take no part."""
+    dim, n = planes.shape
+    ncl = -(-n // CLUSTER)
+    pad = ncl * CLUSTER - n
+
+    def fold(x, fill, op):
+        x = torch.cat([x, x.new_full((dim, pad), fill)], 1)
+        return op(x.reshape(dim, ncl, CLUSTER), -1).values
+
+    inf = float("inf")
+    mn = fold(planes, inf, torch.min)
+    mx = fold(planes, -inf, torch.max)
+    lomax = torch.zeros_like(mn) if lo is None else fold(lo.abs(), 0.0, torch.max)
+    return mn, mx, lomax
+
+
+def near_cluster(mn, mx, lomax, pts, pts_lo, thr) -> torch.Tensor:
+    """True where a point may hold a pair with the cluster: the kernels'
+    gap test. ``mn``, ``mx``, ``lomax`` broadcast against the (dim, ...)
+    points ``pts`` (and their low parts ``pts_lo``, or None in f32 mode)."""
+    gsq = None
+    for a in range(pts.shape[0]):
+        g = torch.clamp(torch.maximum(mn[a] - pts[a], pts[a] - mx[a]), min=0.0)
+        if pts_lo is not None:
+            g = torch.clamp(g - (lomax[a] + pts_lo[a].abs()), min=0.0)
+        gsq = g * g if gsq is None else gsq + g * g
+    return gsq < thr
+
+
+def tile_cluster_entries(inp, cutoff_sq) -> torch.Tensor:
+    """The j slots each own cluster of K7 sweeps: those of its chunk's band
+    windows (``inp`` from `tile_pairs.tile_inputs(full=True)`) that are
+    below n and pass the gap test. Returns (ceil(n / CLUSTER),) int64; each
+    entry is one evaluation for each of the cluster's 32 lanes."""
+    pos, lo = inp.pos, inp.lo
+    dim, n = pos.shape
+    device = pos.device
+    thr = prune_threshold(cutoff_sq, lo is not None, device)
+    mn, mx, lomax = cluster_boxes(pos, lo)
+    ncl = mn.shape[1]
+    S = inp.bands.shape[0]
+    bounds = inp.bounds.long()
+    lane = torch.arange(CHUNK, device=device)
+    counts = torch.zeros(ncl, dtype=torch.int64, device=device)
+    for c0 in range(0, ncl, _BATCH):
+        cl = torch.arange(c0, min(c0 + _BATCH, ncl), device=device)
+        rows = bounds[cl // (CHUNK // CLUSTER)]
+        box = [x[:, cl, None] for x in (mn, mx, lomax)]
+        for s in range(S):
+            first = rows[:, 3 * s] + rows[:, 3 * s + 1]
+            num = rows[:, 3 * s + 2]
+            for t in range(int(num.max()) if num.numel() else 0):
+                j = (first + t)[:, None] * CHUNK + lane
+                ok = (t < num)[:, None] & (j < n)
+                j = j.clamp(0, n - 1)
+                near = near_cluster(*box, pos[:, j],
+                                    None if lo is None else lo[:, j], thr)
+                counts[cl] += (near & ok).sum(-1)
+    return counts
+
+
+def lag_ranges(sorted_keys: torch.Tensor, strides, L: int):
+    """Each slot's partner range [jlo, jhi] for K3 (int64, (n,) each): the
+    slots within L lags in the key window (``key_j >= key_i - W`` behind i,
+    ``key_i >= key_k - W`` ahead), padding rows read as `_pad_and_desentinel`
+    spaces them. Keys ascend, so each side is one contiguous run."""
+    n = sorted_keys.shape[0]
+    keys = _pad_and_desentinel(sorted_keys, n).long()
+    w = int(key_window(strides))
+    i = torch.arange(n, device=keys.device)
+    jlo = torch.maximum(i - L, torch.searchsorted(keys, keys - w))
+    jhi = torch.minimum(i + L, torch.searchsorted(keys, keys + w, right=True) - 1)
+    return jlo, jhi
+
+
+def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
+                        sorted_keys: torch.Tensor, strides, cutoff_sq,
+                        L: int) -> torch.Tensor:
+    """The j slots each own cluster of K3 sweeps: the union of its slots'
+    partner ranges that passes the gap test ((dim, n) ``planes`` and low
+    parts ``lo`` or None). Returns (ceil(n / CLUSTER),) int64."""
+    dim, n = planes.shape
+    device = planes.device
+    thr = prune_threshold(cutoff_sq, lo is not None, device)
+    mn, mx, lomax = cluster_boxes(planes, lo)
+    ncl = mn.shape[1]
+    jlo, jhi = lag_ranges(sorted_keys, strides, L)
+    starts = torch.arange(ncl, device=device) * CLUSTER
+    first = jlo[starts]
+    last = jhi[torch.clamp(starts + CLUSTER - 1, max=n - 1)]
+    counts = torch.zeros(ncl, dtype=torch.int64, device=device)
+    for c0 in range(0, ncl, _BATCH):
+        cl = torch.arange(c0, min(c0 + _BATCH, ncl), device=device)
+        width = int((last[cl] - first[cl]).max()) + 1
+        j = first[cl, None] + torch.arange(width, device=device)
+        ok = j <= last[cl, None]
+        j = j.clamp(max=n - 1)
+        near = near_cluster(*[x[:, cl, None] for x in (mn, mx, lomax)], planes[:, j],
+                            None if lo is None else lo[:, j], thr)
+        counts[cl] = (near & ok).sum(-1)
+    return counts

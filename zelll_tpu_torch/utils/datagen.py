@@ -233,3 +233,35 @@ def synthetic_protein(n: int = 2000, radius: float = 15.0, seed: int = 0):
     )
     radii = rng.choice([1.7, 1.55, 1.52, 1.09], n, p=[0.5, 0.15, 0.2, 0.15])
     return pos, radii
+
+
+def cluster_gap(sorted_pts: np.ndarray, cutoff: float, starts) -> np.ndarray:
+    """A copy of sorted (n, 3) f64 points in which, at each start slot s of
+    ``starts`` (at most two), the clusters of 32 slots [s, s + 32) and
+    [s + 32, s + 64) become two 4 x 4 x 2 grids of spacing 2 whose boxes
+    face each other across exactly one cutoff along x, below every point in
+    y and z. The facing sides pair up across the gap at separations
+    cutoff (1 - 2^-23), cutoff (1 + 2^-23), cutoff (1 - 2^-25),
+    cutoff (1 + 2^-25) and exactly cutoff; facing points sit at most 15
+    slots apart. At the first site the facing points lie at |x| < 16,
+    where f32 coordinates resolve most of those separations; at the second
+    near |x| = 100, where f32 rounds them all to one cutoff and only the
+    low parts of split coordinates keep them. A prune of cluster pairs by their boxes that is
+    not conservative to the last bit then drops a pair that the cutoff
+    keeps. The keys are the caller's: they are not recomputed."""
+    pts = np.array(sorted_pts, dtype=np.float64)
+    grid = np.stack(np.meshgrid(np.arange(4), np.arange(4), np.arange(2),
+                                indexing="ij"), -1).reshape(-1, 3) * 2.0
+    # the offsets along x of the facing pairs, by their (y, z) index
+    # (8 facing points per side, ascending (iy, iz); the rest at one cutoff)
+    nudge = np.zeros(len(grid))
+    nudge[:5] = cutoff * np.array([-(2.0**-23), 2.0**-23, -(2.0**-25), 2.0**-25, 0.0])
+    y0 = pts[:, 1].min() - 3 * cutoff - 6
+    z0 = pts[:, 2].min() - 3 * cutoff
+    for s, x0 in zip(starts, (-(cutoff + 3.0), -100.0)):
+        a = np.stack([x0 - grid[:, 0], y0 + grid[:, 1], z0 + grid[:, 2]], -1)
+        b = np.stack([x0 + cutoff + grid[:, 0] + nudge, y0 + grid[:, 1],
+                      z0 + grid[:, 2]], -1)
+        pts[s:s + 32] = a[::-1]  # the facing points last, (0, 0, 0) at s + 31
+        pts[s + 32:s + 64] = b   # and first, (0, 0, 0) at s + 32
+    return pts
