@@ -67,7 +67,11 @@ on f64 outputs: max |f - f_plain| <= 1e-10 max |f_plain| in every case,
 bounds count the work of the function once per unique pair, as K6's does:
 the half-stencil candidates, and for each cutoff pair the force factor
 and g d on both sides (3 multiplies, 6 adds), so a kernel that evaluates
-each pair from both ends cannot look better than it is.
+each pair from both ends cannot look better than it is. All four of K1,
+K3, K6 and K7 are cluster-pair sweeps, each held to its plain version also
+on the inputs that fail a cluster prune that is not conservative
+(`prune_cases`); their alone phases print the lane evaluations the prune
+leaves (counted by ``ops/cluster_prune.py``) and their ptxas lines.
 
 The stress kernels (K4, K8) are held to their plain versions on f64
 outputs like the forces kernels; the histogram kernels (K5, K9) on exact
@@ -2069,6 +2073,9 @@ def main() -> None:
     )
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
     from zelll_tpu_torch.ops import join, lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import (
+        CLUSTER, lag_cluster_entries, tile_cluster_entries,
+    )
     from zelll_tpu_torch.ops.fused import auto_lj_energy, fused_lj_rebuild_energy
     from zelll_tpu_torch.ops.lag_pairs import (
         _pad_and_desentinel, combine_count, count_term, lag_coverage_ok, lj_term,
@@ -2160,6 +2167,12 @@ def main() -> None:
     shi, slo, keys, info, _ = sort_split(
         generate_points_lattice(N_CHECK, lj_box(N_CHECK, CUTOFF)), dev)
     cases["lattice"] = kernel_vs_plain(shi, slo, keys, info.strides, L_MAIN)
+    # the lag bound below the key window, and the inputs that fail a cluster
+    # prune that is not conservative
+    cases["lattice_L64"] = kernel_vs_plain(shi, slo, keys, info.strides, 64)
+    for tag, (ghi, glo) in prune_cases(shi, slo).items():
+        for L in (L_MAIN, 64):
+            cases[f"{tag}_L{L}"] = kernel_vs_plain(ghi, glo, keys, info.strides, L)
     emit("kernel_vs_plain", n=N_CHECK, cases=cases, max_rel_err=max_rel(cases))
 
     # -- 4. the main path at n = 1e7 -------------------------------------------
@@ -2218,6 +2231,7 @@ def main() -> None:
     first = torch.searchsorted(keys, keys - w)
     slots = torch.arange(N_MAIN, device=dev)
     candidates = int(torch.clamp(slots - first, max=L_MAIN).sum())
+    stencil = stencil_candidates(keys, info)
     k1 = {}
     for split in (True, False):
         plo = slo if split else None
@@ -2231,8 +2245,16 @@ def main() -> None:
         b = bound(N_MAIN * 4 * ((6 if split else 3) + 1),
                   candidates * INSTR_PER_CANDIDATE[split]
                   + main[tag]["pairs"] * INSTR_PER_PAIR)
+        # the lanes the cluster prune leaves: each own cluster's sweep
+        # entries, once for each of its 32 lanes (ops/cluster_prune.py)
+        entries = int(lag_cluster_entries(shi.t(), None if plo is None else plo.t(), keys,
+                                          strides, csq, L_MAIN, half=True).sum())
         k1[tag] = dict(ms=ms, plain_ms=plain_ms, keys_sort_ms=keys_sort_ms, **b,
-                       share_of_bound=b["bound_ms"] / ms, step_ms=main[tag]["step_ms"])
+                       share_of_bound=b["bound_ms"] / ms, step_ms=main[tag]["step_ms"],
+                       sweep_entries_per_slot=entries / N_MAIN,
+                       pruned_evaluations=entries * CLUSTER,
+                       pruned_evaluations_per_candidate=entries * CLUSTER / stencil,
+                       pruned_evaluations_per_window_pair=entries * CLUSTER / candidates)
     compare = {"uniform": kernel_vs_plain(shi, slo, keys, strides, L_MAIN)}
     del shi, slo, keys
     shi, slo, keys, info, _ = sort_split(
@@ -2243,8 +2265,10 @@ def main() -> None:
     # the kernel line reports the lattice's, whose terms are all of one size
     max_abs_err = max(compare["lattice"][m]["abs_err"] for m in ("split", "f32"))
     emit("lag_reduce_alone", n=N_MAIN, candidates=candidates,
-         candidates_per_slot=candidates / N_MAIN, **k1, compare=compare,
-         max_rel_err=max_rel(compare), lattice_max_abs_err=max_abs_err)
+         candidates_per_slot=candidates / N_MAIN, stencil_candidates=stencil,
+         stencil_candidates_per_slot=stencil / N_MAIN, **k1, compare=compare,
+         max_rel_err=max_rel(compare), lattice_max_abs_err=max_abs_err,
+         ptxas=ptxas_summary(lag_pairs.load_kernel.log))
 
     # -- 5. f64-grade parity with the exact-f64 oracle, n = 1e6 -------------------
     pts = generate_points_random(N_PARITY, lj_box(N_PARITY, CUTOFF))
@@ -2313,8 +2337,11 @@ def main() -> None:
     tcases["sentinel_tail"] = tile_vs_plain(shi, slo, padded, info.strides, maxj)
     shi, slo, keys, info, _ = sort_split(
         generate_points_lattice(N_TILE_CHECK, (side, side, side)), dev)
-    tcases["lattice"] = tile_vs_plain(shi, slo, keys, info.strides,
-                                      probe_maxj(keys, info.strides), fast=True)
+    lmaxj = probe_maxj(keys, info.strides)
+    tcases["lattice"] = tile_vs_plain(shi, slo, keys, info.strides, lmaxj, fast=True)
+    # the inputs that fail a cluster prune that is not conservative
+    for tag, (ghi, glo) in prune_cases(shi, slo).items():
+        tcases[tag] = tile_vs_plain(ghi, glo, keys, info.strides, lmaxj, fast=True)
     # K10: int32 keys past 2^24 (packed=False): two dense blobs in opposite
     # corners of a 2,600 box
     rng = np.random.default_rng(1)
@@ -2395,7 +2422,10 @@ def main() -> None:
     check(bool(inp.coverage_ok), "tile coverage failed for K6 alone")
     candidates = stencil_candidates(skeys, info)
     tiles = int(inp.bounds[:, 2::3].sum())
-    evaluations = tiles * CHUNK * CHUNK
+    evaluations = tiles * CHUNK * CHUNK  # all 128 x 128 lanes of every tile
+    # the lanes the cluster prune leaves: each own cluster's sweep entries,
+    # once for each of its 32 lanes (ops/cluster_prune.py)
+    k6_entries = int(tile_cluster_entries(inp, csq, half=True).sum())
     csq32 = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
     k6_ms = cuda_ms(lambda: reduce_tiles(inp, csq32, term=lj_term_fast), 10)
     k6_plain_ms = cuda_ms(lambda: reduce_tiles_plain(inp, csq32, term=lj_term_fast,
@@ -2439,7 +2469,10 @@ def main() -> None:
          **k6_bound, share_of_bound=k6_bound["bound_ms"] / k6_ms, candidates=candidates,
          candidates_per_slot=candidates / N_MAIN, cutoff_pairs=cpairs,
          tile_evaluations=evaluations, evaluations_per_candidate=evaluations / candidates,
-         step_ms=cubic_ms, compare=k6_compare, lattice_max_abs_err=tile_max_abs_err)
+         sweep_entries_per_slot=k6_entries / N_MAIN, pruned_evaluations=k6_entries * CLUSTER,
+         pruned_evaluations_per_candidate=k6_entries * CLUSTER / candidates,
+         step_ms=cubic_ms, compare=k6_compare, lattice_max_abs_err=tile_max_abs_err,
+         ptxas=ptxas_summary(tile_pairs.load_kernel.log))
 
     # -- 9. cubic f64-grade parity with the exact-f64 oracle, n = 1e6 ---------------
     pts, side = cube_points(N_PARITY)

@@ -54,6 +54,7 @@ from zelll_tpu_torch.ops.tile_pairs import (
     tile_pair_reduce_plain,
     tile_pair_stress,
     tile_pair_stress_plain,
+    tile_inputs,
 )
 from zelll_tpu_torch.utils.datagen import (
     cluster_gap,
@@ -70,6 +71,8 @@ CUTOFF = 10.0
 # forces are held to the largest force, not term by term, so the same
 # bound holds for them with 8 in place of 6.
 TOL_FAST = 6 * 4 * 2.0**-23
+# the first slots of the facing clusters of `_prune_cases`
+GAP_SITES = (128 * 8, 128 * 40)
 TOL_FAST_FORCES = 8 * 4 * 2.0**-23
 
 
@@ -83,9 +86,11 @@ def cuda_device():
 @pytest.mark.gpu
 def test_lag_reduce_kernel_matches_plain_on_card(cuda_device):
     """K1 against its plain version on the same sorted CUDA tensors (the
-    benchmark's thin box, and a jittered lattice): counts exact, f32
-    energies to 1e-6 and f64 totals to 1e-10 (f64 sums in another order),
-    the same lags, sentinel rows inert."""
+    benchmark's thin box, a jittered lattice, and the inputs that fail a
+    prune that is not conservative: the facing clusters of `cluster_gap`
+    and the lattice drifted since its keys were built, at L = 256 and 64):
+    counts exact, f32 energies to 1e-6 and f64 totals to 1e-10 (f64 sums
+    in another order), the same lags, sentinel rows inert."""
     n = 20_000
     pts = generate_points_random(n, lj_box(n, CUTOFF))
     hi, lo = split_f64(torch.as_tensor(pts, device=cuda_device))
@@ -126,6 +131,19 @@ def test_lag_reduce_kernel_matches_plain_on_card(cuda_device):
             want = pair_lag_reduce_plain(*args[:4], plo, L=256, out_dtype=torch.float64)
             assert got.dtype == torch.float64
             np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
+    # the cluster prune's sharp inputs, with the lag bound at 256 and below
+    # the key window
+    for gshi, gslo, gkeys, gstrides in _prune_cases(lshi, lslo, lkeys, linfo.strides).values():
+        for L in (256, 64):
+            for plo in (None, gslo):
+                for term, out in ((lj_term, torch.float64), (count_term, torch.int32)):
+                    kw = dict(L=L, term=term, out_dtype=out)
+                    got = pair_lag_reduce(gshi, gkeys, gstrides, csq, plo, **kw)
+                    want = pair_lag_reduce_plain(gshi, gkeys, gstrides, csq, plo, **kw)
+                    if out == torch.int32:
+                        assert combine_count(got) == combine_count(want) > 0
+                    else:
+                        np.testing.assert_allclose(float(got), float(want), rtol=1e-10)
 
     # 2D points, one slot, no slot (no launch)
     pts2 = np.random.default_rng(1).uniform(0, 1, (3000, 2)) * [5.0, 200.0]
@@ -165,9 +183,11 @@ def _maxj(keys, strides, CB=8):
 @pytest.mark.gpu
 def test_tile_reduce_kernel_matches_plain_on_card(cuda_device):
     """K6 against its plain version on the same sorted CUDA tensors: a
-    jittered cubic lattice at the benchmark's density (f64 totals to
-    1e-10, counts exact, masked and maskless, split and f32, lj_term_fast
-    to TOL_FAST), an undersized MAXJ, and int32 keys past 2^24 (K10)."""
+    jittered cubic lattice at the benchmark's density, the facing clusters
+    of `cluster_gap` and the lattice drifted since its keys were built (f64
+    totals to 1e-10, counts exact, masked and maskless, split and f32,
+    lj_term_fast to TOL_FAST), an undersized MAXJ, and int32 keys past 2^24
+    (K10)."""
     n = 200_000
     side = (n / 0.01) ** (1 / 3)
     shi, slo, keys, strides = _sorted_cube(
@@ -175,22 +195,36 @@ def test_tile_reduce_kernel_matches_plain_on_card(cuda_device):
     maxj = _maxj(keys, strides)
     csq = CUTOFF**2
     f64 = torch.float64
+    cases = {"lattice": (shi, slo, keys, strides),
+             **_prune_cases(shi, slo, keys, strides)}
+    # each facing pair of `cluster_gap` lies in a window of the later
+    # cluster (band 0 of its own chunk, key band and triangle held), so a
+    # prune that drops it changes the count
     for bandmask in (True, False):
-        for plo in (None, slo):
-            for term, out, rtol in ((lj_term, f64, 1e-10), (lj_term_fast, f64, TOL_FAST),
-                                    (count_term, torch.int32, 0)):
-                kw = dict(MAXJ=maxj, term=term, out_dtype=out, bandmask=bandmask)
-                before = tile_pair_reduce.launches
-                got, ok = tile_pair_reduce(shi, keys, strides, csq, plo, **kw)
-                assert tile_pair_reduce.launches == before + 1
-                want, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, plo, **kw)
-                torch.cuda.synchronize()
-                assert bool(ok) and bool(ok_p)
-                if out == torch.int32:
-                    assert combine_count(got) == combine_count(want) > 0
-                else:
-                    assert got.dtype == f64
-                    np.testing.assert_allclose(float(got), float(want), rtol=rtol)
+        inp = tile_inputs(shi.t().contiguous(), keys, strides, MAXJ=maxj, bandmask=bandmask)
+        bounds, bands = inp.bounds.long().cpu(), inp.bands.long().cpu()
+        for s in GAP_SITES:
+            i, j = s + 32, s + 31
+            first = int(bounds[i // CHUNK, 0] + bounds[i // CHUNK, 1])
+            assert first <= j // CHUNK < first + int(bounds[i // CHUNK, 2])
+            assert int(bands[0, 0]) <= int(keys[i]) - int(keys[j]) <= int(bands[0, 1])
+    for chi, clo, ckeys, cstrides in cases.values():
+        for bandmask in (True, False):
+            for plo in (None, clo):
+                for term, out, rtol in ((lj_term, f64, 1e-10), (lj_term_fast, f64, TOL_FAST),
+                                        (count_term, torch.int32, 0)):
+                    kw = dict(MAXJ=maxj, term=term, out_dtype=out, bandmask=bandmask)
+                    before = tile_pair_reduce.launches
+                    got, ok = tile_pair_reduce(chi, ckeys, cstrides, csq, plo, **kw)
+                    assert tile_pair_reduce.launches == before + 1
+                    want, ok_p = tile_pair_reduce_plain(chi, ckeys, cstrides, csq, plo, **kw)
+                    torch.cuda.synchronize()
+                    assert bool(ok) and bool(ok_p)
+                    if out == torch.int32:
+                        assert combine_count(got) == combine_count(want) > 0
+                    else:
+                        assert got.dtype == f64
+                        np.testing.assert_allclose(float(got), float(want), rtol=rtol)
     one = dict(MAXJ=1, term=count_term, out_dtype=torch.int32)
     got, ok = tile_pair_reduce(shi, keys, strides, csq, **one)
     want, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, **one)
@@ -248,7 +282,7 @@ def _prune_cases(shi, slo, keys, strides):
     site and by the split low parts only at the other), and the lattice
     moved by up to a skin of 0.5 since its keys were built."""
     pts = shi.double() + slo.double()
-    gap = cluster_gap(pts.cpu().numpy(), CUTOFF, (128 * 8, 128 * 40))
+    gap = cluster_gap(pts.cpu().numpy(), CUTOFF, GAP_SITES)
     drift = pts + torch.as_tensor(np.random.default_rng(5).uniform(
         -0.25, 0.25, tuple(pts.shape)), device=pts.device)
     return {"cluster_gap": (*split_f64(torch.as_tensor(gap, device=shi.device)), keys, strides),

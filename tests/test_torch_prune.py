@@ -1,14 +1,16 @@
-"""The geometric prune of the forces kernels K3 and K7, in its plain
-PyTorch mirror (`ops.cluster_prune`), held to brute force.
+"""The geometric prune of the pair kernels K1, K3, K6 and K7, in its
+plain PyTorch mirror (`ops.cluster_prune`), held to brute force.
 
 Every pair that the cutoff keeps (f32 coordinates, and split ones with the
-f64 tie rule of `lag_pairs.split_cutoff_test`) must lie near its own
+f64 tie rule of `lag_pairs.split_cutoff_test` for the forces kernels K3 and
+K7, or the f32 rule of the energy kernels K1 and K6) must lie near its own
 cluster's box, on the facing clusters of `utils.datagen.cluster_gap` (boxes
 exactly one cutoff apart, pairs a few ulp either side of it), on a state
 moved by up to a skin since its keys were built, and on the uniform cloud.
-The mirror's partner ranges (K3) and sweep entries (K3 and K7) are checked
-against brute-force windows. Everything runs on CPU tensors and calls no
-JAX.
+The mirror's partner ranges (K3, and K1's one-sided ones) and sweep entries
+(K3 and K7 over both sides, K1 and K6, the ``_half`` kernels, over one) are
+checked against brute-force windows. Everything runs on CPU tensors and
+calls no JAX.
 """
 
 import numpy as np
@@ -40,6 +42,7 @@ CUTOFF = 10.0
 CSQ = torch.tensor(CUTOFF**2, dtype=torch.float32)
 N = 1500
 L_SHORT = 64  # below the thin box's key window: the lag bound binds
+GAP_SITES = (128, 512)  # the first slots of cluster_gap's facing clusters
 
 
 def _sorted(pts):
@@ -51,20 +54,22 @@ def _sorted(pts):
 
 
 def _case(data: str, kernel: str):
-    box = lj_box(N, CUTOFF) if kernel == "lag" else ((N / 0.01) ** (1 / 3),) * 3
+    box = lj_box(N, CUTOFF) if kernel.startswith("lag") else ((N / 0.01) ** (1 / 3),) * 3
     pts = generate_points_random(N, box) if data == "uniform" else \
         generate_points_lattice(N, box)
     pts, keys, strides = _sorted(pts)
     if data == "cluster_gap":
-        pts = cluster_gap(pts, CUTOFF, (128, 512))
+        pts = cluster_gap(pts, CUTOFF, GAP_SITES)
     elif data == "drifted":  # moved by up to a skin of 0.5 after the sort
         pts = pts + np.random.default_rng(3).uniform(-0.25, 0.25, pts.shape)
     hi, lo = split_f64(torch.as_tensor(pts))
     return hi, lo, keys, strides
 
 
-def _counted(hi, lo):
-    """(n, n) pairs that the cutoff keeps, as the plain versions decide."""
+def _counted(hi, lo, tie: bool = True):
+    """(n, n) pairs that the cutoff keeps, as the plain versions decide:
+    with the f64 tie rule in split mode (``tie``, the forces) or on the f32
+    dsq alone (the energy kernels, which count coincident particles)."""
     d = [hi[:, None, a] - hi[None, :, a] for a in range(3)]
     if lo is not None:
         d = [d[a] + (lo[:, None, a] - lo[None, :, a]) for a in range(3)]
@@ -72,6 +77,8 @@ def _counted(hi, lo):
     dsq = dsq + d[1] * d[1]
     dsq = dsq + d[2] * d[2]
     inside = dsq < CSQ
+    if not tie:
+        return inside & ~torch.eye(hi.shape[0], dtype=torch.bool)
     if lo is not None:
         inside = split_cutoff_test(inside, dsq, CSQ, hi[:, None].unbind(-1),
                                    hi[None].unbind(-1), lo[:, None].unbind(-1),
@@ -88,62 +95,79 @@ def _near(hi, lo, thr):
                         None if lo is None else lo.t()[:, None, :], thr)
 
 
-@pytest.mark.parametrize("kernel", ["lag", "tile"])
+@pytest.mark.parametrize("kernel", ["lag", "tile", "lag_half", "tile_half"])
 @pytest.mark.parametrize("data", ["cluster_gap", "drifted", "uniform"])
 def test_prune_keeps_every_counted_pair(data, kernel):
     hi, lo, keys, strides = _case(data, kernel)
     n = hi.shape[0]
     own = torch.arange(n)
+    half = kernel.endswith("_half")
     for split in (False, True):
         plo = lo if split else None
-        counted = _counted(hi, plo)
+        counted = _counted(hi, plo, tie=not half)
         near = _near(hi, plo, prune_threshold(CSQ, split))
         assert not bool((counted & ~near).any()), (data, kernel, split)
         if data == "cluster_gap":
             # sharp: the facing pair at cutoff (1 - 2^-23) counts at the
             # first site, and at the second in split mode, where a prune
             # without the margin (the f32 test on the high parts) drops it
-            assert bool(counted[128 + 31, 128 + 32])
-            assert bool(counted[512 + 31, 512 + 32]) == split
+            assert bool(counted[GAP_SITES[0] + 31, GAP_SITES[0] + 32])
+            assert bool(counted[GAP_SITES[1] + 31, GAP_SITES[1] + 32]) == split
             if split:
                 bare = _near(hi, None, prune_threshold(CSQ, False))
                 assert bool((counted & ~bare).any())
         else:
             assert float(near.float().mean()) < 0.9  # the prune bites
 
-        if kernel == "lag":
+        if kernel.startswith("lag"):
             # the partner ranges against the window, pair by pair
             k = _pad_and_desentinel(keys, n).long()
             w = int(key_window(strides))
             lag = own[:, None] - own[None, :]  # i - j
-            window = (((lag >= 1) & (lag <= L_SHORT) & (k[None, :] >= k[:, None] - w))
-                      | ((lag <= -1) & (lag >= -L_SHORT) & (k[:, None] >= k[None, :] - w)))
+            behind = (lag >= 1) & (lag <= L_SHORT) & (k[None, :] >= k[:, None] - w)
+            ahead = (lag <= -1) & (lag >= -L_SHORT) & (k[:, None] >= k[None, :] - w)
             jlo, jhi = lag_ranges(keys, strides, L_SHORT)
-            ranged = (own[None, :] >= jlo[:, None]) & (own[None, :] <= jhi[:, None])
-            assert torch.equal(ranged & (lag != 0), window)
+            if half:  # K1: the lags behind each slot, [jlo, i - 1]
+                ranged = (own[None, :] >= jlo[:, None]) & (lag >= 1)
+                assert torch.equal(ranged, behind)
+            else:
+                ranged = (own[None, :] >= jlo[:, None]) & (own[None, :] <= jhi[:, None])
+                assert torch.equal(ranged & (lag != 0), behind | ahead)
             first = jlo[::CLUSTER]
-            last = jhi[torch.clamp(torch.arange(0, n, CLUSTER) + CLUSTER - 1, max=n - 1)]
+            ends = torch.clamp(torch.arange(0, n, CLUSTER) + CLUSTER - 1, max=n - 1)
+            last = ends - 1 if half else jhi[ends]
             union = (own[None, :] >= first[:, None]) & (own[None, :] <= last[:, None])
-            want = (union & near[::CLUSTER]).sum(1)
+            entries = union & near[::CLUSTER]
+            want = entries.sum(1)
             got = lag_cluster_entries(hi.t(), None if plo is None else plo.t(), keys,
-                                      strides, CSQ, L_SHORT)
+                                      strides, CSQ, L_SHORT, half=half)
         else:
-            full = segment_bands(strides, full=True)
+            full = segment_bands(strides, full=not half)
             C = -(-n // (CHUNK * 8)) * 8 * CHUNK
-            maxj = suggest_maxj(_pad_and_desentinel(keys, C), full, half=False,
+            maxj = suggest_maxj(_pad_and_desentinel(keys, C), full, half=half,
                                 per_band=True)
             inp = tile_inputs(hi.t().contiguous(), keys, strides,
                               None if plo is None else plo.t().contiguous(),
-                              MAXJ=maxj, bandmask=False, full=True)
+                              MAXJ=maxj, bandmask=False, full=not half)
             assert bool(inp.coverage_ok)
             b = inp.bounds.long()
             jc = own // CHUNK
-            window = torch.zeros((n // CHUNK + 1, n), dtype=torch.bool)
+            cl = torch.arange(0, n, CLUSTER)
+            window = torch.zeros((cl.shape[0], n), dtype=torch.bool)
             for s in range(full.shape[0]):
-                first = b[:, 3 * s] + b[:, 3 * s + 1]
-                window |= ((jc[None, :] >= first[:n // CHUNK + 1, None])
-                           & (jc[None, :] < (first + b[:, 3 * s + 2])[:n // CHUNK + 1, None]))
-            cl_chunk = torch.arange(0, n, CLUSTER) // CHUNK
-            want = (window[cl_chunk] & near[::CLUSTER]).sum(1)
-            got = tile_cluster_entries(inp, CSQ)
+                first = (b[:, 3 * s] + b[:, 3 * s + 1])[cl // CHUNK, None]
+                band = (jc[None, :] >= first) & (jc[None, :] < first + b[cl // CHUNK, 3 * s + 2, None])
+                if half and s == 0:
+                    # K6's band 0 loads no j-cluster after the own cluster
+                    band &= own[None, :] // CLUSTER <= (cl // CLUSTER)[:, None]
+                window |= band
+            entries = window & near[::CLUSTER]
+            want = entries.sum(1)
+            got = tile_cluster_entries(inp, CSQ, half=half)
         assert torch.equal(got, want), (data, kernel, split)
+        if data == "cluster_gap":
+            # the later cluster's sweep holds the facing pair at each site
+            # where it counts (at the second only in split mode)
+            for s in GAP_SITES:
+                if bool(counted[s + 32, s + 31]):
+                    assert bool(entries[(s + 32) // CLUSTER, s + 31]), (kernel, split, s)

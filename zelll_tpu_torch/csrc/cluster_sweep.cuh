@@ -1,0 +1,320 @@
+// The cluster-pair sweep shared by the pair kernels K1 (lag_reduce.cu), K3
+// (lag_forces.cu), K6 (tile_reduce.cu) and K7 (tile_forces.cu): a warp owns
+// a cluster of 32 consecutive sorted slots, reduces the cluster's
+// axis-aligned box, keeps a candidate j point only if it lies near that box,
+// compacts the survivors by ballot into a buffer in shared memory, and
+// sweeps the buffer by broadcast reads (Pall and Hess, Comput. Phys.
+// Commun. 184 (2013) 2641). ops/cluster_prune.py repeats the prune in
+// torch; tests/test_torch_prune.py holds it to brute force.
+//
+// The prune, and why it drops no pair. With the own box [mn, mx] per axis
+// and a j point b, the gap per axis is g = max(mn - b, b - mx, 0) in f32.
+// Rounding to nearest is monotone and |fl(o - b)| = fl(|o - b|), so for
+// every own point o, g <= |fl(o - b)| = |d|; dsq is a monotone function of
+// |dx|, |dy|, |dz| evaluated in the same order, so gsq <= dsq, and "keep
+// iff gsq < csq" drops no pair with dsq < csq. In split mode d = fl(h + l)
+// with h = fl(hi_o - hi_b), l = fl(lo_o - lo_b): |d| >= fl(|h| - |l|) >=
+// fl(g - L), where L = fl(lomax + |lo_b|) >= |l| (lomax: the own cluster's
+// largest |lo| on the axis), so g' = max(fl(g - L), 0) keeps gsq' <= dsq
+// whatever the low parts hold. The split threshold fl(csq (1 + 2^-19)) >=
+// csq (1 + 1.85e-6) also covers the forces kernels' tie band (pairs whose
+// f32 dsq lies within 1e-6 csq of the cutoff, decided on the f64 dsq); for
+// the energy kernels, which keep the f32 rule dsq < csq, it is a superset.
+// So a j point the prune drops holds no pair that any of the four kernels
+// counts, for any data, in either mode.
+//
+// The bound needs every product and sum rounded on its own: build with
+// --fmad=false (ops/_build.py), as the kernels' bitwise agreement with
+// their plain versions does too.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;           // slots per cluster
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
+constexpr int32_t kPadKeyBase = kSentinelKey / 2;
+// Split mode's prune threshold csq (1 + 2^-19), above the tie band
+// (ops/cluster_prune.py's SPLIT_MARGIN)
+constexpr float kSplitMargin = 1.0f + 0x1p-19f;
+
+// A padding row's key (SENTINEL_KEY) is replaced by kPadKeyBase + slot *
+// spacing, where spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below
+// int32 overflow: the rule of lag_pairs._pad_and_desentinel.
+__device__ __forceinline__ int32_t load_key(const int32_t* __restrict__ keys,
+                                            int slot, int spacing) {
+  const int32_t k = keys[slot];
+  return k == kSentinelKey ? kPadKeyBase + slot * spacing : k;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v = fminf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2)
+    v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
+  return v;
+}
+
+// The own cluster's box, and in split mode its largest |lo| per axis.
+struct Box {
+  float3 mn, mx, lomax;
+};
+
+// The box of the warp's real slots (real: slot < n) from each lane's
+// coordinates h and, in split mode, low parts l. Every lane takes part.
+template <bool SPLIT>
+__device__ __forceinline__ Box cluster_box(float4 h, float4 l, bool real) {
+  const float inf = __int_as_float(0x7f800000);
+  Box box;
+  box.mn = make_float3(warp_min(real ? h.x : inf), warp_min(real ? h.y : inf),
+                       warp_min(real ? h.z : inf));
+  box.mx = make_float3(warp_max(real ? h.x : -inf), warp_max(real ? h.y : -inf),
+                       warp_max(real ? h.z : -inf));
+  box.lomax = make_float3(0.0f, 0.0f, 0.0f);
+  if (SPLIT)
+    box.lomax = make_float3(warp_max(real ? fabsf(l.x) : 0.0f),
+                            warp_max(real ? fabsf(l.y) : 0.0f),
+                            warp_max(real ? fabsf(l.z) : 0.0f));
+  return box;
+}
+
+// The f32 threshold a squared gap is compared with.
+template <bool SPLIT>
+__device__ __forceinline__ float prune_threshold(float csq) {
+  return SPLIT ? csq * kSplitMargin : csq;
+}
+
+// The gap of one axis between the own box and a j coordinate, less the
+// low parts' reach in split mode.
+template <bool SPLIT>
+__device__ __forceinline__ float axis_gap(float mn, float mx, float lomax,
+                                          float b, float bl) {
+  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);
+  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);
+  return g;
+}
+
+// True where j point (b, bl) may hold a pair with the own cluster. Absent
+// axes read 0 on both sides and add exactly 0.
+template <bool SPLIT>
+__device__ __forceinline__ bool near_box(const Box& box, float4 b, float4 bl,
+                                         float thr) {
+  const float gx = axis_gap<SPLIT>(box.mn.x, box.mx.x, box.lomax.x, b.x, bl.x);
+  const float gy = axis_gap<SPLIT>(box.mn.y, box.mx.y, box.lomax.y, b.y, bl.y);
+  const float gz = axis_gap<SPLIT>(box.mn.z, box.mx.z, box.lomax.z, b.z, bl.z);
+  float gsq = gx * gx;
+  gsq = gsq + gy * gy;
+  gsq = gsq + gz * gz;
+  return gsq < thr;
+}
+
+// The separation and dsq of own point o (o.h, and o.l in split mode) and
+// entry (b, bl), in the order of the plain versions: dsq = (dx dx + dy dy)
+// + dz dz, and in split mode each axis' d = (hi_i - hi_j) + (lo_i - lo_j).
+template <bool SPLIT, typename Own>
+__device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
+                                          float& dx, float& dy, float& dz) {
+  dx = o.h.x - b.x;
+  dy = o.h.y - b.y;
+  dz = o.h.z - b.z;
+  if (SPLIT) {
+    dx = dx + (o.l.x - bl.x);
+    dy = dy + (o.l.y - bl.y);
+    dz = dz + (o.l.z - bl.z);
+  }
+  float dsq = dx * dx;
+  dsq = dsq + dy * dy;
+  dsq = dsq + dz * dz;
+  return dsq;
+}
+
+// The ballot compaction: mask is the warp's __ballot_sync(kAll, keep); a
+// lane with keep set calls put(at) with the next entry of the warp's buffer
+// after its cnt entries, in lane order, and cnt grows by the number taken,
+// warp-uniform. below: the lanes below this one, (1 << lane) - 1.
+template <typename Put>
+__device__ __forceinline__ void compact(unsigned mask, bool keep,
+                                        unsigned below, int& cnt, Put put) {
+  if (keep) put(cnt + __popc(mask & below));
+  cnt += __popc(mask);
+}
+
+// Moves entries [base, base + cnt) of a warp's buffer a, and of b with
+// TWO (split mode's low parts), to their fronts after a sweep of the
+// entries before base. cnt <= R * 32, and every lane reads its R entries,
+// so the buffers must hold base + R * 32 entries.
+template <int R, bool TWO, typename T>
+__device__ __forceinline__ void shift_front(T* a, T* b, int base, int cnt,
+                                            int lane) {
+  T ra[R], rb[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    ra[k] = a[base + k * kWarp + lane];
+    if (TWO) rb[k] = b[base + k * kWarp + lane];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k * kWarp + lane < cnt) {
+      a[k * kWarp + lane] = ra[k];
+      if (TWO) b[k * kWarp + lane] = rb[k];
+    }
+  }
+  __syncwarp();
+}
+
+// ---- the energy kernels' sweep (K1, K6) ------------------------------------
+
+// Terms, by template value (K6's C enum; K1 maps its own onto these): LJ
+// 4 t3 (t3 - 1) with t = 1/dsq by true division, the same with t =
+// rsqrtf(dsq)^2, count (1), or the LJ pair virial 24 t3 (2 t3 - 1).
+constexpr int kTermLj = 0;
+constexpr int kTermLjFast = 1;
+constexpr int kTermCount = 2;
+constexpr int kTermVirial = 3;
+
+template <int TERM>
+__device__ __forceinline__ float term_value(float dsq) {
+  if (TERM == kTermLj) {
+    const float t = 1.0f / dsq;
+    const float t3 = t * t * t;
+    return 4.0f * t3 * (t3 - 1.0f);
+  }
+  if (TERM == kTermLjFast) {
+    const float r = rsqrtf(dsq);
+    const float t = r * r;
+    const float t3 = t * t * t;
+    return 4.0f * t3 * (t3 - 1.0f);
+  }
+  if (TERM == kTermVirial) {
+    const float t = 1.0f / dsq;
+    const float t3 = t * t * t;
+    return 24.0f * t3 * (2.0f * t3 - 1.0f);
+  }
+  return 1.0f;
+}
+
+// Term value in the accumulator's type: f64 for float outputs, int64 for
+// integer ones (the term is cast to int32 first, as astype(int32) does).
+template <typename Acc>
+__device__ __forceinline__ Acc to_acc(float v);
+template <>
+__device__ __forceinline__ double to_acc<double>(float v) {
+  return static_cast<double>(v);
+}
+template <>
+__device__ __forceinline__ long long to_acc<long long>(float v) {
+  return static_cast<long long>(static_cast<int32_t>(v));
+}
+
+template <typename Acc>
+__device__ __forceinline__ Acc warp_sum(Acc v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(kAll, v, off);
+  return v;
+}
+
+// Folds the block's per-lane sums in a fixed order (each warp by
+// shuffles, then the warp sums in warp 0) and writes one partial. Every
+// thread of the block calls it.
+template <int WARPS, typename Acc>
+__device__ __forceinline__ void block_fold(Acc acc, Acc* partial) {
+  __shared__ Acc warp_sums[WARPS];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  acc = warp_sum(acc);
+  if (lane == 0) warp_sums[warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < WARPS ? warp_sums[lane] : Acc(0);
+    acc = warp_sum(acc);
+    if (lane == 0) partial[blockIdx.x] = acc;
+  }
+}
+
+// A lane of an energy kernel: its own point and key, the slots it pairs
+// with, and its sum. An entry's w holds a slot (or -1) that pairs with the
+// lane iff jlo <= w < jlo + span, as unsigned arithmetic tests it: K1's lag
+// range [jlo_i, i - 1]; K6's band-0 triangle w < i with jlo = -1 (entries
+// of the other bands carry w = -1). span = 0 for a slot at or past n.
+template <typename Acc>
+struct Lane {
+  float4 h;       // x, y, z (absent axes 0)
+  float4 l;       // low parts (split mode)
+  int32_t key;    // for the band mask (K6)
+  int jlo;
+  unsigned span;
+  Acc acc;
+};
+
+// Sweeps entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
+// FULL: cnt == 32, unrolled) into each lane's sum: the entry pairs with the
+// lane where its w is in the lane's range, the key band holds (BANDMASK:
+// band_lo <= key_i - key_j <= band_hi, the key in bk) and dsq < csq on the
+// f32 dsq (split mode too). No dsq > 0 test: coincident particles count,
+// as in the plain versions. Masks select, never multiply. TWO_PHASE: phase
+// A sets the lane's hit bits and phase B adds the term of each hit (a
+// count adds their popcount); otherwise the term is added inline, and the
+// warp takes that branch for an entry whenever one of its lanes has a
+// pair. K6 runs the two phases, K1 the term inline: each was the faster on
+// the card (PERF.md has both times).
+template <bool SPLIT, int TERM, bool BANDMASK, bool TWO_PHASE, bool FULL,
+          typename Acc>
+__device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
+                                             const float4* bl,
+                                             const int32_t* bk, int cnt,
+                                             float csq, int32_t band_lo,
+                                             int32_t band_hi) {
+  unsigned hits = 0u;
+  auto visit = [&](int q) {
+    const float4 b = bh[q];
+    float dx, dy, dz;
+    const float dsq = pair_dsq<SPLIT>(o, b, SPLIT ? bl[q] : make_float4(0, 0, 0, 0),
+                                      dx, dy, dz);
+    bool m = static_cast<unsigned>(__float_as_int(b.w) - o.jlo) < o.span &&
+             dsq < csq;
+    if (BANDMASK) {
+      const long long diff = static_cast<long long>(o.key) -
+                             static_cast<long long>(bk[q]);
+      m = m && diff >= band_lo && diff <= band_hi;
+    }
+    if (TWO_PHASE) {
+      if (m) hits |= 1u << q;
+    } else if (m) {
+      o.acc += to_acc<Acc>(term_value<TERM>(dsq));
+    }
+  };
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kWarp; ++q) visit(q);
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < cnt; ++q) visit(q);
+  }
+  if (!TWO_PHASE) return;
+  if (TERM == kTermCount) {
+    o.acc += static_cast<Acc>(__popc(hits));
+    return;
+  }
+  // phase B: each lane's own hits, in ascending q
+  while (hits != 0u) {
+    const int q = __ffs(static_cast<int>(hits)) - 1;
+    hits &= hits - 1u;
+    float dx, dy, dz;
+    const float dsq = pair_dsq<SPLIT>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0),
+                                      dx, dy, dz);
+    o.acc += to_acc<Acc>(term_value<TERM>(dsq));
+  }
+}
+
+}  // namespace

@@ -85,12 +85,9 @@
 // broadcast read in place of scalar loads, and the force factor once per
 // hit.
 //
-// The prune drops no pair that counts, by the argument of tile_forces.cu:
-// with the gap g = max(mn - b, b - mx, 0) per axis in f32, g <= |d| for
-// every own point by monotone rounding, so gsq <= dsq, and "keep iff gsq <
-// csq" is exact in f32 mode; in split mode each axis' gap is first reduced
-// by fl(lomax + |lo_b|), which bounds the low parts' difference, and the
-// threshold is fl(csq (1 + 2^-19)), above the 1e-6 csq tie band.
+// The prune drops no pair that counts: cluster_sweep.cuh says why, and
+// holds the box, the gap test, the split margin and the compaction that
+// K1, K6 and K7 share.
 //
 // Accumulation: each lane sums its f32 products g d in f64 and writes
 // f32 planes, or f64 planes when asked (the checks compare f64 sums).
@@ -105,30 +102,17 @@
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kWarp = 32;
 constexpr int kWarps = kBlock / kWarp;
 constexpr int kBuf = 2 * kWarp;  // a warp's buffer: one sweep + one cluster
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
-constexpr unsigned kAll = 0xffffffffu;
-constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
-constexpr int32_t kPadKeyBase = kSentinelKey / 2;
 // Split mode's tie band around the cutoff (_TIE_BAND in lag_pairs.py)
 constexpr float kTieBand = 1e-6f;
-// Split mode's prune threshold csq (1 + 2^-19), above the tie band
-// (ops/cluster_prune.py's SPLIT_MARGIN)
-constexpr float kSplitMargin = 1.0f + 0x1p-19f;
-
-// A padding row's key is replaced by kPadKeyBase + slot * spacing, where
-// spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below int32 overflow.
-__device__ __forceinline__ int32_t load_key(const int32_t* __restrict__ keys,
-                                            int slot, int spacing) {
-  const int32_t k = keys[slot];
-  return k == kSentinelKey ? kPadKeyBase + slot * spacing : k;
-}
 
 template <int GFN>
 __device__ __forceinline__ float force_factor(float dsq) {
@@ -161,42 +145,6 @@ __device__ __forceinline__ float4 load_slot(const float* planes, int64_t n,
                      __int_as_float(j));
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = kWarp / 2; o > 0; o /= 2)
-    v = fminf(v, __shfl_xor_sync(kAll, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = kWarp / 2; o > 0; o /= 2)
-    v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
-  return v;
-}
-
-struct Box {
-  float3 mn, mx, lomax;
-};
-
-template <bool SPLIT>
-__device__ __forceinline__ float axis_gap(float mn, float mx, float lomax,
-                                          float b, float bl) {
-  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);
-  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);
-  return g;
-}
-
-template <bool SPLIT>
-__device__ __forceinline__ bool near_box(const Box& box, float4 b, float4 bl,
-                                         float thr) {
-  const float gx = axis_gap<SPLIT>(box.mn.x, box.mx.x, box.lomax.x, b.x, bl.x);
-  const float gy = axis_gap<SPLIT>(box.mn.y, box.mx.y, box.lomax.y, b.y, bl.y);
-  const float gz = axis_gap<SPLIT>(box.mn.z, box.mx.z, box.lomax.z, b.z, bl.z);
-  float gsq = gx * gx;
-  gsq = gsq + gy * gy;
-  gsq = gsq + gz * gz;
-  return gsq < thr;
-}
-
 struct Own {
   float4 h;            // x, y, z (w unused)
   float4 l;            // low parts (split mode)
@@ -205,23 +153,6 @@ struct Own {
   unsigned span;       // jhi - jlo
   double fx, fy, fz;
 };
-
-template <bool SPLIT>
-__device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
-                                          float& dx, float& dy, float& dz) {
-  dx = o.h.x - b.x;
-  dy = o.h.y - b.y;
-  dz = o.h.z - b.z;
-  if (SPLIT) {
-    dx = dx + (o.l.x - bl.x);
-    dy = dy + (o.l.y - bl.y);
-    dz = dz + (o.l.z - bl.z);
-  }
-  float dsq = dx * dx;
-  dsq = dsq + dy * dy;
-  dsq = dsq + dz * dz;
-  return dsq;
-}
 
 // Phase A of a sweep, entry q: the lane's hit bit.
 template <bool SPLIT>
@@ -337,18 +268,8 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
   // the union of the lanes' ranges: jlo and jhi ascend with i
   const int first = __shfl_sync(kAll, jlo, 0);
   const int last = __reduce_max_sync(kAll, o.real ? jhi : -1);
-  const float inf = __int_as_float(0x7f800000);
-  Box box;
-  box.mn = make_float3(warp_min(o.real ? o.h.x : inf), warp_min(o.real ? o.h.y : inf),
-                       warp_min(o.real ? o.h.z : inf));
-  box.mx = make_float3(warp_max(o.real ? o.h.x : -inf), warp_max(o.real ? o.h.y : -inf),
-                       warp_max(o.real ? o.h.z : -inf));
-  box.lomax = make_float3(0.0f, 0.0f, 0.0f);
-  if (SPLIT)
-    box.lomax = make_float3(warp_max(o.real ? fabsf(o.l.x) : 0.0f),
-                            warp_max(o.real ? fabsf(o.l.y) : 0.0f),
-                            warp_max(o.real ? fabsf(o.l.z) : 0.0f));
-  const float thr = SPLIT ? a.csq * kSplitMargin : a.csq;
+  const Box box = cluster_box<SPLIT>(o.h, o.l, o.real);
+  const float thr = prune_threshold<SPLIT>(a.csq);
   const unsigned below = (1u << lane) - 1u;
   int cnt = 0;  // entries in the buffer, warp-uniform
   for (int j0 = first; j0 <= last; j0 += kWarp) {
@@ -360,26 +281,17 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
     const bool keep = valid && near_box<SPLIT>(box, b, b_lo, thr);
     const unsigned mask = __ballot_sync(kAll, keep);
     if (mask == 0u) continue;
-    if (keep) {
-      const int at = cnt + __popc(mask & below);
+    compact(mask, keep, below, cnt, [&](int at) {
       bh[at] = b;
       if (SPLIT) bl[at] = b_lo;
-    }
-    cnt += __popc(mask);
+    });
     if (cnt >= kWarp) {
       __syncwarp();
       sweep<SPLIT, GFN, true>(o, bh, bl, kWarp, a.csq, thr);
       __syncwarp();
       // move the remainder to the front of the buffer
       cnt -= kWarp;
-      float4 rh = bh[kWarp + lane], rl;
-      if (SPLIT) rl = bl[kWarp + lane];
-      __syncwarp();
-      if (lane < cnt) {
-        bh[lane] = rh;
-        if (SPLIT) bl[lane] = rl;
-      }
-      __syncwarp();
+      shift_front<1, SPLIT>(bh, bl, kWarp, cnt, lane);
     }
   }
   if (cnt > 0) {

@@ -13,22 +13,12 @@
 // count (1). There is no dsq > 0 exclusion:
 // coincident real particles count, as in the reference.
 //
-// What it does not copy: the TPU kernel's rolling VMEM window, lane rolls and
-// sequential grid are Mosaic devices. Here one thread owns one sorted slot i
-// and walks its lags downwards; keys ascend, so the first j with
-// key_j < key_i - W ends that thread's loop exactly, and the loop also stops
-// at lag L even while the window is still open (as the TPU kernel does).
-// The index bound j >= 0 replaces the TPU's tail padding. Padding rows
-// (SENTINEL_KEY, sorted last) read as ascending spaced keys above every real
-// key, the key rule of pallas_pairs.py::_pad_and_desentinel with no tail
-// padding, so they end the key window instead of holding it open.
-//
-// Accumulation: each thread sums its f32 terms in f64 (as good as the TPU's
-// per-lane f32 Kahan sum, and simpler); the block folds its threads in f64
-// with warp shuffles in a fixed order and writes one partial per block. The
-// caller sums the partials (the analogue of the jnp.sum outside the TPU
-// kernel). No float atomics, so the result is deterministic. Integer terms
-// sum in int64 per block, so counts cannot wrap at n = 1e8.
+// What it does not copy: the TPU kernel's rolling VMEM window, lane rolls
+// and sequential grid are Mosaic devices. The index bound j >= 0 replaces
+// the TPU's tail padding. Padding rows (SENTINEL_KEY, sorted last) read as
+// ascending spaced keys above every real key, the key rule of
+// pallas_pairs.py::_pad_and_desentinel with no tail padding, so they end
+// the key window instead of holding it open.
 //
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane) x n, read once: 280 MB at n = 1e7 in split mode, 84 us at
@@ -38,139 +28,184 @@
 // and the f64 add). The benchmark's thin box has 122.8 candidates and 16
 // cutoff pairs per slot (chip_smoke.py counts them on the card), 1.8e10
 // instructions at n = 1e7: 0.53 ms at 33.5 T instructions/s (the 67 TFLOP/s
-// f32 peak counts an FMA as two). So it is bound by operations, and the
-// design keeps every operation in registers; the j-side reads hit L1/L2,
-// since neighbouring threads read neighbouring slots. --fmad=false (below)
-// gives up the contraction, so the kernel runs more than the bound
-// counts. No single PyTorch call computes this function, so there is no
-// library time to compare with.
+// f32 peak counts an FMA as two). So it is bound by operations, that is by
+// the instructions issued per evaluated lane. A thread that walked its own
+// lags would issue scalar global loads (the key and 3 or 6 coordinates per
+// step) that no other lane shares and run its warp to the longest walk.
+// --fmad=false (below) gives up the contraction, so the kernel runs more
+// than the bound counts.
+//
+// Design: a one-sided cluster sweep on cluster_sweep.cuh, K3's
+// (lag_forces.cu) with the lags behind each slot only. Lane i's partners
+// are the slots [jlo_i, i - 1], where jlo_i, found by binary search over
+// the keys, is the larger of i - L and the first slot with key_j >=
+// key_i - W: keys ascend, so that is exactly the set of lags 1..L in the
+// key window, and the lag bound holds where the window is still open (the
+// result stays defined where the coverage flag is False). A warp owns a
+// cluster of 32 consecutive slots and keeps its own coordinates and range
+// in registers; warps run on their own until the block's final fold. Each
+// warp
+//   1. reduces its cluster's box over the real slots (< n), from the
+//      coordinates of this launch, and in split mode the largest |lo| per
+//      axis;
+//   2. walks the union of its lanes' ranges, [jlo of its first slot, its
+//      last real slot - 1] (jlo ascends with i): lane t loads row j0 + t of
+//      the (n, dim) arrays and tests the point against the own box; a
+//      ballot compacts the survivors, in slot order, into the warp's buffer
+//      in shared memory as float4 (x, y, z, slot), plus the low parts in
+//      split mode;
+//   3. sweeps the buffer 32 entries at a time (reduce_sweep): each lane
+//      reads each entry by a broadcast and adds the term where jlo_i <= j <
+//      i and dsq < csq. Here the term inline beat hit bits and a term per
+//      hit (K6's form), and sweeps of 32 beat 64 (timed on the card;
+//      PERF.md).
+// Split mode keeps the reference's rule, dsq < csq on the f32 dsq of the
+// split separations (no tie band, unlike K3); the prune's split threshold
+// is a superset of it. There is no dsq > 0 exclusion: coincident real
+// particles count, as in the reference.
+//
+// Accumulation: each lane sums its f32 terms in f64 (as good as the TPU's
+// per-lane f32 Kahan sum, and simpler); the block folds its lanes in a
+// fixed order (block_fold) and writes one partial per block. The caller
+// sums the partials (the analogue of the jnp.sum outside the TPU kernel).
+// No float atomics, so the result is deterministic. Integer terms sum in
+// int64 per block, so counts cannot wrap at n = 1e8. No single PyTorch call
+// computes this function, so there is no library time to compare with.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. No --use_fast_math (it would break
 // the true division); --fmad=false rounds every product and sum on its own,
 // as the plain PyTorch version does, so dsq and hence pair counts match it
-// bitwise on identical sorted inputs.
+// bitwise on identical sorted inputs, and the prune's bound holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 128;
+constexpr int kWarps = kBlock / kWarp;
+// the term inline in the sweep, not per hit after the hit bits (reduce_sweep)
+constexpr bool kTwoPhase = false;
+constexpr int kBuf = 2 * kWarp;  // a warp's buffer: a sweep + a cluster
 constexpr int kMaxDim = 3;
-constexpr int kTermLj = 0;
-constexpr int kTermCount = 1;
-constexpr int kTermVirial = 2;
-constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
-constexpr int32_t kPadKeyBase = kSentinelKey / 2;
+// The C interface's terms (lag_pairs._KERNEL_TERMS)
+constexpr int kArgLj = 0;
+constexpr int kArgCount = 1;
+constexpr int kArgVirial = 2;
 
-// A padding row's key is replaced by kPadKeyBase + slot * spacing, where
-// spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below int32 overflow.
-__device__ __forceinline__ int32_t load_key(const int32_t* __restrict__ keys,
-                                            int slot, int spacing) {
-  const int32_t k = keys[slot];
-  return k == kSentinelKey ? kPadKeyBase + slot * spacing : k;
-}
+struct Args {
+  const float* pos;      // (n, dim) row-major
+  const float* lo;       // (n, dim) low parts, or null
+  const int32_t* keys;   // (n,) ascending, SENTINEL_KEY rows last
+  const int32_t* w_key;  // one int32 on the device
+  int n;
+  int dim;
+  int L;
+  int spacing;
+  float csq;
+  void* partial;         // one per block
+};
 
-template <int TERM>
-__device__ __forceinline__ float term_value(float dsq) {
-  if (TERM == kTermLj) {
-    const float t = 1.0f / dsq;
-    const float t3 = t * t * t;
-    return 4.0f * t3 * (t3 - 1.0f);
-  }
-  if (TERM == kTermVirial) {
-    const float t = 1.0f / dsq;
-    const float t3 = t * t * t;
-    return 24.0f * t3 * (2.0f * t3 - 1.0f);
-  }
-  return 1.0f;
-}
-
-// Term value in the accumulator's type: f64 for float outputs, int64 for
-// integer ones (the term is cast to int32 first, as astype(int32) does).
-template <typename Acc>
-__device__ __forceinline__ Acc to_acc(float v);
-template <>
-__device__ __forceinline__ double to_acc<double>(float v) {
-  return static_cast<double>(v);
-}
-template <>
-__device__ __forceinline__ long long to_acc<long long>(float v) {
-  return static_cast<long long>(static_cast<int32_t>(v));
-}
-
-template <typename Acc>
-__device__ __forceinline__ Acc warp_sum(Acc v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
+// Row j of an (n, dim) row-major array, w's bits in .w; absent axes read 0,
+// which adds exactly 0 to dsq and to the box gap.
+__device__ __forceinline__ float4 load_row(const float* rows, int dim, int j,
+                                           int32_t w) {
+  const float* r = rows + static_cast<int64_t>(j) * dim;
+  float4 v = make_float4(r[0], 0.0f, 0.0f, __int_as_float(w));
+  if (dim > 1) v.y = r[1];
+  if (dim > 2) v.z = r[2];
   return v;
 }
 
 template <bool SPLIT, int TERM, typename Acc>
-__global__ void __launch_bounds__(kBlock)
-lag_reduce_kernel(const float* __restrict__ pos, const float* __restrict__ lo,
-                  const int32_t* __restrict__ keys,
-                  const int32_t* __restrict__ w_key, int n, int dim, int L,
-                  int spacing, float csq, Acc* __restrict__ partial) {
-  __shared__ Acc warp_sums[kBlock / 32];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  Acc acc = 0;
-  if (i < n) {
-    const int32_t lo_key = load_key(keys, i, spacing) - *w_key;
-    float own[kMaxDim], own_lo[kMaxDim];
-#pragma unroll
-    for (int a = 0; a < kMaxDim; ++a) {
-      if (a < dim) {
-        own[a] = pos[static_cast<int64_t>(i) * dim + a];
-        if (SPLIT) own_lo[a] = lo[static_cast<int64_t>(i) * dim + a];
+__global__ void __launch_bounds__(kBlock) lag_reduce_kernel(Args a) {
+  __shared__ float4 buf_hi[kWarps][kBuf];
+  __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  float4* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  Lane<Acc> o;
+  o.h = real ? load_row(a.pos, a.dim, i, 0) : zero;
+  o.l = SPLIT && real ? load_row(a.lo, a.dim, i, 0) : zero;
+  o.key = 0;
+  o.acc = Acc(0);
+  // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
+  // with key_j >= key_i - W (j = i holds), by binary search over the keys
+  int jlo = i;
+  if (real) {
+    const int32_t lo_key = load_key(a.keys, i, a.spacing) - *a.w_key;
+    int l = i > a.L ? i - a.L : 0, r = i;
+    while (l < r) {
+      const int m = l + (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else l = m + 1;
+    }
+    jlo = l;
+  }
+  o.jlo = jlo;
+  o.span = real ? static_cast<unsigned>(i - jlo) : 0u;
+  // a cluster past n holds no particle: its warp only joins the fold
+  if (base < a.n) {
+    // the union of the lanes' ranges: jlo ascends with i
+    const int first = __shfl_sync(kAll, jlo, 0);
+    const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
+    const Box box = cluster_box<SPLIT>(o.h, o.l, real);
+    const float thr = prune_threshold<SPLIT>(a.csq);
+    const unsigned below = (1u << lane) - 1u;
+    int cnt = 0;  // entries in the buffer, warp-uniform
+    for (int j0 = first; j0 <= last; j0 += kWarp) {
+      const int j = j0 + lane;
+      const bool valid = j <= last;
+      const float4 b = valid ? load_row(a.pos, a.dim, j, j) : zero;
+      const float4 b_lo = SPLIT && valid ? load_row(a.lo, a.dim, j, 0) : zero;
+      const bool keep = valid && near_box<SPLIT>(box, b, b_lo, thr);
+      compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
+        bh[at] = b;
+        if (SPLIT) bl[at] = b_lo;
+      });
+      if (cnt >= kWarp) {
+        __syncwarp();
+        reduce_sweep<SPLIT, TERM, false, kTwoPhase, true>(o, bh, bl, nullptr, kWarp, a.csq, 0,
+                                                          0);
+        __syncwarp();
+        // move the remainder (less than one cluster) to the front
+        cnt -= kWarp;
+        shift_front<1, SPLIT>(bh, bl, kWarp, cnt, lane);
       }
     }
-    const int jmin = i > L ? i - L : 0;
-    for (int j = i - 1; j >= jmin; --j) {
-      if (load_key(keys, j, spacing) < lo_key) break;
-      const int64_t jo = static_cast<int64_t>(j) * dim;
-      float dsq = 0.0f;
-#pragma unroll
-      for (int a = 0; a < kMaxDim; ++a) {
-        if (a < dim) {
-          float d = own[a] - pos[jo + a];
-          if (SPLIT) d = d + (own_lo[a] - lo[jo + a]);
-          dsq = dsq + d * d;
-        }
-      }
-      if (dsq < csq) acc += to_acc<Acc>(term_value<TERM>(dsq));
+    if (cnt > 0) {
+      __syncwarp();
+      reduce_sweep<SPLIT, TERM, false, kTwoPhase, false>(o, bh, bl, nullptr, cnt, a.csq, 0, 0);
     }
   }
-  // fixed-order block fold: warps, then the warp sums in warp 0
-  acc = warp_sum(acc);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    acc = lane < kBlock / 32 ? warp_sums[lane] : Acc(0);
-    acc = warp_sum(acc);
-    if (lane == 0) partial[blockIdx.x] = acc;
-  }
+  block_fold<kWarps>(o.acc, static_cast<Acc*>(a.partial));
 }
 
 template <bool SPLIT, int TERM>
-void launch(const float* pos, const float* lo, const int32_t* keys,
-            const int32_t* w_key, int n, int dim, int L, int spacing,
-            float csq, bool int_out, void* partial, cudaStream_t stream) {
-  const int blocks = (n + kBlock - 1) / kBlock;
-  if (int_out) {
-    lag_reduce_kernel<SPLIT, TERM, long long><<<blocks, kBlock, 0, stream>>>(
-        pos, lo, keys, w_key, n, dim, L, spacing, csq,
-        static_cast<long long*>(partial));
-  } else {
-    lag_reduce_kernel<SPLIT, TERM, double><<<blocks, kBlock, 0, stream>>>(
-        pos, lo, keys, w_key, n, dim, L, spacing, csq,
-        static_cast<double*>(partial));
-  }
+void launch_acc(const Args& a, bool int_out, cudaStream_t s) {
+  const int blocks = (a.n + kBlock - 1) / kBlock;
+  if (int_out)
+    lag_reduce_kernel<SPLIT, TERM, long long><<<blocks, kBlock, 0, s>>>(a);
+  else
+    lag_reduce_kernel<SPLIT, TERM, double><<<blocks, kBlock, 0, s>>>(a);
+}
+
+template <bool SPLIT>
+void launch_term(const Args& a, int term, bool int_out, cudaStream_t s) {
+  if (term == kArgLj)
+    launch_acc<SPLIT, kTermLj>(a, int_out, s);
+  else if (term == kArgVirial)
+    launch_acc<SPLIT, kTermVirial>(a, int_out, s);
+  else
+    launch_acc<SPLIT, kTermCount>(a, int_out, s);
 }
 
 }  // namespace
@@ -183,42 +218,34 @@ int zelll_lag_reduce_block() { return kBlock; }
 // pos, lo: (n, dim) row-major f32 (lo null unless split); keys: (n,) int32
 // ascending, SENTINEL_KEY rows last; w_key: one int32 on the device;
 // spacing: the padding-key spacing, (INT32_MAX - INT32_MAX / 2 - 1) / n at
-// least 1; partial: ceil(n / block) doubles (int_out == 0) or int64s
-// (int_out != 0). Returns cudaGetLastError() after the launch.
+// least 1; term: 0 for LJ, 1 for count, 2 for the LJ pair virial; partial:
+// ceil(n / block) doubles (int_out == 0) or int64s (int_out != 0). Returns
+// cudaGetLastError() after the launch.
 int zelll_lag_reduce(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      float csq, int term, int int_out, void* partial,
                      void* stream) {
-  if (n <= 0 || dim < 1 || dim > kMaxDim || L < 1 || spacing < 1 ||
+  if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
+      L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (term != kTermLj && term != kTermCount && term != kTermVirial))
+      (term != kArgLj && term != kArgCount && term != kArgVirial))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* p = static_cast<const float*>(pos);
-  const auto* l = static_cast<const float*>(lo);
-  const auto* k = static_cast<const int32_t*>(keys);
-  const auto* w = static_cast<const int32_t*>(w_key);
+  Args a;
+  a.pos = static_cast<const float*>(pos);
+  a.lo = static_cast<const float*>(lo);
+  a.keys = static_cast<const int32_t*>(keys);
+  a.w_key = static_cast<const int32_t*>(w_key);
+  a.n = n;
+  a.dim = dim;
+  a.L = L;
+  a.spacing = spacing;
+  a.csq = csq;
+  a.partial = partial;
   auto s = static_cast<cudaStream_t>(stream);
-  const bool io = int_out != 0;
-  if (l != nullptr) {
-    if (term == kTermLj)
-      launch<true, kTermLj>(p, l, k, w, n, dim, L, spacing, csq, io, partial, s);
-    else if (term == kTermVirial)
-      launch<true, kTermVirial>(p, l, k, w, n, dim, L, spacing, csq, io,
-                                partial, s);
-    else
-      launch<true, kTermCount>(p, l, k, w, n, dim, L, spacing, csq, io, partial,
-                               s);
-  } else {
-    if (term == kTermLj)
-      launch<false, kTermLj>(p, l, k, w, n, dim, L, spacing, csq, io, partial,
-                            s);
-    else if (term == kTermVirial)
-      launch<false, kTermVirial>(p, l, k, w, n, dim, L, spacing, csq, io,
-                                 partial, s);
-    else
-      launch<false, kTermCount>(p, l, k, w, n, dim, L, spacing, csq, io,
-                                partial, s);
-  }
+  if (a.lo != nullptr)
+    launch_term<true>(a, term, int_out != 0, s);
+  else
+    launch_term<false>(a, term, int_out != 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 

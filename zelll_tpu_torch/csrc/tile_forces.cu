@@ -83,21 +83,9 @@
 // most hits), and loading a j-chunk's 4 clusters at once faster than one
 // cluster at a time (variants timed in one call on the card).
 //
-// The prune, and why it drops no pair. With the own box [mn, mx] per axis
-// and a j point b, the gap per axis is g = max(mn - b, b - mx, 0) in f32.
-// Rounding to nearest is monotone and |fl(o - b)| = fl(|o - b|), so for
-// every own point o, g <= |fl(o - b)| = |d|; dsq is a monotone function of
-// |dx|, |dy|, |dz| evaluated in the same order, so gsq <= dsq. In f32 mode
-// a pair counts only if dsq < csq, so "keep iff gsq < csq" is exact: no
-// margin is needed. In split mode d = fl(h + l) with h = fl(hi_o - hi_b),
-// l = fl(lo_o - lo_b): |d| >= fl(|h| - |l|) >= fl(g - L), where L =
-// fl(lomax + |lo_b|) >= |l| (lomax: the own cluster's largest |lo| on the
-// axis), so g' = max(fl(g - L), 0) keeps gsq' <= dsq whatever the low
-// parts hold. A split pair counts only if dsq < csq or its f32 dsq lies in
-// the tie band, dsq <= csq + fl(1e-6 csq) (Sterbenz: dsq - csq is exact
-// there), and the threshold fl(csq (1 + 2^-19)) >= csq (1 + 1.85e-6) lies
-// above that band. So a j point the prune drops holds no pair that the
-// plain version counts, for any data, in either mode.
+// The prune drops no pair that counts: cluster_sweep.cuh says why, and
+// holds the box, the gap test, the split margin and the compaction that
+// K1, K3 and K6 share.
 //
 // Accumulation: each lane sums its f32 products g d in f64 and writes
 // (dim, n) planes of f32, or f64 when asked (the checks compare f64 sums).
@@ -112,10 +100,11 @@
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;   // slots per chunk = threads per block
-constexpr int kWarp = 32;     // slots per cluster
 constexpr int kClusters = kChunk / kWarp;  // per chunk: warps per block
 constexpr int kSweep = 64;    // entries per sweep
 // a warp's buffer: a remainder (< kSweep) and a j-chunk's survivors
@@ -124,12 +113,8 @@ constexpr int kMaxBands = 9;
 constexpr int kMaxDim = 3;
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
-constexpr unsigned kAll = 0xffffffffu;
 // Split mode's tie band around the cutoff (_TIE_BAND in lag_pairs.py)
 constexpr float kTieBand = 1e-6f;
-// Split mode's prune threshold csq (1 + 2^-19), above the tie band (see the
-// note at the top; ops/cluster_prune.py's SPLIT_MARGIN)
-constexpr float kSplitMargin = 1.0f + 0x1p-19f;
 
 template <int GFN>
 __device__ __forceinline__ float force_factor(float dsq) {
@@ -170,45 +155,6 @@ __device__ __forceinline__ float4 load_slot(const float* planes, int n,
   return v;
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = kWarp / 2; o > 0; o /= 2)
-    v = fminf(v, __shfl_xor_sync(kAll, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = kWarp / 2; o > 0; o /= 2)
-    v = fmaxf(v, __shfl_xor_sync(kAll, v, o));
-  return v;
-}
-
-// The own cluster's box, and in split mode its largest |lo| per axis.
-struct Box {
-  float3 mn, mx, lomax;
-};
-
-// The gap of one axis between the own box and a j coordinate, less the
-// low parts' reach in split mode (the note at the top).
-template <bool SPLIT>
-__device__ __forceinline__ float axis_gap(float mn, float mx, float lomax,
-                                          float b, float bl) {
-  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);
-  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);
-  return g;
-}
-
-template <bool SPLIT>
-__device__ __forceinline__ bool near_box(const Box& box, float4 b, float4 bl,
-                                         float thr) {
-  const float gx = axis_gap<SPLIT>(box.mn.x, box.mx.x, box.lomax.x, b.x, bl.x);
-  const float gy = axis_gap<SPLIT>(box.mn.y, box.mx.y, box.lomax.y, b.y, bl.y);
-  const float gz = axis_gap<SPLIT>(box.mn.z, box.mx.z, box.lomax.z, b.z, bl.z);
-  float gsq = gx * gx;
-  gsq = gsq + gy * gy;
-  gsq = gsq + gz * gz;
-  return gsq < thr;
-}
-
 // A warp's state: its own slot's coordinates and key, the sums, and its
 // compaction buffer in shared memory.
 struct Own {
@@ -217,25 +163,6 @@ struct Own {
   bool real;   // slot < n
   double fx, fy, fz;
 };
-
-// The separation and dsq of own slot o and entry (b, bl), in the order of
-// the plain version.
-template <bool SPLIT>
-__device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
-                                          float& dx, float& dy, float& dz) {
-  dx = o.h.x - b.x;
-  dy = o.h.y - b.y;
-  dz = o.h.z - b.z;
-  if (SPLIT) {
-    dx = dx + (o.l.x - bl.x);
-    dy = dy + (o.l.y - bl.y);
-    dz = dz + (o.l.z - bl.z);
-  }
-  float dsq = dx * dx;
-  dsq = dsq + dy * dy;
-  dsq = dsq + dz * dz;
-  return dsq;
-}
 
 // Phase A of a sweep, entry q: the lane's hit bit.
 template <bool SPLIT, bool BANDMASK>
@@ -331,18 +258,8 @@ __global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
   o.fx = o.fy = o.fz = 0.0;
   // a cluster past n holds no particle (the whole warp leaves together)
   if (c * kChunk + w * kWarp >= a.n) return;
-  const float inf = __int_as_float(0x7f800000);
-  Box box;
-  box.mn = make_float3(warp_min(o.real ? o.h.x : inf), warp_min(o.real ? o.h.y : inf),
-                       warp_min(o.real ? o.h.z : inf));
-  box.mx = make_float3(warp_max(o.real ? o.h.x : -inf), warp_max(o.real ? o.h.y : -inf),
-                       warp_max(o.real ? o.h.z : -inf));
-  box.lomax = make_float3(0.0f, 0.0f, 0.0f);
-  if (SPLIT)
-    box.lomax = make_float3(warp_max(o.real ? fabsf(o.l.x) : 0.0f),
-                            warp_max(o.real ? fabsf(o.l.y) : 0.0f),
-                            warp_max(o.real ? fabsf(o.l.z) : 0.0f));
-  const float thr = SPLIT ? a.csq * kSplitMargin : a.csq;
+  const Box box = cluster_box<SPLIT>(o.h, o.l, o.real);
+  const float thr = prune_threshold<SPLIT>(a.csq);
   const unsigned below = (1u << lane) - 1u;
   int cnt = 0;  // entries in the buffer, warp-uniform
   int32_t band_lo = 0, band_hi = 0;
@@ -368,13 +285,10 @@ __global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
 #pragma unroll
       for (int k = 0; k < kClusters; ++k) {
         keep[k] = keep[k] && near_box<SPLIT>(box, b[k], b_lo[k], thr);
-        const unsigned mask = __ballot_sync(kAll, keep[k]);
-        if (keep[k]) {
-          const int at = cnt + __popc(mask & below);
+        compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
           bh[at] = b[k];
           if (SPLIT) bl[at] = b_lo[k];
-        }
-        cnt += __popc(mask);
+        });
       }
       if (cnt >= kSweep) {
         __syncwarp();
@@ -385,21 +299,7 @@ __global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
         __syncwarp();
         // move the remainder to the front of the buffer
         cnt -= base;
-        float4 rh[kSweep / kWarp], rl[kSweep / kWarp];
-#pragma unroll
-        for (int k = 0; k < kSweep / kWarp; ++k) {
-          rh[k] = bh[base + k * kWarp + lane];
-          rl[k] = SPLIT ? bl[base + k * kWarp + lane] : make_float4(0, 0, 0, 0);
-        }
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < kSweep / kWarp; ++k) {
-          if (k * kWarp + lane < cnt) {
-            bh[k * kWarp + lane] = rh[k];
-            if (SPLIT) bl[k * kWarp + lane] = rl[k];
-          }
-        }
-        __syncwarp();
+        shift_front<kSweep / kWarp, SPLIT>(bh, bl, base, cnt, lane);
       }
     }
     if (BANDMASK && cnt > 0) {

@@ -26,92 +26,77 @@
 // devices. Keys stay int32 here, so one kernel serves both TPU layouts; the
 // index bound replaces the spread coordinates of the TPU's tail padding.
 //
-// Design: one block of 128 threads per own chunk; thread t owns slot
-// i = 128c + t and keeps its coordinates in registers. For each j-chunk of
-// each band window, the block stages the chunk's coordinates and keys in
-// shared memory (one coalesced load per plane, stored as float4 so that a
-// lane costs one 16-byte broadcast load), then every thread runs over the
-// 128 lanes. Masks select, never multiply, so an inf from a masked-out
-// dsq = 0 cannot reach the sum (safe_term changes nothing).
-//
-// Accumulation: each thread sums its f32 terms in f64 (integer terms in
-// int64); warps fold with shuffles in a fixed order and each block writes
-// one partial. The caller sums the partials. No float atomics, so the
-// result is deterministic, and every kahan mode of the TPU kernel gets the
-// same sum, tighter than its f32 Kahan sums.
-//
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane) x n read once: 160 MB at n = 1e7 in f32 mode, 48 us at
 // 3.35 TB/s. Operations: the half-stencil candidates (same or half-stencil
 // neighbour cell, about 135 per slot at the benchmark's density of 10 per
 // cell) times 7 FP32 instructions (13 split), plus 9-12 per cutoff pair
-// (chip_smoke.py counts both on the card): about 0.34 ms at 33.5 T
-// instructions/s. So it is bound by operations. This design evaluates
-// every lane of every tile in the windows, about 12 times the candidates,
-// and stages through shared memory with a barrier per tile; tighter tiles,
-// register blocking and asynchronous staging are left for later.
+// (chip_smoke.py counts both on the card): about 0.33 ms at 33.5 T
+// instructions/s. So it is bound by operations, that is by the
+// instructions issued per evaluated lane. Evaluating all 128 x 128 lanes of
+// every j-chunk of the windows costs about 10.5 lane evaluations per
+// half-stencil candidate on the benchmark's cube.
+//
+// Design: a half-stencil cluster-pair sweep on cluster_sweep.cuh, K7's
+// (tile_forces.cu) over the half stencil. A warp owns a cluster of 32
+// consecutive slots, i = 128 c + 32 w + lane, and keeps its own
+// coordinates and key in registers; the 4 warps of a block share chunk c's
+// windows but otherwise run on their own until the block's final fold.
+// Each warp
+//   1. reduces its cluster's box over the real slots (< n), from the
+//      coordinates of this launch, and in split mode the largest |lo| per
+//      axis;
+//   2. walks the j-chunks of every band window in order, stopping at n:
+//      lane t loads slot t of each of the chunk's 4 clusters and tests the
+//      point against the own box; a ballot per cluster compacts the
+//      survivors, in slot order, into the warp's buffer in shared memory as
+//      float4 (x, y, z, w), plus the low parts in split mode and the key in
+//      a third buffer with the band mask. Band 0 stores the slot in w and
+//      the other bands -1, so the triangle is one unsigned range test in
+//      the sweep (Lane in cluster_sweep.cuh); band 0's j-clusters after the
+//      own cluster, which the triangle masks for every lane, are not
+//      loaded;
+//   3. sweeps the buffer 32 entries at a time (reduce_sweep): phase A reads
+//      each entry by a broadcast and sets the lane's hit bit where the
+//      triangle, the band (with the band mask; the buffer is then swept at
+//      the end of each band) and dsq < csq hold; phase B adds the term of
+//      each hit (a count adds the hits' popcount). Here the two phases beat
+//      the term inline (K1's form), and sweeps of 32 beat 64 (timed on the
+//      card; PERF.md).
+// Every rule of the function stays a lane mask, so the sum is the plain
+// version's wherever the windows come from, also where the coverage flag
+// is False. There is no dsq > 0 test: coincident particles count, and
+// lj_term of them is inf, as in the plain version. Masks select, never
+// multiply, so an inf from a masked-out pair cannot reach the sum.
+//
+// Accumulation: each lane sums its f32 terms in f64 (integer terms in
+// int64); the block folds its lanes in a fixed order (block_fold) and
+// writes one partial per own chunk. The caller sums the partials. No float
+// atomics, so the result is deterministic, and every kahan mode of the TPU
+// kernel gets the same sum, tighter than its f32 Kahan sums.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. No --use_fast_math (it would break
 // the true division); --fmad=false rounds every product and sum on its own,
 // as the plain PyTorch version does, so dsq and hence pair counts match it
-// bitwise on identical inputs.
+// bitwise on identical inputs, and the prune's bound holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;  // slots per chunk = threads per block
+constexpr int kClusters = kChunk / kWarp;  // per chunk: warps per block
+// the term per hit after the hit bits (reduce_sweep)
+constexpr bool kTwoPhase = true;
+// a warp's buffer: a remainder (< one sweep of 32) and a j-chunk's survivors
+constexpr int kBuf = kWarp + kChunk;
 constexpr int kMaxBands = 5;
 constexpr int kMaxDim = 3;
-constexpr int kTermLj = 0;
-constexpr int kTermLjFast = 1;
-constexpr int kTermCount = 2;
-constexpr int kTermVirial = 3;
-
-template <int TERM>
-__device__ __forceinline__ float term_value(float dsq) {
-  if (TERM == kTermLj) {
-    const float t = 1.0f / dsq;
-    const float t3 = t * t * t;
-    return 4.0f * t3 * (t3 - 1.0f);
-  }
-  if (TERM == kTermLjFast) {
-    const float r = rsqrtf(dsq);
-    const float t = r * r;
-    const float t3 = t * t * t;
-    return 4.0f * t3 * (t3 - 1.0f);
-  }
-  if (TERM == kTermVirial) {
-    const float t = 1.0f / dsq;
-    const float t3 = t * t * t;
-    return 24.0f * t3 * (2.0f * t3 - 1.0f);
-  }
-  return 1.0f;
-}
-
-// Term value in the accumulator's type: f64 for float outputs, int64 for
-// integer ones (the term is cast to int32 first, as astype(int32) does).
-template <typename Acc>
-__device__ __forceinline__ Acc to_acc(float v);
-template <>
-__device__ __forceinline__ double to_acc<double>(float v) {
-  return static_cast<double>(v);
-}
-template <>
-__device__ __forceinline__ long long to_acc<long long>(float v) {
-  return static_cast<long long>(static_cast<int32_t>(v));
-}
-
-template <typename Acc>
-__device__ __forceinline__ Acc warp_sum(Acc v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 struct Args {
   const float* pos;       // (dim, n) planes
@@ -126,88 +111,109 @@ struct Args {
   void* partial;          // one per own chunk
 };
 
-// Coordinates of slot j (< n) from the planes; absent axes read 0, which
-// adds exactly 0 to dsq.
+// Coordinates of slot j (< n) from the planes, w's bits in .w; absent axes
+// read 0, which adds exactly 0 to dsq and to the box gap.
 __device__ __forceinline__ float4 load_slot(const float* planes, int n,
-                                            int dim, int j, int32_t key) {
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(key));
-  if (j < n) {
-    v.x = planes[j];
-    if (dim > 1) v.y = planes[static_cast<int64_t>(n) + j];
-    if (dim > 2) v.z = planes[2 * static_cast<int64_t>(n) + j];
-  }
+                                            int dim, int j, int32_t w) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(w));
+  v.x = planes[j];
+  if (dim > 1) v.y = planes[static_cast<int64_t>(n) + j];
+  if (dim > 2) v.z = planes[2 * static_cast<int64_t>(n) + j];
   return v;
 }
 
 template <bool SPLIT, int TERM, bool BANDMASK, typename Acc>
 __global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
-  // the staged j-chunk: x, y, z and the key's bits per lane; split mode
-  // adds the low parts
-  __shared__ float4 jhi[kChunk];
-  __shared__ float4 jlo[SPLIT ? kChunk : 1];
-  __shared__ Acc warp_sums[kChunk / 32];
+  __shared__ float4 buf_hi[kClusters][kBuf];
+  __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
+  __shared__ int32_t buf_key[kClusters][BANDMASK ? kBuf : 1];
   const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  const int i = c * kChunk + t;
-  const bool own_real = i < a.n;
-  const int32_t own_key = a.keys[i];  // keys cover every launched chunk
-  const float4 oh = load_slot(a.pos, a.n, a.dim, i, own_key);
-  const float4 ol =
-      SPLIT ? load_slot(a.lo, a.n, a.dim, i, 0) : make_float4(0, 0, 0, 0);
-  Acc acc = 0;
-  for (int s = 0; s < a.S; ++s) {
-    const int32_t* w = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
-    const int first = w[0] + w[1];
-    const int num = w[2];
-    const int32_t band_lo = a.bands[2 * s];
-    const int32_t band_hi = a.bands[2 * s + 1];
-    for (int jt = 0; jt < num; ++jt) {
-      const int jc = first + jt;
-      const int j0 = jc * kChunk;
-      const int32_t jkey = a.keys[j0 + t];
-      jhi[t] = load_slot(a.pos, a.n, a.dim, j0 + t, jkey);
-      if (SPLIT) jlo[t] = load_slot(a.lo, a.n, a.dim, j0 + t, 0);
-      __syncthreads();
-      // lanes at or past n hold no particle
-      const int lanes = min(kChunk, a.n - j0);
-#pragma unroll 4
-      for (int q = 0; q < lanes; ++q) {
-        const float4 b = jhi[q];
-        float dx = oh.x - b.x;
-        float dy = oh.y - b.y;
-        float dz = oh.z - b.z;
-        if (SPLIT) {
-          const float4 bl = jlo[q];
-          dx = dx + (ol.x - bl.x);
-          dy = dy + (ol.y - bl.y);
-          dz = dz + (ol.z - bl.z);
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = c * kChunk + w * kWarp;  // the own cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  float4* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  int32_t* bk = buf_key[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  Lane<Acc> o;
+  o.h = real ? load_slot(a.pos, a.n, a.dim, i, 0) : zero;
+  o.l = SPLIT && real ? load_slot(a.lo, a.n, a.dim, i, 0) : zero;
+  o.key = a.keys[i];  // keys cover every launched chunk
+  o.jlo = -1;         // band 0 pairs with w < i, the other bands always
+  o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
+  o.acc = Acc(0);
+  // a cluster past n holds no particle: its warp only joins the fold
+  if (base < a.n) {
+    const Box box = cluster_box<SPLIT>(o.h, o.l, real);
+    const float thr = prune_threshold<SPLIT>(a.csq);
+    const unsigned below = (1u << lane) - 1u;
+    int cnt = 0;  // entries in the buffer, warp-uniform
+    int32_t band_lo = 0, band_hi = 0;
+    for (int s = 0; s < a.S; ++s) {
+      const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
+      const int first = win[0] + win[1];
+      const int num = win[2];
+      band_lo = a.bands[2 * s];
+      band_hi = a.bands[2 * s + 1];
+      for (int jc = first; jc < first + num; ++jc) {
+        if (jc * kChunk >= a.n) break;  // later clusters lie past n too
+        // band 0: a j-cluster that starts after the own cluster holds no
+        // j < i for any lane, and neither do the later ones
+        if (s == 0 && jc * kChunk > base) break;
+        // the j-chunk's live clusters: all loads in flight at once, then
+        // the survivors of each appended in slot order
+        float4 b[kClusters], b_lo[kClusters];
+        int32_t kj[kClusters];
+        bool keep[kClusters];
+#pragma unroll
+        for (int k = 0; k < kClusters; ++k) {
+          const int j0 = jc * kChunk + k * kWarp;
+          const int j = j0 + lane;
+          keep[k] = j < a.n && (s != 0 || j0 <= base);
+          b[k] = keep[k] ? load_slot(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : zero;
+          b_lo[k] = SPLIT && keep[k] ? load_slot(a.lo, a.n, a.dim, j, 0) : zero;
+          kj[k] = BANDMASK && keep[k] ? a.keys[j] : 0;
         }
-        float dsq = dx * dx;
-        dsq = dsq + dy * dy;
-        dsq = dsq + dz * dz;
-        bool m = own_real && dsq < a.csq;
-        if (BANDMASK) {
-          const long long diff = static_cast<long long>(own_key) -
-                                 static_cast<long long>(__float_as_int(b.w));
-          m = m && diff >= band_lo && diff <= band_hi;
+#pragma unroll
+        for (int k = 0; k < kClusters; ++k) {
+          keep[k] = keep[k] && near_box<SPLIT>(box, b[k], b_lo[k], thr);
+          compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
+            bh[at] = b[k];
+            if (SPLIT) bl[at] = b_lo[k];
+            if (BANDMASK) bk[at] = kj[k];
+          });
         }
-        if (s == 0) m = m && (jc < c || (jc == c && q < t));
-        if (m) acc += to_acc<Acc>(term_value<TERM>(dsq));
+        if (cnt >= kWarp) {
+          __syncwarp();
+          int done = 0;
+          for (; cnt - done >= kWarp; done += kWarp)
+            reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, true>(
+                o, bh + done, bl + done, bk + done, kWarp, a.csq, band_lo, band_hi);
+          __syncwarp();
+          // move the remainder to the front of the buffer
+          cnt -= done;
+          shift_front<1, SPLIT>(bh, bl, done, cnt, lane);
+          if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+        }
       }
-      __syncthreads();
+      if (BANDMASK && cnt > 0) {
+        // the band is uniform within a sweep
+        __syncwarp();
+        reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
+                                                              band_hi);
+        __syncwarp();
+        cnt = 0;
+      }
+    }
+    if (cnt > 0) {
+      __syncwarp();
+      reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
+                                                            band_hi);
     }
   }
-  // fixed-order block fold: warps, then the warp sums in warp 0
-  acc = warp_sum(acc);
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  if (lane == 0) warp_sums[warp] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    acc = lane < kChunk / 32 ? warp_sums[lane] : Acc(0);
-    acc = warp_sum(acc);
-    if (lane == 0) static_cast<Acc*>(a.partial)[c] = acc;
-  }
+  block_fold<kClusters>(o.acc, static_cast<Acc*>(a.partial));
 }
 
 template <bool SPLIT, int TERM, bool BANDMASK>

@@ -2,9 +2,10 @@
 package, into the git-ignored ``build/`` directory at the root of the
 checkout (never next to the source).
 
-Each library is named after a hash of its source and its compiler command,
-so an edited source or flag builds anew. A build writes to a temporary file
-and renames it into place, so concurrent processes cannot see half a file.
+Each library is named after a hash of its source, the headers it includes
+(`sources`) and its compiler command, so an edited source, header or flag
+builds anew. A build writes to a temporary file and renames it into place,
+so concurrent processes cannot see half a file.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,13 +45,34 @@ def nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def sources(src: Path) -> list[Path]:
+    """``src`` and every file it includes with ``#include "..."``, found
+    beside the including file, recursively, each once, in a fixed order."""
+    found, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            inc = path.parent / name.decode()
+            if inc.exists():
+                todo.append(inc)
+    return found
+
+
 def build_shared(src: Path, compiler: str, flags, name: str) -> tuple[Path, str]:
     """Compile ``src`` into ``build/<name>-<hash>.so`` unless that file
-    exists. Returns the library's path and the compiler's output from the
-    build (kept beside the library in a ``.log`` file)."""
+    exists; the hash covers the source, the headers it includes (`sources`)
+    and the flags. Returns the library's path and the compiler's output
+    from the build (kept beside the library in a ``.log`` file)."""
     argv = [compiler, *flags]
     digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(argv[1:]).encode()
+        b"".join(path.read_bytes() for path in sources(src))
+        + "\0".join(argv[1:]).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     log = out.with_suffix(".log")

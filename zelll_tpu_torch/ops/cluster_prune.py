@@ -1,18 +1,21 @@
-"""The geometric prune of the forces kernels K3 and K7
-(``csrc/lag_forces.cu``, ``csrc/tile_forces.cu``) in plain PyTorch.
+"""The geometric prune of the pair kernels K1, K3, K6 and K7
+(``csrc/lag_reduce.cu``, ``csrc/lag_forces.cu``, ``csrc/tile_reduce.cu``,
+``csrc/tile_forces.cu``, on ``csrc/cluster_sweep.cuh``) in plain PyTorch.
 
-Both kernels give each warp a cluster of ``CLUSTER`` consecutive sorted
+The kernels give each warp a cluster of ``CLUSTER`` consecutive sorted
 slots, reduce the cluster's axis-aligned box over its real slots (< n), and
 keep a partner slot j for the cluster's sweep only if the f32 gap between j
 and the box, squared and summed in the kernels' order, is below the
 threshold: ``cutoff^2`` with f32 coordinates, ``cutoff^2 (1 + 2^-19)`` in
 split mode, where each axis' gap is first reduced by the largest low part
-of the cluster plus j's own (the kernels' source notes say why no pair that
-counts is dropped). This module repeats those operations, so that the
-card's measurements can count the lane evaluations the prune leaves
-(``chip_smoke.py``) and the CPU tests can hold the rule to brute force. The
-kernels compute their boxes themselves, from the coordinates of each
-launch; nothing here is on their path.
+of the cluster plus j's own (``cluster_sweep.cuh`` says why no pair that
+counts is dropped). The forces kernels sweep both sides of each slot (K3's
+lag ranges, K7's full stencil), the energy kernels one side (K1's lags
+behind each slot, K6's half stencil with band 0's triangle). This module
+repeats those operations, so that the card's measurements can count the
+lane evaluations the prune leaves (``chip_smoke.py``) and the CPU tests can
+hold the rule to brute force. The kernels compute their boxes themselves,
+from the coordinates of each launch; nothing here is on their path.
 """
 
 from __future__ import annotations
@@ -70,11 +73,14 @@ def near_cluster(mn, mx, lomax, pts, pts_lo, thr) -> torch.Tensor:
     return gsq < thr
 
 
-def tile_cluster_entries(inp, cutoff_sq) -> torch.Tensor:
+def tile_cluster_entries(inp, cutoff_sq, *, half: bool = False) -> torch.Tensor:
     """The j slots each own cluster of K7 sweeps: those of its chunk's band
     windows (``inp`` from `tile_pairs.tile_inputs(full=True)`) that are
-    below n and pass the gap test. Returns (ceil(n / CLUSTER),) int64; each
-    entry is one evaluation for each of the cluster's 32 lanes."""
+    below n and pass the gap test. With ``half``, those of K6 (``inp`` from
+    ``tile_inputs(full=False)``): band 0 loads no j-cluster that starts
+    after the own cluster, since its triangle (j < i) masks every lane
+    there. Returns (ceil(n / CLUSTER),) int64; each entry is one evaluation
+    for each of the cluster's 32 lanes."""
     pos, lo = inp.pos, inp.lo
     dim, n = pos.shape
     device = pos.device
@@ -95,6 +101,8 @@ def tile_cluster_entries(inp, cutoff_sq) -> torch.Tensor:
             for t in range(int(num.max()) if num.numel() else 0):
                 j = (first + t)[:, None] * CHUNK + lane
                 ok = (t < num)[:, None] & (j < n)
+                if half and s == 0:
+                    ok = ok & (j // CLUSTER <= cl[:, None])
                 j = j.clamp(0, n - 1)
                 near = near_cluster(*box, pos[:, j],
                                     None if lo is None else lo[:, j], thr)
@@ -103,10 +111,11 @@ def tile_cluster_entries(inp, cutoff_sq) -> torch.Tensor:
 
 
 def lag_ranges(sorted_keys: torch.Tensor, strides, L: int):
-    """Each slot's partner range [jlo, jhi] for K3 (int64, (n,) each): the
-    slots within L lags in the key window (``key_j >= key_i - W`` behind i,
-    ``key_i >= key_k - W`` ahead), padding rows read as `_pad_and_desentinel`
-    spaces them. Keys ascend, so each side is one contiguous run."""
+    """Each slot's partner range [jlo, jhi] for K3 (int64, (n,) each; K1's
+    is [jlo, i - 1]): the slots within L lags in the key window (``key_j >=
+    key_i - W`` behind i, ``key_i >= key_k - W`` ahead), padding rows read
+    as `_pad_and_desentinel` spaces them. Keys ascend, so each side is one
+    contiguous run."""
     n = sorted_keys.shape[0]
     keys = _pad_and_desentinel(sorted_keys, n).long()
     w = int(key_window(strides))
@@ -118,10 +127,12 @@ def lag_ranges(sorted_keys: torch.Tensor, strides, L: int):
 
 def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
                         sorted_keys: torch.Tensor, strides, cutoff_sq,
-                        L: int) -> torch.Tensor:
+                        L: int, *, half: bool = False) -> torch.Tensor:
     """The j slots each own cluster of K3 sweeps: the union of its slots'
     partner ranges that passes the gap test ((dim, n) ``planes`` and low
-    parts ``lo`` or None). Returns (ceil(n / CLUSTER),) int64."""
+    parts ``lo`` or None). With ``half``, those of K1: the union of the
+    ranges behind its slots, [jlo of its first slot, its last real slot -
+    1]. Returns (ceil(n / CLUSTER),) int64."""
     dim, n = planes.shape
     device = planes.device
     thr = prune_threshold(cutoff_sq, lo is not None, device)
@@ -129,12 +140,13 @@ def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
     ncl = mn.shape[1]
     jlo, jhi = lag_ranges(sorted_keys, strides, L)
     starts = torch.arange(ncl, device=device) * CLUSTER
+    ends = torch.clamp(starts + CLUSTER - 1, max=n - 1)  # the last real slots
     first = jlo[starts]
-    last = jhi[torch.clamp(starts + CLUSTER - 1, max=n - 1)]
+    last = ends - 1 if half else jhi[ends]
     counts = torch.zeros(ncl, dtype=torch.int64, device=device)
     for c0 in range(0, ncl, _BATCH):
         cl = torch.arange(c0, min(c0 + _BATCH, ncl), device=device)
-        width = int((last[cl] - first[cl]).max()) + 1
+        width = max(int((last[cl] - first[cl]).max()) + 1, 0)
         j = first[cl, None] + torch.arange(width, device=device)
         ok = j <= last[cl, None]
         j = j.clamp(max=n - 1)
