@@ -81,8 +81,10 @@ pair, the stress products or the binary search over the edges.
 
 from __future__ import annotations
 
+import cProfile
 import json
 import os
+import pstats
 import subprocess
 import sys
 import time
@@ -1157,9 +1159,11 @@ def join_vs_plain(dev, n: int) -> dict:
     so that a query at an atom + (cutoff, 0, 0) lies exactly at the cutoff),
     cutoff 10, 4096 queries: uniform over the box and one cutoff around it,
     100 at atoms (d == 0), 100 exactly at the cutoff, 196 at +-1e9, and a
-    tail of 1000 SENTINEL_KEY rows on the particle side. count, nearest and
-    sdf in f32 and f64: counts and minima exact, f64 SDF sums to TOL_KERNEL
-    of the largest, f32 to TOL_SDF_F32."""
+    tail of 1000 SENTINEL_KEY rows on the particle side; apart, a plane of
+    64 queries at an atom + (cutoff, dy, dz), and the samplers' shape (1024
+    queries at the atoms + 0.5 of the 2000-atom protein, cutoff 4). count,
+    nearest and sdf in f32 and f64: counts and minima exact, f64 SDF sums to
+    TOL_KERNEL of the largest, f32 to TOL_SDF_F32."""
     from zelll_tpu_torch.ops.join import join_reduce, join_reduce_plain
     from zelll_tpu_torch.utils.datagen import generate_points_lattice
 
@@ -1168,17 +1172,31 @@ def join_vs_plain(dev, n: int) -> dict:
     structures = {"protein": protein(n)[0],
                   "lattice": generate_points_lattice(n, (side, side, side))}
     cases, worst, lattice_err = {}, 0.0, 0.0
+    configs = []
     for name, pos in structures.items():
         pos = np.round(pos * 1024) / 1024
-        radii = rng.uniform(1.0, 2.0, n)
         at = rng.choice(n, 200, replace=False)
         lo, hi = pos.min(0), pos.max(0)
         queries = np.concatenate([
             rng.uniform(lo - CUTOFF, hi + CUTOFF, (N_JOIN_QUERIES - 396, 3)),
             pos[at[:100]], pos[at[100:]] + [CUTOFF, 0.0, 0.0],
             np.array([[1e9, -1e9, 1e9], [-1e9, 1e9, -1e9]] * 98)])
+        configs.append((name, pos, queries, CUTOFF))
+        # a plane of 64 queries at an atom + (cutoff, dy, dz): their
+        # clusters' boxes start exactly one cutoff from the atom, so a prune
+        # with a strict gap test drops the pair at exactly the cutoff
+        grid = np.stack(np.meshgrid(np.arange(8), np.arange(8), indexing="ij"), -1)
+        plane = pos[at[0]] + np.concatenate(
+            [np.full((64, 1), CUTOFF), (grid.reshape(-1, 2) - 4) / 8], 1)
+        configs.append((f"{name}_cutoff_plane", pos, plane, CUTOFF))
+    # the samplers' shape: 1024 queries at the atoms + 0.5 of the 2000-atom
+    # protein, cutoff 4 (sparse clusters, the form whose warps share one)
+    small = np.round(protein(N_PROTEIN)[0] * 1024) / 1024
+    configs.append(("sampler", small, small[:SAMPLE_CHAINS] + 0.5, SAMPLE_CUTOFF))
+    for name, pos, queries, cutoff in configs:
+        radii = rng.uniform(1.0, 2.0, len(pos))
         for dtype in (torch.float32, torch.float64):
-            qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, queries, CUTOFF, dtype,
+            qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, queries, cutoff, dtype,
                                                        dev, tail=1000)
             for inst, (term, reducer, n_out, npl) in join_instances().items():
                 kw = dict(term=term, n_out=n_out, reducer=reducer)
@@ -1240,7 +1258,9 @@ def sdf_eval_main_path(dev) -> dict:
     to TOL_KERNEL of the largest, valid equal to the oracle's None). The
     launch and fallback counts are zeroed just before each cutoff's two
     eval_grid runs (warm-up and timed) and read just after, before any
-    timing or checking call: two K12 launches per cutoff, no fallback."""
+    timing or checking call: two K12 launches per cutoff, no fallback.
+    K12's own device time per launch comes from the profiler: at the small
+    cutoffs the wrapper's host work outlasts it."""
     from zelll_tpu_torch import SmoothDistanceField, oracle
     from zelll_tpu_torch.models.psssh import eval_grid
     from zelll_tpu_torch.ops.join import join_reduce, sort_queries
@@ -1271,9 +1291,14 @@ def sdf_eval_main_path(dev) -> dict:
             jd = sdf._join
             qp, qk, _, _ = sort_queries(torch.as_tensor(grid, device=dev), jd.origin,
                                         jd.shape, jd.strides, cutoff, torch.float64, dev)
-            k12_ms = cuda_ms(lambda: join_reduce(qp, qk, list(jd.pplanes), jd.pkeys,
-                                                 jd.strides, jd.cutoff**2, term=sdf_term,
-                                                 n_out=NACC), 5)
+
+            def k12():
+                return join_reduce(qp, qk, list(jd.pplanes), jd.pkeys, jd.strides,
+                                   jd.cutoff**2, term=sdf_term, n_out=NACC)
+
+            k12_ms = cuda_ms(k12, 5)
+            by_kernel = profile_steps(lambda i: k12(), 10)["ms_per_step_by_kernel"]
+            k12_device_ms = sum(m for m, k in by_kernel if "join_kernel" in k)
             picked = rng.choice(q, N_JOIN_QUERIES, replace=False)
             cands = oracle.query_neighbors_batch(pos, cutoff, grid[picked])
             ref_v = np.full(len(picked), np.nan)
@@ -1298,7 +1323,8 @@ def sdf_eval_main_path(dev) -> dict:
             runs[str(cutoff)] = dict(
                 us_per_query_host=dt / q * 1e6, ns_total_host=dt * 1e9,
                 us_per_query_events=ev_ms / q * 1e3, evaluate_ms_events=ev_ms,
-                k12_ms=k12_ms, k12_share_of_evaluate=k12_ms / ev_ms,
+                k12_ms=k12_ms, k12_device_ms=k12_device_ms,
+                k12_share_of_evaluate=k12_ms / ev_ms,
                 defined=int(np.isfinite(vals).sum()), checked=len(picked),
                 checked_defined=int(defined.sum()), value_err_over_max=v_err,
                 gradient_err_over_max=g_err)
@@ -1314,7 +1340,8 @@ def psssh_sample_main_path(dev) -> dict:
     cutoff 4) for the HMC and lockstep NUTS samplers: draws/s on the host
     clock, K12 launches (zeroed just before each run, read just after), and
     the sample quality of tests/test_psssh.py: >= 95 % valid, median
-    |sdf - 1.05| < 0.5."""
+    |sdf - 1.05| < 0.5. Then one leapfrog step's gradient call: host ms per
+    call, the same by Python function (cProfile), and its device profile."""
     from zelll_tpu_torch import SmoothDistanceField
     from zelll_tpu_torch.models.psssh import sample_surface
 
@@ -1345,9 +1372,17 @@ def psssh_sample_main_path(dev) -> dict:
     q = torch.as_tensor(pos[:SAMPLE_CHAINS] + 0.5, device=dev)
     calls = 100
     vgrad_ms, _ = host_ms(lambda: [vgrad(q) for _ in range(calls)])
+    # the host's ms per call by Python function (own time; a C call made
+    # through ctypes counts to its caller)
+    prof = cProfile.Profile()
+    host_ms(lambda: prof.runcall(lambda: [vgrad(q) for _ in range(calls)]))
+    by_function = sorted(((tt / calls * 1e3, f"{os.path.basename(f)}:{line}:{fn}")
+                          for (f, line, fn), (_, _, tt, _, _) in pstats.Stats(prof).stats.items()),
+                         reverse=True)
     return dict(n=N_PROTEIN, cutoff=SAMPLE_CUTOFF, chains=SAMPLE_CHAINS,
                 burnin=SAMPLE_BURNIN, draws=SAMPLE_DRAWS, samplers=out,
                 vgrad_host_ms_per_call=vgrad_ms / calls,
+                vgrad_host_ms_by_function=[[round(ms, 4), f] for ms, f in by_function[:12]],
                 vgrad_profile=profile_steps(lambda i: vgrad(q), 20))
 
 
@@ -1403,7 +1438,12 @@ def join_alone(dev) -> dict:
     nearest and sdf in f32 and f64, timed with CUDA events; candidates per query (the particles in each query's 9 band
     ranges, what the kernel visits), within-cutoff pairs, the bound (bytes
     in and out; operations per candidate and per pair as INSTR_PER_* count
-    them) and the share; the plain version timed once per f64 instance."""
+    them) and the share; the plain version timed once per f64 instance; at
+    both sizes the buffer entries each query's lane evaluates after the
+    cluster prune (ops/cluster_prune.py), beside its candidates (f64 also at
+    the eval protocol's other cutoffs), and K12's ptxas lines."""
+    from zelll_tpu_torch.ops import join
+    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, join_cluster_entries
     from zelll_tpu_torch.ops.join import join_reduce, join_reduce_plain
     from zelll_tpu_torch.ops.segments import segment_bands
 
@@ -1415,6 +1455,15 @@ def join_alone(dev) -> dict:
             candidates += int((torch.searchsorted(keys64, q64 - lo_s, right=True)
                                - torch.searchsorted(keys64, q64 - hi_s)).sum())
         return candidates
+
+    def entries_per_query(qp, qk, pp, pk, strides, csq):
+        """The buffer entries of each query's cluster, over the queries: one
+        lane evaluation each."""
+        ent = join_cluster_entries(torch.stack(list(qp)), qk, torch.stack(pp[:3]), pk,
+                                   strides, csq)
+        real = torch.full_like(ent, CLUSTER)
+        real[-1] = len(qk) - (len(ent) - 1) * CLUSTER
+        return float((ent * real).sum()) / len(qk)
 
     # the samplers' size: one gradient call's join, f64 sdf, the psssh
     # protein with 1024 chains at its atoms + 0.5 (as psssh_sample_main_path's
@@ -1443,7 +1492,9 @@ def join_alone(dev) -> dict:
               2 * (candidates * INSTR_PER_CANDIDATE[False] + pairs * INSTR_PER_JOIN_PAIR["sdf"]))
     sampler = dict(atoms=len(pos), queries=SAMPLE_CHAINS, cutoff=SAMPLE_CUTOFF,
                    dtype="float64", instance="sdf", ms=ms, call_ms=call_ms, **b,
-                   share_of_bound=b["bound_ms"] / ms, candidates=candidates, pairs=pairs)
+                   share_of_bound=b["bound_ms"] / ms, candidates=candidates, pairs=pairs,
+                   candidates_per_query=candidates / SAMPLE_CHAINS,
+                   entries_per_query=entries_per_query(qp, qk, pp, pk, strides, csq))
 
     pos, radii = protein(N_PROTEIN_LARGE)
     lo, hi = pos.min(0), pos.max(0)
@@ -1479,9 +1530,21 @@ def join_alone(dev) -> dict:
             out.setdefault(tag, {})[inst] = case
         out[tag]["candidates"] = candidates
         out[tag]["candidates_per_query"] = candidates / len(grid)
+        out[tag]["entries_per_query"] = entries_per_query(qp, qk, pp, pk, strides, csq)
         out[tag]["pairs"] = pairs
         out[tag]["pairs_per_query"] = pairs / len(grid)
-    return dict(n=N_PROTEIN_LARGE, queries=len(grid), cutoff=CUTOFF, **out)
+    # the eval protocol's smaller cutoffs, f64: a cluster of 32 sorted grid
+    # queries spans more cells as the cells shrink, so its union ranges and
+    # box grow against each query's own candidates
+    for cutoff in EVAL_CUTOFFS:
+        if cutoff != CUTOFF:
+            qp, qk, pp, pk, strides, csq = join_inputs(pos, radii, grid, cutoff,
+                                                       torch.float64, dev)
+            out["float64"].setdefault("by_cutoff", {})[f"{cutoff:g}"] = dict(
+                candidates_per_query=band_candidates(qk, pk, strides) / len(grid),
+                entries_per_query=entries_per_query(qp, qk, pp, pk, strides, csq))
+    return dict(n=N_PROTEIN_LARGE, queries=len(grid), cutoff=CUTOFF, **out,
+                ptxas=ptxas_summary(join.load_kernel.log))
 
 
 # -- slice 6a: the open-boundary observables (K4, K5, K8, K9) -------------------
@@ -1513,7 +1576,9 @@ def obs_vs_plain(dev, n: int) -> dict:
     outputs, max |d sigma| <= TOL_KERNEL max |sigma| (TOL_FAST_FORCES with
     the fast factor); histograms at K = 16, 32 and 64, species-partial and,
     on the tile path, masked, maskless and MAXJ = 1: counts exactly equal,
-    and the same flags."""
+    and the same flags. K9 also in f64 (the double box), on the inputs
+    that fail a cluster prune that is not conservative (`prune_cases`, the
+    lattice's keys kept) and in 1 and 2 dimensions."""
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
     from zelll_tpu_torch.ops.lag_pairs import (
         SpeciesPairMask, combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
@@ -1615,6 +1680,40 @@ def obs_vs_plain(dev, n: int) -> dict:
                                                 **kw)
             check(not bool(ok) and not bool(ok_p), f"K8 flags at MAXJ = 1 ({tag})")
             stress_case("K8", got, want, TOL_KERNEL, f"{tag} {mode} MAXJ1")
+    # K9 also through the f64 box, on the inputs that fail a cluster prune
+    # that is not conservative (the lattice's keys kept), and in 1 and 2
+    # dimensions
+    shi, slo, keys, strides = cases["lattice"]
+    maxj = probe_maxj(keys, strides)
+    esq = hist_edges_sq(HIST_K, f64)
+    for what, (h, l) in {"lattice": (shi, slo), **prune_cases(shi, slo)}.items():
+        for mode, pos, lo in (("split", h, l), ("f32", h, None),
+                              ("f64", h.double() + l.double(), None)):
+            for bandmask in (False, True):
+                kw = dict(MAXJ=maxj, bandmask=bandmask)
+                e = esq.to(pos.dtype)
+                got, ok = tile_pair_hist(pos, keys, strides, e, lo, **kw)
+                want, ok_p = tile_pair_hist_plain(pos, keys, strides, e, lo, **kw)
+                check(bool(ok) == bool(ok_p), f"K9 flags {bool(ok)}/{bool(ok_p)} ({what})")
+                hist_case("K9", got, want, f"prune {what} {mode} bandmask={bandmask}")
+        got, _ = tile_pair_hist(h.double() + l.double(), keys, strides, esq, None,
+                                species.double(), MAXJ=maxj, pair_mask=SpeciesPairMask(0, 2))
+        want, _ = tile_pair_hist_plain(h.double() + l.double(), keys, strides, esq, None,
+                                       species.double(), MAXJ=maxj,
+                                       pair_mask=SpeciesPairMask(0, 2))
+        hist_case("K9", got, want, f"prune {what} f64 species(0, 2)")
+    rng = np.random.default_rng(8)
+    for dim, density in ((1, 1.0), (2, 0.1)):
+        pts = rng.uniform(0, (n / density) ** (1 / dim), (n, dim))
+        shi, slo, keys, info, _ = sort_split(pts, dev)
+        maxj = probe_maxj(keys, info.strides)
+        for mode, lo in (("split", slo), ("f32", None)):
+            kw = dict(MAXJ=maxj, bandmask=True)
+            got, ok = tile_pair_hist(shi, keys, info.strides, hist_edges_sq(HIST_K), lo, **kw)
+            want, ok_p = tile_pair_hist_plain(shi, keys, info.strides, hist_edges_sq(HIST_K),
+                                              lo, **kw)
+            check(bool(ok) == bool(ok_p), f"K9 flags {bool(ok)}/{bool(ok_p)} ({dim}-D)")
+            hist_case("K9", got, want, f"{dim}-D {mode}")
     # the kernel line's errors: the lattice, whose stress terms are all of
     # one size (a few near pairs carry the uniform cloud's)
     lattice = {k: max(c["max_abs_err"] for w, c in out[k].items() if w.startswith("lattice"))
@@ -1992,10 +2091,14 @@ def hist_alone(dev, n: int) -> dict:
     counted in the timed runs, the work of the function (candidates, and
     ceil(log2 K) compares per cutoff pair) and its bound, the share of it,
     one plain pass (at 1e6 where one at 1e7 would take over 10 s), and the
-    counts against the plain version."""
+    counts against the plain version; K9's lane evaluations per half-stencil
+    candidate, all 128 x 128 lanes of every tile (the earlier tile design)
+    and those the cluster prune leaves (the sweep), and its ptxas lines."""
     from zelll_tpu_torch.ops.lag_pairs import (
         combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
     )
+    from zelll_tpu_torch.ops import tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, tile_cluster_entries
     from zelll_tpu_torch.ops.tile_pairs import (
         hist_tiles, hist_tiles_plain, tile_inputs, tile_pair_hist,
     )
@@ -2043,8 +2146,17 @@ def hist_alone(dev, n: int) -> dict:
                   + cpairs * per_pair)
         out[f"K9_{tag}"] = dict(ms=ms, launches=launches, **b,
                                 share_of_bound=b["bound_ms"] / ms)
-    out.update(K9_pairs=cpairs, K9_candidates=ccand,
-               K9_tile_evaluations=int(inp.bounds[:, 2::3].sum()) * 128 * 128)
+    # the lanes the cluster prune leaves: K6's half-stencil entries, once
+    # for each of the cluster's 32 lanes (ops/cluster_prune.py)
+    edge = float(esq[-1])
+    k9_lanes = {tag: int(tile_cluster_entries(x, edge, half=True).sum()) * CLUSTER
+                for tag, x in (("f32", inp), ("split", inp_s))}
+    tiles = int(inp.bounds[:, 2::3].sum()) * 128 * 128
+    out.update(K9_pairs=cpairs, K9_candidates=ccand, K9_tile_evaluations=tiles,
+               K9_tile_evaluations_per_candidate=tiles / ccand,
+               K9_pruned_evaluations=k9_lanes,
+               K9_pruned_evaluations_per_candidate={t: v / ccand for t, v in k9_lanes.items()},
+               K9_ptxas=ptxas_summary(tile_pairs.load_hist_kernel.log))
     del inp, inp_s, shi, slo, keys
 
     def k9_plain(m):

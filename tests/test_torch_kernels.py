@@ -542,12 +542,21 @@ def test_join_kernel_matches_plain_on_card(cuda_device):
     """K12 against its plain version on the same sorted CUDA tensors: a
     synthetic protein and a jittered lattice (n = 2e4, coordinates on a
     2^-10 grid so that a query at an atom + (cutoff, 0, 0) lies exactly at
-    the cutoff), 4096 queries with exact atom positions (d == 0), points
+    the cutoff), 4095 queries with exact atom positions (d == 0), points
     exactly at the cutoff, far points at +-1e9 and a SENTINEL_KEY particle
-    tail; the count, nearest and sdf instances in f32 and f64. Counts and
-    minima exact (the inclusive <= shows at the cutoff queries); f64 SDF
-    sums to 1e-10 of the largest; f32 ones to 1e-4 of it (f32 sums of ~1e3
-    terms in another order, 2-ulp exp and rsqrt)."""
+    tail; the samplers' shape (1024 queries at the atoms + 0.5 of a
+    2000-atom protein, cutoff 4: sparse clusters with slab boxes); 40,000
+    queries, enough clusters for the one-warp-per-cluster form (the others
+    run the form whose 4 warps share a cluster), whose sorted cells
+    straddle the 32-query cluster boundaries; clusters that mix far queries
+    (clipped into the corner cell) with near ones in that cell; and a plane
+    of 64 queries at an atom + (cutoff, dy, dz), whose clusters' boxes
+    start exactly one cutoff from the atom, so that a prune with a strict
+    gap test drops the pair at exactly the cutoff. The count, nearest and
+    sdf instances in f32 and f64. Counts and minima exact (the inclusive <=
+    shows at the cutoff queries); f64 SDF sums to 1e-10 of the largest; f32
+    ones to 1e-4 of it (f32 sums of ~1e3 terms in another order, 2-ulp exp
+    and rsqrt)."""
     from zelll_tpu_torch.ops.join import (
         _count_term, _nearest_term, join_reduce, join_reduce_plain,
     )
@@ -560,6 +569,7 @@ def test_join_kernel_matches_plain_on_card(cuda_device):
     lattice = generate_points_lattice(n, (60.0, 60.0, 60.0))
     instances = ((_count_term, "sum", 1, 0), (_nearest_term, "min", 1, 0),
                  (sdf_term, "sum", NACC, 2))
+    configs = []
     for name, pos in (("protein", protein), ("lattice", lattice)):
         pos = np.round(pos * 1024) / 1024
         lo, hi = pos.min(0), pos.max(0)
@@ -570,8 +580,27 @@ def test_join_kernel_matches_plain_on_card(cuda_device):
             pos[at[100:]] + [cutoff, 0.0, 0.0],  # exactly at the cutoff
             [[1e9, -1e9, 1e9], [-1e9, 1e9, -1e9]] * 98,
         ])[:4095]                                # not a multiple of 128
+        configs.append((name, pos, queries, cutoff))
+    protein, lattice = configs[0][1], configs[1][1]
+    small, _ = synthetic_protein(2000, 15.0)
+    small = np.round(small * 1024) / 1024
+    configs.append(("sampler", small, small[:1024] + 0.5, 4.0))
+    lo, hi = protein.min(0), protein.max(0)
+    configs.append(("one_warp_form", protein, rng.uniform(lo, hi, (40_000, 3)), cutoff))
+    # the corner cell below the lattice's origin: far queries clip into it,
+    # near ones lie in it, alternating in the sorted order
+    corner = lattice.min(0) - 0.5 * cutoff + rng.uniform(-0.4, 0.4, (48, 3)) * cutoff
+    far = np.full((48, 3), -1e9)
+    mixed = np.stack([corner, far], 1).reshape(-1, 3)
+    configs.append(("far_mixed", lattice, mixed, cutoff))
+    grid = np.stack(np.meshgrid(np.arange(8), np.arange(8), indexing="ij"), -1)
+    offsets = (grid.reshape(-1, 2) - 4) / 8  # dy, dz, 0 among them
+    atom = lattice[n // 2]
+    plane = atom + np.concatenate([np.full((64, 1), cutoff), offsets], 1)
+    configs.append(("cutoff_plane", lattice, plane, cutoff))
+    for name, pos, queries, cut in configs:
         for dtype in (torch.float64, torch.float32):
-            qp, qk, pp, pk, strides, csq = _join_case(pos, queries, cutoff,
+            qp, qk, pp, pk, strides, csq = _join_case(pos, queries, cut,
                                                       dtype, cuda_device)
             for term, reducer, n_out, npl in instances:
                 pl = pp[:3 + npl]
@@ -596,6 +625,11 @@ def test_join_kernel_matches_plain_on_card(cuda_device):
                 if term is _count_term:
                     # queries at d == 0 and at the cutoff see their atom
                     assert float(got.min()) >= 0 and float(got.max()) > 1
+                    if name == "cutoff_plane":
+                        # the plane's box starts exactly one cutoff from the atom
+                        assert float(qp[0].min()) == float(atom[0] + cut)
+                    if name == "far_mixed":
+                        assert int(torch.unique(qk).numel()) == 1
     with pytest.raises(ValueError):
         join_reduce(qp, qk, pp[:3], pk, strides, csq, n_out=1,
                     term=lambda dsq, d, p, w: [w.to(dsq.dtype)])
@@ -779,12 +813,17 @@ def test_tile_stress_kernel_matches_plain_on_card(cuda_device):
 def test_tile_hist_kernel_matches_plain_on_card(cuda_device):
     """K9 against its plain version on the same sorted CUDA tensors: counts
     exact on the cube's three inputs, masked and maskless, split, f32 and
-    f64, K = 16 and 64, a species pair mask, an undersized MAXJ, and an
-    integer lattice whose squared distances fall exactly on the edges."""
+    f64, K = 16 and 64, a species pair mask, an undersized MAXJ, an integer
+    lattice whose squared distances fall exactly on the edges, and the
+    inputs that fail a cluster prune that is not conservative (the facing
+    clusters of `cluster_gap`, whose facing pairs lie in a window of the
+    later cluster, and the lattice drifted since its keys were built), in
+    split, f32 and f64 through the double box, masked and maskless, with
+    and without the species mask."""
     n = 50_000
     side = (n / 0.01) ** (1 / 3)
-    for tag, (shi, slo, keys, strides) in _observable_inputs(
-            cuda_device, n, (side, side, side)).items():
+    inputs = _observable_inputs(cuda_device, n, (side, side, side))
+    for tag, (shi, slo, keys, strides) in inputs.items():
         maxj = _maxj(keys, strides)
         spec = torch.as_tensor(np.random.default_rng(3).integers(0, 3, n),
                                device=cuda_device)
@@ -812,6 +851,30 @@ def test_tile_hist_kernel_matches_plain_on_card(cuda_device):
                                               pay, **kw)
             assert bool(ok) == bool(ok_p) == (m != 1)
             np.testing.assert_array_equal(combine_count_vec(got), combine_count_vec(want))
+    shi, slo, keys, strides = inputs["lattice"]
+    maxj = _maxj(keys, strides)
+    esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64) ** 2
+    spec = torch.as_tensor(np.random.default_rng(4).integers(0, 2, n), device=cuda_device)
+    for bandmask in (True, False):
+        inp = tile_inputs(shi.t().contiguous(), keys, strides, MAXJ=maxj, bandmask=bandmask)
+        bounds, bands = inp.bounds.long().cpu(), inp.bands.long().cpu()
+        for s in GAP_SITES:
+            i, j = s + 32, s + 31
+            first = int(bounds[i // CHUNK, 0] + bounds[i // CHUNK, 1])
+            assert first <= j // CHUNK < first + int(bounds[i // CHUNK, 2])
+            assert int(bands[0, 0]) <= int(keys[i]) - int(keys[j]) <= int(bands[0, 1])
+    for tag, (ghi, glo, gkeys, gstrides) in _prune_cases(shi, slo, keys, strides).items():
+        for bandmask in (False, True):
+            for pos, plo in ((ghi, glo), (ghi, None), (ghi.double() + glo.double(), None)):
+                for pay, mask in ((None, None), (spec.to(pos.dtype), SpeciesPairMask(0, 1))):
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, pair_mask=mask)
+                    e = esq.to(pos.dtype)
+                    got, ok = tile_pair_hist(pos, gkeys, gstrides, e, plo, pay, **kw)
+                    want, ok_p = tile_pair_hist_plain(pos, gkeys, gstrides, e, plo, pay, **kw)
+                    assert bool(ok) == bool(ok_p)
+                    c = combine_count_vec(got)
+                    np.testing.assert_array_equal(c, combine_count_vec(want))
+                    assert c[-1] > 0, (tag, bandmask, pos.dtype)
     shi, slo, keys, strides = _sorted_at(_integer_lattice((40, 40, 40)), cuda_device, 3.0)
     esq = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 9.0], device=cuda_device)
     maxj = _maxj(keys, strides)

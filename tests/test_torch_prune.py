@@ -171,3 +171,99 @@ def test_prune_keeps_every_counted_pair(data, kernel):
             for s in GAP_SITES:
                 if bool(counted[s + 32, s + 31]):
                     assert bool(entries[(s + 32) // CLUSTER, s + 31]), (kernel, split, s)
+
+
+def test_join_prune_keeps_every_counted_pair():
+    """K12's query-cluster mirror (`join_ranges`, `join_boxes`,
+    `join_cluster_entries`) against brute force, on the three data sets as
+    join particles (rounded to a 2^-10 grid, keyed by a fresh build at the
+    cutoff), in f64 and f32: every (query, particle) pair that the join
+    counts (a full-stencil key band and dsq <= cutoff^2, inclusive) lies in
+    its query cluster's union range of that band and passes the inclusive
+    gap test, and `join_cluster_entries` equals the entries counted by
+    brute force from the queries' keys and coordinates. The queries:
+    uniform over the box and a cutoff around it, at atoms (d == 0), at
+    +-1e9, and apart a plane of 64 queries at an atom + (cutoff, dy, dz),
+    whose clusters' boxes start exactly one cutoff from the atom, so that
+    a strict gap test drops the pair at exactly the cutoff."""
+    from zelll_tpu_torch.core import build
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY
+    from zelll_tpu_torch.ops.cluster_prune import join_boxes, join_cluster_entries, join_ranges
+    from zelll_tpu_torch.ops.join import sort_queries
+
+    rng = np.random.default_rng(17)
+    offsets = np.stack(np.meshgrid(np.arange(8), np.arange(8), indexing="ij"), -1)
+    offsets = (offsets.reshape(-1, 2) - 4) / 8  # dy, dz on a 2^-3 grid, 0 among them
+    for data in ("cluster_gap", "drifted", "uniform"):
+        hi, lo, _, _ = _case(data, "tile")
+        pts = np.round((hi.double() + lo.double()).numpy() * 1024) / 1024
+        g = build(torch.as_tensor(pts), CUTOFF)
+        info = g.info
+        a = g.sorted_pos[N // 2].numpy()
+        lo_b, hi_b = pts.min(0), pts.max(0)
+        mixed = np.concatenate([rng.uniform(lo_b - CUTOFF, hi_b + CUTOFF, (400, 3)),
+                                pts[rng.choice(N, 60, replace=False)],
+                                [[1e9, -1e9, 1e9], [-1e9, 1e9, -1e9]] * 10])
+        plane = a + np.concatenate([np.full((64, 1), CUTOFF), offsets], 1)
+        assert np.any(np.all(plane - a == [CUTOFF, 0.0, 0.0], 1))
+        for dtype in (torch.float64, torch.float32):
+            csq = torch.tensor(CUTOFF**2, dtype=dtype)
+            pp = g.sorted_pos.to(dtype).t().contiguous()
+            pk = g.bins.sorted_keys.long()
+            bands = segment_bands(info.strides, full=True).long()
+            for tag, queries in (("mixed", mixed), ("plane", plane)):
+                qp, qk, _, _ = sort_queries(torch.as_tensor(queries), info.origin, info.shape,
+                                            info.strides, CUTOFF, dtype, "cpu")
+                qp = torch.stack(list(qp))
+                nq = qp.shape[1]
+                d = [qp[ax][:, None] - pp[ax][None, :] for ax in range(3)]
+                dsq = d[0] * d[0]
+                dsq = dsq + d[1] * d[1]
+                dsq = dsq + d[2] * d[2]
+                diff = qk.long()[:, None] - pk[None, :]
+                band = torch.full(diff.shape, -1)
+                for s, (b_lo, b_hi) in enumerate(bands.tolist()):
+                    band = torch.where((diff >= b_lo) & (diff <= b_hi), s, band)
+                counted = (band >= 0) & (dsq <= csq)
+                first, end = join_ranges(qk, pk, bands)
+                mn, mx = join_boxes(qp, qk)
+                cl = torch.arange(nq) // CLUSTER
+                box = [x[:, cl, None] for x in (mn, mx)]
+                near = near_cluster(*box, torch.zeros(()), pp[:, None, :], None, csq,
+                                    inclusive=True)
+                j = torch.arange(pp.shape[1])[None, :]
+                s_of = band.clamp(min=0)
+                in_range = (j >= first[cl][torch.arange(nq)[:, None], s_of]) & \
+                    (j < end[cl][torch.arange(nq)[:, None], s_of])
+                assert bool(counted.any()), (data, dtype, tag)
+                assert not bool((counted & ~(in_range & near)).any()), (data, dtype, tag)
+                # the entries by brute force: per cluster of 32 sorted
+                # queries and band, the particles whose key lies in
+                # [smallest key - hi_s, largest key - lo_s] and whose gap to
+                # the real queries' box is at most the cutoff
+                want = torch.zeros(first.shape[0], dtype=torch.int64)
+                for c in range(first.shape[0]):
+                    sl = slice(c * CLUSTER, min((c + 1) * CLUSTER, nq))
+                    real = qk[sl] != SENTINEL_KEY
+                    if not bool(real.any()):
+                        continue
+                    keys, pts_c = qk[sl][real].long(), qp[:, sl][:, real]
+                    gap = torch.maximum(pts_c.min(1).values[:, None] - pp,
+                                        pp - pts_c.max(1).values[:, None]).clamp(min=0)
+                    gsq = gap[0] * gap[0]
+                    gsq = gsq + gap[1] * gap[1]
+                    gsq = gsq + gap[2] * gap[2]
+                    for b_lo, b_hi in bands.tolist():
+                        union = (pk >= keys.min() - b_hi) & (pk <= keys.max() - b_lo)
+                        want[c] += int((union & (gsq <= csq)).sum())
+                got = join_cluster_entries(qp, qk, pp, g.bins.sorted_keys, info.strides,
+                                           CUTOFF**2)
+                assert torch.equal(got, want), (data, dtype, tag)
+                if tag == "plane":
+                    # sharp: the pair at exactly the cutoff counts, and a
+                    # strict gap test would drop it
+                    exact = counted & (dsq == csq)
+                    strict = near_cluster(*box, torch.zeros(()), pp[:, None, :], None, csq)
+                    assert bool(exact.any()) and bool((exact & ~strict).any()), (data, dtype)
+                else:
+                    assert float(near.float().mean()) < 0.9  # the prune bites

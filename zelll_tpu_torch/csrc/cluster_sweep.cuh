@@ -1,11 +1,12 @@
 // The cluster-pair sweep shared by the pair kernels K1 (lag_reduce.cu), K3
-// (lag_forces.cu), K6 (tile_reduce.cu) and K7 (tile_forces.cu): a warp owns
-// a cluster of 32 consecutive sorted slots, reduces the cluster's
-// axis-aligned box, keeps a candidate j point only if it lies near that box,
-// compacts the survivors by ballot into a buffer in shared memory, and
-// sweeps the buffer by broadcast reads (Pall and Hess, Comput. Phys.
-// Commun. 184 (2013) 2641). ops/cluster_prune.py repeats the prune in
-// torch; tests/test_torch_prune.py holds it to brute force.
+// (lag_forces.cu), K6 (tile_reduce.cu), K7 (tile_forces.cu) and K9
+// (tile_hist.cu), and by the query join K12 (join_reduce.cu): a warp owns
+// a cluster of 32 consecutive sorted slots (K12: queries), reduces the
+// cluster's axis-aligned box, keeps a candidate j point only if it lies
+// near that box, compacts the survivors by ballot into a buffer in shared
+// memory, and sweeps the buffer by broadcast reads (Pall and Hess, Comput.
+// Phys. Commun. 184 (2013) 2641). ops/cluster_prune.py repeats the prune
+// in torch; tests/test_torch_prune.py holds it to brute force.
 //
 // The prune, and why it drops no pair. With the own box [mn, mx] per axis
 // and a j point b, the gap per axis is g = max(mn - b, b - mx, 0) in f32.
@@ -19,9 +20,9 @@
 // whatever the low parts hold. The split threshold fl(csq (1 + 2^-19)) >=
 // csq (1 + 1.85e-6) also covers the forces kernels' tie band (pairs whose
 // f32 dsq lies within 1e-6 csq of the cutoff, decided on the f64 dsq); for
-// the energy kernels, which keep the f32 rule dsq < csq, it is a superset.
-// So a j point the prune drops holds no pair that any of the four kernels
-// counts, for any data, in either mode.
+// the energy kernels and K9, which keep the f32 rule dsq < csq, it is a
+// superset. So a j point the prune drops holds no pair that any of the pair
+// kernels counts, for any data, in either mode.
 //
 // The bound needs every product and sum rounded on its own: build with
 // --fmad=false (ops/_build.py), as the kernels' bitwise agreement with
@@ -315,6 +316,92 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
                                       dx, dy, dz);
     o.acc += to_acc<Acc>(term_value<TERM>(dsq));
   }
+}
+
+// ---- any IEEE type: K9's f64 instance and the query join K12 ---------------
+//
+// The prune argument above holds for any IEEE type with rounding to
+// nearest, so K9's f64 instance and K12 (f32 and f64) take the same box and
+// gap test in their coordinates' type, without split mode. K12's cutoff is
+// inclusive (dsq <= csq), so its gap test keeps gsq <= csq: gsq <= dsq
+// still, and no pair at exactly the cutoff is dropped. K1, K3, K6 and K7 do
+// not use this part.
+
+// x, y, z and a tag w in the coordinates' type: float4 for f32, and for
+// f64 a 32-byte row (two 16-byte shared-memory reads)
+struct __align__(16) Double4 {
+  double x, y, z, w;
+};
+template <typename T>
+struct Vec4Of;
+template <>
+struct Vec4Of<float> {
+  using type = float4;
+};
+template <>
+struct Vec4Of<double> {
+  using type = Double4;
+};
+
+// An int32 tag (a slot, or a key) stored bit for bit in a coordinate's
+// type, and read back
+__device__ __forceinline__ float tag_to(float, int32_t w) { return __int_as_float(w); }
+__device__ __forceinline__ double tag_to(double, int32_t w) {
+  return __longlong_as_double(static_cast<long long>(w));
+}
+__device__ __forceinline__ int32_t tag_from(float v) { return __float_as_int(v); }
+__device__ __forceinline__ int32_t tag_from(double v) {
+  return static_cast<int32_t>(__double_as_longlong(v));
+}
+
+__device__ __forceinline__ float min_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_of(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float inf_of(float) { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ double inf_of(double) {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// The box and gap test in the coordinates' type, and with K12's inclusive
+// cutoff. For non-split f32 they test what Box / near_box test; those stay
+// as K1, K3, K6 and K7 were built and timed with them. New kernels use this
+// form (and Box only for split mode) until one template that leaves those
+// four kernels' SASS as it is replaces both.
+template <typename T>
+struct BoxOf {
+  T mnx, mny, mnz, mxx, mxy, mxz;
+};
+
+// The box of the warp's real lanes (x, y, z) in T. Every lane takes part.
+template <typename T>
+__device__ __forceinline__ BoxOf<T> cluster_box_of(T x, T y, T z, bool real) {
+  const T inf = inf_of(T(0));
+  T v[6] = {real ? x : inf, real ? y : inf, real ? z : inf,
+            real ? x : -inf, real ? y : -inf, real ? z : -inf};
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o /= 2) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      v[a] = min_of(v[a], __shfl_xor_sync(kAll, v[a], o));
+      v[a + 3] = max_of(v[a + 3], __shfl_xor_sync(kAll, v[a + 3], o));
+    }
+  }
+  return BoxOf<T>{v[0], v[1], v[2], v[3], v[4], v[5]};
+}
+
+// True where point (x, y, z) may hold a pair with the box: gsq < thr, or
+// gsq <= thr with INCLUSIVE, the squares summed in the order of dsq.
+template <bool INCLUSIVE, typename T>
+__device__ __forceinline__ bool near_box_of(const BoxOf<T>& box, T x, T y, T z,
+                                            T thr) {
+  const T gx = max_of(max_of(box.mnx - x, x - box.mxx), T(0));
+  const T gy = max_of(max_of(box.mny - y, y - box.mxy), T(0));
+  const T gz = max_of(max_of(box.mnz - z, z - box.mxz), T(0));
+  T gsq = gx * gx;
+  gsq = gsq + gy * gy;
+  gsq = gsq + gz * gz;
+  return INCLUSIVE ? gsq <= thr : gsq < thr;
 }
 
 }  // namespace

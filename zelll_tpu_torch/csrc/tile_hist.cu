@@ -25,37 +25,66 @@
 // edges and packs four 8-bit bins into each int32 of a per-chunk VMEM
 // accumulator (a Mosaic workaround that caps sum(MAXJ) at 255, a limit the
 // wrapper keeps on both devices), plus the packed blocks, DMA windows and
-// lane broadcasts. Here the tiles are walked as in K6 (tile_reduce.cu):
-// one block of 128 threads per own chunk, each j-chunk staged in shared
-// memory. For each pair inside the cutoff a thread finds the first edge
-// above dsq by binary search over the edges (ascending, in shared memory)
-// and adds 1 to that bin of the block's shared-memory histogram with an
-// integer atomic; the caller's prefix sum gives the cumulative counts,
-// equal to the K compares for ascending edges. Each block adds its bins to
-// the (K,) int64 output with one integer atomic per non-empty bin. Integer
-// atomics are exact, so the counts do not depend on their order.
+// lane broadcasts.
 //
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane) x n read once (8 B planes in f64; + the payload plane with a
 // mask) plus the window bounds, about 160 MB at n = 1e7 in f32, 48 us at
 // 3.35 TB/s. Operations: the half-stencil candidates times 7 FP32
-// instructions (13 split), plus a binary search and a shared atomic per
-// cutoff pair, so it is bound by operations. This design evaluates every
-// lane of every tile in the windows, as K6 does. No single PyTorch call
-// computes this function.
+// instructions (13 split), plus a binary search over the edges per cutoff
+// pair, so it is bound by operations, that is by the instructions issued
+// per evaluated lane. No single PyTorch call computes this function.
+//
+// Design: K6's half-stencil cluster sweep (tile_reduce.cu) on
+// cluster_sweep.cuh, with a histogram per hit. A warp owns a cluster of 32
+// consecutive slots, i = 128 c + 32 w + lane; the 4 warps of a block share
+// chunk c's windows. Each warp
+//   1. reduces its cluster's box over the real slots (< n), and in split
+//      mode the largest |lo| per axis (f64: the box and the gap in double,
+//      cluster_box_of);
+//   2. walks the j-chunks of every band window in order, stopping at n:
+//      lane t loads slot t of each of the chunk's 4 clusters and tests the
+//      point against the own box; a ballot per cluster compacts the
+//      survivors, in slot order, into the warp's buffer in shared memory
+//      (x, y, z and a tag w; the low parts in split mode, the key with the
+//      band mask, the payload with the species mask). Band 0 stores the
+//      slot in w and the other bands -1, so the triangle is one unsigned
+//      range test; band 0's j-clusters after the own cluster, which the
+//      triangle masks for every lane, are not loaded;
+//   3. sweeps the buffer 32 entries at a time: phase A reads each entry by
+//      a broadcast and sets the lane's hit bit where the triangle, the band
+//      (with the band mask; the buffer is then swept at the end of each
+//      band), dsq < edges[K - 1] and the species mask hold; phase B finds
+//      the bin of each hit by a binary search over the edges (ascending, in
+//      shared memory) and adds 1 to it in the warp's own 32-bit bins in
+//      shared memory.
+// Every rule of the function stays a lane mask, so the counts are the
+// plain version's wherever the windows come from, also where the coverage
+// flag is False. At the end each block sums its warps' bins and adds each
+// non-empty bin to the (K,) int64 output with one integer atomic; the
+// caller's prefix sum gives the cumulative counts, equal to the K compares
+// for ascending edges. Integer sums are exact, so the counts do not depend
+// on their order. A warp's bin stays below 2^32: at most 32 lanes x
+// sum(MAXJ) <= 255 chunks x 128 slots.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. --fmad=false rounds every product
 // and sum on its own, as the plain PyTorch version does, so dsq and hence
-// the bins match it bitwise on identical inputs.
+// the bins match it bitwise on identical inputs, and the prune's bound
+// holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;  // slots per chunk = threads per block
+constexpr int kClusters = kChunk / kWarp;  // per chunk: warps per block
+// a warp's buffer: a remainder (< one sweep of 32) and a j-chunk's survivors
+constexpr int kBuf = kWarp + kChunk;
 constexpr int kMaxBands = 5;
 constexpr int kMaxDim = 3;
 constexpr int kMaxBins = 64;
@@ -75,17 +104,81 @@ struct Args {
   int dim;
   int S;
   int K;
-  int mask;
   T ma, mb;               // the species pair of the mask
   unsigned long long* counts;  // (K,) first-bin counts
 };
 
-// Axis a of slot j (< n) from (dim, n) planes; absent axes and slots at or
-// past n read 0, which adds exactly 0 to dsq.
-template <typename P>
-__device__ __forceinline__ P plane_at(const P* planes, int n, int dim, int a,
-                                      int j) {
-  return (a < dim && j < n) ? planes[static_cast<int64_t>(a) * n + j] : P(0);
+// Coordinates of slot j (< n) from the planes, tag w in .w; absent axes
+// read 0, which adds exactly 0 to dsq and to the box gap.
+template <typename T, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ V load_point(const T* planes, int n, int dim, int j,
+                                        int32_t w) {
+  V v;
+  v.x = planes[j];
+  v.y = dim > 1 ? planes[static_cast<int64_t>(n) + j] : T(0);
+  v.z = dim > 2 ? planes[2 * static_cast<int64_t>(n) + j] : T(0);
+  v.w = tag_to(T(0), w);
+  return v;
+}
+
+// The own cluster's box and its gap test in the coordinates' type: the
+// header's f32 box (with the split margin and the low parts' reach), or a
+// double box for the f64 instance.
+template <typename T, bool SPLIT>
+struct Prune;
+template <bool SPLIT>
+struct Prune<float, SPLIT> {
+  Box box;
+  float thr;
+  __device__ __forceinline__ Prune(float4 h, float4 l, bool real, float csq)
+      : box(cluster_box<SPLIT>(h, l, real)), thr(prune_threshold<SPLIT>(csq)) {}
+  __device__ __forceinline__ bool near(float4 b, float4 bl) const {
+    return near_box<SPLIT>(box, b, bl, thr);
+  }
+};
+template <>
+struct Prune<double, false> {
+  BoxOf<double> box;
+  double thr;
+  __device__ __forceinline__ Prune(const Double4& h, float4, bool real,
+                                   double csq)
+      : box(cluster_box_of(h.x, h.y, h.z, real)), thr(csq) {}
+  __device__ __forceinline__ bool near(const Double4& b, float4) const {
+    return near_box_of<false>(box, b.x, b.y, b.z, thr);
+  }
+};
+
+// A lane: its own point, low parts, key and payload, and the slots it pairs
+// with: entry tag w pairs iff -1 <= w < -1 + span, as unsigned arithmetic
+// tests it (band 0's triangle w < i; the other bands carry w = -1). span =
+// 0 for a slot at or past n.
+template <typename T>
+struct HistLane {
+  typename Vec4Of<T>::type h;
+  float4 l;
+  int32_t key;
+  unsigned span;
+  T w;
+};
+
+// dsq of own point (h, l) and entry (b, bl) in the plain version's order:
+// (dx dx + dy dy) + dz dz, in split mode each axis' d = (hi_i - hi_j) +
+// (lo_i - lo_j).
+template <bool SPLIT, typename V>
+__device__ __forceinline__ auto hist_dsq(const V& h, float4 l, const V& b,
+                                         float4 bl) {
+  auto dx = h.x - b.x;
+  auto dy = h.y - b.y;
+  auto dz = h.z - b.z;
+  if constexpr (SPLIT) {
+    dx = dx + (l.x - bl.x);
+    dy = dy + (l.y - bl.y);
+    dz = dz + (l.z - bl.z);
+  }
+  auto dsq = dx * dx;
+  dsq = dsq + dy * dy;
+  dsq = dsq + dz * dz;
+  return dsq;
 }
 
 // The first bin k < K whose edge is above dsq, for dsq < edges[K - 1].
@@ -107,76 +200,183 @@ __device__ __forceinline__ bool species_pair(T wi, T wj, T a, T b) {
   return (wi == a && wj == b) || (wi == b && wj == a);
 }
 
-template <typename T, bool SPLIT, bool BANDMASK>
+// What a sweep reads besides the buffers.
+template <typename T>
+struct SweepArgs {
+  T csq;  // edges[K - 1]
+  int32_t band_lo, band_hi;
+  const T* edges;  // in shared memory
+  int K;
+  T ma, mb;
+  unsigned* bins;  // the warp's bins in shared memory
+};
+
+// Phase A of one entry: whether it is a hit of the lane (the triangle, the
+// band, dsq < edges[K - 1], the species mask).
+template <typename T, bool SPLIT, bool BANDMASK, bool MASK, typename V>
+__device__ __forceinline__ bool hist_hit(const HistLane<T>& o, const V* bh,
+                                         const float4* bl, const int32_t* bk,
+                                         const T* bp, int q,
+                                         const SweepArgs<T>& sa) {
+  const V b = bh[q];
+  const T dsq = hist_dsq<SPLIT>(o.h, o.l, b,
+                                SPLIT ? bl[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  bool m = static_cast<unsigned>(tag_from(b.w) + 1) < o.span && dsq < sa.csq;
+  if (BANDMASK) {
+    const long long diff = static_cast<long long>(o.key) -
+                           static_cast<long long>(bk[q]);
+    m = m && diff >= sa.band_lo && diff <= sa.band_hi;
+  }
+  if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);
+  return m;
+}
+
+// Sweeps entries [0, cnt) of the warp's buffers (cnt <= 32, warp-uniform;
+// FULL: cnt == 32, unrolled): phase A sets the lane's hit bits, phase B
+// bins each hit, in ascending q.
+template <typename T, bool SPLIT, bool BANDMASK, bool MASK, bool FULL,
+          typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
+                                           const float4* bl, const int32_t* bk,
+                                           const T* bp, int cnt,
+                                           const SweepArgs<T>& sa) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  unsigned hits = 0u;
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kWarp; ++q)
+      if (hist_hit<T, SPLIT, BANDMASK, MASK>(o, bh, bl, bk, bp, q, sa)) hits |= 1u << q;
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < cnt; ++q)
+      if (hist_hit<T, SPLIT, BANDMASK, MASK>(o, bh, bl, bk, bp, q, sa)) hits |= 1u << q;
+  }
+  while (hits != 0u) {
+    const int q = __ffs(static_cast<int>(hits)) - 1;
+    hits &= hits - 1u;
+    const T dsq = hist_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero);
+    atomicAdd(&sa.bins[first_bin_above(sa.edges, sa.K, dsq)], 1u);
+  }
+}
+
+template <typename T, bool SPLIT, bool BANDMASK, bool MASK>
 __global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
-  __shared__ T sj[kMaxDim][kChunk];
-  __shared__ float sl[kMaxDim][SPLIT ? kChunk : 1];
-  __shared__ T sw[kChunk];
-  __shared__ int32_t sk[kChunk];
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kClusters][kBuf];
+  __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
+  __shared__ int32_t buf_key[kClusters][BANDMASK ? kBuf : 1];
+  __shared__ T buf_pay[kClusters][MASK ? kBuf : 1];
   __shared__ T sedges[kMaxBins];
-  __shared__ unsigned long long bins[kMaxBins];
+  __shared__ unsigned bins[kClusters][kMaxBins];
   const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  if (t < a.K) {
-    sedges[t] = a.edges[t];
-    bins[t] = 0ULL;
-  }
-  const int i = c * kChunk + t;
-  const bool own_real = i < a.n;
-  const int32_t own_key = a.keys[i];  // keys cover every launched chunk
-  T oh[kMaxDim];
-  float ol[kMaxDim];
-#pragma unroll
-  for (int ax = 0; ax < kMaxDim; ++ax) {
-    oh[ax] = plane_at(a.pos, a.n, a.dim, ax, i);
-    ol[ax] = SPLIT ? plane_at(a.lo, a.n, a.dim, ax, i) : 0.0f;
-  }
-  const bool masked = a.mask != kMaskNone;
-  const T own_w = masked && own_real ? a.pay[i] : T(0);
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  for (int k = threadIdx.x; k < kClusters * kMaxBins; k += kChunk)
+    bins[k / kMaxBins][k % kMaxBins] = 0u;
+  if (threadIdx.x < a.K) sedges[threadIdx.x] = a.edges[threadIdx.x];
+  const int base = c * kChunk + w * kWarp;  // the own cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  V* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  int32_t* bk = buf_key[w];
+  T* bp = buf_pay[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  HistLane<T> o;
+  o.h = real ? load_point(a.pos, a.n, a.dim, i, 0) : vzero;
+  o.l = SPLIT && real ? load_point(a.lo, a.n, a.dim, i, 0) : zero;
+  o.key = a.keys[i];  // keys cover every launched chunk
+  o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
+  o.w = MASK && real ? a.pay[i] : T(0);
   __syncthreads();
-  const T csq = sedges[a.K - 1];
-  for (int s = 0; s < a.S; ++s) {
-    const int32_t* w = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
-    const int first = w[0] + w[1];
-    const int num = w[2];
-    const int32_t band_lo = a.bands[2 * s];
-    const int32_t band_hi = a.bands[2 * s + 1];
-    for (int jt = 0; jt < num; ++jt) {
-      const int jc = first + jt;
-      const int j0 = jc * kChunk;
-      sk[t] = a.keys[j0 + t];
+  SweepArgs<T> sa{sedges[a.K - 1], 0, 0, sedges, a.K, a.ma, a.mb, bins[w]};
+  // a cluster past n holds no particle: its warp only joins the fold
+  if (base < a.n) {
+    const Prune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
+    const unsigned below = (1u << lane) - 1u;
+    int cnt = 0;  // entries in the buffer, warp-uniform
+    for (int s = 0; s < a.S; ++s) {
+      const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
+      const int first = win[0] + win[1];
+      const int num = win[2];
+      sa.band_lo = a.bands[2 * s];
+      sa.band_hi = a.bands[2 * s + 1];
+      for (int jc = first; jc < first + num; ++jc) {
+        if (jc * kChunk >= a.n) break;  // later clusters lie past n too
+        // band 0: a j-cluster that starts after the own cluster holds no
+        // j < i for any lane, and neither do the later ones
+        if (s == 0 && jc * kChunk > base) break;
+        // the j-chunk's live clusters: all loads in flight at once, then
+        // the survivors of each appended in slot order
+        V b[kClusters];
+        float4 b_lo[kClusters];
+        bool keep[kClusters];
 #pragma unroll
-      for (int ax = 0; ax < kMaxDim; ++ax) {
-        sj[ax][t] = plane_at(a.pos, a.n, a.dim, ax, j0 + t);
-        if (SPLIT) sl[ax][t] = plane_at(a.lo, a.n, a.dim, ax, j0 + t);
-      }
-      if (masked) sw[t] = j0 + t < a.n ? a.pay[j0 + t] : T(0);
-      __syncthreads();
-      // lanes at or past n hold no particle
-      const int lanes = min(kChunk, a.n - j0);
-      for (int q = 0; q < lanes; ++q) {
-        T dsq = T(0);
+        for (int k = 0; k < kClusters; ++k) {
+          const int j0 = jc * kChunk + k * kWarp;
+          const int j = j0 + lane;
+          keep[k] = j < a.n && (s != 0 || j0 <= base);
+          b[k] = keep[k] ? load_point(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : vzero;
+          b_lo[k] = SPLIT && keep[k] ? load_point(a.lo, a.n, a.dim, j, 0) : zero;
+        }
+        // the key and the payload are read for the survivors only
 #pragma unroll
-        for (int ax = 0; ax < kMaxDim; ++ax) {
-          T d = oh[ax] - sj[ax][q];
-          if (SPLIT) d = d + (ol[ax] - sl[ax][q]);
-          dsq = dsq + d * d;
+        for (int k = 0; k < kClusters; ++k) {
+          const int j = jc * kChunk + k * kWarp + lane;
+          keep[k] = keep[k] && prune.near(b[k], b_lo[k]);
+          compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
+            bh[at] = b[k];
+            if (SPLIT) bl[at] = b_lo[k];
+            if (BANDMASK) bk[at] = a.keys[j];
+            if (MASK) bp[at] = a.pay[j];
+          });
         }
-        bool m = own_real && dsq < csq;
-        if (BANDMASK) {
-          const long long diff =
-              static_cast<long long>(own_key) - static_cast<long long>(sk[q]);
-          m = m && diff >= band_lo && diff <= band_hi;
+        if (cnt >= kWarp) {
+          __syncwarp();
+          int done = 0;
+          for (; cnt - done >= kWarp; done += kWarp)
+            hist_sweep<T, SPLIT, BANDMASK, MASK, true>(o, bh + done, bl + done, bk + done,
+                                                       bp + done, kWarp, sa);
+          __syncwarp();
+          // move the remainder to the front of the buffers
+          cnt -= done;
+          if constexpr (SPLIT)
+            shift_front<1, true>(bh, bl, done, cnt, lane);
+          else
+            shift_front<1, false>(bh, bh, done, cnt, lane);
+          if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+          if (MASK) shift_front<1, false>(bp, bp, done, cnt, lane);
         }
-        if (s == 0) m = m && (jc < c || (jc == c && q < t));
-        if (m && masked) m = species_pair(own_w, sw[q], a.ma, a.mb);
-        if (m) atomicAdd(&bins[first_bin_above(sedges, a.K, dsq)], 1ULL);
       }
-      __syncthreads();
+      if (BANDMASK && cnt > 0) {
+        // the band is uniform within a sweep
+        __syncwarp();
+        hist_sweep<T, SPLIT, BANDMASK, MASK, false>(o, bh, bl, bk, bp, cnt, sa);
+        __syncwarp();
+        cnt = 0;
+      }
+    }
+    if (cnt > 0) {
+      __syncwarp();
+      hist_sweep<T, SPLIT, BANDMASK, MASK, false>(o, bh, bl, bk, bp, cnt, sa);
     }
   }
   __syncthreads();
-  if (t < a.K && bins[t] != 0ULL) atomicAdd(&a.counts[t], bins[t]);
+  if (threadIdx.x < a.K) {
+    unsigned long long sum = 0ULL;
+#pragma unroll
+    for (int k = 0; k < kClusters; ++k) sum += bins[k][threadIdx.x];
+    if (sum != 0ULL) atomicAdd(&a.counts[threadIdx.x], sum);
+  }
+}
+
+template <typename T, bool SPLIT, bool BANDMASK>
+void launch_mask(const Args<T>& a, bool masked, int blocks, cudaStream_t s) {
+  if (masked)
+    tile_hist_kernel<T, SPLIT, BANDMASK, true><<<blocks, kChunk, 0, s>>>(a);
+  else
+    tile_hist_kernel<T, SPLIT, BANDMASK, false><<<blocks, kChunk, 0, s>>>(a);
 }
 
 template <typename T, bool SPLIT>
@@ -197,15 +397,15 @@ void launch(const void* pos, const float* lo, const void* pay,
   a.dim = dim;
   a.S = S;
   a.K = K;
-  a.mask = mask;
   a.ma = static_cast<T>(ma);
   a.mb = static_cast<T>(mb);
   a.counts = counts;
   const int blocks = (n + kChunk - 1) / kChunk;
+  const bool masked = mask != kMaskNone;
   if (bandmask)
-    tile_hist_kernel<T, SPLIT, true><<<blocks, kChunk, 0, s>>>(a);
+    launch_mask<T, SPLIT, true>(a, masked, blocks, s);
   else
-    tile_hist_kernel<T, SPLIT, false><<<blocks, kChunk, 0, s>>>(a);
+    launch_mask<T, SPLIT, false>(a, masked, blocks, s);
 }
 
 }  // namespace

@@ -1,6 +1,8 @@
-"""The geometric prune of the pair kernels K1, K3, K6 and K7
+"""The geometric prune of the pair kernels K1, K3, K6, K7 and K9
 (``csrc/lag_reduce.cu``, ``csrc/lag_forces.cu``, ``csrc/tile_reduce.cu``,
-``csrc/tile_forces.cu``, on ``csrc/cluster_sweep.cuh``) in plain PyTorch.
+``csrc/tile_forces.cu``, ``csrc/tile_hist.cu``) and of the query join K12
+(``csrc/join_reduce.cu``), all on ``csrc/cluster_sweep.cuh``, in plain
+PyTorch.
 
 The kernels give each warp a cluster of ``CLUSTER`` consecutive sorted
 slots, reduce the cluster's axis-aligned box over its real slots (< n), and
@@ -11,7 +13,11 @@ split mode, where each axis' gap is first reduced by the largest low part
 of the cluster plus j's own (``cluster_sweep.cuh`` says why no pair that
 counts is dropped). The forces kernels sweep both sides of each slot (K3's
 lag ranges, K7's full stencil), the energy kernels one side (K1's lags
-behind each slot, K6's half stencil with band 0's triangle). This module
+behind each slot, K6's half stencil with band 0's triangle; the tile
+histogram K9 sweeps K6's entries). K12's clusters are 32 consecutive sorted
+queries against the particles of each band's union range, kept where the
+gap to the query box, in the coordinates' type, is at most the cutoff (the
+join's cutoff is inclusive): `join_cluster_entries`. This module
 repeats those operations, so that the card's measurements can count the
 lane evaluations the prune leaves (``chip_smoke.py``) and the CPU tests can
 hold the rule to brute force. The kernels compute their boxes themselves,
@@ -22,15 +28,16 @@ from __future__ import annotations
 
 import torch
 
-from ..core.geometry import key_window
+from ..core.geometry import SENTINEL_KEY, key_window
 from .lag_pairs import _pad_and_desentinel
-from .segments import CHUNK
+from .segments import CHUNK, segment_bands
 
 CLUSTER = 32  # slots per cluster: one warp's own slots
 # Split mode's prune threshold is cutoff^2 times this (above the 1e-6 tie
 # band of `lag_pairs.split_cutoff_test`)
 SPLIT_MARGIN = 1.0 + 2.0**-19
 _BATCH = 16384  # own clusters per step of the counts
+_JOIN_BATCH = 1 << 22  # (cluster, particle) tests per step of K12's counts
 
 
 def prune_threshold(cutoff_sq, split: bool, device=None) -> torch.Tensor:
@@ -60,17 +67,19 @@ def cluster_boxes(planes: torch.Tensor, lo: torch.Tensor | None = None):
     return mn, mx, lomax
 
 
-def near_cluster(mn, mx, lomax, pts, pts_lo, thr) -> torch.Tensor:
+def near_cluster(mn, mx, lomax, pts, pts_lo, thr, *,
+                 inclusive: bool = False) -> torch.Tensor:
     """True where a point may hold a pair with the cluster: the kernels'
-    gap test. ``mn``, ``mx``, ``lomax`` broadcast against the (dim, ...)
-    points ``pts`` (and their low parts ``pts_lo``, or None in f32 mode)."""
+    gap test, ``gsq < thr`` (``gsq <= thr`` with ``inclusive``, K12's).
+    ``mn``, ``mx``, ``lomax`` broadcast against the (dim, ...) points
+    ``pts`` (and their low parts ``pts_lo``, or None in f32 mode)."""
     gsq = None
     for a in range(pts.shape[0]):
         g = torch.clamp(torch.maximum(mn[a] - pts[a], pts[a] - mx[a]), min=0.0)
         if pts_lo is not None:
             g = torch.clamp(g - (lomax[a] + pts_lo[a].abs()), min=0.0)
         gsq = g * g if gsq is None else gsq + g * g
-    return gsq < thr
+    return gsq <= thr if inclusive else gsq < thr
 
 
 def tile_cluster_entries(inp, cutoff_sq, *, half: bool = False) -> torch.Tensor:
@@ -153,4 +162,70 @@ def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
         near = near_cluster(*[x[:, cl, None] for x in (mn, mx, lomax)], planes[:, j],
                             None if lo is None else lo[:, j], thr)
         counts[cl] = (near & ok).sum(-1)
+    return counts
+
+
+def join_ranges(qkeys: torch.Tensor, pkeys: torch.Tensor, bands: torch.Tensor):
+    """K12's union range of each query cluster and band: (first, end), each
+    (ceil(nq / CLUSTER), S) int64, the particles whose key lies in [kf -
+    hi_s, kl - lo_s] for the cluster's smallest and largest real key kf, kl
+    (``pkeys`` ascending). A cluster without a real query (every key
+    SENTINEL_KEY) gets empty ranges."""
+    nq = qkeys.shape[0]
+    ncl = -(-nq // CLUSTER)
+    pad = ncl * CLUSTER - nq
+    k = torch.cat([qkeys.long(), qkeys.new_full((pad,), SENTINEL_KEY).long()])
+    k = k.reshape(ncl, CLUSTER)
+    real = k != SENTINEL_KEY
+    kf = torch.where(real, k, torch.full_like(k, 2**62)).amin(1)
+    kl = torch.where(real, k, torch.full_like(k, -(2**62))).amax(1)
+    b = bands.long()
+    pk = pkeys.long()
+    first = torch.searchsorted(pk, kf[:, None] - b[None, :, 1])
+    end = torch.searchsorted(pk, kl[:, None] - b[None, :, 0], right=True)
+    end = torch.where(real.any(1)[:, None], end, first)
+    return first, end
+
+
+def join_boxes(qplanes: torch.Tensor, qkeys: torch.Tensor):
+    """Per-cluster boxes (mn, mx), each (3, ceil(nq / CLUSTER)), of the
+    (3, nq) query planes in their own type; queries with SENTINEL_KEY take
+    no part."""
+    real = qkeys != SENTINEL_KEY
+    inf = float("inf")
+    mn, _, _ = cluster_boxes(torch.where(real, qplanes, torch.full_like(qplanes, inf)))
+    _, mx, _ = cluster_boxes(torch.where(real, qplanes, torch.full_like(qplanes, -inf)))
+    return mn, mx
+
+
+def join_cluster_entries(qplanes: torch.Tensor, qkeys: torch.Tensor,
+                         pplanes: torch.Tensor, pkeys: torch.Tensor, strides,
+                         cutoff_sq) -> torch.Tensor:
+    """The buffer entries each query cluster of K12 sweeps: over the 9
+    bands, the particles of the band's union range (`join_ranges`) whose
+    gap to the cluster's query box, in the coordinates' type, is at most
+    ``cutoff_sq`` ((3, nq) query and (3, np) particle planes of one dtype,
+    keys ascending). Returns (ceil(nq / CLUSTER),) int64; each entry is one
+    evaluation for each of the cluster's queries."""
+    device = qplanes.device
+    csq = torch.as_tensor(cutoff_sq, dtype=qplanes.dtype, device=device)
+    bands = segment_bands(torch.as_tensor(strides, device=device), full=True)
+    first, end = join_ranges(qkeys, pkeys, bands)
+    mn, mx = join_boxes(qplanes, qkeys)
+    zero = torch.zeros((), dtype=qplanes.dtype, device=device)
+    ncl = first.shape[0]
+    counts = torch.zeros(ncl, dtype=torch.int64, device=device)
+    npart = pplanes.shape[1]
+    for s in range(bands.shape[0]):
+        width = end[:, s] - first[:, s]
+        step = max(1, _JOIN_BATCH // max(int(width.max()) if ncl else 1, 1))
+        for c0 in range(0, ncl, step):
+            cl = slice(c0, min(c0 + step, ncl))
+            w = int(width[cl].max())
+            j = first[cl, s, None] + torch.arange(w, device=device)
+            ok = j < end[cl, s, None]
+            j = j.clamp(0, max(npart - 1, 0))
+            near = near_cluster(mn[:, cl, None], mx[:, cl, None], zero, pplanes[:, j],
+                                None, csq, inclusive=True)
+            counts[cl] += (near & ok).sum(-1)
     return counts
