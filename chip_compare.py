@@ -7,14 +7,16 @@ Run from the root of a checkout, on the machine with the card:
         K1, K3, K6 and K7 built to cubins from this checkout and from TREE
         (an earlier commit unpacked by `git archive <commit> | tar -x -C
         archive/parent` into the git-ignored archive/) with ops/_build.py's
-        flags: per kernel function, its registers in both and whether the
-        SASS is the same (addresses, encodings and branch labels set
-        aside). A change to the shared header cluster_sweep.cuh must leave
-        them as they are.
+        flags: per kernel function the two trees share, its registers in
+        both and whether the SASS is the same (addresses, encodings and
+        branch labels set aside), and the functions only this tree has (new
+        instances). A change to the shared header cluster_sweep.cuh must
+        leave the shared functions' registers as they are and lose none.
     python3 chip_compare.py mutations
         each mutation of MUTATIONS applied to a copy of the package and the
         tests under $TMPDIR/mut/<name>, and its kernel's card test run
-        there; the unbroken copy first. A mutation must fail its test.
+        there; the unbroken copy first, with every selected test. A
+        mutation must fail its test.
 
 It prints one JSON line per result and exits non-zero if a check fails.
 """
@@ -39,7 +41,9 @@ MUTATIONS = {
     "k9_split_margin": ("tile_hist", [
         ("cluster_sweep.cuh", "constexpr float kSplitMargin = 1.0f + 0x1p-19f;",
          "constexpr float kSplitMargin = 1.0f;"),
-        ("cluster_sweep.cuh", "  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);\n", "")]),
+        ("cluster_sweep.cuh", "  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);\n"
+         "  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);\n",
+         "  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);\n")]),
     "k9_skip_cluster": ("tile_hist", [
         ("tile_hist.cu", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
          "keep[k] = keep[k] && k < kClusters - 1 && prune.near(b[k], b_lo[k]);")]),
@@ -62,7 +66,29 @@ MUTATIONS = {
     "k12_band_dropped": ("join", [
         ("join_reduce.cu", "o.real && diff >= band_lo && diff <= band_hi && dsq <= csq",
          "o.real && dsq <= csq")]),
+    # the periodic instances: K1 and K3's minimum image, K1 and K6's keep mask
+    "mi_prune_images_dropped": ("pbc_lag_reduce or pbc_lag_forces", [
+        ("cluster_sweep.cuh",
+         "    g = fminf(g, fmaxf(fmaxf(mn - up, up - mx), 0.0f));\n"
+         "    g = fminf(g, fmaxf(fmaxf(mn - dn, dn - mx), 0.0f));\n", "")]),
+    "mi_fold_sign_inverted": ("pbc_lag_reduce or pbc_lag_forces", [
+        ("cluster_sweep.cuh", "shift = s > half ? bx : (s < -half ? -bx : 0.0f);",
+         "shift = s > half ? -bx : (s < -half ? bx : 0.0f);")]),
+    "mi_split_carry_dropped": ("pbc_lag_reduce or pbc_lag_forces", [
+        ("cluster_sweep.cuh", "d = d + (e + (li - lj));", "d = d + (li - lj);")]),
+    "keep_sum_gt": ("pbc_lag_reduce or pbc_tile_reduce", [
+        ("cluster_sweep.cuh", "return wi * wj == 0.0f && wi + wj >= 0.0f;",
+         "return wi * wj == 0.0f && wi + wj > 0.0f;")]),
+    "k6_payload_own_slot": ("pbc_tile_reduce", [
+        ("tile_reduce.cu", "wj[k] = KEEP && keep[k] ? a.w[j] : 0.0f;",
+         "wj[k] = KEEP && keep[k] ? o.pw : 0.0f;")]),
 }
+
+# the kernels each test selection needs, built before the card is needed
+_LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_kernel()",
+            "pbc_lag_reduce": "lag_pairs.load_kernel()",
+            "pbc_lag_forces": "lag_pairs.load_forces_kernel()",
+            "pbc_tile_reduce": "tile_pairs.load_kernel()"}
 
 
 def emit(kind: str, **fields) -> None:
@@ -144,10 +170,12 @@ def sass(tree: str) -> None:
         mine, theirs = jobs[kernel, "this"][0], jobs[kernel, "other"][0]
         fa, fb = _sass_by_function(mine), _sass_by_function(theirs)
         ra, rb = _registers(mine), _registers(theirs)
-        same_regs = ra == rb
-        ok = ok and same_regs and set(fa) == set(fb)
-        emit("sass", kernel=kernel, functions=len(fa), registers_equal=same_regs,
-             sass_equal=sum(fa[f] == fb.get(f) for f in fa),
+        shared = set(fa) & set(fb)
+        same_regs = all(ra.get(f) == rb.get(f) for f in shared)
+        ok = ok and same_regs and set(fb) <= set(fa)
+        emit("sass", kernel=kernel, functions=len(fb), shared=len(shared),
+             registers_equal=same_regs, sass_equal=sum(fa[f] == fb[f] for f in shared),
+             new_functions=len(set(fa) - set(fb)), lost_functions=len(set(fb) - set(fa)),
              registers={f: [ra.get(f), rb.get(f)] for f in sorted(set(ra) | set(rb))})
     if not ok:
         raise SystemExit("registers or functions differ")
@@ -157,6 +185,9 @@ def mutations() -> None:
     base = Path(os.environ.get("TMPDIR", tempfile.gettempdir())) / "mut"
     shutil.rmtree(base, ignore_errors=True)
     names = ["unbroken", *MUTATIONS]
+    every = " or ".join(dict.fromkeys(
+        part for sel, _ in MUTATIONS.values() for part in sel.split(" or ")))
+    selects = {"unbroken": every, **{k: v[0] for k, v in MUTATIONS.items()}}
 
     def prepare(name):
         dest = base / name
@@ -168,16 +199,17 @@ def mutations() -> None:
         if name != "unbroken":
             edited_copy(MUTATIONS[name][1], dest / "zelll_tpu_torch" / "csrc")
         # build the copy's kernels before the card is needed
+        loads = "; ".join(_LOADERS[part] for part in selects[name].split(" or "))
         return subprocess.run(
-            [sys.executable, "-c", "from zelll_tpu_torch.ops import join, tile_pairs; "
-             "tile_pairs.load_hist_kernel(); join.load_kernel()"],
+            [sys.executable, "-c",
+             f"from zelll_tpu_torch.ops import join, lag_pairs, tile_pairs; {loads}"],
             cwd=dest, capture_output=True, text=True).returncode
 
     with ThreadPoolExecutor(8) as pool:
         built = dict(zip(names, pool.map(prepare, names)))
     ok = True
     for name in names:
-        select = "tile_hist or join" if name == "unbroken" else MUTATIONS[name][0]
+        select = selects[name]
         proc = subprocess.run(
             [sys.executable, "-m", "pytest", "tests/test_torch_kernels.py", "--noconftest",
              "-o", "addopts=", "-q", "-p", "no:cacheprovider", "-k", select],

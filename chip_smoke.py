@@ -39,8 +39,18 @@ partial, `md_run_langevin` over the thin MD start state with the pressure
 tensor and histogram of its end state, and `CellGrid.distance_histogram`
 at n = 1e6), each call's launches counted alone, their f64-grade parity
 with the exact-f64 oracle at n = 1e6, and each kernel alone at n = 1e7
-against its bound. It prints one JSON
-line per phase. Any failed phase
+against its bound. Then periodic boxes (`ops.pbc`, the periodic MD
+loops): the new kernel instances (K1 with the periodic keep mask, with
+the minimum image and with both; K3 with the minimum image; K6 with the
+keep mask) against their plain versions at n = 2e5 on four inputs, a
+seam lattice among them (`pbc_vs_plain`), the protocols of the JAX
+package's periodic benchmarks at n = 1e7 through the entry points, each
+call's launches counted alone (`pbc_main_path`: the rebuild, the MD step
+and the Verlet-skin steady state of the thin box, with ghost images and
+with the minimum image, and of the cube), their f64-grade parity on every
+path at n = 1e6 against the oracle run on numpy ghost images
+(`pbc_parity`), and each instance alone at n = 1e7 (`pbc_alone`). It
+prints one JSON line per phase. Any failed phase
 exits non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as nvidia-smi reports them.
@@ -552,7 +562,7 @@ def time_steps(step, state, steps: int):
                 steps=steps, all_flags_true=all_ok), state
 
 
-def time_skin(run, state, steps: int) -> dict:
+def time_skin(run, state, steps: int, what: str = "") -> dict:
     """One Verlet-skin run of ``steps`` steps (after a 2-step warm-up run):
     device and host ms per step, rebuilds, the final energy and flag."""
     run(state, 2)
@@ -566,8 +576,8 @@ def time_skin(run, state, steps: int) -> dict:
     end.synchronize()
     host_ms = (time.perf_counter() - t_host) * 1e3 / steps
     energy = float(energy)
-    check(bool(ok), "a coverage flag dropped in the skin loop")
-    check(np.isfinite(energy), "non-finite energy after the skin loop")
+    check(bool(ok), f"a coverage flag dropped in the skin loop {what}")
+    check(np.isfinite(energy), f"non-finite energy after the skin loop {what}")
     return dict(step_ms=start.elapsed_time(end) / steps, host_step_ms=host_ms,
                 steps=steps, skin=MD_SKIN, rebuilds=rebuilds, energy=energy,
                 ok=bool(ok))
@@ -2174,6 +2184,591 @@ def hist_alone(dev, n: int) -> dict:
 
 
 
+
+# -- periodic boxes (ops/pbc.py: K1 keep mask and minimum image, K3 minimum
+# image, K6 keep mask) --------------------------------------------------------
+
+# The JAX package's periodic benchmarks: benchmarks/pbc_bench.py and
+# pbc_md_bench.py (MAXJ 24 on the cube, dt 1e-4 from rest, 5 reps),
+# pbc_steady_state.py (lattice clouds, skin 0.5, dt 1e-4, 50 steps, MAXJ 20)
+PBC_MAXJ = 24
+PBC_SS_MAXJ = 20
+PBC_REPS = 5
+# FP32 instructions per candidate of the periodic instances, beside
+# INSTR_PER_CANDIDATE: the keep mask (w_i w_j, == 0, w_i + w_j, >= 0), and
+# the minimum image's fold per folded axis (two compares, a select, the
+# subtraction; split mode also the two-diff's four operations and its add)
+INSTR_KEEP = 4
+INSTR_MI_FOLD = {False: 4, True: 10}
+
+
+def pbc_sorted(pts: np.ndarray, box, kind: str, dev, *, B=None, G=None, BE=None,
+               ghosts_per_row: int = 7):
+    """Sorted split inputs of a periodic box on the card, as `ops.pbc`
+    makes them: (hi, lo, keys, strides, payload plane or None, mi_box or
+    None, reach or None, ok). ``kind``: "keep", ghost images on every axis
+    (the keep mask over the shift-sign plane, `pbc_pair_sum`'s lag and tile
+    paths); "both", x and y folded and z ghost-extended (``minimage="auto"``
+    on the thin box); "mi", x and y folded and z open (the minimum image
+    alone). Capacities default to n rows (every row may be a boundary row)
+    and ``ghosts_per_row`` images per row."""
+    from zelll_tpu_torch.core import GridInfo, compute_keys, sort_by_key
+    from zelll_tpu_torch.core.binning import bin_and_sort
+    from zelll_tpu_torch.core.geometry import Aabb
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+    from zelll_tpu_torch.ops.pbc import _minimage_bins, pbc_extend, wrap_positions
+
+    n = len(pts)
+    box = np.asarray(box, np.float64)
+    hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+    if kind == "keep":
+        ext, elo, w, valid, ok = pbc_extend(
+            hi, [0.0] * 3, box, CUTOFF, B=B or n, G=G or ghosts_per_row * n, BE=BE or B or n,
+            positions_lo=lo)
+        del hi, lo
+        bins, cols = bin_and_sort(torch.cat([ext, elo, w[:, None]], 1), CUTOFF, max_cells=1,
+                                  need_perm=False, valid=valid, auto_order=True)
+        return (cols[:, :3].contiguous(), cols[:, 3:6].contiguous(), bins.sorted_keys,
+                bins.info.strides, cols[:, 6].contiguous(), None, None, ok)
+    if kind == "both":
+        bins, sp, slo, pay, reach, mib, ok = _minimage_bins(
+            hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=B or n,
+            G=G or n, positions_lo=lo, need_perm=False)
+        return (sp.contiguous(), slo.contiguous(), bins.sorted_keys, bins.info.strides,
+                pay[:, 0].contiguous(), mib, reach, ok)
+    fold = torch.tensor([True, True, False], device=dev)
+    whi = torch.where(fold, wrap_positions(hi, [0.0] * 3, box), hi)
+    zlo, zhi = float(whi[:, 2].min()), float(whi[:, 2].max())
+    aabb = Aabb(torch.tensor([0.0, 0.0, zlo], device=dev),
+                torch.tensor([box[0], box[1], zhi], device=dev))
+    info = GridInfo.create(aabb, CUTOFF, auto_order=True)
+    keys, _, shi, slo = sort_by_key(compute_keys(whi, info), whi, lo)
+    reach = tuple(max(int(np.ceil(box[a] / CUTOFF)) - 1, 1) if a < 2 else 1 for a in range(3))
+    return (shi, slo, keys, info.strides, None,
+            torch.tensor([box[0], box[1], 0.0], dtype=torch.float32), reach,
+            torch.ones((), dtype=torch.bool, device=dev))
+
+
+def drifted(case: tuple, seed: int = 5) -> tuple:
+    """A sorted case's coordinates moved by up to a skin of 0.5 since its
+    keys were built (keys, payload and window kept)."""
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+
+    shi, slo, *rest = case
+    moved = shi.double() + slo.double() + torch.as_tensor(np.random.default_rng(seed).uniform(
+        -0.25, 0.25, tuple(shi.shape)), device=shi.device)
+    return (*split_f64(moved), *rest)
+
+
+def window_candidates(keys: torch.Tensor, strides, L: int, reach=None) -> int:
+    """The lag window's candidate pairs (i, j < i) of the real rows: the
+    work of the lag kernels' function, with the window widened by
+    ``reach``."""
+    from zelll_tpu_torch.core import key_window
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY
+
+    real = keys != SENTINEL_KEY
+    first = torch.searchsorted(keys, keys - key_window(strides, reach))
+    slots = torch.arange(keys.shape[0], device=keys.device)
+    return int(torch.where(real, torch.clamp(slots - first, max=L), 0).sum())
+
+
+def pbc_vs_plain(dev, n: int) -> dict:
+    """The periodic kernel instances against their plain versions on
+    identical sorted inputs (n = 2e5), each alone: K1 with the keep mask
+    (thin box, ghost images on every axis), with the minimum image alone
+    (x and y folded, z open) and with both (``minimage="auto"``), f32 and
+    split, LJ and count; K3 with the minimum image (alone and on the
+    ghost-extended z), f32 and split; K6 with the keep mask (ghost-extended
+    cube), maskless and masked, f32 and split, LJ, fast LJ and count. Each
+    on the uniform cloud, a jittered lattice, a seam lattice (`seam_cloud`:
+    two layers at each x and y face of the thin box, spacing 1.5, and at
+    each x face of the cube, spacing 2.5; their pairs across those axes
+    cross the seam only, one spacing apart like the pairs inside, and the
+    other faces pair through ghost images) and the lattice drifted since
+    its keys were built. Counts exact, f64 totals to TOL_KERNEL (TOL_FAST),
+    forces to TOL_KERNEL of the largest. On the seam clouds the lane
+    evaluations of the periodic prune are printed beside those of a prune
+    without periodic images, which drops pairs there."""
+    from zelll_tpu_torch.ops.cluster_prune import lag_cluster_entries
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcKeepTerm, combine_count, count_term, lj_term, lj_term_fast, pair_lag_forces,
+        pair_lag_forces_plain, pair_lag_reduce, pair_lag_reduce_plain, suggest_lag,
+    )
+    from zelll_tpu_torch.ops.pbc import suggest_pbc_capacity
+    from zelll_tpu_torch.ops.tile_pairs import tile_pair_reduce, tile_pair_reduce_plain
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box, seam_cloud,
+    )
+
+    csq = CUTOFF**2
+    f64 = torch.float64
+    rng = np.random.default_rng(4)
+    thin = np.asarray(lj_box(n, CUTOFF))
+    data = {"uniform": generate_points_random(n, thin),
+            "lattice": generate_points_lattice(n, thin),
+            "seam": seam_cloud(thin, 1.5, 2, (0, 1), rng)}
+    k1, k3, prune, errs = {}, {}, {}, {"K1": 0.0, "K3": 0.0, "K6": 0.0}
+    B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
+    # the seam cloud is all boundary: every row near an x and a y face
+    caps = {"keep": dict(B=B, G=G, BE=BE), "both": {}, "mi": {}}
+    seam_caps = {"keep": dict(ghosts_per_row=4), "both": {}, "mi": {}}
+    for kind in ("keep", "mi", "both"):
+        cases = {tag: pbc_sorted(pts, thin, kind, dev,
+                                 **(seam_caps if tag == "seam" else caps)[kind])
+                 for tag, pts in data.items()}
+        cases["drifted"] = drifted(cases["lattice"])
+        for tag, (shi, slo, keys, strides, pay, mib, reach, ok) in cases.items():
+            check(bool(ok), f"the periodic inputs' flag ({kind}, {tag})")
+            L = suggest_lag(keys, strides, reach=reach)
+            for lo in (None, slo):
+                mode = "split" if lo is not None else "f32"
+                kw = dict(L=L, mi_box=mib, key_reach=reach)
+                case = {}
+                for term, out in ((lj_term, f64), (count_term, torch.int32)):
+                    t = term if pay is None else PbcKeepTerm(term)
+                    got = pair_lag_reduce(shi, keys, strides, csq, lo, pay, term=t,
+                                          out_dtype=out, **kw)
+                    want = pair_lag_reduce_plain(shi, keys, strides, csq, lo, pay, term=t,
+                                                 out_dtype=out, **kw)
+                    if out == torch.int32:
+                        c_k, c_p = combine_count(got), combine_count(want)
+                        check(c_k == c_p > 0, f"K1 {kind} count {c_k} != {c_p} ({tag} {mode})")
+                        case["pairs"] = c_k
+                    else:
+                        e_k, e_p = float(got), float(want)
+                        check(np.isfinite(e_k) and rel(e_k, e_p) <= TOL_KERNEL,
+                              f"K1 {kind} energy {e_k} vs {e_p} ({tag} {mode})")
+                        case.update(rel_err=rel(e_k, e_p), abs_err=abs(e_k - e_p))
+                        if tag == "lattice":
+                            errs["K1"] = max(errs["K1"], abs(e_k - e_p))
+                k1[f"{kind} {tag} {mode} L{L}"] = case
+                if kind != "keep":
+                    got = pair_lag_forces(shi, keys, strides, csq, lo, out_dtype=f64, **kw)
+                    want = pair_lag_forces_plain(shi, keys, strides, csq, lo, out_dtype=f64,
+                                                 **kw)
+                    err, scale = force_err(got, want)
+                    check(np.isfinite(err) and scale > 0 and err <= TOL_KERNEL * scale,
+                          f"K3 {kind} forces: max |df| {err} > {TOL_KERNEL} x {scale} "
+                          f"({tag} {mode})")
+                    k3[f"{kind} {tag} {mode}"] = dict(max_abs_err=err, err_over_max=err / scale)
+                    if tag == "lattice":
+                        errs["K3"] = max(errs["K3"], err)
+                if tag == "seam" and kind != "keep":
+                    # each own cluster's sweep entries, periodic and open
+                    args = (shi.t(), None if lo is None else lo.t(), keys, strides, csq, L)
+                    per = int(lag_cluster_entries(*args, half=True, mi_box=mib,
+                                                  reach=reach).sum())
+                    flat = int(lag_cluster_entries(*args, half=True, reach=reach).sum())
+                    check(per > flat, f"the seam case's open prune kept {flat} >= {per}")
+                    prune[f"{kind} {mode}"] = dict(periodic_entries=per, open_entries=flat)
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    cdata = {"uniform": generate_points_random(n, cube),
+             "lattice": generate_points_lattice(n, cube),
+             "seam": seam_cloud(cube, 2.5, 2, (0,), rng)}
+    Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+    ccaps = dict(B=Bc, G=Gc, BE=BEc)
+    ccases = {tag: pbc_sorted(pts, cube, "keep", dev,
+                              **(dict(ghosts_per_row=3) if tag == "seam" else ccaps))
+              for tag, pts in cdata.items()}
+    ccases["drifted"] = drifted(ccases["lattice"])
+    k6 = {}
+    for tag, (shi, slo, keys, strides, pay, _, _, ok) in ccases.items():
+        check(bool(ok), f"the periodic cube's flag ({tag})")
+        maxj = probe_maxj(keys, strides)
+        for bandmask in (False, True):
+            for lo in (None, slo):
+                what = f"{tag} {'masked' if bandmask else 'maskless'} " \
+                       f"{'split' if lo is not None else 'f32'}"
+                case = {}
+                terms = ((lj_term, f64, TOL_KERNEL), (count_term, torch.int32, 0))
+                if tag == "lattice":
+                    terms += ((lj_term_fast, f64, TOL_FAST),)
+                for term, out, tol in terms:
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, term=PbcKeepTerm(term),
+                              out_dtype=out)
+                    got, ok_k = tile_pair_reduce(shi, keys, strides, csq, lo, pay, **kw)
+                    want, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, lo, pay, **kw)
+                    check(bool(ok_k) == bool(ok_p) and bool(ok_k),
+                          f"K6 keep coverage {bool(ok_k)} / {bool(ok_p)} ({what})")
+                    if out == torch.int32:
+                        c_k, c_p = combine_count(got), combine_count(want)
+                        check(c_k == c_p > 0, f"K6 keep count {c_k} != {c_p} ({what})")
+                        case["pairs"] = c_k
+                    else:
+                        e_k, e_p = float(got), float(want)
+                        check(np.isfinite(e_k) and rel(e_k, e_p) <= tol,
+                              f"K6 keep {term.__name__} {e_k} vs {e_p} ({what})")
+                        case[f"{term.__name__}_rel_err"] = rel(e_k, e_p)
+                        if tag == "lattice" and term is lj_term:
+                            errs["K6"] = max(errs["K6"], abs(e_k - e_p))
+                k6[what] = case
+    return dict(n=n, thin_box=thin.tolist(), cube_side=side, K1=k1, K3=k3, K6=k6,
+                seam_prune=prune, lattice_max_abs_err=errs)
+
+
+def periodic_reference(pts: np.ndarray, box, cutoff: float):
+    """Exact-f64 minimum-image energy, pair count and forces of points in
+    [0, box): the oracle on the points and their ghost images (numpy f64,
+    every image within ``cutoff`` of a face, up to 7 for a corner), each
+    real pair kept once. Every real particle meets exactly one copy of each
+    partner (box > 2 cutoff), so the oracle's forces of the real rows are
+    the minimum-image forces; a pair of two real rows counts once and a
+    real-ghost pair half (its mirror pairs the other end's real row)."""
+    from itertools import product
+
+    from zelll_tpu_torch import oracle
+
+    n = len(pts)
+    box = np.asarray(box, np.float64)
+    low, high = pts < cutoff, pts >= box - cutoff
+    shift = np.where(low, box, np.where(high, -box, 0.0))
+    ext = [pts]
+    for m in product((0, 1), repeat=3):
+        if any(m):
+            m = np.asarray(m, bool)
+            sel = np.all((low | high)[:, m], axis=1)
+            ext.append(pts[sel] + np.where(m, shift[sel], 0.0))
+    ext = np.concatenate(ext)
+    forces = oracle.forces(ext, cutoff)[:n]
+    i, j = oracle.pairs(ext, cutoff)
+    i, j = i.astype(np.int64), j.astype(np.int64)
+    real = (i < n).astype(np.int64) + (j < n)
+    keep = real > 0
+    i, j, w = i[keep], j[keep], np.where(real[keep] == 2, 1.0, 0.5)
+    d = ext[i] - ext[j]
+    dsq = (d * d).sum(1)
+    t3 = (1.0 / dsq) ** 3
+    energy = float((w * 4.0 * t3 * (t3 - 1.0)).sum())
+    count = float(w.sum())
+    check(count == int(count), f"the periodic reference's half pairs do not pair up: {count}")
+    return energy, int(count), forces
+
+
+def pbc_parity(dev, n: int) -> dict:
+    """f64-grade periodic energy, pair count and forces on each path against
+    `periodic_reference` at n = 1e6: the thin box with ghost images (lag),
+    with ``minimage="auto"`` (lag) and through `core.pairs` (xla, in f64:
+    that path has no split mode), and the cube with ghost images (tile, and
+    xla in f64). Split coordinates of f64 points wrapped into the box.
+    Limits: energy and count rel_err <= TOL_REL; ||f - f_ref|| / ||f_ref||
+    <= TOL_REL."""
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+    from zelll_tpu_torch.ops.pbc import pbc_count_pairs, pbc_lj_energy, pbc_lj_forces
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    side = (n / 0.01) ** (1 / 3)
+    boxes = {"thin": np.asarray(lj_box(n, CUTOFF)), "cubic": np.array([side] * 3)}
+    out = {}
+    for name, box in boxes.items():
+        pts = np.mod(generate_points_random(n, box), box)
+        e_ref, c_ref, f_ref = periodic_reference(pts, box, CUTOFF)
+        p64 = torch.as_tensor(pts, device=dev)
+        hi, lo = split_f64(p64)
+        runs = ((("lag", dict(L=L_MAIN)), ("lag_minimage", dict(L=L_MAIN, minimage="auto")),
+                 ("xla", dict(path="xla")))
+                if name == "thin" else
+                (("tile", dict(path="tile", MAXJ=PBC_MAXJ)), ("xla", dict(path="xla"))))
+        res = {}
+        for path, kw in runs:
+            kw = dict(kw)
+            if path == "xla":
+                args, kw["K"] = (p64,), 48
+            else:
+                args, kw["positions_lo"] = (hi,), lo
+            if "L" in kw:
+                kw["L"] = probe_pbc_lag(lambda L: pbc_lj_energy(
+                    *args, [0.0] * 3, box, CUTOFF, **{**kw, "L": L})[1], kw["L"])
+            e, ok_e = pbc_lj_energy(*args, [0.0] * 3, box, CUTOFF, out_dtype=torch.float64, **kw)
+            c, ok_c = pbc_count_pairs(*args, [0.0] * 3, box, CUTOFF, **kw)
+            f, ok_f = pbc_lj_forces(*args, [0.0] * 3, box, CUTOFF, **kw)
+            check(bool(ok_e) and bool(ok_c) and bool(ok_f), f"periodic parity flags ({name} {path})")
+            got = f.double().cpu().numpy()
+            errs = dict(energy_rel_err_vs_reference=rel(float(e), e_ref),
+                        count_rel_err_vs_reference=rel(c, c_ref),
+                        force_rel_err_vs_reference=float(np.linalg.norm(got - f_ref)
+                                                         / np.linalg.norm(f_ref)))
+            for what, err in errs.items():
+                check(np.isfinite(err) and err <= TOL_REL, f"periodic {what} {err} ({name} {path})")
+            res[path] = dict(**errs, L=kw.get("L"))
+        out[name] = dict(n=n, box=box.tolist(), reference_pairs=c_ref, paths=res)
+    return out
+
+
+def probe_pbc_lag(flag, L: int, limit: int = 8192) -> int:
+    """The smallest power-of-two multiple of L whose coverage flag
+    ``flag(L)`` holds (a host read per probe)."""
+    while not bool(flag(L)):
+        check(L < limit, f"no lag bound up to {limit} covers the periodic window")
+        L *= 2
+    return L
+
+
+def timed_call(fn, reps: int):
+    """``fn(i)`` for i < reps after one warm-up: device ms per call from
+    CUDA events, host ms per call, and every returned flag True."""
+    out = fn(0)
+    check(bool(out[-1]), "a periodic flag is False in the warm-up")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flags = []
+    t_host = time.perf_counter()
+    start.record()
+    for i in range(reps):
+        flags.append(fn(i)[-1])
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / reps
+    check(all(bool(f) for f in flags), "a periodic flag dropped inside the timed calls")
+    return dict(ms=start.elapsed_time(end) / reps, host_ms=host_ms, reps=reps)
+
+
+def counted_launches(fn, expect: dict):
+    """``fn()`` with the launch counts zeroed just before it and read just
+    after; every count must equal ``expect`` (0 where not named). Returns
+    (its result, the non-zero counts)."""
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = {k: expect.get(k, 0) for k in counts}
+    check(counts == want, f"periodic launches {counts} != {want}")
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def pbc_main_path(dev, n: int) -> dict:
+    """The periodic protocols at n = 1e7 through the entry points, nothing
+    cut. benchmarks/pbc_bench.py: the thin box (30 x 30 x n/9, cutoff 10,
+    uniform, f32) with ghost images on every axis (`pbc_pair_sum`, lag,
+    K1 with the keep mask) and with ``minimage="auto"`` (K1 with both), the
+    cube (side (n/0.01)^(1/3), uniform) on the tile path (K6 with the keep
+    mask, MAXJ 24, maskless); pbc_md_bench.py: `md_step_pbc` on that cube
+    (tile, K7, MAXJ 24, dt 1e-4 from rest), and `md_step_pbc` with the
+    minimum image on the thin box (K3); pbc_steady_state.py: the skin
+    loops on lattice clouds (skin 0.5, dt 1e-4, 50 steps):
+    `md_run_skin_tile_pbc` on the cube (MAXJ 20) and `md_run_skin_pbc` on
+    the thin box. Each call's ms (CUDA events) and host ms beside the
+    open-boundary call of the same box, their ratio, B, G, BE, the lag
+    bound, every flag (all must hold) and the launches of one call, each
+    exact."""
+    from zelll_tpu_torch.models import (
+        MDState, md_run_skin, md_run_skin_pbc, md_run_skin_tile, md_run_skin_tile_pbc,
+        md_step, md_step_cubic_tile,
+    )
+    from zelll_tpu_torch.ops.fused import fused_lj_rebuild_energy
+    from zelll_tpu_torch.ops.pbc import (
+        md_step_pbc, minimage_axes, pbc_pair_sum, suggest_pbc_capacity,
+    )
+    from zelll_tpu_torch.ops.tile_pairs import tile_lj_rebuild_energy
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    out, launches = {}, {}
+    o = [0.0] * 3
+    thin = np.asarray(lj_box(n, CUTOFF))
+    pos = torch.as_tensor(generate_points_random(n, thin), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def rebuild_cell(name, call, open_call, expect, caps):
+        t = timed_call(lambda i: call(pos_of[name] + (i % 2) * 1e-6), PBC_REPS)
+        t_open = timed_call(lambda i: open_call(pos_of[name] + (i % 2) * 1e-6), PBC_REPS)
+        (e, _), launches[name] = counted_launches(lambda: call(pos_of[name]), expect)
+        e = float(e)
+        check(np.isfinite(e), f"non-finite periodic energy {e} ({name})")
+        out[name] = dict(pbc_rebuild_ms=t["ms"], host_ms=t["host_ms"],
+                         open_step_ms=t_open["ms"], open_host_ms=t_open["host_ms"],
+                         overhead=t["ms"] / t_open["ms"], launches=launches[name], **caps,
+                         energy_per_atom=e / n, ok=True)
+
+    pos_of = {"thin_ghosts": pos, "thin_minimage": pos}
+    B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
+    kw = dict(B=B, G=G, BE=BE)
+    L = probe_pbc_lag(lambda L: pbc_pair_sum(pos, o, thin, CUTOFF, L=L, **kw)[1], L_MAIN)
+    rebuild_cell("thin_ghosts", lambda p: pbc_pair_sum(p, o, thin, CUTOFF, L=L, **kw),
+                 lambda p: fused_lj_rebuild_energy(p, CUTOFF, L=L_MAIN),
+                 {"lag_reduce": 1}, dict(B=B, G=G, BE=BE, L=L))
+    Bm, Gm = suggest_pbc_capacity(n, thin, CUTOFF, axes=~minimage_axes(thin, CUTOFF))
+    kwm = dict(B=Bm, G=Gm, minimage="auto")
+    Lm = probe_pbc_lag(lambda L: pbc_pair_sum(pos, o, thin, CUTOFF, L=L, **kwm)[1], L_MAIN)
+    rebuild_cell("thin_minimage", lambda p: pbc_pair_sum(p, o, thin, CUTOFF, L=Lm, **kwm),
+                 lambda p: fused_lj_rebuild_energy(p, CUTOFF, L=L_MAIN),
+                 {"lag_reduce": 1}, dict(B=Bm, G=Gm, L=Lm))
+    vel = torch.zeros_like(pos)
+    md_thin = lambda s: md_step_pbc(s[0], s[1], o, thin, CUTOFF, MD_DT, L=Lm, **kwm)
+    t = timed_call(lambda i: md_thin((pos, vel)), PBC_REPS)
+    t_open = timed_call(lambda i: md_step(MDState(pos, vel), CUTOFF, MD_DT, L=L_MAIN), PBC_REPS)
+    (p2, _, _), launches["thin_minimage_md_step"] = counted_launches(
+        lambda: md_thin((pos, vel)), {"lag_forces": 1})
+    check(bool(torch.isfinite(p2).all()), "non-finite positions after md_step_pbc (thin)")
+    out["thin_minimage_md_step"] = dict(
+        pbc_md_step_ms=t["ms"], host_ms=t["host_ms"], open_step_ms=t_open["ms"],
+        overhead=t["ms"] / t_open["ms"], launches=launches["thin_minimage_md_step"],
+        B=Bm, G=Gm, L=Lm, ok=True)
+    del pos, vel
+
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    pos = torch.as_tensor(np.random.default_rng(7).random((n, 3)) * cube, dtype=torch.float32,
+                          device=dev)
+    pos_of["cube_tile"] = pos
+    Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+    kwc = dict(B=Bc, G=Gc, BE=BEc, path="tile", MAXJ=PBC_MAXJ, bandmask=False)
+    rebuild_cell("cube_tile", lambda p: pbc_pair_sum(p, o, cube, CUTOFF, kahan=False, **kwc),
+                 lambda p: tile_lj_rebuild_energy(p, CUTOFF, MAXJ=PBC_MAXJ, bandmask=False,
+                                                  safe_term=False, kahan=False),
+                 {"tile_reduce": 1}, dict(B=Bc, G=Gc, BE=BEc, MAXJ=PBC_MAXJ))
+    vel = torch.zeros_like(pos)
+    md_cube = lambda s: md_step_pbc(s[0], s[1], o, cube, CUTOFF, MD_DT, **kwc)
+    t = timed_call(lambda i: md_cube((pos, vel)), PBC_REPS)
+    t_open = timed_call(lambda i: md_step_cubic_tile(MDState(pos, vel), CUTOFF, MD_DT,
+                                                     MAXJ=PBC_MAXJ), PBC_REPS)
+    (p2, _, _), launches["cube_md_step"] = counted_launches(lambda: md_cube((pos, vel)),
+                                                            {"tile_forces": 1})
+    check(bool(torch.isfinite(p2).all()), "non-finite positions after md_step_pbc (cube)")
+    out["cube_md_step"] = dict(pbc_md_step_ms=t["ms"], host_ms=t["host_ms"],
+                               open_step_ms=t_open["ms"], overhead=t["ms"] / t_open["ms"],
+                               launches=launches["cube_md_step"], B=Bc, G=Gc, BE=BEc,
+                               MAXJ=PBC_MAXJ, ok=True)
+    del pos, vel, pos_of
+
+    # the steady state: lattice clouds, Verlet skin with ghost tracking
+    for name, box in (("cube_steady", cube), ("thin_steady", thin)):
+        _, st, _ = md_states(n, tuple(box), dev)
+        Bs, Gs = suggest_pbc_capacity(st.positions.shape[0], box, CUTOFF + MD_SKIN)
+        if name == "cube_steady":
+            run = lambda s, k: md_run_skin_tile_pbc(s, o, box, CUTOFF, MD_DT, steps=k, B=Bs,
+                                                    G=Gs, skin=MD_SKIN, MAXJ=PBC_SS_MAXJ)
+            run_open = lambda s, k: md_run_skin_tile(s, CUTOFF, MD_DT, steps=k, skin=MD_SKIN,
+                                                     MAXJ=PBC_SS_MAXJ)
+            expect, Ls = {"tile_forces": 3, "tile_reduce": 1}, None
+        else:
+            Ls = probe_pbc_lag(lambda L: md_run_skin_pbc(
+                st, o, box, CUTOFF, MD_DT, steps=1, B=Bs, G=Gs, skin=MD_SKIN, L=L)[1], L_MAIN)
+            run = lambda s, k: md_run_skin_pbc(s, o, box, CUTOFF, MD_DT, steps=k, B=Bs, G=Gs,
+                                               skin=MD_SKIN, L=Ls)
+            run_open = lambda s, k: md_run_skin(s, CUTOFF, MD_DT, steps=k, skin=MD_SKIN,
+                                                L=L_MAIN)
+            expect = {"lag_forces": 3, "lag_reduce": 1}
+        t = time_skin(run, st, SKIN_STEPS, name)
+        t_open = time_skin(run_open, st, SKIN_STEPS, f"{name}, open")
+        _, launches[name] = counted_launches(lambda: run(st, 3), expect)
+        out[name] = dict(pbc_steady_ms=t["step_ms"], host_ms=t["host_step_ms"],
+                         rebuilds=t["rebuilds"], energy=t["energy"],
+                         open_step_ms=t_open["step_ms"], open_rebuilds=t_open["rebuilds"],
+                         overhead=t["step_ms"] / t_open["step_ms"], launches=launches[name],
+                         n=st.positions.shape[0], B=Bs, G=Gs, L=Ls, steps=SKIN_STEPS,
+                         ok=t["ok"])
+        del st
+    return dict(n=n, cutoff=CUTOFF, dt=MD_DT, skin=MD_SKIN, cells=out,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def pbc_alone(dev, n: int) -> dict:
+    """Each periodic kernel instance alone at the main path's shapes
+    (n = 1e7, sorted as `pbc_main_path` sorts them, split coordinates of the
+    same points): K1 with the keep mask on the thin ghost-extended array and
+    with both rules on the thin ``minimage="auto"`` array (f32 and split),
+    K3 with the minimum image on the latter, K6 with the keep mask on the
+    ghost-extended cube (f32, `lj_term`, maskless). Each: ms, one plain
+    call's ms (f64 outputs, held to the kernel's), the work of the function
+    (the lag window's candidates, or the half-stencil ones for K6, and the
+    cutoff pairs) and its bound."""
+    from zelll_tpu_torch.ops import lag_pairs
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcKeepTerm, combine_count, count_term, lj_term, pair_lag_forces,
+        pair_lag_forces_plain, pair_lag_reduce, pair_lag_reduce_plain,
+    )
+    from zelll_tpu_torch.ops.pbc import minimage_axes, suggest_pbc_capacity
+    from zelll_tpu_torch.ops.tile_pairs import reduce_tiles, reduce_tiles_plain, tile_inputs
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    f64 = torch.float64
+    out = {}
+    thin = np.asarray(lj_box(n, CUTOFF))
+    pts = np.mod(generate_points_random(n, thin), thin)
+    B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
+    Bm, Gm = suggest_pbc_capacity(n, thin, CUTOFF, axes=~minimage_axes(thin, CUTOFF))
+    for name, kind, caps in (("K1_keep", "keep", dict(B=B, G=G, BE=BE)),
+                             ("K1_keep_minimage", "both", dict(B=Bm, G=Gm))):
+        shi, slo, keys, strides, pay, mib, reach, ok = pbc_sorted(pts, thin, kind, dev, **caps)
+        check(bool(ok), f"{name}: the periodic inputs' flag")
+        rows = shi.shape[0]
+        L = probe_pbc_lag(lambda L: lag_pairs.lag_coverage_ok(keys, strides, L, reach=reach),
+                          L_MAIN)
+        kw = dict(L=L, mi_box=mib, key_reach=reach, term=PbcKeepTerm(lj_term))
+        candidates = window_candidates(keys, strides, L, reach)
+        for lo in (None, slo):
+            mode = "split" if lo is not None else "f32"
+            split = lo is not None
+            ms = cuda_ms(lambda: pair_lag_reduce(shi, keys, strides, csq, lo, pay, **kw), 10)
+            plain_ms, want = once_ms(lambda: pair_lag_reduce_plain(
+                shi, keys, strides, csq, lo, pay, out_dtype=f64, **kw))
+            got = float(pair_lag_reduce(shi, keys, strides, csq, lo, pay, out_dtype=f64, **kw))
+            check(rel(got, float(want)) <= TOL_KERNEL, f"{name} {mode} at 1e7: {got} vs {want}")
+            pairs = combine_count(pair_lag_reduce(
+                shi, keys, strides, csq, lo, pay, out_dtype=torch.int32,
+                **{**kw, "term": PbcKeepTerm(count_term)}))
+            per_candidate = INSTR_PER_CANDIDATE[split] + INSTR_KEEP + \
+                (2 * INSTR_MI_FOLD[split] if mib is not None else 0)
+            b = bound(rows * 4 * ((6 if split else 3) + 1 + 1),
+                      candidates * per_candidate + pairs * INSTR_PER_PAIR)
+            out.setdefault(name, dict(rows=rows, L=L, candidates=candidates))[mode] = dict(
+                ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms, pairs=pairs,
+                rel_err=rel(got, float(want)))
+        if kind == "both":
+            pairs = out[name]["f32"]["pairs"]
+            for lo in (None, slo):
+                mode = "split" if lo is not None else "f32"
+                split = lo is not None
+                fkw = dict(L=L, mi_box=mib, key_reach=reach)
+                ms = cuda_ms(lambda: pair_lag_forces(shi, keys, strides, csq, lo, **fkw), 10)
+                plain_ms, want = once_ms(lambda: pair_lag_forces_plain(
+                    shi, keys, strides, csq, lo, out_dtype=f64, **fkw))
+                got = pair_lag_forces(shi, keys, strides, csq, lo, out_dtype=f64, **fkw)
+                err, scale = force_err(got, want)
+                check(err <= TOL_KERNEL * scale, f"K3 minimum image {mode} at 1e7: {err}")
+                b = bound(rows * 4 * ((6 if split else 3) + 1 + 3),
+                          candidates * (INSTR_PER_CANDIDATE[split] + 2 * INSTR_MI_FOLD[split])
+                          + pairs * INSTR_PER_FORCE_PAIR)
+                out.setdefault("K3_minimage", dict(rows=rows, L=L, candidates=candidates))[mode] \
+                    = dict(ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms,
+                           max_abs_err=err, max_abs_force=scale)
+        del shi, slo, keys, pay
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    cpts = np.random.default_rng(7).random((n, 3)) * cube
+    Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+    shi, _, keys, strides, pay, _, _, ok = pbc_sorted(cpts, cube, "keep", dev, B=Bc, G=Gc,
+                                                      BE=BEc)
+    check(bool(ok), "K6_keep: the periodic inputs' flag")
+    rows = shi.shape[0]
+    from zelll_tpu_torch.core import GridInfo, aabb_from_positions
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY
+
+    inp = tile_inputs(shi.t().contiguous(), keys, strides, CB=CB, MAXJ=PBC_MAXJ, bandmask=False)
+    check(bool(inp.coverage_ok), "K6_keep coverage at MAXJ 24")
+    real = keys != SENTINEL_KEY
+    info = GridInfo.create(aabb_from_positions(shi[real]), CUTOFF, auto_order=True)
+    candidates = stencil_candidates(keys, info)
+    term = PbcKeepTerm(lj_term)
+    ms = cuda_ms(lambda: reduce_tiles(inp, csq, term=term, payload=pay), 10)
+    plain_ms, want = once_ms(lambda: reduce_tiles_plain(inp, csq, term=term, payload=pay,
+                                                        out_dtype=f64))
+    got = float(reduce_tiles(inp, csq, term=term, payload=pay, out_dtype=f64))
+    check(rel(got, float(want)) <= TOL_KERNEL, f"K6 keep at 1e7: {got} vs {want}")
+    pairs = combine_count(reduce_tiles(inp, csq, term=PbcKeepTerm(count_term), payload=pay,
+                                       out_dtype=torch.int32))
+    b = bound(rows * 4 * (3 + 1 + 1) + inp.bounds.numel() * 4,
+              candidates * (INSTR_PER_CANDIDATE[False] + INSTR_KEEP) + pairs * INSTR_PER_PAIR)
+    out["K6_keep"] = dict(rows=rows, MAXJ=PBC_MAXJ, candidates=candidates, f32=dict(
+        ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms, pairs=pairs,
+        rel_err=rel(got, float(want))))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2662,7 +3257,17 @@ def main() -> None:
     ha = hist_alone(dev, N_MAIN)
     emit("hist_alone", **ha)
 
-    # -- 19. every ported kernel ---------------------------------------------------
+    # -- 19. periodic boxes (K1 keep mask and minimum image, K3 minimum image,
+    # K6 keep mask) ----------------------------------------------------------------
+    pv = pbc_vs_plain(dev, N_CHECK)
+    emit("pbc_vs_plain", **pv)
+    pbc = pbc_main_path(dev, N_MAIN)
+    emit("pbc_main_path", **pbc)
+    emit("pbc_parity", **pbc_parity(dev, N_PARITY))
+    pa = pbc_alone(dev, N_MAIN)
+    emit("pbc_alone", **pa)
+
+    # -- 20. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
@@ -2763,9 +3368,36 @@ def main() -> None:
         ("tile_stress", "zelll_tpu/ops/tile_pairs.py:735", sa["K8_f32"],
          ov["lattice_max_abs_err"]["K8"]),
         ("tile_hist", "zelll_tpu/ops/tile_pairs.py:453", ha["K9_f32"], 0),
+    )), *({
+        "name": name,
+        "route": "cuda",
+        "source": f"zelll_tpu_torch/csrc/{src}.cu",
+        "replaces": replaces,
+        "instance": instance,
+        "launches": sum(pbc["cells"][cell]["launches"].get(src, 0) for cell in cells),
+        "max_abs_err": pv["lattice_max_abs_err"][kernel],
+        "ms": pa[row]["f32"]["ms"],
+        "plain_ms": pa[row]["f32"]["plain_ms"],
+        "bound_ms": pa[row]["f32"]["bound_ms"],
+        "bound_by": pa[row]["f32"]["bound_by"],
+        "share_of_bound": pa[row]["f32"]["share_of_bound"],
+        "library_ms": None,
+    } for name, src, kernel, row, cells, replaces, instance in (
+        ("lag_reduce_keep", "lag_reduce", "K1", "K1_keep", ("thin_ghosts", "thin_steady"),
+         "zelll_tpu/ops/pallas_pairs.py:230 (sorted_payload; ops/pbc.py:736)",
+         "periodic keep mask (mask id 2), thin box with ghost images, f32"),
+        ("lag_reduce_keep_minimage", "lag_reduce", "K1", "K1_keep_minimage",
+         ("thin_minimage",), "zelll_tpu/ops/pallas_pairs.py:230 (mi_box, key_reach; :193)",
+         "keep mask and minimum image, thin box minimage='auto', f32"),
+        ("lag_forces_minimage", "lag_forces", "K3", "K3_minimage", ("thin_minimage_md_step",),
+         "zelll_tpu/ops/pallas_pairs.py:583 (mi_box, key_reach)",
+         "minimum image, thin box minimage='auto', f32"),
+        ("tile_reduce_keep", "tile_reduce", "K6", "K6_keep", ("cube_tile", "cube_steady"),
+         "zelll_tpu/ops/tile_pairs.py:259 (n_payload=1; ops/pbc.py:864-873)",
+         "periodic keep mask over the payload row, cube with ghost images, f32 lj_term"),
     ))]}), flush=True)
 
-    # -- 20. the card, then the contract line -----------------------------------
+    # -- 21. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -31,9 +31,11 @@ from zelll_tpu_torch.core import build
 from zelll_tpu_torch.ops.lj import lj, lj_force_factor, lj_force_factor_fast
 from zelll_tpu_torch.ops.lag_pairs import (
     _pad_and_desentinel,
+    lag_coverage_ok,
     pair_lag_forces,
     split_f64,
 )
+from zelll_tpu_torch.ops.pbc import _minimage_bins
 from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
 from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_forces_plain
 
@@ -213,14 +215,31 @@ def test_tile_forces_layouts_agree(cube):
         assert_forces(f, want, 1e-9)
 
 
-def test_forces_refuse_what_is_not_ported():
+def test_forces_refusals_and_minimum_image():
+    """The argument checks of both forces entry points, and K3's minimum
+    image (``mi_box``/``key_reach``, ported with periodic boxes): on a
+    periodic cube binned on its own box, folded forces equal a
+    minimum-image brute force."""
     pts = np.random.default_rng(0).uniform(0, 4, (200, 3))
     g = build(pts, 1.0, device="cpu")
     args = (g.sorted_pos, g.bins.sorted_keys, g.info.strides, 1.0)
     with pytest.raises(ValueError, match="3-D only"):
         pair_lag_forces(g.sorted_pos[:, :2], *args[1:])
-    with pytest.raises(ValueError, match="mi_box"):
-        pair_lag_forces(*args, mi_box=torch.ones(3))
+    box = np.full(3, 4.0)
+    bins, sp, _, _, reach, mib, ok = _minimage_bins(
+        torch.as_tensor(pts), [0.0] * 3, box, 1.0, np.ones(3, bool), B=None, G=None,
+        positions_lo=None, need_perm=True)
+    f = pair_lag_forces(sp, bins.sorted_keys, bins.info.strides, 1.0, mi_box=mib,
+                        key_reach=reach, L=256)
+    d = pts[:, None, :] - pts[None, :, :]
+    d -= box * np.round(d / box)
+    dsq = (d * d).sum(-1)
+    mask = (dsq < 1.0) & ~np.eye(len(pts), dtype=bool)
+    inv = np.where(mask, 1.0 / np.where(mask, dsq, 1.0), 0.0)
+    want = (d * np.where(mask, 24 * inv**3 * (2 * inv**3 - 1) * inv, 0.0)[..., None]).sum(1)
+    assert bool(ok) and reach == (3, 3, 3)
+    assert bool(lag_coverage_ok(bins.sorted_keys, bins.info.strides, 256, reach=reach))
+    assert_forces(f, want[bins.perm.long()], 1e-10)
     with pytest.raises(ValueError, match="L must be"):
         pair_lag_forces(*args, L=0)
     for kw in (dict(bandmask=False), dict(safe_term=False), dict(MAXJ=(4,) * 9)):

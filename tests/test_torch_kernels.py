@@ -7,12 +7,16 @@ only PyTorch is installed. On a machine with a CUDA card and nvcc:
     python -m pytest tests/test_torch_kernels.py --noconftest -o addopts="" -q
 
 (``--noconftest`` skips tests/conftest.py, which configures JAX.) Without a
-card every test here skips: a CUDA kernel has no CPU mode.
+card the whole module skips at collection: a CUDA kernel has no CPU mode.
 """
 
 import numpy as np
 import pytest
 import torch
+
+if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device: the kernels are CUDA kernels with no CPU mode",
+                allow_module_level=True)
 
 from zelll_tpu_torch.core import (
     SENTINEL_KEY,
@@ -61,6 +65,7 @@ from zelll_tpu_torch.utils.datagen import (
     generate_points_lattice,
     generate_points_random,
     lj_box,
+    seam_cloud,
 )
 
 CUTOFF = 10.0
@@ -409,6 +414,198 @@ def test_tile_forces_kernel_matches_plain_on_card(cuda_device):
         tile_pair_forces(shi, keys, strides, csq, MAXJ=4, gfn=lambda d: d)
     with pytest.raises(ValueError):
         tile_pair_forces(shi.double(), keys, strides, csq, MAXJ=4)
+
+
+def _pbc_sorted(pts, box, kind, device):
+    """Sorted split inputs of a periodic box on the card, as `ops.pbc`
+    makes them: (hi, lo, keys, strides, payload plane or None, mi_box or
+    None, reach or None). ``kind``: "keep", ghost images on every axis
+    (the keep mask's shift-sign plane); "both", x and y folded and z
+    ghost-extended (``minimage="auto"`` on the thin box); "mi", x and y
+    folded and z open (the minimum image alone)."""
+    from zelll_tpu_torch.core.binning import bin_and_sort
+    from zelll_tpu_torch.core.geometry import Aabb
+    from zelll_tpu_torch.ops.pbc import _minimage_bins, pbc_extend, wrap_positions
+
+    n = len(pts)
+    box = np.asarray(box, np.float64)
+    hi, lo = split_f64(torch.as_tensor(pts, device=device))
+    if kind == "keep":
+        ext, elo, w, valid, ok = pbc_extend(hi, [0.0] * 3, box, CUTOFF, B=n, G=7 * n, BE=n,
+                                            positions_lo=lo)
+        bins, cols = bin_and_sort(torch.cat([ext, elo, w[:, None]], 1), CUTOFF, max_cells=1,
+                                  need_perm=False, valid=valid, auto_order=True)
+        assert bool(ok)
+        return (cols[:, :3].contiguous(), cols[:, 3:6].contiguous(), bins.sorted_keys,
+                bins.info.strides, cols[:, 6].contiguous(), None, None)
+    if kind == "both":
+        bins, sp, slo, pay, reach, mib, ok = _minimage_bins(
+            hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=n, G=n,
+            positions_lo=lo, need_perm=False)
+        assert bool(ok)
+        return (sp.contiguous(), slo.contiguous(), bins.sorted_keys, bins.info.strides,
+                pay[:, 0].contiguous(), mib, reach)
+    fold = torch.tensor([True, True, False], device=device)
+    whi = torch.where(fold, wrap_positions(hi, [0.0] * 3, box), hi)
+    zlo, zhi = float(whi[:, 2].min()), float(whi[:, 2].max())
+    aabb = Aabb(torch.tensor([0.0, 0.0, zlo], device=device),
+                torch.tensor([box[0], box[1], zhi], device=device))
+    info = GridInfo.create(aabb, CUTOFF, auto_order=True)
+    keys, _, shi, slo = sort_by_key(compute_keys(whi, info), whi, lo)
+    reach = tuple(max(int(np.ceil(box[a] / CUTOFF)) - 1, 1) if a < 2 else 1 for a in range(3))
+    return (shi, slo, keys, info.strides, None,
+            torch.tensor([box[0], box[1], 0.0], dtype=torch.float32), reach)
+
+
+def _pbc_cases(n, device):
+    """The periodic instances' inputs on the thin box lj_box(n): the uniform
+    cloud, a jittered lattice, a seam lattice (`seam_cloud`: two layers of
+    spacing 1.5 at each x and y face, whose pairs across x and y cross the
+    seam only, and z filled, so that the z faces pair through ghost
+    images) and the lattice drifted by
+    up to a skin of 0.5 since its keys were built; by kind (`_pbc_sorted`)."""
+    box = np.asarray(lj_box(n, CUTOFF))
+    rng = np.random.default_rng(4)
+    data = {"uniform": generate_points_random(n, box),
+            "lattice": generate_points_lattice(n, box),
+            "seam": seam_cloud(box, 1.5, 2, (0, 1), rng)}
+    out = {}
+    for kind in ("keep", "mi", "both"):
+        for tag, pts in data.items():
+            out[(kind, tag)] = _pbc_sorted(pts, box, kind, device)
+        shi, slo, *rest = out[(kind, "lattice")]
+        moved = shi.double() + slo.double() + torch.as_tensor(
+            rng.uniform(-0.25, 0.25, tuple(shi.shape)), device=device)
+        out[(kind, "drifted")] = (*split_f64(moved), *rest)
+    return out
+
+
+@pytest.mark.gpu
+def test_pbc_lag_reduce_kernel_matches_plain_on_card(cuda_device):
+    """K1's periodic instances against the plain version on the same sorted
+    CUDA tensors, on the four inputs of `_pbc_cases` (n = 20,000): the keep
+    mask (ghost images on every axis), the minimum image alone (x and y
+    folded, z open) and both (x and y folded, z ghosts), f32 and split,
+    lj_term and count_term: counts exact, f64 totals to 1e-10; on the seam
+    cloud a prune without periodic images drops pairs. Other payload rules
+    raise."""
+    from zelll_tpu_torch.ops.lag_pairs import PbcKeepTerm, suggest_lag
+
+    csq = CUTOFF**2
+    f64 = torch.float64
+    for (kind, tag), (shi, slo, keys, strides, pay, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        L = suggest_lag(keys, strides, reach=reach)
+        for plo in (None, slo):
+            for term, out in ((lj_term, f64), (count_term, torch.int32)):
+                t = term if pay is None else PbcKeepTerm(term)
+                kw = dict(L=L, term=t, out_dtype=out, mi_box=mib, key_reach=reach)
+                before = pair_lag_reduce.launches
+                got = pair_lag_reduce(shi, keys, strides, csq, plo, pay, **kw)
+                assert pair_lag_reduce.launches == before + 1
+                want = pair_lag_reduce_plain(shi, keys, strides, csq, plo, pay, **kw)
+                torch.cuda.synchronize()
+                if out == torch.int32:
+                    assert combine_count(got) == combine_count(want) > 0, (kind, tag)
+                else:
+                    np.testing.assert_allclose(float(got), float(want), rtol=1e-10,
+                                               err_msg=f"{kind} {tag}")
+    shi, slo, keys, strides, pay, mib, reach = _pbc_sorted(
+        generate_points_random(2000, lj_box(2000, CUTOFF)), lj_box(2000, CUTOFF), "both",
+        cuda_device)
+    kw = dict(mi_box=mib, key_reach=reach)
+    with pytest.raises(ValueError, match="payload rule"):
+        pair_lag_reduce(shi, keys, strides, csq, None, pay, term=lambda d, a, b: d, **kw)
+    with pytest.raises(ValueError, match="payload rule"):
+        pair_lag_reduce(shi, keys, strides, csq, None, pay, **kw)
+    with pytest.raises(ValueError, match="slice 9"):
+        pair_lag_reduce(shi, keys, strides, csq, None, pay, term=PbcKeepTerm(lj_term),
+                        min_islot=5, **kw)
+    with pytest.raises(ValueError):
+        pair_lag_reduce(shi.double(), keys, strides, csq, None, pay.double(),
+                        term=PbcKeepTerm(lj_term), **kw)
+
+
+@pytest.mark.gpu
+def test_pbc_lag_forces_kernel_matches_plain_on_card(cuda_device):
+    """K3's minimum-image instance against the plain version on the same
+    sorted CUDA tensors: the "mi" and "both" inputs of `_pbc_cases`
+    (n = 20,000, K3 runs on the ghost-extended array too), f32 and split,
+    f64 forces to 1e-10 of the largest; Newton's third law on the
+    lattice with x and y folded and z open. A payload raises."""
+    from zelll_tpu_torch.ops.lag_pairs import suggest_lag
+
+    csq = CUTOFF**2
+    for (kind, tag), (shi, slo, keys, strides, pay, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        if kind == "keep":
+            continue
+        L = suggest_lag(keys, strides, reach=reach)
+        for plo in (None, slo):
+            kw = dict(L=L, mi_box=mib, key_reach=reach, out_dtype=torch.float64)
+            before = pair_lag_forces.launches
+            got = pair_lag_forces(shi, keys, strides, csq, plo, **kw)
+            assert pair_lag_forces.launches == before + 1
+            want = pair_lag_forces_plain(shi, keys, strides, csq, plo, **kw)
+            _assert_forces(got, want, 1e-10)
+            if kind == "mi" and tag == "lattice":
+                assert float(got.sum(0).abs().max()) <= 1e-6 * float(got.abs().sum())
+    with pytest.raises(ValueError, match="slice 5b"):
+        pair_lag_forces(shi, keys, strides, csq, sorted_payload=torch.ones_like(shi),
+                        mi_box=mib, key_reach=reach)
+
+
+@pytest.mark.gpu
+def test_pbc_tile_reduce_kernel_matches_plain_on_card(cuda_device):
+    """K6's payload row (the keep mask) against the plain version on the
+    same sorted CUDA tensors: a ghost-extended cube at the benchmark's
+    density (n = 50,000): the uniform cloud, a jittered lattice, a seam
+    lattice (two layers of spacing 2.5 at each x face) and the lattice
+    drifted since its keys
+    were built; masked and maskless, f32 and split, lj_term, lj_term_fast
+    and count_term: counts exact, f64 totals to 1e-10 (TOL_FAST). Other
+    payload rules and min_islot raise."""
+    from zelll_tpu_torch.ops.lag_pairs import PbcKeepTerm
+
+    n = 50_000
+    side = (n / 0.01) ** (1 / 3)
+    box = np.array([side] * 3)
+    rng = np.random.default_rng(6)
+    data = {"uniform": generate_points_random(n, box),
+            "lattice": generate_points_lattice(n, box),
+            "seam": seam_cloud(box, 2.5, 2, (0,), rng)}
+    cases = {tag: _pbc_sorted(pts, box, "keep", cuda_device) for tag, pts in data.items()}
+    shi, slo, *rest = cases["lattice"]
+    moved = shi.double() + slo.double() + torch.as_tensor(
+        rng.uniform(-0.25, 0.25, tuple(shi.shape)), device=cuda_device)
+    cases["drifted"] = (*split_f64(moved), *rest)
+    csq = CUTOFF**2
+    f64 = torch.float64
+    for tag, (shi, slo, keys, strides, pay, _, _) in cases.items():
+        maxj = _maxj(keys, strides)
+        for bandmask in (False, True):
+            for plo in (None, slo):
+                for term, out, rtol in ((lj_term, f64, 1e-10), (lj_term_fast, f64, TOL_FAST),
+                                        (count_term, torch.int32, 0)):
+                    kw = dict(MAXJ=maxj, term=PbcKeepTerm(term), out_dtype=out,
+                              bandmask=bandmask)
+                    before = tile_pair_reduce.launches
+                    got, ok = tile_pair_reduce(shi, keys, strides, csq, plo, pay, **kw)
+                    assert tile_pair_reduce.launches == before + 1
+                    want, ok_p = tile_pair_reduce_plain(shi, keys, strides, csq, plo, pay, **kw)
+                    torch.cuda.synchronize()
+                    assert bool(ok) and bool(ok_p), tag
+                    if out == torch.int32:
+                        assert combine_count(got) == combine_count(want) > 0, tag
+                    else:
+                        np.testing.assert_allclose(float(got), float(want), rtol=rtol,
+                                                   err_msg=tag)
+    with pytest.raises(ValueError, match="payload rule"):
+        tile_pair_reduce(shi, keys, strides, csq, None, pay, MAXJ=maxj,
+                         term=lambda d, a, b: d)
+    with pytest.raises(ValueError, match="slice 9"):
+        tile_pair_reduce(shi, keys, strides, csq, None, pay, MAXJ=maxj,
+                         term=PbcKeepTerm(lj_term), min_islot=5)
 
 
 @pytest.mark.gpu

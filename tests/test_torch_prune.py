@@ -9,8 +9,11 @@ exactly one cutoff apart, pairs a few ulp either side of it), on a state
 moved by up to a skin since its keys were built, and on the uniform cloud.
 The mirror's partner ranges (K3, and K1's one-sided ones) and sweep entries
 (K3 and K7 over both sides, K1 and K6, the ``_half`` kernels, over one) are
-checked against brute-force windows. Everything runs on CPU tensors and
-calls no JAX.
+checked against brute-force windows. The lag kernels' minimum image (K1
+and K3 with ``mi_box``) is held the same way on a periodic seam cloud,
+whose clusters face each other only through the seam of the folded axes
+(and the ghost faces of the other), where a prune without periodic images
+drops counted pairs. Everything runs on CPU tensors and calls no JAX.
 """
 
 import numpy as np
@@ -28,7 +31,14 @@ from zelll_tpu_torch.ops.cluster_prune import (
     prune_threshold,
     tile_cluster_entries,
 )
-from zelll_tpu_torch.ops.lag_pairs import _pad_and_desentinel, split_cutoff_test, split_f64
+from zelll_tpu_torch.ops.lag_pairs import (
+    _pad_and_desentinel,
+    mi_fold,
+    split_cutoff_test,
+    split_f64,
+    suggest_lag,
+)
+from zelll_tpu_torch.ops.pbc import _minimage_bins
 from zelll_tpu_torch.ops.segments import CHUNK, segment_bands, suggest_maxj
 from zelll_tpu_torch.ops.tile_pairs import tile_inputs
 from zelll_tpu_torch.utils.datagen import (
@@ -36,6 +46,7 @@ from zelll_tpu_torch.utils.datagen import (
     generate_points_lattice,
     generate_points_random,
     lj_box,
+    seam_cloud,
 )
 
 CUTOFF = 10.0
@@ -95,6 +106,60 @@ def _near(hi, lo, thr):
                         None if lo is None else lo.t()[:, None, :], thr)
 
 
+def _seam_check(half: bool):
+    """The minimum-image prune of K1 (``half``) or K3 on a seam lattice in a
+    30 x 30 x 60 box (two layers of spacing 1.5 at each x and y face, z
+    filled: 640 points), with x, y folded and z ghost-extended, and with
+    all three folded: every pair
+    the folded cutoff counts passes the periodic gap test, some of them
+    fail the open one, and `lag_cluster_entries` equals the entries counted
+    by brute force over the widened window."""
+    box = np.array([30.0, 30.0, 60.0])
+    pts = seam_cloud(box, 1.5, 2, (0, 1), np.random.default_rng(7))
+    n_seam = len(pts)
+    hi64, lo64 = split_f64(torch.as_tensor(pts))
+    for mimask in ((True, True, False), (True, True, True)):
+        bins, shi, slo, _, reach, mib, ok = _minimage_bins(
+            hi64, [0.0] * 3, box, CUTOFF, np.array(mimask), B=n_seam, G=n_seam,
+            positions_lo=lo64, need_perm=False)
+        assert bool(ok)
+        keys, strides = bins.sorted_keys, bins.info.strides
+        n = shi.shape[0]
+        own = torch.arange(n)
+        for split in (False, True):
+            plo = slo if split else None
+            folded = [mi_fold(shi[:, None, a], shi[None, :, a],
+                              None if plo is None else plo[:, None, a],
+                              None if plo is None else plo[None, :, a], mib[a])
+                      for a in range(3)]
+            d = [f[0] for f in folded]
+            dsq = d[0] * d[0]
+            dsq = dsq + d[1] * d[1]
+            dsq = dsq + d[2] * d[2]
+            counted = (dsq < CSQ) & (own[:, None] != own[None, :])
+            if not half and plo is not None:
+                counted = split_cutoff_test(
+                    dsq < CSQ, dsq, CSQ, shi[:, None].unbind(-1), shi[None].unbind(-1),
+                    plo[:, None].unbind(-1), plo[None].unbind(-1),
+                    [f[1] for f in folded]) & (dsq > 0)
+            mn, mx, lomax = cluster_boxes(shi.t(), None if plo is None else plo.t())
+            box_of = [x[:, own // CLUSTER, None] for x in (mn, mx, lomax)]
+            thr = prune_threshold(CSQ, split)
+            args = (shi.t()[:, None, :], None if plo is None else plo.t()[:, None, :], thr)
+            near = near_cluster(*box_of, *args, mi_box=mib)
+            assert not bool((counted & ~near).any()), (mimask, split)
+            assert bool((counted & ~near_cluster(*box_of, *args)).any()), (mimask, split)
+            L = suggest_lag(keys, strides, reach=reach)
+            jlo, jhi = lag_ranges(keys, strides, L, reach)
+            first = jlo[::CLUSTER]
+            ends = torch.clamp(torch.arange(0, n, CLUSTER) + CLUSTER - 1, max=n - 1)
+            last = ends - 1 if half else jhi[ends]
+            union = (own[None, :] >= first[:, None]) & (own[None, :] <= last[:, None])
+            got = lag_cluster_entries(shi.t(), None if plo is None else plo.t(), keys,
+                                      strides, CSQ, L, half=half, mi_box=mib, reach=reach)
+            assert torch.equal(got, (union & near[::CLUSTER]).sum(1)), (mimask, split)
+
+
 @pytest.mark.parametrize("kernel", ["lag", "tile", "lag_half", "tile_half"])
 @pytest.mark.parametrize("data", ["cluster_gap", "drifted", "uniform"])
 def test_prune_keeps_every_counted_pair(data, kernel):
@@ -102,6 +167,13 @@ def test_prune_keeps_every_counted_pair(data, kernel):
     n = hi.shape[0]
     own = torch.arange(n)
     half = kernel.endswith("_half")
+    if data == "drifted" and kernel.startswith("lag"):
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            _seam_check(half)
+        finally:
+            torch.set_num_threads(threads)
     for split in (False, True):
         plo = lo if split else None
         counted = _counted(hi, plo, tie=not half)

@@ -59,6 +59,16 @@ K9) and a Langevin NVT trajectory over `md_step`:
     state, ok, temps = md_run_langevin(state, 10.0, 1e-4, kT=1.0, gamma=1.0,
                                        generator=gen, steps=10,
                                        record_temperature=True)
+
+Periodic (orthorhombic) boxes: ghost images of the boundary particles
+(energies through K1 or K6 with the periodic keep mask, forces through K3
+or K7), or the minimum image folded in K1 and K3 on narrow axes:
+
+    from zelll_tpu_torch import md_run_skin_tile_pbc, pbc_lj_energy, pbc_lj_forces
+    e, ok = pbc_lj_energy(pos, origin, box, 10.0, minimage="auto")
+    f, ok = pbc_lj_forces(pos, origin, box, 10.0, path="tile", MAXJ=maxj9)
+    state, ok, energy, rebuilds = md_run_skin_tile_pbc(
+        state, origin, box, 10.0, 1e-4, steps=50, B=B, G=G, MAXJ=maxj9)
 """
 
 from .api import CellGrid, GridCell
@@ -89,8 +99,11 @@ from .models import (
     hmc_sample_batched,
     md_run,
     md_run_skin,
+    md_run_skin_pbc,
     md_run_skin_tile,
+    md_run_skin_tile_pbc,
     md_run_vv,
+    md_run_vv_pbc,
     md_step,
     md_step_cubic_tile,
     md_run_langevin,
@@ -116,6 +129,8 @@ from .ops import (
     lj_force_factor,
     lj_force_factor_fast,
     lj_term_fast,
+    md_step_pbc,
+    minimage_axes,
     nearest_dsq,
     pair_distance_histogram,
     pair_lag_forces,
@@ -123,8 +138,14 @@ from .ops import (
     pair_lag_per_particle,
     pair_lag_reduce,
     pair_lag_stress,
+    pbc_count_pairs,
+    pbc_extend,
+    pbc_lj_energy,
+    pbc_lj_forces,
+    pbc_pair_sum,
     split_f64,
     suggest_lag,
+    suggest_pbc_capacity,
     tile_count_pairs,
     tile_lj_energy,
     tile_lj_rebuild_energy,
@@ -133,6 +154,7 @@ from .ops import (
     tile_pair_reduce,
     tile_pair_stress,
     virial_rebuild,
+    wrap_positions,
 )
 
 __all__ = [
@@ -162,8 +184,11 @@ __all__ = [
     "hmc_sample_batched",
     "md_run",
     "md_run_skin",
+    "md_run_skin_pbc",
     "md_run_skin_tile",
+    "md_run_skin_tile_pbc",
     "md_run_vv",
+    "md_run_vv_pbc",
     "md_step",
     "md_step_cubic_tile",
     "md_run_langevin",
@@ -187,6 +212,8 @@ __all__ = [
     "lj_force_factor",
     "lj_force_factor_fast",
     "lj_term_fast",
+    "md_step_pbc",
+    "minimage_axes",
     "nearest_dsq",
     "pair_distance_histogram",
     "pair_lag_forces",
@@ -194,8 +221,14 @@ __all__ = [
     "pair_lag_per_particle",
     "pair_lag_reduce",
     "pair_lag_stress",
+    "pbc_count_pairs",
+    "pbc_extend",
+    "pbc_lj_energy",
+    "pbc_lj_forces",
+    "pbc_pair_sum",
     "split_f64",
     "suggest_lag",
+    "suggest_pbc_capacity",
     "tile_count_pairs",
     "tile_lj_energy",
     "tile_lj_rebuild_energy",
@@ -204,4 +237,5 @@ __all__ = [
     "tile_pair_reduce",
     "tile_pair_stress",
     "virial_rebuild",
+    "wrap_positions",
 ]

@@ -163,12 +163,20 @@ class GridInfo:
         return self.flatten_index(self.cell_index(coords))
 
 
-def key_window(strides) -> torch.Tensor:
+def key_window(strides, reach=None) -> torch.Tensor:
     """Max |flat key difference| over the rank-1 stencil: ``sum(strides)``.
 
     Holds for any per-axis stride assignment, ``auto_order`` included.
+    ``reach`` (per-axis int, default 1) widens the per-axis cell distance:
+    a minimum-image periodic axis treats every cell along it as adjacent,
+    so its reach is the occupied cell span (``ceil(box/cutoff) - 1``) and
+    the window becomes ``sum(strides * reach)``.
     """
-    return torch.as_tensor(strides).sum(dtype=torch.int32)
+    strides = torch.as_tensor(strides)
+    if reach is None:
+        return strides.sum(dtype=torch.int32)
+    reach = torch.as_tensor(reach, dtype=strides.dtype, device=strides.device)
+    return (strides * reach).sum(dtype=torch.int32)
 
 
 def rel_offsets(dim: int) -> np.ndarray:

@@ -27,6 +27,18 @@
 // The bound needs every product and sum rounded on its own: build with
 // --fmad=false (ops/_build.py), as the kernels' bitwise agreement with
 // their plain versions does too.
+//
+// Minimum image (K1 and K3 with mi_box, near_box_mi): on a folded axis of
+// box length bx a pair's separation is s - k bx with s = fl(o - b) and k in
+// {-1, 0, 1} (mi_axis), so the gap is taken to the nearest of the images
+// b, b - bx and b + bx: a j point at x = 29.9 and a cluster at x = 0.1 of a
+// 30 box are 0.2 apart through the seam, not 29.8. The images, the fold
+// and, in split mode, the two-diff carry of s round once or twice each,
+// within 2^-23 (|o| + |b| + bx) together, so the folded gap is lowered by
+// kMiSlack (|b| + bx + max(|mn|, |mx|)), 8 times that. On every axis the
+// gap is then scaled by 1 - 2^-21, which covers split mode's carry e
+// (|e| <= 2^-24 |s|, and g <= |s|), before the low parts' reach is taken
+// off as above. So the prune still drops no pair that counts.
 
 #pragma once
 
@@ -118,6 +130,42 @@ __device__ __forceinline__ bool near_box(const Box& box, float4 b, float4 bl,
   return gsq < thr;
 }
 
+// Minimum image: the slack of a folded axis and the scale of every axis'
+// gap (above).
+constexpr float kMiSlack = 0x1p-20f;
+constexpr float kMiScale = 1.0f - 0x1p-21f;
+
+// The gap of one axis under minimum image (bx > 0 folds it, bx == 0
+// leaves it open).
+template <bool SPLIT>
+__device__ __forceinline__ float axis_gap_mi(float mn, float mx, float lomax,
+                                             float b, float bl, float bx) {
+  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);
+  if (bx > 0.0f) {
+    const float up = b + bx;
+    const float dn = b - bx;
+    g = fminf(g, fmaxf(fmaxf(mn - up, up - mx), 0.0f));
+    g = fminf(g, fmaxf(fmaxf(mn - dn, dn - mx), 0.0f));
+    g = g - kMiSlack * ((fabsf(b) + bx) + fmaxf(fabsf(mn), fabsf(mx)));
+  }
+  g = fmaxf(g * kMiScale, 0.0f);
+  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);
+  return g;
+}
+
+// near_box under minimum image on the axes where mib > 0.
+template <bool SPLIT>
+__device__ __forceinline__ bool near_box_mi(const Box& box, float4 b, float4 bl,
+                                            float thr, float3 mib) {
+  const float gx = axis_gap_mi<SPLIT>(box.mn.x, box.mx.x, box.lomax.x, b.x, bl.x, mib.x);
+  const float gy = axis_gap_mi<SPLIT>(box.mn.y, box.mx.y, box.lomax.y, b.y, bl.y, mib.y);
+  const float gz = axis_gap_mi<SPLIT>(box.mn.z, box.mx.z, box.lomax.z, b.z, bl.z, mib.z);
+  float gsq = gx * gx;
+  gsq = gsq + gy * gy;
+  gsq = gsq + gz * gz;
+  return gsq < thr;
+}
+
 // The separation and dsq of own point o (o.h, and o.l in split mode) and
 // entry (b, bl), in the order of the plain versions: dsq = (dx dx + dy dy)
 // + dz dz, and in split mode each axis' d = (hi_i - hi_j) + (lo_i - lo_j).
@@ -136,6 +184,48 @@ __device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
   dsq = dsq + dy * dy;
   dsq = dsq + dz * dz;
   return dsq;
+}
+
+// One axis' separation folded to the minimum image, as
+// pallas_pairs.py::_mi_pair_d and lag_pairs.mi_fold fold it: s = hi - hj,
+// one box length off where |s| > bx / 2 (bx == 0 leaves the axis open),
+// and in split mode the exact two-diff error e of s carried into the low
+// term: d = (s - shift) + (e + (li - lj)). shift is returned for the
+// forces kernel's f64 tie decision.
+template <bool SPLIT>
+__device__ __forceinline__ float mi_axis(float hi, float hj, float li, float lj,
+                                         float bx, float& shift) {
+  const float s = hi - hj;
+  const float half = 0.5f * bx;
+  shift = s > half ? bx : (s < -half ? -bx : 0.0f);
+  float d = s - shift;
+  if (SPLIT) {
+    const float z = s - hi;
+    const float e = (hi - (s - z)) - (hj + z);
+    d = d + (e + (li - lj));
+  }
+  return d;
+}
+
+// pair_dsq under minimum image (mi_axis per axis); sh: the shifts.
+template <bool SPLIT, typename Own>
+__device__ __forceinline__ float pair_dsq_mi(const Own& o, float4 b, float4 bl,
+                                             float3 mib, float& dx, float& dy,
+                                             float& dz, float3& sh) {
+  dx = mi_axis<SPLIT>(o.h.x, b.x, o.l.x, bl.x, mib.x, sh.x);
+  dy = mi_axis<SPLIT>(o.h.y, b.y, o.l.y, bl.y, mib.y, sh.y);
+  dz = mi_axis<SPLIT>(o.h.z, b.z, o.l.z, bl.z, mib.z, sh.z);
+  float dsq = dx * dx;
+  dsq = dsq + dy * dy;
+  dsq = dsq + dz * dz;
+  return dsq;
+}
+
+// The periodic keep mask over the shift-sign plane (lag_pairs.pbc_keep):
+// real-real pairs, each cross-boundary pair once and no ghost-ghost pair
+// (mask id 2 of the energy kernels).
+__device__ __forceinline__ bool keep_pair(float wi, float wj) {
+  return wi * wj == 0.0f && wi + wj >= 0.0f;
 }
 
 // The ballot compaction: mask is the warp's __ballot_sync(kAll, keep); a
@@ -256,34 +346,48 @@ struct Lane {
   int jlo;
   unsigned span;
   Acc acc;
+  float pw;       // the slot's shift sign (the keep mask)
+  float3 mib;     // minimum image: box lengths, 0 on open axes (K1)
 };
 
 // Sweeps entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
 // FULL: cnt == 32, unrolled) into each lane's sum: the entry pairs with the
 // lane where its w is in the lane's range, the key band holds (BANDMASK:
 // band_lo <= key_i - key_j <= band_hi, the key in bk) and dsq < csq on the
-// f32 dsq (split mode too). No dsq > 0 test: coincident particles count,
+// f32 dsq (split mode too), and with KEEP the keep mask of the lane's and
+// the entry's shift signs (o.pw, bw[q]); MI folds each separation to its
+// minimum image (o.mib). No dsq > 0 test: coincident particles count,
 // as in the plain versions. Masks select, never multiply. TWO_PHASE: phase
 // A sets the lane's hit bits and phase B adds the term of each hit (a
 // count adds their popcount); otherwise the term is added inline, and the
 // warp takes that branch for an entry whenever one of its lanes has a
 // pair. K6 runs the two phases, K1 the term inline: each was the faster on
 // the card (PERF.md has both times).
+template <bool SPLIT, bool MI, typename Acc>
+__device__ __forceinline__ float lane_dsq(const Lane<Acc>& o, float4 b, float4 bl) {
+  float dx, dy, dz;
+  if (MI) {
+    float3 sh;
+    return pair_dsq_mi<SPLIT>(o, b, bl, o.mib, dx, dy, dz, sh);
+  }
+  return pair_dsq<SPLIT>(o, b, bl, dx, dy, dz);
+}
+
 template <bool SPLIT, int TERM, bool BANDMASK, bool TWO_PHASE, bool FULL,
-          typename Acc>
+          bool KEEP = false, bool MI = false, typename Acc>
 __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
                                              const float4* bl,
                                              const int32_t* bk, int cnt,
                                              float csq, int32_t band_lo,
-                                             int32_t band_hi) {
+                                             int32_t band_hi,
+                                             const float* bw = nullptr) {
   unsigned hits = 0u;
   auto visit = [&](int q) {
     const float4 b = bh[q];
-    float dx, dy, dz;
-    const float dsq = pair_dsq<SPLIT>(o, b, SPLIT ? bl[q] : make_float4(0, 0, 0, 0),
-                                      dx, dy, dz);
+    const float dsq = lane_dsq<SPLIT, MI>(o, b, SPLIT ? bl[q] : make_float4(0, 0, 0, 0));
     bool m = static_cast<unsigned>(__float_as_int(b.w) - o.jlo) < o.span &&
              dsq < csq;
+    if (KEEP) m = m && keep_pair(o.pw, bw[q]);
     if (BANDMASK) {
       const long long diff = static_cast<long long>(o.key) -
                              static_cast<long long>(bk[q]);
@@ -311,9 +415,7 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
   while (hits != 0u) {
     const int q = __ffs(static_cast<int>(hits)) - 1;
     hits &= hits - 1u;
-    float dx, dy, dz;
-    const float dsq = pair_dsq<SPLIT>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0),
-                                      dx, dy, dz);
+    const float dsq = lane_dsq<SPLIT, MI>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0));
     o.acc += to_acc<Acc>(term_value<TERM>(dsq));
   }
 }

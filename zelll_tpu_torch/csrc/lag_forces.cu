@@ -89,6 +89,19 @@
 // holds the box, the gap test, the split margin and the compaction that
 // K1, K6 and K7 share.
 //
+// Minimum image (MI, lag_forces_mi_kernel; the TPU kernel's mi_box /
+// key_reach): each separation is folded by one box length where |s| >
+// box / 2, in split mode with the two-diff of the hi difference carried
+// into the low term (mi_axis in cluster_sweep.cuh, pallas_pairs.py::
+// _mi_pair_d); the caller's key window is the widened sum(strides *
+// reach); the prune takes the gap to each j point's nearest periodic image
+// (near_box_mi). The split tie band is decided on the f64 separation less
+// the same shift, ((hi_i - hi_j) - shift) + (lo_i - lo_j), so split mode's
+// cutoff rule holds across the seam too. The fold is exactly antisymmetric
+// (the two-diff error of -s is -e), so both ends of a pair still agree
+// bitwise. Newton's +/- g d on the folded separation is the
+// minimum-image force.
+//
 // Accumulation: each lane sums its f32 products g d in f64 and writes
 // f32 planes, or f64 planes when asked (the checks compare f64 sums).
 //
@@ -136,6 +149,7 @@ struct Args {
   int L;
   int spacing;
   float csq;
+  float3 mib;             // minimum image: box lengths, 0 on open axes
   void* out;              // (3, n) planes of float or double
 };
 
@@ -152,14 +166,26 @@ struct Own {
   int jlo;             // first partner slot
   unsigned span;       // jhi - jlo
   double fx, fy, fz;
+  float3 mib;          // minimum image: box lengths, 0 on open axes
 };
 
+// The separation and dsq of the lane and an entry, folded with MI; sh:
+// the minimum image's shifts (zero without MI).
+template <bool SPLIT, bool MI>
+__device__ __forceinline__ float own_dsq(const Own& o, float4 b, float4 b_lo,
+                                         float& dx, float& dy, float& dz, float3& sh) {
+  if (MI) return pair_dsq_mi<SPLIT>(o, b, b_lo, o.mib, dx, dy, dz, sh);
+  sh = make_float3(0.0f, 0.0f, 0.0f);
+  return pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+}
+
 // Phase A of a sweep, entry q: the lane's hit bit.
-template <bool SPLIT>
+template <bool SPLIT, bool MI>
 __device__ __forceinline__ bool may_count(const Own& o, float4 b, float4 b_lo,
                                           float csq, float thr) {
   float dx, dy, dz;
-  const float dsq = pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+  float3 sh;
+  const float dsq = own_dsq<SPLIT, MI>(o, b, b_lo, dx, dy, dz, sh);
   // the lag bound and key window: jlo_i <= j <= jhi_i
   const bool in_range =
       static_cast<unsigned>(__float_as_int(b.w) - o.jlo) <= o.span;
@@ -170,7 +196,7 @@ __device__ __forceinline__ bool may_count(const Own& o, float4 b, float4 b_lo,
 
 // Sweep entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
 // FULL: cnt == 32, unrolled).
-template <bool SPLIT, int GFN, bool FULL>
+template <bool SPLIT, int GFN, bool FULL, bool MI>
 __device__ __forceinline__ void sweep(Own& o, const float4* bh,
                                       const float4* bl, int cnt, float csq,
                                       float thr) {
@@ -179,12 +205,12 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
   if (FULL) {
 #pragma unroll
     for (int q = 0; q < kWarp; ++q)
-      if (may_count<SPLIT>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0), csq, thr))
+      if (may_count<SPLIT, MI>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0), csq, thr))
         hits |= 1u << q;
   } else {
 #pragma unroll 4
     for (int q = 0; q < cnt; ++q)
-      if (may_count<SPLIT>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0), csq, thr))
+      if (may_count<SPLIT, MI>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0), csq, thr))
         hits |= 1u << q;
   }
   if (!o.real) hits = 0u;
@@ -195,20 +221,34 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
     const float4 b = bh[q];
     const float4 b_lo = SPLIT ? bl[q] : make_float4(0, 0, 0, 0);
     float dx, dy, dz;
-    const float dsq = pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
+    float3 sh;
+    const float dsq = own_dsq<SPLIT, MI>(o, b, b_lo, dx, dy, dz, sh);
     bool inside = true;
     if (SPLIT) {
       inside = dsq < csq;
       if (fabsf(dsq - csq) <= kTieBand * csq) {
         // near the cutoff the f32 dsq may fall on the wrong side: decide on
         // the f64 dsq of the split separations (split_cutoff_test in
-        // lag_pairs.py)
-        const double ex = (static_cast<double>(o.h.x) - static_cast<double>(b.x)) +
-                          (static_cast<double>(o.l.x) - static_cast<double>(b_lo.x));
-        const double ey = (static_cast<double>(o.h.y) - static_cast<double>(b.y)) +
-                          (static_cast<double>(o.l.y) - static_cast<double>(b_lo.y));
-        const double ez = (static_cast<double>(o.h.z) - static_cast<double>(b.z)) +
-                          (static_cast<double>(o.l.z) - static_cast<double>(b_lo.z));
+        // lag_pairs.py), less the minimum image's shift with MI
+        double ex, ey, ez;
+        if (MI) {
+          ex = ((static_cast<double>(o.h.x) - static_cast<double>(b.x)) -
+                static_cast<double>(sh.x)) +
+               (static_cast<double>(o.l.x) - static_cast<double>(b_lo.x));
+          ey = ((static_cast<double>(o.h.y) - static_cast<double>(b.y)) -
+                static_cast<double>(sh.y)) +
+               (static_cast<double>(o.l.y) - static_cast<double>(b_lo.y));
+          ez = ((static_cast<double>(o.h.z) - static_cast<double>(b.z)) -
+                static_cast<double>(sh.z)) +
+               (static_cast<double>(o.l.z) - static_cast<double>(b_lo.z));
+        } else {
+          ex = (static_cast<double>(o.h.x) - static_cast<double>(b.x)) +
+               (static_cast<double>(o.l.x) - static_cast<double>(b_lo.x));
+          ey = (static_cast<double>(o.h.y) - static_cast<double>(b.y)) +
+               (static_cast<double>(o.l.y) - static_cast<double>(b_lo.y));
+          ez = (static_cast<double>(o.h.z) - static_cast<double>(b.z)) +
+               (static_cast<double>(o.l.z) - static_cast<double>(b_lo.z));
+        }
         double dsq64 = ex * ex;
         dsq64 = dsq64 + ey * ey;
         dsq64 = dsq64 + ez * ez;
@@ -224,8 +264,8 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
   }
 }
 
-template <bool SPLIT, int GFN, typename Out>
-__global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
+template <bool SPLIT, int GFN, typename Out, bool MI>
+__device__ __forceinline__ void lag_forces_body(const Args& a) {
   __shared__ float4 buf_hi[kWarps][kBuf];
   __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
   const int w = threadIdx.x / kWarp;
@@ -241,6 +281,7 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
   o.h = o.real ? load_slot(a.pos, n, i) : make_float4(0, 0, 0, 0);
   o.l = SPLIT && o.real ? load_slot(a.lo, n, i) : make_float4(0, 0, 0, 0);
   o.fx = o.fy = o.fz = 0.0;
+  o.mib = a.mib;
   // the lane's partner range [jlo, jhi] by binary search over the keys
   const int32_t w_key = *a.w_key;
   int jlo = 0, jhi = -1;
@@ -278,7 +319,8 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
     const float4 b = valid ? load_slot(a.pos, n, j) : make_float4(0, 0, 0, 0);
     const float4 b_lo =
         SPLIT && valid ? load_slot(a.lo, n, j) : make_float4(0, 0, 0, 0);
-    const bool keep = valid && near_box<SPLIT>(box, b, b_lo, thr);
+    const bool keep = valid && (MI ? near_box_mi<SPLIT>(box, b, b_lo, thr, a.mib)
+                                   : near_box<SPLIT>(box, b, b_lo, thr));
     const unsigned mask = __ballot_sync(kAll, keep);
     if (mask == 0u) continue;
     compact(mask, keep, below, cnt, [&](int at) {
@@ -287,7 +329,7 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
     });
     if (cnt >= kWarp) {
       __syncwarp();
-      sweep<SPLIT, GFN, true>(o, bh, bl, kWarp, a.csq, thr);
+      sweep<SPLIT, GFN, true, MI>(o, bh, bl, kWarp, a.csq, thr);
       __syncwarp();
       // move the remainder to the front of the buffer
       cnt -= kWarp;
@@ -296,7 +338,7 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
   }
   if (cnt > 0) {
     __syncwarp();
-    sweep<SPLIT, GFN, false>(o, bh, bl, cnt, a.csq, thr);
+    sweep<SPLIT, GFN, false, MI>(o, bh, bl, cnt, a.csq, thr);
   }
   if (o.real) {
     Out* out = static_cast<Out*>(a.out);
@@ -306,21 +348,41 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
   }
 }
 
-template <bool SPLIT, int GFN>
-void launch_out(const Args& a, bool f64_out, cudaStream_t s) {
+// The open-boundary instances
+template <bool SPLIT, int GFN, typename Out>
+__global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
+  lag_forces_body<SPLIT, GFN, Out, false>(a);
+}
+
+// The minimum-image instances
+template <bool SPLIT, int GFN, typename Out>
+__global__ void __launch_bounds__(kBlock) lag_forces_mi_kernel(Args a) {
+  lag_forces_body<SPLIT, GFN, Out, true>(a);
+}
+
+template <bool SPLIT, int GFN, typename Out>
+void launch_mi(const Args& a, bool mi, cudaStream_t s) {
   const int blocks = (a.n + kBlock - 1) / kBlock;
-  if (f64_out)
-    lag_forces_kernel<SPLIT, GFN, double><<<blocks, kBlock, 0, s>>>(a);
+  if (mi)
+    lag_forces_mi_kernel<SPLIT, GFN, Out><<<blocks, kBlock, 0, s>>>(a);
   else
-    lag_forces_kernel<SPLIT, GFN, float><<<blocks, kBlock, 0, s>>>(a);
+    lag_forces_kernel<SPLIT, GFN, Out><<<blocks, kBlock, 0, s>>>(a);
+}
+
+template <bool SPLIT, int GFN>
+void launch_out(const Args& a, bool f64_out, bool mi, cudaStream_t s) {
+  if (f64_out)
+    launch_mi<SPLIT, GFN, double>(a, mi, s);
+  else
+    launch_mi<SPLIT, GFN, float>(a, mi, s);
 }
 
 template <bool SPLIT>
-void launch_gfn(const Args& a, int gfn, bool f64_out, cudaStream_t s) {
+void launch_gfn(const Args& a, int gfn, bool f64_out, bool mi, cudaStream_t s) {
   if (gfn == kGfnLj)
-    launch_out<SPLIT, kGfnLj>(a, f64_out, s);
+    launch_out<SPLIT, kGfnLj>(a, f64_out, mi, s);
   else
-    launch_out<SPLIT, kGfnLjFast>(a, f64_out, s);
+    launch_out<SPLIT, kGfnLjFast>(a, f64_out, mi, s);
 }
 
 }  // namespace
@@ -333,12 +395,15 @@ int zelll_lag_forces_block() { return kBlock; }
 // pos, lo: (3, n) f32 planes (lo null unless split); keys: (n,) int32
 // ascending, SENTINEL_KEY rows last; w_key: one int32 on the device;
 // spacing: the padding-key spacing, (INT32_MAX - INT32_MAX / 2 - 1) / n at
-// least 1; gfn: 0 for the LJ force factor, 1 for its rsqrt form; out: (3, n)
-// planes of float (f64_out == 0) or double (f64_out != 0). Returns
-// cudaGetLastError() after the launch.
+// least 1; gfn: 0 for the LJ force factor, 1 for its rsqrt form; mi != 0
+// folds the axes whose box length mbx, mby, mbz is > 0 to the minimum
+// image (w_key then the widened window); out: (3, n) planes of float
+// (f64_out == 0) or double (f64_out != 0). Returns cudaGetLastError() after
+// the launch.
 int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int L, int spacing, float csq,
-                     int gfn, int f64_out, void* out, void* stream) {
+                     int gfn, int f64_out, int mi, float mbx, float mby, float mbz,
+                     void* out, void* stream) {
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
       (gfn != kGfnLj && gfn != kGfnLjFast))
@@ -352,12 +417,13 @@ int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
   a.L = L;
   a.spacing = spacing;
   a.csq = csq;
+  a.mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
   a.out = out;
   auto s = static_cast<cudaStream_t>(stream);
   if (a.lo != nullptr)
-    launch_gfn<true>(a, gfn, f64_out != 0, s);
+    launch_gfn<true>(a, gfn, f64_out != 0, mi != 0, s);
   else
-    launch_gfn<false>(a, gfn, f64_out != 0, s);
+    launch_gfn<false>(a, gfn, f64_out != 0, mi != 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -64,6 +64,23 @@
 // is a superset of it. There is no dsq > 0 exclusion: coincident real
 // particles count, as in the reference.
 //
+// Periodic boxes (ops/pbc.py) add two instances, as template parameters of
+// the same body (lag_reduce_pbc_kernel; the open-boundary instances keep
+// their names and code):
+//   KEEP: the TPU kernel's payload term pbc._pbc_term, mask id 2. One
+//     payload plane w holds each slot's shift sign (0 real, +/-1 ghost);
+//     an entry carries its w in a third buffer beside the coordinates,
+//     the lane its own in a register, and the pair counts only where
+//     (w_i w_j == 0) & (w_i + w_j >= 0) (keep_pair), one more lane mask
+//     before the term.
+//   MI: in-kernel minimum image (pallas_pairs.py::_mi_pair_d, mi_box /
+//     key_reach): each separation is folded by one box length where
+//     |s| > box / 2 (mi_axis; split mode carries the two-diff of the hi
+//     difference into the low term), the key window W is the caller's
+//     widened sum(strides * reach), and the prune takes the gap to the
+//     nearest periodic image of each j point (near_box_mi).
+// Both compose, with each term, f32 and split.
+//
 // Accumulation: each lane sums its f32 terms in f64 (as good as the TPU's
 // per-lane f32 Kahan sum, and simpler); the block folds its lanes in a
 // fixed order (block_fold) and writes one partial per block. The caller
@@ -96,10 +113,14 @@ constexpr int kMaxDim = 3;
 constexpr int kArgLj = 0;
 constexpr int kArgCount = 1;
 constexpr int kArgVirial = 2;
+// The payload rules (lag_pairs._MASK_*): none, the periodic keep mask
+constexpr int kMaskNone = 0;
+constexpr int kMaskKeep = 2;
 
 struct Args {
   const float* pos;      // (n, dim) row-major
   const float* lo;       // (n, dim) low parts, or null
+  const float* w;        // (n,) shift signs (the keep mask), or null
   const int32_t* keys;   // (n,) ascending, SENTINEL_KEY rows last
   const int32_t* w_key;  // one int32 on the device
   int n;
@@ -107,6 +128,7 @@ struct Args {
   int L;
   int spacing;
   float csq;
+  float3 mib;            // minimum image: box lengths, 0 on open axes
   void* partial;         // one per block
 };
 
@@ -121,10 +143,11 @@ __device__ __forceinline__ float4 load_row(const float* rows, int dim, int j,
   return v;
 }
 
-template <bool SPLIT, int TERM, typename Acc>
-__global__ void __launch_bounds__(kBlock) lag_reduce_kernel(Args a) {
+template <bool SPLIT, int TERM, typename Acc, bool KEEP, bool MI>
+__device__ __forceinline__ void lag_reduce_body(const Args& a) {
   __shared__ float4 buf_hi[kWarps][kBuf];
   __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
+  __shared__ float buf_w[kWarps][KEEP ? kBuf : 1];
   const int w = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
@@ -132,12 +155,15 @@ __global__ void __launch_bounds__(kBlock) lag_reduce_kernel(Args a) {
   const bool real = i < a.n;
   float4* bh = buf_hi[w];
   float4* bl = buf_lo[w];
+  float* bw = buf_w[w];
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   Lane<Acc> o;
   o.h = real ? load_row(a.pos, a.dim, i, 0) : zero;
   o.l = SPLIT && real ? load_row(a.lo, a.dim, i, 0) : zero;
   o.key = 0;
   o.acc = Acc(0);
+  o.pw = KEEP && real ? a.w[i] : 0.0f;
+  o.mib = a.mib;
   // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
   // with key_j >= key_i - W (j = i holds), by binary search over the keys
   int jlo = i;
@@ -166,46 +192,76 @@ __global__ void __launch_bounds__(kBlock) lag_reduce_kernel(Args a) {
       const bool valid = j <= last;
       const float4 b = valid ? load_row(a.pos, a.dim, j, j) : zero;
       const float4 b_lo = SPLIT && valid ? load_row(a.lo, a.dim, j, 0) : zero;
-      const bool keep = valid && near_box<SPLIT>(box, b, b_lo, thr);
+      const float b_w = KEEP && valid ? a.w[j] : 0.0f;
+      const bool keep = valid && (MI ? near_box_mi<SPLIT>(box, b, b_lo, thr, a.mib)
+                                     : near_box<SPLIT>(box, b, b_lo, thr));
       compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
         bh[at] = b;
         if (SPLIT) bl[at] = b_lo;
+        if (KEEP) bw[at] = b_w;
       });
       if (cnt >= kWarp) {
         __syncwarp();
-        reduce_sweep<SPLIT, TERM, false, kTwoPhase, true>(o, bh, bl, nullptr, kWarp, a.csq, 0,
-                                                          0);
+        reduce_sweep<SPLIT, TERM, false, kTwoPhase, true, KEEP, MI>(o, bh, bl, nullptr, kWarp,
+                                                                     a.csq, 0, 0, bw);
         __syncwarp();
         // move the remainder (less than one cluster) to the front
         cnt -= kWarp;
         shift_front<1, SPLIT>(bh, bl, kWarp, cnt, lane);
+        if (KEEP) shift_front<1, false>(bw, bw, kWarp, cnt, lane);
       }
     }
     if (cnt > 0) {
       __syncwarp();
-      reduce_sweep<SPLIT, TERM, false, kTwoPhase, false>(o, bh, bl, nullptr, cnt, a.csq, 0, 0);
+      reduce_sweep<SPLIT, TERM, false, kTwoPhase, false, KEEP, MI>(o, bh, bl, nullptr, cnt, a.csq,
+                                                                    0, 0, bw);
     }
   }
   block_fold<kWarps>(o.acc, static_cast<Acc*>(a.partial));
 }
 
-template <bool SPLIT, int TERM>
-void launch_acc(const Args& a, bool int_out, cudaStream_t s) {
+// The open-boundary instances
+template <bool SPLIT, int TERM, typename Acc>
+__global__ void __launch_bounds__(kBlock) lag_reduce_kernel(Args a) {
+  lag_reduce_body<SPLIT, TERM, Acc, false, false>(a);
+}
+
+// The periodic instances: the keep mask, the minimum image, or both
+template <bool SPLIT, int TERM, typename Acc, bool KEEP, bool MI>
+__global__ void __launch_bounds__(kBlock) lag_reduce_pbc_kernel(Args a) {
+  lag_reduce_body<SPLIT, TERM, Acc, KEEP, MI>(a);
+}
+
+template <bool SPLIT, int TERM, typename Acc>
+void launch_rule(const Args& a, bool keep, bool mi, cudaStream_t s) {
   const int blocks = (a.n + kBlock - 1) / kBlock;
-  if (int_out)
-    lag_reduce_kernel<SPLIT, TERM, long long><<<blocks, kBlock, 0, s>>>(a);
+  if (keep && mi)
+    lag_reduce_pbc_kernel<SPLIT, TERM, Acc, true, true><<<blocks, kBlock, 0, s>>>(a);
+  else if (keep)
+    lag_reduce_pbc_kernel<SPLIT, TERM, Acc, true, false><<<blocks, kBlock, 0, s>>>(a);
+  else if (mi)
+    lag_reduce_pbc_kernel<SPLIT, TERM, Acc, false, true><<<blocks, kBlock, 0, s>>>(a);
   else
-    lag_reduce_kernel<SPLIT, TERM, double><<<blocks, kBlock, 0, s>>>(a);
+    lag_reduce_kernel<SPLIT, TERM, Acc><<<blocks, kBlock, 0, s>>>(a);
+}
+
+template <bool SPLIT, int TERM>
+void launch_acc(const Args& a, bool int_out, bool keep, bool mi, cudaStream_t s) {
+  if (int_out)
+    launch_rule<SPLIT, TERM, long long>(a, keep, mi, s);
+  else
+    launch_rule<SPLIT, TERM, double>(a, keep, mi, s);
 }
 
 template <bool SPLIT>
-void launch_term(const Args& a, int term, bool int_out, cudaStream_t s) {
+void launch_term(const Args& a, int term, bool int_out, bool keep, bool mi,
+                 cudaStream_t s) {
   if (term == kArgLj)
-    launch_acc<SPLIT, kTermLj>(a, int_out, s);
+    launch_acc<SPLIT, kTermLj>(a, int_out, keep, mi, s);
   else if (term == kArgVirial)
-    launch_acc<SPLIT, kTermVirial>(a, int_out, s);
+    launch_acc<SPLIT, kTermVirial>(a, int_out, keep, mi, s);
   else
-    launch_acc<SPLIT, kTermCount>(a, int_out, s);
+    launch_acc<SPLIT, kTermCount>(a, int_out, keep, mi, s);
 }
 
 }  // namespace
@@ -215,24 +271,29 @@ extern "C" {
 // Threads per block: the caller allocates ceil(n / block) partials.
 int zelll_lag_reduce_block() { return kBlock; }
 
-// pos, lo: (n, dim) row-major f32 (lo null unless split); keys: (n,) int32
-// ascending, SENTINEL_KEY rows last; w_key: one int32 on the device;
+// pos, lo: (n, dim) row-major f32 (lo null unless split); w: (n,) f32
+// shift signs, read with mask 2 (the periodic keep mask) and null
+// otherwise; keys: (n,) int32 ascending, SENTINEL_KEY rows last; w_key: one
+// int32 on the device (the caller's window, widened for minimum image);
 // spacing: the padding-key spacing, (INT32_MAX - INT32_MAX / 2 - 1) / n at
-// least 1; term: 0 for LJ, 1 for count, 2 for the LJ pair virial; partial:
-// ceil(n / block) doubles (int_out == 0) or int64s (int_out != 0). Returns
-// cudaGetLastError() after the launch.
-int zelll_lag_reduce(const void* pos, const void* lo, const void* keys,
+// least 1; term: 0 for LJ, 1 for count, 2 for the LJ pair virial; mask: 0
+// or 2; mi != 0 folds the axes whose box length mbx, mby, mbz is > 0 to the
+// minimum image; partial: ceil(n / block) doubles (int_out == 0) or int64s
+// (int_out != 0). Returns cudaGetLastError() after the launch.
+int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
-                     float csq, int term, int int_out, void* partial,
-                     void* stream) {
+                     float csq, int term, int int_out, int mask, int mi, float mbx,
+                     float mby, float mbz, void* partial, void* stream) {
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
       L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (term != kArgLj && term != kArgCount && term != kArgVirial))
+      (term != kArgLj && term != kArgCount && term != kArgVirial) ||
+      (mask != kMaskNone && mask != kMaskKeep) || ((mask == kMaskKeep) != (w != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
   a.lo = static_cast<const float*>(lo);
+  a.w = static_cast<const float*>(w);
   a.keys = static_cast<const int32_t*>(keys);
   a.w_key = static_cast<const int32_t*>(w_key);
   a.n = n;
@@ -240,12 +301,14 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* keys,
   a.L = L;
   a.spacing = spacing;
   a.csq = csq;
+  a.mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
   a.partial = partial;
   auto s = static_cast<cudaStream_t>(stream);
+  const bool keep = mask == kMaskKeep;
   if (a.lo != nullptr)
-    launch_term<true>(a, term, int_out != 0, s);
+    launch_term<true>(a, term, int_out != 0, keep, mi != 0, s);
   else
-    launch_term<false>(a, term, int_out != 0, s);
+    launch_term<false>(a, term, int_out != 0, keep, mi != 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,6 +69,16 @@
 // lj_term of them is inf, as in the plain version. Masks select, never
 // multiply, so an inf from a masked-out pair cannot reach the sum.
 //
+// The payload row (tile_reduce_keep_kernel, KEEP; the TPU kernel's
+// n_payload = 1 through _packed_core(payload=)): the one payload rule on
+// the card is the periodic keep mask, mask id 2 (ops/pbc.py's shift-sign
+// plane w, pbc._pbc_term). Each lane keeps its own slot's w in a register;
+// each buffer entry carries its j slot's w in a third buffer (where the
+// reference's packed block carries it in its free row), and the pair
+// counts only where (w_i w_j == 0) & (w_i + w_j >= 0) (keep_pair), one
+// more lane mask before the term. The half-stencil triangle rule is
+// unchanged.
+//
 // Accumulation: each lane sums its f32 terms in f64 (integer terms in
 // int64); the block folds its lanes in a fixed order (block_fold) and
 // writes one partial per own chunk. The caller sums the partials. No float
@@ -97,11 +107,15 @@ constexpr bool kTwoPhase = true;
 constexpr int kBuf = kWarp + kChunk;
 constexpr int kMaxBands = 5;
 constexpr int kMaxDim = 3;
+// The payload rules (lag_pairs._MASK_*): none, the periodic keep mask
+constexpr int kMaskNone = 0;
+constexpr int kMaskKeep = 2;
 
 struct Args {
   const float* pos;       // (dim, n) planes
   const float* lo;        // (dim, n) low parts, or null
   const int32_t* keys;    // (nc_pad * 128,) padded keys
+  const float* w;         // (n,) shift signs (the keep mask), or null
   const int32_t* bounds;  // (nc_pad, 3 S): jlo, toff, jnum per band
   const int32_t* bands;   // (S, 2): lo, hi per band
   int n;
@@ -122,11 +136,12 @@ __device__ __forceinline__ float4 load_slot(const float* planes, int n,
   return v;
 }
 
-template <bool SPLIT, int TERM, bool BANDMASK, typename Acc>
-__global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
+template <bool SPLIT, int TERM, bool BANDMASK, typename Acc, bool KEEP>
+__device__ __forceinline__ void tile_reduce_body(const Args& a) {
   __shared__ float4 buf_hi[kClusters][kBuf];
   __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
   __shared__ int32_t buf_key[kClusters][BANDMASK ? kBuf : 1];
+  __shared__ float buf_w[kClusters][KEEP ? kBuf : 1];
   const int c = blockIdx.x;
   const int w = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -136,6 +151,7 @@ __global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
   float4* bh = buf_hi[w];
   float4* bl = buf_lo[w];
   int32_t* bk = buf_key[w];
+  float* bw = buf_w[w];
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   Lane<Acc> o;
   o.h = real ? load_slot(a.pos, a.n, a.dim, i, 0) : zero;
@@ -144,6 +160,7 @@ __global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
   o.jlo = -1;         // band 0 pairs with w < i, the other bands always
   o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
   o.acc = Acc(0);
+  o.pw = KEEP && real ? a.w[i] : 0.0f;
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
     const Box box = cluster_box<SPLIT>(o.h, o.l, real);
@@ -166,6 +183,7 @@ __global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
         // the survivors of each appended in slot order
         float4 b[kClusters], b_lo[kClusters];
         int32_t kj[kClusters];
+        float wj[kClusters];
         bool keep[kClusters];
 #pragma unroll
         for (int k = 0; k < kClusters; ++k) {
@@ -175,6 +193,7 @@ __global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
           b[k] = keep[k] ? load_slot(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : zero;
           b_lo[k] = SPLIT && keep[k] ? load_slot(a.lo, a.n, a.dim, j, 0) : zero;
           kj[k] = BANDMASK && keep[k] ? a.keys[j] : 0;
+          wj[k] = KEEP && keep[k] ? a.w[j] : 0.0f;
         }
 #pragma unroll
         for (int k = 0; k < kClusters; ++k) {
@@ -183,69 +202,89 @@ __global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
             bh[at] = b[k];
             if (SPLIT) bl[at] = b_lo[k];
             if (BANDMASK) bk[at] = kj[k];
+            if (KEEP) bw[at] = wj[k];
           });
         }
         if (cnt >= kWarp) {
           __syncwarp();
           int done = 0;
           for (; cnt - done >= kWarp; done += kWarp)
-            reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, true>(
-                o, bh + done, bl + done, bk + done, kWarp, a.csq, band_lo, band_hi);
+            reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, true, KEEP>(
+                o, bh + done, bl + done, bk + done, kWarp, a.csq, band_lo, band_hi, bw + done);
           __syncwarp();
           // move the remainder to the front of the buffer
           cnt -= done;
           shift_front<1, SPLIT>(bh, bl, done, cnt, lane);
           if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+          if (KEEP) shift_front<1, false>(bw, bw, done, cnt, lane);
         }
       }
       if (BANDMASK && cnt > 0) {
         // the band is uniform within a sweep
         __syncwarp();
-        reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
-                                                              band_hi);
+        reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false, KEEP>(o, bh, bl, bk, cnt, a.csq,
+                                                                    band_lo, band_hi, bw);
         __syncwarp();
         cnt = 0;
       }
     }
     if (cnt > 0) {
       __syncwarp();
-      reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
-                                                            band_hi);
+      reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false, KEEP>(o, bh, bl, bk, cnt, a.csq,
+                                                                  band_lo, band_hi, bw);
     }
   }
   block_fold<kClusters>(o.acc, static_cast<Acc*>(a.partial));
 }
 
-template <bool SPLIT, int TERM, bool BANDMASK>
-void launch_acc(const Args& a, bool int_out, int blocks, cudaStream_t s) {
-  if (int_out)
-    tile_reduce_kernel<SPLIT, TERM, BANDMASK, long long>
-        <<<blocks, kChunk, 0, s>>>(a);
+// The open-boundary instances
+template <bool SPLIT, int TERM, bool BANDMASK, typename Acc>
+__global__ void __launch_bounds__(kChunk) tile_reduce_kernel(Args a) {
+  tile_reduce_body<SPLIT, TERM, BANDMASK, Acc, false>(a);
+}
+
+// The payload row with the periodic keep mask
+template <bool SPLIT, int TERM, bool BANDMASK, typename Acc>
+__global__ void __launch_bounds__(kChunk) tile_reduce_keep_kernel(Args a) {
+  tile_reduce_body<SPLIT, TERM, BANDMASK, Acc, true>(a);
+}
+
+template <bool SPLIT, int TERM, bool BANDMASK, typename Acc>
+void launch_keep(const Args& a, bool keep, int blocks, cudaStream_t s) {
+  if (keep)
+    tile_reduce_keep_kernel<SPLIT, TERM, BANDMASK, Acc><<<blocks, kChunk, 0, s>>>(a);
   else
-    tile_reduce_kernel<SPLIT, TERM, BANDMASK, double>
-        <<<blocks, kChunk, 0, s>>>(a);
+    tile_reduce_kernel<SPLIT, TERM, BANDMASK, Acc><<<blocks, kChunk, 0, s>>>(a);
+}
+
+template <bool SPLIT, int TERM, bool BANDMASK>
+void launch_acc(const Args& a, bool int_out, bool keep, int blocks, cudaStream_t s) {
+  if (int_out)
+    launch_keep<SPLIT, TERM, BANDMASK, long long>(a, keep, blocks, s);
+  else
+    launch_keep<SPLIT, TERM, BANDMASK, double>(a, keep, blocks, s);
 }
 
 template <bool SPLIT, int TERM>
-void launch_mask(const Args& a, bool bandmask, bool int_out, int blocks,
+void launch_mask(const Args& a, bool bandmask, bool int_out, bool keep, int blocks,
                  cudaStream_t s) {
   if (bandmask)
-    launch_acc<SPLIT, TERM, true>(a, int_out, blocks, s);
+    launch_acc<SPLIT, TERM, true>(a, int_out, keep, blocks, s);
   else
-    launch_acc<SPLIT, TERM, false>(a, int_out, blocks, s);
+    launch_acc<SPLIT, TERM, false>(a, int_out, keep, blocks, s);
 }
 
 template <bool SPLIT>
-void launch_term(const Args& a, int term, bool bandmask, bool int_out,
+void launch_term(const Args& a, int term, bool bandmask, bool int_out, bool keep,
                  int blocks, cudaStream_t s) {
   if (term == kTermLj)
-    launch_mask<SPLIT, kTermLj>(a, bandmask, int_out, blocks, s);
+    launch_mask<SPLIT, kTermLj>(a, bandmask, int_out, keep, blocks, s);
   else if (term == kTermLjFast)
-    launch_mask<SPLIT, kTermLjFast>(a, bandmask, int_out, blocks, s);
+    launch_mask<SPLIT, kTermLjFast>(a, bandmask, int_out, keep, blocks, s);
   else if (term == kTermVirial)
-    launch_mask<SPLIT, kTermVirial>(a, bandmask, int_out, blocks, s);
+    launch_mask<SPLIT, kTermVirial>(a, bandmask, int_out, keep, blocks, s);
   else
-    launch_mask<SPLIT, kTermCount>(a, bandmask, int_out, blocks, s);
+    launch_mask<SPLIT, kTermCount>(a, bandmask, int_out, keep, blocks, s);
 }
 
 }  // namespace
@@ -256,22 +295,25 @@ extern "C" {
 // per chunk that holds a slot below n.
 int zelll_tile_reduce_chunk() { return kChunk; }
 
-// pos, lo: (dim, n) f32 planes (lo null unless split); keys: the padded
-// (nc_pad * 128,) int32 keys; bounds: (nc_pad, 3 S) int32 (jlo, toff, jnum)
-// per band; bands: (S, 2) int32 on the device; partial: ceil(n / 128)
-// doubles (int_out == 0) or int64s (int_out != 0). Returns
-// cudaGetLastError() after the launch.
-int zelll_tile_reduce(const void* pos, const void* lo, const void* keys,
+// pos, lo: (dim, n) f32 planes (lo null unless split); w: (n,) f32 shift
+// signs, read with mask 2 (the periodic keep mask) and null otherwise;
+// keys: the padded (nc_pad * 128,) int32 keys; bounds: (nc_pad, 3 S) int32
+// (jlo, toff, jnum) per band; bands: (S, 2) int32 on the device; mask: 0
+// or 2; partial: ceil(n / 128) doubles (int_out == 0) or int64s
+// (int_out != 0). Returns cudaGetLastError() after the launch.
+int zelll_tile_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                       const void* bounds, const void* bands, int n, int dim,
                       int S, float csq, int term, int int_out, int bandmask,
-                      void* partial, void* stream) {
+                      int mask, void* partial, void* stream) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
       (term != kTermLj && term != kTermLjFast && term != kTermCount &&
-       term != kTermVirial))
+       term != kTermVirial) ||
+      (mask != kMaskNone && mask != kMaskKeep) || ((mask == kMaskKeep) != (w != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
   a.lo = static_cast<const float*>(lo);
+  a.w = static_cast<const float*>(w);
   a.keys = static_cast<const int32_t*>(keys);
   a.bounds = static_cast<const int32_t*>(bounds);
   a.bands = static_cast<const int32_t*>(bands);
@@ -283,9 +325,9 @@ int zelll_tile_reduce(const void* pos, const void* lo, const void* keys,
   const int blocks = (n + kChunk - 1) / kChunk;
   auto s = static_cast<cudaStream_t>(stream);
   if (a.lo != nullptr)
-    launch_term<true>(a, term, bandmask != 0, int_out != 0, blocks, s);
+    launch_term<true>(a, term, bandmask != 0, int_out != 0, mask == kMaskKeep, blocks, s);
   else
-    launch_term<false>(a, term, bandmask != 0, int_out != 0, blocks, s);
+    launch_term<false>(a, term, bandmask != 0, int_out != 0, mask == kMaskKeep, blocks, s);
   return static_cast<int>(cudaGetLastError());
 }
 

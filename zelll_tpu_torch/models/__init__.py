@@ -7,8 +7,11 @@ from .lj_md import (
     MDStateSplit,
     md_run,
     md_run_skin,
+    md_run_skin_pbc,
     md_run_skin_tile,
+    md_run_skin_tile_pbc,
     md_run_vv,
+    md_run_vv_pbc,
     md_step,
     md_step_cubic_tile,
     md_step_split,
@@ -27,8 +30,11 @@ __all__ = [
     "MDStateSplit",
     "md_run",
     "md_run_skin",
+    "md_run_skin_pbc",
     "md_run_skin_tile",
+    "md_run_skin_tile_pbc",
     "md_run_vv",
+    "md_run_vv_pbc",
     "md_step",
     "md_step_cubic_tile",
     "md_step_split",

@@ -8,7 +8,9 @@ in sorted order between steps and the velocities ride the sort as payload
 columns, so forces land in the matching order and no pair list exists.
 The Verlet-skin loops (`md_run_skin`, `md_run_skin_tile`) build the grid
 with cell edge ``cutoff + skin`` and reuse it while no particle has moved
-more than ``skin / 2`` since the last build.
+more than ``skin / 2`` since the last build. The periodic loops
+(`md_run_vv_pbc`, `md_run_skin_pbc`, `md_run_skin_tile_pbc`) run the same
+integrators in an orthorhombic box through `ops.pbc`.
 
 State comes back in cell-key order with an unspecified order among equal
 keys (the sorts are unstable); compare states as sets of rows.
@@ -28,7 +30,7 @@ import dataclasses
 import torch
 
 from .._device import resolve_device
-from ..core.binning import bin_and_sort
+from ..core.binning import bin_and_sort, compute_keys
 from ..core.geometry import GridInfo, aabb_from_positions
 from ..core.grid import CellGridData
 from ..core.pairs import pair_forces
@@ -40,6 +42,7 @@ from ..ops.lag_pairs import (
     split_f64,
 )
 from ..ops.lj import lj_force_factor, lj_force_factor_fast
+from ..ops.pbc import pbc_extend, pbc_lj_forces, pbc_pair_sum, wrap_positions
 from ..ops.tile_pairs import _forces, tile_forces_core, tile_inputs, tile_pair_reduce
 
 __all__ = [
@@ -52,6 +55,9 @@ __all__ = [
     "md_run_skin",
     "md_step_cubic_tile",
     "md_run_skin_tile",
+    "md_run_vv_pbc",
+    "md_run_skin_pbc",
+    "md_run_skin_tile_pbc",
 ]
 
 
@@ -351,3 +357,162 @@ def md_run_skin_tile(state: MDState, cutoff, dt, *, steps: int,
     return (MDState(positions=pos, velocities=svel.t()), ok & ok_e, energy,
             rebuilds)
 
+
+
+def md_run_vv_pbc(state: MDState, origin, box, cutoff, dt, *, steps: int, B: int,
+                  G: int, path: str = "lag", M: int = 1024, L: int = 256, K: int = 32,
+                  chunk: int = 64, MAXJ=8, CB: int = 8):
+    """Velocity-Verlet trajectory under orthorhombic PBC: the state stays in
+    input order (`ops.pbc.pbc_lj_forces` un-sorts each pass), so the forces
+    carry from step to step directly, one force evaluation per step plus
+    one to start. Positions are wrapped into the box after each drift.
+    Returns (state, all_covered)."""
+    kw = dict(B=B, G=G, path=path, M=M, L=L, K=K, chunk=chunk, MAXJ=MAXJ, CB=CB)
+    pos, vel = state.positions, state.velocities
+    f, ok = pbc_lj_forces(pos, origin, box, cutoff, **kw)
+    for _ in range(steps):
+        vhalf = vel + (0.5 * dt) * f
+        pos = wrap_positions(pos + dt * vhalf, origin, box)
+        f, ok_s = pbc_lj_forces(pos, origin, box, cutoff, **kw)
+        vel = vhalf + (0.5 * dt) * f
+        ok = ok & ok_s
+    return MDState(positions=pos, velocities=vel), ok
+
+
+def _pbc_build(pos, vel, org, bx, edge, *, B: int, G: int):
+    """A periodic skin build: wrap the real rows, make the ghost images
+    with margin ``edge`` (cutoff + skin), key everything on a fresh
+    ``auto_order`` grid of cell edge ``edge`` and sort it once. Ghost
+    velocities are 0. Returns (sorted positions, velocities, keys, grid
+    info, the real slots and the ghost slots (each ascending), each ghost
+    slot's parent slot, each ghost's offset from its parent, and the ghost
+    flag)."""
+    n, dim = pos.shape
+    p = wrap_positions(pos, org, bx)
+    ext, _, _, valid, okg, gparent = pbc_extend(p, org, bx, edge, B=B, G=G,
+                                                return_parents=True)
+    n_ext = ext.shape[0]
+    device = ext.device
+    vin = torch.cat([vel, torch.zeros((n_ext - n, dim), dtype=vel.dtype, device=device)])
+    is_ghost = torch.cat([torch.zeros((n,), dtype=torch.int32, device=device),
+                          torch.ones((n_ext - n,), dtype=torch.int32, device=device)])
+    parent = torch.cat([torch.arange(n, device=device), gparent.to(torch.int64)])
+    info = GridInfo.create(aabb_from_positions(ext, valid), edge, auto_order=True)
+    keys, perm = torch.sort(compute_keys(ext, info, valid))
+    spos, svel, sghost, spar = ext[perm], vin[perm], is_ghost[perm], parent[perm]
+    slot_of_input = torch.empty_like(perm)
+    slot_of_input[perm] = torch.arange(n_ext, device=device)
+    # real slots, then ghost slots, each ascending
+    by_flag = torch.sort(sghost, stable=True)[1]
+    real_slots, ghost_slots = by_flag[:n], by_flag[n:]
+    gpar_slot = slot_of_input[spar[ghost_slots]]
+    gshift = spos[ghost_slots] - spos[gpar_slot]
+    return (spos, svel, keys, info, real_slots, ghost_slots, gpar_slot, gshift,
+            sghost == 0, okg)
+
+
+def _pbc_scalars(origin, box, cutoff, skin, like: torch.Tensor):
+    dtype, device = like.dtype, like.device
+    dim = like.shape[1]
+    org = torch.as_tensor(origin, dtype=dtype, device=device).reshape(dim)
+    bx = torch.as_tensor(box, dtype=dtype, device=device).reshape(dim)
+    edge, csq, half_skin_sq = _skin_scalars(cutoff, skin, dtype)
+    return org, bx, edge, csq, half_skin_sq
+
+
+def md_run_skin_pbc(state: MDState, origin, box, cutoff, dt, *, steps: int, B: int,
+                    G: int, skin: float = 0.5, M: int = 4096, L: int = 256):
+    """Verlet-skin MD under orthorhombic PBC (thin boxes, K3), the periodic
+    sibling of `md_run_skin`: the grid and the ghost images are built with
+    margin ``cutoff + skin`` and reused while no real particle has drifted
+    more than ``skin / 2``. Ghost rows follow their parents exactly
+    (``ghost = parent + (image - parent) at the build``, one G-sized gather
+    and scatter per step) and their velocities stay 0, so any pair within
+    the cutoff now had its image within cutoff + skin at the build. A
+    rebuild takes the real rows, wraps them and extends them again. The
+    final energy is `pbc_pair_sum` (K1 with the keep mask) of the wrapped
+    real rows.
+
+    Returns (state (real rows in build-sorted order), all_covered, energy,
+    n_rebuilds)."""
+    pos, vel = state.positions, state.velocities
+    org, bx, edge, csq, half_skin_sq = _pbc_scalars(origin, box, cutoff, skin, pos)
+
+    def build(p, v):
+        (spos, svel, keys, info, real_slots, ghost_slots, gpar_slot, gshift,
+         real, okg) = _pbc_build(p, v, org, bx, edge, B=B, G=G)
+        ok = okg & lag_coverage_ok(keys, info.strides, L)
+        return (spos, svel, keys, info.strides, real_slots, ghost_slots, gpar_slot,
+                gshift, real[:, None], ok)
+
+    (spos, svel, keys, strides, real_slots, ghost_slots, gpar_slot, gshift, real,
+     ok) = build(pos, vel)
+    ref, rebuilds = spos, 0
+    for _ in range(steps):
+        if _drifted(torch.where(real, spos - ref, 0.0), half_skin_sq, -1):
+            (spos, svel, keys, strides, real_slots, ghost_slots, gpar_slot, gshift,
+             real, ok_b) = build(spos[real_slots], svel[real_slots])
+            ref, rebuilds, ok = spos, rebuilds + 1, ok & ok_b
+        f = pair_lag_forces(spos, keys, strides, csq, M=M, L=L, gfn=lj_force_factor)
+        svel = svel + dt * torch.where(real, f, 0.0)
+        spos = spos + dt * svel  # ghost velocities stay 0
+        spos[ghost_slots] = spos[gpar_slot] + gshift
+    R = wrap_positions(spos[real_slots], org, bx)
+    V = svel[real_slots]
+    energy, ok_e = pbc_pair_sum(R, org, bx, cutoff, term=lj_term, B=B, G=G, M=M, L=L)
+    return MDState(positions=R, velocities=V), ok & ok_e, energy, rebuilds
+
+
+def md_run_skin_tile_pbc(state: MDState, origin, box, cutoff, dt, *, steps: int,
+                         B: int, G: int, skin: float = 0.5, CB: int = 8, MAXJ=8,
+                         MAXJ_E: int | None = None, fast: bool = False,
+                         bandmask: bool = False):
+    """Verlet-skin MD under orthorhombic PBC on the segment-tile kernels, the
+    cubic and wide boxes' sibling of `md_run_skin_pbc` with the same
+    contract: K7 on the ghost-extended array for the steps (it writes
+    every row's own side, so ghost forces are simply not applied), the
+    window bounds of each build reused between rebuilds and their coverage
+    folded into the flag every step, and the final energy through
+    `pbc_pair_sum(path="tile")` (K6 with the keep mask) at ``MAXJ_E``
+    (default: the largest of ``MAXJ``). The state is carried as (3, n)
+    planes. ``fast`` selects `lj_force_factor_fast`.
+
+    Returns (state (real rows in build-sorted order, wrapped),
+    all_covered, energy, n_rebuilds)."""
+    pos, vel = state.positions, state.velocities
+    if pos.shape[1] != 3:
+        raise ValueError("md_run_skin_tile_pbc is 3-D (2-D PBC routes to the xla path)")
+    gfn = lj_force_factor_fast if fast else lj_force_factor
+    org, bx, edge, csq, half_skin_sq = _pbc_scalars(origin, box, cutoff, skin, pos)
+    kernel = pos.device.type == "cuda"
+
+    def build(p, v):
+        (spos, svel, keys, info, real_slots, ghost_slots, gpar_slot, gshift,
+         real, okg) = _pbc_build(p, v, org, bx, edge, B=B, G=G)
+        planes = spos.t().contiguous()
+        inp = tile_inputs(planes, keys, info.strides, CB=CB, MAXJ=MAXJ,
+                          bandmask=bandmask, full=True)
+        return (planes, svel.t().contiguous(), inp, real_slots, ghost_slots,
+                gpar_slot, gshift.t(), real, okg)
+
+    (spos, svel, inp, real_slots, ghost_slots, gpar_slot, gshift, real,
+     ok) = build(pos, vel)
+    ref, rebuilds = spos, 0
+    for _ in range(steps):
+        if _drifted(torch.where(real, spos - ref, 0.0), half_skin_sq, 0):
+            (spos, svel, inp, real_slots, ghost_slots, gpar_slot, gshift, real,
+             ok_b) = build(spos[:, real_slots].t(), svel[:, real_slots].t())
+            ref, rebuilds, ok = spos, rebuilds + 1, ok & ok_b
+        else:
+            inp = dataclasses.replace(inp, pos=spos)
+        f = _forces(inp, csq, kernel, gfn=gfn, out_dtype=None, safe_term=False)
+        ok = ok & inp.coverage_ok
+        svel = svel + dt * torch.where(real, f, 0.0)
+        spos = spos + dt * svel  # ghost velocities stay 0
+        spos[:, ghost_slots] = spos[:, gpar_slot] + gshift
+    R = wrap_positions(spos[:, real_slots].t(), org, bx)
+    V = svel[:, real_slots].t()
+    mj_e = MAXJ_E if MAXJ_E is not None else (MAXJ if isinstance(MAXJ, int) else max(MAXJ))
+    energy, ok_e = pbc_pair_sum(R, org, bx, cutoff, term=lj_term, B=B, G=G, path="tile",
+                                CB=CB, MAXJ=mj_e, bandmask=bandmask)
+    return MDState(positions=R, velocities=V), ok & ok_e, energy, rebuilds

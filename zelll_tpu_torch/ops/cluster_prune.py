@@ -17,7 +17,10 @@ behind each slot, K6's half stencil with band 0's triangle; the tile
 histogram K9 sweeps K6's entries). K12's clusters are 32 consecutive sorted
 queries against the particles of each band's union range, kept where the
 gap to the query box, in the coordinates' type, is at most the cutoff (the
-join's cutoff is inclusive): `join_cluster_entries`. This module
+join's cutoff is inclusive): `join_cluster_entries`. Under the minimum
+image (K1 and K3 with ``mi_box``) a folded axis' gap is taken to the
+nearest of a j point's periodic images and lowered by the header's
+rounding slack (``MI_SLACK``, ``MI_SCALE``). This module
 repeats those operations, so that the card's measurements can count the
 lane evaluations the prune leaves (``chip_smoke.py``) and the CPU tests can
 hold the rule to brute force. The kernels compute their boxes themselves,
@@ -36,6 +39,11 @@ CLUSTER = 32  # slots per cluster: one warp's own slots
 # Split mode's prune threshold is cutoff^2 times this (above the 1e-6 tie
 # band of `lag_pairs.split_cutoff_test`)
 SPLIT_MARGIN = 1.0 + 2.0**-19
+# The minimum image's gap slack on a folded axis, a multiple of
+# (|b| + box + max(|mn|, |mx|)), and the scale of every axis' gap
+# (cluster_sweep.cuh's kMiSlack, kMiScale)
+MI_SLACK = 2.0**-20
+MI_SCALE = 1.0 - 2.0**-21
 _BATCH = 16384  # own clusters per step of the counts
 _JOIN_BATCH = 1 << 22  # (cluster, particle) tests per step of K12's counts
 
@@ -67,15 +75,26 @@ def cluster_boxes(planes: torch.Tensor, lo: torch.Tensor | None = None):
     return mn, mx, lomax
 
 
-def near_cluster(mn, mx, lomax, pts, pts_lo, thr, *,
-                 inclusive: bool = False) -> torch.Tensor:
+def near_cluster(mn, mx, lomax, pts, pts_lo, thr, *, inclusive: bool = False,
+                 mi_box=None) -> torch.Tensor:
     """True where a point may hold a pair with the cluster: the kernels'
     gap test, ``gsq < thr`` (``gsq <= thr`` with ``inclusive``, K12's).
     ``mn``, ``mx``, ``lomax`` broadcast against the (dim, ...) points
-    ``pts`` (and their low parts ``pts_lo``, or None in f32 mode)."""
+    ``pts`` (and their low parts ``pts_lo``, or None in f32 mode).
+    ``mi_box`` (per-axis box lengths, 0 for an open axis): the minimum
+    image's test (``near_box_mi``)."""
     gsq = None
     for a in range(pts.shape[0]):
-        g = torch.clamp(torch.maximum(mn[a] - pts[a], pts[a] - mx[a]), min=0.0)
+        b = pts[a]
+        g = torch.clamp(torch.maximum(mn[a] - b, b - mx[a]), min=0.0)
+        if mi_box is not None:
+            bx = float(torch.as_tensor(mi_box[a], dtype=pts.dtype))
+            if bx > 0.0:
+                up, dn = b + bx, b - bx
+                g = torch.minimum(g, torch.clamp(torch.maximum(mn[a] - up, up - mx[a]), min=0.0))
+                g = torch.minimum(g, torch.clamp(torch.maximum(mn[a] - dn, dn - mx[a]), min=0.0))
+                g = g - MI_SLACK * ((b.abs() + bx) + torch.maximum(mn[a].abs(), mx[a].abs()))
+            g = torch.clamp(g * MI_SCALE, min=0.0)
         if pts_lo is not None:
             g = torch.clamp(g - (lomax[a] + pts_lo[a].abs()), min=0.0)
         gsq = g * g if gsq is None else gsq + g * g
@@ -119,15 +138,15 @@ def tile_cluster_entries(inp, cutoff_sq, *, half: bool = False) -> torch.Tensor:
     return counts
 
 
-def lag_ranges(sorted_keys: torch.Tensor, strides, L: int):
+def lag_ranges(sorted_keys: torch.Tensor, strides, L: int, reach=None):
     """Each slot's partner range [jlo, jhi] for K3 (int64, (n,) each; K1's
     is [jlo, i - 1]): the slots within L lags in the key window (``key_j >=
-    key_i - W`` behind i, ``key_i >= key_k - W`` ahead), padding rows read
-    as `_pad_and_desentinel` spaces them. Keys ascend, so each side is one
-    contiguous run."""
+    key_i - W`` behind i, ``key_i >= key_k - W`` ahead; ``reach`` widens W
+    for the minimum image), padding rows read as `_pad_and_desentinel`
+    spaces them. Keys ascend, so each side is one contiguous run."""
     n = sorted_keys.shape[0]
     keys = _pad_and_desentinel(sorted_keys, n).long()
-    w = int(key_window(strides))
+    w = int(key_window(strides, reach))
     i = torch.arange(n, device=keys.device)
     jlo = torch.maximum(i - L, torch.searchsorted(keys, keys - w))
     jhi = torch.minimum(i + L, torch.searchsorted(keys, keys + w, right=True) - 1)
@@ -136,18 +155,20 @@ def lag_ranges(sorted_keys: torch.Tensor, strides, L: int):
 
 def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
                         sorted_keys: torch.Tensor, strides, cutoff_sq,
-                        L: int, *, half: bool = False) -> torch.Tensor:
+                        L: int, *, half: bool = False, mi_box=None,
+                        reach=None) -> torch.Tensor:
     """The j slots each own cluster of K3 sweeps: the union of its slots'
     partner ranges that passes the gap test ((dim, n) ``planes`` and low
     parts ``lo`` or None). With ``half``, those of K1: the union of the
     ranges behind its slots, [jlo of its first slot, its last real slot -
-    1]. Returns (ceil(n / CLUSTER),) int64."""
+    1]. ``mi_box`` and ``reach``: the minimum image's gap test and widened
+    window. Returns (ceil(n / CLUSTER),) int64."""
     dim, n = planes.shape
     device = planes.device
     thr = prune_threshold(cutoff_sq, lo is not None, device)
     mn, mx, lomax = cluster_boxes(planes, lo)
     ncl = mn.shape[1]
-    jlo, jhi = lag_ranges(sorted_keys, strides, L)
+    jlo, jhi = lag_ranges(sorted_keys, strides, L, reach)
     starts = torch.arange(ncl, device=device) * CLUSTER
     ends = torch.clamp(starts + CLUSTER - 1, max=n - 1)  # the last real slots
     first = jlo[starts]
@@ -160,7 +181,7 @@ def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
         ok = j <= last[cl, None]
         j = j.clamp(max=n - 1)
         near = near_cluster(*[x[:, cl, None] for x in (mn, mx, lomax)], planes[:, j],
-                            None if lo is None else lo[:, j], thr)
+                            None if lo is None else lo[:, j], thr, mi_box=mi_box)
         counts[cl] = (near & ok).sum(-1)
     return counts
 

@@ -57,6 +57,9 @@ __all__ = [
     "pair_lag_hist",
     "pair_lag_hist_plain",
     "SpeciesPairMask",
+    "PbcKeepTerm",
+    "pbc_keep",
+    "mi_fold",
     "lag_coverage_ok",
     "suggest_lag",
     "split_f64",
@@ -116,12 +119,14 @@ _KERNEL_TERMS = {lj_term: 0, count_term: 1, lj_virial_term: 2}
 _TIE_BAND = 1e-6
 
 
-def split_cutoff_test(inside, dsq, csq, hi_i, hi_j, lo_i, lo_j):
+def split_cutoff_test(inside, dsq, csq, hi_i, hi_j, lo_i, lo_j, shifts=None):
     """The cutoff test of split coordinates, f64-grade: pairs whose f32
     ``dsq`` lies within the tie band of ``csq`` are decided on the f64
     dsq of their split separations, ((hi_i - hi_j) + (lo_i - lo_j)) per
     axis in f64; the rest keep ``inside`` (``dsq < csq``). ``hi_i`` ..
-    ``lo_j`` are per-axis sequences of broadcastable tensors. The forces
+    ``lo_j`` are per-axis sequences of broadcastable tensors. With
+    ``shifts`` (per axis, the minimum image's box shift of `mi_fold`) the
+    f64 separation is ((hi_i - hi_j) - shift) + (lo_i - lo_j). The forces
     kernels (K3, K7) apply the same rule in the same order of operations.
     The JAX package decides every pair on the f32 dsq, which flips pairs
     within about 4e-7 of the cutoff (ROADMAP queue 3)."""
@@ -129,10 +134,32 @@ def split_cutoff_test(inside, dsq, csq, hi_i, hi_j, lo_i, lo_j):
     band = torch.as_tensor(_TIE_BAND, dtype=dsq.dtype) * csq32
     near = (dsq - csq32).abs() <= band
     dsq64 = None
-    for hi, hj, li, lj in zip(hi_i, hi_j, lo_i, lo_j):
-        d = (hi.double() - hj.double()) + (li.double() - lj.double())
+    for a, (hi, hj, li, lj) in enumerate(zip(hi_i, hi_j, lo_i, lo_j)):
+        h = hi.double() - hj.double()
+        if shifts is not None:
+            h = h - shifts[a].double()
+        d = h + (li.double() - lj.double())
         dsq64 = d * d if dsq64 is None else dsq64 + d * d
     return torch.where(near, dsq64 < float(csq), inside)
+
+
+def mi_fold(hi_i, hi_j, lo_i, lo_j, box):
+    """One axis' separation folded to the minimum image, as the JAX
+    package's ``pallas_pairs._mi_pair_d`` folds it: s = hi_i - hi_j, one
+    box subtracted where |s| > box / 2 (``box`` 0 leaves the axis open),
+    and in split mode the exact two-diff error of s carried into the low
+    term, d = (s - shift) + (e + (lo_i - lo_j)), so split separations
+    stay f64-grade across the seam (``lo_i``/``lo_j`` None in f32 mode).
+    Returns (d, shift). K1 and K3 fold in the same order of operations."""
+    s = hi_i - hi_j
+    half = 0.5 * box
+    shift = torch.where(s > half, box, torch.where(s < -half, -box, torch.zeros_like(s)))
+    d = s - shift
+    if lo_i is not None:
+        z = s - hi_i
+        e = (hi_i - (s - z)) - (hi_j + z)
+        d = d + (e + (lo_i - lo_j))
+    return d, shift
 
 
 def split_f64(x64: torch.Tensor):
@@ -143,11 +170,13 @@ def split_f64(x64: torch.Tensor):
     return hi, lo
 
 
-def lag_coverage_ok(sorted_keys: torch.Tensor, strides, L: int) -> torch.Tensor:
+def lag_coverage_ok(sorted_keys: torch.Tensor, strides, L: int,
+                    reach=None) -> torch.Tensor:
     """True iff lag bound L covers every in-window pair:
     ``key[i] - key[i-L] > W`` for every real row i (SENTINEL_KEY rows, which
-    sort last and hold no real pairs, are excluded)."""
-    w = key_window(strides).to(sorted_keys.device)
+    sort last and hold no real pairs, are excluded). ``reach``: per-axis
+    cell spans of the widened minimum-image window (`key_window`)."""
+    w = key_window(strides, reach).to(sorted_keys.device)
     if sorted_keys.shape[0] <= L:
         return torch.ones((), dtype=torch.bool, device=sorted_keys.device)
     later = sorted_keys[L:]
@@ -158,10 +187,13 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def suggest_lag(sorted_keys_host, strides_host, granule: int = 128) -> int:
+def suggest_lag(sorted_keys_host, strides_host, granule: int = 128,
+                reach=None) -> int:
     """Smallest granule multiple L with full coverage (host-side helper).
-    SENTINEL_KEY rows are excluded as in `lag_coverage_ok`."""
-    w = int(np.sum(_host(strides_host)))
+    SENTINEL_KEY rows are excluded as in `lag_coverage_ok`; ``reach``
+    widens the window as there."""
+    strides = _host(strides_host)
+    w = int(np.sum(strides) if reach is None else np.sum(strides * np.asarray(reach)))
     keys = _host(sorted_keys_host)
     n = len(keys)
     L = granule
@@ -218,34 +250,40 @@ def _pack_count(total: torch.Tensor) -> torch.Tensor:
 
 
 def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
-                          sorted_pos_lo=None, *, L: int = 256,
-                          term: Callable = lj_term, out_dtype=None):
+                          sorted_pos_lo=None, sorted_payload=None, *, L: int = 256,
+                          term: Callable = lj_term, out_dtype=None, min_islot=0,
+                          mi_box=None, key_reach=None):
     """Plain PyTorch version of K1, vectorised over slots, one lag at a time.
 
     Same masks, separations and terms as the kernel; any ``term`` callable
-    works here. Float sums are taken in f64 per lag; integer ones in int64.
+    works here. With ``sorted_payload`` ((n, P), sorted order) the term
+    receives ``(dsq, own_0.., j_0..)``, own being the larger slot; ``min_islot`` keeps the
+    pairs whose larger slot is at or above it; ``mi_box``/``key_reach``
+    fold the separations to the minimum image (`mi_fold`) in the widened
+    key window. Float sums are taken in f64 per lag; integer ones in int64.
     """
     n = sorted_pos.shape[0]
-    dtype = sorted_pos.dtype
+    device, dtype = sorted_pos.device, sorted_pos.dtype
     out_dtype = out_dtype or dtype
     integer = not out_dtype.is_floating_point
     keys = _pad_and_desentinel(sorted_keys, n)
-    w = key_window(strides).to(keys.device)
-    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=sorted_pos.device)
+    w = key_window(strides, key_reach).to(keys.device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
+    pay = _payload_rows(sorted_payload, n, dtype, device)
+    mib = _mi_box(mi_box, dtype, device)
     total = torch.zeros((), dtype=torch.int64 if integer else torch.float64,
-                        device=sorted_pos.device)
+                        device=device)
     for lag in range(1, min(L, n - 1) + 1):
         keymask = keys[:-lag] >= keys[lag:] - w
         if not bool(keymask.any()):
             break  # keys ascend: no later lag can be in window
-        dsq = torch.zeros((n - lag,), dtype=dtype, device=sorted_pos.device)
-        for a in range(sorted_pos.shape[1]):
-            d = sorted_pos[lag:, a] - sorted_pos[:-lag, a]
-            if sorted_pos_lo is not None:
-                d = d + (sorted_pos_lo[lag:, a] - sorted_pos_lo[:-lag, a])
-            dsq = dsq + d * d
-        mask = keymask & (dsq < csq)
-        vals = term(torch.where(mask, dsq, torch.ones_like(dsq)))
+        _, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag, mib)
+        mask = _lag_pair_mask(keymask & (dsq < csq), lag, None, min_islot, None)
+        safe = torch.where(mask, dsq, torch.ones_like(dsq))
+        if pay is None:
+            vals = term(safe)
+        else:
+            vals = term(safe, *pay[lag:].unbind(1), *pay[:-lag].unbind(1))
         v = torch.where(mask, vals, torch.zeros_like(vals)).to(out_dtype)
         total += v.sum(dtype=total.dtype)
     if integer:
@@ -254,10 +292,9 @@ def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 
 def _bind_reduce(lib) -> None:
-    vp = ctypes.c_void_p
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zelll_lag_reduce.argtypes = [
-        vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, vp, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, ci, ci, ci, cf, cf, cf, vp, vp,
     ]
     lib.zelll_lag_reduce.restype = ctypes.c_int
     lib.zelll_lag_reduce_block.argtypes = []
@@ -280,11 +317,46 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device,
         )
 
 
+def _kernel_mi_box(mi_box, dim: int):
+    """(flag, three f32 box lengths) of the kernels' minimum image: the
+    host values of ``mi_box`` (one read from the device if it lives
+    there), absent axes 0."""
+    if mi_box is None:
+        return 0, (0.0, 0.0, 0.0)
+    box = [float(x) for x in torch.as_tensor(mi_box, dtype=torch.float32).reshape(-1).cpu()]
+    if len(box) != dim:
+        raise ValueError(f"mi_box takes one length per axis ({dim}); got {len(box)}")
+    return 1, tuple(box + [0.0] * (3 - dim))
+
+
+def _keep_plane(kernel: str, term, sorted_payload, n: int, device):
+    """What an energy kernel takes for a payload rule: (mask id, the term
+    it wraps, the (n,) f32 plane or None). The one payload rule on the
+    card is the periodic keep mask (`PbcKeepTerm` over the shift-sign
+    plane); any other payload term raises."""
+    if sorted_payload is None and not isinstance(term, PbcKeepTerm):
+        return _MASK_NONE, term, None
+    if not isinstance(term, PbcKeepTerm) or sorted_payload is None:
+        raise ValueError(
+            f"the CUDA kernel {kernel} takes one payload rule, the periodic "
+            "keep mask (PbcKeepTerm over ops.pbc's shift-sign plane); other "
+            "payload terms (species) come with slice 5b: run them through "
+            "the plain version or on CPU tensors")
+    plane = torch.as_tensor(sorted_payload, device=device)
+    if plane.ndim == 2 and plane.shape[1] == 1:
+        plane = plane[:, 0]
+    if tuple(plane.shape) != (n,):
+        raise ValueError(f"{kernel}'s keep mask reads one payload plane of {n} "
+                         f"values; got shape {tuple(plane.shape)}")
+    return _MASK_PBC_KEEP, term.term, plane.to(torch.float32).contiguous()
+
+
 def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
-                     *, L, term, out_dtype):
+                     sorted_payload, *, L, term, out_dtype, mi_box, key_reach):
     """Launch K1 on the current stream and sum its per-block partials."""
     device = sorted_pos.device
     n, dim = sorted_pos.shape
+    mask, term, plane = _keep_plane("K1", term, sorted_payload, n, device)
     if term not in _KERNEL_TERMS:
         raise ValueError(
             "the CUDA kernel implements lj_term, count_term and "
@@ -304,16 +376,18 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     if n == 0:
         total = torch.zeros((), dtype=acc, device=device)
         return _pack_count(total) if integer else total.to(out_dtype)
+    mi, box = _kernel_mi_box(mi_box, dim)
     lib = load_kernel()
-    w_key = key_window(strides).reshape(1)
+    w_key = key_window(strides, key_reach).reshape(1)
     block = lib.zelll_lag_reduce_block()
     partial = torch.empty((-(-n // block),), dtype=acc, device=device)
     csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
     err = lib.zelll_lag_reduce(
         sorted_pos.data_ptr(),
         None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
+        None if plane is None else plane.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
-        _KERNEL_TERMS[term], int(integer), partial.data_ptr(),
+        _KERNEL_TERMS[term], int(integer), mask, mi, *box, partial.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -324,8 +398,9 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
 
 
 def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
-                    sorted_pos_lo=None, *, M: int = 1024, L: int = 256,
-                    term: Callable = lj_term, out_dtype=None, device=None):
+                    sorted_pos_lo=None, sorted_payload=None, *, M: int = 1024,
+                    L: int = 256, term: Callable = lj_term, out_dtype=None,
+                    min_islot=0, mi_box=None, key_reach=None, device=None):
     """Sum ``term(dsq)`` over all unique cutoff pairs of key-sorted particles.
 
     ``sorted_keys`` (int32) must ascend, SENTINEL_KEY rows last. L is the lag
@@ -341,9 +416,22 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     f64 and the total is then cast, so with f32 positions
     ``out_dtype=torch.float64`` returns the f64 sum of the f32 terms.
 
-    CUDA tensors run kernel K1, which takes f32 coordinates and the terms
-    `lj_term`, `count_term` and `ops.virial.lj_virial_term`, and raises on
-    anything else. CPU tensors run `pair_lag_reduce_plain`.
+    ``sorted_payload`` ((n, P), sorted order) parameterises the term,
+    which then receives ``(dsq, own_0.., j_0..)``, own being the larger
+    slot. ``min_islot``
+    keeps only the pairs whose larger slot is at or above it (the
+    distributed ownership rule). ``mi_box`` ((dim,) box lengths, 0 for an
+    open axis) folds each separation to its minimum image in-kernel
+    (`mi_fold`); pass ``key_reach`` (per-axis cell spans, `key_window`) so
+    the key window admits wrap-adjacent cells.
+
+    CUDA tensors run kernel K1, which takes f32 coordinates, the terms
+    `lj_term`, `count_term` and `ops.virial.lj_virial_term`, the minimum
+    image, and one payload rule: the periodic keep mask (a `PbcKeepTerm`
+    of one of those terms over one payload plane). It raises on anything
+    else: other payload terms (species, slice 5b) and ``min_islot != 0``
+    (multi-device, slice 9). CPU tensors run
+    `pair_lag_reduce_plain`, which takes them all.
     """
     del M
     if L < 1:
@@ -355,12 +443,18 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     if sorted_pos_lo is not None:
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
     if device.type == "cuda":
+        if not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel K1 takes only min_islot=0 "
+                             "(multi-device, slice 9); run others through "
+                             "pair_lag_reduce_plain")
         return _lag_reduce_cuda(
             sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
-            L=L, term=term, out_dtype=out_dtype or sorted_pos.dtype)
+            sorted_payload, L=L, term=term, out_dtype=out_dtype or sorted_pos.dtype,
+            mi_box=mi_box, key_reach=key_reach)
     return pair_lag_reduce_plain(
-        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, L=L,
-        term=term, out_dtype=out_dtype)
+        sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
+        L=L, term=term, out_dtype=out_dtype, min_islot=min_islot, mi_box=mi_box,
+        key_reach=key_reach)
 
 
 # Kernel launches since the last reset; only a launch of K1 adds to it.
@@ -374,41 +468,40 @@ _KERNEL_GFNS = {lj_force_factor: 0, lj_force_factor_fast: 1}
 def pair_lag_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
                           sorted_pos_lo=None, sorted_payload=None, *,
                           L: int = 256, gfn: Callable = lj_force_factor,
-                          out_dtype=None):
+                          mi_box=None, key_reach=None, out_dtype=None):
     """Plain PyTorch version of K3, vectorised over slots, one lag at a time.
 
     Same masks, separations and force factor as the kernel: for each lag,
     the pairs (i, i - lag) in the key window with ``0 < dsq < cutoff^2``
     add ``g d`` to i and ``-g d`` to i - lag. Any ``gfn`` works here; with
     ``sorted_payload`` ((n, P), sorted order) it receives
-    ``(dsq, own_0.., j_0..)``, own being the larger slot. The f32 (or
-    f64) products are summed in f64 and the result is cast to
-    ``out_dtype`` (default: the positions' dtype).
+    ``(dsq, own_0.., j_0..)``, own being the larger slot. ``mi_box`` and
+    ``key_reach`` fold d to the minimum image (`mi_fold`) in the widened
+    key window; split mode's tie decision then takes the f64 separation
+    less the same shift. The f32 (or f64) products are summed in f64 and
+    the result is cast to ``out_dtype`` (default: the positions' dtype).
     """
     n, dim = sorted_pos.shape
     device, dtype = sorted_pos.device, sorted_pos.dtype
     keys = _pad_and_desentinel(sorted_keys, n)
-    w = key_window(strides).to(device)
+    w = key_window(strides, key_reach).to(device)
     csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
     pay = None if sorted_payload is None else \
         torch.as_tensor(sorted_payload, device=device).to(dtype)
+    mib = _mi_box(mi_box, dtype, device)
     forces = torch.zeros((n, dim), dtype=torch.float64, device=device)
     for lag in range(1, min(L, n - 1) + 1):
         keymask = keys[:-lag] >= keys[lag:] - w
         if not bool(keymask.any()):
             break  # keys ascend: no later lag can be in window
-        d = sorted_pos[lag:] - sorted_pos[:-lag]
-        if sorted_pos_lo is not None:
-            d = d + (sorted_pos_lo[lag:] - sorted_pos_lo[:-lag])
-        dsq = d[:, 0] * d[:, 0]
-        for a in range(1, dim):
-            dsq = dsq + d[:, a] * d[:, a]
+        d, dsq, shifts = _lag_separations(sorted_pos, sorted_pos_lo, lag, mib)
         inside = dsq < csq
         if sorted_pos_lo is not None:
             inside = split_cutoff_test(
                 inside, dsq, csq, sorted_pos[lag:].unbind(1),
                 sorted_pos[:-lag].unbind(1), sorted_pos_lo[lag:].unbind(1),
-                sorted_pos_lo[:-lag].unbind(1))
+                sorted_pos_lo[:-lag].unbind(1),
+                None if shifts is None else shifts.unbind(1))
         mask = keymask & inside & (dsq > 0)
         safe = torch.where(mask, dsq, torch.ones_like(dsq))
         if pay is None:
@@ -424,8 +517,9 @@ def pair_lag_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 def _bind_forces(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    cf = ctypes.c_float
     lib.zelll_lag_forces.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, vp, vp,
+        vp, vp, vp, vp, ci, ci, ci, cf, ci, ci, ci, cf, cf, cf, vp, vp,
     ]
     lib.zelll_lag_forces.restype = ci
 
@@ -436,7 +530,7 @@ load_forces_kernel = kernel_loader(_FORCES_SRC, "lag_forces", _bind_forces)
 
 
 def _lag_forces_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
-                     sorted_pos_lo, *, L, gfn, out_dtype):
+                     sorted_pos_lo, *, L, gfn, out_dtype, mi_box, key_reach):
     """Launch K3 on the current stream. Returns (n, 3) forces, a view of
     the (3, n) planes the kernel writes."""
     device = sorted_pos.device
@@ -463,13 +557,14 @@ def _lag_forces_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
     out = torch.empty((dim, n), dtype=out_dtype, device=device)
     if n == 0:
         return out.t()
+    mi, box = _kernel_mi_box(mi_box, dim)
     lib = load_forces_kernel()
-    w_key = key_window(strides).reshape(1)
+    w_key = key_window(strides, key_reach).reshape(1)
     csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
     err = lib.zelll_lag_forces(
         planes.data_ptr(), None if lo_planes is None else lo_planes.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, L, _pad_spacing(n), csq,
-        _KERNEL_GFNS[gfn], int(out_dtype == torch.float64), out.data_ptr(),
+        _KERNEL_GFNS[gfn], int(out_dtype == torch.float64), mi, *box, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -496,22 +591,24 @@ def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
     ``sorted_pos_lo`` (f32 low parts, see `split_f64`) selects
     split-precision separations. ``out_dtype`` defaults to the positions'
     dtype; with f32 positions ``out_dtype=torch.float64`` returns the f64
-    sums of the f32 terms. Returns (n, 3) forces aligned with
-    ``sorted_pos``.
+    sums of the f32 terms. ``mi_box`` ((3,) box lengths, 0 for an open
+    axis) and ``key_reach`` fold each separation to its minimum image in
+    the widened key window (`mi_fold`): Newton's +/- g d on the folded
+    separation is the minimum-image force. Returns (n, 3) forces aligned
+    with ``sorted_pos``.
 
-    CUDA tensors run kernel K3, which takes f32 coordinates and the force
-    factors `lj_force_factor` and `lj_force_factor_fast`, and raises on
-    anything else (``sorted_payload`` included). CPU tensors run
+    CUDA tensors run kernel K3, which takes f32 coordinates, the force
+    factors `lj_force_factor` and `lj_force_factor_fast` and the minimum
+    image, and raises on anything else (``sorted_payload``, whose species
+    forces come with slice 5b, included). CPU tensors run
     `pair_lag_forces_plain`, which also takes ``sorted_payload`` and any
-    ``gfn``. ``mi_box``/``key_reach`` (minimum image) are not ported yet
-    and raise on either device.
+    ``gfn``.
     """
     del M
     if gfn is None:
         gfn = lj_force_factor
     if L < 1:
         raise ValueError(f"L must be >= 1, got {L}")
-    _refuse_minimage(mi_box, key_reach)
     device = resolve_device(device, sorted_pos)
     sorted_pos = torch.as_tensor(sorted_pos, device=device)
     if sorted_pos.ndim != 2 or sorted_pos.shape[1] != 3:
@@ -523,14 +620,17 @@ def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
     if device.type == "cuda":
         if sorted_payload is not None:
-            raise ValueError("the CUDA kernel takes no sorted_payload; run "
-                             "it through pair_lag_forces_plain")
+            raise ValueError("the CUDA kernel K3 takes no sorted_payload (species "
+                             "forces come with slice 5b); run it through "
+                             "pair_lag_forces_plain")
         return _lag_forces_cuda(
             sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, L=L,
-            gfn=gfn, out_dtype=out_dtype or sorted_pos.dtype)
+            gfn=gfn, out_dtype=out_dtype or sorted_pos.dtype, mi_box=mi_box,
+            key_reach=key_reach)
     return pair_lag_forces_plain(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
-        sorted_payload, L=L, gfn=gfn, out_dtype=out_dtype)
+        sorted_payload, L=L, gfn=gfn, mi_box=mi_box, key_reach=key_reach,
+        out_dtype=out_dtype)
 
 
 # Kernel launches since the last reset; only a launch of K3 adds to it.
@@ -691,10 +791,40 @@ class SpeciesPairMask:
         return f"SpeciesPairMask({self.a!r}, {self.b!r})"
 
 
-# Pair-mask ids of the histogram kernels; 2 is left for the periodic keep
-# mask (the JAX package's rdf._pbc_keep).
+# Pair-mask ids the kernels share: none, the species pair mask (the
+# histograms K5 and K9) and the periodic keep mask (the energy kernels K1
+# and K6; the histograms take it with slice 6b).
 _MASK_NONE = 0
 _MASK_SPECIES = 1
+_MASK_PBC_KEEP = 2
+
+
+def pbc_keep(wi, wj):
+    """The periodic keep mask over the shift-sign plane of `ops.pbc`'s
+    ghost images (0 for real rows, the lexicographic shift sign +/-1 for
+    ghosts): ``(w_i w_j == 0) & (w_i + w_j >= 0)`` keeps real-real pairs,
+    each cross-boundary pair once (with its positive-shift ghost) and no
+    ghost-ghost pair."""
+    return (wi * wj == 0) & (wi + wj >= 0)
+
+
+class PbcKeepTerm:
+    """``term`` masked by `pbc_keep`: a payload term ``(dsq, w_i, w_j)``
+    (the JAX package's ``pbc._pbc_term``). The energy kernels K1 and K6
+    take it as mask id 2 over one payload plane when ``term`` is one of
+    their own terms; any other payload term runs on CPU tensors only."""
+
+    __slots__ = ("term",)
+
+    def __init__(self, term: Callable):
+        self.term = term
+
+    def __call__(self, dsq, wi, wj):
+        v = self.term(dsq)
+        return torch.where(pbc_keep(wi, wj), v, torch.zeros_like(v))
+
+    def __repr__(self):
+        return f"PbcKeepTerm({getattr(self.term, '__name__', self.term)!r})"
 
 
 def _is_default_islot(min_islot) -> bool:
@@ -719,16 +849,35 @@ def _lag_pair_mask(mask, lag: int, pay, min_islot, pair_mask):
     return mask
 
 
-def _lag_separations(sorted_pos, sorted_pos_lo, lag: int):
-    """(d, dsq) of the lag's pairs: d = p_i - p_(i-lag) per axis (split:
-    (hi_i - hi_j) + (lo_i - lo_j)), dsq summed axis by axis."""
-    d = sorted_pos[lag:] - sorted_pos[:-lag]
-    if sorted_pos_lo is not None:
-        d = d + (sorted_pos_lo[lag:] - sorted_pos_lo[:-lag])
+def _mi_box(mi_box, dtype, device):
+    """``mi_box`` as a (dim,) tensor in the coordinates' dtype, or None."""
+    if mi_box is None:
+        return None
+    return torch.as_tensor(mi_box, device=device).to(dtype).reshape(-1)
+
+
+def _lag_separations(sorted_pos, sorted_pos_lo, lag: int, mi_box=None):
+    """(d, dsq, shifts) of the lag's pairs: d = p_i - p_(i-lag) per axis
+    (split: (hi_i - hi_j) + (lo_i - lo_j)), dsq summed axis by axis. With
+    ``mi_box`` ((dim,) tensor) each axis is folded by `mi_fold` and
+    ``shifts`` holds its box shifts; otherwise ``shifts`` is None."""
+    shifts = None
+    if mi_box is None:
+        d = sorted_pos[lag:] - sorted_pos[:-lag]
+        if sorted_pos_lo is not None:
+            d = d + (sorted_pos_lo[lag:] - sorted_pos_lo[:-lag])
+    else:
+        split = sorted_pos_lo is not None
+        cols = [mi_fold(sorted_pos[lag:, a], sorted_pos[:-lag, a],
+                        sorted_pos_lo[lag:, a] if split else None,
+                        sorted_pos_lo[:-lag, a] if split else None, mi_box[a])
+                for a in range(sorted_pos.shape[1])]
+        d = torch.stack([c[0] for c in cols], 1)
+        shifts = torch.stack([c[1] for c in cols], 1)
     dsq = d[:, 0] * d[:, 0]
     for a in range(1, d.shape[1]):
         dsq = dsq + d[:, a] * d[:, a]
-    return d, dsq
+    return d, dsq, shifts
 
 
 def pair_lag_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
@@ -759,7 +908,7 @@ def pair_lag_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
         keymask = keys[:-lag] >= keys[lag:] - w
         if not bool(keymask.any()):
             break  # keys ascend: no later lag can be in window
-        d, dsq = _lag_separations(sorted_pos, sorted_pos_lo, lag)
+        d, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag)
         mask = _lag_pair_mask(keymask & (dsq < csq) & (dsq > 0), lag, pay,
                               min_islot, pair_mask)
         gv = gfn(torch.where(mask, dsq, torch.ones_like(dsq)))
@@ -855,7 +1004,8 @@ def _observable_args(sorted_pos, sorted_keys, strides, sorted_pos_lo, device):
 def _refuse_minimage(mi_box, key_reach) -> None:
     if mi_box is not None or key_reach is not None:
         raise ValueError("mi_box / key_reach (minimum-image pairs) are not "
-                         "ported yet (periodic boxes, ROADMAP queue 1)")
+                         "ported yet to the stress and histogram kernels "
+                         "(periodic observables, slice 6b)")
 
 
 def pair_lag_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
@@ -957,7 +1107,7 @@ def pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
         keymask = keys[:-lag] >= keys[lag:] - w
         if not bool(keymask.any()):
             break  # keys ascend: no later lag can be in window
-        _, dsq = _lag_separations(sorted_pos, sorted_pos_lo, lag)
+        _, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag)
         mask = _lag_pair_mask(keymask & (dsq < edges[-1]), lag, pay, min_islot,
                               pair_mask)
         b = torch.where(mask, torch.searchsorted(edges, dsq, right=True), K)

@@ -55,6 +55,7 @@ from .lag_pairs import (
     _PAD_KEY_BASE,
     _cumulative_counts,
     _is_default_islot,
+    _keep_plane,
     _pack_count,
     _pad_and_desentinel,
     count_term,
@@ -309,7 +310,7 @@ def reduce_tiles_plain(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
 def _bind_reduce(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_tile_reduce.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp, vp,
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, vp, vp,
     ]
     lib.zelll_tile_reduce.restype = ci
     lib.zelll_tile_reduce_chunk.argtypes = []
@@ -335,15 +336,19 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device,
 
 
 def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
-                 out_dtype=None) -> torch.Tensor:
+                 out_dtype=None, payload=None) -> torch.Tensor:
     """Launch K6 on the current stream and sum its per-chunk partials.
 
-    Takes f32 planes on a CUDA device and the terms `lj_term`,
-    `lj_term_fast`, `count_term` and `ops.virial.lj_virial_term`; raises on
-    anything else. Every kahan
-    mode of the JAX package sums the same way here: f64 per thread, a fixed
-    fold per block, one partial per own chunk.
+    Takes f32 planes on a CUDA device, the terms `lj_term`,
+    `lj_term_fast`, `count_term` and `ops.virial.lj_virial_term`, and one
+    payload rule: the periodic keep mask (``term`` a `PbcKeepTerm` of one
+    of those terms, ``payload`` the sorted (n,) shift-sign plane, whose
+    value for each own and j slot the kernel reads); raises on anything
+    else. Every kahan mode of the JAX package sums the same way here: f64
+    per thread, a fixed fold per block, one partial per own chunk.
     """
+    pos = inp.pos
+    mask, term, plane = _keep_plane("K6", term, payload, pos.shape[1], pos.device)
     if term not in _KERNEL_TERMS:
         raise ValueError(
             "the CUDA kernel implements lj_term, lj_term_fast, count_term and "
@@ -375,8 +380,9 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
     csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
     err = lib.zelll_tile_reduce(
         pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
+        None if plane is None else plane.data_ptr(),
         inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
-        n, dim, S, csq, _KERNEL_TERMS[term], int(integer), int(inp.bandmask),
+        n, dim, S, csq, _KERNEL_TERMS[term], int(integer), int(inp.bandmask), mask,
         partial.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -418,10 +424,10 @@ def _tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
     distributed = not (isinstance(min_islot, int) and min_islot == 0)
     kernel = device.type == "cuda" and not plain
-    if kernel and (sorted_payload is not None or distributed):
+    if kernel and distributed:
         raise ValueError(
-            "the CUDA kernel takes no sorted_payload and only min_islot=0; "
-            "run these through tile_pair_reduce_plain"
+            "the CUDA kernel K6 takes only min_islot=0 (multi-device, slice "
+            "9); run others through tile_pair_reduce_plain"
         )
     inp = tile_inputs(_planes(sorted_pos), sorted_keys, strides,
                       _planes(sorted_pos_lo), CB=CB, MAXJ=MAXJ, packed=packed,
@@ -434,9 +440,10 @@ def _tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 def _reduce(inp: TileInputs, cutoff_sq, kernel: bool, **kw) -> torch.Tensor:
     """K6 for ``kernel``, else its plain version (which alone reads
-    ``safe_term``, ``payload`` and ``min_islot``)."""
+    ``safe_term`` and ``min_islot``)."""
     if kernel:
-        return reduce_tiles(inp, cutoff_sq, term=kw["term"], out_dtype=kw["out_dtype"])
+        return reduce_tiles(inp, cutoff_sq, term=kw["term"], out_dtype=kw["out_dtype"],
+                            payload=kw.get("payload"))
     return reduce_tiles_plain(inp, cutoff_sq, **kw)
 
 
@@ -467,9 +474,11 @@ def tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     out, never multiplied.
 
     CUDA tensors run kernel K6, which takes f32 coordinates, the terms
-    `lj_term`, `lj_term_fast`, `count_term` and `lj_virial_term`, no
-    ``sorted_payload`` and
-    ``min_islot=0``, and raises on anything else. CPU tensors run
+    `lj_term`, `lj_term_fast`, `count_term` and `lj_virial_term`, one
+    payload rule (the periodic keep mask: a `lag_pairs.PbcKeepTerm` of one
+    of those terms over the (n,) ``sorted_payload`` plane) and
+    ``min_islot=0``, and raises on anything else (other payload terms
+    come with slice 5b, ``min_islot`` with slice 9). CPU tensors run
     `reduce_tiles_plain`, which takes them all.
     """
     return _tile_pair_reduce(

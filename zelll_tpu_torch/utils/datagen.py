@@ -265,3 +265,26 @@ def cluster_gap(sorted_pts: np.ndarray, cutoff: float, starts) -> np.ndarray:
         pts[s:s + 32] = a[::-1]  # the facing points last, (0, 0, 0) at s + 31
         pts[s + 32:s + 64] = b   # and first, (0, 0, 0) at s + 32
     return pts
+
+
+def seam_cloud(box, spacing: float, layers: int, axes, rng: np.random.Generator) -> np.ndarray:
+    """A jittered lattice of ``spacing`` in the box [0, box) whose sites on
+    each axis of ``axes`` form ``layers`` layers at each of its two faces
+    (at (k + 1/2) spacing from the face, k < layers), and fill every other
+    axis; each site moved by up to 0.05 spacing per axis, so no two points
+    crowd. With ``layers * spacing`` below half of ``box - cutoff`` on
+    those axes the points across them pair only through the periodic seam,
+    where the nearest sites are one spacing apart, as inside each slab: a
+    cluster prune that takes no periodic image drops those pairs, and the
+    seam pairs carry a share of every sum. (m, 3) f64."""
+    box = np.asarray(box, np.float64)
+    ticks = []
+    for a, b in enumerate(box):
+        if a in tuple(axes):
+            k = (np.arange(layers) + 0.5) * spacing
+            ticks.append(np.concatenate([k, b - k[::-1]]))
+        else:
+            ticks.append((np.arange(max(int(np.floor(b / spacing)), 1)) + 0.5) * spacing)
+    g = np.stack(np.meshgrid(*ticks, indexing="ij"), -1).reshape(-1, len(box))
+    g = g + rng.uniform(-0.05 * spacing, 0.05 * spacing, g.shape)
+    return np.clip(g, 0.0, np.nextafter(box, 0.0))
