@@ -44,8 +44,8 @@ loops): the new kernel instances (K1 with the periodic keep mask, with
 the minimum image and with both; K3 with the minimum image; K6 with the
 keep mask) against their plain versions at n = 2e5 on four inputs, a
 seam lattice among them (`pbc_vs_plain`), the protocols of the JAX
-package's periodic benchmarks at n = 1e7 through the entry points, each
-call's launches counted alone (`pbc_main_path`: the rebuild, the MD step
+package's periodic benchmarks at n = 1e7 through the entry points, the
+launches counted over each timed window (`pbc_main_path`: the rebuild, the MD step
 and the Verlet-skin steady state of the thin box, with ghost images and
 with the minimum image, and of the cube), their f64-grade parity on every
 path at n = 1e6 against the oracle run on numpy ghost images
@@ -92,6 +92,7 @@ pair, the stress products or the binary search over the edges.
 from __future__ import annotations
 
 import cProfile
+import itertools
 import json
 import os
 import pstats
@@ -164,6 +165,13 @@ TOL_KERNEL = 1e-10  # a kernel against its plain version, f64 totals
 TOL_FAST = 6 * 4 * 2.0**-23  # the same with lj_term_fast (see above)
 TOL_FAST_FORCES = 8 * 4 * 2.0**-23  # forces with lj_force_factor_fast
 TOL_NEWTON = 1e-6  # |sum_i f_i| against sum_i |f_i| on a lattice
+# Each row's force error against its own scale, the sum over its pairs of
+# both LJ parts' magnitudes (24 r^-8 (2 r^-6 + 1) r). Split mode evaluates
+# each pair term in f32: dsq carries a few roundings, which the r^-14 part
+# amplifies sevenfold, so a term may be off by about 2e-6 of itself. A pair
+# dropped or misplaced at a seam costs at least 5e-4 of a lattice row's
+# scale (a pair at r = 10 beside the neighbours at spacing 4.6).
+TOL_ROW = 1e-5
 # The MD protocol (the JAX package's benchmarks/steady_state.py)
 MD_DT = 1e-4
 MD_SKIN = 0.5
@@ -562,9 +570,14 @@ def time_steps(step, state, steps: int):
                 steps=steps, all_flags_true=all_ok), state
 
 
-def time_skin(run, state, steps: int, what: str = "") -> dict:
+def time_skin(run, state, steps: int, what: str = "", expect=None) -> dict:
     """One Verlet-skin run of ``steps`` steps (after a 2-step warm-up run):
-    device and host ms per step, rebuilds, the final energy and flag."""
+    device and host ms per step, rebuilds, the final energy and flag. With
+    ``expect`` (one run's launches per step and per run) the counts are
+    zeroed just before the warm-up and read just after the timed run; they
+    must be steps + 2 times the per-step ones and twice the per-run ones."""
+    if expect is not None:
+        reset_launches()
     run(state, 2)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -578,9 +591,15 @@ def time_skin(run, state, steps: int, what: str = "") -> dict:
     energy = float(energy)
     check(bool(ok), f"a coverage flag dropped in the skin loop {what}")
     check(np.isfinite(energy), f"non-finite energy after the skin loop {what}")
-    return dict(step_ms=start.elapsed_time(end) / steps, host_step_ms=host_ms,
-                steps=steps, skin=MD_SKIN, rebuilds=rebuilds, energy=energy,
-                ok=bool(ok))
+    out = dict(step_ms=start.elapsed_time(end) / steps, host_step_ms=host_ms,
+               steps=steps, skin=MD_SKIN, rebuilds=rebuilds, energy=energy, ok=bool(ok))
+    if expect is not None:
+        per_step, per_run = expect
+        counts = read_launches()
+        want = {k: (steps + 2) * per_step.get(k, 0) + 2 * per_run.get(k, 0) for k in counts}
+        check(counts == want, f"skin loop launches {counts} != {want} {what}")
+        out["launches"] = {k: v for k, v in counts.items() if v}
+    return out
 
 
 def md_states(n: int, box, dev):
@@ -2194,10 +2213,12 @@ def hist_alone(dev, n: int) -> dict:
 PBC_MAXJ = 24
 PBC_SS_MAXJ = 20
 PBC_REPS = 5
-# FP32 instructions per candidate of the periodic instances, beside
-# INSTR_PER_CANDIDATE: the keep mask (w_i w_j, == 0, w_i + w_j, >= 0), and
-# the minimum image's fold per folded axis (two compares, a select, the
-# subtraction; split mode also the two-diff's four operations and its add)
+# FP32 instructions of the periodic instances beside INSTR_PER_CANDIDATE and
+# INSTR_PER_PAIR: the keep mask (w_i w_j, == 0, w_i + w_j, >= 0), which the
+# function needs on the cutoff pairs only, and the minimum image's fold per
+# folded axis and candidate, ahead of the cutoff test (two compares, a
+# select, the subtraction; split mode also the two-diff's four operations
+# and its add)
 INSTR_KEEP = 4
 INSTR_MI_FOLD = {False: 4, True: 10}
 
@@ -2213,23 +2234,19 @@ def pbc_sorted(pts: np.ndarray, box, kind: str, dev, *, B=None, G=None, BE=None,
     alone). Capacities default to n rows (every row may be a boundary row)
     and ``ghosts_per_row`` images per row."""
     from zelll_tpu_torch.core import GridInfo, compute_keys, sort_by_key
-    from zelll_tpu_torch.core.binning import bin_and_sort
     from zelll_tpu_torch.core.geometry import Aabb
     from zelll_tpu_torch.ops.lag_pairs import split_f64
-    from zelll_tpu_torch.ops.pbc import _minimage_bins, pbc_extend, wrap_positions
+    from zelll_tpu_torch.ops.pbc import _ghost_bins, _minimage_bins, wrap_positions
 
     n = len(pts)
     box = np.asarray(box, np.float64)
     hi, lo = split_f64(torch.as_tensor(pts, device=dev))
     if kind == "keep":
-        ext, elo, w, valid, ok = pbc_extend(
+        bins, sp, slo, signs, ok = _ghost_bins(
             hi, [0.0] * 3, box, CUTOFF, B=B or n, G=G or ghosts_per_row * n, BE=BE or B or n,
-            positions_lo=lo)
-        del hi, lo
-        bins, cols = bin_and_sort(torch.cat([ext, elo, w[:, None]], 1), CUTOFF, max_cells=1,
-                                  need_perm=False, valid=valid, auto_order=True)
-        return (cols[:, :3].contiguous(), cols[:, 3:6].contiguous(), bins.sorted_keys,
-                bins.info.strides, cols[:, 6].contiguous(), None, None, ok)
+            positions_lo=lo, need_perm=False)
+        return (sp, slo, bins.sorted_keys, bins.info.strides, signs[:, 0].contiguous(), None,
+                None, ok)
     if kind == "both":
         bins, sp, slo, pay, reach, mib, ok = _minimage_bins(
             hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=B or n,
@@ -2415,7 +2432,9 @@ def periodic_reference(pts: np.ndarray, box, cutoff: float):
     real pair kept once. Every real particle meets exactly one copy of each
     partner (box > 2 cutoff), so the oracle's forces of the real rows are
     the minimum-image forces; a pair of two real rows counts once and a
-    real-ghost pair half (its mirror pairs the other end's real row)."""
+    real-ghost pair half (its mirror pairs the other end's real row).
+    Returns (energy, count, forces, each real row's force scale: the sum
+    over its pairs of the magnitudes of both LJ parts)."""
     from itertools import product
 
     from zelll_tpu_torch import oracle
@@ -2434,6 +2453,12 @@ def periodic_reference(pts: np.ndarray, box, cutoff: float):
     forces = oracle.forces(ext, cutoff)[:n]
     i, j = oracle.pairs(ext, cutoff)
     i, j = i.astype(np.int64), j.astype(np.int64)
+    d = ext[i] - ext[j]
+    t = 1.0 / (d * d).sum(1)
+    t3 = t * t * t
+    size = 24.0 * t * t3 * (2.0 * t3 + 1.0) * np.sqrt((d * d).sum(1))
+    scale = (np.bincount(i, size, len(ext)) + np.bincount(j, size, len(ext)))[:n]
+    del d, t, t3, size
     real = (i < n).astype(np.int64) + (j < n)
     keep = real > 0
     i, j, w = i[keep], j[keep], np.where(real[keep] == 2, 1.0, 0.5)
@@ -2443,7 +2468,7 @@ def periodic_reference(pts: np.ndarray, box, cutoff: float):
     energy = float((w * 4.0 * t3 * (t3 - 1.0)).sum())
     count = float(w.sum())
     check(count == int(count), f"the periodic reference's half pairs do not pair up: {count}")
-    return energy, int(count), forces
+    return energy, int(count), forces, scale
 
 
 def pbc_parity(dev, n: int) -> dict:
@@ -2451,19 +2476,26 @@ def pbc_parity(dev, n: int) -> dict:
     `periodic_reference` at n = 1e6: the thin box with ghost images (lag),
     with ``minimage="auto"`` (lag) and through `core.pairs` (xla, in f64:
     that path has no split mode), and the cube with ghost images (tile, and
-    xla in f64). Split coordinates of f64 points wrapped into the box.
+    xla in f64). Split coordinates of f64 points wrapped into the box, on
+    the benchmark's uniform cloud and on a jittered lattice: on the former a
+    few near-coincident pairs carry the energy and the force norm, so only
+    the latter shows a wrong term elsewhere (a seam fault among them).
     Limits: energy and count rel_err <= TOL_REL; ||f - f_ref|| / ||f_ref||
-    <= TOL_REL."""
+    <= TOL_REL; each row's ||f_i - f_ref_i|| against its own scale (see
+    `periodic_reference`) <= TOL_ROW."""
     from zelll_tpu_torch.ops.lag_pairs import split_f64
     from zelll_tpu_torch.ops.pbc import pbc_count_pairs, pbc_lj_energy, pbc_lj_forces
-    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
 
     side = (n / 0.01) ** (1 / 3)
     boxes = {"thin": np.asarray(lj_box(n, CUTOFF)), "cubic": np.array([side] * 3)}
+    clouds = {"uniform": generate_points_random, "lattice": generate_points_lattice}
     out = {}
-    for name, box in boxes.items():
-        pts = np.mod(generate_points_random(n, box), box)
-        e_ref, c_ref, f_ref = periodic_reference(pts, box, CUTOFF)
+    for (name, box), (cloud, make) in itertools.product(boxes.items(), clouds.items()):
+        pts = np.mod(make(n, box), box)
+        e_ref, c_ref, f_ref, f_scale = periodic_reference(pts, box, CUTOFF)
         p64 = torch.as_tensor(pts, device=dev)
         hi, lo = split_f64(p64)
         runs = ((("lag", dict(L=L_MAIN)), ("lag_minimage", dict(L=L_MAIN, minimage="auto")),
@@ -2483,16 +2515,22 @@ def pbc_parity(dev, n: int) -> dict:
             e, ok_e = pbc_lj_energy(*args, [0.0] * 3, box, CUTOFF, out_dtype=torch.float64, **kw)
             c, ok_c = pbc_count_pairs(*args, [0.0] * 3, box, CUTOFF, **kw)
             f, ok_f = pbc_lj_forces(*args, [0.0] * 3, box, CUTOFF, **kw)
-            check(bool(ok_e) and bool(ok_c) and bool(ok_f), f"periodic parity flags ({name} {path})")
+            check(bool(ok_e) and bool(ok_c) and bool(ok_f),
+                  f"periodic parity flags ({name} {cloud} {path})")
             got = f.double().cpu().numpy()
+            row_err = np.linalg.norm(got - f_ref, axis=1)
             errs = dict(energy_rel_err_vs_reference=rel(float(e), e_ref),
                         count_rel_err_vs_reference=rel(c, c_ref),
-                        force_rel_err_vs_reference=float(np.linalg.norm(got - f_ref)
-                                                         / np.linalg.norm(f_ref)))
+                        force_rel_err_vs_reference=float(np.linalg.norm(row_err)
+                                                         / np.linalg.norm(f_ref)),
+                        force_row_err_vs_reference=float(np.max(
+                            row_err / np.maximum(f_scale, np.finfo(np.float64).tiny))))
             for what, err in errs.items():
-                check(np.isfinite(err) and err <= TOL_REL, f"periodic {what} {err} ({name} {path})")
+                tol = TOL_ROW if what.startswith("force_row") else TOL_REL
+                check(np.isfinite(err) and err <= tol,
+                      f"periodic {what} {err} > {tol} ({name} {cloud} {path})")
             res[path] = dict(**errs, L=kw.get("L"))
-        out[name] = dict(n=n, box=box.tolist(), reference_pairs=c_ref, paths=res)
+        out[f"{name}_{cloud}"] = dict(n=n, box=box.tolist(), reference_pairs=c_ref, paths=res)
     return out
 
 
@@ -2505,9 +2543,24 @@ def probe_pbc_lag(flag, L: int, limit: int = 8192) -> int:
     return L
 
 
-def timed_call(fn, reps: int):
+def window_launches(expect: dict, calls: int) -> dict:
+    """The launch counts since the last `reset_launches`, each of which must
+    be ``calls`` times its count in ``expect`` (0 where not named): the
+    non-zero ones."""
+    counts = read_launches()
+    want = {k: calls * expect.get(k, 0) for k in counts}
+    check(counts == want, f"periodic launches {counts} != {want}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def timed_call(fn, reps: int, expect: dict | None = None):
     """``fn(i)`` for i < reps after one warm-up: device ms per call from
-    CUDA events, host ms per call, and every returned flag True."""
+    CUDA events, host ms per call, every returned flag True and the last
+    call's result. With ``expect`` (one call's launches) the counts are
+    zeroed just before the warm-up and read just after the timed calls;
+    they must be reps + 1 times ``expect``."""
+    if expect is not None:
+        reset_launches()
     out = fn(0)
     check(bool(out[-1]), "a periodic flag is False in the warm-up")
     torch.cuda.synchronize()
@@ -2517,25 +2570,16 @@ def timed_call(fn, reps: int):
     t_host = time.perf_counter()
     start.record()
     for i in range(reps):
-        flags.append(fn(i)[-1])
+        out = fn(i)
+        flags.append(out[-1])
     end.record()
     end.synchronize()
     host_ms = (time.perf_counter() - t_host) * 1e3 / reps
     check(all(bool(f) for f in flags), "a periodic flag dropped inside the timed calls")
-    return dict(ms=start.elapsed_time(end) / reps, host_ms=host_ms, reps=reps)
-
-
-def counted_launches(fn, expect: dict):
-    """``fn()`` with the launch counts zeroed just before it and read just
-    after; every count must equal ``expect`` (0 where not named). Returns
-    (its result, the non-zero counts)."""
-    reset_launches()
-    out = fn()
-    torch.cuda.synchronize()
-    counts = read_launches()
-    want = {k: expect.get(k, 0) for k in counts}
-    check(counts == want, f"periodic launches {counts} != {want}")
-    return out, {k: v for k, v in counts.items() if v}
+    res = dict(ms=start.elapsed_time(end) / reps, host_ms=host_ms, reps=reps, out=out)
+    if expect is not None:
+        res.update(launches=window_launches(expect, reps + 1), calls=reps + 1)
+    return res
 
 
 def pbc_main_path(dev, n: int) -> dict:
@@ -2551,8 +2595,9 @@ def pbc_main_path(dev, n: int) -> dict:
     `md_run_skin_tile_pbc` on the cube (MAXJ 20) and `md_run_skin_pbc` on
     the thin box. Each call's ms (CUDA events) and host ms beside the
     open-boundary call of the same box, their ratio, B, G, BE, the lag
-    bound, every flag (all must hold) and the launches of one call, each
-    exact."""
+    bound, every flag (all must hold) and the launches of the timed
+    calls and their warm-up, zeroed just before and read just after each
+    window, each exact."""
     from zelll_tpu_torch.models import (
         MDState, md_run_skin, md_run_skin_pbc, md_run_skin_tile, md_run_skin_tile_pbc,
         md_step, md_step_cubic_tile,
@@ -2564,7 +2609,7 @@ def pbc_main_path(dev, n: int) -> dict:
     from zelll_tpu_torch.ops.tile_pairs import tile_lj_rebuild_energy
     from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
 
-    out, launches = {}, {}
+    out = {}
     o = [0.0] * 3
     thin = np.asarray(lj_box(n, CUTOFF))
     pos = torch.as_tensor(generate_points_random(n, thin), dtype=torch.float32, device=dev)
@@ -2572,15 +2617,14 @@ def pbc_main_path(dev, n: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     def rebuild_cell(name, call, open_call, expect, caps):
-        t = timed_call(lambda i: call(pos_of[name] + (i % 2) * 1e-6), PBC_REPS)
+        t = timed_call(lambda i: call(pos_of[name] + (i % 2) * 1e-6), PBC_REPS, expect)
         t_open = timed_call(lambda i: open_call(pos_of[name] + (i % 2) * 1e-6), PBC_REPS)
-        (e, _), launches[name] = counted_launches(lambda: call(pos_of[name]), expect)
-        e = float(e)
+        e = float(t["out"][0])
         check(np.isfinite(e), f"non-finite periodic energy {e} ({name})")
         out[name] = dict(pbc_rebuild_ms=t["ms"], host_ms=t["host_ms"],
                          open_step_ms=t_open["ms"], open_host_ms=t_open["host_ms"],
-                         overhead=t["ms"] / t_open["ms"], launches=launches[name], **caps,
-                         energy_per_atom=e / n, ok=True)
+                         overhead=t["ms"] / t_open["ms"], launches=t["launches"],
+                         calls=t["calls"], **caps, energy_per_atom=e / n, ok=True)
 
     pos_of = {"thin_ghosts": pos, "thin_minimage": pos}
     B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
@@ -2597,14 +2641,13 @@ def pbc_main_path(dev, n: int) -> dict:
                  {"lag_reduce": 1}, dict(B=Bm, G=Gm, L=Lm))
     vel = torch.zeros_like(pos)
     md_thin = lambda s: md_step_pbc(s[0], s[1], o, thin, CUTOFF, MD_DT, L=Lm, **kwm)
-    t = timed_call(lambda i: md_thin((pos, vel)), PBC_REPS)
+    t = timed_call(lambda i: md_thin((pos, vel)), PBC_REPS, {"lag_forces": 1})
     t_open = timed_call(lambda i: md_step(MDState(pos, vel), CUTOFF, MD_DT, L=L_MAIN), PBC_REPS)
-    (p2, _, _), launches["thin_minimage_md_step"] = counted_launches(
-        lambda: md_thin((pos, vel)), {"lag_forces": 1})
-    check(bool(torch.isfinite(p2).all()), "non-finite positions after md_step_pbc (thin)")
+    check(bool(torch.isfinite(t["out"][0]).all()),
+          "non-finite positions after md_step_pbc (thin)")
     out["thin_minimage_md_step"] = dict(
         pbc_md_step_ms=t["ms"], host_ms=t["host_ms"], open_step_ms=t_open["ms"],
-        overhead=t["ms"] / t_open["ms"], launches=launches["thin_minimage_md_step"],
+        overhead=t["ms"] / t_open["ms"], launches=t["launches"], calls=t["calls"],
         B=Bm, G=Gm, L=Lm, ok=True)
     del pos, vel
 
@@ -2621,16 +2664,15 @@ def pbc_main_path(dev, n: int) -> dict:
                  {"tile_reduce": 1}, dict(B=Bc, G=Gc, BE=BEc, MAXJ=PBC_MAXJ))
     vel = torch.zeros_like(pos)
     md_cube = lambda s: md_step_pbc(s[0], s[1], o, cube, CUTOFF, MD_DT, **kwc)
-    t = timed_call(lambda i: md_cube((pos, vel)), PBC_REPS)
+    t = timed_call(lambda i: md_cube((pos, vel)), PBC_REPS, {"tile_forces": 1})
     t_open = timed_call(lambda i: md_step_cubic_tile(MDState(pos, vel), CUTOFF, MD_DT,
                                                      MAXJ=PBC_MAXJ), PBC_REPS)
-    (p2, _, _), launches["cube_md_step"] = counted_launches(lambda: md_cube((pos, vel)),
-                                                            {"tile_forces": 1})
-    check(bool(torch.isfinite(p2).all()), "non-finite positions after md_step_pbc (cube)")
+    check(bool(torch.isfinite(t["out"][0]).all()),
+          "non-finite positions after md_step_pbc (cube)")
     out["cube_md_step"] = dict(pbc_md_step_ms=t["ms"], host_ms=t["host_ms"],
                                open_step_ms=t_open["ms"], overhead=t["ms"] / t_open["ms"],
-                               launches=launches["cube_md_step"], B=Bc, G=Gc, BE=BEc,
-                               MAXJ=PBC_MAXJ, ok=True)
+                               launches=t["launches"], calls=t["calls"], B=Bc, G=Gc,
+                               BE=BEc, MAXJ=PBC_MAXJ, ok=True)
     del pos, vel, pos_of
 
     # the steady state: lattice clouds, Verlet skin with ghost tracking
@@ -2642,7 +2684,7 @@ def pbc_main_path(dev, n: int) -> dict:
                                                     G=Gs, skin=MD_SKIN, MAXJ=PBC_SS_MAXJ)
             run_open = lambda s, k: md_run_skin_tile(s, CUTOFF, MD_DT, steps=k, skin=MD_SKIN,
                                                      MAXJ=PBC_SS_MAXJ)
-            expect, Ls = {"tile_forces": 3, "tile_reduce": 1}, None
+            expect, Ls = ({"tile_forces": 1}, {"tile_reduce": 1}), None
         else:
             Ls = probe_pbc_lag(lambda L: md_run_skin_pbc(
                 st, o, box, CUTOFF, MD_DT, steps=1, B=Bs, G=Gs, skin=MD_SKIN, L=L)[1], L_MAIN)
@@ -2650,14 +2692,14 @@ def pbc_main_path(dev, n: int) -> dict:
                                                skin=MD_SKIN, L=Ls)
             run_open = lambda s, k: md_run_skin(s, CUTOFF, MD_DT, steps=k, skin=MD_SKIN,
                                                 L=L_MAIN)
-            expect = {"lag_forces": 3, "lag_reduce": 1}
-        t = time_skin(run, st, SKIN_STEPS, name)
+            expect = ({"lag_forces": 1}, {"lag_reduce": 1})
+        t = time_skin(run, st, SKIN_STEPS, name, expect)
         t_open = time_skin(run_open, st, SKIN_STEPS, f"{name}, open")
-        _, launches[name] = counted_launches(lambda: run(st, 3), expect)
         out[name] = dict(pbc_steady_ms=t["step_ms"], host_ms=t["host_step_ms"],
                          rebuilds=t["rebuilds"], energy=t["energy"],
                          open_step_ms=t_open["step_ms"], open_rebuilds=t_open["rebuilds"],
-                         overhead=t["step_ms"] / t_open["step_ms"], launches=launches[name],
+                         overhead=t["step_ms"] / t_open["step_ms"], launches=t["launches"],
+                         steps_counted=SKIN_STEPS + 2, runs_counted=2,
                          n=st.positions.shape[0], B=Bs, G=Gs, L=Ls, steps=SKIN_STEPS,
                          ok=t["ok"])
         del st
@@ -2673,8 +2715,10 @@ def pbc_alone(dev, n: int) -> dict:
     K3 with the minimum image on the latter, K6 with the keep mask on the
     ghost-extended cube (f32, `lj_term`, maskless). Each: ms, one plain
     call's ms (f64 outputs, held to the kernel's), the work of the function
-    (the lag window's candidates, or the half-stencil ones for K6, and the
-    cutoff pairs) and its bound."""
+    (the lag window's candidates, or the half-stencil ones for K6, the
+    cutoff pairs and the kept ones) and its bound. K1 and K3 are also held
+    to their plain versions on a jittered lattice of the same size, f32 and
+    split."""
     from zelll_tpu_torch.ops import lag_pairs
     from zelll_tpu_torch.ops.lag_pairs import (
         PbcKeepTerm, combine_count, count_term, lj_term, pair_lag_forces,
@@ -2682,13 +2726,16 @@ def pbc_alone(dev, n: int) -> dict:
     )
     from zelll_tpu_torch.ops.pbc import minimage_axes, suggest_pbc_capacity
     from zelll_tpu_torch.ops.tile_pairs import reduce_tiles, reduce_tiles_plain, tile_inputs
-    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
 
     csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
     f64 = torch.float64
     out = {}
     thin = np.asarray(lj_box(n, CUTOFF))
     pts = np.mod(generate_points_random(n, thin), thin)
+    lattice = np.mod(generate_points_lattice(n, thin), thin)
     B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
     Bm, Gm = suggest_pbc_capacity(n, thin, CUTOFF, axes=~minimage_axes(thin, CUTOFF))
     for name, kind, caps in (("K1_keep", "keep", dict(B=B, G=G, BE=BE)),
@@ -2711,13 +2758,18 @@ def pbc_alone(dev, n: int) -> dict:
             pairs = combine_count(pair_lag_reduce(
                 shi, keys, strides, csq, lo, pay, out_dtype=torch.int32,
                 **{**kw, "term": PbcKeepTerm(count_term)}))
-            per_candidate = INSTR_PER_CANDIDATE[split] + INSTR_KEEP + \
+            # the keep test is needed on the cutoff pairs only, kept or not
+            cut_pairs = combine_count(pair_lag_reduce(
+                shi, keys, strides, csq, lo, None, out_dtype=torch.int32,
+                **{**kw, "term": count_term}))
+            per_candidate = INSTR_PER_CANDIDATE[split] + \
                 (2 * INSTR_MI_FOLD[split] if mib is not None else 0)
             b = bound(rows * 4 * ((6 if split else 3) + 1 + 1),
-                      candidates * per_candidate + pairs * INSTR_PER_PAIR)
+                      candidates * per_candidate + cut_pairs * INSTR_KEEP
+                      + pairs * INSTR_PER_PAIR)
             out.setdefault(name, dict(rows=rows, L=L, candidates=candidates))[mode] = dict(
                 ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms, pairs=pairs,
-                rel_err=rel(got, float(want)))
+                cutoff_pairs=cut_pairs, rel_err=rel(got, float(want)))
         if kind == "both":
             pairs = out[name]["f32"]["pairs"]
             for lo in (None, slo):
@@ -2736,6 +2788,37 @@ def pbc_alone(dev, n: int) -> dict:
                 out.setdefault("K3_minimage", dict(rows=rows, L=L, candidates=candidates))[mode] \
                     = dict(ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms,
                            max_abs_err=err, max_abs_force=scale)
+        del shi, slo, keys, pay
+        # the uniform cloud's largest force (near-coincident pairs) hides
+        # any error of the rest: hold K1 and K3 to their plain versions at
+        # this size on a jittered lattice too, whose pairs keep apart
+        shi, slo, keys, strides, pay, mib, reach, ok = pbc_sorted(lattice, thin, kind, dev,
+                                                                  **caps)
+        check(bool(ok), f"{name}: the lattice's periodic flag")
+        L = probe_pbc_lag(lambda L: lag_pairs.lag_coverage_ok(keys, strides, L, reach=reach),
+                          L_MAIN)
+        kw = dict(L=L, mi_box=mib, key_reach=reach)
+        lat = out[name]["lattice"] = dict(rows=shi.shape[0], L=L)
+        for lo in (None, slo):
+            mode = "split" if lo is not None else "f32"
+            t = PbcKeepTerm(lj_term)
+            got = float(pair_lag_reduce(shi, keys, strides, csq, lo, pay, term=t,
+                                        out_dtype=f64, **kw))
+            want = float(pair_lag_reduce_plain(shi, keys, strides, csq, lo, pay, term=t,
+                                               out_dtype=f64, **kw))
+            check(np.isfinite(got) and rel(got, want) <= TOL_KERNEL,
+                  f"{name} {mode} on the lattice at 1e7: {got} vs {want}")
+            lat[f"{mode}_rel_err"] = rel(got, want)
+            if kind == "both":
+                got = pair_lag_forces(shi, keys, strides, csq, lo, out_dtype=f64, **kw)
+                want = pair_lag_forces_plain(shi, keys, strides, csq, lo, out_dtype=f64, **kw)
+                err, scale = force_err(got, want)
+                check(np.isfinite(err) and scale > 0 and err <= TOL_KERNEL * scale,
+                      f"K3 minimum image {mode} on the lattice at 1e7: {err} > "
+                      f"{TOL_KERNEL} x {scale}")
+                out["K3_minimage"][mode].update(lattice_max_abs_err=err,
+                                                lattice_max_abs_force=scale)
+                del got, want
         del shi, slo, keys, pay
     side = (n / 0.01) ** (1 / 3)
     cube = np.array([side] * 3)
@@ -2761,11 +2844,13 @@ def pbc_alone(dev, n: int) -> dict:
     check(rel(got, float(want)) <= TOL_KERNEL, f"K6 keep at 1e7: {got} vs {want}")
     pairs = combine_count(reduce_tiles(inp, csq, term=PbcKeepTerm(count_term), payload=pay,
                                        out_dtype=torch.int32))
+    cut_pairs = combine_count(reduce_tiles(inp, csq, term=count_term, out_dtype=torch.int32))
     b = bound(rows * 4 * (3 + 1 + 1) + inp.bounds.numel() * 4,
-              candidates * (INSTR_PER_CANDIDATE[False] + INSTR_KEEP) + pairs * INSTR_PER_PAIR)
+              candidates * INSTR_PER_CANDIDATE[False] + cut_pairs * INSTR_KEEP
+              + pairs * INSTR_PER_PAIR)
     out["K6_keep"] = dict(rows=rows, MAXJ=PBC_MAXJ, candidates=candidates, f32=dict(
         ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms, pairs=pairs,
-        rel_err=rel(got, float(want))))
+        cutoff_pairs=cut_pairs, rel_err=rel(got, float(want))))
     return out
 
 

@@ -423,21 +423,18 @@ def _pbc_sorted(pts, box, kind, device):
     (the keep mask's shift-sign plane); "both", x and y folded and z
     ghost-extended (``minimage="auto"`` on the thin box); "mi", x and y
     folded and z open (the minimum image alone)."""
-    from zelll_tpu_torch.core.binning import bin_and_sort
     from zelll_tpu_torch.core.geometry import Aabb
-    from zelll_tpu_torch.ops.pbc import _minimage_bins, pbc_extend, wrap_positions
+    from zelll_tpu_torch.ops.pbc import _ghost_bins, _minimage_bins, wrap_positions
 
     n = len(pts)
     box = np.asarray(box, np.float64)
     hi, lo = split_f64(torch.as_tensor(pts, device=device))
     if kind == "keep":
-        ext, elo, w, valid, ok = pbc_extend(hi, [0.0] * 3, box, CUTOFF, B=n, G=7 * n, BE=n,
-                                            positions_lo=lo)
-        bins, cols = bin_and_sort(torch.cat([ext, elo, w[:, None]], 1), CUTOFF, max_cells=1,
-                                  need_perm=False, valid=valid, auto_order=True)
+        bins, sp, slo, signs, ok = _ghost_bins(hi, [0.0] * 3, box, CUTOFF, B=n, G=7 * n, BE=n,
+                                               positions_lo=lo, need_perm=False)
         assert bool(ok)
-        return (cols[:, :3].contiguous(), cols[:, 3:6].contiguous(), bins.sorted_keys,
-                bins.info.strides, cols[:, 6].contiguous(), None, None)
+        return (sp, slo, bins.sorted_keys, bins.info.strides, signs[:, 0].contiguous(), None,
+                None)
     if kind == "both":
         bins, sp, slo, pay, reach, mib, ok = _minimage_bins(
             hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=n, G=n,
@@ -473,11 +470,17 @@ def _pbc_cases(n, device):
     for kind in ("keep", "mi", "both"):
         for tag, pts in data.items():
             out[(kind, tag)] = _pbc_sorted(pts, box, kind, device)
-        shi, slo, *rest = out[(kind, "lattice")]
-        moved = shi.double() + slo.double() + torch.as_tensor(
-            rng.uniform(-0.25, 0.25, tuple(shi.shape)), device=device)
-        out[(kind, "drifted")] = (*split_f64(moved), *rest)
+        out[(kind, "drifted")] = _drifted(out[(kind, "lattice")], rng)
     return out
+
+
+def _drifted(case, rng):
+    """A sorted case's coordinates moved by up to a skin of 0.5 since its
+    keys were built (keys, payload and window kept)."""
+    shi, slo, *rest = case
+    moved = shi.double() + slo.double() + torch.as_tensor(
+        rng.uniform(-0.25, 0.25, tuple(shi.shape)), device=shi.device)
+    return (*split_f64(moved), *rest)
 
 
 @pytest.mark.gpu
@@ -575,10 +578,7 @@ def test_pbc_tile_reduce_kernel_matches_plain_on_card(cuda_device):
             "lattice": generate_points_lattice(n, box),
             "seam": seam_cloud(box, 2.5, 2, (0,), rng)}
     cases = {tag: _pbc_sorted(pts, box, "keep", cuda_device) for tag, pts in data.items()}
-    shi, slo, *rest = cases["lattice"]
-    moved = shi.double() + slo.double() + torch.as_tensor(
-        rng.uniform(-0.25, 0.25, tuple(shi.shape)), device=cuda_device)
-    cases["drifted"] = (*split_f64(moved), *rest)
+    cases["drifted"] = _drifted(cases["lattice"], rng)
     csq = CUTOFF**2
     f64 = torch.float64
     for tag, (shi, slo, keys, strides, pay, _, _) in cases.items():

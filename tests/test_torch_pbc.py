@@ -238,7 +238,8 @@ def test_pbc_pair_sum_vs_bruteforce():
 def test_pbc_forces_vs_bruteforce():
     """`pbc_lj_forces` in input order on every path and minimum-image mask,
     to 1e-10 of the largest force (split f32: ||f - f_ref|| to 1e-6 of
-    ||f_ref||, the parity rule of the card's checks); `md_step_pbc` is one
+    ||f_ref||, the parity rule of the card's checks, and on a box whose long
+    axis f32 rounds each row to 1e-5 of its own scale); `md_step_pbc` is one
     semi-implicit Euler step with those forces, wrapped into the box."""
     for seed, (box, cutoff, mis) in enumerate(BOXES):
         pts = lattice(box, 0.9, 0.1, seed)
@@ -258,6 +259,25 @@ def test_pbc_forces_vs_bruteforce():
                 assert bool(ok)
                 err = np.linalg.norm(fs.double().numpy() - f_ref) / np.linalg.norm(f_ref)
                 assert err <= 1e-6, (box, path, mi, err)
+    # a long axis whose length f32 rounds (229.9 by 6e-6): split ghosts are
+    # shifted by the host box, so every row stays within f32 rounding of
+    # its own scale (the sum of both LJ parts' magnitudes over its pairs)
+    box, cutoff = np.array([3.0, 3.0, 229.9]), 1.2
+    pts = lattice(box, 0.9, 0.1, 5)
+    _, _, f_ref = oracle(pts, box, cutoff)
+    d = pts[:, None, :] - pts[None, :, :]
+    d -= box * np.round(d / box)
+    dsq = (d * d).sum(-1)
+    np.fill_diagonal(dsq, np.inf)
+    t = np.where(dsq < cutoff * cutoff, 1.0 / dsq, 0.0)
+    row_scale = (24.0 * t**4 * (2.0 * t**3 + 1.0) * np.sqrt(np.where(t > 0, dsq, 0.0))).sum(1)
+    hi, lo = split_f64(t64(pts))
+    for path, mi in (("lag", False), ("tile", False), ("lag", (True, True, False))):
+        fs, ok = pbc.pbc_lj_forces(hi, [0.0] * 3, box, cutoff, positions_lo=lo, path=path,
+                                   minimage=mi, L=1024, MAXJ=16)
+        assert bool(ok)
+        row_err = np.linalg.norm(fs.double().numpy() - f_ref, axis=1) / row_scale
+        assert row_err.max() <= 1e-5, (path, mi, row_err.max())
     box, cutoff, dt = np.array([3.0, 9.0, 4.2]), 1.2, 1e-3
     pts = lattice(box, 0.9, 0.1, 7)
     vel = np.random.default_rng(7).normal(0, 0.5, pts.shape)

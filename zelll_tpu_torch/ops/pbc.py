@@ -204,9 +204,13 @@ def pbc_extend(positions, origin, box, cutoff, *, B: int, G: int,
 
     ``positions_lo`` (f32 low parts, `lag_pairs.split_f64`) carries split
     precision: a ghost's low parts take the exact two-sum residual of
-    ``hi + shift * box``. ``return_parents`` appends a (G,) int64 tensor
-    of each ghost's parent row (0 for invalid rows). ``axes`` restricts
-    the images to the selected axes (the others fold in the kernel).
+    ``hi + shift * box`` and the shift of the box's own low part (the host
+    box less its rounding to the positions' dtype), so a ghost's hi + lo
+    is its parent's shifted by the host box, not by the rounded one (the
+    JAX package shifts by the rounded box only). ``return_parents``
+    appends a (G,) int64 tensor of each ghost's parent row (0 for invalid
+    rows). ``axes`` restricts the images to the selected axes (the others
+    fold in the kernel).
     """
     device = resolve_device(device, positions)
     positions = torch.as_tensor(positions, device=device)
@@ -223,11 +227,13 @@ def pbc_extend(positions, origin, box, cutoff, *, B: int, G: int,
     dtype = positions.dtype
     split = positions_lo is not None
     origin = torch.as_tensor(origin, dtype=dtype, device=device).reshape(dim)
-    box = torch.as_tensor(box, dtype=dtype, device=device).reshape(dim)
+    box64 = torch.as_tensor(box, dtype=torch.float64, device=device).reshape(dim)
+    box = box64.to(dtype)
     cutoff = torch.as_tensor(cutoff, dtype=dtype, device=device)
 
     pos = wrap_positions(positions, origin, box) if wrap else positions
     pos_lo = torch.as_tensor(positions_lo, device=device).to(dtype) if split else None
+    box_lo = (box64 - box.to(torch.float64)).to(dtype) if split else None
 
     # per-axis shift: +1 near the low face (image beyond the high face), -1
     # near the high face; only for in-box coordinates, so a row outside the
@@ -268,7 +274,8 @@ def pbc_extend(positions, origin, box, cutoff, *, B: int, G: int,
         img, err = _twosum(mpos, sv.to(dtype) * box)
         t = (sv * lex).sum(1)
         sign = torch.where(t > 0, 1, -1).to(dtype)
-        cand.append((img, mlo + err if split else None, sign, v, mpar))
+        cand.append((img, mlo + (err + sv.to(dtype) * box_lo) if split else None, sign, v,
+                     mpar))
     order = [k for k, m in enumerate(subsets) if sum(m) == 1] + \
         [k for k, m in enumerate(subsets) if sum(m) > 1]
     cpos = torch.cat([cand[k][0] for k in order])
@@ -291,6 +298,37 @@ def pbc_extend(positions, origin, box, cutoff, *, B: int, G: int,
     if return_parents:
         return ext_pos, ext_lo, w, valid, ok, gparent
     return ext_pos, ext_lo, w, valid, ok
+
+
+def _default_caps(n: int, box, cutoff, B, G, BE):
+    """(B, G, BE) as given, `suggest_pbc_capacity`'s where B or G is None
+    (BE too, if None then; with B and G given, `pbc_extend` takes BE = B)."""
+    if B is None or G is None:
+        Bd, Gd, BEd = suggest_pbc_capacity(n, box, cutoff, with_multi=True)
+        B = Bd if B is None else B
+        G = Gd if G is None else G
+        if BE is None:
+            BE = BEd
+    return B, G, BE
+
+
+def _ghost_bins(positions, origin, box, cutoff, *, B, G, BE, positions_lo,
+                need_perm: bool, signs: bool = True, stable: bool | None = None):
+    """Binning for the ghost-image lag and tile paths: ghost-extend every
+    axis (`pbc_extend`) and sort by cell key on the auto-ordered grid of
+    the live rows. The low parts and, with ``signs``, the shift-sign plane
+    ride the sort. Returns (bins, sorted positions, sorted low parts or
+    None, sorted signs (n_ext, 1) or None, ok)."""
+    ext, ext_lo, w, valid, ok = pbc_extend(
+        positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE)
+    cols = [ext] + ([ext_lo] if ext_lo is not None else []) + ([w[:, None]] if signs else [])
+    bins, sorted_cols = bin_and_sort(torch.cat(cols, 1) if len(cols) > 1 else ext, cutoff,
+                                     max_cells=1, need_perm=need_perm, valid=valid,
+                                     stable=stable, auto_order=True)
+    # the lag kernels read contiguous rows
+    sp = sorted_cols[:, :3].contiguous()
+    slo = sorted_cols[:, 3:6].contiguous() if ext_lo is not None else None
+    return bins, sp, slo, sorted_cols[:, -1:] if signs else None, ok
 
 
 def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo,
@@ -325,7 +363,7 @@ def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo
             B = Bd if B is None else B
             G = Gd if G is None else G
         ext, ext_lo, w, valid, okx, gparent = pbc_extend(
-            pos, originj, boxj, cutoff, B=B, G=G, positions_lo=positions_lo,
+            pos, originj, box, cutoff, B=B, G=G, positions_lo=positions_lo,
             wrap=False, axes=ghost_axes, return_parents=True)
         if ext_extra is not None:
             ext_extra = torch.cat([ext_extra, ext_extra[gparent]])
@@ -440,19 +478,14 @@ def pbc_pair_sum(positions, origin, box, cutoff, *, term: Callable = lj_term,
             out_dtype=out_dtype, positions_lo=positions_lo)
     if path not in ("lag", "tile", "xla"):
         raise ValueError(f"unknown path {path!r} (lag | tile | xla)")
-    if B is None or G is None:
-        Bd, Gd, BEd = suggest_pbc_capacity(n, box, cutoff, with_multi=True)
-        B = Bd if B is None else B
-        G = Gd if G is None else G
-        if BE is None:
-            BE = BEd
-    ext, ext_lo, w, valid, ok = pbc_extend(
-        positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE)
+    B, G, BE = _default_caps(n, box, cutoff, B, G, BE)
     csq = torch.as_tensor(cutoff, dtype=positions.dtype) ** 2
     if path == "xla":
         from ..core.grid import build
         from ..core.pairs import pair_energy_per_particle
 
+        ext, _, _, valid, ok = pbc_extend(
+            positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE)
         grid = build(ext, cutoff, valid=valid)
         e_pp = pair_energy_per_particle(grid, term, K=K, chunk=chunk, cutoff_sq=csq)
         ok = ok & (grid.bins.max_cell_count() <= K)
@@ -466,21 +499,19 @@ def pbc_pair_sum(positions, origin, box, cutoff, *, term: Callable = lj_term,
             half_lo = (lo + ((hi & 1) << 16)) >> 1
             return torch.stack([hi >> 1, half_lo]).to(torch.int32), ok
         return e_pp[:n].sum(dtype=out_dtype), ok
-    cols = [ext] + ([ext_lo] if ext_lo is not None else []) + [w[:, None]]
-    bins, sorted_cols = bin_and_sort(torch.cat(cols, 1), cutoff, max_cells=1,
-                                     need_perm=False, valid=valid, auto_order=True)
-    sp = sorted_cols[:, :3].contiguous()
-    slo = sorted_cols[:, 3:6].contiguous() if ext_lo is not None else None
+    bins, sp, slo, signs, ok = _ghost_bins(
+        positions, origin, box, cutoff, B=B, G=G, BE=BE, positions_lo=positions_lo,
+        need_perm=False)
     if path == "tile":
         from .tile_pairs import tile_pair_reduce
 
         total, cov = tile_pair_reduce(
-            sp, bins.sorted_keys, bins.info.strides, csq, slo, sorted_cols[:, -1],
+            sp, bins.sorted_keys, bins.info.strides, csq, slo, signs[:, 0],
             CB=CB, MAXJ=MAXJ, term=_pbc_term(term), out_dtype=out_dtype,
             bandmask=False if bandmask is None else bandmask, kahan=kahan)
         return total, ok & cov
     total = pair_lag_reduce(
-        sp, bins.sorted_keys, bins.info.strides, csq, slo, sorted_cols[:, -1:],
+        sp, bins.sorted_keys, bins.info.strides, csq, slo, signs,
         M=M, L=L, term=_pbc_term(term), out_dtype=out_dtype)
     return total, ok & lag_coverage_ok(bins.sorted_keys, bins.info.strides, L)
 
@@ -543,28 +574,20 @@ def pbc_lj_forces(positions, origin, box, cutoff, *, gfn: Callable | None = None
         return _unsort_rows(f, bins.perm, n), ok
     if path not in ("lag", "tile", "xla"):
         raise ValueError(f"unknown path {path!r} (lag | tile | xla)")
-    if B is None or G is None:
-        Bd, Gd, BEd = suggest_pbc_capacity(n, box, cutoff, with_multi=True)
-        B = Bd if B is None else B
-        G = Gd if G is None else G
-        if BE is None:
-            BE = BEd
-    ext, ext_lo, _, valid, ok = pbc_extend(
-        positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE)
+    B, G, BE = _default_caps(n, box, cutoff, B, G, BE)
     if path == "xla":
         from ..core.grid import build
         from ..core.pairs import pair_forces
         from .lj import lj_force_factor
 
+        ext, _, _, valid, ok = pbc_extend(
+            positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE)
         grid = build(ext, cutoff, valid=valid)
         f = pair_forces(grid, gfn or lj_force_factor, K=K, chunk=chunk, cutoff_sq=csq)
         return f[:n], ok & (grid.bins.max_cell_count() <= K)
-    cols = [ext] if ext_lo is None else [ext, ext_lo]
-    bins, sorted_cols = bin_and_sort(torch.cat(cols, 1) if len(cols) > 1 else ext,
-                                     cutoff, max_cells=1, need_perm=True, stable=False,
-                                     valid=valid, auto_order=True)
-    sp = sorted_cols[:, :3]
-    slo = sorted_cols[:, 3:6] if ext_lo is not None else None
+    bins, sp, slo, _, ok = _ghost_bins(
+        positions, origin, box, cutoff, B=B, G=G, BE=BE, positions_lo=positions_lo,
+        need_perm=True, signs=False, stable=False)
     if path == "tile":
         from .tile_pairs import tile_pair_forces
 
