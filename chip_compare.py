@@ -3,17 +3,20 @@
 
 Run from the root of a checkout, on the machine with the card:
 
-    python3 chip_compare.py sass TREE
-        K1, K3, K6 and K7 built to cubins from this checkout and from TREE
+    python3 chip_compare.py sass TREE [ALLOW]
+        K1, K3, K6, K7, K9 and K12 built to cubins from this checkout and from TREE
         (an earlier commit unpacked by `git archive <commit> | tar -x -C
         archive/parent` into the git-ignored archive/) with ops/_build.py's
         flags: per kernel function the two trees share, its registers in
         both and whether the SASS is the same (addresses, encodings and
         branch labels set aside), and the functions only this tree has (new
         instances). A change to the shared header cluster_sweep.cuh must
-        leave the shared functions' registers as they are and lose none.
-    python3 chip_compare.py mutations
-        each mutation of MUTATIONS applied to a copy of the package and the
+        leave the shared functions' SASS and registers as they are and lose
+        none; ALLOW (optional, a regular expression over the mangled
+        names) names the functions a change may move, which are listed.
+    python3 chip_compare.py mutations [NAMES]
+        each mutation of MUTATIONS (or those whose names match the regular
+        expression NAMES) applied to a copy of the package and the
         tests under $TMPDIR/mut/<name>, and its kernel's card test run
         there; the unbroken copy first, with every selected test. A
         mutation must fail its test.
@@ -51,7 +54,7 @@ MUTATIONS = {
         ("tile_hist.cu", "o.span = real ? static_cast<unsigned>(i) + 1u : 0u;",
          "o.span = real ? static_cast<unsigned>(i) + 2u : 0u;")]),
     "k9_bin_le": ("tile_hist", [
-        ("tile_hist.cu", "if (dsq < edges[mid])", "if (dsq <= edges[mid])")]),
+        ("cluster_sweep.cuh", "if (dsq < edges[mid])", "if (dsq <= edges[mid])")]),
     "k9_species_dropped": ("tile_hist", [
         ("tile_hist.cu", "if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);", "")]),
     "k12_prune_lt": ("join", [
@@ -75,17 +78,51 @@ MUTATIONS = {
         ("cluster_sweep.cuh", "shift = s > half ? bx : (s < -half ? -bx : 0.0f);",
          "shift = s > half ? -bx : (s < -half ? bx : 0.0f);")]),
     "mi_split_carry_dropped": ("pbc_lag_reduce or pbc_lag_forces", [
-        ("cluster_sweep.cuh", "d = d + (e + (li - lj));", "d = d + (li - lj);")]),
+        ("cluster_sweep.cuh", "d = d + ((e + (li - lj)) - shift_lo);",
+         "d = d + ((li - lj) - shift_lo);")]),
+    # split mode's fold by the f32 box alone (the JAX package's)
+    "mi_fold_box_lo_dropped": ("pbc_lag_reduce or pbc_lag_forces", [
+        ("cluster_sweep.cuh", "d = d + ((e + (li - lj)) - shift_lo);",
+         "d = d + (e + (li - lj));")]),
     "keep_sum_gt": ("pbc_lag_reduce or pbc_tile_reduce", [
         ("cluster_sweep.cuh", "return wi * wj == 0.0f && wi + wj >= 0.0f;",
          "return wi * wj == 0.0f && wi + wj > 0.0f;")]),
     "k6_payload_own_slot": ("pbc_tile_reduce", [
         ("tile_reduce.cu", "wj[k] = KEEP && keep[k] ? a.w[j] : 0.0f;",
          "wj[k] = KEEP && keep[k] ? o.pw : 0.0f;")]),
+    # the lag histogram K5: the lag bound one short, an edge counted in its
+    # own bin, the species mask dropped, the walk's last step skipped
+    "k5_jlo_off_by_one": ("lag_hist", [
+        ("lag_hist.cu", "    jlo = l;\n", "    jlo = l + 1;\n")]),
+    "k5_bin_le": ("lag_hist", [
+        ("cluster_sweep.cuh", "if (dsq < edges[mid])", "if (dsq <= edges[mid])")]),
+    "k5_species_dropped": ("lag_hist", [
+        ("lag_hist.cu", "if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);", "")]),
+    "k5_skip_cluster": ("lag_hist", [
+        ("lag_hist.cu", "const bool keep = valid && prune.near(b, b_lo);",
+         "const bool keep = valid && j0 + kWarp <= last && prune.near(b, b_lo);")]),
+    # the tile stress K8: coincident pairs kept, the triangle as j <= i + 1
+    # (j == i alone is dsq = 0, which K8 excludes), the last cluster of each
+    # j-chunk skipped
+    "k8_dsq_positive_dropped": ("tile_stress", [
+        ("tile_stress.cu", "dsq < csq &&\n             dsq > T(0);", "dsq < csq;")]),
+    "k8_triangle_le": ("tile_stress", [
+        ("tile_stress.cu", "o.span = real ? static_cast<unsigned>(i) + 1u : 0u;",
+         "o.span = real ? static_cast<unsigned>(i) + 3u : 0u;")]),
+    "k8_skip_cluster": ("tile_stress", [
+        ("tile_stress.cu", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
+         "keep[k] = keep[k] && k < kClusters - 1 && prune.near(b[k], b_lo[k]);")]),
 }
+
+# the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
+# that keeps its design
+SASS_KERNELS = ("lag_reduce", "lag_forces", "tile_reduce", "tile_forces", "tile_hist",
+                "join_reduce")
 
 # the kernels each test selection needs, built before the card is needed
 _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_kernel()",
+            "lag_hist": "lag_pairs.load_hist_kernel()",
+            "tile_stress": "tile_pairs.load_stress_kernel()",
             "pbc_lag_reduce": "lag_pairs.load_kernel()",
             "pbc_lag_forces": "lag_pairs.load_forces_kernel()",
             "pbc_tile_reduce": "tile_pairs.load_kernel()"}
@@ -149,7 +186,7 @@ def _registers(cubin: Path) -> dict:
     return regs
 
 
-def sass(tree: str) -> None:
+def sass(tree: str, allow: str = "") -> None:
     from zelll_tpu_torch.ops._build import NVCC_FLAGS, nvcc
 
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
@@ -157,7 +194,7 @@ def sass(tree: str) -> None:
     tmp = Path(tempfile.mkdtemp(prefix="sass-", dir=ROOT / "build"))
     jobs = {}
     with ThreadPoolExecutor(8) as pool:
-        for kernel in ("lag_reduce", "lag_forces", "tile_reduce", "tile_forces"):
+        for kernel in SASS_KERNELS:
             for side, csrc in (("this", CSRC), ("other", other)):
                 out = tmp / f"{kernel}-{side}.cubin"
                 jobs[kernel, side] = (out, pool.submit(subprocess.run, [
@@ -166,28 +203,33 @@ def sass(tree: str) -> None:
         for _, fut in jobs.values():
             fut.result()
     ok = True
-    for kernel in ("lag_reduce", "lag_forces", "tile_reduce", "tile_forces"):
+    allowed = re.compile(allow) if allow else None
+    for kernel in SASS_KERNELS:
         mine, theirs = jobs[kernel, "this"][0], jobs[kernel, "other"][0]
         fa, fb = _sass_by_function(mine), _sass_by_function(theirs)
         ra, rb = _registers(mine), _registers(theirs)
         shared = set(fa) & set(fb)
+        moved = sorted(f for f in shared if fa[f] != fb[f] or ra.get(f) != rb.get(f))
+        unexplained = [f for f in moved if allowed is None or not allowed.search(f)]
         same_regs = all(ra.get(f) == rb.get(f) for f in shared)
-        ok = ok and same_regs and set(fb) <= set(fa)
+        ok = ok and not unexplained and set(fb) <= set(fa)
         emit("sass", kernel=kernel, functions=len(fb), shared=len(shared),
              registers_equal=same_regs, sass_equal=sum(fa[f] == fb[f] for f in shared),
              new_functions=len(set(fa) - set(fb)), lost_functions=len(set(fb) - set(fa)),
+             moved=moved, moved_not_allowed=unexplained,
              registers={f: [ra.get(f), rb.get(f)] for f in sorted(set(ra) | set(rb))})
     if not ok:
-        raise SystemExit("registers or functions differ")
+        raise SystemExit("a shared function's SASS or registers moved, or one was lost")
 
 
-def mutations() -> None:
+def mutations(pattern: str = "") -> None:
     base = Path(os.environ.get("TMPDIR", tempfile.gettempdir())) / "mut"
     shutil.rmtree(base, ignore_errors=True)
-    names = ["unbroken", *MUTATIONS]
+    chosen = {k: v for k, v in MUTATIONS.items() if re.search(pattern, k)}
+    names = ["unbroken", *chosen]
     every = " or ".join(dict.fromkeys(
-        part for sel, _ in MUTATIONS.values() for part in sel.split(" or ")))
-    selects = {"unbroken": every, **{k: v[0] for k, v in MUTATIONS.items()}}
+        part for sel, _ in chosen.values() for part in sel.split(" or ")))
+    selects = {"unbroken": every, **{k: v[0] for k, v in chosen.items()}}
 
     def prepare(name):
         dest = base / name
@@ -197,7 +239,7 @@ def mutations() -> None:
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "pyproject.toml", dest)
         if name != "unbroken":
-            edited_copy(MUTATIONS[name][1], dest / "zelll_tpu_torch" / "csrc")
+            edited_copy(chosen[name][1], dest / "zelll_tpu_torch" / "csrc")
         # build the copy's kernels before the card is needed
         loads = "; ".join(_LOADERS[part] for part in selects[name].split(" or "))
         return subprocess.run(
@@ -232,9 +274,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare: no CUDA device")
     if sys.argv[1] == "sass":
-        sass(sys.argv[2])
+        sass(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else "")
     else:
-        mutations()
+        mutations(sys.argv[2] if len(sys.argv) > 2 else "")
 
 
 if __name__ == "__main__":

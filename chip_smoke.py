@@ -234,9 +234,16 @@ def max_tile_rel(cases: dict) -> float:
 
 
 def ptxas_summary(log: str) -> list:
-    """The distinct register and spill lines of a build log."""
-    return sorted({ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln})
+    """The distinct register and spill lines of a build log; a line with
+    spills names its kernel function."""
+    out, func = set(), ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            func = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "registers" in ln or "spill" in ln:
+            spills = "spill" in ln and " 0 bytes spill stores" not in ln
+            out.add(f"{func}: {ln.strip()}" if spills else ln.strip())
+    return sorted(out)
 
 
 def profile_steps(step, steps: int = 3) -> dict:
@@ -1605,9 +1612,11 @@ def obs_vs_plain(dev, n: int) -> dict:
     outputs, max |d sigma| <= TOL_KERNEL max |sigma| (TOL_FAST_FORCES with
     the fast factor); histograms at K = 16, 32 and 64, species-partial and,
     on the tile path, masked, maskless and MAXJ = 1: counts exactly equal,
-    and the same flags. K9 also in f64 (the double box), on the inputs
-    that fail a cluster prune that is not conservative (`prune_cases`, the
-    lattice's keys kept) and in 1 and 2 dimensions."""
+    and the same flags. K5, K8 and K9 also in f64 (the double box) and on
+    the inputs that fail a cluster prune that is not conservative
+    (`prune_cases`, the lattice's keys kept), K5 and K9 with a species
+    mask, K8 and K9 masked and maskless, K8 on the uniform cloud with
+    coincident points (dsq = 0, excluded); K9 in 1 and 2 dimensions."""
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
     from zelll_tpu_torch.ops.lag_pairs import (
         SpeciesPairMask, combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
@@ -1653,6 +1662,7 @@ def obs_vs_plain(dev, n: int) -> dict:
                      ("lattice", generate_points_lattice(n, thin))):
         cases[tag], tail = inputs(pts)
     cases["sentinel_tail"] = tail
+    thin_lattice = cases["lattice"]
     for tag, (shi, slo, keys, strides) in cases.items():
         for mode, lo in (("split", slo), ("f32", None)):
             for gfn, tol in factors:
@@ -1671,7 +1681,22 @@ def obs_vs_plain(dev, n: int) -> dict:
                       pair_lag_hist_plain(shi, keys, strides, esq, lo, species, **kw),
                       f"{tag} {mode} species(0, 2)")
 
+    # K5 through the f64 box and on the prune's hard inputs, with and
+    # without the species mask
+    shi, slo, keys, strides = thin_lattice
+    esq = hist_edges_sq(HIST_K, f64)
+    for what, (h, l) in {"lattice": (shi, slo), **prune_cases(shi, slo)}.items():
+        for mode, pos, lo in (("split", h, l), ("f32", h, None),
+                              ("f64", h.double() + l.double(), None)):
+            e = esq.to(pos.dtype)
+            for pay, mask in ((None, None), (species.to(pos.dtype), SpeciesPairMask(0, 2))):
+                kw = dict(L=L_MAIN, pair_mask=mask)
+                got = pair_lag_hist(pos, keys, strides, e, lo, pay, **kw)
+                want = pair_lag_hist_plain(pos, keys, strides, e, lo, pay, **kw)
+                hist_case("K5", got, want, f"prune {what} {mode} mask={mask}")
+
     pts, side = cube_points(n)
+    pts[-500:] = pts[:500]  # coincident pairs: dsq = 0, which K8 excludes
     cases = {}
     for tag, p in (("uniform", pts), ("lattice", generate_points_lattice(n, (side,) * 3))):
         cases[tag], tail = inputs(p)
@@ -1709,9 +1734,9 @@ def obs_vs_plain(dev, n: int) -> dict:
                                                 **kw)
             check(not bool(ok) and not bool(ok_p), f"K8 flags at MAXJ = 1 ({tag})")
             stress_case("K8", got, want, TOL_KERNEL, f"{tag} {mode} MAXJ1")
-    # K9 also through the f64 box, on the inputs that fail a cluster prune
-    # that is not conservative (the lattice's keys kept), and in 1 and 2
-    # dimensions
+    # K8 and K9 also through the f64 box, on the inputs that fail a cluster
+    # prune that is not conservative (the lattice's keys kept), and K9 in 1
+    # and 2 dimensions
     shi, slo, keys, strides = cases["lattice"]
     maxj = probe_maxj(keys, strides)
     esq = hist_edges_sq(HIST_K, f64)
@@ -1725,6 +1750,12 @@ def obs_vs_plain(dev, n: int) -> dict:
                 want, ok_p = tile_pair_hist_plain(pos, keys, strides, e, lo, **kw)
                 check(bool(ok) == bool(ok_p), f"K9 flags {bool(ok)}/{bool(ok_p)} ({what})")
                 hist_case("K9", got, want, f"prune {what} {mode} bandmask={bandmask}")
+                got, ok = tile_pair_stress(pos, keys, strides, csq, lo, out_dtype=f64, **kw)
+                want, ok_p = tile_pair_stress_plain(pos, keys, strides, csq, lo,
+                                                    out_dtype=f64, **kw)
+                check(bool(ok) == bool(ok_p), f"K8 flags {bool(ok)}/{bool(ok_p)} ({what})")
+                stress_case("K8", got, want, TOL_KERNEL,
+                            f"prune {what} {mode} bandmask={bandmask}")
         got, _ = tile_pair_hist(h.double() + l.double(), keys, strides, esq, None,
                                 species.double(), MAXJ=maxj, pair_mask=SpeciesPairMask(0, 2))
         want, _ = tile_pair_hist_plain(h.double() + l.double(), keys, strides, esq, None,
@@ -2030,7 +2061,12 @@ def stress_alone(dev, n: int) -> dict:
     in the timed runs, the work of the function (its half-stencil
     candidates and cutoff pairs) and its bound, the share of it, one plain
     pass (at 1e6 where one at 1e7 would take over 10 s), and the kernel
-    against the plain version at n = 1e6."""
+    against the plain version at n = 1e6; K8's lane evaluations per
+    half-stencil candidate, all 128 x 128 lanes of every tile (its first
+    design) and those the cluster prune leaves (the sweep), and its ptxas
+    lines."""
+    from zelll_tpu_torch.ops import tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, tile_cluster_entries
     from zelll_tpu_torch.ops.lag_pairs import (
         combine_count, count_term, pair_lag_reduce, pair_lag_stress, pair_lag_stress_plain,
     )
@@ -2086,8 +2122,16 @@ def stress_alone(dev, n: int) -> dict:
                   ccand * INSTR_PER_CANDIDATE[x.lo is not None] + cpairs * INSTR_PER_STRESS_PAIR)
         out[f"K8_{tag}"] = dict(ms=ms, launches=launches, **b,
                                 share_of_bound=b["bound_ms"] / ms)
-    out.update(K8_pairs=cpairs, K8_candidates=ccand,
-               K8_tile_evaluations=int(inp.bounds[:, 2::3].sum()) * 128 * 128)
+    # the lanes the cluster prune leaves: K6's half-stencil entries, once
+    # for each of the cluster's 32 lanes (ops/cluster_prune.py)
+    k8_lanes = {tag: int(tile_cluster_entries(x, csq, half=True).sum()) * CLUSTER
+                for tag, x in (("f32", inp), ("split", inp_s))}
+    tiles = int(inp.bounds[:, 2::3].sum()) * 128 * 128
+    out.update(K8_pairs=cpairs, K8_candidates=ccand, K8_tile_evaluations=tiles,
+               K8_tile_evaluations_per_candidate=tiles / ccand,
+               K8_pruned_evaluations=k8_lanes,
+               K8_pruned_evaluations_per_candidate={t: v / ccand for t, v in k8_lanes.items()},
+               K8_ptxas=ptxas_summary(tile_pairs.load_stress_kernel.log))
     del inp, inp_s, shi, slo, keys
 
     def k8_plain(m):
@@ -2120,14 +2164,19 @@ def hist_alone(dev, n: int) -> dict:
     counted in the timed runs, the work of the function (candidates, and
     ceil(log2 K) compares per cutoff pair) and its bound, the share of it,
     one plain pass (at 1e6 where one at 1e7 would take over 10 s), and the
-    counts against the plain version; K9's lane evaluations per half-stencil
-    candidate, all 128 x 128 lanes of every tile (the earlier tile design)
-    and those the cluster prune leaves (the sweep), and its ptxas lines."""
+    counts against the plain version; the lane evaluations per half-stencil
+    candidate of K5 (each lag-window candidate, as its first design's
+    thread walk, and those the cluster prune leaves) and of K9 (all 128 x
+    128 lanes of every tile, the earlier tile design, and those the prune
+    leaves), and their ptxas lines. Each kernel is timed through its
+    launch function, without its wrapper's host checks."""
     from zelll_tpu_torch.ops.lag_pairs import (
         combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
     )
-    from zelll_tpu_torch.ops import tile_pairs
-    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, tile_cluster_entries
+    from zelll_tpu_torch.ops import lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import (
+        CLUSTER, lag_cluster_entries, tile_cluster_entries,
+    )
     from zelll_tpu_torch.ops.tile_pairs import (
         hist_tiles, hist_tiles_plain, tile_inputs, tile_pair_hist,
     )
@@ -2141,12 +2190,16 @@ def hist_alone(dev, n: int) -> dict:
         return sort_split(generate_points_random(m, lj_box(m, CUTOFF)), dev)
 
     shi, slo, keys, info, _ = thin(n)
-    strides = info.strides
+    strides = torch.as_tensor(info.strides, dtype=torch.int32, device=dev)
     pairs = int(combine_count_vec(pair_lag_hist(shi, keys, strides, esq, slo, L=L_MAIN))[-1])
     candidates = stencil_candidates(keys, info)
     for tag, lo in (("f32", None), ("split", slo)):
+        # the launch function: `pair_lag_hist` less its host read of the
+        # edges, which would put the host's time between the timed launches
+        # (K9 is timed through `hist_tiles` alike)
         ms, launches = timed_launches(
-            lambda: pair_lag_hist(shi, keys, strides, esq, lo, L=L_MAIN), pair_lag_hist)
+            lambda: lag_pairs._lag_hist_cuda(shi, keys, strides, esq, lo, None, L=L_MAIN,
+                                             pair_mask=None), pair_lag_hist)
         b = bound(n * 4 * ((6 if lo is not None else 3) + 1) + HIST_K * 8,
                   candidates * INSTR_PER_CANDIDATE[lo is not None] + pairs * per_pair)
         out[f"K5_{tag}"] = dict(ms=ms, launches=launches, **b,
@@ -2155,7 +2208,19 @@ def hist_alone(dev, n: int) -> dict:
     plain_ms, want = once_ms(lambda: pair_lag_hist_plain(shi, keys, strides, esq, L=L_MAIN))
     check(np.array_equal(got, combine_count_vec(want)), f"K5 counts at n = {n}")
     out["K5_f32"].update(plain_ms=plain_ms, plain_n=n)
-    out.update(K5_pairs=pairs, K5_candidates=candidates)
+    # the lanes the cluster prune leaves: K1's one-sided entries at the
+    # threshold edges[K - 1], once for each of the cluster's 32 lanes
+    edge = float(esq[-1])
+    k5_lanes = {tag: int(lag_cluster_entries(shi.t(), None if lo is None else lo.t(), keys,
+                                             strides, edge, L_MAIN, half=True).sum()) * CLUSTER
+                for tag, lo in (("f32", None), ("split", slo))}
+    walk = window_candidates(keys, strides, L_MAIN)
+    out.update(K5_pairs=pairs, K5_candidates=candidates, K5_walk_evaluations=walk,
+               K5_walk_evaluations_per_candidate=walk / candidates,
+               K5_pruned_evaluations=k5_lanes,
+               K5_pruned_evaluations_per_candidate={t: v / candidates
+                                                    for t, v in k5_lanes.items()},
+               K5_ptxas=ptxas_summary(lag_pairs.load_hist_kernel.log))
     del shi, slo, keys
 
     pts, _ = cube_points(n)
@@ -2211,6 +2276,9 @@ def hist_alone(dev, n: int) -> dict:
 # pbc_md_bench.py (MAXJ 24 on the cube, dt 1e-4 from rest, 5 reps),
 # pbc_steady_state.py (lattice clouds, skin 0.5, dt 1e-4, 50 steps, MAXJ 20)
 PBC_MAXJ = 24
+# a thin box's folded width whose f32 rounding is near the most of its
+# binade (30.7 rounds by 7.6e-7), for the split minimum image's box low part
+ROUND_WIDTH = 30.7
 PBC_SS_MAXJ = 20
 PBC_REPS = 5
 # FP32 instructions of the periodic instances beside INSTR_PER_CANDIDATE and
@@ -2261,8 +2329,10 @@ def pbc_sorted(pts: np.ndarray, box, kind: str, dev, *, B=None, G=None, BE=None,
     info = GridInfo.create(aabb, CUTOFF, auto_order=True)
     keys, _, shi, slo = sort_by_key(compute_keys(whi, info), whi, lo)
     reach = tuple(max(int(np.ceil(box[a] / CUTOFF)) - 1, 1) if a < 2 else 1 for a in range(3))
+    # f64 host lengths, as _minimage_bins gives them: split mode's fold
+    # carries what their f32 rounding drops
     return (shi, slo, keys, info.strides, None,
-            torch.tensor([box[0], box[1], 0.0], dtype=torch.float32), reach,
+            torch.tensor([box[0], box[1], 0.0], dtype=torch.float64), reach,
             torch.ones((), dtype=torch.bool, device=dev))
 
 
@@ -2302,8 +2372,10 @@ def pbc_vs_plain(dev, n: int) -> dict:
     two layers at each x and y face of the thin box, spacing 1.5, and at
     each x face of the cube, spacing 2.5; their pairs across those axes
     cross the seam only, one spacing apart like the pairs inside, and the
-    other faces pair through ghost images) and the lattice drifted since
-    its keys were built. Counts exact, f64 totals to TOL_KERNEL (TOL_FAST),
+    other faces pair through ghost images), the lattice drifted since its
+    keys were built, and on the thin box a seam lattice whose folded x and
+    y lengths round in f32 (ROUND_WIDTH, where the split fold carries the
+    box's low part). Counts exact, f64 totals to TOL_KERNEL (TOL_FAST),
     forces to TOL_KERNEL of the largest. On the seam clouds the lane
     evaluations of the periodic prune are printed beside those of a prune
     without periodic images, which drops pairs there."""
@@ -2322,18 +2394,20 @@ def pbc_vs_plain(dev, n: int) -> dict:
     f64 = torch.float64
     rng = np.random.default_rng(4)
     thin = np.asarray(lj_box(n, CUTOFF))
-    data = {"uniform": generate_points_random(n, thin),
-            "lattice": generate_points_lattice(n, thin),
-            "seam": seam_cloud(thin, 1.5, 2, (0, 1), rng)}
+    round_box = np.array([ROUND_WIDTH, ROUND_WIDTH, thin[2]])
+    data = {"uniform": (generate_points_random(n, thin), thin),
+            "lattice": (generate_points_lattice(n, thin), thin),
+            "seam": (seam_cloud(thin, 1.5, 2, (0, 1), rng), thin),
+            "seam_round": (seam_cloud(round_box, 1.5, 2, (0, 1), rng), round_box)}
     k1, k3, prune, errs = {}, {}, {}, {"K1": 0.0, "K3": 0.0, "K6": 0.0}
     B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
-    # the seam cloud is all boundary: every row near an x and a y face
+    # the seam clouds are all boundary: every row near an x and a y face
     caps = {"keep": dict(B=B, G=G, BE=BE), "both": {}, "mi": {}}
     seam_caps = {"keep": dict(ghosts_per_row=4), "both": {}, "mi": {}}
     for kind in ("keep", "mi", "both"):
-        cases = {tag: pbc_sorted(pts, thin, kind, dev,
-                                 **(seam_caps if tag == "seam" else caps)[kind])
-                 for tag, pts in data.items()}
+        cases = {tag: pbc_sorted(pts, box, kind, dev,
+                                 **(seam_caps if tag.startswith("seam") else caps)[kind])
+                 for tag, (pts, box) in data.items()}
         cases["drifted"] = drifted(cases["lattice"])
         for tag, (shi, slo, keys, strides, pay, mib, reach, ok) in cases.items():
             check(bool(ok), f"the periodic inputs' flag ({kind}, {tag})")
@@ -2479,8 +2553,10 @@ def pbc_parity(dev, n: int) -> dict:
     xla in f64). Split coordinates of f64 points wrapped into the box, on
     the benchmark's uniform cloud and on a jittered lattice: on the former a
     few near-coincident pairs carry the energy and the force norm, so only
-    the latter shows a wrong term elsewhere (a seam fault among them).
-    Limits: energy and count rel_err <= TOL_REL; ||f - f_ref|| / ||f_ref||
+    the latter shows a wrong term elsewhere (a seam fault among them); and
+    the lattice on a thin box whose folded x and y lengths round in f32
+    (ROUND_WIDTH; the split fold carries the box's low part). Limits:
+    energy and count rel_err <= TOL_REL; ||f - f_ref|| / ||f_ref||
     <= TOL_REL; each row's ||f_i - f_ref_i|| against its own scale (see
     `periodic_reference`) <= TOL_ROW."""
     from zelll_tpu_torch.ops.lag_pairs import split_f64
@@ -2493,7 +2569,10 @@ def pbc_parity(dev, n: int) -> dict:
     boxes = {"thin": np.asarray(lj_box(n, CUTOFF)), "cubic": np.array([side] * 3)}
     clouds = {"uniform": generate_points_random, "lattice": generate_points_lattice}
     out = {}
-    for (name, box), (cloud, make) in itertools.product(boxes.items(), clouds.items()):
+    round_box = np.array([ROUND_WIDTH, ROUND_WIDTH, boxes["thin"][2]])
+    cells = list(itertools.product(boxes.items(), clouds.items()))
+    cells.append((("thin_round", round_box), ("lattice", generate_points_lattice)))
+    for (name, box), (cloud, make) in cells:
         pts = np.mod(make(n, box), box)
         e_ref, c_ref, f_ref, f_scale = periodic_reference(pts, box, CUTOFF)
         p64 = torch.as_tensor(pts, device=dev)
@@ -2501,6 +2580,8 @@ def pbc_parity(dev, n: int) -> dict:
         runs = ((("lag", dict(L=L_MAIN)), ("lag_minimage", dict(L=L_MAIN, minimage="auto")),
                  ("xla", dict(path="xla")))
                 if name == "thin" else
+                (("lag", dict(L=L_MAIN)), ("lag_minimage", dict(L=L_MAIN, minimage="auto")))
+                if name == "thin_round" else
                 (("tile", dict(path="tile", MAXJ=PBC_MAXJ)), ("xla", dict(path="xla"))))
         res = {}
         for path, kw in runs:

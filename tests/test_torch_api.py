@@ -18,6 +18,7 @@ import pickle
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 import zelll_tpu.api as jax_api

@@ -21,7 +21,7 @@ Everything runs on CPU tensors and calls no JAX."""
 
 import numpy as np
 import pytest
-import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch import CellGrid
@@ -30,16 +30,6 @@ SEEDS = range(206)
 SHAPES = {"cubic": (1.0, 1.0, 1.0, 1.0), "thin": (0.25, 0.25, 4.0, 0.5),
           "slab": (2.0, 2.0, 0.2, 1.0)}
 TOL = 1e-9
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread per test: the cases are small, and the test
-    workers share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _config(seed):

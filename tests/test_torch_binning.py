@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.core.binning import bin_and_sort as jax_bin_and_sort

@@ -8,6 +8,7 @@ build directory, edits the header it includes, and builds again.
 
 import ctypes
 
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch.ops import _build

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.core import build as jax_build
@@ -251,7 +252,6 @@ def test_forces_refusals_and_minimum_image():
     pay = torch.ones((200, 1), dtype=torch.float64)
     f = pair_lag_forces(*args, sorted_payload=pay, gfn=lambda d, a, b: lj_force_factor(d) * a * b)
     assert torch.equal(f, pair_lag_forces(*args))
-
 
 
 def _tie_pairs(cutoff, count, seed):

@@ -18,6 +18,7 @@ Everything runs on CPU tensors and calls no JAX."""
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch.core import build
@@ -33,17 +34,6 @@ from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces
 SEEDS = range(40)
 SHAPES = {"cubic": (1.0, 1.0, 1.0), "thin": (0.25, 0.25, 4.0),
           "slab": (2.0, 2.0, 0.2)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread per test: the cases are small, and the test
-    workers share the host's cores, where threads that wait for each
-    other's turn cost more than they gain."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _config(seed):

@@ -17,6 +17,7 @@ Everything runs the plain versions on CPU tensors and calls no JAX."""
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch.core import build

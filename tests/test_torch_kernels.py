@@ -450,8 +450,10 @@ def _pbc_sorted(pts, box, kind, device):
     info = GridInfo.create(aabb, CUTOFF, auto_order=True)
     keys, _, shi, slo = sort_by_key(compute_keys(whi, info), whi, lo)
     reach = tuple(max(int(np.ceil(box[a] / CUTOFF)) - 1, 1) if a < 2 else 1 for a in range(3))
+    # f64 host lengths, as _minimage_bins gives them: split mode's fold
+    # carries what their f32 rounding drops
     return (shi, slo, keys, info.strides, None,
-            torch.tensor([box[0], box[1], 0.0], dtype=torch.float32), reach)
+            torch.tensor([box[0], box[1], 0.0], dtype=torch.float64), reach)
 
 
 def _pbc_cases(n, device):
@@ -459,17 +461,21 @@ def _pbc_cases(n, device):
     cloud, a jittered lattice, a seam lattice (`seam_cloud`: two layers of
     spacing 1.5 at each x and y face, whose pairs across x and y cross the
     seam only, and z filled, so that the z faces pair through ghost
-    images) and the lattice drifted by
-    up to a skin of 0.5 since its keys were built; by kind (`_pbc_sorted`)."""
+    images), the same seam lattice on a box whose x and y lengths (30.7)
+    round in f32 by 7.6e-7 (split mode's fold carries that low part) and
+    the lattice drifted by up to a skin of 0.5 since its keys were built;
+    by kind (`_pbc_sorted`)."""
     box = np.asarray(lj_box(n, CUTOFF))
+    round_box = np.array([30.7, 30.7, box[2]])
     rng = np.random.default_rng(4)
-    data = {"uniform": generate_points_random(n, box),
-            "lattice": generate_points_lattice(n, box),
-            "seam": seam_cloud(box, 1.5, 2, (0, 1), rng)}
+    data = {"uniform": (generate_points_random(n, box), box),
+            "lattice": (generate_points_lattice(n, box), box),
+            "seam": (seam_cloud(box, 1.5, 2, (0, 1), rng), box),
+            "seam_round": (seam_cloud(round_box, 1.5, 2, (0, 1), rng), round_box)}
     out = {}
     for kind in ("keep", "mi", "both"):
-        for tag, pts in data.items():
-            out[(kind, tag)] = _pbc_sorted(pts, box, kind, device)
+        for tag, (pts, b) in data.items():
+            out[(kind, tag)] = _pbc_sorted(pts, b, kind, device)
         out[(kind, "drifted")] = _drifted(out[(kind, "lattice")], rng)
     return out
 
@@ -920,8 +926,11 @@ def test_lag_stress_kernel_matches_plain_on_card(cuda_device):
 def test_lag_hist_kernel_matches_plain_on_card(cuda_device):
     """K5 against its plain version on the same sorted CUDA tensors: counts
     exact at K = 16, 32 and 64, split, f32 and f64 coordinates, a species
-    pair mask, coincident points, a sentinel tail, an undersized L, and an
-    integer lattice whose squared distances fall exactly on the edges."""
+    pair mask, coincident points, a sentinel tail, an undersized L, an
+    integer lattice whose squared distances fall exactly on the edges, and
+    the inputs that fail a cluster prune that is not conservative (the
+    facing clusters of `cluster_gap` and the lattice drifted since its keys
+    were built) in split, f32 and f64, with and without the species mask."""
     n = 50_000
     csq = CUTOFF**2
     for tag, (shi, slo, keys, strides) in _observable_inputs(
@@ -948,6 +957,19 @@ def test_lag_hist_kernel_matches_plain_on_card(cuda_device):
             c = combine_count_vec(got)
             np.testing.assert_array_equal(c, combine_count_vec(want))
             assert c[-1] > 0
+        if tag != "lattice":
+            continue
+        esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64) ** 2
+        for what, (ghi, glo, gkeys, gstrides) in _prune_cases(shi, slo, keys, strides).items():
+            for pos, plo in ((ghi, glo), (ghi, None), (ghi.double() + glo.double(), None)):
+                for pay, mask in ((None, None), (spec.to(pos.dtype), SpeciesPairMask(0, 2))):
+                    e = esq.to(pos.dtype)
+                    got = pair_lag_hist(pos, gkeys, gstrides, e, plo, pay, pair_mask=mask)
+                    want = pair_lag_hist_plain(pos, gkeys, gstrides, e, plo, pay,
+                                               pair_mask=mask)
+                    c = combine_count_vec(got)
+                    np.testing.assert_array_equal(c, combine_count_vec(want))
+                    assert c[-1] > 0, (what, pos.dtype, mask)
     shi, slo, keys, strides = _sorted_at(_integer_lattice((12, 12, 200)), cuda_device, 3.0)
     esq = torch.tensor([1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 9.0], device=cuda_device)
     for pos in (shi, shi.double()):
@@ -967,7 +989,10 @@ def test_tile_stress_kernel_matches_plain_on_card(cuda_device):
     cube at the benchmark's density (uniform with coincident points, the
     jittered lattice and a sentinel tail), masked and maskless, split, f32
     and f64, both force factors, and an undersized MAXJ (the same flag and
-    the same partial sums); K6's virial term against its plain version."""
+    the same partial sums); K6's virial term against its plain version; and
+    the inputs that fail a cluster prune that is not conservative (the
+    facing clusters of `cluster_gap` and the lattice drifted since its keys
+    were built) in split, f32 and f64, masked and maskless."""
     n = 50_000
     side = (n / 0.01) ** (1 / 3)
     csq = CUTOFF**2
@@ -1000,6 +1025,16 @@ def test_tile_stress_kernel_matches_plain_on_card(cuda_device):
         want, ok_p = tile_pair_stress_plain(shi, keys, strides, csq, slo, **kw)
         assert not bool(ok) and not bool(ok_p)
         _assert_stress(got, want, 1e-10)
+        if tag != "lattice":
+            continue
+        for what, (ghi, glo, gkeys, gstrides) in _prune_cases(shi, slo, keys, strides).items():
+            for bandmask in (False, True):
+                for pos, plo in ((ghi, glo), (ghi, None), (ghi.double() + glo.double(), None)):
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, out_dtype=f64)
+                    got, ok = tile_pair_stress(pos, gkeys, gstrides, csq, plo, **kw)
+                    want, ok_p = tile_pair_stress_plain(pos, gkeys, gstrides, csq, plo, **kw)
+                    assert bool(ok) == bool(ok_p), (what, bandmask)
+                    _assert_stress(got, want, 1e-10)
     with pytest.raises(ValueError):
         tile_pair_stress(shi, keys, strides, csq, MAXJ=maxj, gfn=lambda d: d)
     with pytest.raises(ValueError):

@@ -7,6 +7,7 @@ get the same checks."""
 
 import numpy as np
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch.core import build

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 import zelll_tpu.ops.pbc as jpbc
@@ -35,18 +36,33 @@ from zelll_tpu_torch.ops.lag_pairs import (
     split_f64,
     suggest_lag,
 )
+from zelll_tpu_torch.utils.datagen import seam_cloud
 
 F64 = torch.float64
+# A rod whose folded long axis rounds in f32 (511.7 by 1.22e-5), with layers
+# of a jittered lattice at its two z faces, so that every pair across z
+# crosses the seam: a split fold by the f32 box alone is off by that
+# rounding on each seam pair. The folded masks: z alone (x, y ghosts) and
+# all three.
+SEAM_BOX, SEAM_CUTOFF = np.array([3.0, 3.0, 511.7]), 1.2
+SEAM_MASKS = ((False, False, True), (True, True, True))
+# per-row force error over the row's scale (chip_smoke.py's TOL_ROW)
+TOL_ROW = 1e-5
 
 
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Several xdist workers share the host's cores; torch's own threads
-    would stall each other on these small tensors."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+def seam_rod():
+    return seam_cloud(SEAM_BOX, 0.9, 2, (2,), np.random.default_rng(5))
+
+
+def row_scale(pts, box, cutoff):
+    """Each row's force scale: the sum of both LJ parts' magnitudes over
+    its minimum-image pairs."""
+    d = pts[:, None, :] - pts[None, :, :]
+    d -= box * np.round(d / box)
+    dsq = (d * d).sum(-1)
+    np.fill_diagonal(dsq, np.inf)
+    t = np.where(dsq < cutoff * cutoff, 1.0 / dsq, 0.0)
+    return (24.0 * t**4 * (2.0 * t**3 + 1.0) * np.sqrt(np.where(t > 0, dsq, 0.0))).sum(1)
 
 
 def oracle(pts, box, cutoff):
@@ -199,7 +215,9 @@ def test_pbc_pair_sum_vs_bruteforce():
     """`pbc_pair_sum` (through `pbc_lj_energy` and `pbc_count_pairs`) on
     the lag, tile and xla paths and with the minimum image ("auto" and
     explicit masks): counts exact, f64 energies to 1e-10, split f32 to
-    1e-6; 2-D boxes route to xla; the odd-row xla count is exact."""
+    1e-6, also on the seam rod whose folded axis rounds in f32 (a fold by
+    the f32 box alone is off by 2.8e-5 there); 2-D boxes route to xla; the
+    odd-row xla count is exact."""
     for seed, (box, cutoff, mis) in enumerate(BOXES):
         pts = uniform(int(np.prod(box) * 1.5), box, seed)
         e_ref, c_ref, _ = oracle(pts, box, cutoff)
@@ -220,6 +238,16 @@ def test_pbc_pair_sum_vs_bruteforce():
                 es, ok_s = pbc.pbc_lj_energy(hi, [0.0] * 3, box, cutoff, positions_lo=lo,
                                              out_dtype=F64, **kw)
                 assert bool(ok_s) and rel(float(es), e_grid) <= 1e-6, (box, path, mi)
+    rod = seam_rod()
+    e_rod, c_rod, _ = oracle(rod, SEAM_BOX, SEAM_CUTOFF)
+    hi, lo = split_f64(t64(rod))
+    for mi in SEAM_MASKS:
+        kw = dict(minimage=mi, L=1024)
+        c, ok_c = pbc.pbc_count_pairs(t64(rod), [0.0] * 3, SEAM_BOX, SEAM_CUTOFF, **kw)
+        es, ok_s = pbc.pbc_lj_energy(hi, [0.0] * 3, SEAM_BOX, SEAM_CUTOFF, positions_lo=lo,
+                                     out_dtype=F64, **kw)
+        assert bool(ok_c) and bool(ok_s) and c == c_rod, mi
+        assert rel(float(es), e_rod) <= 1e-6, (mi, rel(float(es), e_rod))
     # 2-D goes to the xla path; its integer count keeps odd rows
     box2 = (6.0, 7.0)
     pts2 = uniform(300, box2, 9)
@@ -238,9 +266,11 @@ def test_pbc_pair_sum_vs_bruteforce():
 def test_pbc_forces_vs_bruteforce():
     """`pbc_lj_forces` in input order on every path and minimum-image mask,
     to 1e-10 of the largest force (split f32: ||f - f_ref|| to 1e-6 of
-    ||f_ref||, the parity rule of the card's checks, and on a box whose long
-    axis f32 rounds each row to 1e-5 of its own scale); `md_step_pbc` is one
-    semi-implicit Euler step with those forces, wrapped into the box."""
+    ||f_ref||, the parity rule of the card's checks, and on boxes whose long
+    axis f32 rounds, ghost-extended or folded (the seam rod, where a fold by
+    the f32 box alone is off by 4.6e-5), each row to TOL_ROW of its own
+    scale); `md_step_pbc` is one semi-implicit Euler step with those forces,
+    wrapped into the box."""
     for seed, (box, cutoff, mis) in enumerate(BOXES):
         pts = lattice(box, 0.9, 0.1, seed)
         _, _, f_ref = oracle(pts, box, cutoff)
@@ -265,19 +295,24 @@ def test_pbc_forces_vs_bruteforce():
     box, cutoff = np.array([3.0, 3.0, 229.9]), 1.2
     pts = lattice(box, 0.9, 0.1, 5)
     _, _, f_ref = oracle(pts, box, cutoff)
-    d = pts[:, None, :] - pts[None, :, :]
-    d -= box * np.round(d / box)
-    dsq = (d * d).sum(-1)
-    np.fill_diagonal(dsq, np.inf)
-    t = np.where(dsq < cutoff * cutoff, 1.0 / dsq, 0.0)
-    row_scale = (24.0 * t**4 * (2.0 * t**3 + 1.0) * np.sqrt(np.where(t > 0, dsq, 0.0))).sum(1)
+    scale = row_scale(pts, box, cutoff)
     hi, lo = split_f64(t64(pts))
     for path, mi in (("lag", False), ("tile", False), ("lag", (True, True, False))):
         fs, ok = pbc.pbc_lj_forces(hi, [0.0] * 3, box, cutoff, positions_lo=lo, path=path,
                                    minimage=mi, L=1024, MAXJ=16)
         assert bool(ok)
-        row_err = np.linalg.norm(fs.double().numpy() - f_ref, axis=1) / row_scale
-        assert row_err.max() <= 1e-5, (path, mi, row_err.max())
+        row_err = np.linalg.norm(fs.double().numpy() - f_ref, axis=1) / scale
+        assert row_err.max() <= TOL_ROW, (path, mi, row_err.max())
+    rod = seam_rod()
+    _, _, f_ref = oracle(rod, SEAM_BOX, SEAM_CUTOFF)
+    scale = row_scale(rod, SEAM_BOX, SEAM_CUTOFF)
+    hi, lo = split_f64(t64(rod))
+    for mi in SEAM_MASKS:
+        fs, ok = pbc.pbc_lj_forces(hi, [0.0] * 3, SEAM_BOX, SEAM_CUTOFF, positions_lo=lo,
+                                   minimage=mi, L=1024)
+        assert bool(ok)
+        row_err = np.linalg.norm(fs.double().numpy() - f_ref, axis=1) / scale
+        assert row_err.max() <= TOL_ROW, (mi, row_err.max())
     box, cutoff, dt = np.array([3.0, 9.0, 4.2]), 1.2, 1e-3
     pts = lattice(box, 0.9, 0.1, 7)
     vel = np.random.default_rng(7).normal(0, 0.5, pts.shape)

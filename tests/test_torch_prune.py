@@ -19,6 +19,7 @@ drops counted pairs. Everything runs on CPU tensors and calls no JAX.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu_torch.core import GridInfo, aabb_from_positions, compute_keys, key_window
@@ -168,23 +169,23 @@ def test_prune_keeps_every_counted_pair(data, kernel):
     own = torch.arange(n)
     half = kernel.endswith("_half")
     if data == "drifted" and kernel.startswith("lag"):
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            _seam_check(half)
-        finally:
-            torch.set_num_threads(threads)
-    for split in (False, True):
+        _seam_check(half)
+    # the one-sided kernels' f64 instances (K5, K8, K9) box and test in
+    # double: the same rule on f64 coordinates
+    for mode in ("f32", "split") + (("f64",) if half else ()):
+        split = mode == "split"
+        pos = hi.double() + lo.double() if mode == "f64" else hi
         plo = lo if split else None
-        counted = _counted(hi, plo, tie=not half)
-        near = _near(hi, plo, prune_threshold(CSQ, split))
-        assert not bool((counted & ~near).any()), (data, kernel, split)
+        counted = _counted(pos, plo, tie=not half)
+        near = _near(pos, plo, prune_threshold(CSQ, split, dtype=pos.dtype))
+        assert not bool((counted & ~near).any()), (data, kernel, mode)
         if data == "cluster_gap":
             # sharp: the facing pair at cutoff (1 - 2^-23) counts at the
-            # first site, and at the second in split mode, where a prune
-            # without the margin (the f32 test on the high parts) drops it
+            # first site, and at the second in split mode (and f64), where
+            # a prune without the margin (the f32 test on the high parts)
+            # drops it
             assert bool(counted[GAP_SITES[0] + 31, GAP_SITES[0] + 32])
-            assert bool(counted[GAP_SITES[1] + 31, GAP_SITES[1] + 32]) == split
+            assert bool(counted[GAP_SITES[1] + 31, GAP_SITES[1] + 32]) == (mode != "f32")
             if split:
                 bare = _near(hi, None, prune_threshold(CSQ, False))
                 assert bool((counted & ~bare).any())
@@ -211,14 +212,14 @@ def test_prune_keeps_every_counted_pair(data, kernel):
             union = (own[None, :] >= first[:, None]) & (own[None, :] <= last[:, None])
             entries = union & near[::CLUSTER]
             want = entries.sum(1)
-            got = lag_cluster_entries(hi.t(), None if plo is None else plo.t(), keys,
+            got = lag_cluster_entries(pos.t(), None if plo is None else plo.t(), keys,
                                       strides, CSQ, L_SHORT, half=half)
         else:
             full = segment_bands(strides, full=not half)
             C = -(-n // (CHUNK * 8)) * 8 * CHUNK
             maxj = suggest_maxj(_pad_and_desentinel(keys, C), full, half=half,
                                 per_band=True)
-            inp = tile_inputs(hi.t().contiguous(), keys, strides,
+            inp = tile_inputs(pos.t().contiguous(), keys, strides,
                               None if plo is None else plo.t().contiguous(),
                               MAXJ=maxj, bandmask=False, full=not half)
             assert bool(inp.coverage_ok)
@@ -236,13 +237,13 @@ def test_prune_keeps_every_counted_pair(data, kernel):
             entries = window & near[::CLUSTER]
             want = entries.sum(1)
             got = tile_cluster_entries(inp, CSQ, half=half)
-        assert torch.equal(got, want), (data, kernel, split)
+        assert torch.equal(got, want), (data, kernel, mode)
         if data == "cluster_gap":
             # the later cluster's sweep holds the facing pair at each site
             # where it counts (at the second only in split mode)
             for s in GAP_SITES:
                 if bool(counted[s + 32, s + 31]):
-                    assert bool(entries[(s + 32) // CLUSTER, s + 31]), (kernel, split, s)
+                    assert bool(entries[(s + 32) // CLUSTER, s + 31]), (kernel, mode, s)
 
 
 def test_join_prune_keeps_every_counted_pair():

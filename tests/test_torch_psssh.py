@@ -13,6 +13,7 @@ autograd path through a batched ``logdensity_fn``.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.models.psssh import eval_grid as jax_eval_grid

@@ -13,6 +13,7 @@ each column's largest.
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.models.sdf import SmoothDistanceField as JaxField

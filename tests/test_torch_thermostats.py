@@ -8,6 +8,7 @@ deterministic functions exactly."""
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.models.thermostats import berendsen_rescale as jax_berendsen_rescale

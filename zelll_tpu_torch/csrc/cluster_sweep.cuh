@@ -1,6 +1,7 @@
 // The cluster-pair sweep shared by the pair kernels K1 (lag_reduce.cu), K3
-// (lag_forces.cu), K6 (tile_reduce.cu), K7 (tile_forces.cu) and K9
-// (tile_hist.cu), and by the query join K12 (join_reduce.cu): a warp owns
+// (lag_forces.cu), K5 (lag_hist.cu), K6 (tile_reduce.cu), K7
+// (tile_forces.cu), K8 (tile_stress.cu) and K9 (tile_hist.cu), and by the
+// query join K12 (join_reduce.cu): a warp owns
 // a cluster of 32 consecutive sorted slots (K12: queries), reduces the
 // cluster's axis-aligned box, keeps a candidate j point only if it lies
 // near that box, compacts the survivors by ballot into a buffer in shared
@@ -20,8 +21,8 @@
 // whatever the low parts hold. The split threshold fl(csq (1 + 2^-19)) >=
 // csq (1 + 1.85e-6) also covers the forces kernels' tie band (pairs whose
 // f32 dsq lies within 1e-6 csq of the cutoff, decided on the f64 dsq); for
-// the energy kernels and K9, which keep the f32 rule dsq < csq, it is a
-// superset. So a j point the prune drops holds no pair that any of the pair
+// the energy kernels, the histograms K5 and K9 and the stress K8, which
+// keep the f32 rule dsq < csq, it is a superset. So a j point the prune drops holds no pair that any of the pair
 // kernels counts, for any data, in either mode.
 //
 // The bound needs every product and sum rounded on its own: build with
@@ -38,7 +39,9 @@
 // kMiSlack (|b| + bx + max(|mn|, |mx|)), 8 times that. On every axis the
 // gap is then scaled by 1 - 2^-21, which covers split mode's carry e
 // (|e| <= 2^-24 |s|, and g <= |s|), before the low parts' reach is taken
-// off as above. So the prune still drops no pair that counts.
+// off as above. Split mode's fold also takes off k bxl, the box's own low
+// part (bxl = box - fl(box), |bxl| <= 2^-24 bx), which the slack covers
+// too. So the prune still drops no pair that counts.
 
 #pragma once
 
@@ -186,35 +189,43 @@ __device__ __forceinline__ float pair_dsq(const Own& o, float4 b, float4 bl,
   return dsq;
 }
 
-// One axis' separation folded to the minimum image, as
-// pallas_pairs.py::_mi_pair_d and lag_pairs.mi_fold fold it: s = hi - hj,
-// one box length off where |s| > bx / 2 (bx == 0 leaves the axis open),
-// and in split mode the exact two-diff error e of s carried into the low
-// term: d = (s - shift) + (e + (li - lj)). shift is returned for the
-// forces kernel's f64 tie decision.
+// One axis' separation folded to the minimum image, as lag_pairs.mi_fold
+// folds it: s = hi - hj, one box length off where |s| > bx / 2 (bx == 0
+// leaves the axis open), and in split mode the exact two-diff error e of s
+// carried into the low term, less the box's own low part bxl (the host
+// box less fl(box)) with the shift's sign: d = (s - shift) + ((e + (li -
+// lj)) - shift_lo). So a split separation across the seam is off by no
+// rounding of the box (pallas_pairs.py::_mi_pair_d, and f32 mode, fold by
+// fl(box) alone). shift and shift_lo are returned for the forces kernel's
+// f64 tie decision.
 template <bool SPLIT>
 __device__ __forceinline__ float mi_axis(float hi, float hj, float li, float lj,
-                                         float bx, float& shift) {
+                                         float bx, float bxl, float& shift,
+                                         float& shift_lo) {
   const float s = hi - hj;
   const float half = 0.5f * bx;
   shift = s > half ? bx : (s < -half ? -bx : 0.0f);
   float d = s - shift;
+  shift_lo = 0.0f;
   if (SPLIT) {
     const float z = s - hi;
     const float e = (hi - (s - z)) - (hj + z);
-    d = d + (e + (li - lj));
+    shift_lo = s > half ? bxl : (s < -half ? -bxl : 0.0f);
+    d = d + ((e + (li - lj)) - shift_lo);
   }
   return d;
 }
 
-// pair_dsq under minimum image (mi_axis per axis); sh: the shifts.
+// pair_dsq under minimum image (mi_axis per axis; mibl: the boxes' low
+// parts); sh, shl: the shifts and their low parts.
 template <bool SPLIT, typename Own>
 __device__ __forceinline__ float pair_dsq_mi(const Own& o, float4 b, float4 bl,
-                                             float3 mib, float& dx, float& dy,
-                                             float& dz, float3& sh) {
-  dx = mi_axis<SPLIT>(o.h.x, b.x, o.l.x, bl.x, mib.x, sh.x);
-  dy = mi_axis<SPLIT>(o.h.y, b.y, o.l.y, bl.y, mib.y, sh.y);
-  dz = mi_axis<SPLIT>(o.h.z, b.z, o.l.z, bl.z, mib.z, sh.z);
+                                             float3 mib, float3 mibl, float& dx,
+                                             float& dy, float& dz, float3& sh,
+                                             float3& shl) {
+  dx = mi_axis<SPLIT>(o.h.x, b.x, o.l.x, bl.x, mib.x, mibl.x, sh.x, shl.x);
+  dy = mi_axis<SPLIT>(o.h.y, b.y, o.l.y, bl.y, mib.y, mibl.y, sh.y, shl.y);
+  dz = mi_axis<SPLIT>(o.h.z, b.z, o.l.z, bl.z, mib.z, mibl.z, sh.z, shl.z);
   float dsq = dx * dx;
   dsq = dsq + dy * dy;
   dsq = dsq + dz * dz;
@@ -348,6 +359,7 @@ struct Lane {
   Acc acc;
   float pw;       // the slot's shift sign (the keep mask)
   float3 mib;     // minimum image: box lengths, 0 on open axes (K1)
+  float3 mibl;    // and their low parts (split mode)
 };
 
 // Sweeps entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
@@ -367,8 +379,8 @@ template <bool SPLIT, bool MI, typename Acc>
 __device__ __forceinline__ float lane_dsq(const Lane<Acc>& o, float4 b, float4 bl) {
   float dx, dy, dz;
   if (MI) {
-    float3 sh;
-    return pair_dsq_mi<SPLIT>(o, b, bl, o.mib, dx, dy, dz, sh);
+    float3 sh, shl;
+    return pair_dsq_mi<SPLIT>(o, b, bl, o.mib, o.mibl, dx, dy, dz, sh, shl);
   }
   return pair_dsq<SPLIT>(o, b, bl, dx, dy, dz);
 }
@@ -420,14 +432,14 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
   }
 }
 
-// ---- any IEEE type: K9's f64 instance and the query join K12 ---------------
+// ---- any IEEE type: K5, K8 and K9, and the query join K12 ------------------
 //
 // The prune argument above holds for any IEEE type with rounding to
-// nearest, so K9's f64 instance and K12 (f32 and f64) take the same box and
-// gap test in their coordinates' type, without split mode. K12's cutoff is
-// inclusive (dsq <= csq), so its gap test keeps gsq <= csq: gsq <= dsq
-// still, and no pair at exactly the cutoff is dropped. K1, K3, K6 and K7 do
-// not use this part.
+// nearest, so the f64 instances of K5, K8 and K9 and K12 (f32 and f64) take
+// the same box and gap test in their coordinates' type, without split mode.
+// K12's cutoff is inclusive (dsq <= csq), so its gap test keeps gsq <= csq:
+// gsq <= dsq still, and no pair at exactly the cutoff is dropped. K1, K3,
+// K6 and K7 do not use this part.
 
 // x, y, z and a tag w in the coordinates' type: float4 for f32, and for
 // f64 a 32-byte row (two 16-byte shared-memory reads)
@@ -467,9 +479,9 @@ __device__ __forceinline__ double inf_of(double) {
 
 // The box and gap test in the coordinates' type, and with K12's inclusive
 // cutoff. For non-split f32 they test what Box / near_box test; those stay
-// as K1, K3, K6 and K7 were built and timed with them. New kernels use this
-// form (and Box only for split mode) until one template that leaves those
-// four kernels' SASS as it is replaces both.
+// as K1, K3, K6 and K7 were built and timed with them (a merged template
+// moved their SASS: ROADMAP.md, queue 2 B0). K5, K8 and K9 take both forms
+// through ClusterPrune below.
 template <typename T>
 struct BoxOf {
   T mnx, mny, mnz, mxx, mxy, mxz;
@@ -504,6 +516,120 @@ __device__ __forceinline__ bool near_box_of(const BoxOf<T>& box, T x, T y, T z,
   gsq = gsq + gy * gy;
   gsq = gsq + gz * gz;
   return INCLUSIVE ? gsq <= thr : gsq < thr;
+}
+
+// The own cluster's box and its strict gap test in the coordinates' type
+// (K5, K8, K9): Box with the split margin and the low parts' reach for f32
+// and split coordinates, BoxOf in double for f64 ones.
+template <typename T, bool SPLIT>
+struct ClusterPrune;
+template <bool SPLIT>
+struct ClusterPrune<float, SPLIT> {
+  Box box;
+  float thr;
+  __device__ __forceinline__ ClusterPrune(float4 h, float4 l, bool real, float csq)
+      : box(cluster_box<SPLIT>(h, l, real)), thr(prune_threshold<SPLIT>(csq)) {}
+  __device__ __forceinline__ bool near(float4 b, float4 bl) const {
+    return near_box<SPLIT>(box, b, bl, thr);
+  }
+};
+template <>
+struct ClusterPrune<double, false> {
+  BoxOf<double> box;
+  double thr;
+  __device__ __forceinline__ ClusterPrune(const Double4& h, float4, bool real,
+                                          double csq)
+      : box(cluster_box_of(h.x, h.y, h.z, real)), thr(csq) {}
+  __device__ __forceinline__ bool near(const Double4& b, float4) const {
+    return near_box_of<false>(box, b.x, b.y, b.z, thr);
+  }
+};
+
+// Slot j (< n) of (dim, n) planes in the coordinates' type, tag w in .w;
+// absent axes read 0, which adds exactly 0 to dsq and to the box gap.
+template <typename T, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ V load_point(const T* planes, int n, int dim, int j,
+                                        int32_t w) {
+  V v;
+  v.x = planes[j];
+  v.y = dim > 1 ? planes[static_cast<int64_t>(n) + j] : T(0);
+  v.z = dim > 2 ? planes[2 * static_cast<int64_t>(n) + j] : T(0);
+  v.w = tag_to(T(0), w);
+  return v;
+}
+
+// The separation (dx, dy, dz) and dsq of own point (h, l) and entry (b, bl)
+// in any type, in the plain versions' order: (dx dx + dy dy) + dz dz, in
+// split mode each axis' d = (hi_i - hi_j) + (lo_i - lo_j).
+template <bool SPLIT, typename V, typename T = decltype(V::x)>
+__device__ __forceinline__ T sep_dsq(const V& h, float4 l, const V& b, float4 bl,
+                                     T& dx, T& dy, T& dz) {
+  dx = h.x - b.x;
+  dy = h.y - b.y;
+  dz = h.z - b.z;
+  if constexpr (SPLIT) {
+    dx = dx + (l.x - bl.x);
+    dy = dy + (l.y - bl.y);
+    dz = dz + (l.z - bl.z);
+  }
+  T dsq = dx * dx;
+  dsq = dsq + dy * dy;
+  dsq = dsq + dz * dz;
+  return dsq;
+}
+
+template <bool SPLIT, typename V, typename T = decltype(V::x)>
+__device__ __forceinline__ T sep_dsq(const V& h, float4 l, const V& b, float4 bl) {
+  T dx, dy, dz;
+  return sep_dsq<SPLIT>(h, l, b, bl, dx, dy, dz);
+}
+
+// ---- the histograms K5 and K9 ----------------------------------------------
+
+// The first bin k < K whose edge is above dsq, for dsq < edges[K - 1]: the
+// pair counts in bins k .. K - 1 of the cumulative histogram.
+template <typename T>
+__device__ __forceinline__ int first_bin_above(const T* edges, int K, T dsq) {
+  int lo = 0, hi = K - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (dsq < edges[mid])
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// The species pair mask of ops/rdf.py: keep {w_i, w_j} == {a, b}.
+template <typename T>
+__device__ __forceinline__ bool species_pair(T wi, T wj, T a, T b) {
+  return (wi == a && wj == b) || (wi == b && wj == a);
+}
+
+// ---- the stress K8 ----------------------------------------------------------
+
+// Folds N per-lane sums of the block in a fixed order (block_fold for each,
+// in one pass) and writes partial[N blockIdx.x + k]. Every thread of the
+// block calls it.
+template <int WARPS, int N, typename Acc>
+__device__ __forceinline__ void block_fold_n(const Acc (&acc)[N], Acc* partial) {
+  __shared__ Acc warp_sums[N][WARPS];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const Acc v = warp_sum(acc[k]);
+    if (lane == 0) warp_sums[k][warp] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const Acc v = warp_sum(lane < WARPS ? warp_sums[k][lane] : Acc(0));
+      if (lane == 0) partial[static_cast<int64_t>(N) * blockIdx.x + k] = v;
+    }
+  }
 }
 
 }  // namespace

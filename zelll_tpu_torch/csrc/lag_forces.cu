@@ -92,14 +92,15 @@
 // Minimum image (MI, lag_forces_mi_kernel; the TPU kernel's mi_box /
 // key_reach): each separation is folded by one box length where |s| >
 // box / 2, in split mode with the two-diff of the hi difference carried
-// into the low term (mi_axis in cluster_sweep.cuh, pallas_pairs.py::
-// _mi_pair_d); the caller's key window is the widened sum(strides *
-// reach); the prune takes the gap to each j point's nearest periodic image
+// into the low term, less the box's own low part (mi_axis in
+// cluster_sweep.cuh; pallas_pairs.py::_mi_pair_d folds by the f32 box
+// alone); the caller's key window is the widened sum(strides * reach); the
+// prune takes the gap to each j point's nearest periodic image
 // (near_box_mi). The split tie band is decided on the f64 separation less
-// the same shift, ((hi_i - hi_j) - shift) + (lo_i - lo_j), so split mode's
-// cutoff rule holds across the seam too. The fold is exactly antisymmetric
-// (the two-diff error of -s is -e), so both ends of a pair still agree
-// bitwise. Newton's +/- g d on the folded separation is the
+// the same shift, ((hi_i - hi_j) - (shift + shift_lo)) + (lo_i - lo_j), so
+// split mode's cutoff rule holds across the seam too. The fold is exactly
+// antisymmetric (the two-diff error of -s is -e, and the shift flips with
+// s), so both ends of a pair still agree bitwise. Newton's +/- g d on the folded separation is the
 // minimum-image force.
 //
 // Accumulation: each lane sums its f32 products g d in f64 and writes
@@ -151,6 +152,7 @@ struct Args {
   float csq;
   float3 mib;             // minimum image: box lengths, 0 on open axes
   void* out;              // (3, n) planes of float or double
+  float3 mibl;            // the box lengths' low parts (split mode)
 };
 
 __device__ __forceinline__ float4 load_slot(const float* planes, int64_t n,
@@ -167,15 +169,18 @@ struct Own {
   unsigned span;       // jhi - jlo
   double fx, fy, fz;
   float3 mib;          // minimum image: box lengths, 0 on open axes
+  float3 mibl;         // and their low parts (split mode)
 };
 
-// The separation and dsq of the lane and an entry, folded with MI; sh:
-// the minimum image's shifts (zero without MI).
+// The separation and dsq of the lane and an entry, folded with MI; sh,
+// shl: the minimum image's shifts and their low parts (zero without MI).
 template <bool SPLIT, bool MI>
 __device__ __forceinline__ float own_dsq(const Own& o, float4 b, float4 b_lo,
-                                         float& dx, float& dy, float& dz, float3& sh) {
-  if (MI) return pair_dsq_mi<SPLIT>(o, b, b_lo, o.mib, dx, dy, dz, sh);
+                                         float& dx, float& dy, float& dz, float3& sh,
+                                         float3& shl) {
+  if (MI) return pair_dsq_mi<SPLIT>(o, b, b_lo, o.mib, o.mibl, dx, dy, dz, sh, shl);
   sh = make_float3(0.0f, 0.0f, 0.0f);
+  shl = sh;
   return pair_dsq<SPLIT>(o, b, b_lo, dx, dy, dz);
 }
 
@@ -184,8 +189,8 @@ template <bool SPLIT, bool MI>
 __device__ __forceinline__ bool may_count(const Own& o, float4 b, float4 b_lo,
                                           float csq, float thr) {
   float dx, dy, dz;
-  float3 sh;
-  const float dsq = own_dsq<SPLIT, MI>(o, b, b_lo, dx, dy, dz, sh);
+  float3 sh, shl;
+  const float dsq = own_dsq<SPLIT, MI>(o, b, b_lo, dx, dy, dz, sh, shl);
   // the lag bound and key window: jlo_i <= j <= jhi_i
   const bool in_range =
       static_cast<unsigned>(__float_as_int(b.w) - o.jlo) <= o.span;
@@ -221,25 +226,26 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
     const float4 b = bh[q];
     const float4 b_lo = SPLIT ? bl[q] : make_float4(0, 0, 0, 0);
     float dx, dy, dz;
-    float3 sh;
-    const float dsq = own_dsq<SPLIT, MI>(o, b, b_lo, dx, dy, dz, sh);
+    float3 sh, shl;
+    const float dsq = own_dsq<SPLIT, MI>(o, b, b_lo, dx, dy, dz, sh, shl);
     bool inside = true;
     if (SPLIT) {
       inside = dsq < csq;
       if (fabsf(dsq - csq) <= kTieBand * csq) {
         // near the cutoff the f32 dsq may fall on the wrong side: decide on
         // the f64 dsq of the split separations (split_cutoff_test in
-        // lag_pairs.py), less the minimum image's shift with MI
+        // lag_pairs.py), less the minimum image's shift (hi + lo, exact in
+        // f64) with MI
         double ex, ey, ez;
         if (MI) {
           ex = ((static_cast<double>(o.h.x) - static_cast<double>(b.x)) -
-                static_cast<double>(sh.x)) +
+                (static_cast<double>(sh.x) + static_cast<double>(shl.x))) +
                (static_cast<double>(o.l.x) - static_cast<double>(b_lo.x));
           ey = ((static_cast<double>(o.h.y) - static_cast<double>(b.y)) -
-                static_cast<double>(sh.y)) +
+                (static_cast<double>(sh.y) + static_cast<double>(shl.y))) +
                (static_cast<double>(o.l.y) - static_cast<double>(b_lo.y));
           ez = ((static_cast<double>(o.h.z) - static_cast<double>(b.z)) -
-                static_cast<double>(sh.z)) +
+                (static_cast<double>(sh.z) + static_cast<double>(shl.z))) +
                (static_cast<double>(o.l.z) - static_cast<double>(b_lo.z));
         } else {
           ex = (static_cast<double>(o.h.x) - static_cast<double>(b.x)) +
@@ -282,6 +288,7 @@ __device__ __forceinline__ void lag_forces_body(const Args& a) {
   o.l = SPLIT && o.real ? load_slot(a.lo, n, i) : make_float4(0, 0, 0, 0);
   o.fx = o.fy = o.fz = 0.0;
   o.mib = a.mib;
+  o.mibl = a.mibl;
   // the lane's partner range [jlo, jhi] by binary search over the keys
   const int32_t w_key = *a.w_key;
   int jlo = 0, jhi = -1;
@@ -397,13 +404,14 @@ int zelll_lag_forces_block() { return kBlock; }
 // spacing: the padding-key spacing, (INT32_MAX - INT32_MAX / 2 - 1) / n at
 // least 1; gfn: 0 for the LJ force factor, 1 for its rsqrt form; mi != 0
 // folds the axes whose box length mbx, mby, mbz is > 0 to the minimum
-// image (w_key then the widened window); out: (3, n) planes of float
+// image (w_key then the widened window), in split mode less the low parts
+// mlx, mly, mlz of the host box lengths; out: (3, n) planes of float
 // (f64_out == 0) or double (f64_out != 0). Returns cudaGetLastError() after
 // the launch.
 int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int L, int spacing, float csq,
                      int gfn, int f64_out, int mi, float mbx, float mby, float mbz,
-                     void* out, void* stream) {
+                     float mlx, float mly, float mlz, void* out, void* stream) {
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
       (gfn != kGfnLj && gfn != kGfnLjFast))
@@ -418,6 +426,7 @@ int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
   a.spacing = spacing;
   a.csq = csq;
   a.mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
+  a.mibl = mi != 0 ? make_float3(mlx, mly, mlz) : make_float3(0.0f, 0.0f, 0.0f);
   a.out = out;
   auto s = static_cast<cudaStream_t>(stream);
   if (a.lo != nullptr)

@@ -19,143 +19,297 @@
 // is left for the periodic keep mask.
 //
 // What it does not copy: the TPU kernel compares every pair with all K
-// edges and adds K int32 planes of a revisited VMEM block. Here one thread
-// owns one sorted slot i and walks its lags as K1 does (lag_reduce.cu). For
-// each pair it finds the first edge above dsq by binary search over the
-// edges (ascending, staged in shared memory) and adds 1 to that bin of a
-// per-block shared-memory histogram with an integer atomic; a prefix sum
-// over the bins on the caller's side gives the cumulative counts, equal to
-// the K compares for ascending edges. Integer atomics are exact, so the
-// counts do not depend on the order of the additions. Each block adds its
-// bins to the (K,) int64 output with one integer atomic per non-empty bin:
-// no bin wraps below 2^63.
+// edges and adds K int32 planes of a revisited VMEM block. Here each pair
+// goes to the first edge above its dsq, found by a binary search over the
+// edges in shared memory, and a prefix sum over the bins on the caller's
+// side gives the cumulative counts, equal to the K compares for ascending
+// edges. The TPU kernel's rolling window, lane rolls and tail padding are
+// Mosaic devices; the index bound j >= 0 and the padding-key rule of K1
+// (padding rows read as spaced keys above every real key) replace them.
 //
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane) x n read once (+ the payload plane with a mask; f64 planes
 // are 8 B), 160-280 MB at n = 1e7, 48-84 us at 3.35 TB/s. Operations: K1's
-// 7 (13 split) FP32 instructions per lag-window candidate, plus the binary
-// search (log2 K compares) and the shared atomic per cutoff pair, so it is
-// bound by operations. The shared histogram keeps every per-pair update
-// on chip; a histogram of K = 32 bins takes 256 + 128 bytes of shared
-// memory per block. Register pressure does not grow with K. No single
-// PyTorch call computes this function (torch.histc and torch.bincount
-// take the distances, which the fused pass never stores).
+// 7 (13 split) FP32 instructions per lag-window candidate, plus per cutoff
+// pair the binary search (log2 K compares) and a shared atomic, so it is
+// bound by operations, that is by the instructions issued per evaluated
+// lane. A thread that walked its own lags would issue scalar global loads
+// that no other lane shares, run its warp to the longest walk and evaluate
+// every candidate, and one shared histogram per block would take every
+// cutoff pair's atomic. No single PyTorch
+// call computes this function (torch.histc and torch.bincount take the
+// distances, which the fused pass never stores).
+//
+// Design: K1's one-sided cluster sweep (lag_reduce.cu) on cluster_sweep.cuh,
+// with K9's histogram per hit (tile_hist.cu). Lane i's partners are the
+// slots [jlo_i, i - 1], where jlo_i, found by binary search over the keys,
+// is the larger of i - L and the first slot with key_j >= key_i - W: keys
+// ascend, so that is exactly the set of lags 1..L in the key window. A warp
+// owns a cluster of 32 consecutive slots and keeps its own coordinates,
+// payload and range in registers; the 4 warps of a block share only the
+// edges and the final sum of their bins. Each warp
+//   1. reduces its cluster's box over the real slots (< n), and in split
+//      mode the largest |lo| per axis (f64: the box and the gap in double;
+//      ClusterPrune);
+//   2. walks the union of its lanes' ranges, [jlo of its first slot, its
+//      last real slot - 1] (jlo ascends with i): lane t loads row j0 + t of
+//      the (n, dim) array and tests the point against the own box with the
+//      threshold edges[K - 1]; a ballot compacts the survivors, in slot
+//      order, into the warp's buffer in shared memory (x, y, z and the slot;
+//      the low parts in split mode; the payload, read for survivors only,
+//      with the species mask);
+//   3. sweeps the buffer 32 entries at a time: phase A reads each entry by
+//      a broadcast and sets the lane's hit bit where jlo_i <= j < i (one
+//      unsigned range test), dsq < edges[K - 1] and the species mask hold;
+//      phase B finds the bin of each hit by a binary search over the edges
+//      and adds 1 to it in the warp's own 32-bit bins in shared memory.
+// The prune drops no pair that counts (cluster_sweep.cuh says why; the
+// split threshold is a superset of the strict f32 rule), and
+// ops/cluster_prune.py's lag_cluster_entries(half=True) counts these
+// entries, as it does K1's (tests/test_torch_prune.py holds it to brute
+// force). Every rule of the function stays a lane mask, so the counts are
+// the plain version's wherever the lag bound binds. At the end each block
+// sums its warps' bins and adds each non-empty bin to the (K,) int64 output
+// with one integer atomic; integer sums are exact, so the counts do not
+// depend on their order. A warp's bin stays below 2^32: at most 32 lanes x
+// min(L, n) partners, and the C interface refuses min(L, n) >= 2^27. The
+// K <= 2048 edges and 4 x K bins (32 KB at K = 2048) are dynamic shared
+// memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. --fmad=false rounds every product
 // and sum on its own, as the plain PyTorch version does, so dsq and hence
-// the bins match it bitwise on identical sorted inputs.
+// the bins match it bitwise on identical sorted inputs, and the prune's
+// bound holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 128;
+constexpr int kWarps = kBlock / kWarp;
+constexpr int kBuf = 2 * kWarp;  // a warp's buffer: a sweep + a cluster
 constexpr int kMaxDim = 3;
 constexpr int kMaxBins = 2048;
+constexpr int kMaxLag = 1 << 27;  // 32 x min(L, n) partners fit a 32-bit bin
+constexpr size_t kDefaultDynShared = 32 << 10;  // launches without an opt-in
 constexpr int kMaskNone = 0;
 constexpr int kMaskSpecies = 1;
-constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
-constexpr int32_t kPadKeyBase = kSentinelKey / 2;
 
-// A padding row's key is replaced by kPadKeyBase + slot * spacing, where
-// spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below int32 overflow.
-__device__ __forceinline__ int32_t load_key(const int32_t* __restrict__ keys,
-                                            int slot, int spacing) {
-  const int32_t k = keys[slot];
-  return k == kSentinelKey ? kPadKeyBase + slot * spacing : k;
+template <typename T>
+struct Args {
+  const T* pos;           // (n, dim) row-major
+  const float* lo;        // (n, dim) f32 low parts, or null
+  const T* pay;           // (n,) payload plane, or null without a mask
+  const int32_t* keys;    // (n,) ascending, SENTINEL_KEY rows last
+  const int32_t* w_key;   // one int32 on the device
+  const T* edges;         // (K,) ascending squared edges
+  int n;
+  int dim;
+  int L;
+  int spacing;
+  int K;
+  T ma, mb;               // the species pair of the mask
+  unsigned long long* counts;  // (K,) first-bin counts
+};
+
+// Row j of an (n, dim) row-major array in the coordinates' type, tag w in
+// .w; absent axes read 0, which adds exactly 0 to dsq and to the box gap.
+template <typename T, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ V load_row(const T* rows, int dim, int j, int32_t w) {
+  const T* r = rows + static_cast<int64_t>(j) * dim;
+  V v;
+  v.x = r[0];
+  v.y = dim > 1 ? r[1] : T(0);
+  v.z = dim > 2 ? r[2] : T(0);
+  v.w = tag_to(T(0), w);
+  return v;
 }
 
-// The first bin k < K whose edge is above dsq, for dsq < edges[K - 1]:
-// the pair counts in bins k .. K - 1 of the cumulative histogram.
+// A lane: its own point, low parts and payload, and the slots it pairs
+// with, jlo <= j < jlo + span as unsigned arithmetic tests it (span = 0 for
+// a slot at or past n).
 template <typename T>
-__device__ __forceinline__ int first_bin_above(const T* edges, int K, T dsq) {
-  int lo = 0, hi = K - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (dsq < edges[mid])
-      hi = mid;
-    else
-      lo = mid + 1;
+struct HistLane {
+  typename Vec4Of<T>::type h;
+  float4 l;
+  int jlo;
+  unsigned span;
+  T w;
+};
+
+// What a sweep reads besides the buffers.
+template <typename T>
+struct SweepArgs {
+  T csq;  // edges[K - 1]
+  const T* edges;  // in shared memory
+  int K;
+  T ma, mb;
+  unsigned* bins;  // the warp's bins in shared memory
+};
+
+// Sweeps entries [0, cnt) of the warp's buffers (cnt <= 32, warp-uniform;
+// FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the lag
+// range, dsq < edges[K - 1], the species mask), phase B bins each hit, in
+// ascending q.
+template <typename T, bool SPLIT, bool MASK, bool FULL,
+          typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
+                                           const float4* bl, const T* bp, int cnt,
+                                           const SweepArgs<T>& sa) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  unsigned hits = 0u;
+  auto hit = [&](int q) {
+    const V b = bh[q];
+    const T dsq = sep_dsq<SPLIT>(o.h, o.l, b, SPLIT ? bl[q] : zero);
+    bool m = static_cast<unsigned>(tag_from(b.w) - o.jlo) < o.span && dsq < sa.csq;
+    if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);
+    if (m) hits |= 1u << q;
+  };
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kWarp; ++q) hit(q);
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < cnt; ++q) hit(q);
   }
-  return lo;
+  while (hits != 0u) {
+    const int q = __ffs(static_cast<int>(hits)) - 1;
+    hits &= hits - 1u;
+    const T dsq = sep_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero);
+    atomicAdd(&sa.bins[first_bin_above(sa.edges, sa.K, dsq)], 1u);
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ bool species_pair(T wi, T wj, T a, T b) {
-  return (wi == a && wj == b) || (wi == b && wj == a);
+template <typename T, bool SPLIT, bool MASK>
+__global__ void __launch_bounds__(kBlock) lag_hist_kernel(Args<T> a) {
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kWarps][kBuf];
+  __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
+  __shared__ T buf_pay[kWarps][MASK ? kBuf : 1];
+  // the K edges, then each warp's K bins
+  extern __shared__ double dyn[];
+  T* sedges = reinterpret_cast<T*>(dyn);
+  unsigned* bins = reinterpret_cast<unsigned*>(sedges + a.K);
+  for (int k = threadIdx.x; k < a.K; k += kBlock) sedges[k] = a.edges[k];
+  for (int k = threadIdx.x; k < kWarps * a.K; k += kBlock) bins[k] = 0u;
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  V* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  T* bp = buf_pay[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  HistLane<T> o;
+  o.h = real ? load_row(a.pos, a.dim, i, 0) : vzero;
+  o.l = SPLIT && real ? load_row(a.lo, a.dim, i, 0) : zero;
+  o.w = MASK && real ? a.pay[i] : T(0);
+  // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
+  // with key_j >= key_i - W (j = i holds), by binary search over the keys
+  int jlo = i;
+  if (real) {
+    const int32_t lo_key = load_key(a.keys, i, a.spacing) - *a.w_key;
+    int l = i > a.L ? i - a.L : 0, r = i;
+    while (l < r) {
+      const int m = l + (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else l = m + 1;
+    }
+    jlo = l;
+  }
+  o.jlo = jlo;
+  o.span = real ? static_cast<unsigned>(i - jlo) : 0u;
+  __syncthreads();
+  SweepArgs<T> sa{sedges[a.K - 1], sedges, a.K, a.ma, a.mb, bins + w * a.K};
+  // a cluster past n holds no particle: its warp only joins the final sum
+  if (base < a.n) {
+    // the union of the lanes' ranges: jlo ascends with i
+    const int first = __shfl_sync(kAll, jlo, 0);
+    const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
+    const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
+    const unsigned below = (1u << lane) - 1u;
+    int cnt = 0;  // entries in the buffer, warp-uniform
+    for (int j0 = first; j0 <= last; j0 += kWarp) {
+      const int j = j0 + lane;
+      const bool valid = j <= last;
+      const V b = valid ? load_row(a.pos, a.dim, j, j) : vzero;
+      const float4 b_lo = SPLIT && valid ? load_row(a.lo, a.dim, j, 0) : zero;
+      const bool keep = valid && prune.near(b, b_lo);
+      compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
+        bh[at] = b;
+        if (SPLIT) bl[at] = b_lo;
+        if (MASK) bp[at] = a.pay[j];
+      });
+      if (cnt >= kWarp) {
+        __syncwarp();
+        hist_sweep<T, SPLIT, MASK, true>(o, bh, bl, bp, kWarp, sa);
+        __syncwarp();
+        // move the remainder (less than one cluster) to the front
+        cnt -= kWarp;
+        if constexpr (SPLIT)
+          shift_front<1, true>(bh, bl, kWarp, cnt, lane);
+        else
+          shift_front<1, false>(bh, bh, kWarp, cnt, lane);
+        if (MASK) shift_front<1, false>(bp, bp, kWarp, cnt, lane);
+      }
+    }
+    if (cnt > 0) {
+      __syncwarp();
+      hist_sweep<T, SPLIT, MASK, false>(o, bh, bl, bp, cnt, sa);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < a.K; k += kBlock) {
+    unsigned long long sum = 0ULL;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) sum += bins[v * a.K + k];
+    if (sum != 0ULL) atomicAdd(&a.counts[k], sum);
+  }
+}
+
+template <typename T, bool SPLIT, bool MASK>
+int launch_mask(const Args<T>& a, cudaStream_t s) {
+  const int blocks = (a.n + kBlock - 1) / kBlock;
+  const size_t shared = static_cast<size_t>(a.K) * (sizeof(T) + kWarps * sizeof(unsigned));
+  if (shared > kDefaultDynShared) {
+    // past the default 48 KB of a block with the buffers (up to 10 KB)
+    const cudaError_t err = cudaFuncSetAttribute(
+        lag_hist_kernel<T, SPLIT, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lag_hist_kernel<T, SPLIT, MASK><<<blocks, kBlock, shared, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool SPLIT>
-__global__ void __launch_bounds__(kBlock)
-lag_hist_kernel(const T* __restrict__ pos, const float* __restrict__ lo,
-                const T* __restrict__ pay, const int32_t* __restrict__ keys,
-                const int32_t* __restrict__ w_key, const T* __restrict__ edges,
-                int n, int dim, int L, int spacing, int K, int mask, T ma,
-                T mb, unsigned long long* __restrict__ counts) {
-  // K bin counters, then the K edges
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* bins = smem;
-  T* sedges = reinterpret_cast<T*>(smem + K);
-  const int t = threadIdx.x;
-  for (int k = t; k < K; k += kBlock) {
-    bins[k] = 0ULL;
-    sedges[k] = edges[k];
-  }
-  __syncthreads();
-  const T csq = sedges[K - 1];
-  const int i = blockIdx.x * kBlock + t;
-  if (i < n) {
-    const int32_t lo_key = load_key(keys, i, spacing) - *w_key;
-    T own[kMaxDim];
-    float own_lo[kMaxDim];
-#pragma unroll
-    for (int a = 0; a < kMaxDim; ++a) {
-      own[a] = T(0);
-      own_lo[a] = 0.0f;
-      if (a < dim) {
-        own[a] = pos[static_cast<int64_t>(i) * dim + a];
-        if (SPLIT) own_lo[a] = lo[static_cast<int64_t>(i) * dim + a];
-      }
-    }
-    const T own_w = mask != kMaskNone ? pay[i] : T(0);
-    const int jmin = i > L ? i - L : 0;
-    for (int j = i - 1; j >= jmin; --j) {
-      if (load_key(keys, j, spacing) < lo_key) break;
-      const int64_t jo = static_cast<int64_t>(j) * dim;
-      T dsq = T(0);
-#pragma unroll
-      for (int a = 0; a < kMaxDim; ++a) {
-        if (a < dim) {
-          T d = own[a] - pos[jo + a];
-          if (SPLIT) d = d + (own_lo[a] - lo[jo + a]);
-          dsq = dsq + d * d;
-        }
-      }
-      if (!(dsq < csq)) continue;
-      if (mask == kMaskSpecies && !species_pair(own_w, pay[j], ma, mb))
-        continue;
-      atomicAdd(&bins[first_bin_above(sedges, K, dsq)], 1ULL);
-    }
-  }
-  __syncthreads();
-  for (int k = t; k < K; k += kBlock)
-    if (bins[k] != 0ULL) atomicAdd(&counts[k], bins[k]);
-}
-
-template <typename T, bool SPLIT>
-void launch(const void* pos, const float* lo, const void* pay,
-            const int32_t* keys, const int32_t* w_key, const void* edges,
-            int n, int dim, int L, int spacing, int K, int mask, double ma,
-            double mb, unsigned long long* counts, cudaStream_t stream) {
-  const int blocks = (n + kBlock - 1) / kBlock;
-  const size_t shared = static_cast<size_t>(K) * (sizeof(unsigned long long) + sizeof(T));
-  lag_hist_kernel<T, SPLIT><<<blocks, kBlock, shared, stream>>>(
-      static_cast<const T*>(pos), lo, static_cast<const T*>(pay), keys, w_key,
-      static_cast<const T*>(edges), n, dim, L, spacing, K, mask,
-      static_cast<T>(ma), static_cast<T>(mb), counts);
+int launch(const void* pos, const float* lo, const void* pay,
+           const int32_t* keys, const int32_t* w_key, const void* edges, int n,
+           int dim, int L, int spacing, int K, int mask, double ma, double mb,
+           unsigned long long* counts, cudaStream_t s) {
+  Args<T> a;
+  a.pos = static_cast<const T*>(pos);
+  a.lo = lo;
+  a.pay = static_cast<const T*>(pay);
+  a.keys = keys;
+  a.w_key = w_key;
+  a.edges = static_cast<const T*>(edges);
+  a.n = n;
+  a.dim = dim;
+  a.L = L;
+  a.spacing = spacing;
+  a.K = K;
+  a.ma = static_cast<T>(ma);
+  a.mb = static_cast<T>(mb);
+  a.counts = counts;
+  if (mask != kMaskNone) return launch_mask<T, SPLIT, true>(a, s);
+  return launch_mask<T, SPLIT, false>(a, s);
 }
 
 }  // namespace
@@ -171,13 +325,14 @@ int zelll_lag_hist_max_bins() { return kMaxBins; }
 // w_key: one int32 on the device; edges: (K,) ascending squared edges in
 // the coordinates' type on the device; mask: 0 none, 1 species pair
 // {ma, mb}; counts: (K,) int64 on the device, zeroed by the caller, to
-// which the kernel adds each pair's first bin above its dsq. Returns
-// cudaGetLastError() after the launch.
+// which the kernel adds each pair's first bin above its dsq. Returns the
+// CUDA error of the launch (0 on success).
 int zelll_lag_hist(const void* pos, const void* lo, const void* pay,
                    const void* keys, const void* w_key, const void* edges,
                    int n, int dim, int L, int spacing, int K, int mask,
                    double ma, double mb, int f64, void* counts, void* stream) {
-  if (n <= 0 || dim < 1 || dim > kMaxDim || L < 1 || spacing < 1 ||
+  if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
+      L < 1 || (L < n ? L : n) >= kMaxLag || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
       K < 1 || K > kMaxBins || (mask != kMaskNone && mask != kMaskSpecies) ||
       (mask != kMaskNone && pay == nullptr) || (f64 != 0 && lo != nullptr))
@@ -188,15 +343,13 @@ int zelll_lag_hist(const void* pos, const void* lo, const void* pay,
   auto* out = static_cast<unsigned long long*>(counts);
   auto s = static_cast<cudaStream_t>(stream);
   if (f64 != 0)
-    launch<double, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K,
-                          mask, ma, mb, out, s);
-  else if (l != nullptr)
-    launch<float, true>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
-                        ma, mb, out, s);
-  else
-    launch<float, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K,
-                         mask, ma, mb, out, s);
-  return static_cast<int>(cudaGetLastError());
+    return launch<double, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
+                                 ma, mb, out, s);
+  if (l != nullptr)
+    return launch<float, true>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
+                               ma, mb, out, s);
+  return launch<float, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask, ma,
+                              mb, out, s);
 }
 
 }  // extern "C"

@@ -76,9 +76,10 @@
 //   MI: in-kernel minimum image (pallas_pairs.py::_mi_pair_d, mi_box /
 //     key_reach): each separation is folded by one box length where
 //     |s| > box / 2 (mi_axis; split mode carries the two-diff of the hi
-//     difference into the low term), the key window W is the caller's
-//     widened sum(strides * reach), and the prune takes the gap to the
-//     nearest periodic image of each j point (near_box_mi).
+//     difference and the box's own low part into the low term), the key
+//     window W is the caller's widened sum(strides * reach), and the
+//     prune takes the gap to the nearest periodic image of each j point
+//     (near_box_mi).
 // Both compose, with each term, f32 and split.
 //
 // Accumulation: each lane sums its f32 terms in f64 (as good as the TPU's
@@ -130,6 +131,7 @@ struct Args {
   float csq;
   float3 mib;            // minimum image: box lengths, 0 on open axes
   void* partial;         // one per block
+  float3 mibl;           // the box lengths' low parts (split mode)
 };
 
 // Row j of an (n, dim) row-major array, w's bits in .w; absent axes read 0,
@@ -164,6 +166,7 @@ __device__ __forceinline__ void lag_reduce_body(const Args& a) {
   o.acc = Acc(0);
   o.pw = KEEP && real ? a.w[i] : 0.0f;
   o.mib = a.mib;
+  o.mibl = a.mibl;
   // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
   // with key_j >= key_i - W (j = i holds), by binary search over the keys
   int jlo = i;
@@ -278,12 +281,14 @@ int zelll_lag_reduce_block() { return kBlock; }
 // spacing: the padding-key spacing, (INT32_MAX - INT32_MAX / 2 - 1) / n at
 // least 1; term: 0 for LJ, 1 for count, 2 for the LJ pair virial; mask: 0
 // or 2; mi != 0 folds the axes whose box length mbx, mby, mbz is > 0 to the
-// minimum image; partial: ceil(n / block) doubles (int_out == 0) or int64s
+// minimum image, in split mode less the low parts mlx, mly, mlz of the
+// host box lengths (box - mbx ...); partial: ceil(n / block) doubles (int_out == 0) or int64s
 // (int_out != 0). Returns cudaGetLastError() after the launch.
 int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      float csq, int term, int int_out, int mask, int mi, float mbx,
-                     float mby, float mbz, void* partial, void* stream) {
+                     float mby, float mbz, float mlx, float mly, float mlz,
+                     void* partial, void* stream) {
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
       L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
@@ -302,6 +307,7 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void*
   a.spacing = spacing;
   a.csq = csq;
   a.mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
+  a.mibl = mi != 0 ? make_float3(mlx, mly, mlz) : make_float3(0.0f, 0.0f, 0.0f);
   a.partial = partial;
   auto s = static_cast<cudaStream_t>(stream);
   const bool keep = mask == kMaskKeep;

@@ -40,8 +40,8 @@
 // consecutive slots, i = 128 c + 32 w + lane; the 4 warps of a block share
 // chunk c's windows. Each warp
 //   1. reduces its cluster's box over the real slots (< n), and in split
-//      mode the largest |lo| per axis (f64: the box and the gap in double,
-//      cluster_box_of);
+//      mode the largest |lo| per axis (f64: the box and the gap in double;
+//      ClusterPrune);
 //   2. walks the j-chunks of every band window in order, stopping at n:
 //      lane t loads slot t of each of the chunk's 4 clusters and tests the
 //      point against the own box; a ballot per cluster compacts the
@@ -108,46 +108,6 @@ struct Args {
   unsigned long long* counts;  // (K,) first-bin counts
 };
 
-// Coordinates of slot j (< n) from the planes, tag w in .w; absent axes
-// read 0, which adds exactly 0 to dsq and to the box gap.
-template <typename T, typename V = typename Vec4Of<T>::type>
-__device__ __forceinline__ V load_point(const T* planes, int n, int dim, int j,
-                                        int32_t w) {
-  V v;
-  v.x = planes[j];
-  v.y = dim > 1 ? planes[static_cast<int64_t>(n) + j] : T(0);
-  v.z = dim > 2 ? planes[2 * static_cast<int64_t>(n) + j] : T(0);
-  v.w = tag_to(T(0), w);
-  return v;
-}
-
-// The own cluster's box and its gap test in the coordinates' type: the
-// header's f32 box (with the split margin and the low parts' reach), or a
-// double box for the f64 instance.
-template <typename T, bool SPLIT>
-struct Prune;
-template <bool SPLIT>
-struct Prune<float, SPLIT> {
-  Box box;
-  float thr;
-  __device__ __forceinline__ Prune(float4 h, float4 l, bool real, float csq)
-      : box(cluster_box<SPLIT>(h, l, real)), thr(prune_threshold<SPLIT>(csq)) {}
-  __device__ __forceinline__ bool near(float4 b, float4 bl) const {
-    return near_box<SPLIT>(box, b, bl, thr);
-  }
-};
-template <>
-struct Prune<double, false> {
-  BoxOf<double> box;
-  double thr;
-  __device__ __forceinline__ Prune(const Double4& h, float4, bool real,
-                                   double csq)
-      : box(cluster_box_of(h.x, h.y, h.z, real)), thr(csq) {}
-  __device__ __forceinline__ bool near(const Double4& b, float4) const {
-    return near_box_of<false>(box, b.x, b.y, b.z, thr);
-  }
-};
-
 // A lane: its own point, low parts, key and payload, and the slots it pairs
 // with: entry tag w pairs iff -1 <= w < -1 + span, as unsigned arithmetic
 // tests it (band 0's triangle w < i; the other bands carry w = -1). span =
@@ -160,45 +120,6 @@ struct HistLane {
   unsigned span;
   T w;
 };
-
-// dsq of own point (h, l) and entry (b, bl) in the plain version's order:
-// (dx dx + dy dy) + dz dz, in split mode each axis' d = (hi_i - hi_j) +
-// (lo_i - lo_j).
-template <bool SPLIT, typename V>
-__device__ __forceinline__ auto hist_dsq(const V& h, float4 l, const V& b,
-                                         float4 bl) {
-  auto dx = h.x - b.x;
-  auto dy = h.y - b.y;
-  auto dz = h.z - b.z;
-  if constexpr (SPLIT) {
-    dx = dx + (l.x - bl.x);
-    dy = dy + (l.y - bl.y);
-    dz = dz + (l.z - bl.z);
-  }
-  auto dsq = dx * dx;
-  dsq = dsq + dy * dy;
-  dsq = dsq + dz * dz;
-  return dsq;
-}
-
-// The first bin k < K whose edge is above dsq, for dsq < edges[K - 1].
-template <typename T>
-__device__ __forceinline__ int first_bin_above(const T* edges, int K, T dsq) {
-  int lo = 0, hi = K - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (dsq < edges[mid])
-      hi = mid;
-    else
-      lo = mid + 1;
-  }
-  return lo;
-}
-
-template <typename T>
-__device__ __forceinline__ bool species_pair(T wi, T wj, T a, T b) {
-  return (wi == a && wj == b) || (wi == b && wj == a);
-}
 
 // What a sweep reads besides the buffers.
 template <typename T>
@@ -219,8 +140,8 @@ __device__ __forceinline__ bool hist_hit(const HistLane<T>& o, const V* bh,
                                          const T* bp, int q,
                                          const SweepArgs<T>& sa) {
   const V b = bh[q];
-  const T dsq = hist_dsq<SPLIT>(o.h, o.l, b,
-                                SPLIT ? bl[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  const T dsq = sep_dsq<SPLIT>(o.h, o.l, b,
+                               SPLIT ? bl[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
   bool m = static_cast<unsigned>(tag_from(b.w) + 1) < o.span && dsq < sa.csq;
   if (BANDMASK) {
     const long long diff = static_cast<long long>(o.key) -
@@ -254,7 +175,7 @@ __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
   while (hits != 0u) {
     const int q = __ffs(static_cast<int>(hits)) - 1;
     hits &= hits - 1u;
-    const T dsq = hist_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero);
+    const T dsq = sep_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero);
     atomicAdd(&sa.bins[first_bin_above(sa.edges, sa.K, dsq)], 1u);
   }
 }
@@ -293,7 +214,7 @@ __global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
   SweepArgs<T> sa{sedges[a.K - 1], 0, 0, sedges, a.K, a.ma, a.mb, bins[w]};
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
-    const Prune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
+    const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
     const unsigned below = (1u << lane) - 1u;
     int cnt = 0;  // entries in the buffer, warp-uniform
     for (int s = 0; s < a.S; ++s) {

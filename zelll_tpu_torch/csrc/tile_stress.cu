@@ -28,42 +28,72 @@
 // devices. Keys stay int32 here; the index bound replaces the spread
 // coordinates of the TPU's tail padding.
 //
-// Design (K6's, tile_reduce.cu): one block of 128 threads per own chunk;
-// thread t owns slot i = 128c + t and keeps its coordinates in registers.
-// For each j-chunk of each band window the block stages the chunk's
-// coordinates and keys in shared memory, then every thread runs over the
-// 128 lanes. Masks select, never multiply, so the inf of a masked-out
-// dsq = 0 cannot reach a sum.
-//
-// Accumulation: each thread sums the six upper-triangle products (xx, xy,
-// xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds
-// its threads in a fixed shared-memory tree and writes six partials per
-// own chunk. The caller sums the partials. No float atomics, so the result
-// is deterministic.
-//
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane) x n read once (8 B planes in f64) plus the window bounds,
 // about 160 MB at n = 1e7 in f32, 48 us at 3.35 TB/s. Operations: the
 // half-stencil candidates times 7 FP32 instructions (13 split), plus per
 // cutoff pair the force factor (11), nine products and six f64 adds
-// (counted twice), so it is bound by operations. This design evaluates
-// every lane of every tile in the windows, many times the candidates, and
-// stages through shared memory with a barrier per tile, as K6 does;
-// tighter tiles are left for later. No single PyTorch call computes this
-// function.
+// (counted twice), so it is bound by operations, that is by the
+// instructions issued per evaluated lane. A block per chunk that staged
+// each j-chunk through shared memory, with a barrier per tile, would
+// evaluate every lane of every tile in the windows: 10.5 lane evaluations
+// per half-stencil candidate on the cube. No single PyTorch call computes
+// this function.
+//
+// Design: K6's half-stencil cluster sweep (tile_reduce.cu) on
+// cluster_sweep.cuh, in K9's form (tile_hist.cu), with the six products per
+// hit. A warp owns a cluster of 32 consecutive slots, i = 128 c + 32 w +
+// lane; the 4 warps of a block share chunk c's windows. Each warp
+//   1. reduces its cluster's box over the real slots (< n), and in split
+//      mode the largest |lo| per axis (f64: the box and the gap in double;
+//      ClusterPrune);
+//   2. walks the j-chunks of every band window in order, stopping at n:
+//      lane t loads slot t of each of the chunk's 4 clusters and tests the
+//      point against the own box with the threshold csq; a ballot per
+//      cluster compacts the survivors, in slot order, into the warp's
+//      buffer in shared memory (x, y, z and a tag w; the low parts in split
+//      mode, and with the band mask the key, read for survivors only).
+//      Band 0 stores the slot in w and the other bands -1, so the triangle
+//      is one unsigned range test; band 0's j-clusters after the own
+//      cluster, which the triangle masks for every lane, are not loaded;
+//   3. sweeps the buffer 32 entries at a time: phase A reads each entry by
+//      a broadcast and sets the lane's hit bit where the triangle, the band
+//      (with the band mask; the buffer is then swept at the end of each
+//      band) and 0 < dsq < csq hold; phase B computes the force factor of
+//      each hit and adds its six products to the lane's f64 sums.
+// The prune drops no pair that counts (cluster_sweep.cuh says why; the
+// split threshold is a superset of the strict f32 rule), and
+// ops/cluster_prune.py's tile_cluster_entries(half=True) counts these
+// entries, as it does K6's and K9's (tests/test_torch_prune.py holds it to
+// brute force). Every rule of the function stays a lane mask, so the pair
+// set is the plain version's wherever the windows come from, also where the
+// coverage flag is False. Masks select, never multiply, so the inf of a
+// masked-out dsq = 0 cannot reach a sum.
+//
+// Accumulation: each lane sums the six upper-triangle products (xx, xy,
+// xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds
+// its lanes in a fixed order (block_fold_n) and writes six partials per own
+// chunk. The caller sums the partials. No float atomics, so the result is
+// deterministic.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. --fmad=false rounds every product
 // and sum on its own, as the plain PyTorch version does, so dsq and hence
-// the pair masks match it bitwise on identical inputs.
+// the pair masks match it bitwise on identical inputs, and the prune's
+// bound holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
 constexpr int kChunk = 128;  // slots per chunk = threads per block
+constexpr int kClusters = kChunk / kWarp;  // per chunk: warps per block
+// a warp's buffer: a remainder (< one sweep of 32) and a j-chunk's survivors
+constexpr int kBuf = kWarp + kChunk;
 constexpr int kMaxBands = 5;
 constexpr int kMaxDim = 3;
 constexpr int kComps = 6;  // xx, xy, xz, yy, yz, zz
@@ -100,97 +130,165 @@ struct Args {
   double* partial;        // 6 per own chunk
 };
 
-// Axis a of slot j (< n) from (dim, n) planes; absent axes and slots at or
-// past n read 0, which adds exactly 0 to dsq.
-template <typename P>
-__device__ __forceinline__ P plane_at(const P* planes, int n, int dim, int a,
-                                      int j) {
-  return (a < dim && j < n) ? planes[static_cast<int64_t>(a) * n + j] : P(0);
+// A lane: its own point, low parts and key, the slots it pairs with (entry
+// tag w pairs iff -1 <= w < -1 + span, as unsigned arithmetic tests it:
+// band 0's triangle w < i; the other bands carry w = -1; span = 0 for a
+// slot at or past n), and its six sums.
+template <typename T>
+struct StressLane {
+  typename Vec4Of<T>::type h;
+  float4 l;
+  int32_t key;
+  unsigned span;
+  double acc[kComps];
+};
+
+// Sweeps entries [0, cnt) of the warp's buffers (cnt <= 32, warp-uniform;
+// FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the
+// triangle, the band, 0 < dsq < csq), phase B adds the six products of each
+// hit, in ascending q.
+template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool FULL,
+          typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
+                                             const float4* bl, const int32_t* bk,
+                                             int cnt, T csq, int32_t band_lo,
+                                             int32_t band_hi) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  unsigned hits = 0u;
+  auto hit = [&](int q) {
+    const V b = bh[q];
+    const T dsq = sep_dsq<SPLIT>(o.h, o.l, b, SPLIT ? bl[q] : zero);
+    bool m = static_cast<unsigned>(tag_from(b.w) + 1) < o.span && dsq < csq &&
+             dsq > T(0);
+    if (BANDMASK) {
+      const long long diff = static_cast<long long>(o.key) -
+                             static_cast<long long>(bk[q]);
+      m = m && diff >= band_lo && diff <= band_hi;
+    }
+    if (m) hits |= 1u << q;
+  };
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kWarp; ++q) hit(q);
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < cnt; ++q) hit(q);
+  }
+  while (hits != 0u) {
+    const int q = __ffs(static_cast<int>(hits)) - 1;
+    hits &= hits - 1u;
+    T dx, dy, dz;
+    const T dsq = sep_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero, dx, dy, dz);
+    const T g = force_factor<GFN>(dsq);
+    const T g0 = g * dx;
+    const T g1 = g * dy;
+    const T g2 = g * dz;
+    o.acc[0] += static_cast<double>(g0 * dx);
+    o.acc[1] += static_cast<double>(g0 * dy);
+    o.acc[2] += static_cast<double>(g0 * dz);
+    o.acc[3] += static_cast<double>(g1 * dy);
+    o.acc[4] += static_cast<double>(g1 * dz);
+    o.acc[5] += static_cast<double>(g2 * dz);
+  }
 }
 
 template <typename T, bool SPLIT, int GFN, bool BANDMASK>
 __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
-  // the staged j-chunk: coordinates, keys and (split) low parts per lane
-  __shared__ T sj[kMaxDim][kChunk];
-  __shared__ float sl[kMaxDim][SPLIT ? kChunk : 1];
-  __shared__ int32_t sk[kChunk];
-  __shared__ double red[kComps][kChunk];
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kClusters][kBuf];
+  __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
+  __shared__ int32_t buf_key[kClusters][BANDMASK ? kBuf : 1];
   const int c = blockIdx.x;
-  const int t = threadIdx.x;
-  const int i = c * kChunk + t;
-  const bool own_real = i < a.n;
-  const int32_t own_key = a.keys[i];  // keys cover every launched chunk
-  T oh[kMaxDim];
-  float ol[kMaxDim];
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = c * kChunk + w * kWarp;  // the own cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  V* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  int32_t* bk = buf_key[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  StressLane<T> o;
+  o.h = real ? load_point(a.pos, a.n, a.dim, i, 0) : vzero;
+  o.l = SPLIT && real ? load_point(a.lo, a.n, a.dim, i, 0) : zero;
+  o.key = a.keys[i];  // keys cover every launched chunk
+  o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
 #pragma unroll
-  for (int ax = 0; ax < kMaxDim; ++ax) {
-    oh[ax] = plane_at(a.pos, a.n, a.dim, ax, i);
-    ol[ax] = SPLIT ? plane_at(a.lo, a.n, a.dim, ax, i) : 0.0f;
-  }
-  double acc[kComps] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int s = 0; s < a.S; ++s) {
-    const int32_t* w = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
-    const int first = w[0] + w[1];
-    const int num = w[2];
-    const int32_t band_lo = a.bands[2 * s];
-    const int32_t band_hi = a.bands[2 * s + 1];
-    for (int jt = 0; jt < num; ++jt) {
-      const int jc = first + jt;
-      const int j0 = jc * kChunk;
-      sk[t] = a.keys[j0 + t];
+  for (int k = 0; k < kComps; ++k) o.acc[k] = 0.0;
+  // a cluster past n holds no particle: its warp only joins the fold
+  if (base < a.n) {
+    const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
+    const unsigned below = (1u << lane) - 1u;
+    int cnt = 0;  // entries in the buffer, warp-uniform
+    int32_t band_lo = 0, band_hi = 0;
+    for (int s = 0; s < a.S; ++s) {
+      const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
+      const int first = win[0] + win[1];
+      const int num = win[2];
+      band_lo = a.bands[2 * s];
+      band_hi = a.bands[2 * s + 1];
+      for (int jc = first; jc < first + num; ++jc) {
+        if (jc * kChunk >= a.n) break;  // later clusters lie past n too
+        // band 0: a j-cluster that starts after the own cluster holds no
+        // j < i for any lane, and neither do the later ones
+        if (s == 0 && jc * kChunk > base) break;
+        // the j-chunk's live clusters: all loads in flight at once, then
+        // the survivors of each appended in slot order
+        V b[kClusters];
+        float4 b_lo[kClusters];
+        bool keep[kClusters];
 #pragma unroll
-      for (int ax = 0; ax < kMaxDim; ++ax) {
-        sj[ax][t] = plane_at(a.pos, a.n, a.dim, ax, j0 + t);
-        if (SPLIT) sl[ax][t] = plane_at(a.lo, a.n, a.dim, ax, j0 + t);
+        for (int k = 0; k < kClusters; ++k) {
+          const int j0 = jc * kChunk + k * kWarp;
+          const int j = j0 + lane;
+          keep[k] = j < a.n && (s != 0 || j0 <= base);
+          b[k] = keep[k] ? load_point(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : vzero;
+          b_lo[k] = SPLIT && keep[k] ? load_point(a.lo, a.n, a.dim, j, 0) : zero;
+        }
+        // the key is read for the survivors only
+#pragma unroll
+        for (int k = 0; k < kClusters; ++k) {
+          const int j = jc * kChunk + k * kWarp + lane;
+          keep[k] = keep[k] && prune.near(b[k], b_lo[k]);
+          compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
+            bh[at] = b[k];
+            if (SPLIT) bl[at] = b_lo[k];
+            if (BANDMASK) bk[at] = a.keys[j];
+          });
+        }
+        if (cnt >= kWarp) {
+          __syncwarp();
+          int done = 0;
+          for (; cnt - done >= kWarp; done += kWarp)
+            stress_sweep<T, SPLIT, GFN, BANDMASK, true>(o, bh + done, bl + done, bk + done,
+                                                        kWarp, a.csq, band_lo, band_hi);
+          __syncwarp();
+          // move the remainder to the front of the buffers
+          cnt -= done;
+          if constexpr (SPLIT)
+            shift_front<1, true>(bh, bl, done, cnt, lane);
+          else
+            shift_front<1, false>(bh, bh, done, cnt, lane);
+          if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+        }
       }
-      __syncthreads();
-      // lanes at or past n hold no particle
-      const int lanes = min(kChunk, a.n - j0);
-      for (int q = 0; q < lanes; ++q) {
-        T d[kMaxDim];
-        T dsq = T(0);
-#pragma unroll
-        for (int ax = 0; ax < kMaxDim; ++ax) {
-          T da = oh[ax] - sj[ax][q];
-          if (SPLIT) da = da + (ol[ax] - sl[ax][q]);
-          d[ax] = da;
-          dsq = dsq + da * da;
-        }
-        bool m = own_real && dsq < a.csq && dsq > T(0);
-        if (BANDMASK) {
-          const long long diff =
-              static_cast<long long>(own_key) - static_cast<long long>(sk[q]);
-          m = m && diff >= band_lo && diff <= band_hi;
-        }
-        if (s == 0) m = m && (jc < c || (jc == c && q < t));
-        if (m) {
-          const T g = force_factor<GFN>(dsq);
-          const T g0 = g * d[0];
-          const T g1 = g * d[1];
-          const T g2 = g * d[2];
-          acc[0] += static_cast<double>(g0 * d[0]);
-          acc[1] += static_cast<double>(g0 * d[1]);
-          acc[2] += static_cast<double>(g0 * d[2]);
-          acc[3] += static_cast<double>(g1 * d[1]);
-          acc[4] += static_cast<double>(g1 * d[2]);
-          acc[5] += static_cast<double>(g2 * d[2]);
-        }
+      if (BANDMASK && cnt > 0) {
+        // the band is uniform within a sweep
+        __syncwarp();
+        stress_sweep<T, SPLIT, GFN, BANDMASK, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
+                                                     band_hi);
+        __syncwarp();
+        cnt = 0;
       }
-      __syncthreads();
+    }
+    if (cnt > 0) {
+      __syncwarp();
+      stress_sweep<T, SPLIT, GFN, BANDMASK, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
+                                                   band_hi);
     }
   }
-  // fixed-order block fold: a shared-memory tree per component
-#pragma unroll
-  for (int k = 0; k < kComps; ++k) red[k][t] = acc[k];
-  __syncthreads();
-  for (int h = kChunk / 2; h > 0; h >>= 1) {
-    if (t < h) {
-#pragma unroll
-      for (int k = 0; k < kComps; ++k) red[k][t] += red[k][t + h];
-    }
-    __syncthreads();
-  }
-  if (t < kComps) a.partial[static_cast<int64_t>(c) * kComps + t] = red[t][0];
+  block_fold_n<kClusters>(o.acc, a.partial);
 }
 
 template <typename T, bool SPLIT, int GFN>

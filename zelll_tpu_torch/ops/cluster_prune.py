@@ -1,8 +1,8 @@
-"""The geometric prune of the pair kernels K1, K3, K6, K7 and K9
-(``csrc/lag_reduce.cu``, ``csrc/lag_forces.cu``, ``csrc/tile_reduce.cu``,
-``csrc/tile_forces.cu``, ``csrc/tile_hist.cu``) and of the query join K12
-(``csrc/join_reduce.cu``), all on ``csrc/cluster_sweep.cuh``, in plain
-PyTorch.
+"""The geometric prune of the pair kernels K1, K3, K5, K6, K7, K8 and K9
+(``csrc/lag_reduce.cu``, ``csrc/lag_forces.cu``, ``csrc/lag_hist.cu``,
+``csrc/tile_reduce.cu``, ``csrc/tile_forces.cu``, ``csrc/tile_stress.cu``,
+``csrc/tile_hist.cu``) and of the query join K12 (``csrc/join_reduce.cu``),
+all on ``csrc/cluster_sweep.cuh``, in plain PyTorch.
 
 The kernels give each warp a cluster of ``CLUSTER`` consecutive sorted
 slots, reduce the cluster's axis-aligned box over its real slots (< n), and
@@ -11,10 +11,13 @@ and the box, squared and summed in the kernels' order, is below the
 threshold: ``cutoff^2`` with f32 coordinates, ``cutoff^2 (1 + 2^-19)`` in
 split mode, where each axis' gap is first reduced by the largest low part
 of the cluster plus j's own (``cluster_sweep.cuh`` says why no pair that
-counts is dropped). The forces kernels sweep both sides of each slot (K3's
-lag ranges, K7's full stencil), the energy kernels one side (K1's lags
-behind each slot, K6's half stencil with band 0's triangle; the tile
-histogram K9 sweeps K6's entries). K12's clusters are 32 consecutive sorted
+counts is dropped); f64 coordinates (K5, K8 and K9) take the same test in
+double against ``cutoff^2``. The forces kernels sweep both sides of each
+slot (K3's lag ranges, K7's full stencil), the energy kernels one side
+(K1's lags behind each slot, K6's half stencil with band 0's triangle);
+the lag histogram K5 sweeps K1's entries (``half=True``) at the threshold
+``edges[K - 1]``, the tile stress K8 and the tile histogram K9 sweep K6's
+(``half=True``). K12's clusters are 32 consecutive sorted
 queries against the particles of each band's union range, kept where the
 gap to the query box, in the coordinates' type, is at most the cutoff (the
 join's cutoff is inclusive): `join_cluster_entries`. Under the minimum
@@ -48,9 +51,11 @@ _BATCH = 16384  # own clusters per step of the counts
 _JOIN_BATCH = 1 << 22  # (cluster, particle) tests per step of K12's counts
 
 
-def prune_threshold(cutoff_sq, split: bool, device=None) -> torch.Tensor:
-    """The f32 threshold the kernels compare a squared gap with."""
-    csq = torch.as_tensor(cutoff_sq, dtype=torch.float32, device=device)
+def prune_threshold(cutoff_sq, split: bool, device=None,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The threshold the kernels compare a squared gap with: f32, or the
+    f64 instances' ``cutoff_sq`` in double (``dtype``)."""
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
     if not split:
         return csq
     return csq * torch.tensor(SPLIT_MARGIN, dtype=torch.float32, device=device)
@@ -104,15 +109,15 @@ def near_cluster(mn, mx, lomax, pts, pts_lo, thr, *, inclusive: bool = False,
 def tile_cluster_entries(inp, cutoff_sq, *, half: bool = False) -> torch.Tensor:
     """The j slots each own cluster of K7 sweeps: those of its chunk's band
     windows (``inp`` from `tile_pairs.tile_inputs(full=True)`) that are
-    below n and pass the gap test. With ``half``, those of K6 (``inp`` from
-    ``tile_inputs(full=False)``): band 0 loads no j-cluster that starts
-    after the own cluster, since its triangle (j < i) masks every lane
-    there. Returns (ceil(n / CLUSTER),) int64; each entry is one evaluation
-    for each of the cluster's 32 lanes."""
+    below n and pass the gap test. With ``half``, those of K6, K8 and K9
+    (``inp`` from ``tile_inputs(full=False)``): band 0 loads no j-cluster
+    that starts after the own cluster, since its triangle (j < i) masks
+    every lane there. Returns (ceil(n / CLUSTER),) int64; each entry is one
+    evaluation for each of the cluster's 32 lanes."""
     pos, lo = inp.pos, inp.lo
     dim, n = pos.shape
     device = pos.device
-    thr = prune_threshold(cutoff_sq, lo is not None, device)
+    thr = prune_threshold(cutoff_sq, lo is not None, device, pos.dtype)
     mn, mx, lomax = cluster_boxes(pos, lo)
     ncl = mn.shape[1]
     S = inp.bands.shape[0]
@@ -159,13 +164,13 @@ def lag_cluster_entries(planes: torch.Tensor, lo: torch.Tensor | None,
                         reach=None) -> torch.Tensor:
     """The j slots each own cluster of K3 sweeps: the union of its slots'
     partner ranges that passes the gap test ((dim, n) ``planes`` and low
-    parts ``lo`` or None). With ``half``, those of K1: the union of the
-    ranges behind its slots, [jlo of its first slot, its last real slot -
-    1]. ``mi_box`` and ``reach``: the minimum image's gap test and widened
+    parts ``lo`` or None). With ``half``, those of K1 and K5: the union of
+    the ranges behind its slots, [jlo of its first slot, its last real slot
+    - 1]. ``mi_box`` and ``reach``: the minimum image's gap test and widened
     window. Returns (ceil(n / CLUSTER),) int64."""
     dim, n = planes.shape
     device = planes.device
-    thr = prune_threshold(cutoff_sq, lo is not None, device)
+    thr = prune_threshold(cutoff_sq, lo is not None, device, planes.dtype)
     mn, mx, lomax = cluster_boxes(planes, lo)
     ncl = mn.shape[1]
     jlo, jhi = lag_ranges(sorted_keys, strides, L, reach)

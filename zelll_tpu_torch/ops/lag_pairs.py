@@ -125,8 +125,9 @@ def split_cutoff_test(inside, dsq, csq, hi_i, hi_j, lo_i, lo_j, shifts=None):
     dsq of their split separations, ((hi_i - hi_j) + (lo_i - lo_j)) per
     axis in f64; the rest keep ``inside`` (``dsq < csq``). ``hi_i`` ..
     ``lo_j`` are per-axis sequences of broadcastable tensors. With
-    ``shifts`` (per axis, the minimum image's box shift of `mi_fold`) the
-    f64 separation is ((hi_i - hi_j) - shift) + (lo_i - lo_j). The forces
+    ``shifts`` (per axis, the minimum image's box shift of `mi_fold`, in
+    split mode the f64 sum of its f32 box and the box's low part) the f64
+    separation is ((hi_i - hi_j) - shift) + (lo_i - lo_j). The forces
     kernels (K3, K7) apply the same rule in the same order of operations.
     The JAX package decides every pair on the f32 dsq, which flips pairs
     within about 4e-7 of the cutoff (ROADMAP queue 3)."""
@@ -144,22 +145,32 @@ def split_cutoff_test(inside, dsq, csq, hi_i, hi_j, lo_i, lo_j, shifts=None):
 
 
 def mi_fold(hi_i, hi_j, lo_i, lo_j, box):
-    """One axis' separation folded to the minimum image, as the JAX
-    package's ``pallas_pairs._mi_pair_d`` folds it: s = hi_i - hi_j, one
-    box subtracted where |s| > box / 2 (``box`` 0 leaves the axis open),
-    and in split mode the exact two-diff error of s carried into the low
-    term, d = (s - shift) + (e + (lo_i - lo_j)), so split separations
-    stay f64-grade across the seam (``lo_i``/``lo_j`` None in f32 mode).
-    Returns (d, shift). K1 and K3 fold in the same order of operations."""
+    """One axis' separation folded to the minimum image: s = hi_i - hi_j,
+    one box length bx (``box`` in the coordinates' dtype; 0 leaves the
+    axis open) subtracted where |s| > bx / 2, as the JAX package's
+    ``pallas_pairs._mi_pair_d`` folds it. In split mode (``lo_i``/``lo_j``
+    not None) the exact two-diff error e of s is carried into the low term,
+    less the box's own low part bxl = ``box`` - bx (nonzero where an f64
+    ``box`` rounds in f32) with the shift's sign: d = (s - shift) + ((e +
+    (lo_i - lo_j)) - shift_lo), so split separations stay f64-grade across
+    the seam; the JAX package drops bxl (ROADMAP queue 3). Returns (d,
+    shift), shift in split mode the f64 sum shift + shift_lo (exact), for
+    `split_cutoff_test`. K1 and K3 fold in the same order of operations."""
+    box64 = torch.as_tensor(box, dtype=torch.float64, device=hi_i.device)
+    bx = box64.to(hi_i.dtype)
     s = hi_i - hi_j
-    half = 0.5 * box
-    shift = torch.where(s > half, box, torch.where(s < -half, -box, torch.zeros_like(s)))
+    half = 0.5 * bx
+    zero = torch.zeros_like(s)
+    shift = torch.where(s > half, bx, torch.where(s < -half, -bx, zero))
     d = s - shift
-    if lo_i is not None:
-        z = s - hi_i
-        e = (hi_i - (s - z)) - (hi_j + z)
-        d = d + (e + (lo_i - lo_j))
-    return d, shift
+    if lo_i is None:
+        return d, shift
+    bxl = (box64 - bx.double()).to(hi_i.dtype)
+    z = s - hi_i
+    e = (hi_i - (s - z)) - (hi_j + z)
+    shift_lo = torch.where(s > half, bxl, torch.where(s < -half, -bxl, zero))
+    d = d + ((e + (lo_i - lo_j)) - shift_lo)
+    return d, shift.double() + shift_lo.double()
 
 
 def split_f64(x64: torch.Tensor):
@@ -270,7 +281,7 @@ def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
     w = key_window(strides, key_reach).to(keys.device)
     csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
     pay = _payload_rows(sorted_payload, n, dtype, device)
-    mib = _mi_box(mi_box, dtype, device)
+    mib = _mi_box(mi_box, device)
     total = torch.zeros((), dtype=torch.int64 if integer else torch.float64,
                         device=device)
     for lag in range(1, min(L, n - 1) + 1):
@@ -294,7 +305,8 @@ def pair_lag_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
 def _bind_reduce(lib) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zelll_lag_reduce.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, ci, ci, ci, cf, cf, cf, vp, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, ci, ci, ci, cf, cf, cf, cf, cf, cf,
+        vp, vp,
     ]
     lib.zelll_lag_reduce.restype = ctypes.c_int
     lib.zelll_lag_reduce_block.argtypes = []
@@ -318,15 +330,19 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device,
 
 
 def _kernel_mi_box(mi_box, dim: int):
-    """(flag, three f32 box lengths) of the kernels' minimum image: the
-    host values of ``mi_box`` (one read from the device if it lives
-    there), absent axes 0."""
+    """(flag, three f32 box lengths, their three f32 low parts) of the
+    kernels' minimum image: the host values of ``mi_box`` (one read from
+    the device if it lives there) rounded to f32, and what that rounding
+    drops (split mode's fold takes it off, `mi_fold`); absent axes 0."""
     if mi_box is None:
-        return 0, (0.0, 0.0, 0.0)
-    box = [float(x) for x in torch.as_tensor(mi_box, dtype=torch.float32).reshape(-1).cpu()]
-    if len(box) != dim:
-        raise ValueError(f"mi_box takes one length per axis ({dim}); got {len(box)}")
-    return 1, tuple(box + [0.0] * (3 - dim))
+        return 0, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0)
+    box64 = torch.as_tensor(mi_box, dtype=torch.float64).reshape(-1).cpu()
+    if box64.shape[0] != dim:
+        raise ValueError(f"mi_box takes one length per axis ({dim}); got {box64.shape[0]}")
+    hi = box64.to(torch.float32)
+    lo = (box64 - hi.double()).to(torch.float32)
+    pad = [0.0] * (3 - dim)
+    return 1, tuple(hi.tolist() + pad), tuple(lo.tolist() + pad)
 
 
 def _keep_plane(kernel: str, term, sorted_payload, n: int, device):
@@ -376,7 +392,7 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     if n == 0:
         total = torch.zeros((), dtype=acc, device=device)
         return _pack_count(total) if integer else total.to(out_dtype)
-    mi, box = _kernel_mi_box(mi_box, dim)
+    mi, box, box_lo = _kernel_mi_box(mi_box, dim)
     lib = load_kernel()
     w_key = key_window(strides, key_reach).reshape(1)
     block = lib.zelll_lag_reduce_block()
@@ -387,7 +403,7 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
         None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
         None if plane is None else plane.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
-        _KERNEL_TERMS[term], int(integer), mask, mi, *box, partial.data_ptr(),
+        _KERNEL_TERMS[term], int(integer), mask, mi, *box, *box_lo, partial.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -488,7 +504,7 @@ def pair_lag_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
     csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
     pay = None if sorted_payload is None else \
         torch.as_tensor(sorted_payload, device=device).to(dtype)
-    mib = _mi_box(mi_box, dtype, device)
+    mib = _mi_box(mi_box, device)
     forces = torch.zeros((n, dim), dtype=torch.float64, device=device)
     for lag in range(1, min(L, n - 1) + 1):
         keymask = keys[:-lag] >= keys[lag:] - w
@@ -519,7 +535,7 @@ def _bind_forces(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     cf = ctypes.c_float
     lib.zelll_lag_forces.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, cf, ci, ci, ci, cf, cf, cf, vp, vp,
+        vp, vp, vp, vp, ci, ci, ci, cf, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp, vp,
     ]
     lib.zelll_lag_forces.restype = ci
 
@@ -557,14 +573,15 @@ def _lag_forces_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
     out = torch.empty((dim, n), dtype=out_dtype, device=device)
     if n == 0:
         return out.t()
-    mi, box = _kernel_mi_box(mi_box, dim)
+    mi, box, box_lo = _kernel_mi_box(mi_box, dim)
     lib = load_forces_kernel()
     w_key = key_window(strides, key_reach).reshape(1)
     csq = float(torch.as_tensor(cutoff_sq, dtype=torch.float32))
     err = lib.zelll_lag_forces(
         planes.data_ptr(), None if lo_planes is None else lo_planes.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, L, _pad_spacing(n), csq,
-        _KERNEL_GFNS[gfn], int(out_dtype == torch.float64), mi, *box, out.data_ptr(),
+        _KERNEL_GFNS[gfn], int(out_dtype == torch.float64), mi, *box, *box_lo,
+        out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -849,17 +866,18 @@ def _lag_pair_mask(mask, lag: int, pay, min_islot, pair_mask):
     return mask
 
 
-def _mi_box(mi_box, dtype, device):
-    """``mi_box`` as a (dim,) tensor in the coordinates' dtype, or None."""
+def _mi_box(mi_box, device):
+    """``mi_box`` as a (dim,) f64 tensor, or None: `mi_fold` rounds it to
+    the coordinates' dtype and, in split mode, keeps what that drops."""
     if mi_box is None:
         return None
-    return torch.as_tensor(mi_box, device=device).to(dtype).reshape(-1)
+    return torch.as_tensor(mi_box, device=device).to(torch.float64).reshape(-1)
 
 
 def _lag_separations(sorted_pos, sorted_pos_lo, lag: int, mi_box=None):
     """(d, dsq, shifts) of the lag's pairs: d = p_i - p_(i-lag) per axis
     (split: (hi_i - hi_j) + (lo_i - lo_j)), dsq summed axis by axis. With
-    ``mi_box`` ((dim,) tensor) each axis is folded by `mi_fold` and
+    ``mi_box`` ((dim,) f64 tensor) each axis is folded by `mi_fold` and
     ``shifts`` holds its box shifts; otherwise ``shifts`` is None."""
     shifts = None
     if mi_box is None:

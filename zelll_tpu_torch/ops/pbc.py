@@ -20,6 +20,9 @@ the kernels' payload and minimum-image instances:
 * **Minimum image.** A narrow periodic axis (a few cells) is folded in the
   kernel instead (`minimage_axes`): K1 and K3 take ``mi_box`` and a key
   window widened by ``key_reach``, and only the other axes get ghosts.
+  Split coordinates fold by the host box length, its f32 rounding carried
+  in the low term (`lag_pairs.mi_fold`), as ghosts are shifted by it; the
+  JAX package folds and shifts by the box in the coordinates' dtype.
 
 Correctness bound: each axis must satisfy ``box > 2 * cutoff``. The
 returned flag goes False otherwise, and when the capacities ``B``, ``G``
@@ -340,7 +343,9 @@ def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo
 
     ``extra`` ((n, k) columns) rides the sort, ghosts taking their
     parent's values. Returns (bins, sorted positions, sorted low parts,
-    sorted payload (n_ext, 1) or None, reach, mi_box, ok[, sorted extra]).
+    sorted payload (n_ext, 1) or None, reach, mi_box, ok[, sorted extra]);
+    ``mi_box`` holds the host box lengths in f64 (0 on the unfolded axes),
+    whose low parts the split fold carries.
     This is the JAX package's general path; its sorted-extremes fast path
     (`_minimage_bins_sorted_extremes`, one ghost axis, the major one) is
     not ported and gives the same pairs.
@@ -388,8 +393,10 @@ def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo
     b64 = np.asarray(box, np.float64).reshape(dim)
     reach = tuple(max(int(np.ceil(b64[a] / float(cutoff))) - 1, 1) if mimask[a] else 1
                   for a in range(dim))
-    mi_box = torch.where(torch.as_tensor(mimask), torch.as_tensor(b64, dtype=dtype),
-                         torch.zeros((), dtype=dtype))
+    # f64 host lengths: split mode's fold keeps what their f32 rounding
+    # drops (lag_pairs.mi_fold)
+    mi_box = torch.where(torch.as_tensor(mimask), torch.as_tensor(b64, dtype=torch.float64),
+                         torch.zeros((), dtype=torch.float64))
     out = (bins, sp, slo, payload, reach, mi_box, ok)
     if extra is not None:
         out = out + (sorted_cols[:, pay_end:],)
