@@ -4,7 +4,7 @@
 Run from the root of a checkout, on the machine with the card:
 
     python3 chip_compare.py sass TREE [ALLOW]
-        K1, K3, K6, K7, K9 and K12 built to cubins from this checkout and from TREE
+        K1, K3, K5, K6, K7, K8, K9 and K12 built to cubins from this checkout and from TREE
         (an earlier commit unpacked by `git archive <commit> | tar -x -C
         archive/parent` into the git-ignored archive/) with ops/_build.py's
         flags: per kernel function the two trees share, its registers in
@@ -14,12 +14,17 @@ Run from the root of a checkout, on the machine with the card:
         leave the shared functions' SASS and registers as they are and lose
         none; ALLOW (optional, a regular expression over the mangled
         names) names the functions a change may move, which are listed.
-    python3 chip_compare.py mutations [NAMES]
-        each mutation of MUTATIONS (or those whose names match the regular
-        expression NAMES) applied to a copy of the package and the
+    python3 chip_compare.py mutations
+        each mutation of MUTATIONS applied to a copy of the package and the
         tests under $TMPDIR/mut/<name>, and its kernel's card test run
-        there; the unbroken copy first, with every selected test. A
-        mutation must fail its test.
+        there; the unbroken copy first, with every test. A mutation must
+        fail its test.
+    python3 chip_compare.py timing TREE
+        this checkout's chip_smoke.stress_alone and hist_alone (K4, K8, K5
+        and K9 alone at its N_MAIN) run on TREE's package and on this
+        one's, in the order TREE, this, this, TREE, each in a process of its
+        own: one timing code for both packages, so two versions of a kernel
+        compare through the same function in one call.
 
 It prints one JSON line per result and exits non-zero if a check fails.
 """
@@ -48,8 +53,8 @@ MUTATIONS = {
          "  if (SPLIT) g = fmaxf(g - (lomax + fabsf(bl)), 0.0f);\n",
          "  float g = fmaxf(fmaxf(mn - b, b - mx), 0.0f);\n")]),
     "k9_skip_cluster": ("tile_hist", [
-        ("tile_hist.cu", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
-         "keep[k] = keep[k] && k < kClusters - 1 && prune.near(b[k], b_lo[k]);")]),
+        ("cluster_sweep.cuh", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
+         "keep[k] = keep[k] && k < CLUSTERS - 1 && prune.near(b[k], b_lo[k]);")]),
     "k9_triangle_le": ("tile_hist", [
         ("tile_hist.cu", "o.span = real ? static_cast<unsigned>(i) + 1u : 0u;",
          "o.span = real ? static_cast<unsigned>(i) + 2u : 0u;")]),
@@ -99,7 +104,7 @@ MUTATIONS = {
     "k5_species_dropped": ("lag_hist", [
         ("lag_hist.cu", "if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);", "")]),
     "k5_skip_cluster": ("lag_hist", [
-        ("lag_hist.cu", "const bool keep = valid && prune.near(b, b_lo);",
+        ("cluster_sweep.cuh", "const bool keep = valid && prune.near(b, b_lo);",
          "const bool keep = valid && j0 + kWarp <= last && prune.near(b, b_lo);")]),
     # the tile stress K8: coincident pairs kept, the triangle as j <= i + 1
     # (j == i alone is dsq = 0, which K8 excludes), the last cluster of each
@@ -110,14 +115,13 @@ MUTATIONS = {
         ("tile_stress.cu", "o.span = real ? static_cast<unsigned>(i) + 1u : 0u;",
          "o.span = real ? static_cast<unsigned>(i) + 3u : 0u;")]),
     "k8_skip_cluster": ("tile_stress", [
-        ("tile_stress.cu", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
-         "keep[k] = keep[k] && k < kClusters - 1 && prune.near(b[k], b_lo[k]);")]),
+        ("cluster_sweep.cuh", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
+         "keep[k] = keep[k] && k < CLUSTERS - 1 && prune.near(b[k], b_lo[k]);")]),
 }
 
 # the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
-# that keeps its design
-SASS_KERNELS = ("lag_reduce", "lag_forces", "tile_reduce", "tile_forces", "tile_hist",
-                "join_reduce")
+SASS_KERNELS = ("lag_reduce", "lag_forces", "lag_hist", "tile_reduce", "tile_forces",
+                "tile_stress", "tile_hist", "join_reduce")
 
 # the kernels each test selection needs, built before the card is needed
 _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_kernel()",
@@ -191,6 +195,7 @@ def sass(tree: str, allow: str = "") -> None:
 
     flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     other = Path(tree).resolve() / "zelll_tpu_torch" / "csrc"
+    (ROOT / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="sass-", dir=ROOT / "build"))
     jobs = {}
     with ThreadPoolExecutor(8) as pool:
@@ -222,14 +227,13 @@ def sass(tree: str, allow: str = "") -> None:
         raise SystemExit("a shared function's SASS or registers moved, or one was lost")
 
 
-def mutations(pattern: str = "") -> None:
+def mutations() -> None:
     base = Path(os.environ.get("TMPDIR", tempfile.gettempdir())) / "mut"
     shutil.rmtree(base, ignore_errors=True)
-    chosen = {k: v for k, v in MUTATIONS.items() if re.search(pattern, k)}
-    names = ["unbroken", *chosen]
+    names = ["unbroken", *MUTATIONS]
     every = " or ".join(dict.fromkeys(
-        part for sel, _ in chosen.values() for part in sel.split(" or ")))
-    selects = {"unbroken": every, **{k: v[0] for k, v in chosen.items()}}
+        part for sel, _ in MUTATIONS.values() for part in sel.split(" or ")))
+    selects = {"unbroken": every, **{k: v[0] for k, v in MUTATIONS.items()}}
 
     def prepare(name):
         dest = base / name
@@ -239,7 +243,7 @@ def mutations(pattern: str = "") -> None:
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(ROOT / "pyproject.toml", dest)
         if name != "unbroken":
-            edited_copy(chosen[name][1], dest / "zelll_tpu_torch" / "csrc")
+            edited_copy(MUTATIONS[name][1], dest / "zelll_tpu_torch" / "csrc")
         # build the copy's kernels before the card is needed
         loads = "; ".join(_LOADERS[part] for part in selects[name].split(" or "))
         return subprocess.run(
@@ -266,8 +270,34 @@ def mutations(pattern: str = "") -> None:
         raise SystemExit("a mutation passed its card test, or the unbroken copy failed")
 
 
+# one timing run, started in the root of the tree whose package it times;
+# argv[1] is this checkout's chip_smoke.py
+_TIMING = """
+import importlib.util, json, sys
+import torch
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+dev = torch.device("cuda")
+out = {**smoke.stress_alone(dev, smoke.N_MAIN), **smoke.hist_alone(dev, smoke.N_MAIN)}
+print(json.dumps({k: v for k, v in out.items() if isinstance(v, dict) and "ms" in v},
+                 default=str))
+"""
+
+
+def timing(tree: str) -> None:
+    other = Path(tree).resolve()
+    for side, root in (("tree", other), ("this", ROOT), ("this", ROOT), ("tree", other)):
+        proc = subprocess.run([sys.executable, "-c", _TIMING, str(ROOT / "chip_smoke.py")],
+                              cwd=root, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"timing in {root} failed:\n{proc.stderr[-3000:]}")
+        emit("timing", side=side, root=str(root),
+             kernels=json.loads(proc.stdout.strip().splitlines()[-1]))
+
+
 def main() -> None:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("sass", "mutations"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("sass", "mutations", "timing"):
         raise SystemExit(__doc__)
     import torch
 
@@ -275,8 +305,10 @@ def main() -> None:
         raise SystemExit("chip_compare: no CUDA device")
     if sys.argv[1] == "sass":
         sass(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else "")
+    elif sys.argv[1] == "timing":
+        timing(sys.argv[2])
     else:
-        mutations(sys.argv[2] if len(sys.argv) > 2 else "")
+        mutations()
 
 
 if __name__ == "__main__":

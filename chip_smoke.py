@@ -2169,9 +2169,11 @@ def hist_alone(dev, n: int) -> dict:
     thread walk, and those the cluster prune leaves) and of K9 (all 128 x
     128 lanes of every tile, the earlier tile design, and those the prune
     leaves), and their ptxas lines. Each kernel is timed through its
-    launch function, without its wrapper's host checks."""
+    launch function, without its wrapper's host checks; K5 also through its
+    wrapper `pair_lag_hist` (`wrapper_ms`), and its f32 species-mask
+    instance alone."""
     from zelll_tpu_torch.ops.lag_pairs import (
-        combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
+        SpeciesPairMask, combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
     )
     from zelll_tpu_torch.ops import lag_pairs, tile_pairs
     from zelll_tpu_torch.ops.cluster_prune import (
@@ -2195,15 +2197,23 @@ def hist_alone(dev, n: int) -> dict:
     candidates = stencil_candidates(keys, info)
     for tag, lo in (("f32", None), ("split", slo)):
         # the launch function: `pair_lag_hist` less its host read of the
-        # edges, which would put the host's time between the timed launches
-        # (K9 is timed through `hist_tiles` alike)
+        # edges, which puts the host's time between the timed launches
+        # (K9 is timed through `hist_tiles` alike); the wrapper beside it
         ms, launches = timed_launches(
             lambda: lag_pairs._lag_hist_cuda(shi, keys, strides, esq, lo, None, L=L_MAIN,
                                              pair_mask=None), pair_lag_hist)
+        wrapper_ms = cuda_ms(lambda: pair_lag_hist(shi, keys, strides, esq, lo, L=L_MAIN), 10)
         b = bound(n * 4 * ((6 if lo is not None else 3) + 1) + HIST_K * 8,
                   candidates * INSTR_PER_CANDIDATE[lo is not None] + pairs * per_pair)
-        out[f"K5_{tag}"] = dict(ms=ms, launches=launches, **b,
+        out[f"K5_{tag}"] = dict(ms=ms, launches=launches, wrapper_ms=wrapper_ms, **b,
                                 share_of_bound=b["bound_ms"] / ms)
+    # the species-mask instance, f32, through the launch function
+    species = torch.as_tensor(np.random.default_rng(9).integers(0, 3, n), device=dev).float()
+    ms, launches = timed_launches(
+        lambda: lag_pairs._lag_hist_cuda(shi, keys, strides, esq, None, species, L=L_MAIN,
+                                         pair_mask=SpeciesPairMask(0, 1)), pair_lag_hist)
+    out["K5_species_f32"] = dict(ms=ms, launches=launches)
+    del species
     got = combine_count_vec(pair_lag_hist(shi, keys, strides, esq, L=L_MAIN))
     plain_ms, want = once_ms(lambda: pair_lag_hist_plain(shi, keys, strides, esq, L=L_MAIN))
     check(np.array_equal(got, combine_count_vec(want)), f"K5 counts at n = {n}")

@@ -584,6 +584,166 @@ __device__ __forceinline__ T sep_dsq(const V& h, float4 l, const V& b, float4 bl
   return sep_dsq<SPLIT>(h, l, b, bl, dx, dy, dz);
 }
 
+// ---- the walks: one-sided (K5) and half-stencil (K8, K9) ------------------
+
+// Row j of an (n, dim) row-major array in the coordinates' type, tag w in
+// .w; absent axes read 0, which adds exactly 0 to dsq and to the box gap.
+template <typename T, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ V load_row(const T* rows, int dim, int j, int32_t w) {
+  const T* r = rows + static_cast<int64_t>(j) * dim;
+  V v;
+  v.x = r[0];
+  v.y = dim > 1 ? r[1] : T(0);
+  v.z = dim > 2 ? r[2] : T(0);
+  v.w = tag_to(T(0), w);
+  return v;
+}
+
+// Both walks fill the warp's buffers bh (x, y, z and a tag in .w) and, in
+// split mode, bl (the low parts) with the points the prune keeps, and leave
+// the rest to the kernel's sweeper sw:
+//   sw.band(lo, hi)           a band's key bounds (half-stencil only);
+//   sw.store(at, j)           entry at's further planes from slot j, read
+//                             for survivors only;
+//   sw.template sweep<FULL>(at, cnt)
+//                             sweeps entries [at, at + cnt) (cnt <= 32,
+//                             warp-uniform; FULL: cnt == 32);
+//   sw.shift(done, cnt, lane) moves the further planes' entries [done,
+//                             done + cnt) to the front, as shift_front.
+// Every lane of the warp calls a walk.
+
+// The one-sided walk (K1's form): slots [first, last] of the (n, dim)
+// arrays pos and lo, 32 at a time, the slot in .w. Lane t loads slot
+// j0 + t and tests it with prune; a ballot compacts the survivors, in slot
+// order. Each time 32 entries are in, they are swept and the remainder
+// (less than one cluster) moves to the front; the rest is swept at the end.
+// K1 keeps its own loop of this form: it reads the keep mask's plane before
+// the prune, for every candidate, and its minimum-image prune is its own.
+template <bool SPLIT, typename T, typename Prune, typename Sweeper,
+          typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ void one_sided_walk(const T* pos, const float* lo, int dim,
+                                               int first, int last, int lane,
+                                               const Prune& prune, V* bh, float4* bl,
+                                               Sweeper& sw) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  const unsigned below = (1u << lane) - 1u;
+  int cnt = 0;  // entries in the buffer, warp-uniform
+  for (int j0 = first; j0 <= last; j0 += kWarp) {
+    const int j = j0 + lane;
+    const bool valid = j <= last;
+    const V b = valid ? load_row(pos, dim, j, j) : vzero;
+    const float4 b_lo = SPLIT && valid ? load_row(lo, dim, j, 0) : zero;
+    const bool keep = valid && prune.near(b, b_lo);
+    compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
+      bh[at] = b;
+      if (SPLIT) bl[at] = b_lo;
+      sw.store(at, j);
+    });
+    if (cnt >= kWarp) {
+      __syncwarp();
+      sw.template sweep<true>(0, kWarp);
+      __syncwarp();
+      // move the remainder (less than one cluster) to the front
+      cnt -= kWarp;
+      if constexpr (SPLIT)
+        shift_front<1, true>(bh, bl, kWarp, cnt, lane);
+      else
+        shift_front<1, false>(bh, bh, kWarp, cnt, lane);
+      sw.shift(kWarp, cnt, lane);
+    }
+  }
+  if (cnt > 0) {
+    __syncwarp();
+    sw.template sweep<false>(0, cnt);
+  }
+}
+
+// The half-stencil walk (K6's form) of the warp's own cluster, slots
+// [base, base + 32) of chunk c (CLUSTERS clusters of 32 slots per chunk):
+// for each band s < S, sw.band(lo_s, hi_s), then the j-chunks of the
+// band's window [jlo + toff, jlo + toff + jnum) (bounds: (jlo, toff, jnum)
+// per chunk and band) of the (dim, n) planes pos and lo, stopping at n
+// (a: the kernel's arguments, pos, lo, bounds, bands, n, dim and S).
+// Lane t loads slot t of each of a j-chunk's clusters, all loads in flight
+// at once, and tests it with prune; a ballot per cluster compacts the
+// survivors, in slot order. Band 0 stores the slot in .w and the other
+// bands -1, so the kernel tests the triangle as one unsigned range; band
+// 0's j-clusters after the own cluster hold no j < i for any lane and are
+// not loaded. Each time 32 or more entries are in, every 32 are swept and
+// the remainder moves to the front; with BANDMASK the rest is swept at the
+// end of each band, so a sweep sees one band.
+template <int CLUSTERS, bool SPLIT, bool BANDMASK, typename Args, typename T,
+          typename Sweeper, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ void half_stencil_walk(const Args& a, int c, int base, int lane,
+                                                  const ClusterPrune<T, SPLIT>& prune,
+                                                  V* bh, float4* bl, Sweeper& sw) {
+  constexpr int kChunkSlots = CLUSTERS * kWarp;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  const unsigned below = (1u << lane) - 1u;
+  int cnt = 0;  // entries in the buffer, warp-uniform
+  for (int s = 0; s < a.S; ++s) {
+    const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
+    const int first = win[0] + win[1];
+    const int num = win[2];
+    sw.band(a.bands[2 * s], a.bands[2 * s + 1]);
+    for (int jc = first; jc < first + num; ++jc) {
+      if (jc * kChunkSlots >= a.n) break;  // later clusters lie past n too
+      // band 0: a j-cluster that starts after the own cluster holds no
+      // j < i for any lane, and neither do the later ones
+      if (s == 0 && jc * kChunkSlots > base) break;
+      // the j-chunk's live clusters: all loads in flight at once, then
+      // the survivors of each appended in slot order
+      V b[CLUSTERS];
+      float4 b_lo[CLUSTERS];
+      bool keep[CLUSTERS];
+#pragma unroll
+      for (int k = 0; k < CLUSTERS; ++k) {
+        const int j0 = jc * kChunkSlots + k * kWarp;
+        const int j = j0 + lane;
+        keep[k] = j < a.n && (s != 0 || j0 <= base);
+        b[k] = keep[k] ? load_point(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : vzero;
+        b_lo[k] = SPLIT && keep[k] ? load_point(a.lo, a.n, a.dim, j, 0) : zero;
+      }
+#pragma unroll
+      for (int k = 0; k < CLUSTERS; ++k) {
+        const int j = jc * kChunkSlots + k * kWarp + lane;
+        keep[k] = keep[k] && prune.near(b[k], b_lo[k]);
+        compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
+          bh[at] = b[k];
+          if (SPLIT) bl[at] = b_lo[k];
+          sw.store(at, j);
+        });
+      }
+      if (cnt >= kWarp) {
+        __syncwarp();
+        int done = 0;
+        for (; cnt - done >= kWarp; done += kWarp) sw.template sweep<true>(done, kWarp);
+        __syncwarp();
+        // move the remainder to the front of the buffers
+        cnt -= done;
+        if constexpr (SPLIT)
+          shift_front<1, true>(bh, bl, done, cnt, lane);
+        else
+          shift_front<1, false>(bh, bh, done, cnt, lane);
+        sw.shift(done, cnt, lane);
+      }
+    }
+    if (BANDMASK && cnt > 0) {
+      // the band is uniform within a sweep
+      __syncwarp();
+      sw.template sweep<false>(0, cnt);
+      __syncwarp();
+      cnt = 0;
+    }
+  }
+  if (cnt > 0) {
+    __syncwarp();
+    sw.template sweep<false>(0, cnt);
+  }
+}
+
 // ---- the histograms K5 and K9 ----------------------------------------------
 
 // The first bin k < K whose edge is above dsq, for dsq < edges[K - 1]: the

@@ -52,7 +52,9 @@
 //      mode the largest |lo| per axis (f64: the box and the gap in double;
 //      ClusterPrune);
 //   2. walks the union of its lanes' ranges, [jlo of its first slot, its
-//      last real slot - 1] (jlo ascends with i): lane t loads row j0 + t of
+//      last real slot - 1] (jlo ascends with i; the header's
+//      one_sided_walk, which K5 gives its payload plane and its sweep
+//      through HistSweeper): lane t loads row j0 + t of
 //      the (n, dim) array and tests the point against the own box with the
 //      threshold edges[K - 1]; a ballot compacts the survivors, in slot
 //      order, into the warp's buffer in shared memory (x, y, z and the slot;
@@ -117,19 +119,6 @@ struct Args {
   unsigned long long* counts;  // (K,) first-bin counts
 };
 
-// Row j of an (n, dim) row-major array in the coordinates' type, tag w in
-// .w; absent axes read 0, which adds exactly 0 to dsq and to the box gap.
-template <typename T, typename V = typename Vec4Of<T>::type>
-__device__ __forceinline__ V load_row(const T* rows, int dim, int j, int32_t w) {
-  const T* r = rows + static_cast<int64_t>(j) * dim;
-  V v;
-  v.x = r[0];
-  v.y = dim > 1 ? r[1] : T(0);
-  v.z = dim > 2 ? r[2] : T(0);
-  v.w = tag_to(T(0), w);
-  return v;
-}
-
 // A lane: its own point, low parts and payload, and the slots it pairs
 // with, jlo <= j < jlo + span as unsigned arithmetic tests it (span = 0 for
 // a slot at or past n).
@@ -185,6 +174,28 @@ __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
   }
 }
 
+// What the one-sided walk of cluster_sweep.cuh asks of K5: the payload
+// plane beside the coordinates (species mask), and the sweep.
+template <typename T, bool SPLIT, bool MASK, typename V = typename Vec4Of<T>::type>
+struct HistSweeper {
+  const HistLane<T>& o;
+  const V* bh;
+  const float4* bl;
+  T* bp;
+  const T* pay;
+  const SweepArgs<T>& sa;
+  __device__ __forceinline__ void store(int at, int j) {
+    if (MASK) bp[at] = pay[j];
+  }
+  template <bool FULL>
+  __device__ __forceinline__ void sweep(int at, int cnt) {
+    hist_sweep<T, SPLIT, MASK, FULL>(o, bh + at, bl + at, bp + at, cnt, sa);
+  }
+  __device__ __forceinline__ void shift(int done, int cnt, int lane) {
+    if (MASK) shift_front<1, false>(bp, bp, done, cnt, lane);
+  }
+};
+
 template <typename T, bool SPLIT, bool MASK>
 __global__ void __launch_bounds__(kBlock) lag_hist_kernel(Args<T> a) {
   using V = typename Vec4Of<T>::type;
@@ -233,36 +244,8 @@ __global__ void __launch_bounds__(kBlock) lag_hist_kernel(Args<T> a) {
     const int first = __shfl_sync(kAll, jlo, 0);
     const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
     const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
-    const unsigned below = (1u << lane) - 1u;
-    int cnt = 0;  // entries in the buffer, warp-uniform
-    for (int j0 = first; j0 <= last; j0 += kWarp) {
-      const int j = j0 + lane;
-      const bool valid = j <= last;
-      const V b = valid ? load_row(a.pos, a.dim, j, j) : vzero;
-      const float4 b_lo = SPLIT && valid ? load_row(a.lo, a.dim, j, 0) : zero;
-      const bool keep = valid && prune.near(b, b_lo);
-      compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
-        bh[at] = b;
-        if (SPLIT) bl[at] = b_lo;
-        if (MASK) bp[at] = a.pay[j];
-      });
-      if (cnt >= kWarp) {
-        __syncwarp();
-        hist_sweep<T, SPLIT, MASK, true>(o, bh, bl, bp, kWarp, sa);
-        __syncwarp();
-        // move the remainder (less than one cluster) to the front
-        cnt -= kWarp;
-        if constexpr (SPLIT)
-          shift_front<1, true>(bh, bl, kWarp, cnt, lane);
-        else
-          shift_front<1, false>(bh, bh, kWarp, cnt, lane);
-        if (MASK) shift_front<1, false>(bp, bp, kWarp, cnt, lane);
-      }
-    }
-    if (cnt > 0) {
-      __syncwarp();
-      hist_sweep<T, SPLIT, MASK, false>(o, bh, bl, bp, cnt, sa);
-    }
+    HistSweeper<T, SPLIT, MASK> sw{o, bh, bl, bp, a.pay, sa};
+    one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < a.K; k += kBlock) {

@@ -42,7 +42,9 @@
 //   1. reduces its cluster's box over the real slots (< n), and in split
 //      mode the largest |lo| per axis (f64: the box and the gap in double;
 //      ClusterPrune);
-//   2. walks the j-chunks of every band window in order, stopping at n:
+//   2. walks the j-chunks of every band window in order, stopping at n
+//      (the header's half_stencil_walk, to which the kernel gives
+//      its key and payload planes and its sweep through HistSweeper):
 //      lane t loads slot t of each of the chunk's 4 clusters and tests the
 //      point against the own box; a ballot per cluster compacts the
 //      survivors, in slot order, into the warp's buffer in shared memory
@@ -180,6 +182,38 @@ __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
   }
 }
 
+// What the half-stencil walk of cluster_sweep.cuh asks of K9: the band,
+// the key (band mask) and payload (species mask) planes beside the
+// coordinates, and the sweep.
+template <typename T, bool SPLIT, bool BANDMASK, bool MASK,
+          typename V = typename Vec4Of<T>::type>
+struct HistSweeper {
+  const Args<T>& a;
+  const HistLane<T>& o;
+  const V* bh;
+  const float4* bl;
+  int32_t* bk;
+  T* bp;
+  SweepArgs<T>& sa;
+  __device__ __forceinline__ void band(int32_t lo, int32_t hi) {
+    sa.band_lo = lo;
+    sa.band_hi = hi;
+  }
+  __device__ __forceinline__ void store(int at, int j) {
+    if (BANDMASK) bk[at] = a.keys[j];
+    if (MASK) bp[at] = a.pay[j];
+  }
+  template <bool FULL>
+  __device__ __forceinline__ void sweep(int at, int cnt) {
+    hist_sweep<T, SPLIT, BANDMASK, MASK, FULL>(o, bh + at, bl + at, bk + at, bp + at, cnt,
+                                               sa);
+  }
+  __device__ __forceinline__ void shift(int done, int cnt, int lane) {
+    if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+    if (MASK) shift_front<1, false>(bp, bp, done, cnt, lane);
+  }
+};
+
 template <typename T, bool SPLIT, bool BANDMASK, bool MASK>
 __global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
   using V = typename Vec4Of<T>::type;
@@ -215,73 +249,8 @@ __global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
     const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
-    const unsigned below = (1u << lane) - 1u;
-    int cnt = 0;  // entries in the buffer, warp-uniform
-    for (int s = 0; s < a.S; ++s) {
-      const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
-      const int first = win[0] + win[1];
-      const int num = win[2];
-      sa.band_lo = a.bands[2 * s];
-      sa.band_hi = a.bands[2 * s + 1];
-      for (int jc = first; jc < first + num; ++jc) {
-        if (jc * kChunk >= a.n) break;  // later clusters lie past n too
-        // band 0: a j-cluster that starts after the own cluster holds no
-        // j < i for any lane, and neither do the later ones
-        if (s == 0 && jc * kChunk > base) break;
-        // the j-chunk's live clusters: all loads in flight at once, then
-        // the survivors of each appended in slot order
-        V b[kClusters];
-        float4 b_lo[kClusters];
-        bool keep[kClusters];
-#pragma unroll
-        for (int k = 0; k < kClusters; ++k) {
-          const int j0 = jc * kChunk + k * kWarp;
-          const int j = j0 + lane;
-          keep[k] = j < a.n && (s != 0 || j0 <= base);
-          b[k] = keep[k] ? load_point(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : vzero;
-          b_lo[k] = SPLIT && keep[k] ? load_point(a.lo, a.n, a.dim, j, 0) : zero;
-        }
-        // the key and the payload are read for the survivors only
-#pragma unroll
-        for (int k = 0; k < kClusters; ++k) {
-          const int j = jc * kChunk + k * kWarp + lane;
-          keep[k] = keep[k] && prune.near(b[k], b_lo[k]);
-          compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
-            bh[at] = b[k];
-            if (SPLIT) bl[at] = b_lo[k];
-            if (BANDMASK) bk[at] = a.keys[j];
-            if (MASK) bp[at] = a.pay[j];
-          });
-        }
-        if (cnt >= kWarp) {
-          __syncwarp();
-          int done = 0;
-          for (; cnt - done >= kWarp; done += kWarp)
-            hist_sweep<T, SPLIT, BANDMASK, MASK, true>(o, bh + done, bl + done, bk + done,
-                                                       bp + done, kWarp, sa);
-          __syncwarp();
-          // move the remainder to the front of the buffers
-          cnt -= done;
-          if constexpr (SPLIT)
-            shift_front<1, true>(bh, bl, done, cnt, lane);
-          else
-            shift_front<1, false>(bh, bh, done, cnt, lane);
-          if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
-          if (MASK) shift_front<1, false>(bp, bp, done, cnt, lane);
-        }
-      }
-      if (BANDMASK && cnt > 0) {
-        // the band is uniform within a sweep
-        __syncwarp();
-        hist_sweep<T, SPLIT, BANDMASK, MASK, false>(o, bh, bl, bk, bp, cnt, sa);
-        __syncwarp();
-        cnt = 0;
-      }
-    }
-    if (cnt > 0) {
-      __syncwarp();
-      hist_sweep<T, SPLIT, BANDMASK, MASK, false>(o, bh, bl, bk, bp, cnt, sa);
-    }
+    HistSweeper<T, SPLIT, BANDMASK, MASK> sw{a, o, bh, bl, bk, bp, sa};
+    half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
   }
   __syncthreads();
   if (threadIdx.x < a.K) {

@@ -47,7 +47,9 @@
 //   1. reduces its cluster's box over the real slots (< n), and in split
 //      mode the largest |lo| per axis (f64: the box and the gap in double;
 //      ClusterPrune);
-//   2. walks the j-chunks of every band window in order, stopping at n:
+//   2. walks the j-chunks of every band window in order, stopping at n
+//      (the header's half_stencil_walk, to which the kernel gives
+//      its key plane and its sweep through StressSweeper):
 //      lane t loads slot t of each of the chunk's 4 clusters and tests the
 //      point against the own box with the threshold csq; a ballot per
 //      cluster compacts the survivors, in slot order, into the warp's
@@ -192,6 +194,34 @@ __device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
   }
 }
 
+// What the half-stencil walk of cluster_sweep.cuh asks of K8: the band,
+// the key plane beside the coordinates (band mask), and the sweep.
+template <typename T, bool SPLIT, int GFN, bool BANDMASK,
+          typename V = typename Vec4Of<T>::type>
+struct StressSweeper {
+  const Args<T>& a;
+  StressLane<T>& o;
+  const V* bh;
+  const float4* bl;
+  int32_t* bk;
+  int32_t band_lo, band_hi;
+  __device__ __forceinline__ void band(int32_t lo, int32_t hi) {
+    band_lo = lo;
+    band_hi = hi;
+  }
+  __device__ __forceinline__ void store(int at, int j) {
+    if (BANDMASK) bk[at] = a.keys[j];
+  }
+  template <bool FULL>
+  __device__ __forceinline__ void sweep(int at, int cnt) {
+    stress_sweep<T, SPLIT, GFN, BANDMASK, FULL>(o, bh + at, bl + at, bk + at, cnt, a.csq,
+                                                band_lo, band_hi);
+  }
+  __device__ __forceinline__ void shift(int done, int cnt, int lane) {
+    if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+  }
+};
+
 template <typename T, bool SPLIT, int GFN, bool BANDMASK>
 __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
   using V = typename Vec4Of<T>::type;
@@ -219,74 +249,8 @@ __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
     const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
-    const unsigned below = (1u << lane) - 1u;
-    int cnt = 0;  // entries in the buffer, warp-uniform
-    int32_t band_lo = 0, band_hi = 0;
-    for (int s = 0; s < a.S; ++s) {
-      const int32_t* win = a.bounds + (static_cast<int64_t>(c) * a.S + s) * 3;
-      const int first = win[0] + win[1];
-      const int num = win[2];
-      band_lo = a.bands[2 * s];
-      band_hi = a.bands[2 * s + 1];
-      for (int jc = first; jc < first + num; ++jc) {
-        if (jc * kChunk >= a.n) break;  // later clusters lie past n too
-        // band 0: a j-cluster that starts after the own cluster holds no
-        // j < i for any lane, and neither do the later ones
-        if (s == 0 && jc * kChunk > base) break;
-        // the j-chunk's live clusters: all loads in flight at once, then
-        // the survivors of each appended in slot order
-        V b[kClusters];
-        float4 b_lo[kClusters];
-        bool keep[kClusters];
-#pragma unroll
-        for (int k = 0; k < kClusters; ++k) {
-          const int j0 = jc * kChunk + k * kWarp;
-          const int j = j0 + lane;
-          keep[k] = j < a.n && (s != 0 || j0 <= base);
-          b[k] = keep[k] ? load_point(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : vzero;
-          b_lo[k] = SPLIT && keep[k] ? load_point(a.lo, a.n, a.dim, j, 0) : zero;
-        }
-        // the key is read for the survivors only
-#pragma unroll
-        for (int k = 0; k < kClusters; ++k) {
-          const int j = jc * kChunk + k * kWarp + lane;
-          keep[k] = keep[k] && prune.near(b[k], b_lo[k]);
-          compact(__ballot_sync(kAll, keep[k]), keep[k], below, cnt, [&](int at) {
-            bh[at] = b[k];
-            if (SPLIT) bl[at] = b_lo[k];
-            if (BANDMASK) bk[at] = a.keys[j];
-          });
-        }
-        if (cnt >= kWarp) {
-          __syncwarp();
-          int done = 0;
-          for (; cnt - done >= kWarp; done += kWarp)
-            stress_sweep<T, SPLIT, GFN, BANDMASK, true>(o, bh + done, bl + done, bk + done,
-                                                        kWarp, a.csq, band_lo, band_hi);
-          __syncwarp();
-          // move the remainder to the front of the buffers
-          cnt -= done;
-          if constexpr (SPLIT)
-            shift_front<1, true>(bh, bl, done, cnt, lane);
-          else
-            shift_front<1, false>(bh, bh, done, cnt, lane);
-          if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
-        }
-      }
-      if (BANDMASK && cnt > 0) {
-        // the band is uniform within a sweep
-        __syncwarp();
-        stress_sweep<T, SPLIT, GFN, BANDMASK, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
-                                                     band_hi);
-        __syncwarp();
-        cnt = 0;
-      }
-    }
-    if (cnt > 0) {
-      __syncwarp();
-      stress_sweep<T, SPLIT, GFN, BANDMASK, false>(o, bh, bl, bk, cnt, a.csq, band_lo,
-                                                   band_hi);
-    }
+    StressSweeper<T, SPLIT, GFN, BANDMASK> sw{a, o, bh, bl, bk, 0, 0};
+    half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
   }
   block_fold_n<kClusters>(o.acc, a.partial);
 }
