@@ -4,7 +4,7 @@
 Run from the root of a checkout, on the machine with the card:
 
     python3 chip_compare.py sass TREE [ALLOW]
-        K1, K3, K5, K6, K7, K8, K9 and K12 built to cubins from this checkout and from TREE
+        K1-K9 and K12 built to cubins from this checkout and from TREE
         (an earlier commit unpacked by `git archive <commit> | tar -x -C
         archive/parent` into the git-ignored archive/) with ops/_build.py's
         flags: per kernel function the two trees share, its registers in
@@ -13,18 +13,22 @@ Run from the root of a checkout, on the machine with the card:
         instances). A change to the shared header cluster_sweep.cuh must
         leave the shared functions' SASS and registers as they are and lose
         none; ALLOW (optional, a regular expression over the mangled
-        names) names the functions a change may move, which are listed.
+        names) names the functions a change may move or replace (a
+        redesigned kernel's old instances), which are listed.
     python3 chip_compare.py mutations
         each mutation of MUTATIONS applied to a copy of the package and the
         tests under $TMPDIR/mut/<name>, and its kernel's card test run
         there; the unbroken copy first, with every test. A mutation must
         fail its test.
-    python3 chip_compare.py timing TREE
-        this checkout's chip_smoke.stress_alone and hist_alone (K4, K8, K5
-        and K9 alone at its N_MAIN) run on TREE's package and on this
-        one's, in the order TREE, this, this, TREE, each in a process of its
-        own: one timing code for both packages, so two versions of a kernel
-        compare through the same function in one call.
+    python3 chip_compare.py timing TREE [PHASE ...]
+        this checkout's chip_smoke.stress_alone, hist_alone and
+        per_particle_alone (K4, K8, K5, K9 and K2 alone at its N_MAIN), or
+        the chip_smoke phases named (api_* at N_PARITY, the rest at
+        N_MAIN; e.g. observables_main_path api_main_path), run on TREE's
+        package and on this one's, in the order TREE, this, this, TREE,
+        each in a process of its own: one timing code for both packages, so
+        two versions of a kernel compare through the same function in one
+        call.
 
 It prints one JSON line per result and exits non-zero if a check fails.
 """
@@ -110,23 +114,46 @@ MUTATIONS = {
     # (j == i alone is dsq = 0, which K8 excludes), the last cluster of each
     # j-chunk skipped
     "k8_dsq_positive_dropped": ("tile_stress", [
-        ("tile_stress.cu", "dsq < csq &&\n             dsq > T(0);", "dsq < csq;")]),
+        ("stress_sweep.cuh", "dsq < csq &&\n             dsq > T(0);", "dsq < csq;")]),
     "k8_triangle_le": ("tile_stress", [
         ("tile_stress.cu", "o.span = real ? static_cast<unsigned>(i) + 1u : 0u;",
          "o.span = real ? static_cast<unsigned>(i) + 3u : 0u;")]),
     "k8_skip_cluster": ("tile_stress", [
         ("cluster_sweep.cuh", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
          "keep[k] = keep[k] && k < CLUSTERS - 1 && prune.near(b[k], b_lo[k]);")]),
+    # the lag stress K4: coincident pairs kept (the shared sweep's test), the
+    # range past the own slot (as j <= i alone it adds only the self pair,
+    # which 0 < dsq excludes, so the mutation takes j <= i + 1), the first
+    # partner of each lane dropped
+    "k4_dsq_positive_dropped": ("lag_stress", [
+        ("stress_sweep.cuh", "dsq < csq &&\n             dsq > T(0);", "dsq < csq;")]),
+    "k4_range_past_own": ("lag_stress", [
+        ("lag_stress.cu", "o.span = real ? static_cast<unsigned>(i - jlo) : 0u;",
+         "o.span = real ? static_cast<unsigned>(i - jlo) + 2u : 0u;")]),
+    "k4_jlo_off_by_one": ("lag_stress", [
+        ("lag_stress.cu", "    jlo = l;\n", "    jlo = l + 1;\n")]),
+    # the per-particle sum K2: the range ahead one short, the box without its
+    # last lane, the own slot counted (dsq > 0 dropped)
+    "k2_jhi_short": ("per_particle", [
+        ("lag_per_particle.cu", "    jhi = l;\n", "    jhi = l - 1;\n")]),
+    "k2_box_last_lane": ("per_particle", [
+        ("lag_per_particle.cu", "prune(o.h, zero, real, a.csq);",
+         "prune(o.h, zero, real && lane != kWarp - 1, a.csq);")]),
+    "k2_dsq_positive_dropped": ("per_particle", [
+        ("lag_per_particle.cu", "dsq < csq &&\n                   dsq > T(0);",
+         "dsq < csq;")]),
 }
 
 # the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
-SASS_KERNELS = ("lag_reduce", "lag_forces", "lag_hist", "tile_reduce", "tile_forces",
-                "tile_stress", "tile_hist", "join_reduce")
+SASS_KERNELS = ("lag_reduce", "lag_per_particle", "lag_forces", "lag_stress", "lag_hist",
+                "tile_reduce", "tile_forces", "tile_stress", "tile_hist", "join_reduce")
 
 # the kernels each test selection needs, built before the card is needed
 _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_kernel()",
             "lag_hist": "lag_pairs.load_hist_kernel()",
             "tile_stress": "tile_pairs.load_stress_kernel()",
+            "lag_stress": "lag_pairs.load_stress_kernel()",
+            "per_particle": "lag_pairs.load_per_particle_kernel()",
             "pbc_lag_reduce": "lag_pairs.load_kernel()",
             "pbc_lag_forces": "lag_pairs.load_forces_kernel()",
             "pbc_tile_reduce": "tile_pairs.load_kernel()"}
@@ -215,16 +242,18 @@ def sass(tree: str, allow: str = "") -> None:
         ra, rb = _registers(mine), _registers(theirs)
         shared = set(fa) & set(fb)
         moved = sorted(f for f in shared if fa[f] != fb[f] or ra.get(f) != rb.get(f))
-        unexplained = [f for f in moved if allowed is None or not allowed.search(f)]
+        lost = sorted(set(fb) - set(fa))
+        unexplained = [f for f in moved + lost if allowed is None or not allowed.search(f)]
         same_regs = all(ra.get(f) == rb.get(f) for f in shared)
-        ok = ok and not unexplained and set(fb) <= set(fa)
+        ok = ok and not unexplained
         emit("sass", kernel=kernel, functions=len(fb), shared=len(shared),
              registers_equal=same_regs, sass_equal=sum(fa[f] == fb[f] for f in shared),
-             new_functions=len(set(fa) - set(fb)), lost_functions=len(set(fb) - set(fa)),
-             moved=moved, moved_not_allowed=unexplained,
+             new_functions=len(set(fa) - set(fb)), lost_functions=len(lost),
+             moved=moved, lost=lost, not_allowed=unexplained,
              registers={f: [ra.get(f), rb.get(f)] for f in sorted(set(ra) | set(rb))})
     if not ok:
-        raise SystemExit("a shared function's SASS or registers moved, or one was lost")
+        raise SystemExit("a function's SASS or registers moved, or one was lost, "
+                         "outside ALLOW")
 
 
 def mutations() -> None:
@@ -271,7 +300,10 @@ def mutations() -> None:
 
 
 # one timing run, started in the root of the tree whose package it times;
-# argv[1] is this checkout's chip_smoke.py
+# argv[1] is this checkout's chip_smoke.py, argv[2:] the phases to run. A
+# phase's rows are its entries that hold an "ms", those of its "calls"
+# (observables_main_path) and its "ms" table (api_main_path); the rows of
+# per_particle_alone carry a K2_ prefix.
 _TIMING = """
 import importlib.util, json, sys
 import torch
@@ -279,20 +311,34 @@ spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 dev = torch.device("cuda")
-out = {**smoke.stress_alone(dev, smoke.N_MAIN), **smoke.hist_alone(dev, smoke.N_MAIN)}
-print(json.dumps({k: v for k, v in out.items() if isinstance(v, dict) and "ms" in v},
-                 default=str))
+
+def rows(d, prefix):
+    for k, v in d.items():
+        if isinstance(v, dict) and isinstance(v.get("ms"), (int, float)):
+            yield prefix + k, v
+        elif k == "calls" and isinstance(v, dict):
+            yield from rows(v, prefix)
+        elif k == "ms" and isinstance(v, dict):
+            yield from ((prefix + c, {"ms": t}) for c, t in v.items())
+
+out = {}
+for phase in sys.argv[2:]:
+    n = smoke.N_PARITY if phase.startswith("api_") else smoke.N_MAIN
+    prefix = "K2_" if phase == "per_particle_alone" else ""
+    out.update(rows(getattr(smoke, phase)(dev, n), prefix))
+print(json.dumps(out, default=str))
 """
+TIMING_PHASES = ("stress_alone", "hist_alone", "per_particle_alone")
 
 
-def timing(tree: str) -> None:
+def timing(tree: str, phases=TIMING_PHASES) -> None:
     other = Path(tree).resolve()
     for side, root in (("tree", other), ("this", ROOT), ("this", ROOT), ("tree", other)):
-        proc = subprocess.run([sys.executable, "-c", _TIMING, str(ROOT / "chip_smoke.py")],
-                              cwd=root, capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", _TIMING, str(ROOT / "chip_smoke.py"),
+                               *phases], cwd=root, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"timing in {root} failed:\n{proc.stderr[-3000:]}")
-        emit("timing", side=side, root=str(root),
+        emit("timing", side=side, root=str(root), phases=list(phases),
              kernels=json.loads(proc.stdout.strip().splitlines()[-1]))
 
 
@@ -306,7 +352,7 @@ def main() -> None:
     if sys.argv[1] == "sass":
         sass(sys.argv[2], sys.argv[3] if len(sys.argv) > 3 else "")
     elif sys.argv[1] == "timing":
-        timing(sys.argv[2])
+        timing(sys.argv[2], tuple(sys.argv[3:]) or TIMING_PHASES)
     else:
         mutations()
 

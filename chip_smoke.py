@@ -858,12 +858,13 @@ def forces_parity(dev, n: int) -> dict:
 
 def per_particle_vs_plain(dev, n: int) -> dict:
     """K2 against its plain version on identical sorted inputs, n = 2e5 on
-    the thin box: the uniform cloud, a jittered lattice, and the lattice
-    with a `CellGrid`-style padded tail (SENTINEL_KEY keys on far, spread
-    coordinates), in f32 and f64. `count_term` exactly; `lj_term` to
-    TOL_KERNEL of max |out| in f64 (1e-6 in f32: the same f64 sums, each
-    rounded to f32 once); an undersized L drops the same pairs on both
-    sides."""
+    the thin box: the uniform cloud, a jittered lattice, the lattice with a
+    `CellGrid`-style padded tail (SENTINEL_KEY keys on far, spread
+    coordinates), and the inputs that fail a cluster prune that is not
+    conservative (`prune_cases`, the lattice's keys kept), in f32 and f64.
+    `count_term` exactly; `lj_term` to TOL_KERNEL of max |out| in f64
+    (1e-6 in f32: the same f64 sums, each rounded to f32 once); an
+    undersized L drops the same pairs on both sides."""
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
     from zelll_tpu_torch.ops.lag_pairs import (
         count_term, lj_term, pair_lag_per_particle, pair_lag_per_particle_plain,
@@ -878,16 +879,18 @@ def per_particle_vs_plain(dev, n: int) -> dict:
     for tag, pts in (("uniform", generate_points_random(n, box)),
                      ("lattice", generate_points_lattice(n, box))):
         shi, slo, keys, info, _ = sort_split(pts, dev)
-        inputs = [(tag, keys, None)]
+        inputs = [(tag, keys, None, shi, slo)]
         if tag == "lattice":
             tail = keys.clone()
             tail[-1000:] = SENTINEL_KEY
             k = torch.arange(1, 1001, dtype=torch.float64, device=dev)
             far = torch.stack([1e12 + k * 2.0**17, 1e12 + 0 * k, 1e12 + 0 * k], 1)
-            inputs.append(("lattice sentinel_tail", tail, far))
-        for name, k_in, far in inputs:
+            inputs.append(("lattice sentinel_tail", tail, far, shi, slo))
+            inputs += [(f"prune {what}", keys, None, h, l)
+                       for what, (h, l) in prune_cases(shi, slo).items()]
+        for name, k_in, far, h, l in inputs:
             for dtype in (torch.float32, torch.float64):
-                pos = shi if dtype == torch.float32 else shi.double() + slo.double()
+                pos = h if dtype == torch.float32 else h.double() + l.double()
                 if far is not None:
                     pos = pos.clone()
                     pos[-1000:] = far.to(dtype)
@@ -948,7 +951,9 @@ def api_main_path(dev, n: int) -> dict:
     `query_neighbors_batch`, each timed on the host clock, then held to the
     exact-f64 oracle: the pair set and the coordination numbers exactly,
     the energy to TOL_REL, 16 of 4096 point queries as candidate sets. The
-    launch counts are zeroed just before and read just after."""
+    launch counts are zeroed just before and read just after. Then
+    `coordination_numbers` again: the median host ms of OBS_REPS calls and
+    a profile of its calls (K2's device ms, the busy share)."""
     from zelll_tpu_torch import CellGrid, oracle
     from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
 
@@ -1003,9 +1008,15 @@ def api_main_path(dev, n: int) -> dict:
                   f"query {q}: {len(qids[q])} candidates, the oracle {len(want)}")
     # where one chunk loop's time goes (lj_energy: ~n / 10 / 256 chunks)
     prof = profile_steps(lambda i: cg.lj_energy(), 1)
+    # coordination_numbers again: the median host ms of OBS_REPS calls (one
+    # call's host time swings by more than K2's device time), and where its
+    # time goes
+    ms["coordination_numbers_median"] = float(np.median(
+        [host_ms(cg.coordination_numbers)[0] for _ in range(OBS_REPS)]))
+    coord_prof = profile_steps(lambda i: cg.coordination_numbers(), OBS_REPS)
     num_cells = int(cg.grid_data.bins.num_cells)
     return dict(n=n, box=box, ms=ms, launches=launches, max_memory_allocated=peak,
-                lj_energy_profile=prof,
+                lj_energy_profile=prof, coordination_numbers_profile=coord_prof,
                 K=cg._K, occupied_cells=num_cells,
                 chunk_loop_iterations=-(-num_cells // cg._chunk()),
                 pairs=len(pi), oracle_pairs=n_ref, pair_set_equal=same_pairs,
@@ -1101,7 +1112,13 @@ def per_particle_alone(dev, n: int) -> dict:
     one plain call's ms, the work of the function and its bound, and the
     kernel against the plain version. The bound counts each unique pair
     once: the half-stencil candidates and, per cutoff pair, the term and
-    the two adds; FP64 instructions count twice (half the FP32 rate)."""
+    the two adds; FP64 instructions count twice (half the FP32 rate). Also
+    the lane evaluations per half-stencil candidate: the first design's two
+    thread walks (each lag-window pair from both ends) and those the
+    cluster prune leaves (K3's two-sided entries, counted in f32 and f64),
+    and the ptxas lines."""
+    from zelll_tpu_torch.ops import lag_pairs
+    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, lag_cluster_entries
     from zelll_tpu_torch.ops.lag_pairs import pair_lag_per_particle, pair_lag_per_particle_plain
     from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
 
@@ -1126,8 +1143,14 @@ def per_particle_alone(dev, n: int) -> dict:
         b = bound(n * (4 * size + 4),
                   width * candidates * INSTR_PER_CANDIDATE[False]
                   + pairs * INSTR_PER_COUNT_PAIR)
+        lanes = int(lag_cluster_entries(pos.t(), None, keys, strides, csq, L_MAIN,
+                                        half=False).sum()) * CLUSTER
         out[tag] = dict(ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms,
-                        pairs=pairs, max_abs_err=err)
+                        pairs=pairs, max_abs_err=err, pruned_evaluations=lanes,
+                        pruned_evaluations_per_candidate=lanes / candidates)
+    walk = 2 * window_candidates(keys, strides, L_MAIN)
+    out.update(walk_evaluations=walk, walk_evaluations_per_candidate=walk / candidates,
+               ptxas=ptxas_summary(lag_pairs.load_per_particle_kernel.log))
     return out
 
 
@@ -1612,11 +1635,12 @@ def obs_vs_plain(dev, n: int) -> dict:
     outputs, max |d sigma| <= TOL_KERNEL max |sigma| (TOL_FAST_FORCES with
     the fast factor); histograms at K = 16, 32 and 64, species-partial and,
     on the tile path, masked, maskless and MAXJ = 1: counts exactly equal,
-    and the same flags. K5, K8 and K9 also in f64 (the double box) and on
-    the inputs that fail a cluster prune that is not conservative
-    (`prune_cases`, the lattice's keys kept), K5 and K9 with a species
-    mask, K8 and K9 masked and maskless, K8 on the uniform cloud with
-    coincident points (dsq = 0, excluded); K9 in 1 and 2 dimensions."""
+    and the same flags. K4, K5, K8 and K9 also in f64 (the double box) and
+    on the inputs that fail a cluster prune that is not conservative
+    (`prune_cases`, the lattice's keys kept), K4 at L = 256 and 16, K5 and
+    K9 with a species mask, K8 and K9 masked and maskless, K8 on the
+    uniform cloud with coincident points (dsq = 0, excluded); K9 in 1 and 2
+    dimensions."""
     from zelll_tpu_torch.core.geometry import SENTINEL_KEY
     from zelll_tpu_torch.ops.lag_pairs import (
         SpeciesPairMask, combine_count_vec, pair_lag_hist, pair_lag_hist_plain,
@@ -1681,11 +1705,20 @@ def obs_vs_plain(dev, n: int) -> dict:
                       pair_lag_hist_plain(shi, keys, strides, esq, lo, species, **kw),
                       f"{tag} {mode} species(0, 2)")
 
-    # K5 through the f64 box and on the prune's hard inputs, with and
-    # without the species mask
+    # K4 and K5 through the f64 box and on the prune's hard inputs, K4 at
+    # L = 256 and 16, K5 with and without the species mask
     shi, slo, keys, strides = thin_lattice
+    hard = {"lattice": (shi, slo), **prune_cases(shi, slo)}
+    for what, (h, l) in hard.items():
+        for mode, pos, lo in (("split", h, l), ("f32", h, None),
+                              ("f64", h.double() + l.double(), None)):
+            for L in (L_MAIN, 16):
+                kw = dict(L=L, out_dtype=f64)
+                stress_case("K4", pair_lag_stress(pos, keys, strides, csq, lo, **kw),
+                            pair_lag_stress_plain(pos, keys, strides, csq, lo, **kw),
+                            TOL_KERNEL, f"prune {what} {mode} L{L}")
     esq = hist_edges_sq(HIST_K, f64)
-    for what, (h, l) in {"lattice": (shi, slo), **prune_cases(shi, slo)}.items():
+    for what, (h, l) in hard.items():
         for mode, pos, lo in (("split", h, l), ("f32", h, None),
                               ("f64", h.double() + l.double(), None)):
             e = esq.to(pos.dtype)
@@ -2061,12 +2094,15 @@ def stress_alone(dev, n: int) -> dict:
     in the timed runs, the work of the function (its half-stencil
     candidates and cutoff pairs) and its bound, the share of it, one plain
     pass (at 1e6 where one at 1e7 would take over 10 s), and the kernel
-    against the plain version at n = 1e6; K8's lane evaluations per
-    half-stencil candidate, all 128 x 128 lanes of every tile (its first
-    design) and those the cluster prune leaves (the sweep), and its ptxas
-    lines."""
-    from zelll_tpu_torch.ops import tile_pairs
-    from zelll_tpu_torch.ops.cluster_prune import CLUSTER, tile_cluster_entries
+    against the plain version at n = 1e6; the lane evaluations per
+    half-stencil candidate of K4 (each lag-window candidate, as its first
+    design's thread walk, and those the cluster prune leaves) and of K8 (all
+    128 x 128 lanes of every tile, its first design, and those the prune
+    leaves), and their ptxas lines."""
+    from zelll_tpu_torch.ops import lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import (
+        CLUSTER, lag_cluster_entries, tile_cluster_entries,
+    )
     from zelll_tpu_torch.ops.lag_pairs import (
         combine_count, count_term, pair_lag_reduce, pair_lag_stress, pair_lag_stress_plain,
     )
@@ -2094,6 +2130,17 @@ def stress_alone(dev, n: int) -> dict:
                   + pairs * INSTR_PER_STRESS_PAIR)
         out[f"K4_{tag}"] = dict(ms=ms, launches=launches, **b,
                                 share_of_bound=b["bound_ms"] / ms)
+    # the lanes the cluster prune leaves: K1's one-sided entries at csq, once
+    # for each of the cluster's 32 lanes (ops/cluster_prune.py)
+    k4_lanes = {tag: int(lag_cluster_entries(shi.t(), None if lo is None else lo.t(), keys,
+                                             strides, csq, L_MAIN, half=True).sum()) * CLUSTER
+                for tag, lo in (("f32", None), ("split", slo))}
+    walk = window_candidates(keys, strides, L_MAIN)
+    out.update(K4_walk_evaluations=walk, K4_walk_evaluations_per_candidate=walk / candidates,
+               K4_pruned_evaluations=k4_lanes,
+               K4_pruned_evaluations_per_candidate={t: v / candidates
+                                                    for t, v in k4_lanes.items()},
+               K4_ptxas=ptxas_summary(lag_pairs.load_stress_kernel.log))
     del shi, slo, keys
 
     def k4_plain(m):

@@ -659,11 +659,13 @@ def test_md_steps_never_sync_on_card(cuda_device):
 @pytest.mark.gpu
 def test_per_particle_kernel_matches_plain_on_card(cuda_device):
     """K2 against its plain version on the same sorted CUDA tensors (the
-    benchmark's thin box and a jittered lattice, n = 5e4), f32 and f64:
-    counts exact, f64 LJ sums to 1e-10 of the largest, f32 to 1e-6; an
-    undersized L drops the same pairs on both sides; sentinel rows inert.
-    Then `CellGrid.coordination_numbers` on the card, through K2, against
-    brute force."""
+    benchmark's thin box and a jittered lattice, n = 5e4, and the lattice's
+    facing clusters and drifted state of `_prune_cases`, which fail a
+    cluster prune that is not conservative), f32 and f64: counts exact, f64
+    LJ sums to 1e-10 of the largest, f32 to 1e-6; an undersized L drops the
+    same pairs on both sides; sentinel rows inert. Then
+    `CellGrid.coordination_numbers` on the card, through K2, against brute
+    force."""
     from zelll_tpu_torch import CellGrid
 
     n = 50_000
@@ -672,6 +674,7 @@ def test_per_particle_kernel_matches_plain_on_card(cuda_device):
         "uniform": _thin(generate_points_random(n, lj_box(n, CUTOFF)), cuda_device),
         "lattice": _thin(generate_points_lattice(n, lj_box(n, CUTOFF)), cuda_device),
     }
+    cases.update(_prune_cases(*cases["lattice"]))
     for name, (shi, slo, keys, strides) in cases.items():
         pos64 = shi.double() + slo.double()
         padded = keys.clone()
@@ -886,13 +889,16 @@ def test_lag_stress_kernel_matches_plain_on_card(cuda_device):
     """K4 against its plain version on the same sorted CUDA tensors: f64
     stress to 1e-10 of the largest component (TOL_FAST_FORCES with the
     fast factor), split, f32 and f64 coordinates, coincident points, a
-    sentinel tail and an undersized L; K1's virial term against its plain
-    version and against the trace."""
+    sentinel tail, an undersized L and the inputs that fail a cluster prune
+    that is not conservative (the facing clusters of `cluster_gap` and the
+    lattice drifted since its keys were built); K1's virial term against
+    its plain version and against the trace."""
     n = 50_000
     csq = CUTOFF**2
     f64 = torch.float64
-    for tag, (shi, slo, keys, strides) in _observable_inputs(
-            cuda_device, n, lj_box(n, CUTOFF)).items():
+    cases = _observable_inputs(cuda_device, n, lj_box(n, CUTOFF))
+    cases.update(_prune_cases(*cases["lattice"]))
+    for tag, (shi, slo, keys, strides) in cases.items():
         for plo in (slo, None):
             for gfn, tol in ((lj_force_factor, 1e-10), (lj_force_factor_fast, TOL_FAST_FORCES)):
                 for L in (256, 16):
@@ -903,9 +909,12 @@ def test_lag_stress_kernel_matches_plain_on_card(cuda_device):
                     _assert_stress(got, pair_lag_stress_plain(shi, keys, strides, csq,
                                                               plo, **kw), tol)
         pos64 = shi.double() + slo.double()
-        got = pair_lag_stress(pos64, keys, strides, csq)
-        assert got.dtype == f64
-        _assert_stress(got, pair_lag_stress_plain(pos64, keys, strides, csq), 1e-10)
+        for L in (256, 16):
+            got = pair_lag_stress(pos64, keys, strides, csq, L=L)
+            assert got.dtype == f64
+            _assert_stress(got, pair_lag_stress_plain(pos64, keys, strides, csq, L=L), 1e-10)
+        if tag in ("cluster_gap", "drifted"):
+            continue
         w = pair_lag_reduce(shi, keys, strides, csq, slo, term=lj_virial_term, out_dtype=f64)
         w_p = pair_lag_reduce_plain(shi, keys, strides, csq, slo, term=lj_virial_term,
                                     out_dtype=f64)

@@ -1,5 +1,5 @@
-"""The geometric prune of the pair kernels K1, K3, K6 and K7, in its
-plain PyTorch mirror (`ops.cluster_prune`), held to brute force.
+"""The geometric prune of the pair kernels K1-K9, in its plain PyTorch
+mirror (`ops.cluster_prune`), held to brute force.
 
 Every pair that the cutoff keeps (f32 coordinates, and split ones with the
 f64 tie rule of `lag_pairs.split_cutoff_test` for the forces kernels K3 and
@@ -7,13 +7,14 @@ K7, or the f32 rule of the energy kernels K1 and K6) must lie near its own
 cluster's box, on the facing clusters of `utils.datagen.cluster_gap` (boxes
 exactly one cutoff apart, pairs a few ulp either side of it), on a state
 moved by up to a skin since its keys were built, and on the uniform cloud.
-The mirror's partner ranges (K3, and K1's one-sided ones) and sweep entries
-(K3 and K7 over both sides, K1 and K6, the ``_half`` kernels, over one) are
-checked against brute-force windows. The lag kernels' minimum image (K1
-and K3 with ``mi_box``) is held the same way on a periodic seam cloud,
-whose clusters face each other only through the seam of the folded axes
-(and the ghost faces of the other), where a prune without periodic images
-drops counted pairs. Everything runs on CPU tensors and calls no JAX.
+The mirror's partner ranges (K3's and K2's, and the one-sided ones of K1,
+K4 and K5) and sweep entries (K3, K2 and K7 over both sides, K1 and K6, the
+``_half`` kernels, over one) are checked against brute-force windows, the
+f64 instances' (K2, K4, K5, K8, K9) in double. The lag kernels' minimum
+image (K1 and K3 with ``mi_box``) is held the same way on a periodic seam
+cloud, whose clusters face each other only through the seam of the folded
+axes (and the ghost faces of the other), where a prune without periodic
+images drops counted pairs. Everything runs on CPU tensors and calls no JAX.
 """
 
 import numpy as np
@@ -170,9 +171,10 @@ def test_prune_keeps_every_counted_pair(data, kernel):
     half = kernel.endswith("_half")
     if data == "drifted" and kernel.startswith("lag"):
         _seam_check(half)
-    # the one-sided kernels' f64 instances (K5, K8, K9) box and test in
-    # double: the same rule on f64 coordinates
-    for mode in ("f32", "split") + (("f64",) if half else ()):
+    # the f64 instances of the one-sided kernels (K4, K5, K8, K9) and of the
+    # two-sided K2 (the "lag" entries) box and test in double: the same rule
+    # on f64 coordinates
+    for mode in ("f32", "split") + (("f64",) if half or kernel == "lag" else ()):
         split = mode == "split"
         pos = hi.double() + lo.double() if mode == "f64" else hi
         plo = lo if split else None

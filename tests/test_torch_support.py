@@ -145,7 +145,8 @@ def _imported_modules(path):
 
 
 def test_port_sources_never_import_jax():
-    files = sorted((ROOT / "zelll_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "zelll_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):

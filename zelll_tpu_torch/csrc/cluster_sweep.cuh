@@ -1,7 +1,8 @@
-// The cluster-pair sweep shared by the pair kernels K1 (lag_reduce.cu), K3
-// (lag_forces.cu), K5 (lag_hist.cu), K6 (tile_reduce.cu), K7
-// (tile_forces.cu), K8 (tile_stress.cu) and K9 (tile_hist.cu), and by the
-// query join K12 (join_reduce.cu): a warp owns
+// The cluster-pair sweep shared by the pair kernels K1 (lag_reduce.cu), K2
+// (lag_per_particle.cu), K3 (lag_forces.cu), K4 (lag_stress.cu), K5
+// (lag_hist.cu), K6 (tile_reduce.cu), K7 (tile_forces.cu), K8
+// (tile_stress.cu) and K9 (tile_hist.cu), and by the query join K12
+// (join_reduce.cu): a warp owns
 // a cluster of 32 consecutive sorted slots (K12: queries), reduces the
 // cluster's axis-aligned box, keeps a candidate j point only if it lies
 // near that box, compacts the survivors by ballot into a buffer in shared
@@ -21,8 +22,8 @@
 // whatever the low parts hold. The split threshold fl(csq (1 + 2^-19)) >=
 // csq (1 + 1.85e-6) also covers the forces kernels' tie band (pairs whose
 // f32 dsq lies within 1e-6 csq of the cutoff, decided on the f64 dsq); for
-// the energy kernels, the histograms K5 and K9 and the stress K8, which
-// keep the f32 rule dsq < csq, it is a superset. So a j point the prune drops holds no pair that any of the pair
+// the energy kernels, the histograms K5 and K9 and the stress kernels K4
+// and K8, which keep the f32 rule dsq < csq, it is a superset. So a j point the prune drops holds no pair that any of the pair
 // kernels counts, for any data, in either mode.
 //
 // The bound needs every product and sum rounded on its own: build with
@@ -432,11 +433,12 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
   }
 }
 
-// ---- any IEEE type: K5, K8 and K9, and the query join K12 ------------------
+// ---- any IEEE type: K2, K4, K5, K8, K9 and the query join K12 -------------
 //
 // The prune argument above holds for any IEEE type with rounding to
-// nearest, so the f64 instances of K5, K8 and K9 and K12 (f32 and f64) take
-// the same box and gap test in their coordinates' type, without split mode.
+// nearest, so the f64 instances of K2, K4, K5, K8 and K9 and K12 (f32 and
+// f64) take the same box and gap test in their coordinates' type, without
+// split mode.
 // K12's cutoff is inclusive (dsq <= csq), so its gap test keeps gsq <= csq:
 // gsq <= dsq still, and no pair at exactly the cutoff is dropped. K1, K3,
 // K6 and K7 do not use this part.
@@ -480,8 +482,8 @@ __device__ __forceinline__ double inf_of(double) {
 // The box and gap test in the coordinates' type, and with K12's inclusive
 // cutoff. For non-split f32 they test what Box / near_box test; those stay
 // as K1, K3, K6 and K7 were built and timed with them (a merged template
-// moved their SASS: ROADMAP.md, queue 2 B0). K5, K8 and K9 take both forms
-// through ClusterPrune below.
+// moved their SASS: ROADMAP.md, queue 2 B0). K2, K4, K5, K8 and K9 take
+// both forms through ClusterPrune below.
 template <typename T>
 struct BoxOf {
   T mnx, mny, mnz, mxx, mxy, mxz;
@@ -519,8 +521,8 @@ __device__ __forceinline__ bool near_box_of(const BoxOf<T>& box, T x, T y, T z,
 }
 
 // The own cluster's box and its strict gap test in the coordinates' type
-// (K5, K8, K9): Box with the split margin and the low parts' reach for f32
-// and split coordinates, BoxOf in double for f64 ones.
+// (K2, K4, K5, K8, K9): Box with the split margin and the low parts' reach
+// for f32 and split coordinates, BoxOf in double for f64 ones.
 template <typename T, bool SPLIT>
 struct ClusterPrune;
 template <bool SPLIT>
@@ -584,7 +586,7 @@ __device__ __forceinline__ T sep_dsq(const V& h, float4 l, const V& b, float4 bl
   return sep_dsq<SPLIT>(h, l, b, bl, dx, dy, dz);
 }
 
-// ---- the walks: one-sided (K5) and half-stencil (K8, K9) ------------------
+// ---- the walks: one slot range (K2, K4, K5) and half-stencil (K8, K9) -----
 
 // Row j of an (n, dim) row-major array in the coordinates' type, tag w in
 // .w; absent axes read 0, which adds exactly 0 to dsq and to the box gap.
@@ -612,19 +614,32 @@ __device__ __forceinline__ V load_row(const T* rows, int dim, int j, int32_t w) 
 //                             done + cnt) to the front, as shift_front.
 // Every lane of the warp calls a walk.
 
+// Slot j of (n, dim) rows, or with PLANES of (dim, n) planes (n: the
+// slots), as load_row and load_point read them.
+template <bool PLANES, typename T, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ V load_slot_of(const T* p, int n, int dim, int j, int32_t w) {
+  if constexpr (PLANES)
+    return load_point(p, n, dim, j, w);
+  else
+    return load_row(p, dim, j, w);
+}
+
 // The one-sided walk (K1's form): slots [first, last] of the (n, dim)
-// arrays pos and lo, 32 at a time, the slot in .w. Lane t loads slot
-// j0 + t and tests it with prune; a ballot compacts the survivors, in slot
-// order. Each time 32 entries are in, they are swept and the remainder
-// (less than one cluster) moves to the front; the rest is swept at the end.
-// K1 keeps its own loop of this form: it reads the keep mask's plane before
-// the prune, for every candidate, and its minimum-image prune is its own.
-template <bool SPLIT, typename T, typename Prune, typename Sweeper,
+// arrays pos and lo (with PLANES, of (dim, n) planes of n slots), 32 at a
+// time, the slot in .w. Lane t loads slot j0 + t and tests it with prune; a
+// ballot compacts the survivors, in slot order. Each time 32 entries are
+// in, they are swept and the remainder (less than one cluster) moves to the
+// front; the rest is swept at the end. K4 and K5 walk their lanes' ranges
+// behind them with it; K2 walks the union of its two-sided ranges, which is
+// one slot range too. K1 keeps its own loop of this form: it reads the keep
+// mask's plane before the prune, for every candidate, and its
+// minimum-image prune is its own.
+template <bool SPLIT, bool PLANES = false, typename T, typename Prune, typename Sweeper,
           typename V = typename Vec4Of<T>::type>
 __device__ __forceinline__ void one_sided_walk(const T* pos, const float* lo, int dim,
                                                int first, int last, int lane,
                                                const Prune& prune, V* bh, float4* bl,
-                                               Sweeper& sw) {
+                                               Sweeper& sw, int n = 0) {
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const V vzero = V{T(0), T(0), T(0), T(0)};
   const unsigned below = (1u << lane) - 1u;
@@ -632,8 +647,8 @@ __device__ __forceinline__ void one_sided_walk(const T* pos, const float* lo, in
   for (int j0 = first; j0 <= last; j0 += kWarp) {
     const int j = j0 + lane;
     const bool valid = j <= last;
-    const V b = valid ? load_row(pos, dim, j, j) : vzero;
-    const float4 b_lo = SPLIT && valid ? load_row(lo, dim, j, 0) : zero;
+    const V b = valid ? load_slot_of<PLANES>(pos, n, dim, j, j) : vzero;
+    const float4 b_lo = SPLIT && valid ? load_slot_of<PLANES>(lo, n, dim, j, 0) : zero;
     const bool keep = valid && prune.near(b, b_lo);
     compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
       bh[at] = b;
@@ -767,7 +782,7 @@ __device__ __forceinline__ bool species_pair(T wi, T wj, T a, T b) {
   return (wi == a && wj == b) || (wi == b && wj == a);
 }
 
-// ---- the stress K8 ----------------------------------------------------------
+// ---- the stress kernels K4 and K8 -------------------------------------------
 
 // Folds N per-lane sums of the block in a fixed order (block_fold for each,
 // in one pass) and writes partial[N blockIdx.x + k]. Every thread of the

@@ -17,59 +17,82 @@
 // What it does not copy: the TPU kernel's Horner shift accumulator, which
 // lands the smaller slot's share of each pair at its window slot because
 // Mosaic has no scatter, and its rolling VMEM window and sequential grid.
-// K3's design (lag_forces.cu) instead: one thread owns one sorted slot i
-// and walks both of its partner lists, backwards over j = i - lag while
-// key_j >= key_i - W and forwards over k = i + lag while
-// key_i >= key_k - W, each for at most L lags. Keys ascend, so the first
-// partner out of window ends a walk, and the per-thread early exit gives
-// exactly the TPU kernel's pair set (its block-wide exit only runs more
-// lags, all masked); the forward walk stops at lag L too, so an
-// undersized L drops the same pairs there. Each out_i is one thread's
-// sum: no atomics, and the result is deterministic. The index bounds
-// 0 <= j and k < n replace the TPU's spread tail coordinates; padding
-// rows (SENTINEL_KEY) read as ascending spaced keys above every real key,
-// K1's rule (lag_reduce.cu).
+// The index bounds 0 <= j < n replace the TPU's spread tail coordinates;
+// padding rows (SENTINEL_KEY) read as ascending spaced keys above every
+// real key, K1's rule (lag_reduce.cu).
 //
-// Accumulation: each thread sums its terms in f64, for both coordinate
-// types, and writes its sum once in the coordinates' type.
+// The partners of slot i form one slot range. Keys ascend, so the slots j
+// behind i in its window (key_j >= key_i - W, i - j <= L) are
+// [jlo_i, i - 1] and those ahead (key_i >= key_k - W, k - i <= L) are
+// [i + 1, jhi_i]; each lane finds jlo_i and jhi_i by binary search over
+// the keys once (ops/cluster_prune.py's lag_ranges). The lag set is exactly
+// 1..L on both sides, so an undersized L drops the pairs the plain version
+// drops.
 //
 // What bounds it on an H100: bytes are (3 coordinate planes + 1 output) x
 // n x sizeof(T) + 4 n of keys, 160 MB at n = 1e7 in f32, 48 us at
 // 3.35 TB/s. Operations, once per unique pair: 7 FP32 instructions for
 // each half-stencil candidate and, per cutoff pair, the term and the two
-// f64 adds; at the benchmark's density (~80 candidates and ~13 cutoff
-// pairs per slot) that is about 0.2 ms at 33.5 T FP32 instructions/s, so
-// it is bound by operations (FP64 runs at half the FP32 rate, and the
-// f64 kernel's bound is counted so). This design walks every in-window
-// pair from both ends, about 2.7 times the candidate work; a Newton
-// half-pair form is left for later, as for K3. No single PyTorch call
-// computes this function.
+// f64 adds (FP64 counted twice: half the FP32 rate), so it is bound by
+// operations, that is by the instructions issued per evaluated lane. A
+// thread that walked its two partner lists itself (this kernel's first
+// design) issued scalar global loads that no other lane shares, ran its
+// warp to the longest walk, and took the term's branch whenever one lane
+// of the warp had a pair. No single PyTorch call computes this function.
+//
+// Design: K3's two-sided cluster sweep (lag_forces.cu) with a scalar term,
+// on cluster_sweep.cuh, in f32 and f64. A warp owns a cluster of 32
+// consecutive slots and keeps its own coordinates and range in registers;
+// warps run on their own (no block barrier). Each warp
+//   1. reduces its cluster's box over the real slots (< n) (f64: the box
+//      and the gap in double; ClusterPrune);
+//   2. walks the union of its lanes' ranges, [jlo of its first slot, jhi of
+//      its last real slot] (jlo and jhi ascend with i, and each range holds
+//      its own slot, so the union is one range; the header's
+//      one_sided_walk over the (3, n) planes): lane t loads slot j0 + t and
+//      tests the point against the own box with the threshold csq; a ballot
+//      compacts the survivors, in slot order, into the warp's buffer in
+//      shared memory (x, y, z and the slot);
+//   3. sweeps the buffer 32 entries at a time: phase A reads each entry by
+//      a broadcast and sets the lane's hit bit where jlo_i <= j <= jhi_i
+//      (one unsigned range test) and 0 < dsq < csq hold (dsq > 0 also
+//      drops the own slot, as the plain version's lag >= 1 does); phase B
+//      adds the hits' popcount for the count (exact in f64), or the LJ term
+//      of each hit in ascending q.
+// Every pair is evaluated from both ends, and both evaluations agree
+// bitwise (IEEE subtraction is exactly antisymmetric), so each end adds the
+// same term. The prune drops no pair that counts (cluster_sweep.cuh says
+// why), and ops/cluster_prune.py's lag_cluster_entries(half=False) counts
+// these entries, as it does K3's (tests/test_torch_prune.py holds it to
+// brute force, in f64 too). Sentinel rows are slots below n, so they join
+// their cluster's box; a box that spans to them keeps every candidate,
+// which is correct and only slow.
+//
+// Accumulation: each lane sums its terms in f64, for both coordinate types,
+// and writes its sum once in the coordinates' type: no scatter, no atomics,
+// and the result is deterministic.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. No --use_fast_math (it would break
 // the true division); --fmad=false rounds every product and sum on its own,
 // as the plain PyTorch version does, so dsq and hence the pair masks match
-// it bitwise on identical sorted inputs.
+// it bitwise on identical sorted inputs, and the prune's bound holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kTermLj = 0;
-constexpr int kTermCount = 1;
-constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
-constexpr int32_t kPadKeyBase = kSentinelKey / 2;
-
-// A padding row's key is replaced by kPadKeyBase + slot * spacing, where
-// spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below int32 overflow.
-__device__ __forceinline__ int32_t load_key(const int32_t* __restrict__ keys,
-                                            int slot, int spacing) {
-  const int32_t k = keys[slot];
-  return k == kSentinelKey ? kPadKeyBase + slot * spacing : k;
-}
+constexpr int kBlock = 128;
+constexpr int kWarps = kBlock / kWarp;
+constexpr int kBuf = 2 * kWarp;  // a warp's buffer: a sweep + a cluster
+// The terms, by the C interface's values (lag_pairs._KERNEL_TERMS), which
+// are also the kernel's template values
+constexpr int kSumLj = 0;
+constexpr int kSumCount = 1;
 
 template <typename T>
 struct Args {
@@ -83,55 +106,121 @@ struct Args {
   T* out;                // (n,)
 };
 
-// The term of the pair (i, j) seen from i, added to i's sum when the pair
-// is inside the cutoff and not coincident. The mask selects; nothing
-// multiplies by it, so the inf of a masked-out dsq = 0 never reaches a sum.
-template <typename T, int TERM>
-__device__ __forceinline__ void add_pair(T x, T y, T z, const Args<T>& a,
-                                         int64_t j, double& acc) {
-  const int64_t n = a.n;
-  const T dx = x - a.pos[j];
-  const T dy = y - a.pos[n + j];
-  const T dz = z - a.pos[2 * n + j];
-  T dsq = dx * dx;
-  dsq = dsq + dy * dy;
-  dsq = dsq + dz * dz;
-  if (dsq < a.csq && dsq > T(0)) {
-    if (TERM == kTermCount) {
-      acc += 1.0;
-    } else {
-      const T t = T(1) / dsq;
-      const T t3 = t * t * t;
-      acc += static_cast<double>(T(4) * t3 * (t3 - T(1)));
-    }
+// A lane: its own point, the slots it pairs with (jlo <= j < jlo + span as
+// unsigned arithmetic tests it: [jlo_i, jhi_i], span = 0 for a slot at or
+// past n), and its sum.
+template <typename T>
+struct SumLane {
+  typename Vec4Of<T>::type h;
+  int jlo;
+  unsigned span;
+  double acc;
+};
+
+// The LJ term 4 t3 (t3 - 1), t = 1/dsq by true division, in T.
+template <typename T>
+__device__ __forceinline__ T lj_value(T dsq) {
+  const T t = T(1) / dsq;
+  const T t3 = t * t * t;
+  return T(4) * t3 * (t3 - T(1));
+}
+
+// Sweeps entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
+// FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the range,
+// 0 < dsq < csq), phase B adds the count of the hits, or their LJ terms in
+// ascending q.
+template <typename T, int TERM, bool FULL, typename V = typename Vec4Of<T>::type>
+__device__ __forceinline__ void sum_sweep(SumLane<T>& o, const V* bh, int cnt, T csq) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  unsigned hits = 0u;
+  auto hit = [&](int q) {
+    const V b = bh[q];
+    const T dsq = sep_dsq<false>(o.h, zero, b, zero);
+    const bool m = static_cast<unsigned>(tag_from(b.w) - o.jlo) < o.span && dsq < csq &&
+                   dsq > T(0);
+    if (m) hits |= 1u << q;
+  };
+  if (FULL) {
+#pragma unroll
+    for (int q = 0; q < kWarp; ++q) hit(q);
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < cnt; ++q) hit(q);
+  }
+  if (TERM == kSumCount) {
+    o.acc += static_cast<double>(__popc(hits));
+    return;
+  }
+  while (hits != 0u) {
+    const int q = __ffs(static_cast<int>(hits)) - 1;
+    hits &= hits - 1u;
+    o.acc += static_cast<double>(lj_value(sep_dsq<false>(o.h, zero, bh[q], zero)));
   }
 }
 
+// What the walk of cluster_sweep.cuh asks of K2: no further planes, and the
+// sweep.
+template <typename T, int TERM, typename V = typename Vec4Of<T>::type>
+struct SumSweeper {
+  SumLane<T>& o;
+  const V* bh;
+  T csq;
+  __device__ __forceinline__ void store(int, int) {}
+  template <bool FULL>
+  __device__ __forceinline__ void sweep(int at, int cnt) {
+    sum_sweep<T, TERM, FULL>(o, bh + at, cnt, csq);
+  }
+  __device__ __forceinline__ void shift(int, int, int) {}
+};
+
 template <typename T, int TERM>
 __global__ void __launch_bounds__(kBlock) lag_per_particle_kernel(Args<T> a) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  if (i >= a.n) return;
-  const int64_t n = a.n;
-  const int32_t w = *a.w_key;
-  const int32_t key_i = load_key(a.keys, i, a.spacing);
-  const T x = a.pos[i];
-  const T y = a.pos[n + i];
-  const T z = a.pos[2 * n + i];
-  double acc = 0.0;
-  // partners behind: pairs (i, j = i - lag), in window iff key_j >= key_i - W
-  const int32_t lo_key = key_i - w;
-  const int jmin = i > a.L ? i - a.L : 0;
-  for (int j = i - 1; j >= jmin; --j) {
-    if (load_key(a.keys, j, a.spacing) < lo_key) break;
-    add_pair<T, TERM>(x, y, z, a, j, acc);
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kWarps][kBuf];
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
+  if (base >= a.n) return;  // the whole warp leaves together
+  const int i = base + lane;
+  const bool real = i < a.n;
+  V* bh = buf_hi[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  SumLane<T> o;
+  o.h = real ? load_point(a.pos, a.n, 3, i, 0) : vzero;
+  o.acc = 0.0;
+  // the lane's partner range [jlo, jhi] by binary search over the keys
+  int jlo = i, jhi = i;
+  if (real) {
+    const int32_t w_key = *a.w_key;
+    const int32_t key_i = load_key(a.keys, i, a.spacing);
+    // smallest j in [max(i - L, 0), i] with key_j >= key_i - W (j = i holds)
+    const int32_t lo_key = key_i - w_key;
+    int l = i > a.L ? i - a.L : 0, r = i;
+    while (l < r) {
+      const int m = l + (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else l = m + 1;
+    }
+    jlo = l;
+    // largest k in [i, min(i + L, n - 1)] with key_k - W <= key_i (k = i holds)
+    l = i;
+    r = a.n - 1 - i > a.L ? i + a.L : a.n - 1;
+    while (l < r) {
+      const int m = r - (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) - w_key <= key_i) l = m; else r = m - 1;
+    }
+    jhi = l;
   }
-  // partners ahead: pairs (k = i + lag, i), in window iff key_i >= key_k - W
-  const int kmax = a.n - 1 - i > a.L ? i + a.L : a.n - 1;
-  for (int k = i + 1; k <= kmax; ++k) {
-    if (load_key(a.keys, k, a.spacing) - w > key_i) break;
-    add_pair<T, TERM>(x, y, z, a, k, acc);
-  }
-  a.out[i] = static_cast<T>(acc);
+  o.jlo = jlo;
+  o.span = real ? static_cast<unsigned>(jhi - jlo) + 1u : 0u;
+  // the union of the lanes' ranges: jlo and jhi ascend with i
+  const int first = __shfl_sync(kAll, jlo, 0);
+  const int last = __reduce_max_sync(kAll, real ? jhi : -1);
+  const ClusterPrune<T, false> prune(o.h, zero, real, a.csq);
+  SumSweeper<T, TERM> sw{o, bh, a.csq};
+  one_sided_walk<false, true>(a.pos, nullptr, 3, first, last, lane, prune, bh, nullptr, sw,
+                              a.n);
+  if (real) a.out[i] = static_cast<T>(o.acc);
 }
 
 template <typename T>
@@ -147,10 +236,10 @@ int launch(const void* pos, const void* keys, const void* w_key, int n, int L,
   a.csq = static_cast<T>(csq);
   a.out = static_cast<T*>(out);
   const int blocks = (n + kBlock - 1) / kBlock;
-  if (term == kTermLj)
-    lag_per_particle_kernel<T, kTermLj><<<blocks, kBlock, 0, s>>>(a);
+  if (term == kSumLj)
+    lag_per_particle_kernel<T, kSumLj><<<blocks, kBlock, 0, s>>>(a);
   else
-    lag_per_particle_kernel<T, kTermCount><<<blocks, kBlock, 0, s>>>(a);
+    lag_per_particle_kernel<T, kSumCount><<<blocks, kBlock, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,9 +256,9 @@ extern "C" {
 int zelll_lag_per_particle(const void* pos, const void* keys, const void* w_key,
                            int n, int L, int spacing, double csq, int term,
                            int f64, void* out, void* stream) {
-  if (n <= 0 || L < 1 || spacing < 1 ||
+  if (n <= 0 || n > kSentinelKey - 2 * kWarp || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (term != kTermLj && term != kTermCount))
+      (term != kSumLj && term != kSumCount))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   if (f64 != 0)

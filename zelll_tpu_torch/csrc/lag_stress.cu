@@ -16,154 +16,179 @@
 // f32 dsq of the split separations, as in K1 and the TPU kernel. Force
 // factors: LJ g = 24 t (2t - 1) inv with inv = 1/dsq by true division, or
 // inv = rsqrt(dsq)^2; t = inv^3. Coordinates are f32 (optionally with f32
-// low parts) or f64.
+// low parts) or f64, 1-3 axes (absent axes read 0).
 //
 // What it does not copy: the TPU kernel's rolling VMEM window, lane rolls,
-// per-component Kahan sums and sequential grid. Here one thread owns one
-// sorted slot i and walks its lags downwards, K1's walk (lag_reduce.cu):
-// keys ascend, so the first j with key_j < key_i - W ends the loop, which
-// also stops at lag L. Padding rows (SENTINEL_KEY) read as ascending spaced
-// keys above every real key, so they end the key window.
-//
-// Accumulation: each thread sums the six upper-triangle products
-// (xx, xy, xz, yy, yz, zz; absent axes give 0) in f64 registers; the block
-// folds its threads in a fixed shared-memory tree and writes six partials.
-// The caller sums the partials (the second pass). No float atomics, so the
-// result is deterministic.
+// per-component Kahan sums and sequential grid. Padding rows (SENTINEL_KEY)
+// read as ascending spaced keys above every real key (K1's rule), and the
+// index bound j >= 0 replaces the TPU's tail padding.
 //
 // What bounds it on an H100: bytes are 4 B x (3 or 6 coordinate planes +
 // 1 key plane) x n read once (f64: 8 B planes), 160-280 MB at n = 1e7,
 // 48-84 us at 3.35 TB/s. Operations: K1's 7 (13 split) FP32 instructions
-// per lag-window candidate, plus, per cutoff pair, the force factor (11),
+// per half-stencil candidate, plus, per cutoff pair, the force factor (11),
 // three g d_a products, six d_a d_b products and six f64 adds (counted
 // twice: FP64 runs at half the rate): far above the bytes, so it is bound
-// by operations. The design keeps all of it in registers; the j-side reads
-// hit L1/L2, since neighbouring threads read neighbouring slots. No single
-// PyTorch call computes this function.
+// by operations, that is by the instructions issued per evaluated lane. A
+// thread that walked its own lags (this kernel's first design) issued
+// scalar global loads that no other lane shares, ran its warp to the
+// longest walk and evaluated every lag-window candidate. No single PyTorch
+// call computes this function.
+//
+// Design: K5's one-sided cluster sweep (lag_hist.cu) with K8's six products
+// per hit (tile_stress.cu), on cluster_sweep.cuh and stress_sweep.cuh. Lane
+// i's partners are the slots [jlo_i, i - 1], where jlo_i, found by binary
+// search over the keys, is the larger of i - L and the first slot with
+// key_j >= key_i - W: keys ascend, so that is exactly the set of lags 1..L
+// in the key window, and a short L drops the pairs the plain version drops.
+// A warp owns a cluster of 32 consecutive slots and keeps its own
+// coordinates and range in registers; the 4 warps of a block share only the
+// final fold. Each warp
+//   1. reduces its cluster's box over the real slots (< n), and in split
+//      mode the largest |lo| per axis (f64: the box and the gap in double;
+//      ClusterPrune);
+//   2. walks the union of its lanes' ranges, [jlo of its first slot, its
+//      last real slot - 1] (jlo ascends with i; the header's
+//      one_sided_walk): lane t loads row j0 + t of the (n, dim) array and
+//      tests the point against the own box with the threshold csq; a
+//      ballot compacts the survivors, in slot order, into the warp's buffer
+//      in shared memory (x, y, z and the slot; the low parts in split
+//      mode);
+//   3. sweeps the buffer 32 entries at a time (stress_sweep): phase A reads
+//      each entry by a broadcast and sets the lane's hit bit where
+//      jlo_i <= j < i (one unsigned range test) and 0 < dsq < csq hold;
+//      phase B computes the force factor of each hit and adds its six
+//      products to the lane's f64 sums.
+// The prune drops no pair that counts (cluster_sweep.cuh says why; the
+// split threshold is a superset of the strict f32 rule), and
+// ops/cluster_prune.py's lag_cluster_entries(half=True) counts these
+// entries, as it does K1's and K5's (tests/test_torch_prune.py holds it to
+// brute force). Every rule of the function stays a lane mask, and masks
+// select, never multiply, so the inf of a masked-out dsq = 0 cannot reach a
+// sum.
+//
+// Accumulation: each lane sums the six upper-triangle products (xx, xy,
+// xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds its
+// lanes in a fixed order (block_fold_n) and writes six partials. The caller
+// sums the partials (the second pass). No float atomics, so the result is
+// deterministic.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC. No --use_fast_math (it would break
 // the true division); --fmad=false rounds every product and sum on its own,
 // as the plain PyTorch version does, so dsq and hence the pair masks match
-// it bitwise on identical sorted inputs.
+// it bitwise on identical sorted inputs, and the prune's bound holds.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "cluster_sweep.cuh"
+#include "stress_sweep.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
+constexpr int kBlock = 128;
+constexpr int kWarps = kBlock / kWarp;
+constexpr int kBuf = 2 * kWarp;  // a warp's buffer: a sweep + a cluster
 constexpr int kMaxDim = 3;
-constexpr int kComps = 6;  // xx, xy, xz, yy, yz, zz
-constexpr int kGfnLj = 0;
-constexpr int kGfnLjFast = 1;
-constexpr int32_t kSentinelKey = 2147483647;  // INT32_MAX
-constexpr int32_t kPadKeyBase = kSentinelKey / 2;
 
-// A padding row's key is replaced by kPadKeyBase + slot * spacing, where
-// spacing <= (INT32_MAX - kPadKeyBase - 1) / n keeps it below int32 overflow.
-__device__ __forceinline__ int32_t load_key(const int32_t* __restrict__ keys,
-                                            int slot, int spacing) {
-  const int32_t k = keys[slot];
-  return k == kSentinelKey ? kPadKeyBase + slot * spacing : k;
-}
+template <typename T>
+struct Args {
+  const T* pos;           // (n, dim) row-major
+  const float* lo;        // (n, dim) f32 low parts, or null
+  const int32_t* keys;    // (n,) ascending, SENTINEL_KEY rows last
+  const int32_t* w_key;   // one int32 on the device
+  int n;
+  int dim;
+  int L;
+  int spacing;
+  T csq;
+  double* partial;        // 6 per block
+};
 
-__device__ __forceinline__ float recip_sqrt(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double recip_sqrt(double x) { return rsqrt(x); }
-
-template <int GFN, typename T>
-__device__ __forceinline__ T force_factor(T dsq) {
-  T inv;
-  if (GFN == kGfnLj) {
-    inv = T(1) / dsq;
-  } else {
-    const T r = recip_sqrt(dsq);
-    inv = r * r;
+// What the one-sided walk of cluster_sweep.cuh asks of K4: no further
+// planes, and the sweep.
+template <typename T, bool SPLIT, int GFN, typename V = typename Vec4Of<T>::type>
+struct LagStressSweeper {
+  StressLane<T>& o;
+  const V* bh;
+  const float4* bl;
+  T csq;
+  __device__ __forceinline__ void store(int, int) {}
+  template <bool FULL>
+  __device__ __forceinline__ void sweep(int at, int cnt) {
+    stress_sweep<T, SPLIT, GFN, false, FULL>(o, bh + at, bl + at, nullptr, cnt, csq, 0, 0);
   }
-  const T t = inv * inv * inv;
-  return T(24) * t * (T(2) * t - T(1)) * inv;
-}
+  __device__ __forceinline__ void shift(int, int, int) {}
+};
 
 template <typename T, bool SPLIT, int GFN>
-__global__ void __launch_bounds__(kBlock)
-lag_stress_kernel(const T* __restrict__ pos, const float* __restrict__ lo,
-                  const int32_t* __restrict__ keys,
-                  const int32_t* __restrict__ w_key, int n, int dim, int L,
-                  int spacing, T csq, double* __restrict__ partial) {
-  __shared__ double red[kComps][kBlock];
-  const int t = threadIdx.x;
-  const int i = blockIdx.x * kBlock + t;
-  double acc[kComps] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  if (i < n) {
-    const int32_t lo_key = load_key(keys, i, spacing) - *w_key;
-    T own[kMaxDim];
-    float own_lo[kMaxDim];
-#pragma unroll
-    for (int a = 0; a < kMaxDim; ++a) {
-      own[a] = T(0);
-      own_lo[a] = 0.0f;
-      if (a < dim) {
-        own[a] = pos[static_cast<int64_t>(i) * dim + a];
-        if (SPLIT) own_lo[a] = lo[static_cast<int64_t>(i) * dim + a];
-      }
+__global__ void __launch_bounds__(kBlock) lag_stress_kernel(Args<T> a) {
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kWarps][kBuf];
+  __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  V* bh = buf_hi[w];
+  float4* bl = buf_lo[w];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  StressLane<T> o;
+  o.h = real ? load_row(a.pos, a.dim, i, 0) : vzero;
+  o.l = SPLIT && real ? load_row(a.lo, a.dim, i, 0) : zero;
+  o.key = 0;  // no band mask
+  // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
+  // with key_j >= key_i - W (j = i holds), by binary search over the keys
+  int jlo = i;
+  if (real) {
+    const int32_t lo_key = load_key(a.keys, i, a.spacing) - *a.w_key;
+    int l = i > a.L ? i - a.L : 0, r = i;
+    while (l < r) {
+      const int m = l + (r - l) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else l = m + 1;
     }
-    const int jmin = i > L ? i - L : 0;
-    for (int j = i - 1; j >= jmin; --j) {
-      if (load_key(keys, j, spacing) < lo_key) break;
-      const int64_t jo = static_cast<int64_t>(j) * dim;
-      T d[kMaxDim] = {T(0), T(0), T(0)};
-      T dsq = T(0);
-#pragma unroll
-      for (int a = 0; a < kMaxDim; ++a) {
-        if (a < dim) {
-          T da = own[a] - pos[jo + a];
-          if (SPLIT) da = da + (own_lo[a] - lo[jo + a]);
-          d[a] = da;
-          dsq = dsq + da * da;
-        }
-      }
-      if (dsq < csq && dsq > T(0)) {
-        const T g = force_factor<GFN>(dsq);
-        const T g0 = g * d[0];
-        const T g1 = g * d[1];
-        const T g2 = g * d[2];
-        acc[0] += static_cast<double>(g0 * d[0]);
-        acc[1] += static_cast<double>(g0 * d[1]);
-        acc[2] += static_cast<double>(g0 * d[2]);
-        acc[3] += static_cast<double>(g1 * d[1]);
-        acc[4] += static_cast<double>(g1 * d[2]);
-        acc[5] += static_cast<double>(g2 * d[2]);
-      }
-    }
+    jlo = l;
   }
-  // fixed-order block fold: a shared-memory tree per component
+  o.jlo = jlo;
+  o.span = real ? static_cast<unsigned>(i - jlo) : 0u;
 #pragma unroll
-  for (int k = 0; k < kComps; ++k) red[k][t] = acc[k];
-  __syncthreads();
-  for (int s = kBlock / 2; s > 0; s >>= 1) {
-    if (t < s) {
-#pragma unroll
-      for (int k = 0; k < kComps; ++k) red[k][t] += red[k][t + s];
-    }
-    __syncthreads();
+  for (int k = 0; k < kComps; ++k) o.acc[k] = 0.0;
+  // a cluster past n holds no particle: its warp only joins the fold
+  if (base < a.n) {
+    // the union of the lanes' ranges: jlo ascends with i
+    const int first = __shfl_sync(kAll, jlo, 0);
+    const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
+    const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
+    LagStressSweeper<T, SPLIT, GFN> sw{o, bh, bl, a.csq};
+    one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
   }
-  if (t < kComps) partial[static_cast<int64_t>(blockIdx.x) * kComps + t] = red[t][0];
+  block_fold_n<kWarps>(o.acc, a.partial);
 }
 
 template <typename T, bool SPLIT>
 void launch(const void* pos, const float* lo, const int32_t* keys,
             const int32_t* w_key, int n, int dim, int L, int spacing,
             double csq, int gfn, double* partial, cudaStream_t stream) {
+  Args<T> a;
+  a.pos = static_cast<const T*>(pos);
+  a.lo = lo;
+  a.keys = keys;
+  a.w_key = w_key;
+  a.n = n;
+  a.dim = dim;
+  a.L = L;
+  a.spacing = spacing;
+  a.csq = static_cast<T>(csq);
+  a.partial = partial;
   const int blocks = (n + kBlock - 1) / kBlock;
-  const T* p = static_cast<const T*>(pos);
-  const T c = static_cast<T>(csq);
   if (gfn == kGfnLj)
-    lag_stress_kernel<T, SPLIT, kGfnLj><<<blocks, kBlock, 0, stream>>>(
-        p, lo, keys, w_key, n, dim, L, spacing, c, partial);
+    lag_stress_kernel<T, SPLIT, kGfnLj><<<blocks, kBlock, 0, stream>>>(a);
   else
-    lag_stress_kernel<T, SPLIT, kGfnLjFast><<<blocks, kBlock, 0, stream>>>(
-        p, lo, keys, w_key, n, dim, L, spacing, c, partial);
+    lag_stress_kernel<T, SPLIT, kGfnLjFast><<<blocks, kBlock, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -183,8 +208,8 @@ int zelll_lag_stress(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      double csq, int gfn, int f64, void* partial,
                      void* stream) {
-  if (n <= 0 || dim < 1 || dim > kMaxDim || L < 1 || spacing < 1 ||
-      static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
+  if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim || L < 1 ||
+      spacing < 1 || static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
       (gfn != kGfnLj && gfn != kGfnLjFast) || (f64 != 0 && lo != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* l = static_cast<const float*>(lo);

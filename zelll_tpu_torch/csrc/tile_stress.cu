@@ -62,7 +62,8 @@
 //      a broadcast and sets the lane's hit bit where the triangle, the band
 //      (with the band mask; the buffer is then swept at the end of each
 //      band) and 0 < dsq < csq hold; phase B computes the force factor of
-//      each hit and adds its six products to the lane's f64 sums.
+//      each hit and adds its six products to the lane's f64 sums (the
+//      sweep of stress_sweep.cuh, which K4 shares).
 // The prune drops no pair that counts (cluster_sweep.cuh says why; the
 // split threshold is a superset of the strict f32 rule), and
 // ops/cluster_prune.py's tile_cluster_entries(half=True) counts these
@@ -89,6 +90,7 @@
 #include <cstdint>
 
 #include "cluster_sweep.cuh"
+#include "stress_sweep.cuh"
 
 namespace {
 
@@ -98,25 +100,6 @@ constexpr int kClusters = kChunk / kWarp;  // per chunk: warps per block
 constexpr int kBuf = kWarp + kChunk;
 constexpr int kMaxBands = 5;
 constexpr int kMaxDim = 3;
-constexpr int kComps = 6;  // xx, xy, xz, yy, yz, zz
-constexpr int kGfnLj = 0;
-constexpr int kGfnLjFast = 1;
-
-__device__ __forceinline__ float recip_sqrt(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double recip_sqrt(double x) { return rsqrt(x); }
-
-template <int GFN, typename T>
-__device__ __forceinline__ T force_factor(T dsq) {
-  T inv;
-  if (GFN == kGfnLj) {
-    inv = T(1) / dsq;
-  } else {
-    const T r = recip_sqrt(dsq);
-    inv = r * r;
-  }
-  const T t = inv * inv * inv;
-  return T(24) * t * (T(2) * t - T(1)) * inv;
-}
 
 template <typename T>
 struct Args {
@@ -131,68 +114,6 @@ struct Args {
   T csq;
   double* partial;        // 6 per own chunk
 };
-
-// A lane: its own point, low parts and key, the slots it pairs with (entry
-// tag w pairs iff -1 <= w < -1 + span, as unsigned arithmetic tests it:
-// band 0's triangle w < i; the other bands carry w = -1; span = 0 for a
-// slot at or past n), and its six sums.
-template <typename T>
-struct StressLane {
-  typename Vec4Of<T>::type h;
-  float4 l;
-  int32_t key;
-  unsigned span;
-  double acc[kComps];
-};
-
-// Sweeps entries [0, cnt) of the warp's buffers (cnt <= 32, warp-uniform;
-// FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the
-// triangle, the band, 0 < dsq < csq), phase B adds the six products of each
-// hit, in ascending q.
-template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool FULL,
-          typename V = typename Vec4Of<T>::type>
-__device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
-                                             const float4* bl, const int32_t* bk,
-                                             int cnt, T csq, int32_t band_lo,
-                                             int32_t band_hi) {
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  unsigned hits = 0u;
-  auto hit = [&](int q) {
-    const V b = bh[q];
-    const T dsq = sep_dsq<SPLIT>(o.h, o.l, b, SPLIT ? bl[q] : zero);
-    bool m = static_cast<unsigned>(tag_from(b.w) + 1) < o.span && dsq < csq &&
-             dsq > T(0);
-    if (BANDMASK) {
-      const long long diff = static_cast<long long>(o.key) -
-                             static_cast<long long>(bk[q]);
-      m = m && diff >= band_lo && diff <= band_hi;
-    }
-    if (m) hits |= 1u << q;
-  };
-  if (FULL) {
-#pragma unroll
-    for (int q = 0; q < kWarp; ++q) hit(q);
-  } else {
-#pragma unroll 4
-    for (int q = 0; q < cnt; ++q) hit(q);
-  }
-  while (hits != 0u) {
-    const int q = __ffs(static_cast<int>(hits)) - 1;
-    hits &= hits - 1u;
-    T dx, dy, dz;
-    const T dsq = sep_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero, dx, dy, dz);
-    const T g = force_factor<GFN>(dsq);
-    const T g0 = g * dx;
-    const T g1 = g * dy;
-    const T g2 = g * dz;
-    o.acc[0] += static_cast<double>(g0 * dx);
-    o.acc[1] += static_cast<double>(g0 * dy);
-    o.acc[2] += static_cast<double>(g0 * dz);
-    o.acc[3] += static_cast<double>(g1 * dy);
-    o.acc[4] += static_cast<double>(g1 * dz);
-    o.acc[5] += static_cast<double>(g2 * dz);
-  }
-}
 
 // What the half-stencil walk of cluster_sweep.cuh asks of K8: the band,
 // the key plane beside the coordinates (band mask), and the sweep.
@@ -243,6 +164,7 @@ __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
   o.h = real ? load_point(a.pos, a.n, a.dim, i, 0) : vzero;
   o.l = SPLIT && real ? load_point(a.lo, a.n, a.dim, i, 0) : zero;
   o.key = a.keys[i];  // keys cover every launched chunk
+  o.jlo = -1;  // band 0's triangle: -1 <= w < i
   o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
 #pragma unroll
   for (int k = 0; k < kComps; ++k) o.acc[k] = 0.0;
