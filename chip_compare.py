@@ -97,8 +97,8 @@ MUTATIONS = {
         ("cluster_sweep.cuh", "return wi * wj == 0.0f && wi + wj >= 0.0f;",
          "return wi * wj == 0.0f && wi + wj > 0.0f;")]),
     "k6_payload_own_slot": ("pbc_tile_reduce", [
-        ("tile_reduce.cu", "wj[k] = KEEP && keep[k] ? a.w[j] : 0.0f;",
-         "wj[k] = KEEP && keep[k] ? o.pw : 0.0f;")]),
+        ("tile_reduce.cu", "wj[k] = PLANE && keep[k] ? a.w[j] : 0.0f;",
+         "wj[k] = PLANE && keep[k] ? o.pw : 0.0f;")]),
     # the lag histogram K5: the lag bound one short, an edge counted in its
     # own bin, the species mask dropped, the walk's last step skipped
     "k5_jlo_off_by_one": ("lag_hist", [
@@ -142,6 +142,48 @@ MUTATIONS = {
     "k2_dsq_positive_dropped": ("per_particle", [
         ("lag_per_particle.cu", "dsq < csq &&\n                   dsq > T(0);",
          "dsq < csq;")]),
+    # the term table (pair_table.cuh) in K1, K3, K6 and K7: shifted's
+    # constant dropped, the virial mode's dsq dropped, WCA's cut dropped,
+    # soft_sphere's power one multiply short, K7's table factor replaced by
+    # its LJ form
+    "table_shift_dropped": ("table_kernels", [
+        ("pair_table.cuh", "return table_energy(dsq, t) - t.shift;",
+         "return table_energy(dsq, t);")]),
+    "table_virial_dsq_dropped": ("table_kernels", [
+        ("pair_table.cuh", "return table_gfn(dsq, t) * dsq;", "return table_gfn(dsq, t);")]),
+    "table_wca_select_dropped": ("table_kernels", [
+        ("pair_table.cuh", "return dsq < p[3] ? v : 0.0f;", "return v;")]),
+    "table_soft_sphere_short": ("table_kernels", [
+        ("pair_table.cuh", "for (int k = 1; k < static_cast<int>(p[3]); ++k) w = w * x;\n"
+         "      return p[1] * w;",
+         "for (int k = 2; k < static_cast<int>(p[3]); ++k) w = w * x;\n"
+         "      return p[1] * w;")]),
+    "k7_table_factor_lj": ("table_kernels", [
+        ("tile_forces.cu", "GFN == kGfnTable ? table_gfn(dsq, tab) : force_factor<GFN>(dsq)",
+         "force_factor<GFN>(dsq)")]),
+    # the table's f32 operations differ from the torch function's by an
+    # ulp: Morse's exp through the __expf intrinsic, Yukawa's r-factor
+    # contracted into an FMA (the build's --fmad=false forbids that)
+    "table_expf_intrinsic": ("table_kernels", [
+        ("pair_table.cuh", "const float y = 1.0f - expf(p[1] * (sqrtf(dsq) - p[2]));",
+         "const float y = 1.0f - __expf(p[1] * (sqrtf(dsq) - p[2]));")]),
+    "table_fma_contracted": ("table_kernels", [
+        ("pair_table.cuh", "(p[2] * r + 1.0f)", "fmaf(p[2], r, 1.0f)")]),
+    # the species instances: the entry's species read from the neighbouring
+    # slot (K3), the lane's own from the slot before (K1, K6), species S - 1
+    # decoded as 0
+    "k3_species_neighbour_slot": ("species_kernels", [
+        ("lag_forces.cu", "const float b_s = SPEC && valid ? sp[j] : 0.0f;",
+         "const float b_s = SPEC && valid ? sp[j + 1 < a.n ? j + 1 : j] : 0.0f;")]),
+    "k1_species_own_slot": ("species_kernels", [
+        ("lag_reduce.cu", "o.pw = PLANE && real ? a.w[i] : 0.0f;",
+         "o.pw = PLANE && real ? a.w[i > 0 ? i - 1 : i] : 0.0f;")]),
+    "k6_species_own_slot": ("species_kernels", [
+        ("tile_reduce.cu", "o.pw = PLANE && real ? a.w[i] : 0.0f;",
+         "o.pw = PLANE && real ? a.w[i > 0 ? i - 1 : i] : 0.0f;")]),
+    "species_last_dropped": ("species_kernels", [
+        ("pair_table.cuh", "s < static_cast<float>(ns))",
+         "s < static_cast<float>(ns) - 1.0f)")]),
 }
 
 # the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
@@ -156,7 +198,11 @@ _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_ker
             "per_particle": "lag_pairs.load_per_particle_kernel()",
             "pbc_lag_reduce": "lag_pairs.load_kernel()",
             "pbc_lag_forces": "lag_pairs.load_forces_kernel()",
-            "pbc_tile_reduce": "tile_pairs.load_kernel()"}
+            "pbc_tile_reduce": "tile_pairs.load_kernel()",
+            "table_kernels": "lag_pairs.load_kernel(); lag_pairs.load_forces_kernel(); "
+                             "tile_pairs.load_kernel(); tile_pairs.load_forces_kernel()",
+            "species_kernels": "lag_pairs.load_kernel(); lag_pairs.load_forces_kernel(); "
+                               "tile_pairs.load_kernel()"}
 
 
 def emit(kind: str, **fields) -> None:

@@ -2373,8 +2373,11 @@ def pbc_sorted(pts: np.ndarray, box, kind: str, dev, *, B=None, G=None, BE=None,
         return (sp, slo, bins.sorted_keys, bins.info.strides, signs[:, 0].contiguous(), None,
                 None, ok)
     if kind == "both":
+        # B defaults to n / 2: the sorted-extremes path's merge region holds
+        # min(2 B, n) real rows, and at B = n its flag (the JAX package's)
+        # asks for an empty top cell
         bins, sp, slo, pay, reach, mib, ok = _minimage_bins(
-            hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=B or n,
+            hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=B or n // 2,
             G=G or n, positions_lo=lo, need_perm=False)
         return (sp.contiguous(), slo.contiguous(), bins.sorted_keys, bins.info.strides,
                 pay[:, 0].contiguous(), mib, reach, ok)
@@ -2735,12 +2738,16 @@ def pbc_main_path(dev, n: int) -> dict:
     open-boundary call of the same box, their ratio, B, G, BE, the lag
     bound, every flag (all must hold) and the launches of the timed
     calls and their warm-up, zeroed just before and read just after each
-    window, each exact."""
+    window, each exact. The thin ``minimage="auto"`` rebuild takes
+    `_minimage_bins`' sorted-extremes path; the same rebuild through its
+    general path (`minimage_general_sum`) is timed beside it, and the two
+    must give the same pair count and energy."""
     from zelll_tpu_torch.models import (
         MDState, md_run_skin, md_run_skin_pbc, md_run_skin_tile, md_run_skin_tile_pbc,
         md_step, md_step_cubic_tile,
     )
     from zelll_tpu_torch.ops.fused import fused_lj_rebuild_energy
+    from zelll_tpu_torch.ops.lag_pairs import combine_count, count_term, lj_term
     from zelll_tpu_torch.ops.pbc import (
         md_step_pbc, minimage_axes, pbc_pair_sum, suggest_pbc_capacity,
     )
@@ -2777,6 +2784,30 @@ def pbc_main_path(dev, n: int) -> dict:
     rebuild_cell("thin_minimage", lambda p: pbc_pair_sum(p, o, thin, CUTOFF, L=Lm, **kwm),
                  lambda p: fused_lj_rebuild_energy(p, CUTOFF, L=L_MAIN),
                  {"lag_reduce": 1}, dict(B=Bm, G=Gm, L=Lm))
+    # the same rebuild through _minimage_bins' general path (pbc_extend and
+    # the n + G row sort) on a copy of the inputs: the same pairs and energy
+    mimask = minimage_axes(thin, CUTOFF)
+    pos_of["thin_minimage_general"] = pos.clone()
+    rebuild_cell("thin_minimage_general",
+                 lambda p: minimage_general_sum(p, thin, mimask, Bm, Gm, Lm),
+                 lambda p: fused_lj_rebuild_energy(p, CUTOFF, L=L_MAIN),
+                 {"lag_reduce": 1}, dict(B=Bm, G=Gm, L=Lm))
+    same = {}
+    for term, out_dtype in ((count_term, torch.int32), (lj_term, torch.float64)):
+        fast, ok_f = pbc_pair_sum(pos, o, thin, CUTOFF, L=Lm, term=term, out_dtype=out_dtype,
+                                  **kwm)
+        gen, ok_g = minimage_general_sum(pos.clone(), thin, mimask, Bm, Gm, Lm, term=term,
+                                         out_dtype=out_dtype)
+        check(bool(ok_f) and bool(ok_g), "thin minimage flags (fast or general path)")
+        if out_dtype == torch.int32:
+            same["pairs"] = combine_count(fast)
+            check(combine_count(fast) == combine_count(gen),
+                  f"fast path pairs {combine_count(fast)} != general {combine_count(gen)}")
+        else:
+            same["energy_rel_diff"] = rel(float(fast), float(gen))
+            check(rel(float(fast), float(gen)) <= TOL_KERNEL,
+                  f"fast path energy {float(fast)} vs general {float(gen)}")
+    out["thin_minimage_fast_vs_general"] = same
     vel = torch.zeros_like(pos)
     md_thin = lambda s: md_step_pbc(s[0], s[1], o, thin, CUTOFF, MD_DT, L=Lm, **kwm)
     t = timed_call(lambda i: md_thin((pos, vel)), PBC_REPS, {"lag_forces": 1})
@@ -2843,6 +2874,783 @@ def pbc_main_path(dev, n: int) -> dict:
         del st
     return dict(n=n, cutoff=CUTOFF, dt=MD_DT, skin=MD_SKIN, cells=out,
                 max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+# -- pair potentials and species (the term table's instances) -----------------
+
+# The JAX package's potential tests: a jittered lattice of spacing 1.25 at
+# cutoff 2.5 and these parameters (tests/test_potentials.py), the shifted
+# LJ and lennard_jones(1, 1); the mixed pair of benchmarks/tpu_parity.py.
+POT_CUTOFF = 2.5
+POT_SPACING = 1.25
+MIXED_EPS, MIXED_SIGMA = (1.0, 0.5), (1.0, 1.2)
+# A table or species instance against its plain version on the card: each
+# instance repeats its torch function operation by operation on the same
+# f32 constants (the species table holds the function's own f32 pair
+# parameters; --fmad=false, IEEE division, the same expf), so its f32 terms
+# equal the plain version's and only the f64 sums' order differs: energies
+# to TOL_TABLE of the sum of |term|, forces per row to TOL_TABLE of the
+# row's sum of |g| |d|. A term one f32 ulp off (an FMA contraction, __expf)
+# moves these by about 1e-8; the largest readings on an H100 were 4.9e-16
+# (energies) and 1.2e-15 (rows).
+TOL_TABLE = 1e-12
+
+
+def table_potentials() -> dict:
+    from zelll_tpu_torch.ops import potentials as P
+
+    return {"lennard_jones": P.lennard_jones(0.7, 1.1), "wca": P.wca(0.7, 1.1),
+            "soft_sphere": P.soft_sphere(0.5, 1.2, n=8), "gaussian": P.gaussian(2.0, 0.8),
+            "morse": P.morse(1.3, 2.0, 1.1), "yukawa": P.yukawa(1.5, 0.7),
+            "buckingham": P.buckingham(1000.0, 0.3, 1.0), "harmonic": P.harmonic(3.0, 1.0),
+            "shifted_lj": P.shifted(P.lennard_jones(), POT_CUTOFF),
+            "lj_1_1": P.lennard_jones(1.0, 1.0)}
+
+
+def pot_lattice(n: int, rng) -> np.ndarray:
+    """A jittered thin lattice of spacing POT_SPACING (+-0.2), 8 x 8 x n/64
+    points."""
+    shape = (8, 8, max(n // 64, 8))
+    cells = np.stack(np.meshgrid(*[np.arange(s) for s in shape], indexing="ij"), -1)
+    pts = (cells.reshape(-1, 3) + 0.5) * POT_SPACING
+    return pts + rng.uniform(-0.2, 0.2, pts.shape)
+
+
+def pot_cases(n: int, dev, rng) -> dict:
+    """Sorted split inputs at POT_CUTOFF: the lattice and the prune's hard
+    inputs on it (the facing clusters of `cluster_gap`, and the lattice
+    drifted by up to 0.1 since its keys were built). Each (hi, lo, keys,
+    info)."""
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+    from zelll_tpu_torch.utils.datagen import cluster_gap
+
+    shi, slo, keys, info, _ = sort_split(pot_lattice(n, rng), dev, POT_CUTOFF)
+    p64 = shi.double() + slo.double()
+    gap = cluster_gap(p64.cpu().numpy(), POT_CUTOFF, (128 * 8, 128 * 40))
+    drift = p64 + torch.as_tensor(rng.uniform(-0.1, 0.1, tuple(p64.shape)), device=dev)
+    return {"lattice": (shi, slo, keys, info),
+            "cluster_gap": (*split_f64(torch.as_tensor(gap, device=dev)), keys, info),
+            "drifted": (*split_f64(drift), keys, info)}
+
+
+def abs_term(term):
+    def f(dsq, *pay):
+        return term(dsq, *pay).abs()
+    return f
+
+
+def energy_check(got, want, scale, what) -> float:
+    """|got - want| against TOL_TABLE of the sum of |term|."""
+    err = abs(float(got) - float(want)) / max(float(scale), np.finfo(np.float64).tiny)
+    check(np.isfinite(float(got)) and err <= TOL_TABLE,
+          f"table energy {float(got)} vs plain {float(want)}: {err} ({what})")
+    return err
+
+
+def row_check(got, want, scale, what, tol: float = TOL_TABLE) -> float:
+    """Each row's |f - f_want| against ``tol`` of its scale (the plain
+    version's rows: TOL_TABLE of the row's sum of |g| |d|)."""
+    err = (got.double() - want.double()).norm(dim=1)
+    worst = float((err / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
+    check(np.isfinite(worst) and worst <= tol, f"table forces per row {worst} ({what})")
+    return worst
+
+
+def force_row_scale(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo=None,
+                    sorted_payload=None, *, L: int, gfn, mi_box=None, key_reach=None):
+    """Each row's f64 sum of |g| |d| over the pairs `pair_lag_forces_plain`
+    takes (its key window, separations, minimum image and cutoff test):
+    the scale a row's force error is held to where its terms cancel."""
+    from zelll_tpu_torch.core import key_window
+    from zelll_tpu_torch.ops.lag_pairs import (
+        _lag_separations, _mi_box, _pad_and_desentinel, split_cutoff_test,
+    )
+
+    n = sorted_pos.shape[0]
+    device, dtype = sorted_pos.device, sorted_pos.dtype
+    keys = _pad_and_desentinel(sorted_keys, n)
+    w = key_window(strides, key_reach).to(device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
+    pay = None if sorted_payload is None else sorted_payload.to(dtype)
+    mib = _mi_box(mi_box, device)
+    out = torch.zeros((n,), dtype=torch.float64, device=device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break
+        d, dsq, shifts = _lag_separations(sorted_pos, sorted_pos_lo, lag, mib)
+        inside = dsq < csq
+        if sorted_pos_lo is not None:
+            inside = split_cutoff_test(
+                inside, dsq, csq, sorted_pos[lag:].unbind(1), sorted_pos[:-lag].unbind(1),
+                sorted_pos_lo[lag:].unbind(1), sorted_pos_lo[:-lag].unbind(1),
+                None if shifts is None else shifts.unbind(1))
+        mask = keymask & inside & (dsq > 0)
+        safe = torch.where(mask, dsq, torch.ones_like(dsq))
+        g = gfn(safe) if pay is None else gfn(safe, *pay[lag:].unbind(1), *pay[:-lag].unbind(1))
+        m = torch.where(mask, g, torch.zeros_like(g)).double().abs() * d.double().norm(dim=1)
+        out[lag:] += m
+        out[:-lag] += m
+    return out
+
+
+def species_plane(n: int, rng, dev, odd: bool = True) -> torch.Tensor:
+    """Species 0 and 1 at random; with ``odd``, every tenth row one of the
+    values the JAX rule maps to species 0 for two species (2 = S, -1, 0.5)
+    or keeps (1 = S - 1)."""
+    s = rng.integers(0, 2, n).astype(np.float64)
+    if odd:
+        vals = np.array([1.0, 2.0, -1.0, 0.5])
+        s[::10] = vals[rng.integers(0, 4, len(s[::10]))]
+    return torch.as_tensor(s, dtype=torch.float32, device=dev)
+
+
+def potentials_vs_plain(dev, n: int) -> dict:
+    """Every factory of ops.potentials (the JAX tests' parameters, the
+    shifted LJ and lennard_jones(1, 1)) and the mixed pair through the new
+    instances of K1, K3, K6 and K7 against the plain version on the card,
+    at n = 1e6 on a jittered thin lattice at POT_CUTOFF (8 x 8 cells of
+    1.25 across): f32 and split in turns by factory (each kernel's f32 and
+    split table instances run), energy and virial modes, K6 and K7 with
+    and without the band mask in turns, K3 and K7 to f64 and f32 outputs;
+    the species instances (K1 and K6 f32, K3 f32 and split) over a plane
+    holding 0, 1 and the values the JAX rule maps (2, -1, 0.5); the
+    prune's hard inputs (the facing clusters, the drifted lattice) with
+    the LJ and Morse terms in both modes, through K1 and K3 (their keys are
+    the lattice's, so the tile windows hold other pairs than the lag
+    window: the card tests hold K6 and K7 to their own plain versions
+    there); the periodic instances on the
+    lattice's own box (ghost images: K1 and K6 with the keep mask;
+    ``minimage="auto"``: K1 with both rules, K3 with the minimum image).
+    The plain reference of every kernel is the lag path's plain version
+    on the same sorted inputs (`pair_lag_reduce_plain`,
+    `pair_lag_forces_plain`): K6 and K7 sum the same pairs, and their own
+    plain versions (held to them on the card tests' 2e4 points) take
+    about 100 times as long here. Energies to TOL_TABLE of the sum of
+    |term|, forces per row to TOL_TABLE of the row's sum of |g| |d|."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcKeepTerm, pair_lag_forces, pair_lag_forces_plain, pair_lag_reduce,
+        pair_lag_reduce_plain, split_f64, suggest_lag,
+    )
+    from zelll_tpu_torch.ops.pbc import _ghost_bins, _minimage_bins
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed
+    from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
+    from zelll_tpu_torch.ops.virial import virial_term_from_gfn
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(3)
+    f64 = torch.float64
+    csq = torch.tensor(POT_CUTOFF, dtype=torch.float32) ** 2
+    pots = table_potentials()
+    mixed = lennard_jones_mixed(MIXED_EPS, MIXED_SIGMA)
+    hard = ("lennard_jones", "morse")
+    worst = {"energy": 0.0, "forces_row": 0.0}
+    checked = dict.fromkeys(("K1", "K3", "K6", "K7"), 0)
+
+    def note(kind, kernel, err):
+        worst[kind] = max(worst[kind], err)
+        checked[kernel] += 1
+
+    def energies(args, term, what, pay=None, tile=None, **kw):
+        """K1 (and K6 with ``tile``, its kwargs) against the lag plain sum."""
+        lag = args if pay is None else args + (pay,)
+        want = pair_lag_reduce_plain(*lag, term=term, out_dtype=f64, **kw)
+        absum = pair_lag_reduce_plain(
+            *lag, out_dtype=f64, **kw,
+            term=PbcKeepTerm(abs_term(term.term)) if isinstance(term, PbcKeepTerm)
+            else abs_term(term))
+        note("energy", "K1", energy_check(pair_lag_reduce(*lag, term=term, out_dtype=f64,
+                                                          **kw), want, absum, f"K1 {what}"))
+        if tile is not None:
+            tpay = None if pay is None else pay.reshape(-1)
+            got, ok = tile_pair_reduce(*args, tpay, term=term, out_dtype=f64, **tile)
+            check(bool(ok), f"K6 coverage ({what})")
+            note("energy", "K6", energy_check(got, want, absum, f"K6 {what} {tile}"))
+
+    def forces(args, gfn, what, pay=None, tile=None, **kw):
+        """K3 (and K7 with ``tile``) against the lag plain forces, per row."""
+        lag = args if pay is None else args + (pay,)
+        want = pair_lag_forces_plain(*lag, gfn=gfn, out_dtype=f64, **kw)
+        scale = force_row_scale(*lag, gfn=gfn, **kw)
+        note("forces_row", "K3", row_check(pair_lag_forces(*lag, gfn=gfn, out_dtype=f64, **kw),
+                                           want, scale, f"K3 {what}"))
+        check(bool(torch.isfinite(pair_lag_forces(*lag, gfn=gfn, **kw)).all()),
+              f"K3 f32 forces ({what})")
+        if tile is not None:
+            got, ok = tile_pair_forces(*args, gfn=gfn, out_dtype=f64, **tile)
+            check(bool(ok), f"K7 coverage ({what})")
+            note("forces_row", "K7", row_check(got, want, scale, f"K7 {what} {tile}"))
+            f32, _ = tile_pair_forces(*args, gfn=gfn, **tile)
+            check(bool(torch.isfinite(f32).all()), f"K7 f32 forces ({what})")
+
+    reset_launches()
+    for name, (shi, slo, keys, info) in pot_cases(n, dev, rng).items():
+        strides = info.strides
+        L = suggest_lag(keys, strides)
+        maxj = probe_maxj(keys, strides)
+        fmaxj = probe_maxj(keys, strides, full=True)
+        for k, (pname, pot) in enumerate(pots.items()):
+            if name != "lattice" and pname not in hard:
+                continue
+            for split in ((False, True) if pname in hard else ((k % 2) == 1,)):
+                what = f"{name} {pname} {'split' if split else 'f32'}"
+                args = (shi, keys, strides, csq, slo if split else None)
+                bandmask = (k // 2) % 2 == 1
+                # the hard inputs keep the lattice's keys: the lag and tile
+                # windows then hold other pairs, so K6 and K7 run there on
+                # the card tests (against their own plain versions)
+                tile = name == "lattice"
+                for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                    energies(args, term, what, L=L,
+                             tile=dict(MAXJ=maxj, bandmask=bandmask) if tile else None)
+                forces(args, pot.gfn, what, L=L,
+                       tile=dict(MAXJ=fmaxj, bandmask=bandmask) if tile else None)
+        # the species instances: K1 and K6 f32, K3 f32 and split
+        sp = species_plane(shi.shape[0], rng, dev)
+        for bandmask in ((False, True) if name == "lattice" else (None,)):
+            energies((shi, keys, strides, csq, None), mixed.term, f"species {name}",
+                     pay=sp[:, None], L=L,
+                     tile=None if bandmask is None else dict(MAXJ=maxj, bandmask=bandmask))
+        for plo in (None, slo):
+            forces((shi, keys, strides, csq, plo), mixed.gfn, f"species {name}",
+                   pay=sp[:, None], L=L)
+        if name == "lattice":
+            pts = (shi.double() + slo.double()).cpu().numpy()
+    # the periodic instances on the lattice's own box
+    box = np.ceil(pts.max(0) / POT_SPACING) * POT_SPACING
+    hi, lo = split_f64(torch.as_tensor(np.mod(pts, box), device=dev))
+    m = hi.shape[0]
+    gbins, gsp, gslo, signs, ok = _ghost_bins(hi, [0.0] * 3, box, POT_CUTOFF, B=m, G=3 * m,
+                                              BE=m, positions_lo=lo, need_perm=False)
+    check(bool(ok), "ghost images of the potentials' lattice")
+    # B as suggested (the sorted-extremes path takes B < 2^18 rows)
+    mbins, msp, mslo, mpay, reach, mbox, ok = _minimage_bins(
+        hi, [0.0] * 3, box, POT_CUTOFF, np.array([True, True, False]), B=None, G=None,
+        positions_lo=lo, need_perm=False)
+    check(bool(ok), "minimum-image bins of the potentials' lattice")
+    gL = suggest_lag(gbins.sorted_keys, gbins.info.strides)
+    gmaxj = probe_maxj(gbins.sorted_keys, gbins.info.strides)
+    mL = suggest_lag(mbins.sorted_keys, mbins.info.strides, reach=reach)
+    for pname in hard:
+        pot = pots[pname]
+        for split in (False, True):
+            what = f"{pname} split={split}"
+            gargs = (gsp, gbins.sorted_keys, gbins.info.strides, csq, gslo if split else None)
+            margs = (msp, mbins.sorted_keys, mbins.info.strides, csq, mslo if split else None)
+            mkw = dict(L=mL, mi_box=mbox, key_reach=reach)
+            for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                energies(gargs, PbcKeepTerm(term), f"keep {what}", pay=signs, L=gL,
+                         tile=dict(MAXJ=gmaxj, bandmask=split))
+                energies(margs, PbcKeepTerm(term), f"keep + minimum image {what}", pay=mpay,
+                         **mkw)
+            forces(margs, pot.gfn, f"minimum image {what}", **mkw)
+    counts = read_launches()
+    for k in ("lag_reduce", "lag_forces", "tile_reduce", "tile_forces"):
+        check(counts[k] > 0, f"potentials_vs_plain never launched {k}")
+    return dict(n=n, cutoff=POT_CUTOFF, spacing=POT_SPACING, potentials=list(pots),
+                max_energy_err_of_abs_sum=worst["energy"],
+                max_force_row_err=worst["forces_row"], checks=checked,
+                check_launches={k: v for k, v in counts.items() if v},
+                seconds=time.perf_counter() - t_start)
+
+
+def species_reference(pts: np.ndarray, spec: np.ndarray, box, cutoff: float):
+    """Exact-f64 minimum-image mixed-LJ forces of points in [0, box) with
+    species ids (0 or 1): numpy ghost images (every image within ``cutoff``
+    of a face, with its parent's species) and the oracle's pair list, with
+    the pair parameters (eps_ij, sigma_ij) as the f32 potential holds them.
+    Returns (forces, each row's scale: the sum over its pairs of both LJ
+    parts' magnitudes, 24 eps_ij t (2t + 1) / dsq |d|)."""
+    from itertools import product
+
+    from zelll_tpu_torch import oracle
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed, species_table
+
+    n = len(pts)
+    box = np.asarray(box, np.float64)
+    low, high = pts < cutoff, pts >= box - cutoff
+    shift = np.where(low, box, np.where(high, -box, 0.0))
+    ext, parent = [pts], [np.arange(n)]
+    for m in product((0, 1), repeat=3):
+        if any(m):
+            m = np.asarray(m, bool)
+            sel = np.all((low | high)[:, m], axis=1)
+            ext.append(pts[sel] + np.where(m, shift[sel], 0.0))
+            parent.append(np.flatnonzero(sel))
+    ext, parent = np.concatenate(ext), np.concatenate(parent)
+    s = spec.astype(np.int64)[parent]
+    # the pair parameters as the f32 potential holds them (species_table)
+    S = len(MIXED_EPS)
+    table = np.asarray(species_table(lennard_jones_mixed(MIXED_EPS, MIXED_SIGMA).gfn.table),
+                       np.float64).reshape(S, S, 2)
+    i, j = oracle.pairs(ext, cutoff)
+    i, j = i.astype(np.int64), j.astype(np.int64)
+    d = ext[i] - ext[j]
+    dsq = (d * d).sum(1)
+    e_ij = table[s[i], s[j], 0]
+    s_ij = table[s[i], s[j], 1]
+    t = (s_ij * s_ij / dsq) ** 3
+    g = 24.0 * e_ij * t * (2.0 * t - 1.0) / dsq
+    f = np.zeros((len(ext), 3))
+    for a in range(3):
+        f[:, a] = np.bincount(i, g * d[:, a], len(ext)) - np.bincount(j, g * d[:, a], len(ext))
+    # both LJ parts' magnitudes, as `periodic_reference` scales a row: near
+    # the minimum they cancel in g, and f32 keeps their rounding
+    size = 24.0 * e_ij * t * (2.0 * t + 1.0) / dsq * np.sqrt(dsq)
+    scale = np.bincount(i, size, len(ext)) + np.bincount(j, size, len(ext))
+    return f[:n], scale[:n]
+
+
+def species_pbc(dev, n: int) -> dict:
+    """`pbc_lj_forces(species=)` with ``minimage=False`` (ghost images on
+    every axis, K3's species factor) and ``"auto"`` (x and y folded, z
+    ghosts, K3's species factor with the minimum image) at n = 1e6 on the
+    thin box, split coordinates of f64 points, the uniform cloud and a
+    jittered lattice, species 0 and 1 from default_rng(0), the mixed pair:
+    each row of the entry point's forces against `species_reference` (to
+    TOL_ROW of the row's scale there, both LJ parts' magnitudes), and K3
+    against its plain version on the card on the sorted inputs the entry
+    point builds (`_ghost_bins` / `_minimage_bins` with the species as
+    their extra column; to TOL_TABLE of each row's sum of |g| |d|)."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        pair_lag_forces, pair_lag_forces_plain, split_f64,
+    )
+    from zelll_tpu_torch.ops.pbc import (
+        _ghost_bins, _minimage_bins, minimage_axes, pbc_lj_forces, suggest_pbc_capacity,
+    )
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
+
+    mixed = lennard_jones_mixed(MIXED_EPS, MIXED_SIGMA)
+    box = np.asarray(lj_box(n, CUTOFF))
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    out = {}
+    for cloud, make in (("uniform", generate_points_random),
+                        ("lattice", generate_points_lattice)):
+        pts = np.mod(make(n, box), box)
+        spec = np.random.default_rng(0).integers(0, 2, len(pts)).astype(np.float64)
+        f_ref, scale = species_reference(pts, spec, box, CUTOFF)
+        hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+        sp = torch.as_tensor(spec, dtype=torch.float32, device=dev)
+        for mi in (False, "auto"):
+            kw = dict(gfn=mixed.gfn, minimage=mi, positions_lo=lo, species=sp)
+            L = probe_pbc_lag(lambda L: pbc_lj_forces(hi, [0.0] * 3, box, CUTOFF, L=L,
+                                                      **kw)[1], L_MAIN)
+            reset_launches()
+            f, ok = pbc_lj_forces(hi, [0.0] * 3, box, CUTOFF, L=L, **kw)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check(bool(ok) and launches["lag_forces"] == 1,
+                  f"species_pbc flags or launches {launches} ({cloud} {mi})")
+            vs_ref = row_check(f.double().cpu(), torch.as_tensor(f_ref), torch.as_tensor(scale),
+                               f"species_pbc reference {cloud} {mi}", tol=TOL_ROW)
+            # the kernel against its plain version on the entry point's inputs
+            if mi:
+                mask = minimage_axes(box, CUTOFF)
+                B, G = suggest_pbc_capacity(n, box, CUTOFF, axes=~mask)
+                bins, spos, slo, _, reach, mib, okb, spay = _minimage_bins(
+                    hi, [0.0] * 3, box, CUTOFF, mask, B=B, G=G, positions_lo=lo,
+                    need_perm=False, extra=sp)
+                fk = dict(mi_box=mib, key_reach=reach)
+            else:
+                B, G, BE = suggest_pbc_capacity(n, box, CUTOFF, with_multi=True)
+                bins, spos, slo, _, okb, spay = _ghost_bins(
+                    hi, [0.0] * 3, box, CUTOFF, B=B, G=G, BE=BE, positions_lo=lo,
+                    need_perm=False, signs=False, extra=sp)
+                fk = {}
+            check(bool(okb), f"species_pbc sorted inputs ({cloud} {mi})")
+            args = (spos, bins.sorted_keys, bins.info.strides, csq, slo, spay)
+            got = pair_lag_forces(*args, L=L, gfn=mixed.gfn, out_dtype=torch.float64, **fk)
+            want = pair_lag_forces_plain(*args, L=L, gfn=mixed.gfn, out_dtype=torch.float64,
+                                         **fk)
+            rscale = force_row_scale(*args, L=L, gfn=mixed.gfn, **fk)
+            vs_plain = row_check(got, want, rscale, f"species_pbc plain {cloud} {mi}")
+            out[f"{cloud}_{'minimage' if mi else 'ghosts'}"] = dict(
+                n=n, L=L, row_err_vs_plain=vs_plain, row_err_vs_reference=vs_ref,
+                launches={k: v for k, v in launches.items() if v})
+    return out
+
+
+def species_main_path(dev, n: int) -> dict:
+    """This slice's path at full size: the thin MD protocol's start state
+    (`md_states` on lj_box(1e7): 8,617,716 lattice points, cutoff 10),
+    species uniform in {0, 1} from default_rng(0), the mixed pair of
+    tpu_parity.py. `md_step_species` for MD_STEPS steps (one warm-up) and
+    `md_run_species` over 10 steps: step ms by CUDA events and host ms,
+    the launches of each window (zeroed just before, read just after,
+    exact: one K3 a step, one K1 a run), the device's busy share from the
+    profiler, peak memory; then K3's and K1's species instances alone on
+    the sorted species state (ms, bound, a plain call's ms at 1e6) and K3
+    against its plain version there (f64 outputs, per row)."""
+    from zelll_tpu_torch.core import key_window
+    from zelll_tpu_torch.models import md_run_species, md_step_species
+    from zelll_tpu_torch.ops.lag_pairs import (
+        combine_count, count_term, pair_lag_forces, pair_lag_forces_plain, pair_lag_reduce,
+        pair_lag_reduce_plain,
+    )
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed
+    from zelll_tpu_torch.utils.datagen import lj_box
+
+    pot = lennard_jones_mixed(MIXED_EPS, MIXED_SIGMA)
+    _, st, _ = md_states(n, lj_box(n, CUTOFF), dev)
+    n = st.positions.shape[0]
+    spec = torch.as_tensor(np.random.default_rng(0).integers(0, 2, n), dtype=torch.float32,
+                           device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = [spec]
+
+    def step(s):
+        s, held[0], ok = md_step_species(s, held[0], CUTOFF, MD_DT, pot=pot, L=L_MAIN)
+        return s, ok
+
+    reset_launches()
+    t, st2 = time_steps(step, st, MD_STEPS)
+    spec2 = held[0]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = {k: (MD_STEPS + 1) * (k == "lag_forces") for k in counts}
+    check(counts == want, f"md_step_species launches {counts} != {want}")
+    t["launches"] = {k: v for k, v in counts.items() if v}
+    reset_launches()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    st3, spec3, ok, energy = md_run_species(st, spec, CUTOFF, MD_DT, pot=pot, steps=10,
+                                            L=L_MAIN)
+    end.record()
+    end.synchronize()
+    run_host = (time.perf_counter() - t_host) * 1e3
+    counts = read_launches()
+    want = {k: {"lag_forces": 10, "lag_reduce": 1}.get(k, 0) for k in counts}
+    check(counts == want, f"md_run_species launches {counts} != {want}")
+    check(bool(ok) and np.isfinite(float(energy)), "md_run_species flag or energy")
+    check(torch.equal(torch.sort(spec3)[0], torch.sort(spec)[0]),
+          "the species column lost or changed rows")
+    peak = torch.cuda.max_memory_allocated()
+    run = dict(steps=10, run_ms=start.elapsed_time(end), host_ms=run_host,
+               energy=float(energy), energy_per_atom=float(energy) / n,
+               launches={k: v for k, v in counts.items() if v})
+    ph = [st, spec]
+
+    def profiled(i):
+        ph[0], ph[1], _ = md_step_species(ph[0], ph[1], CUTOFF, MD_DT, pot=pot, L=L_MAIN)
+
+    prof = profile_steps(profiled)
+    del ph
+    # K3's and K1's species instances alone on the sorted species state
+    shi, _, keys, info, perm = sort_split(st2.positions.double().cpu().numpy(), dev)
+    sp = spec2[perm][:, None]
+    strides = info.strides
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    pairs = combine_count(pair_lag_reduce(shi, keys, strides, csq, L=L_MAIN, term=count_term,
+                                          out_dtype=torch.int32))
+    candidates = stencil_candidates(keys, info)
+    first = torch.searchsorted(keys, keys - key_window(strides))
+    window = int(torch.clamp(torch.arange(n, device=dev) - first, max=L_MAIN).sum())
+    k3_ms = cuda_ms(lambda: pair_lag_forces(shi, keys, strides, csq, None, sp, L=L_MAIN,
+                                            gfn=pot.gfn), 10)
+    k1_ms = cuda_ms(lambda: pair_lag_reduce(shi, keys, strides, csq, None, sp, L=L_MAIN,
+                                            term=pot.term), 10)
+    got = pair_lag_forces(shi, keys, strides, csq, None, sp, L=L_MAIN, gfn=pot.gfn,
+                          out_dtype=torch.float64)
+    want = pair_lag_forces_plain(shi, keys, strides, csq, None, sp, L=L_MAIN, gfn=pot.gfn,
+                                 out_dtype=torch.float64)
+    scale = force_row_scale(shi, keys, strides, csq, None, sp, L=L_MAIN, gfn=pot.gfn)
+    k3_row = row_check(got, want, scale, "K3 species on the MD state")
+    k3_abs = float((got - want).abs().max())
+    e_k = pair_lag_reduce(shi, keys, strides, csq, None, sp, L=L_MAIN, term=pot.term,
+                          out_dtype=torch.float64)
+    e_p = pair_lag_reduce_plain(shi, keys, strides, csq, None, sp, L=L_MAIN, term=pot.term,
+                                out_dtype=torch.float64)
+    e_s = pair_lag_reduce_plain(shi, keys, strides, csq, None, sp, L=L_MAIN,
+                                term=abs_term(pot.term), out_dtype=torch.float64)
+    k1_err = energy_check(e_k, e_p, e_s, "K1 species on the MD state")
+    m = N_PARITY
+    k3_plain_ms = once_ms(lambda: pair_lag_forces_plain(shi[:m], keys[:m], strides, csq, None,
+                                                        sp[:m], L=L_MAIN, gfn=pot.gfn))[0]
+    k1_plain_ms = once_ms(lambda: pair_lag_reduce_plain(shi[:m], keys[:m], strides, csq, None,
+                                                        sp[:m], L=L_MAIN, term=pot.term))[0]
+    # the species instances' work: the LJ instances' and one more plane
+    k3_b = bound(n * 4 * (3 + 1 + 1 + 3),
+                 candidates * INSTR_PER_CANDIDATE[False] + pairs * INSTR_PER_FORCE_PAIR)
+    k1_b = bound(n * 4 * (3 + 1 + 1),
+                 window * INSTR_PER_CANDIDATE[False] + pairs * INSTR_PER_PAIR)
+    return dict(n=n, cutoff=CUTOFF, dt=MD_DT, species="uniform {0, 1}, default_rng(0)",
+                eps=MIXED_EPS, sigma=MIXED_SIGMA, md_step_species=t, md_run_species=run,
+                profile=prof, max_memory_allocated=peak, pairs=pairs,
+                K3_species=dict(ms=k3_ms, plain_ms=k3_plain_ms, plain_n=m, **k3_b,
+                                share_of_bound=k3_b["bound_ms"] / k3_ms, max_abs_err=k3_abs,
+                                row_err=k3_row),
+                K1_species=dict(ms=k1_ms, plain_ms=k1_plain_ms, plain_n=m, **k1_b,
+                                share_of_bound=k1_b["bound_ms"] / k1_ms,
+                                max_abs_err=abs(float(e_k) - float(e_p)),
+                                err_of_abs_sum=k1_err))
+
+
+def minimage_general_sum(pos, box, mimask, B, G, L, term=None, out_dtype=None):
+    """`pbc_pair_sum(minimage="auto")`'s lag path with `_minimage_bins`'
+    general path in place of the sorted-extremes one: (total, ok)."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcKeepTerm, lag_coverage_ok, lj_term, pair_lag_reduce,
+    )
+    from zelll_tpu_torch.ops.pbc import _minimage_bins_general
+
+    bins, sp, slo, pay, reach, mi_box, ok = _minimage_bins_general(
+        pos, [0.0] * 3, box, CUTOFF, mimask, B=B, G=G, positions_lo=None, need_perm=False)
+    total = pair_lag_reduce(sp, bins.sorted_keys, bins.info.strides,
+                            torch.tensor(CUTOFF, dtype=pos.dtype) ** 2, slo, pay, L=L,
+                            term=PbcKeepTerm(term or lj_term), out_dtype=out_dtype,
+                            mi_box=mi_box, key_reach=reach)
+    return total, ok & lag_coverage_ok(bins.sorted_keys, bins.info.strides, L, reach=reach)
+
+
+def table_rows(spm, pmp) -> list:
+    """The kernels line's rows of the term table's instances (from
+    `potentials_main_path`: launches counted on its calls, ms, plain ms and
+    bound on the sorted inputs its calls build) and of the species
+    instances (timed on `species_main_path`'s sorted state; launches from
+    its MD run)."""
+    rows = []
+    for name, src, replaces, key in (
+            ("lag_reduce_table", "lag_reduce", "zelll_tpu/ops/pallas_pairs.py:230", "K1"),
+            ("lag_forces_table", "lag_forces", "zelll_tpu/ops/pallas_pairs.py:583", "K3"),
+            ("tile_reduce_table", "tile_reduce", "zelll_tpu/ops/tile_pairs.py:259", "K6"),
+            ("tile_forces_table", "tile_forces", "zelll_tpu/ops/tile_pairs.py:1025", "K7")):
+        row = pmp["kernels"][key]
+        rows.append(dict(name=name, route="cuda", source=f"zelll_tpu_torch/csrc/{src}.cu",
+                         replaces=replaces, instance=row["instance"],
+                         launches=pmp["launches"][src], max_abs_err=row["max_abs_err"],
+                         err_of_scale=row["err_of_scale"], ms=row["ms"],
+                         lj_instance_ms=row["lj_ms"], plain_ms=row["plain_ms"],
+                         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                         share_of_bound=row["share_of_bound"], n=row["rows"],
+                         library_ms=None))
+    for name, src, replaces, row, launches in (
+            ("lag_reduce_species", "lag_reduce", "zelll_tpu/ops/pallas_pairs.py:230",
+             spm["K1_species"], spm["md_run_species"]["launches"]["lag_reduce"]),
+            ("lag_forces_species", "lag_forces", "zelll_tpu/ops/pallas_pairs.py:583",
+             spm["K3_species"], spm["md_step_species"]["launches"]["lag_forces"]
+             + spm["md_run_species"]["launches"]["lag_forces"])):
+        rows.append(dict(name=name, route="cuda", source=f"zelll_tpu_torch/csrc/{src}.cu",
+                         replaces=replaces, instance="species plane, lennard_jones_mixed, f32",
+                         launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
+                         plain_ms=row["plain_ms"], plain_n=row["plain_n"],
+                         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                         share_of_bound=row["share_of_bound"], n=spm["n"], library_ms=None))
+    return rows
+
+
+def potentials_main_path(dev, n: int) -> dict:
+    """The table instances through the entry points a user calls, at
+    n = 1e7: `fused_lj_rebuild_energy` with the shifted LJ and
+    `virial_rebuild` with the LJ gfn (K1 table, energy and virial modes,
+    split, on the thin uniform cloud), `md_step_pbc` with the LJ gfn and
+    ``minimage="auto"`` (K3 table with the minimum image, f32, thin box),
+    `tile_lj_rebuild_energy` with the shifted LJ (K6 table) and
+    `tile_pair_forces` with the LJ gfn (K7 table) on the cubic MD start
+    state (9,938,375 lattice points). Each call's launches are zeroed just
+    before it and read just after (exactly one of its kernel), and
+    ``launches`` sums them by kernel. Then on the sorted inputs each call
+    builds: the kernel against its plain version (K1 and K6 energies to
+    TOL_TABLE of the sum of |term|, K3 rows to TOL_TABLE of each row's sum
+    of |g| |d|, K7 to TOL_TABLE of the lattice's largest force: the cube's
+    per-row scale would need a lag window of millions), the table
+    instance's ms beside the LJ instance's (lennard_jones() is
+    lennard_jones(1, 1), the LJ instance `lj_term` / `lj_force_factor`;
+    K6 and K7 through their launch functions on the tile inputs), one
+    plain call's ms, and the bound of that work."""
+    from zelll_tpu_torch.core import GridInfo, aabb_from_positions, compute_keys
+    from zelll_tpu_torch.ops.fused import fused_lj_rebuild_energy
+    from zelll_tpu_torch.ops.lag_pairs import (
+        combine_count, count_term, lj_term, pair_lag_forces, pair_lag_forces_plain,
+        pair_lag_reduce, pair_lag_reduce_plain, split_f64,
+    )
+    from zelll_tpu_torch.ops.lj import lj_force_factor
+    from zelll_tpu_torch.ops.pbc import (
+        _minimage_bins, md_step_pbc, minimage_axes, suggest_pbc_capacity,
+    )
+    from zelll_tpu_torch.ops.potentials import lennard_jones, shifted
+    from zelll_tpu_torch.ops.tile_pairs import (
+        forces_tiles, reduce_tiles, tile_inputs, tile_lj_rebuild_energy, tile_pair_forces,
+        tile_pair_forces_plain, tile_pair_reduce, tile_pair_reduce_plain,
+    )
+    from zelll_tpu_torch.ops.virial import virial_rebuild, virial_term_from_gfn
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    lj, slj = lennard_jones(), shifted(lennard_jones(), CUTOFF)
+    f64 = torch.float64
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    thin = np.asarray(lj_box(n, CUTOFF))
+    pts = generate_points_random(n, thin)
+    hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+    calls, kernels = {}, {}
+    launches = dict.fromkeys(("lag_reduce", "lag_forces", "tile_reduce", "tile_forces"), 0)
+
+    def call(name, fn, kernel):
+        reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        others = sum(v for k, v in counts.items() if k != kernel)
+        check(counts[kernel] == 1 and others == 0,
+              f"{name}: expected one launch of {kernel} alone, counted {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        flags = [x for x in (r if isinstance(r, tuple) else (r,)) if x.dtype == torch.bool]
+        check(all(bool(f) for f in flags), f"a flag is False ({name})")
+        ms, _ = once_ms(fn)
+        calls[name] = dict(ms=ms, launches={k: v for k, v in counts.items() if v})
+        return r
+
+    def energy_vs_plain(kernel, fn, plain, abs_plain, what):
+        """An energy kernel's f64 total against its plain version's."""
+        plain_ms, want = once_ms(plain)
+        got = fn()
+        err = energy_check(got, want, abs_plain(), f"{kernel} {what} at the main path's inputs")
+        return dict(plain_ms=plain_ms, max_abs_err=abs(float(got) - float(want)),
+                    err_of_scale=err)
+
+    def timed(row, table, checked, b, lj, **extra):
+        """A kernel's row: the table instance's ms and the LJ instance's
+        (``lj``) on the same inputs, the check's plain ms and errors, the
+        bound of the work."""
+        ms = cuda_ms(table, 10)
+        row.update(ms=ms, lj_ms=cuda_ms(lj, 10), **checked, **b,
+                   share_of_bound=b["bound_ms"] / ms, **extra)
+        return row
+
+    # K1: the fused rebuild and the virial, split, on the thin uniform cloud
+    e = call("fused_lj_rebuild_energy_shifted",
+             lambda: fused_lj_rebuild_energy(hi, CUTOFF, lo, L=L_MAIN, term=slj.term),
+             "lag_reduce")
+    w = call("virial_rebuild_lj", lambda: virial_rebuild(hi, CUTOFF, lo, gfn=lj.gfn, L=L_MAIN),
+             "lag_reduce")
+    check(np.isfinite(float(e[0])) and np.isfinite(float(w[0])), "non-finite K1 table sums")
+    shi, slo, keys, info, _ = sort_split(pts, dev)
+    lag = (shi, keys, info.strides, csq, slo)
+    vterm = virial_term_from_gfn(lj.gfn)
+    k1 = energy_vs_plain(
+        "K1", lambda: pair_lag_reduce(*lag, L=L_MAIN, term=slj.term, out_dtype=f64),
+        lambda: pair_lag_reduce_plain(*lag, L=L_MAIN, term=slj.term, out_dtype=f64),
+        lambda: pair_lag_reduce_plain(*lag, L=L_MAIN, term=abs_term(slj.term), out_dtype=f64),
+        "shifted LJ energy")
+    k1v = energy_vs_plain(
+        "K1", lambda: pair_lag_reduce(*lag, L=L_MAIN, term=vterm, out_dtype=f64),
+        lambda: pair_lag_reduce_plain(*lag, L=L_MAIN, term=vterm, out_dtype=f64),
+        lambda: pair_lag_reduce_plain(*lag, L=L_MAIN, term=abs_term(vterm), out_dtype=f64),
+        "LJ virial")
+    pairs = combine_count(pair_lag_reduce(*lag, L=L_MAIN, term=count_term,
+                                          out_dtype=torch.int32))
+    window = window_candidates(keys, info.strides, L_MAIN)
+    kernels["K1"] = timed(
+        dict(instance="term table, shifted(lennard_jones(), 10), energy mode, split",
+             rows=n, virial=k1v),
+        lambda: pair_lag_reduce(*lag, L=L_MAIN, term=slj.term), k1,
+        bound(n * 4 * (6 + 1), window * INSTR_PER_CANDIDATE[True] + pairs * INSTR_PER_PAIR),
+        lj=lambda: pair_lag_reduce(*lag, L=L_MAIN, term=lj_term), pairs=pairs,
+        candidates=window)
+    del shi, slo, keys, lag
+
+    # K3: one MD step with the minimum image, f32, on the thin box
+    mask = minimage_axes(thin, CUTOFF)
+    Bm, Gm = suggest_pbc_capacity(n, thin, CUTOFF, axes=~mask)
+    kwm = dict(B=Bm, G=Gm, minimage="auto", gfn=lj.gfn)
+    Lm = probe_pbc_lag(lambda L: md_step_pbc(hi, torch.zeros_like(hi), [0.0] * 3, thin,
+                                             CUTOFF, MD_DT, L=L, **kwm)[2], L_MAIN)
+    r = call("md_step_pbc_minimage_lj", lambda: md_step_pbc(
+        hi, torch.zeros_like(hi), [0.0] * 3, thin, CUTOFF, MD_DT, L=Lm, **kwm), "lag_forces")
+    check(bool(torch.isfinite(r[0]).all()), "non-finite md_step_pbc positions")
+    bins, sp, _, _, reach, mib, ok, *_ = _minimage_bins(
+        hi, [0.0] * 3, thin, CUTOFF, mask, B=Bm, G=Gm, positions_lo=None, need_perm=False)
+    check(bool(ok), "the minimum-image bins of the K3 call")
+    margs = (sp, bins.sorted_keys, bins.info.strides, csq)
+    fkw = dict(L=Lm, mi_box=mib, key_reach=reach)
+    plain_ms, want = once_ms(lambda: pair_lag_forces_plain(*margs, gfn=lj.gfn, out_dtype=f64,
+                                                           **fkw))
+    got = pair_lag_forces(*margs, gfn=lj.gfn, out_dtype=f64, **fkw)
+    row_err = row_check(got, want, force_row_scale(*margs, gfn=lj.gfn, **fkw),
+                        "K3 table with the minimum image at the main path's inputs")
+    rows = sp.shape[0]
+    mpairs = combine_count(pair_lag_reduce(*margs, term=count_term, out_dtype=torch.int32,
+                                           **fkw))
+    mcand = window_candidates(bins.sorted_keys, bins.info.strides, Lm, reach)
+    kernels["K3"] = timed(
+        dict(instance="term table, lennard_jones(), minimum image, f32", rows=rows),
+        lambda: pair_lag_forces(*margs, gfn=lj.gfn, **fkw),
+        dict(plain_ms=plain_ms, max_abs_err=force_err(got, want)[0], err_of_scale=row_err),
+        bound(rows * 4 * (3 + 1 + 3),
+              mcand * (INSTR_PER_CANDIDATE[False] + 2 * INSTR_MI_FOLD[False])
+              + mpairs * INSTR_PER_FORCE_PAIR),
+        lj=lambda: pair_lag_forces(*margs, gfn=lj_force_factor, **fkw), pairs=mpairs,
+        candidates=mcand)
+    del hi, lo, bins, sp, margs, got, want
+
+    # K6 and K7 on the cubic MD start state, f32: a lattice, whose forces
+    # are all of one size, so the largest force scales every row's error
+    side = (n / 0.01) ** (1 / 3)
+    _, cst, _ = md_states(n, (side, side, side), dev)
+    cpos = cst.positions
+    m = cpos.shape[0]
+    del cst
+    cinfo = GridInfo.create(aabb_from_positions(cpos), CUTOFF, auto_order=True)
+    ckeys, perm = torch.sort(compute_keys(cpos, cinfo))
+    maxj = probe_maxj(ckeys, cinfo.strides)
+    fmaxj = probe_maxj(ckeys, cinfo.strides, full=True)
+    e = call("tile_lj_rebuild_energy_shifted",
+             lambda: tile_lj_rebuild_energy(cpos, CUTOFF, MAXJ=maxj, term=slj.term),
+             "tile_reduce")
+    spos = cpos[perm]
+    tile = (spos, ckeys, cinfo.strides, csq)
+    f = call("tile_pair_forces_lj", lambda: tile_pair_forces(*tile, MAXJ=fmaxj, gfn=lj.gfn),
+             "tile_forces")
+    check(np.isfinite(float(e[0])) and bool(torch.isfinite(f[0]).all()),
+          "non-finite K6 or K7 table results")
+    del f
+    kw = dict(MAXJ=maxj, bandmask=False)
+    k6 = energy_vs_plain(
+        "K6", lambda: tile_pair_reduce(*tile, term=slj.term, out_dtype=f64, **kw)[0],
+        lambda: tile_pair_reduce_plain(*tile, term=slj.term, out_dtype=f64, **kw)[0],
+        lambda: tile_pair_reduce_plain(*tile, term=abs_term(slj.term), out_dtype=f64,
+                                       **kw)[0],
+        "shifted LJ energy")
+    cpairs = combine_count(tile_pair_reduce(*tile, term=count_term, out_dtype=torch.int32,
+                                            **kw)[0])
+    cand = stencil_candidates(ckeys, cinfo)
+    # K6 and K7 timed through their launch functions on the inputs their
+    # entry points build, as `tile_reduce_alone` and `tile_forces_alone` do
+    inp = tile_inputs(spos.t().contiguous(), ckeys, cinfo.strides, CB=CB, **kw)
+    check(bool(inp.coverage_ok), "K6 coverage on the cubic MD start state")
+    kernels["K6"] = timed(
+        dict(instance="term table, shifted(lennard_jones(), 10), energy mode, f32", rows=m),
+        lambda: reduce_tiles(inp, csq, term=slj.term), k6,
+        bound(m * 4 * (3 + 1) + inp.bounds.numel() * 4, cand * INSTR_PER_CANDIDATE[False]
+              + cpairs * INSTR_PER_PAIR),
+        lj=lambda: reduce_tiles(inp, csq, term=lj_term), pairs=cpairs, candidates=cand)
+    del inp
+    fkw = dict(MAXJ=fmaxj, bandmask=False)
+    plain_ms, (want, _) = once_ms(lambda: tile_pair_forces_plain(*tile, gfn=lj.gfn,
+                                                                 out_dtype=f64, **fkw))
+    got, _ = tile_pair_forces(*tile, gfn=lj.gfn, out_dtype=f64, **fkw)
+    err, scale = force_err(got, want)
+    check(np.isfinite(err) and err <= TOL_TABLE * scale,
+          f"K7 table at the main path's inputs: max |df| {err} of {scale}")
+    finp = tile_inputs(spos.t().contiguous(), ckeys, cinfo.strides, CB=CB, full=True, **fkw)
+    check(bool(finp.coverage_ok), "K7 coverage on the cubic MD start state")
+    kernels["K7"] = timed(
+        dict(instance="term table, lennard_jones(), f32", rows=m),
+        lambda: forces_tiles(finp, csq, gfn=lj.gfn),
+        dict(plain_ms=plain_ms, max_abs_err=err, err_of_scale=err / scale),
+        bound(m * 4 * (3 + 1 + 3) + finp.bounds.numel() * 4, cand * INSTR_PER_CANDIDATE[False]
+              + cpairs * INSTR_PER_FORCE_PAIR),
+        lj=lambda: forces_tiles(finp, csq, gfn=lj_force_factor), pairs=cpairs,
+        candidates=cand)
+    return dict(n=n, L_minimage=Lm, MAXJ=maxj, full_MAXJ=fmaxj, calls=calls,
+                launches=launches, kernels=kernels)
 
 
 def pbc_alone(dev, n: int) -> dict:
@@ -3490,7 +4298,16 @@ def main() -> None:
     pa = pbc_alone(dev, N_MAIN)
     emit("pbc_alone", **pa)
 
-    # -- 20. every ported kernel ---------------------------------------------------
+    # -- 20. pair potentials and species (the term table in K1, K3, K6, K7) -----
+    spm = species_main_path(dev, N_MAIN)
+    emit("species_main_path", **spm)
+    pmp = potentials_main_path(dev, N_MAIN)
+    emit("potentials_main_path", **pmp)
+    pvp = potentials_vs_plain(dev, N_PARITY)
+    emit("potentials_vs_plain", **pvp)
+    emit("species_pbc", **species_pbc(dev, N_PARITY))
+
+    # -- 21. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
@@ -3618,9 +4435,9 @@ def main() -> None:
         ("tile_reduce_keep", "tile_reduce", "K6", "K6_keep", ("cube_tile", "cube_steady"),
          "zelll_tpu/ops/tile_pairs.py:259 (n_payload=1; ops/pbc.py:864-873)",
          "periodic keep mask over the payload row, cube with ghost images, f32 lj_term"),
-    ))]}), flush=True)
+    )), *table_rows(spm, pmp)]}), flush=True)
 
-    # -- 21. the card, then the contract line -----------------------------------
+    # -- 22. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -24,6 +24,7 @@ from zelll_tpu_torch.core import (
     aabb_from_positions,
     build,
     compute_keys,
+    key_window,
     sort_by_key,
 )
 from zelll_tpu_torch.ops.lag_pairs import (
@@ -436,8 +437,11 @@ def _pbc_sorted(pts, box, kind, device):
         return (sp, slo, bins.sorted_keys, bins.info.strides, signs[:, 0].contiguous(), None,
                 None)
     if kind == "both":
+        # B = n / 2: the sorted-extremes path's merge region holds min(2 B,
+        # n) real rows, and at B = n its flag (the JAX package's) asks for an
+        # empty top cell
         bins, sp, slo, pay, reach, mib, ok = _minimage_bins(
-            hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=n, G=n,
+            hi, [0.0] * 3, box, CUTOFF, np.array([True, True, False]), B=n // 2, G=n,
             positions_lo=lo, need_perm=False)
         assert bool(ok)
         return (sp.contiguous(), slo.contiguous(), bins.sorted_keys, bins.info.strides,
@@ -559,7 +563,7 @@ def test_pbc_lag_forces_kernel_matches_plain_on_card(cuda_device):
             _assert_forces(got, want, 1e-10)
             if kind == "mi" and tag == "lattice":
                 assert float(got.sum(0).abs().max()) <= 1e-6 * float(got.abs().sum())
-    with pytest.raises(ValueError, match="slice 5b"):
+    with pytest.raises(ValueError, match="payload force factor"):
         pair_lag_forces(shi, keys, strides, csq, sorted_payload=torch.ones_like(shi),
                         mi_box=mib, key_reach=reach)
 
@@ -1131,3 +1135,356 @@ def test_tile_hist_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(ValueError):
         tile_pair_hist(shi, keys, strides, esq, min_islot=3)
 
+
+
+# -- pair potentials and species: the term table's instances ---------------
+
+# The JAX package's potential tests use a jittered lattice of spacing 1.25
+# at cutoff 2.5 with these parameters (tests/test_potentials.py).
+TABLE_CUTOFF = 2.5
+# The table's limits: each instance repeats its torch function operation by
+# operation on the same f32 constants (the species table holds the
+# function's own f32 pair parameters; --fmad=false, IEEE division, the
+# same expf), so its f32 terms equal the plain version's and only the f64
+# sums' order differs: energies to 1e-12 of the sum of |term|, forces per
+# row to 1e-12 of the row's sum of |g| |d|. A term one f32 ulp off (an FMA
+# contraction, __expf) moves these by about 1e-8. On an H100 the largest
+# readings were 4.9e-16 and 1.2e-15 (chip_smoke.py's potentials_vs_plain,
+# species_pbc and species_main_path at 1e6 and 8.6e6 points).
+TOL_TABLE_ENERGY = 1e-12
+TOL_TABLE_ROW = 1e-12
+
+
+def _table_potentials():
+    from zelll_tpu_torch.ops import potentials as P
+
+    return {"lennard_jones": P.lennard_jones(0.7, 1.1), "wca": P.wca(0.7, 1.1),
+            "soft_sphere": P.soft_sphere(0.5, 1.2, n=8), "gaussian": P.gaussian(2.0, 0.8),
+            "morse": P.morse(1.3, 2.0, 1.1), "yukawa": P.yukawa(1.5, 0.7),
+            "buckingham": P.buckingham(1000.0, 0.3, 1.0), "harmonic": P.harmonic(3.0, 1.0),
+            "shifted_lj": P.shifted(P.lennard_jones(), 2.5),
+            "lj_1_1": P.lennard_jones(1.0, 1.0)}
+
+
+def _table_lattice(shape, device, rng):
+    """A jittered lattice of spacing 1.25 (+-0.2), sorted at TABLE_CUTOFF in
+    split form, with the prune's hard inputs: the facing clusters of
+    `cluster_gap` and the lattice drifted by up to 0.1 since its keys were
+    built. Returns {name: (hi, lo, keys, strides)}."""
+    cells = np.stack(np.meshgrid(*[np.arange(k) for k in shape], indexing="ij"), -1)
+    pts = (cells.reshape(-1, 3) + 0.5) * 1.25 + rng.uniform(-0.2, 0.2, (int(np.prod(shape)), 3))
+    hi, lo = split_f64(torch.as_tensor(pts, device=device))
+    info = GridInfo.create(aabb_from_positions(hi), TABLE_CUTOFF, auto_order=True)
+    keys, _, shi, slo = sort_by_key(compute_keys(hi, info), hi, lo)
+    p64 = shi.double() + slo.double()
+    gap = cluster_gap(p64.cpu().numpy(), TABLE_CUTOFF, GAP_SITES)
+    drift = p64 + torch.as_tensor(rng.uniform(-0.1, 0.1, tuple(p64.shape)), device=device)
+    return {"lattice": (shi, slo, keys, info.strides),
+            "cluster_gap": (*split_f64(torch.as_tensor(gap, device=device)), keys,
+                            info.strides),
+            "drifted": (*split_f64(drift), keys, info.strides)}
+
+
+def _energy_close(got, want, scale, what):
+    torch.cuda.synchronize()
+    err = abs(float(got) - float(want))
+    assert np.isfinite(float(got)) and err <= TOL_TABLE_ENERGY * float(scale), (what, err)
+
+
+def _rows_close(got, want, scale, what):
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).norm(dim=1)
+    worst = float((err / scale.clamp_min(torch.finfo(torch.float64).tiny)).max())
+    assert worst <= TOL_TABLE_ROW, (what, worst)
+
+
+def _abs_term(term):
+    def f(dsq, *pay):
+        return term(dsq, *pay).abs()
+    return f
+
+
+def _force_row_scale(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo=None,
+                     sorted_payload=None, *, L, gfn, mi_box=None, key_reach=None):
+    """Each row's f64 sum of |g| |d| over the pairs `pair_lag_forces_plain`
+    takes (its key window, separations, minimum image and cutoff test)."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        _lag_separations, _mi_box, _pad_and_desentinel, split_cutoff_test,
+    )
+
+    n = sorted_pos.shape[0]
+    device, dtype = sorted_pos.device, sorted_pos.dtype
+    keys = _pad_and_desentinel(sorted_keys, n)
+    w = key_window(strides, key_reach).to(device)
+    csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
+    pay = None if sorted_payload is None else sorted_payload.to(dtype)
+    mib = _mi_box(mi_box, device)
+    out = torch.zeros((n,), dtype=torch.float64, device=device)
+    for lag in range(1, min(L, n - 1) + 1):
+        keymask = keys[:-lag] >= keys[lag:] - w
+        if not bool(keymask.any()):
+            break
+        d, dsq, shifts = _lag_separations(sorted_pos, sorted_pos_lo, lag, mib)
+        inside = dsq < csq
+        if sorted_pos_lo is not None:
+            inside = split_cutoff_test(
+                inside, dsq, csq, sorted_pos[lag:].unbind(1), sorted_pos[:-lag].unbind(1),
+                sorted_pos_lo[lag:].unbind(1), sorted_pos_lo[:-lag].unbind(1),
+                None if shifts is None else shifts.unbind(1))
+        mask = keymask & inside & (dsq > 0)
+        safe = torch.where(mask, dsq, torch.ones_like(dsq))
+        g = gfn(safe) if pay is None else gfn(safe, *pay[lag:].unbind(1), *pay[:-lag].unbind(1))
+        m = torch.where(mask, g, torch.zeros_like(g)).double().abs() * d.double().norm(dim=1)
+        out[lag:] += m
+        out[:-lag] += m
+    return out
+
+
+@pytest.mark.gpu
+def test_table_kernels_match_plain_on_card(cuda_device):
+    """The term table's instances of K1, K3, K6 and K7 against their plain
+    versions on the same sorted CUDA tensors, for every factory of
+    ops.potentials with the JAX tests' parameters, `shifted` and
+    lennard_jones(1, 1): a jittered lattice of spacing 1.25 at cutoff 2.5
+    (thin for K1 and K3, cubic for K6 and K7) and the prune's hard inputs
+    on it, f32 and split, energy and virial modes, masked and maskless;
+    K1's and K3's periodic instances (keep, minimum image, both) on the
+    thin box's periodic inputs at cutoff 10 (lattice, the seam lattice whose
+    folded widths round in f32, drifted) with a shifted LJ and a Morse
+    term, and K6's keep mask on a
+    ghost-extended cube. The prune's hard inputs run the LJ and Morse
+    terms. Energies to TOL_TABLE_ENERGY
+    of the sum of |term|, forces per row to TOL_TABLE_ROW of the row's sum
+    of |g| |d|. An arbitrary callable still raises."""
+    from zelll_tpu_torch.ops.lag_pairs import PbcKeepTerm, suggest_lag
+    from zelll_tpu_torch.ops.potentials import lennard_jones, morse, shifted
+    from zelll_tpu_torch.ops.virial import virial_term_from_gfn
+
+    rng = np.random.default_rng(11)
+    f64 = torch.float64
+    csq = TABLE_CUTOFF**2
+    pots = _table_potentials()
+    thin = _table_lattice((8, 8, 320), cuda_device, rng)
+    cube = _table_lattice((28, 28, 28), cuda_device, rng)
+    hard = ("lennard_jones", "morse")
+    for name, (shi, slo, keys, strides) in thin.items():
+        L = suggest_lag(keys, strides)
+        for plo in (None, slo):
+            for pname, pot in pots.items():
+                if name != "lattice" and pname not in hard:
+                    continue
+                what = (name, plo is not None, pname)
+                for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                    before = pair_lag_reduce.launches
+                    got = pair_lag_reduce(shi, keys, strides, csq, plo, L=L, term=term,
+                                          out_dtype=f64)
+                    assert pair_lag_reduce.launches == before + 1
+                    want = pair_lag_reduce_plain(shi, keys, strides, csq, plo, L=L, term=term,
+                                                 out_dtype=f64)
+                    scale = pair_lag_reduce_plain(shi, keys, strides, csq, plo, L=L,
+                                                  term=_abs_term(term), out_dtype=f64)
+                    _energy_close(got, want, scale, what)
+                kw = dict(L=L, gfn=pot.gfn, out_dtype=f64)
+                before = pair_lag_forces.launches
+                got = pair_lag_forces(shi, keys, strides, csq, plo, **kw)
+                assert pair_lag_forces.launches == before + 1
+                want = pair_lag_forces_plain(shi, keys, strides, csq, plo, **kw)
+                scale = _force_row_scale(shi, keys, strides, csq, plo, L=L, gfn=pot.gfn)
+                _rows_close(got, want, scale, what)
+    for name, (shi, slo, keys, strides) in cube.items():
+        maxj = _maxj(keys, strides)
+        fmaxj = _full_maxj(keys, strides)
+        Lc = suggest_lag(keys, strides)
+        for plo in (None, slo):
+            for bandmask in (False, True):
+                for pname, pot in pots.items():
+                    if name != "lattice" and pname not in hard:
+                        continue
+                    what = (name, plo is not None, bandmask, pname)
+                    for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                        kw = dict(MAXJ=maxj, bandmask=bandmask, out_dtype=f64)
+                        before = tile_pair_reduce.launches
+                        got, ok = tile_pair_reduce(shi, keys, strides, csq, plo, term=term, **kw)
+                        assert tile_pair_reduce.launches == before + 1 and bool(ok)
+                        want, _ = tile_pair_reduce_plain(shi, keys, strides, csq, plo, term=term,
+                                                         **kw)
+                        scale, _ = tile_pair_reduce_plain(shi, keys, strides, csq, plo,
+                                                          term=_abs_term(term), **kw)
+                        _energy_close(got, want, scale, what)
+                    kw = dict(MAXJ=fmaxj, bandmask=bandmask, gfn=pot.gfn, out_dtype=f64)
+                    before = tile_pair_forces.launches
+                    got, ok = tile_pair_forces(shi, keys, strides, csq, plo, **kw)
+                    assert tile_pair_forces.launches == before + 1 and bool(ok)
+                    want, _ = tile_pair_forces_plain(shi, keys, strides, csq, plo, **kw)
+                    scale = _force_row_scale(shi, keys, strides, csq, plo, L=Lc, gfn=pot.gfn)
+                    _rows_close(got, want, scale, what)
+    # the periodic instances at cutoff 10: potentials that reach it
+    periodic = {"shifted": shifted(lennard_jones(1.0, 4.0), CUTOFF),
+                "morse": morse(1.3, 0.5, 4.5)}
+    for (kind, tag), (shi, slo, keys, strides, pay, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        if tag not in ("lattice", "seam_round", "drifted"):
+            continue
+        L = suggest_lag(keys, strides, reach=reach)
+        for plo in (None, slo):
+            for pname, pot in periodic.items():
+                what = (kind, tag, plo is not None, pname)
+                for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                    t = term if pay is None else PbcKeepTerm(term)
+                    kw = dict(L=L, out_dtype=f64, mi_box=mib, key_reach=reach)
+                    before = pair_lag_reduce.launches
+                    got = pair_lag_reduce(shi, keys, strides, CUTOFF**2, plo, pay, term=t, **kw)
+                    assert pair_lag_reduce.launches == before + 1
+                    want = pair_lag_reduce_plain(shi, keys, strides, CUTOFF**2, plo, pay, term=t,
+                                                 **kw)
+                    scale = pair_lag_reduce_plain(
+                        shi, keys, strides, CUTOFF**2, plo, pay, **kw,
+                        term=_abs_term(t) if pay is None else PbcKeepTerm(_abs_term(term)))
+                    _energy_close(got, want, scale, what)
+                if kind == "keep":
+                    continue
+                kw = dict(L=L, gfn=pot.gfn, mi_box=mib, key_reach=reach, out_dtype=f64)
+                got = pair_lag_forces(shi, keys, strides, CUTOFF**2, plo, **kw)
+                want = pair_lag_forces_plain(shi, keys, strides, CUTOFF**2, plo, **kw)
+                scale = _force_row_scale(shi, keys, strides, CUTOFF**2, plo, L=L, gfn=pot.gfn,
+                                         mi_box=mib, key_reach=reach)
+                _rows_close(got, want, scale, what)
+    # K6's keep mask with the table: a ghost-extended cube at cutoff 10
+    n = 20_000
+    side = (n / 0.01) ** (1 / 3)
+    box = np.array([side] * 3)
+    for tag, pts in (("lattice", generate_points_lattice(n, box)),
+                     ("seam", seam_cloud(box, 2.5, 2, (0,), rng))):
+        shi, slo, keys, strides, pay, _, _ = _pbc_sorted(pts, box, "keep", cuda_device)
+        maxj = _maxj(keys, strides)
+        for plo in (None, slo):
+            for bandmask in (False, True):
+                for pname, pot in periodic.items():
+                    for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                        kw = dict(MAXJ=maxj, bandmask=bandmask, out_dtype=f64)
+                        before = tile_pair_reduce.launches
+                        got, ok = tile_pair_reduce(shi, keys, strides, CUTOFF**2, plo, pay,
+                                                   term=PbcKeepTerm(term), **kw)
+                        assert tile_pair_reduce.launches == before + 1 and bool(ok)
+                        want, _ = tile_pair_reduce_plain(shi, keys, strides, CUTOFF**2, plo, pay,
+                                                         term=PbcKeepTerm(term), **kw)
+                        scale, _ = tile_pair_reduce_plain(
+                            shi, keys, strides, CUTOFF**2, plo, pay,
+                            term=PbcKeepTerm(_abs_term(term)), **kw)
+                        _energy_close(got, want, scale, (tag, plo is not None, bandmask, pname))
+    shi, slo, keys, strides = thin["lattice"]
+    with pytest.raises(ValueError, match="ops.potentials"):
+        pair_lag_reduce(shi, keys, strides, csq, term=lambda d: d)
+    with pytest.raises(ValueError, match="ops.potentials"):
+        pair_lag_forces(shi, keys, strides, csq, gfn=lambda d: d)
+
+
+def _species_plane(n, rng, device):
+    """Species 0 and 1 at random, with every tenth row one of the values
+    that the JAX rule maps (2 = S - 1 of a three-species table, 3 = S, -1,
+    0.5: the last three to species 0)."""
+    s = rng.integers(0, 2, n).astype(np.float64)
+    odd = np.array([2.0, 3.0, -1.0, 0.5])
+    s[::10] = odd[rng.integers(0, 4, len(s[::10]))]
+    return torch.as_tensor(s, dtype=torch.float32, device=device)
+
+
+@pytest.mark.gpu
+def test_species_kernels_match_plain_on_card(cuda_device):
+    """The species instances against their plain versions on the same
+    sorted CUDA tensors: lennard_jones_mixed with three species over a
+    species plane that holds 0, 1, S - 1, S, -1 and 0.5, on the table
+    lattice and the prune's hard inputs: K1 (open, f32), K3 (open and
+    minimum image, f32 and split), K6 (open, f32, masked and maskless).
+    Limits as in the table test. The mixed term is symmetric, so the
+    species index is also checked by a potential whose species differ:
+    species 1 and 2 swapped must change the sum."""
+    from zelll_tpu_torch.ops.lag_pairs import suggest_lag
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed
+
+    rng = np.random.default_rng(12)
+    f64 = torch.float64
+    csq = TABLE_CUTOFF**2
+    pot = lennard_jones_mixed((1.0, 0.5, 0.8), (1.0, 1.2, 0.9))
+    swapped = lennard_jones_mixed((1.0, 0.8, 0.5), (1.0, 0.9, 1.2))
+    thin = _table_lattice((8, 8, 320), cuda_device, rng)
+    for name, (shi, slo, keys, strides) in thin.items():
+        sp = _species_plane(shi.shape[0], rng, cuda_device)
+        pay = sp[:, None]
+        L = suggest_lag(keys, strides)
+        before = pair_lag_reduce.launches
+        got = pair_lag_reduce(shi, keys, strides, csq, None, pay, L=L, term=pot.term,
+                              out_dtype=f64)
+        assert pair_lag_reduce.launches == before + 1
+        want = pair_lag_reduce_plain(shi, keys, strides, csq, None, pay, L=L, term=pot.term,
+                                     out_dtype=f64)
+        scale = pair_lag_reduce_plain(shi, keys, strides, csq, None, pay, L=L,
+                                      term=_abs_term(pot.term), out_dtype=f64)
+        _energy_close(got, want, scale, name)
+        other = pair_lag_reduce(shi, keys, strides, csq, None, pay, L=L, term=swapped.term,
+                                out_dtype=f64)
+        assert abs(float(other) - float(got)) > 1e-3 * float(scale), name
+        for plo in (None, slo):
+            kw = dict(L=L, gfn=pot.gfn, out_dtype=f64)
+            before = pair_lag_forces.launches
+            got = pair_lag_forces(shi, keys, strides, csq, plo, pay, **kw)
+            assert pair_lag_forces.launches == before + 1
+            want = pair_lag_forces_plain(shi, keys, strides, csq, plo, pay, **kw)
+            scale = _force_row_scale(shi, keys, strides, csq, plo, pay, L=L, gfn=pot.gfn)
+            _rows_close(got, want, scale, (name, plo is not None))
+    # K3's minimum image with species: the "mi" and "both" periodic inputs
+    mixed10 = lennard_jones_mixed((1.0, 0.5, 0.8), (4.0, 4.8, 3.6))
+    for (kind, tag), (shi, slo, keys, strides, _, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        if kind == "keep":
+            continue
+        pay = _species_plane(shi.shape[0], rng, cuda_device)[:, None]
+        L = suggest_lag(keys, strides, reach=reach)
+        for plo in (None, slo):
+            kw = dict(L=L, gfn=mixed10.gfn, mi_box=mib, key_reach=reach, out_dtype=f64)
+            got = pair_lag_forces(shi, keys, strides, CUTOFF**2, plo, pay, **kw)
+            want = pair_lag_forces_plain(shi, keys, strides, CUTOFF**2, plo, pay, **kw)
+            scale = _force_row_scale(shi, keys, strides, CUTOFF**2, plo, pay, L=L,
+                                     gfn=mixed10.gfn, mi_box=mib, key_reach=reach)
+            _rows_close(got, want, scale, (kind, tag, plo is not None))
+    cube = _table_lattice((28, 28, 28), cuda_device, rng)
+    for name, (shi, slo, keys, strides) in cube.items():
+        sp = _species_plane(shi.shape[0], rng, cuda_device)
+        maxj = _maxj(keys, strides)
+        for bandmask in (False, True):
+            kw = dict(MAXJ=maxj, bandmask=bandmask, out_dtype=f64)
+            before = tile_pair_reduce.launches
+            got, ok = tile_pair_reduce(shi, keys, strides, csq, None, sp, term=pot.term, **kw)
+            assert tile_pair_reduce.launches == before + 1 and bool(ok)
+            want, _ = tile_pair_reduce_plain(shi, keys, strides, csq, None, sp, term=pot.term,
+                                             **kw)
+            scale, _ = tile_pair_reduce_plain(shi, keys, strides, csq, None, sp,
+                                              term=_abs_term(pot.term), **kw)
+            _energy_close(got, want, scale, (name, bandmask))
+    # the species MD entry points: K3 per step and K1 for the final energy,
+    # against the same run on CPU tensors (states as sets of rows)
+    from zelll_tpu_torch.models import MDState, md_run_species
+
+    shi, slo, keys, strides = thin["lattice"]
+    sp = _species_plane(shi.shape[0], rng, cuda_device)
+    vel = torch.as_tensor(rng.normal(0, 0.1, tuple(shi.shape)), dtype=torch.float32)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        st = MDState.create(shi.to(dev), vel.to(dev), device=dev)
+        k3, k1 = pair_lag_forces.launches, pair_lag_reduce.launches
+        st, s_out, ok, energy = md_run_species(st, sp.to(dev), TABLE_CUTOFF, 1e-3, pot=pot,
+                                               steps=2, L=512)
+        assert bool(ok)
+        if dev.type == "cuda":
+            assert (pair_lag_forces.launches, pair_lag_reduce.launches) == (k3 + 2, k1 + 1)
+        rows = torch.cat([st.positions, st.velocities, s_out[:, None]], 1).double().cpu()
+        runs.append((rows[np.lexsort(rows.numpy().T[::-1])], float(energy)))
+    assert torch.allclose(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
+    assert abs(runs[0][1] - runs[1][1]) <= 1e-5 * abs(runs[1][1])
+    pay = torch.zeros((shi.shape[0], 1), device=cuda_device)
+    with pytest.raises(ValueError, match="open f32"):
+        pair_lag_reduce(shi, keys, strides, csq, slo, pay, term=pot.term)
+    with pytest.raises(ValueError, match="payload force factor"):
+        pair_lag_forces(shi, keys, strides, csq, None, pay, gfn=lambda d, a, b: d)
+    with pytest.raises(ValueError, match="sorted_payload"):
+        pair_lag_forces(shi, keys, strides, csq, gfn=pot.gfn)

@@ -328,7 +328,7 @@ def test_pbc_forces_vs_bruteforce():
 def test_pbc_flags_and_refusals():
     """The capacity and regime flags (B, G and BE exceeded, box <= 2 cutoff)
     go False and nothing else does; option checks raise as the JAX
-    package's do; species forces raise, naming slice 5b."""
+    package's do; species forces off the lag path raise as there."""
     box = np.array([4.0, 4.0, 4.0])
     pts = uniform(300, box, 5)
     P = t64(pts)
@@ -350,8 +350,8 @@ def test_pbc_flags_and_refusals():
         pbc.pbc_lj_forces(P, [0.0] * 3, box, 1.0, minimage=(True, False, False), BE=128)
     with pytest.raises(ValueError, match="unknown path"):
         pbc.pbc_lj_energy(P, [0.0] * 3, box, 1.0, path="cells")
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        pbc.pbc_lj_forces(P, [0.0] * 3, box, 1.0, species=torch.zeros(300))
+    with pytest.raises(ValueError, match="run on the lag path"):
+        pbc.pbc_lj_forces(P, [0.0] * 3, box, 1.0, species=torch.zeros(300), path="tile")
 
 
 def test_pbc_payload_instances_plain():

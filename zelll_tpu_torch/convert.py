@@ -68,13 +68,16 @@ def sorted_inputs_from_numpy(sorted_pos, sorted_pos_lo, sorted_keys, strides,
 
 
 def md_state_from_numpy(positions, velocities, *, split: bool = False,
-                        device=None):
+                        species=None, device=None):
     """The port's MD state from the JAX package's, given as arrays.
 
     ``split=False``: an `MDState` of the two (n, dim) arrays, dtypes kept.
     ``split=True``: an `MDStateSplit`, from f64 positions (split with
     `split_f64`, bitwise as the JAX package splits them) or from the
     (pos_hi, pos_lo) pair of a JAX ``MDStateSplit``; velocities in f32.
+    ``species`` (the (n,) column of ``md_step_species``, in the rows'
+    order): returns (state, species) with the species in the positions'
+    dtype, so both packages start from the same sorted species order.
     """
     from .models.lj_md import MDState, MDStateSplit
 
@@ -83,6 +86,11 @@ def md_state_from_numpy(positions, velocities, *, split: bool = False,
     def t(x, dtype=None):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
+    if species is not None:
+        if split:
+            raise ValueError("the species MD state is not split")
+        state = MDState(positions=t(positions), velocities=t(velocities))
+        return state, t(species, state.positions.dtype).reshape(-1)
     if not split:
         return MDState(positions=t(positions), velocities=t(velocities))
     if isinstance(positions, (tuple, list)):

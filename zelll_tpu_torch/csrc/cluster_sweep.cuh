@@ -50,6 +50,8 @@
 
 #include <cstdint>
 
+#include "pair_table.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;           // slots per cluster
@@ -279,11 +281,15 @@ __device__ __forceinline__ void shift_front(T* a, T* b, int base, int cnt,
 
 // Terms, by template value (K6's C enum; K1 maps its own onto these): LJ
 // 4 t3 (t3 - 1) with t = 1/dsq by true division, the same with t =
-// rsqrtf(dsq)^2, count (1), or the LJ pair virial 24 t3 (2 t3 - 1).
+// rsqrtf(dsq)^2, count (1), the LJ pair virial 24 t3 (2 t3 - 1), the term
+// table's form in its mode (pair_table.cuh), or the table's species term
+// over the lane's and the entry's plane values (o.pw, bw[q]).
 constexpr int kTermLj = 0;
 constexpr int kTermLjFast = 1;
 constexpr int kTermCount = 2;
 constexpr int kTermVirial = 3;
+constexpr int kTermTable = 4;
+constexpr int kTermSpecies = 5;
 
 template <int TERM>
 __device__ __forceinline__ float term_value(float dsq) {
@@ -358,7 +364,7 @@ struct Lane {
   int jlo;
   unsigned span;
   Acc acc;
-  float pw;       // the slot's shift sign (the keep mask)
+  float pw;       // the slot's shift sign (the keep mask) or species
   float3 mib;     // minimum image: box lengths, 0 on open axes (K1)
   float3 mibl;    // and their low parts (split mode)
 };
@@ -393,7 +399,8 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
                                              const int32_t* bk, int cnt,
                                              float csq, int32_t band_lo,
                                              int32_t band_hi,
-                                             const float* bw = nullptr) {
+                                             const float* bw = nullptr,
+                                             const TermTable* tab = nullptr) {
   unsigned hits = 0u;
   auto visit = [&](int q) {
     const float4 b = bh[q];
@@ -409,7 +416,14 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
     if (TWO_PHASE) {
       if (m) hits |= 1u << q;
     } else if (m) {
-      o.acc += to_acc<Acc>(term_value<TERM>(dsq));
+      // the table's forms as discarded branches: the other terms' code is
+      // as it was before the table came in
+      if constexpr (TERM == kTermTable)
+        o.acc += to_acc<Acc>(table_term(dsq, *tab));
+      else if constexpr (TERM == kTermSpecies)
+        o.acc += to_acc<Acc>(table_species_term(dsq, o.pw, bw[q], *tab));
+      else
+        o.acc += to_acc<Acc>(term_value<TERM>(dsq));
     }
   };
   if (FULL) {
@@ -429,7 +443,12 @@ __device__ __forceinline__ void reduce_sweep(Lane<Acc>& o, const float4* bh,
     const int q = __ffs(static_cast<int>(hits)) - 1;
     hits &= hits - 1u;
     const float dsq = lane_dsq<SPLIT, MI>(o, bh[q], SPLIT ? bl[q] : make_float4(0, 0, 0, 0));
-    o.acc += to_acc<Acc>(term_value<TERM>(dsq));
+    if constexpr (TERM == kTermTable)
+      o.acc += to_acc<Acc>(table_term(dsq, *tab));
+    else if constexpr (TERM == kTermSpecies)
+      o.acc += to_acc<Acc>(table_species_term(dsq, o.pw, bw[q], *tab));
+    else
+      o.acc += to_acc<Acc>(term_value<TERM>(dsq));
   }
 }
 

@@ -103,6 +103,16 @@
 // s), so both ends of a pair still agree bitwise. Newton's +/- g d on the folded separation is the
 // minimum-image force.
 //
+// Pair potentials and species (ops/potentials.py) add instances under new
+// template values, so the existing instances keep their names and code:
+// GFN = kGfnTable takes any factory's force factor through the device term
+// table (pair_table.cuh: a TermTable passed by value beside Args, to
+// lag_forces_table_kernel and lag_forces_table_mi_kernel), GFN = kGfnSpecies
+// lennard_jones_mixed's, with the species plane as one more buffer beside
+// the coordinates (the lane's own value in a register) and each pair's
+// (eps_ij, sigma_ij) from the S x S table; both open and minimum image,
+// f32 and split.
+//
 // Accumulation: each lane sums its f32 products g d in f64 and writes
 // f32 planes, or f64 planes when asked (the checks compare f64 sums).
 //
@@ -125,6 +135,8 @@ constexpr int kWarps = kBlock / kWarp;
 constexpr int kBuf = 2 * kWarp;  // a warp's buffer: one sweep + one cluster
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
+constexpr int kGfnTable = 2;
+constexpr int kGfnSpecies = 3;
 // Split mode's tie band around the cutoff (_TIE_BAND in lag_pairs.py)
 constexpr float kTieBand = 1e-6f;
 
@@ -204,7 +216,8 @@ __device__ __forceinline__ bool may_count(const Own& o, float4 b, float4 b_lo,
 template <bool SPLIT, int GFN, bool FULL, bool MI>
 __device__ __forceinline__ void sweep(Own& o, const float4* bh,
                                       const float4* bl, int cnt, float csq,
-                                      float thr) {
+                                      float thr, const float* bs, float own_s,
+                                      const TermTable* tab) {
   // phase A: one broadcast read per entry, the lane's hit bits
   unsigned hits = 0u;
   if (FULL) {
@@ -262,7 +275,15 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
       }
     }
     if (inside) {
-      const float g = force_factor<GFN>(dsq);
+      // the table's forms as discarded branches: the LJ factors' code is as
+      // it was before the table came in
+      float g;
+      if constexpr (GFN == kGfnTable)
+        g = table_gfn(dsq, *tab);
+      else if constexpr (GFN == kGfnSpecies)
+        g = table_species_gfn(dsq, own_s, bs[q], *tab);
+      else
+        g = force_factor<GFN>(dsq);
       o.fx += static_cast<double>(g * dx);
       o.fy += static_cast<double>(g * dy);
       o.fz += static_cast<double>(g * dz);
@@ -270,8 +291,12 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
   }
 }
 
+// tab: the table's force factor (kGfnTable, kGfnSpecies), else null; sp:
+// the (n,) species plane (kGfnSpecies), else null
 template <bool SPLIT, int GFN, typename Out, bool MI>
-__device__ __forceinline__ void lag_forces_body(const Args& a) {
+__device__ __forceinline__ void lag_forces_body(const Args& a, const TermTable* tab = nullptr,
+                                                const float* sp = nullptr) {
+  constexpr bool SPEC = GFN == kGfnSpecies;
   __shared__ float4 buf_hi[kWarps][kBuf];
   __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
   const int w = threadIdx.x / kWarp;
@@ -282,8 +307,16 @@ __device__ __forceinline__ void lag_forces_body(const Args& a) {
   const int64_t n = a.n;
   float4* bh = buf_hi[w];
   float4* bl = buf_lo[w];
+  // the species buffer exists in the species instances only, so the others
+  // keep their shared memory as it was
+  float* bs = nullptr;
+  if constexpr (SPEC) {
+    __shared__ float buf_s[kWarps][kBuf];
+    bs = buf_s[w];
+  }
   Own o;
   o.real = i < a.n;
+  const float own_s = SPEC && o.real ? sp[i] : 0.0f;
   o.h = o.real ? load_slot(a.pos, n, i) : make_float4(0, 0, 0, 0);
   o.l = SPLIT && o.real ? load_slot(a.lo, n, i) : make_float4(0, 0, 0, 0);
   o.fx = o.fy = o.fz = 0.0;
@@ -326,6 +359,7 @@ __device__ __forceinline__ void lag_forces_body(const Args& a) {
     const float4 b = valid ? load_slot(a.pos, n, j) : make_float4(0, 0, 0, 0);
     const float4 b_lo =
         SPLIT && valid ? load_slot(a.lo, n, j) : make_float4(0, 0, 0, 0);
+    const float b_s = SPEC && valid ? sp[j] : 0.0f;
     const bool keep = valid && (MI ? near_box_mi<SPLIT>(box, b, b_lo, thr, a.mib)
                                    : near_box<SPLIT>(box, b, b_lo, thr));
     const unsigned mask = __ballot_sync(kAll, keep);
@@ -333,19 +367,21 @@ __device__ __forceinline__ void lag_forces_body(const Args& a) {
     compact(mask, keep, below, cnt, [&](int at) {
       bh[at] = b;
       if (SPLIT) bl[at] = b_lo;
+      if constexpr (SPEC) bs[at] = b_s;
     });
     if (cnt >= kWarp) {
       __syncwarp();
-      sweep<SPLIT, GFN, true, MI>(o, bh, bl, kWarp, a.csq, thr);
+      sweep<SPLIT, GFN, true, MI>(o, bh, bl, kWarp, a.csq, thr, bs, own_s, tab);
       __syncwarp();
       // move the remainder to the front of the buffer
       cnt -= kWarp;
       shift_front<1, SPLIT>(bh, bl, kWarp, cnt, lane);
+      if constexpr (SPEC) shift_front<1, false>(bs, bs, kWarp, cnt, lane);
     }
   }
   if (cnt > 0) {
     __syncwarp();
-    sweep<SPLIT, GFN, false, MI>(o, bh, bl, cnt, a.csq, thr);
+    sweep<SPLIT, GFN, false, MI>(o, bh, bl, cnt, a.csq, thr, bs, own_s, tab);
   }
   if (o.real) {
     Out* out = static_cast<Out*>(a.out);
@@ -365,6 +401,40 @@ __global__ void __launch_bounds__(kBlock) lag_forces_kernel(Args a) {
 template <bool SPLIT, int GFN, typename Out>
 __global__ void __launch_bounds__(kBlock) lag_forces_mi_kernel(Args a) {
   lag_forces_body<SPLIT, GFN, Out, true>(a);
+}
+
+// The term table's instances: the table (and the species plane) beside
+// Args, so the instances above keep their parameters, and their code, as
+// they were
+template <bool SPLIT, int GFN, typename Out>
+__global__ void __launch_bounds__(kBlock) lag_forces_table_kernel(Args a, TermTable tab,
+                                                                  const float* sp) {
+  lag_forces_body<SPLIT, GFN, Out, false>(a, &tab, sp);
+}
+
+template <bool SPLIT, int GFN, typename Out>
+__global__ void __launch_bounds__(kBlock) lag_forces_table_mi_kernel(Args a, TermTable tab,
+                                                                     const float* sp) {
+  lag_forces_body<SPLIT, GFN, Out, true>(a, &tab, sp);
+}
+
+template <bool SPLIT, int GFN, typename Out>
+void launch_table_mi(const Args& a, const TermTable& t, const float* sp, bool mi,
+                     cudaStream_t s) {
+  const int blocks = (a.n + kBlock - 1) / kBlock;
+  if (mi)
+    lag_forces_table_mi_kernel<SPLIT, GFN, Out><<<blocks, kBlock, 0, s>>>(a, t, sp);
+  else
+    lag_forces_table_kernel<SPLIT, GFN, Out><<<blocks, kBlock, 0, s>>>(a, t, sp);
+}
+
+template <bool SPLIT, int GFN>
+void launch_table(const Args& a, const TermTable& t, const float* sp, bool f64_out, bool mi,
+                  cudaStream_t s) {
+  if (f64_out)
+    launch_table_mi<SPLIT, GFN, double>(a, t, sp, mi, s);
+  else
+    launch_table_mi<SPLIT, GFN, float>(a, t, sp, mi, s);
 }
 
 template <bool SPLIT, int GFN, typename Out>
@@ -406,15 +476,25 @@ int zelll_lag_forces_block() { return kBlock; }
 // folds the axes whose box length mbx, mby, mbz is > 0 to the minimum
 // image (w_key then the widened window), in split mode less the low parts
 // mlx, mly, mlz of the host box lengths; out: (3, n) planes of float
-// (f64_out == 0) or double (f64_out != 0). Returns cudaGetLastError() after
-// the launch.
+// (f64_out == 0) or double (f64_out != 0). gfn 2 takes the device term
+// table's force factor (tkind, tmode and tvals: pair_table.cuh's kind, mode
+// and 6 floats, its 5 constants and the shift, in host memory); gfn 3 the
+// species force factor (lennard_jones_mixed: sp the (n,) species plane, mix
+// the device (ns * ns) float2 table). Returns cudaGetLastError() after the
+// launch.
 int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int L, int spacing, float csq,
                      int gfn, int f64_out, int mi, float mbx, float mby, float mbz,
-                     float mlx, float mly, float mlz, void* out, void* stream) {
+                     float mlx, float mly, float mlz, void* out, void* stream,
+                     int tkind, int tmode, const float* tvals, const void* sp,
+                     const void* mix, int ns) {
+  const bool table = gfn == kGfnTable, species = gfn == kGfnSpecies;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (gfn != kGfnLj && gfn != kGfnLjFast))
+      (gfn != kGfnLj && gfn != kGfnLjFast && !table && !species) ||
+      species != (sp != nullptr) ||
+      ((table || species) && (tmode != kTableModeGfn ||
+                              !term_table_ok(tkind, tmode, species, mix, ns))))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -428,8 +508,18 @@ int zelll_lag_forces(const void* pos, const void* lo, const void* keys,
   a.mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
   a.mibl = mi != 0 ? make_float3(mlx, mly, mlz) : make_float3(0.0f, 0.0f, 0.0f);
   a.out = out;
+  const TermTable t = make_term_table(tkind, tmode, tvals, mix, ns);
+  const float* spp = static_cast<const float*>(sp);
   auto s = static_cast<cudaStream_t>(stream);
-  if (a.lo != nullptr)
+  if (table && a.lo != nullptr)
+    launch_table<true, kGfnTable>(a, t, spp, f64_out != 0, mi != 0, s);
+  else if (table)
+    launch_table<false, kGfnTable>(a, t, spp, f64_out != 0, mi != 0, s);
+  else if (species && a.lo != nullptr)
+    launch_table<true, kGfnSpecies>(a, t, spp, f64_out != 0, mi != 0, s);
+  else if (species)
+    launch_table<false, kGfnSpecies>(a, t, spp, f64_out != 0, mi != 0, s);
+  else if (a.lo != nullptr)
     launch_gfn<true>(a, gfn, f64_out != 0, mi != 0, s);
   else
     launch_gfn<false>(a, gfn, f64_out != 0, mi != 0, s);

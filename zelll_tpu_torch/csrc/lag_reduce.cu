@@ -82,6 +82,16 @@
 //     (near_box_mi).
 // Both compose, with each term, f32 and split.
 //
+// Pair potentials and species (ops/potentials.py) add instances under new
+// template values, so the existing instances keep their names and code:
+//   TERM = kTermTable: any factory's energy or virial through the device
+//     term table (pair_table.cuh: a TermTable passed by value beside Args,
+//     to lag_reduce_table_kernel), with each rule above, f32 and split;
+//   TERM = kTermSpecies: lennard_jones_mixed's energy (open, f32), the
+//     species plane read as the keep plane is (a third buffer beside the
+//     coordinates, the lane's own value in a register) and each pair's
+//     (eps_ij, sigma_ij) from the S x S table.
+//
 // Accumulation: each lane sums its f32 terms in f64 (as good as the TPU's
 // per-lane f32 Kahan sum, and simpler); the block folds its lanes in a
 // fixed order (block_fold) and writes one partial per block. The caller
@@ -114,6 +124,8 @@ constexpr int kMaxDim = 3;
 constexpr int kArgLj = 0;
 constexpr int kArgCount = 1;
 constexpr int kArgVirial = 2;
+constexpr int kArgTable = 3;
+constexpr int kArgSpecies = 4;
 // The payload rules (lag_pairs._MASK_*): none, the periodic keep mask
 constexpr int kMaskNone = 0;
 constexpr int kMaskKeep = 2;
@@ -145,11 +157,14 @@ __device__ __forceinline__ float4 load_row(const float* rows, int dim, int j,
   return v;
 }
 
+// tab: the table's term (kTermTable, kTermSpecies), else null
 template <bool SPLIT, int TERM, typename Acc, bool KEEP, bool MI>
-__device__ __forceinline__ void lag_reduce_body(const Args& a) {
+__device__ __forceinline__ void lag_reduce_body(const Args& a, const TermTable* tab = nullptr) {
+  // the payload plane: the keep mask's shift signs or the species
+  constexpr bool PLANE = KEEP || TERM == kTermSpecies;
   __shared__ float4 buf_hi[kWarps][kBuf];
   __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
-  __shared__ float buf_w[kWarps][KEEP ? kBuf : 1];
+  __shared__ float buf_w[kWarps][PLANE ? kBuf : 1];
   const int w = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
@@ -164,7 +179,7 @@ __device__ __forceinline__ void lag_reduce_body(const Args& a) {
   o.l = SPLIT && real ? load_row(a.lo, a.dim, i, 0) : zero;
   o.key = 0;
   o.acc = Acc(0);
-  o.pw = KEEP && real ? a.w[i] : 0.0f;
+  o.pw = PLANE && real ? a.w[i] : 0.0f;
   o.mib = a.mib;
   o.mibl = a.mibl;
   // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
@@ -195,29 +210,29 @@ __device__ __forceinline__ void lag_reduce_body(const Args& a) {
       const bool valid = j <= last;
       const float4 b = valid ? load_row(a.pos, a.dim, j, j) : zero;
       const float4 b_lo = SPLIT && valid ? load_row(a.lo, a.dim, j, 0) : zero;
-      const float b_w = KEEP && valid ? a.w[j] : 0.0f;
+      const float b_w = PLANE && valid ? a.w[j] : 0.0f;
       const bool keep = valid && (MI ? near_box_mi<SPLIT>(box, b, b_lo, thr, a.mib)
                                      : near_box<SPLIT>(box, b, b_lo, thr));
       compact(__ballot_sync(kAll, keep), keep, below, cnt, [&](int at) {
         bh[at] = b;
         if (SPLIT) bl[at] = b_lo;
-        if (KEEP) bw[at] = b_w;
+        if (PLANE) bw[at] = b_w;
       });
       if (cnt >= kWarp) {
         __syncwarp();
         reduce_sweep<SPLIT, TERM, false, kTwoPhase, true, KEEP, MI>(o, bh, bl, nullptr, kWarp,
-                                                                     a.csq, 0, 0, bw);
+                                                                     a.csq, 0, 0, bw, tab);
         __syncwarp();
         // move the remainder (less than one cluster) to the front
         cnt -= kWarp;
         shift_front<1, SPLIT>(bh, bl, kWarp, cnt, lane);
-        if (KEEP) shift_front<1, false>(bw, bw, kWarp, cnt, lane);
+        if (PLANE) shift_front<1, false>(bw, bw, kWarp, cnt, lane);
       }
     }
     if (cnt > 0) {
       __syncwarp();
       reduce_sweep<SPLIT, TERM, false, kTwoPhase, false, KEEP, MI>(o, bh, bl, nullptr, cnt, a.csq,
-                                                                    0, 0, bw);
+                                                                    0, 0, bw, tab);
     }
   }
   block_fold<kWarps>(o.acc, static_cast<Acc*>(a.partial));
@@ -233,6 +248,26 @@ __global__ void __launch_bounds__(kBlock) lag_reduce_kernel(Args a) {
 template <bool SPLIT, int TERM, typename Acc, bool KEEP, bool MI>
 __global__ void __launch_bounds__(kBlock) lag_reduce_pbc_kernel(Args a) {
   lag_reduce_body<SPLIT, TERM, Acc, KEEP, MI>(a);
+}
+
+// The term table's instances: the table beside Args, so the instances above
+// keep their parameters, and their code, as they were
+template <bool SPLIT, int TERM, bool KEEP, bool MI>
+__global__ void __launch_bounds__(kBlock) lag_reduce_table_kernel(Args a, TermTable tab) {
+  lag_reduce_body<SPLIT, TERM, double, KEEP, MI>(a, &tab);
+}
+
+template <bool SPLIT>
+void launch_table(const Args& a, const TermTable& t, bool keep, bool mi, cudaStream_t s) {
+  const int blocks = (a.n + kBlock - 1) / kBlock;
+  if (keep && mi)
+    lag_reduce_table_kernel<SPLIT, kTermTable, true, true><<<blocks, kBlock, 0, s>>>(a, t);
+  else if (keep)
+    lag_reduce_table_kernel<SPLIT, kTermTable, true, false><<<blocks, kBlock, 0, s>>>(a, t);
+  else if (mi)
+    lag_reduce_table_kernel<SPLIT, kTermTable, false, true><<<blocks, kBlock, 0, s>>>(a, t);
+  else
+    lag_reduce_table_kernel<SPLIT, kTermTable, false, false><<<blocks, kBlock, 0, s>>>(a, t);
 }
 
 template <bool SPLIT, int TERM, typename Acc>
@@ -283,17 +318,28 @@ int zelll_lag_reduce_block() { return kBlock; }
 // or 2; mi != 0 folds the axes whose box length mbx, mby, mbz is > 0 to the
 // minimum image, in split mode less the low parts mlx, mly, mlz of the
 // host box lengths (box - mbx ...); partial: ceil(n / block) doubles (int_out == 0) or int64s
-// (int_out != 0). Returns cudaGetLastError() after the launch.
+// (int_out != 0). term 3 takes the device term table (tkind, tmode and
+// tvals: pair_table.cuh's kind, mode and 6 floats, its 5 constants and the
+// shift, in host memory) into double partials with any rule; term 4 the
+// species term (lennard_jones_mixed: w the (n,) species plane, mix the
+// device (ns * ns) float2 table), f32 and open only. Returns
+// cudaGetLastError() after the launch.
 int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      float csq, int term, int int_out, int mask, int mi, float mbx,
                      float mby, float mbz, float mlx, float mly, float mlz,
-                     void* partial, void* stream) {
+                     void* partial, void* stream, int tkind, int tmode,
+                     const float* tvals, const void* mix, int ns) {
+  const bool table = term == kArgTable, species = term == kArgSpecies;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
       L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (term != kArgLj && term != kArgCount && term != kArgVirial) ||
-      (mask != kMaskNone && mask != kMaskKeep) || ((mask == kMaskKeep) != (w != nullptr)))
+      (term != kArgLj && term != kArgCount && term != kArgVirial && !table && !species) ||
+      (mask != kMaskNone && mask != kMaskKeep) ||
+      ((mask == kMaskKeep || species) != (w != nullptr)) ||
+      ((table || species) &&
+       (int_out != 0 || !term_table_ok(tkind, tmode, species, mix, ns))) ||
+      (species && (lo != nullptr || mask != kMaskNone || mi != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -309,9 +355,17 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void*
   a.mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
   a.mibl = mi != 0 ? make_float3(mlx, mly, mlz) : make_float3(0.0f, 0.0f, 0.0f);
   a.partial = partial;
+  const TermTable t = make_term_table(tkind, tmode, tvals, mix, ns);
   auto s = static_cast<cudaStream_t>(stream);
   const bool keep = mask == kMaskKeep;
-  if (a.lo != nullptr)
+  if (species)
+    lag_reduce_table_kernel<false, kTermSpecies, false, false>
+        <<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(a, t);
+  else if (table && a.lo != nullptr)
+    launch_table<true>(a, t, keep, mi != 0, s);
+  else if (table)
+    launch_table<false>(a, t, keep, mi != 0, s);
+  else if (a.lo != nullptr)
     launch_term<true>(a, term, int_out != 0, keep, mi != 0, s);
   else
     launch_term<false>(a, term, int_out != 0, keep, mi != 0, s);

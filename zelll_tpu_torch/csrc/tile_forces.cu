@@ -87,6 +87,12 @@
 // holds the box, the gap test, the split margin and the compaction that
 // K1, K3 and K6 share.
 //
+// Pair potentials (ops/potentials.py) add instances under a new template
+// value, so the existing instances keep their names and code: GFN =
+// kGfnTable takes any factory's force factor through the device term table
+// (pair_table.cuh, a TermTable in Args), in every instance the LJ factor
+// has. K7 takes no species plane (nor does the TPU kernel).
+//
 // Accumulation: each lane sums its f32 products g d in f64 and writes
 // (dim, n) planes of f32, or f64 when asked (the checks compare f64 sums).
 //
@@ -113,6 +119,7 @@ constexpr int kMaxBands = 9;
 constexpr int kMaxDim = 3;
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
+constexpr int kGfnTable = 2;
 // Split mode's tie band around the cutoff (_TIE_BAND in lag_pairs.py)
 constexpr float kTieBand = 1e-6f;
 
@@ -140,6 +147,7 @@ struct Args {
   int S;
   float csq;
   void* out;              // (dim, n) planes of float or double
+  TermTable tab;          // the table's force factor (kGfnTable)
 };
 
 // Coordinates of slot j (< n) from the planes; absent axes read 0, which
@@ -188,7 +196,7 @@ template <bool SPLIT, int GFN, bool BANDMASK, bool FULL>
 __device__ __forceinline__ void sweep(Own& o, const float4* bh,
                                       const float4* bl, int cnt, float csq,
                                       float thr, int32_t band_lo,
-                                      int32_t band_hi) {
+                                      int32_t band_hi, const TermTable& tab) {
   // phase A: one broadcast read per entry, the lane's hit bits
   unsigned long long hits = 0ull;
   if (FULL) {
@@ -233,7 +241,7 @@ __device__ __forceinline__ void sweep(Own& o, const float4* bh,
       }
     }
     if (inside) {
-      const float g = force_factor<GFN>(dsq);
+      const float g = GFN == kGfnTable ? table_gfn(dsq, tab) : force_factor<GFN>(dsq);
       o.fx += static_cast<double>(g * dx);
       o.fy += static_cast<double>(g * dy);
       o.fz += static_cast<double>(g * dz);
@@ -295,7 +303,7 @@ __global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
         int base = 0;
         for (; cnt - base >= kSweep; base += kSweep)
           sweep<SPLIT, GFN, BANDMASK, true>(o, bh + base, bl + base, kSweep, a.csq, thr, band_lo,
-                                      band_hi);
+                                      band_hi, a.tab);
         __syncwarp();
         // move the remainder to the front of the buffer
         cnt -= base;
@@ -305,14 +313,14 @@ __global__ void __launch_bounds__(kChunk) tile_forces_kernel(Args a) {
     if (BANDMASK && cnt > 0) {
       // the band is uniform within a sweep
       __syncwarp();
-      sweep<SPLIT, GFN, BANDMASK, false>(o, bh, bl, cnt, a.csq, thr, band_lo, band_hi);
+      sweep<SPLIT, GFN, BANDMASK, false>(o, bh, bl, cnt, a.csq, thr, band_lo, band_hi, a.tab);
       __syncwarp();
       cnt = 0;
     }
   }
   if (cnt > 0) {
     __syncwarp();
-    sweep<SPLIT, GFN, BANDMASK, false>(o, bh, bl, cnt, a.csq, thr, band_lo, band_hi);
+    sweep<SPLIT, GFN, BANDMASK, false>(o, bh, bl, cnt, a.csq, thr, band_lo, band_hi, a.tab);
   }
   if (o.real) {
     Out* out = static_cast<Out*>(a.out);
@@ -347,6 +355,8 @@ void launch_gfn(const Args& a, int gfn, bool bandmask, bool f64_out,
                 int blocks, cudaStream_t s) {
   if (gfn == kGfnLj)
     launch_mask<SPLIT, kGfnLj>(a, bandmask, f64_out, blocks, s);
+  else if (gfn == kGfnTable)
+    launch_mask<SPLIT, kGfnTable>(a, bandmask, f64_out, blocks, s);
   else
     launch_mask<SPLIT, kGfnLjFast>(a, bandmask, f64_out, blocks, s);
 }
@@ -363,13 +373,18 @@ int zelll_tile_forces_chunk() { return kChunk; }
 // per band; bands: (S, 2) int32 on the device; gfn: 0 for the LJ force
 // factor, 1 for its rsqrt form; out: (dim, n) planes of float
 // (f64_out == 0) or double (f64_out != 0). Returns cudaGetLastError()
-// after the launch.
+// after the launch. gfn 2 takes the device term table's force factor (tkind,
+// tmode and tvals: pair_table.cuh's kind, mode and 6 floats, its 5
+// constants and the shift, in host memory).
 int zelll_tile_forces(const void* pos, const void* lo, const void* keys,
                       const void* bounds, const void* bands, int n, int dim,
                       int S, float csq, int gfn, int f64_out, int bandmask,
-                      void* out, void* stream) {
+                      void* out, void* stream, int tkind, int tmode,
+                      const float* tvals) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
-      (gfn != kGfnLj && gfn != kGfnLjFast))
+      (gfn != kGfnLj && gfn != kGfnLjFast && gfn != kGfnTable) ||
+      (gfn == kGfnTable &&
+       (tmode != kTableModeGfn || !term_table_ok(tkind, tmode, false, nullptr, 0))))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -382,6 +397,7 @@ int zelll_tile_forces(const void* pos, const void* lo, const void* keys,
   a.S = S;
   a.csq = csq;
   a.out = out;
+  a.tab = make_term_table(tkind, tmode, tvals, nullptr, 0);
   const int blocks = (n + kChunk - 1) / kChunk;
   auto s = static_cast<cudaStream_t>(stream);
   if (a.lo != nullptr)

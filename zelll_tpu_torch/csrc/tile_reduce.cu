@@ -79,6 +79,15 @@
 // more lane mask before the term. The half-stencil triangle rule is
 // unchanged.
 //
+// Pair potentials and species (ops/potentials.py) add instances under new
+// template values, so the existing instances keep their names and code:
+// TERM = kTermTable takes any factory's energy or virial through the device
+// term table (pair_table.cuh, a TermTable in Args), open and with the keep
+// mask, f32 and split, with and without the band mask; TERM = kTermSpecies
+// lennard_jones_mixed's energy (open, f32), the species plane as the
+// payload row, read as the keep plane is, and each pair's (eps_ij,
+// sigma_ij) from the S x S table.
+//
 // Accumulation: each lane sums its f32 terms in f64 (integer terms in
 // int64); the block folds its lanes in a fixed order (block_fold) and
 // writes one partial per own chunk. The caller sums the partials. No float
@@ -123,6 +132,7 @@ struct Args {
   int S;
   float csq;
   void* partial;          // one per own chunk
+  TermTable tab;          // the table's term (kTermTable, kTermSpecies)
 };
 
 // Coordinates of slot j (< n) from the planes, w's bits in .w; absent axes
@@ -138,10 +148,12 @@ __device__ __forceinline__ float4 load_slot(const float* planes, int n,
 
 template <bool SPLIT, int TERM, bool BANDMASK, typename Acc, bool KEEP>
 __device__ __forceinline__ void tile_reduce_body(const Args& a) {
+  // the payload row: the keep mask's shift signs or the species
+  constexpr bool PLANE = KEEP || TERM == kTermSpecies;
   __shared__ float4 buf_hi[kClusters][kBuf];
   __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
   __shared__ int32_t buf_key[kClusters][BANDMASK ? kBuf : 1];
-  __shared__ float buf_w[kClusters][KEEP ? kBuf : 1];
+  __shared__ float buf_w[kClusters][PLANE ? kBuf : 1];
   const int c = blockIdx.x;
   const int w = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -160,7 +172,7 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
   o.jlo = -1;         // band 0 pairs with w < i, the other bands always
   o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
   o.acc = Acc(0);
-  o.pw = KEEP && real ? a.w[i] : 0.0f;
+  o.pw = PLANE && real ? a.w[i] : 0.0f;
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
     const Box box = cluster_box<SPLIT>(o.h, o.l, real);
@@ -193,7 +205,7 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
           b[k] = keep[k] ? load_slot(a.pos, a.n, a.dim, j, s == 0 ? j : -1) : zero;
           b_lo[k] = SPLIT && keep[k] ? load_slot(a.lo, a.n, a.dim, j, 0) : zero;
           kj[k] = BANDMASK && keep[k] ? a.keys[j] : 0;
-          wj[k] = KEEP && keep[k] ? a.w[j] : 0.0f;
+          wj[k] = PLANE && keep[k] ? a.w[j] : 0.0f;
         }
 #pragma unroll
         for (int k = 0; k < kClusters; ++k) {
@@ -202,7 +214,7 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
             bh[at] = b[k];
             if (SPLIT) bl[at] = b_lo[k];
             if (BANDMASK) bk[at] = kj[k];
-            if (KEEP) bw[at] = wj[k];
+            if (PLANE) bw[at] = wj[k];
           });
         }
         if (cnt >= kWarp) {
@@ -210,20 +222,21 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
           int done = 0;
           for (; cnt - done >= kWarp; done += kWarp)
             reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, true, KEEP>(
-                o, bh + done, bl + done, bk + done, kWarp, a.csq, band_lo, band_hi, bw + done);
+                o, bh + done, bl + done, bk + done, kWarp, a.csq, band_lo, band_hi, bw + done,
+                &a.tab);
           __syncwarp();
           // move the remainder to the front of the buffer
           cnt -= done;
           shift_front<1, SPLIT>(bh, bl, done, cnt, lane);
           if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
-          if (KEEP) shift_front<1, false>(bw, bw, done, cnt, lane);
+          if (PLANE) shift_front<1, false>(bw, bw, done, cnt, lane);
         }
       }
       if (BANDMASK && cnt > 0) {
         // the band is uniform within a sweep
         __syncwarp();
         reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false, KEEP>(o, bh, bl, bk, cnt, a.csq,
-                                                                    band_lo, band_hi, bw);
+                                                                    band_lo, band_hi, bw, &a.tab);
         __syncwarp();
         cnt = 0;
       }
@@ -231,7 +244,7 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
     if (cnt > 0) {
       __syncwarp();
       reduce_sweep<SPLIT, TERM, BANDMASK, kTwoPhase, false, KEEP>(o, bh, bl, bk, cnt, a.csq,
-                                                                  band_lo, band_hi, bw);
+                                                                  band_lo, band_hi, bw, &a.tab);
     }
   }
   block_fold<kClusters>(o.acc, static_cast<Acc*>(a.partial));
@@ -279,6 +292,10 @@ void launch_term(const Args& a, int term, bool bandmask, bool int_out, bool keep
                  int blocks, cudaStream_t s) {
   if (term == kTermLj)
     launch_mask<SPLIT, kTermLj>(a, bandmask, int_out, keep, blocks, s);
+  else if (term == kTermTable && bandmask)
+    launch_keep<SPLIT, kTermTable, true, double>(a, keep, blocks, s);
+  else if (term == kTermTable)
+    launch_keep<SPLIT, kTermTable, false, double>(a, keep, blocks, s);
   else if (term == kTermLjFast)
     launch_mask<SPLIT, kTermLjFast>(a, bandmask, int_out, keep, blocks, s);
   else if (term == kTermVirial)
@@ -300,15 +317,26 @@ int zelll_tile_reduce_chunk() { return kChunk; }
 // keys: the padded (nc_pad * 128,) int32 keys; bounds: (nc_pad, 3 S) int32
 // (jlo, toff, jnum) per band; bands: (S, 2) int32 on the device; mask: 0
 // or 2; partial: ceil(n / 128) doubles (int_out == 0) or int64s
-// (int_out != 0). Returns cudaGetLastError() after the launch.
+// (int_out != 0). term 4 takes the device term table (tkind, tmode and
+// tvals: pair_table.cuh's kind, mode and 6 floats, its 5 constants and the
+// shift, in host memory) into double partials, open or with the keep mask;
+// term 5 the species term (lennard_jones_mixed: w the (n,) species plane,
+// mix the device (ns * ns) float2 table), f32 and open only. Returns
+// cudaGetLastError() after the launch.
 int zelll_tile_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                       const void* bounds, const void* bands, int n, int dim,
                       int S, float csq, int term, int int_out, int bandmask,
-                      int mask, void* partial, void* stream) {
+                      int mask, void* partial, void* stream, int tkind, int tmode,
+                      const float* tvals, const void* mix, int ns) {
+  const bool table = term == kTermTable, species = term == kTermSpecies;
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
       (term != kTermLj && term != kTermLjFast && term != kTermCount &&
-       term != kTermVirial) ||
-      (mask != kMaskNone && mask != kMaskKeep) || ((mask == kMaskKeep) != (w != nullptr)))
+       term != kTermVirial && !table && !species) ||
+      (mask != kMaskNone && mask != kMaskKeep) ||
+      ((mask == kMaskKeep || species) != (w != nullptr)) ||
+      ((table || species) &&
+       (int_out != 0 || !term_table_ok(tkind, tmode, species, mix, ns))) ||
+      (species && (lo != nullptr || mask != kMaskNone)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -322,9 +350,14 @@ int zelll_tile_reduce(const void* pos, const void* lo, const void* w, const void
   a.S = S;
   a.csq = csq;
   a.partial = partial;
+  a.tab = make_term_table(tkind, tmode, tvals, mix, ns);
   const int blocks = (n + kChunk - 1) / kChunk;
   auto s = static_cast<cudaStream_t>(stream);
-  if (a.lo != nullptr)
+  if (species && bandmask != 0)
+    tile_reduce_kernel<false, kTermSpecies, true, double><<<blocks, kChunk, 0, s>>>(a);
+  else if (species)
+    tile_reduce_kernel<false, kTermSpecies, false, double><<<blocks, kChunk, 0, s>>>(a);
+  else if (a.lo != nullptr)
     launch_term<true>(a, term, bandmask != 0, int_out != 0, mask == kMaskKeep, blocks, s);
   else
     launch_term<false>(a, term, bandmask != 0, int_out != 0, mask == kMaskKeep, blocks, s);

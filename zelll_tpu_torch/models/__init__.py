@@ -10,10 +10,12 @@ from .lj_md import (
     md_run_skin_pbc,
     md_run_skin_tile,
     md_run_skin_tile_pbc,
+    md_run_species,
     md_run_vv,
     md_run_vv_pbc,
     md_step,
     md_step_cubic_tile,
+    md_step_species,
     md_step_split,
 )
 from .nuts import hmc_sample_batched, nuts_sample, nuts_sample_batched
@@ -33,10 +35,12 @@ __all__ = [
     "md_run_skin_pbc",
     "md_run_skin_tile",
     "md_run_skin_tile_pbc",
+    "md_run_species",
     "md_run_vv",
     "md_run_vv_pbc",
     "md_step",
     "md_step_cubic_tile",
+    "md_step_species",
     "md_step_split",
     "hmc_sample_batched",
     "nuts_sample",

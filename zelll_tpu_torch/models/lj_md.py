@@ -10,7 +10,11 @@ The Verlet-skin loops (`md_run_skin`, `md_run_skin_tile`) build the grid
 with cell edge ``cutoff + skin`` and reuse it while no particle has moved
 more than ``skin / 2`` since the last build. The periodic loops
 (`md_run_vv_pbc`, `md_run_skin_pbc`, `md_run_skin_tile_pbc`) run the same
-integrators in an orthorhombic box through `ops.pbc`.
+integrators in an orthorhombic box through `ops.pbc`. The species steps
+(`md_step_species`, `md_run_species`) carry a species column through the
+sort as one more payload column and take a payload potential
+(`ops.potentials.lennard_jones_mixed`), K3's and K1's species instances
+on the card.
 
 State comes back in cell-key order with an unspecified order among equal
 keys (the sorts are unstable); compare states as sets of rows.
@@ -50,6 +54,8 @@ __all__ = [
     "MDStateSplit",
     "md_step",
     "md_step_split",
+    "md_step_species",
+    "md_run_species",
     "md_run",
     "md_run_vv",
     "md_run_skin",
@@ -186,6 +192,51 @@ def md_step_split(state: MDStateSplit, cutoff, dt, *, M: int = 4096,
     lo_new = (shi - hi_new) + t
     return (MDStateSplit(pos_hi=hi_new, pos_lo=lo_new, velocities=vel_new),
             lag_coverage_ok(keys, strides, L))
+
+
+def md_step_species(state: MDState, species, cutoff, dt, *, pot, M: int = 4096,
+                    L: int = 256):
+    """One multi-species MD step with a full grid rebuild: the species
+    column rides the sort as one more payload column beside the velocities
+    (never a gather), and K3 evaluates the payload force factor
+    ``pot.gfn(dsq, s_i, s_j)`` (`ops.potentials.lennard_jones_mixed`; on
+    CPU tensors any payload gfn) over the sorted species plane.
+
+    Returns (new_state, new_species, coverage_ok): state and species in
+    the new sorted order, the species in the positions' dtype (3-D).
+    """
+    pos, vel = state.positions, state.velocities
+    if pos.shape[1] != 3:
+        raise ValueError("md_step_species is 3-D (the lag kernel)")
+    spec = torch.as_tensor(species, device=pos.device).to(pos.dtype).reshape(-1, 1)
+    cols, keys, strides = _sort_rows(torch.cat([pos, vel, spec], 1), cutoff)
+    spos, svel, sspec = cols[:, :3], cols[:, 3:6], cols[:, 6:]
+    f = pair_lag_forces(spos, keys, strides, _csq(cutoff, pos.dtype), None, sspec, M=M,
+                        L=L, gfn=pot.gfn)
+    vel_new = svel + dt * f
+    pos_new = spos + dt * vel_new
+    return (MDState(positions=pos_new, velocities=vel_new), sspec[:, 0],
+            lag_coverage_ok(keys, strides, L))
+
+
+def md_run_species(state: MDState, species, cutoff, dt, *, pot, steps: int,
+                   M: int = 4096, L: int = 256):
+    """``steps`` steps of `md_step_species`, then the payload energy
+    ``pot.term(dsq, s_i, s_j)`` of the final configuration through K1 on a
+    fresh sort with the species column. Returns (state, species,
+    all_covered, energy)."""
+    spec = torch.as_tensor(species, device=state.positions.device).to(
+        state.positions.dtype).reshape(-1)
+    ok = _all_true(state.positions)
+    for _ in range(steps):
+        state, spec, ok_s = md_step_species(state, spec, cutoff, dt, pot=pot, M=M, L=L)
+        ok = ok & ok_s
+    cols, keys, strides = _sort_rows(torch.cat([state.positions, spec[:, None]], 1),
+                                     cutoff)
+    energy = pair_lag_reduce(cols[:, :3].contiguous(), keys, strides,
+                             _csq(cutoff, state.positions.dtype), None, cols[:, 3:],
+                             M=M, L=L, term=pot.term)
+    return state, spec, ok, energy
 
 
 def md_run(state: MDState, cutoff, dt, *, steps: int, M: int = 4096,

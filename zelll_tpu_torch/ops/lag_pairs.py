@@ -44,6 +44,7 @@ from .._device import resolve_device
 from ..core.geometry import SENTINEL_KEY, key_window
 from ._build import kernel_loader
 from .lj import lj_force_factor, lj_force_factor_fast, lj_virial_term
+from .potentials import KIND_MIXED_LJ, MODE_GFN, TermSpec, species_table
 
 __all__ = [
     "pair_lag_reduce",
@@ -109,8 +110,89 @@ def count_term(dsq):
     return torch.ones_like(dsq)
 
 
-# The terms the CUDA kernel implements, by the enum value it takes.
+# The terms the CUDA kernel implements, by the enum value it takes; a
+# factory's function of ops.potentials runs as the term table (3) or the
+# species term (4).
 _KERNEL_TERMS = {lj_term: 0, count_term: 1, lj_virial_term: 2}
+_TERM_TABLE = 3
+_TERM_SPECIES = 4
+
+# What the card takes besides its own terms, for the kernels' messages.
+CARD_TERMS = ("the functions of ops.potentials' factories (the device term "
+              "table; lennard_jones_mixed over a species plane)")
+
+# The table arguments of a launch without the table: kind, mode, values,
+# species table, species count.
+_NO_TABLE = (0, 0, None, None, 0)
+_MIX_TABLES: dict = {}
+
+
+def term_spec(fn) -> TermSpec | None:
+    """The device spec an ops.potentials function carries, or None."""
+    spec = getattr(fn, "table", None)
+    return spec if isinstance(spec, TermSpec) else None
+
+
+def is_species_term(fn) -> bool:
+    spec = term_spec(fn)
+    return spec is not None and spec.kind == KIND_MIXED_LJ
+
+
+def table_args(spec: TermSpec, device) -> tuple:
+    """The C interfaces' table arguments for ``spec``: (kind, mode, the
+    constants and the shift as 6 f32 in host memory, the device species
+    table's address or None, the species count). The f64 constants round to
+    f32 as torch rounds a Python scalar for an f32 tensor. A species table
+    is copied to ``device`` once per potential and kept."""
+    vals = list(spec.params) + [0.0] * (5 - len(spec.params)) + [spec.shift]
+    arr = (ctypes.c_float * 6)(*vals)
+    if spec.kind != KIND_MIXED_LJ:
+        return spec.kind, spec.mode, arr, None, 0
+    key = (spec.species, str(device))
+    mix = _MIX_TABLES.get(key)
+    if mix is None:
+        mix = _MIX_TABLES[key] = torch.tensor(species_table(spec), dtype=torch.float32,
+                                              device=device)
+    return spec.kind, spec.mode, arr, mix.data_ptr(), len(spec.species[0])
+
+
+def energy_term_arg(kernel: str, term, kernel_terms: dict, table_id: int):
+    """An energy kernel's term enum (``table_id`` for the table, + 1 for
+    the species term) and its table arguments; raises on a term the card
+    does not take."""
+    if term in kernel_terms:
+        return kernel_terms[term], None
+    spec = term_spec(term)
+    if spec is None or spec.mode == MODE_GFN:
+        names = ", ".join(getattr(t, "__name__", str(t)) for t in kernel_terms)
+        raise ValueError(
+            f"the CUDA kernel {kernel} takes the terms {names} and {CARD_TERMS}; "
+            "run other terms through the plain version or on CPU tensors")
+    return table_id + int(spec.kind == KIND_MIXED_LJ), spec
+
+
+def forces_gfn_arg(kernel: str, gfn, kernel_gfns: dict, table_id: int, species: bool):
+    """A forces kernel's force-factor enum (``table_id`` for the table,
+    + 1 for the species factor over a payload plane) and its spec; raises on
+    a factor the card does not take."""
+    spec = term_spec(gfn)
+    if species:
+        if spec is None or spec.kind != KIND_MIXED_LJ or spec.mode != MODE_GFN:
+            raise ValueError(
+                f"the CUDA kernel {kernel} takes one payload force factor, "
+                "ops.potentials.lennard_jones_mixed's gfn over a species plane; "
+                "run other payload force factors through the plain version or "
+                "on CPU tensors")
+        return table_id + 1, spec
+    if gfn in kernel_gfns:
+        return kernel_gfns[gfn], None
+    if spec is None or spec.mode != MODE_GFN or spec.kind == KIND_MIXED_LJ:
+        names = ", ".join(getattr(g, "__name__", str(g)) for g in kernel_gfns)
+        raise ValueError(
+            f"the CUDA kernel {kernel} takes the force factors {names} and "
+            f"{CARD_TERMS}; a species gfn needs its sorted_payload; run other "
+            "force factors through the plain version or on CPU tensors")
+    return table_id, spec
 
 
 # Split mode's tie band: |dsq - csq| <= _TIE_BAND * csq holds every pair
@@ -306,7 +388,7 @@ def _bind_reduce(lib) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zelll_lag_reduce.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, ci, ci, ci, cf, cf, cf, cf, cf, cf,
-        vp, vp,
+        vp, vp, ci, ci, vp, vp, ci,
     ]
     lib.zelll_lag_reduce.restype = ctypes.c_int
     lib.zelll_lag_reduce_block.argtypes = []
@@ -347,24 +429,29 @@ def _kernel_mi_box(mi_box, dim: int):
 
 def _keep_plane(kernel: str, term, sorted_payload, n: int, device):
     """What an energy kernel takes for a payload rule: (mask id, the term
-    it wraps, the (n,) f32 plane or None). The one payload rule on the
-    card is the periodic keep mask (`PbcKeepTerm` over the shift-sign
-    plane); any other payload term raises."""
-    if sorted_payload is None and not isinstance(term, PbcKeepTerm):
+    it evaluates, the (n,) f32 plane or None). The payload rules on the
+    card are the periodic keep mask (`PbcKeepTerm` over the shift-sign
+    plane) and the species term of `ops.potentials.lennard_jones_mixed`
+    over a species plane; any other payload term raises."""
+    keep, species = isinstance(term, PbcKeepTerm), is_species_term(term)
+    if sorted_payload is None and not keep and not species:
         return _MASK_NONE, term, None
-    if not isinstance(term, PbcKeepTerm) or sorted_payload is None:
+    if sorted_payload is None or not (keep or species) or \
+            (keep and is_species_term(term.term)):
         raise ValueError(
-            f"the CUDA kernel {kernel} takes one payload rule, the periodic "
-            "keep mask (PbcKeepTerm over ops.pbc's shift-sign plane); other "
-            "payload terms (species) come with slice 5b: run them through "
-            "the plain version or on CPU tensors")
+            f"the CUDA kernel {kernel} takes two payload rules, the periodic "
+            "keep mask (PbcKeepTerm over ops.pbc's shift-sign plane) and the "
+            "species plane of ops.potentials.lennard_jones_mixed's term, one at "
+            "a time; run other payload terms through the plain version or on "
+            "CPU tensors")
     plane = torch.as_tensor(sorted_payload, device=device)
     if plane.ndim == 2 and plane.shape[1] == 1:
         plane = plane[:, 0]
     if tuple(plane.shape) != (n,):
-        raise ValueError(f"{kernel}'s keep mask reads one payload plane of {n} "
+        raise ValueError(f"{kernel}'s payload rule reads one payload plane of {n} "
                          f"values; got shape {tuple(plane.shape)}")
-    return _MASK_PBC_KEEP, term.term, plane.to(torch.float32).contiguous()
+    plane = plane.to(torch.float32).contiguous()
+    return (_MASK_NONE, term, plane) if species else (_MASK_PBC_KEEP, term.term, plane)
 
 
 def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
@@ -373,14 +460,15 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     mask, term, plane = _keep_plane("K1", term, sorted_payload, n, device)
-    if term not in _KERNEL_TERMS:
-        raise ValueError(
-            "the CUDA kernel implements lj_term, count_term and "
-            "lj_virial_term only; run other terms through "
-            "pair_lag_reduce_plain or on CPU tensors"
-        )
+    targ, spec = energy_term_arg("K1", term, _KERNEL_TERMS, _TERM_TABLE)
     if out_dtype not in (torch.float32, torch.float64, torch.int32):
         raise ValueError(f"K1 writes float32, float64 or int32 sums, not {out_dtype}")
+    if spec is not None and out_dtype == torch.int32:
+        raise ValueError("K1 sums a table term in float32 or float64, not int32")
+    if targ == _TERM_SPECIES and (sorted_pos_lo is not None or mi_box is not None):
+        raise ValueError("K1's species term runs on open f32 coordinates (no "
+                         "sorted_pos_lo, no mi_box); run it through "
+                         "pair_lag_reduce_plain")
     if not 1 <= dim <= 3 or n >= 2**31:
         raise ValueError(f"K1 takes 1 <= dim <= 3 and n < 2^31; got {(n, dim)}")
     _check_cuda("sorted_pos", sorted_pos, torch.float32, (n, dim), device)
@@ -403,8 +491,9 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
         None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
         None if plane is None else plane.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
-        _KERNEL_TERMS[term], int(integer), mask, mi, *box, *box_lo, partial.data_ptr(),
+        targ, int(integer), mask, mi, *box, *box_lo, partial.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
+        *(_NO_TABLE if spec is None else table_args(spec, device)),
     )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
@@ -442,12 +531,14 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     the key window admits wrap-adjacent cells.
 
     CUDA tensors run kernel K1, which takes f32 coordinates, the terms
-    `lj_term`, `count_term` and `ops.virial.lj_virial_term`, the minimum
-    image, and one payload rule: the periodic keep mask (a `PbcKeepTerm`
-    of one of those terms over one payload plane). It raises on anything
-    else: other payload terms (species, slice 5b) and ``min_islot != 0``
-    (multi-device, slice 9). CPU tensors run
-    `pair_lag_reduce_plain`, which takes them all.
+    `lj_term`, `count_term` and `ops.virial.lj_virial_term`, the energy
+    and virial of every `ops.potentials` factory (the device term table,
+    float sums), the minimum image, and two payload rules: the periodic
+    keep mask (a `PbcKeepTerm` of one of those terms over one payload
+    plane) and the species plane of `ops.potentials.lennard_jones_mixed`'s
+    term (open, f32). It raises on anything else: other callables and
+    payload terms, and ``min_islot != 0`` (multi-device, slice 9). CPU
+    tensors run `pair_lag_reduce_plain`, which takes them all.
     """
     del M
     if L < 1:
@@ -477,8 +568,18 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
 pair_lag_reduce.launches = 0
 
 
-# The force factors the K3 kernel implements, by the enum value it takes.
+# The force factors the K3 kernel implements, by the enum value it takes;
+# a factory's gfn of ops.potentials runs as the table (2) or, over a species
+# plane, the species factor (3).
 _KERNEL_GFNS = {lj_force_factor: 0, lj_force_factor_fast: 1}
+_GFN_TABLE = 2
+
+
+def _forces_table_args(spec, plane, device) -> tuple:
+    """K3's trailing arguments: the table's kind, mode and values, the
+    species plane, the species table and the species count."""
+    kind, mode, vals, mix, ns = _NO_TABLE if spec is None else table_args(spec, device)
+    return kind, mode, vals, None if plane is None else plane.data_ptr(), mix, ns
 
 
 def pair_lag_forces_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
@@ -536,6 +637,7 @@ def _bind_forces(lib) -> None:
     cf = ctypes.c_float
     lib.zelll_lag_forces.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, cf, ci, ci, ci, cf, cf, cf, cf, cf, cf, vp, vp,
+        ci, ci, vp, vp, vp, ci,
     ]
     lib.zelll_lag_forces.restype = ci
 
@@ -546,17 +648,23 @@ load_forces_kernel = kernel_loader(_FORCES_SRC, "lag_forces", _bind_forces)
 
 
 def _lag_forces_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
-                     sorted_pos_lo, *, L, gfn, out_dtype, mi_box, key_reach):
+                     sorted_pos_lo, sorted_payload, *, L, gfn, out_dtype, mi_box,
+                     key_reach):
     """Launch K3 on the current stream. Returns (n, 3) forces, a view of
     the (3, n) planes the kernel writes."""
     device = sorted_pos.device
     n, dim = sorted_pos.shape
-    if gfn not in _KERNEL_GFNS:
-        raise ValueError(
-            "the CUDA kernel implements lj_force_factor and "
-            "lj_force_factor_fast only; run other force factors through "
-            "pair_lag_forces_plain or on CPU tensors"
-        )
+    species = sorted_payload is not None
+    garg, spec = forces_gfn_arg("K3", gfn, _KERNEL_GFNS, _GFN_TABLE, species)
+    plane = None
+    if species:
+        plane = torch.as_tensor(sorted_payload, device=device)
+        if plane.ndim == 2 and plane.shape[1] == 1:
+            plane = plane[:, 0]
+        if tuple(plane.shape) != (n,):
+            raise ValueError(f"K3's species factor reads one payload plane of {n} "
+                             f"values; got shape {tuple(plane.shape)}")
+        plane = plane.to(torch.float32).contiguous()
     if out_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K3 writes float32 or float64 forces, not {out_dtype}")
     if n >= 2**31:
@@ -580,9 +688,10 @@ def _lag_forces_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
     err = lib.zelll_lag_forces(
         planes.data_ptr(), None if lo_planes is None else lo_planes.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, L, _pad_spacing(n), csq,
-        _KERNEL_GFNS[gfn], int(out_dtype == torch.float64), mi, *box, *box_lo,
+        garg, int(out_dtype == torch.float64), mi, *box, *box_lo,
         out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
+        *_forces_table_args(spec, plane, device),
     )
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
@@ -615,11 +724,12 @@ def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
     with ``sorted_pos``.
 
     CUDA tensors run kernel K3, which takes f32 coordinates, the force
-    factors `lj_force_factor` and `lj_force_factor_fast` and the minimum
-    image, and raises on anything else (``sorted_payload``, whose species
-    forces come with slice 5b, included). CPU tensors run
-    `pair_lag_forces_plain`, which also takes ``sorted_payload`` and any
-    ``gfn``.
+    factors `lj_force_factor` and `lj_force_factor_fast`, the force factor
+    of every `ops.potentials` factory (the device term table), the species
+    factor of `ops.potentials.lennard_jones_mixed` over a one-plane
+    ``sorted_payload``, and the minimum image, and raises on anything else
+    (other callables and payload factors). CPU tensors run
+    `pair_lag_forces_plain`, which takes any ``gfn`` and payload.
     """
     del M
     if gfn is None:
@@ -636,13 +746,9 @@ def pair_lag_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
     if sorted_pos_lo is not None:
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
     if device.type == "cuda":
-        if sorted_payload is not None:
-            raise ValueError("the CUDA kernel K3 takes no sorted_payload (species "
-                             "forces come with slice 5b); run it through "
-                             "pair_lag_forces_plain")
         return _lag_forces_cuda(
-            sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, L=L,
-            gfn=gfn, out_dtype=out_dtype or sorted_pos.dtype, mi_box=mi_box,
+            sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
+            L=L, gfn=gfn, out_dtype=out_dtype or sorted_pos.dtype, mi_box=mi_box,
             key_reach=key_reach)
     return pair_lag_forces_plain(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,

@@ -316,22 +316,179 @@ def _default_caps(n: int, box, cutoff, B, G, BE):
 
 
 def _ghost_bins(positions, origin, box, cutoff, *, B, G, BE, positions_lo,
-                need_perm: bool, signs: bool = True, stable: bool | None = None):
+                need_perm: bool, signs: bool = True, stable: bool | None = None,
+                extra=None):
     """Binning for the ghost-image lag and tile paths: ghost-extend every
     axis (`pbc_extend`) and sort by cell key on the auto-ordered grid of
     the live rows. The low parts and, with ``signs``, the shift-sign plane
-    ride the sort. Returns (bins, sorted positions, sorted low parts or
-    None, sorted signs (n_ext, 1) or None, ok)."""
-    ext, ext_lo, w, valid, ok = pbc_extend(
-        positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE)
+    ride the sort, and so does ``extra`` ((n,) values, e.g. species; ghost
+    rows take their parent's), as the last column. Returns (bins, sorted
+    positions, sorted low parts or None, sorted signs (n_ext, 1) or None,
+    ok), and with ``extra`` its sorted (n_ext, 1) column after them."""
+    ext, ext_lo, w, valid, ok, gparent = pbc_extend(
+        positions, origin, box, cutoff, B=B, G=G, positions_lo=positions_lo, BE=BE,
+        return_parents=True)
     cols = [ext] + ([ext_lo] if ext_lo is not None else []) + ([w[:, None]] if signs else [])
+    if extra is not None:
+        ex = torch.as_tensor(extra, device=ext.device).to(ext.dtype).reshape(-1)
+        cols.append(torch.cat([ex, ex[gparent]])[:, None])
     bins, sorted_cols = bin_and_sort(torch.cat(cols, 1) if len(cols) > 1 else ext, cutoff,
                                      max_cells=1, need_perm=need_perm, valid=valid,
                                      stable=stable, auto_order=True)
     # the lag kernels read contiguous rows
     sp = sorted_cols[:, :3].contiguous()
     slo = sorted_cols[:, 3:6].contiguous() if ext_lo is not None else None
-    return bins, sp, slo, sorted_cols[:, -1:] if signs else None, ok
+    end = sorted_cols.shape[1] - (extra is not None)
+    out = (bins, sp, slo, sorted_cols[:, end - 1:end] if signs else None, ok)
+    return out if extra is None else out + (sorted_cols[:, end:],)
+
+
+# Padding keys of the sorted-extremes path's ghost blocks: the append block's
+# above every shifted image key and below the kernels' own padding family
+# (lag_pairs._PAD_KEY_BASE), the prepend block's far below every real key,
+# each ascending with this spacing, so the array stays sorted.
+_PAD_KEY_BASE_APPEND = 2**28
+_NEG_PAD_KEY_BASE = -(2**28)
+_GHOST_PAD_SPACING = 2**10
+# the prepend block's padding keys stay below the real keys (>= 0) for
+# fewer rows than this; the sorted-extremes path takes no larger B
+_EXTREMES_MAX_B = -_NEG_PAD_KEY_BASE // _GHOST_PAD_SPACING
+
+
+class _SortedBins:
+    """The part of `core.binning.Bins` the minimum-image paths read."""
+
+    __slots__ = ("sorted_keys", "info", "perm")
+
+    def __init__(self, sorted_keys, info, perm):
+        self.sorted_keys, self.info, self.perm = sorted_keys, info, perm
+
+
+def _minimage_reach(box, cutoff, mimask, dim: int):
+    """(reach, mi_box): the folded axes' cell spans and the f64 host box
+    lengths, 0 on the unfolded axes (split mode's fold keeps what their f32
+    rounding drops, `lag_pairs.mi_fold`)."""
+    b64 = np.asarray(box, np.float64).reshape(dim)
+    reach = tuple(max(int(np.ceil(b64[a] / float(cutoff))) - 1, 1) if mimask[a] else 1
+                  for a in range(dim))
+    mi_box = torch.where(torch.as_tensor(mimask), torch.as_tensor(b64, dtype=torch.float64),
+                         torch.zeros((), dtype=torch.float64))
+    return reach, mi_box
+
+
+def _minimage_bins_sorted_extremes(positions, origin, box, cutoff, mimask, *, B,
+                                   positions_lo, need_perm: bool,
+                                   stable: bool | None = None):
+    """`_minimage_bins` when the one ghost axis is the box's longest (the
+    ``minimage="auto"`` shape): the boundary rows of that axis are the two
+    ends of the key-sorted array, so the ghost images are a slice, a shift
+    and a concatenation, and the n-row compaction of `pbc_extend` and the
+    n + G row sort disappear. The JAX package's
+    ``_minimage_bins_sorted_extremes``.
+
+    Cells are exactly one cutoff wide from the origin, so the low face's
+    rows (z < origin + cutoff) are exactly the z-cell-0 rows, a sorted
+    prefix; the high face's rows lie in the top two cells, a suffix. Each
+    end's first or last B rows are imaged (rows off the face become
+    padding rows far away) and sorted by key; the appended images share
+    the top cell with real rows, so the tail merge region (the last B2 real
+    rows and the appended block) is sorted once more. ``ok`` turns False
+    where a face holds more than B rows or the top cells more than B2 - B,
+    so no pair is dropped silently. In split mode an image's low part
+    takes the two-sum residual of the shift and the box's own low part, as
+    `pbc_extend` shifts it. The prepend block's padding keys (-2^28 +
+    1024 k) stay below the real keys for B < 2^18 rows only, so a larger
+    B (after min(B, n)) raises ValueError: the keys would no longer ascend.
+
+    Returns the `_minimage_bins` tuple.
+    """
+    n, dim = positions.shape
+    if min(B, n) >= _EXTREMES_MAX_B:
+        raise ValueError(f"the sorted-extremes path takes B < {_EXTREMES_MAX_B} rows "
+                         f"(its padding keys would pass the real keys), got {min(B, n)}")
+    dtype, device = positions.dtype, positions.device
+    g = int(np.flatnonzero(~np.asarray(mimask))[0])
+    originj = torch.as_tensor(origin, dtype=dtype, device=device).reshape(dim)
+    box64 = torch.as_tensor(box, dtype=torch.float64, device=device).reshape(dim)
+    boxj = box64.to(dtype)
+    cutj = torch.as_tensor(cutoff, dtype=dtype, device=device)
+    pos = wrap_positions(positions, originj, boxj)
+    ok = (boxj > 2 * cutj).all()
+    info = GridInfo.create(Aabb(originj, originj + boxj), cutoff, auto_order=True)
+    split = positions_lo is not None
+    slo_in = torch.as_tensor(positions_lo, device=device).to(dtype) if split else None
+    stacked = torch.cat([pos, slo_in], 1) if split else pos
+    bins, cols = bin_and_sort(stacked, cutoff, max_cells=1, need_perm=need_perm,
+                              stable=stable, info=info)
+    sp = cols[:, :dim]
+    slo = cols[:, dim:2 * dim] if split else None
+    keys = bins.sorted_keys
+    ok = ok & (keys[n - 1] < _PAD_KEY_BASE_APPEND)
+
+    B = min(B, n)
+    # the merge region's capacity; only containment matters (flagged below)
+    B2 = min(max(2 * B, 512), n)
+    zg = sp[:, g]
+    low_face = originj[g] + cutj
+    high_face = originj[g] + boxj[g] - cutj
+    # the low face's rows are the cell-0 rows, a sorted prefix: a count is a
+    # containment check. The high face's rows span the top two cells, where
+    # they interleave with other rows by minor key: every row of those cells
+    # must lie in the last B rows, and the top cell's rows with the appended
+    # block in the merge region.
+    n_low = (zg < low_face).sum()
+    zcell = torch.floor((zg - originj[g]) / cutj).to(torch.int32)
+    nz_top = torch.floor(boxj[g] / cutj).to(torch.int32)
+    n_face2 = (zcell >= nz_top - 1).sum()
+    n_topcell = (zcell >= nz_top).sum()
+    ok = ok & (n_low <= B) & (n_face2 <= B) & (n_topcell + B <= B2)
+    iota = torch.arange(B, device=device)
+    blo_g = (box64[g] - boxj[g].double()).to(dtype) if split else None
+
+    def ghost_block(bsp, bslo, sign: int, pad_k: int):
+        """The images of one end's B rows shifted by sign * box along the
+        ghost axis, padding rows where a row is off the face, sorted by
+        key: (keys, positions, low parts, signs, perm)."""
+        z = bsp[:, g]
+        valid = (z < low_face) if sign > 0 else (z >= high_face)
+        zs, err = _twosum(z, sign * boxj[g])
+        gsp = bsp.clone()
+        gsp[:, g] = zs
+        k = info.flat_cell_index(gsp)
+        base = _PAD_KEY_BASE_APPEND if sign > 0 else _NEG_PAD_KEY_BASE
+        padk = (base + iota * _GHOST_PAD_SPACING).to(k.dtype)
+        k = torch.where(valid, k, padk)
+        spread = _spread(iota + 1 + pad_k * B, int((2 * B) ** 0.5) + 2, dim, dtype)
+        gsp = torch.where(valid[:, None], gsp, spread)
+        w = torch.where(valid, torch.full_like(z, float(sign)), torch.zeros_like(z))
+        parts = [gsp, w[:, None]]
+        if split:
+            gslo = bslo.clone()
+            gslo[:, g] = bslo[:, g] + (err + sign * blo_g)
+            parts.append(torch.where(valid[:, None], gslo, torch.zeros_like(gslo)))
+        k, order = torch.sort(k.to(torch.int32), stable=bool(stable))
+        rows = torch.cat(parts, 1)[order]
+        perm = (n + iota)[order] if need_perm else None
+        return k, rows, perm
+
+    pre = ghost_block(sp[n - B:], slo[n - B:] if split else None, -1, 0)
+    app = ghost_block(sp[:B], slo[:B] if split else None, +1, 1)
+    real = [sp, torch.zeros((n, 1), dtype=dtype, device=device)] + ([slo] if split else [])
+    ext_k = torch.cat([pre[0], keys.to(torch.int32), app[0]])
+    ext_rows = torch.cat([pre[1], torch.cat(real, 1), app[1]])
+    ext_perm = torch.cat([pre[2], bins.perm.to(torch.int64), app[2]]) if need_perm else None
+    # the tail merge region: the last B2 real rows and the appended block
+    T = B2 + B
+    mk, morder = torch.sort(ext_k[-T:], stable=bool(stable))
+    ext_k = torch.cat([ext_k[:-T], mk])
+    ext_rows = torch.cat([ext_rows[:-T], ext_rows[-T:][morder]])
+    if need_perm:
+        ext_perm = torch.cat([ext_perm[:-T], ext_perm[-T:][morder]])
+    reach, mi_box = _minimage_reach(box, cutoff, mimask, dim)
+    out_bins = _SortedBins(ext_k, info, ext_perm)
+    ext_sp = ext_rows[:, :dim].contiguous()
+    ext_slo = ext_rows[:, dim + 1:].contiguous() if split else None
+    return out_bins, ext_sp, ext_slo, ext_rows[:, dim:dim + 1], reach, mi_box, ok
 
 
 def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo,
@@ -346,10 +503,36 @@ def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo
     sorted payload (n_ext, 1) or None, reach, mi_box, ok[, sorted extra]);
     ``mi_box`` holds the host box lengths in f64 (0 on the unfolded axes),
     whose low parts the split fold carries.
-    This is the JAX package's general path; its sorted-extremes fast path
-    (`_minimage_bins_sorted_extremes`, one ghost axis, the major one) is
-    not ported and gives the same pairs.
+
+    With one ghost axis that is the box's longest, n >= 512 and no
+    ``extra``, it takes the sorted-extremes path
+    (`_minimage_bins_sorted_extremes`, B defaulting to
+    `suggest_pbc_capacity`'s) as the JAX package does, unless min(B, n)
+    reaches the 2^18 rows that path takes (the JAX package's keys then no
+    longer ascend); everything else takes the general path. Both give the
+    same pairs.
     """
+    n, dim = positions.shape
+    ghost_axes_idx = np.flatnonzero(~np.asarray(mimask))
+    if (extra is None and len(ghost_axes_idx) == 1
+            and ghost_axes_idx[0] == int(np.argmax(np.asarray(box, np.float64).reshape(-1)))
+            and n >= 512):
+        fast_B = B if B is not None else \
+            suggest_pbc_capacity(n, box, cutoff, axes=~np.asarray(mimask))[0]
+        if min(fast_B, n) < _EXTREMES_MAX_B:
+            return _minimage_bins_sorted_extremes(
+                positions, origin, box, cutoff, mimask, B=fast_B, positions_lo=positions_lo,
+                need_perm=need_perm, stable=stable)
+    return _minimage_bins_general(positions, origin, box, cutoff, mimask, B=B, G=G,
+                                  positions_lo=positions_lo, need_perm=need_perm,
+                                  extra=extra, stable=stable)
+
+
+def _minimage_bins_general(positions, origin, box, cutoff, mimask, *, B, G,
+                           positions_lo, need_perm: bool, extra=None,
+                           stable: bool | None = None):
+    """`_minimage_bins`' general path: `pbc_extend` along the unfolded
+    axes, then one sort of the real and ghost rows."""
     n, dim = positions.shape
     dtype, device = positions.dtype, positions.device
     originj = torch.as_tensor(origin, dtype=dtype, device=device).reshape(dim)
@@ -390,13 +573,7 @@ def _minimage_bins(positions, origin, box, cutoff, mimask, *, B, G, positions_lo
     slo = sorted_cols[:, dim:2 * dim].contiguous() if ext_lo is not None else None
     pay_end = sorted_cols.shape[1] - n_extra
     payload = sorted_cols[:, pay_end - 1:pay_end] if w is not None else None
-    b64 = np.asarray(box, np.float64).reshape(dim)
-    reach = tuple(max(int(np.ceil(b64[a] / float(cutoff))) - 1, 1) if mimask[a] else 1
-                  for a in range(dim))
-    # f64 host lengths: split mode's fold keeps what their f32 rounding
-    # drops (lag_pairs.mi_fold)
-    mi_box = torch.where(torch.as_tensor(mimask), torch.as_tensor(b64, dtype=torch.float64),
-                         torch.zeros((), dtype=torch.float64))
+    reach, mi_box = _minimage_reach(box, cutoff, mimask, dim)
     out = (bins, sp, slo, payload, reach, mi_box, ok)
     if extra is not None:
         out = out + (sorted_cols[:, pay_end:],)
@@ -558,25 +735,32 @@ def pbc_lj_forces(positions, origin, box, cutoff, *, gfn: Callable | None = None
     narrow axes there, and Newton's +/- g d on the folded separation is
     the minimum-image force), ``"tile"`` K7 on the ghost-extended array
     (cubic and wide boxes), ``"xla"`` `core.pairs` (any box, and dim 2).
-    ``species`` (multi-component forces) comes with slice 5b and raises.
+
+    ``species`` ((n,) small ids; lag path, 3-D): multi-component forces.
+    The species column rides the sort, ghost images take their parent's
+    species, and ``gfn`` receives ``(dsq, s_i, s_j)``
+    (`ops.potentials.lennard_jones_mixed`; K3's species factor on the
+    card). The minimum image then takes `_minimage_bins`' general path.
     """
-    if species is not None:
-        raise NotImplementedError(
-            "pbc_lj_forces(species=) is not ported yet: species payloads come "
-            "with slice 5b (species and pair potentials)")
     positions, positions_lo = _prepare(positions, positions_lo, device)
     n, dim = positions.shape
     if dim != 3:
         path = "xla"
+    if species is not None and path != "lag":
+        raise ValueError(
+            "species-dependent PBC forces run on the lag path (payload "
+            f"gfn); got path={path!r}")
     csq = torch.as_tensor(cutoff, dtype=positions.dtype) ** 2
     mimask = _resolve_minimage(box, cutoff, minimage, dim)
     if mimask.any():
         _check_minimage_options(path, bandmask, BE)
-        bins, sp, slo, _, reach, mi_box, ok = _minimage_bins(
+        out = _minimage_bins(
             positions, origin, box, cutoff, mimask, B=B, G=G,
-            positions_lo=positions_lo, need_perm=True, stable=False)
-        f = pair_lag_forces(sp, bins.sorted_keys, bins.info.strides, csq, slo, M=M,
-                            L=L, gfn=gfn, mi_box=mi_box, key_reach=reach)
+            positions_lo=positions_lo, need_perm=True, stable=False, extra=species)
+        bins, sp, slo, _, reach, mi_box, ok = out[:7]
+        spay = out[7] if species is not None else None
+        f = pair_lag_forces(sp, bins.sorted_keys, bins.info.strides, csq, slo, spay,
+                            M=M, L=L, gfn=gfn, mi_box=mi_box, key_reach=reach)
         ok = ok & lag_coverage_ok(bins.sorted_keys, bins.info.strides, L, reach=reach)
         return _unsort_rows(f, bins.perm, n), ok
     if path not in ("lag", "tile", "xla"):
@@ -592,9 +776,9 @@ def pbc_lj_forces(positions, origin, box, cutoff, *, gfn: Callable | None = None
         grid = build(ext, cutoff, valid=valid)
         f = pair_forces(grid, gfn or lj_force_factor, K=K, chunk=chunk, cutoff_sq=csq)
         return f[:n], ok & (grid.bins.max_cell_count() <= K)
-    bins, sp, slo, _, ok = _ghost_bins(
+    bins, sp, slo, _, ok, *spay = _ghost_bins(
         positions, origin, box, cutoff, B=B, G=G, BE=BE, positions_lo=positions_lo,
-        need_perm=True, signs=False, stable=False)
+        need_perm=True, signs=False, stable=False, extra=species)
     if path == "tile":
         from .tile_pairs import tile_pair_forces
 
@@ -603,8 +787,8 @@ def pbc_lj_forces(positions, origin, box, cutoff, *, gfn: Callable | None = None
             gfn=gfn, bandmask=False if bandmask is None else bandmask)
         ok = ok & cov
     else:
-        f = pair_lag_forces(sp, bins.sorted_keys, bins.info.strides, csq, slo, M=M,
-                            L=L, gfn=gfn)
+        f = pair_lag_forces(sp, bins.sorted_keys, bins.info.strides, csq, slo,
+                            spay[0] if spay else None, M=M, L=L, gfn=gfn)
         ok = ok & lag_coverage_ok(bins.sorted_keys, bins.info.strides, L)
     return _unsort_rows(f, bins.perm, n), ok
 

@@ -55,7 +55,11 @@ from .lag_pairs import (
     _PAD_KEY_BASE,
     _cumulative_counts,
     _is_default_islot,
+    _NO_TABLE,
     _keep_plane,
+    energy_term_arg,
+    forces_gfn_arg,
+    table_args,
     _pack_count,
     _pad_and_desentinel,
     count_term,
@@ -109,9 +113,12 @@ __all__ = [
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 # The terms and force factors the CUDA kernels implement, by the enum
-# value each takes.
+# value each takes; a factory's function of ops.potentials runs as the
+# term table (K6: 4, the species term 5; K7: 2).
 _KERNEL_TERMS = {lj_term: 0, lj_term_fast: 1, count_term: 2, lj_virial_term: 3}
 _KERNEL_GFNS = {lj_force_factor: 0, lj_force_factor_fast: 1}
+_TERM_TABLE = 4
+_GFN_TABLE = 2
 
 # Own chunks per step of the plain version: a (1024, 128, 128) f32 tile is
 # 64 MiB, so memory stays bounded at any n.
@@ -311,6 +318,7 @@ def _bind_reduce(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_tile_reduce.argtypes = [
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, vp, vp,
+        ci, ci, vp, vp, ci,
     ]
     lib.zelll_tile_reduce.restype = ci
     lib.zelll_tile_reduce_chunk.argtypes = []
@@ -340,23 +348,26 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
     """Launch K6 on the current stream and sum its per-chunk partials.
 
     Takes f32 planes on a CUDA device, the terms `lj_term`,
-    `lj_term_fast`, `count_term` and `ops.virial.lj_virial_term`, and one
-    payload rule: the periodic keep mask (``term`` a `PbcKeepTerm` of one
-    of those terms, ``payload`` the sorted (n,) shift-sign plane, whose
-    value for each own and j slot the kernel reads); raises on anything
+    `lj_term_fast`, `count_term` and `ops.virial.lj_virial_term`, the
+    energy and virial of every `ops.potentials` factory (the device term
+    table, float sums), and two payload rules: the periodic keep mask
+    (``term`` a `PbcKeepTerm` of one of those terms, ``payload`` the
+    sorted (n,) shift-sign plane, whose value for each own and j slot the
+    kernel reads) and the species plane of
+    `ops.potentials.lennard_jones_mixed`'s term (f32); raises on anything
     else. Every kahan mode of the JAX package sums the same way here: f64
     per thread, a fixed fold per block, one partial per own chunk.
     """
     pos = inp.pos
     mask, term, plane = _keep_plane("K6", term, payload, pos.shape[1], pos.device)
-    if term not in _KERNEL_TERMS:
-        raise ValueError(
-            "the CUDA kernel implements lj_term, lj_term_fast, count_term and "
-            "lj_virial_term only; run other terms through "
-            "tile_pair_reduce_plain or on CPU tensors"
-        )
+    targ, spec = energy_term_arg("K6", term, _KERNEL_TERMS, _TERM_TABLE)
     if out_dtype not in (None, torch.float32, torch.float64, torch.int32):
         raise ValueError(f"K6 writes float32, float64 or int32 sums, not {out_dtype}")
+    if spec is not None and out_dtype == torch.int32:
+        raise ValueError("K6 sums a table term in float32 or float64, not int32")
+    if targ == _TERM_TABLE + 1 and inp.lo is not None:
+        raise ValueError("K6's species term runs on f32 coordinates (no low "
+                         "parts); run it through tile_pair_reduce_plain")
     pos = inp.pos
     device = pos.device
     dim, n = pos.shape
@@ -382,8 +393,9 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
         pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
         None if plane is None else plane.data_ptr(),
         inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
-        n, dim, S, csq, _KERNEL_TERMS[term], int(integer), int(inp.bandmask), mask,
+        n, dim, S, csq, targ, int(integer), int(inp.bandmask), mask,
         partial.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        *(_NO_TABLE if spec is None else table_args(spec, device)),
     )
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
@@ -474,11 +486,14 @@ def tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     out, never multiplied.
 
     CUDA tensors run kernel K6, which takes f32 coordinates, the terms
-    `lj_term`, `lj_term_fast`, `count_term` and `lj_virial_term`, one
-    payload rule (the periodic keep mask: a `lag_pairs.PbcKeepTerm` of one
-    of those terms over the (n,) ``sorted_payload`` plane) and
-    ``min_islot=0``, and raises on anything else (other payload terms
-    come with slice 5b, ``min_islot`` with slice 9). CPU tensors run
+    `lj_term`, `lj_term_fast`, `count_term` and `lj_virial_term`, the
+    energy and virial of every `ops.potentials` factory (the device term
+    table), two payload rules (the periodic keep mask: a
+    `lag_pairs.PbcKeepTerm` of one of those terms over the (n,)
+    ``sorted_payload`` plane; the species plane of
+    `ops.potentials.lennard_jones_mixed`'s term, f32) and
+    ``min_islot=0``, and raises on anything else (other callables and
+    payload terms; ``min_islot`` comes with slice 9). CPU tensors run
     `reduce_tiles_plain`, which takes them all.
     """
     return _tile_pair_reduce(
@@ -622,6 +637,7 @@ def _bind_forces(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_tile_forces.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp, vp,
+        ci, ci, vp,
     ]
     lib.zelll_tile_forces.restype = ci
     lib.zelll_tile_forces_chunk.argtypes = []
@@ -641,16 +657,13 @@ def forces_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
     """Launch K7 on the current stream. Returns (dim, n) force planes.
 
     Takes ``inp`` from ``tile_inputs(full=True)`` with f32 planes on a
-    CUDA device, and the force factors `lj_force_factor` and
-    `lj_force_factor_fast`; raises on anything else. ``out_dtype``
-    float32 (the default) or float64 (the f64 sums of the f32 terms).
+    CUDA device, the force factors `lj_force_factor` and
+    `lj_force_factor_fast` and the force factor of every `ops.potentials`
+    factory but the species one (the device term table); raises on
+    anything else. ``out_dtype`` float32 (the default) or float64 (the f64
+    sums of the f32 terms).
     """
-    if gfn not in _KERNEL_GFNS:
-        raise ValueError(
-            "the CUDA kernel implements lj_force_factor and "
-            "lj_force_factor_fast only; run other force factors through "
-            "tile_pair_forces_plain or on CPU tensors"
-        )
+    garg, spec = forces_gfn_arg("K7", gfn, _KERNEL_GFNS, _GFN_TABLE, False)
     pos = inp.pos
     device = pos.device
     dim, n = pos.shape
@@ -679,9 +692,10 @@ def forces_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
     err = lib.zelll_tile_forces(
         pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
         inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
-        n, dim, S, csq, _KERNEL_GFNS[gfn], int(out_dtype == torch.float64),
+        n, dim, S, csq, garg, int(out_dtype == torch.float64),
         int(inp.bandmask), out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
+        *(_NO_TABLE if spec is None else table_args(spec, device))[:3],
     )
     if err != 0:
         raise RuntimeError(f"K7 launch failed: CUDA error {err}")
@@ -775,9 +789,11 @@ def tile_pair_forces(sorted_pos, sorted_keys, strides, cutoff_sq,
     since masked lanes are selected out. ``out_dtype`` defaults to the
     coordinates' dtype.
 
-    CUDA tensors run kernel K7, which takes f32 coordinates and the force
-    factors `lj_force_factor` and `lj_force_factor_fast`, and raises on
-    anything else. CPU tensors run `forces_tiles_plain`.
+    CUDA tensors run kernel K7, which takes f32 coordinates, the force
+    factors `lj_force_factor` and `lj_force_factor_fast` and the force
+    factor of every `ops.potentials` factory but the species one (the
+    device term table), and raises on anything else. CPU tensors run
+    `forces_tiles_plain`.
     """
     return _tile_pair_forces(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, CB=CB,

@@ -39,8 +39,9 @@ from ..core.geometry import GridInfo, aabb_from_positions
 from ..core.grid import CellGridData, build
 from ..core.pairs import pair_stress
 from .fused import fused_lj_rebuild_energy, fused_pair_sum
-from .lag_pairs import lag_coverage_ok, pair_lag_stress
+from .lag_pairs import lag_coverage_ok, pair_lag_stress, term_spec
 from .lj import lj_force_factor, lj_virial_term
+from .potentials import KIND_MIXED_LJ, MODE_GFN, MODE_VIRIAL
 from .tile_pairs import tile_pair_stress
 
 __all__ = [
@@ -63,13 +64,17 @@ _VIRIAL_TERMS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 
 def virial_term_from_gfn(gfn: Callable) -> Callable:
     """w(dsq) = gfn(dsq) * dsq for an arbitrary force factor, cached per
-    gfn. The kernels know only `lj_virial_term`: a derived term runs on
-    CPU tensors."""
+    gfn. The derived term of an `ops.potentials` factory's gfn carries the
+    term table's virial mode, so K1 and K6 run it on the card; any other
+    derived term runs on CPU tensors."""
     fn = _VIRIAL_TERMS.get(gfn)
     if fn is None:
         def fn(dsq):
             return gfn(dsq) * dsq
 
+        spec = term_spec(gfn)
+        if spec is not None and spec.mode == MODE_GFN and spec.kind != KIND_MIXED_LJ:
+            fn.table = spec._replace(mode=MODE_VIRIAL)
         _VIRIAL_TERMS[gfn] = fn
     return fn
 
