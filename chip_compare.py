@@ -65,7 +65,8 @@ MUTATIONS = {
     "k9_bin_le": ("tile_hist", [
         ("cluster_sweep.cuh", "if (dsq < edges[mid])", "if (dsq <= edges[mid])")]),
     "k9_species_dropped": ("tile_hist", [
-        ("tile_hist.cu", "if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);", "")]),
+        ("tile_hist.cu",
+         "if (RULE == kMaskSpecies) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);", "")]),
     "k12_prune_lt": ("join", [
         ("join_reduce.cu", "near_box_of<true>(box, b.x, b.y, b.z, csq)",
          "near_box_of<false>(box, b.x, b.y, b.z, csq)")]),
@@ -184,6 +185,31 @@ MUTATIONS = {
     "species_last_dropped": ("species_kernels", [
         ("pair_table.cuh", "s < static_cast<float>(ns))",
          "s < static_cast<float>(ns) - 1.0f)")]),
+    # the periodic observables: the keep test dropped in each of K4, K5, K8
+    # and K9; split K4's minimum-image fold without the box's low part (the
+    # rounding seam box shows it); the species plane ignored in K5's
+    # composed mask; the minimum-image walk's prune without the periodic
+    # images (the seam lattices' pairs cross the seam only)
+    "k4_keep_dropped": ("pbc_stress", [
+        ("lag_stress.cu", "stress_sweep<T, SPLIT, GFN, false, FULL, KEEP, MI>(",
+         "stress_sweep<T, SPLIT, GFN, false, FULL, false, MI>(")]),
+    "k8_keep_dropped": ("pbc_stress", [
+        ("tile_stress.cu", "stress_sweep<T, SPLIT, GFN, BANDMASK, FULL, KEEP>(",
+         "stress_sweep<T, SPLIT, GFN, BANDMASK, FULL, false>(")]),
+    "k5_keep_dropped": ("pbc_hist", [
+        ("lag_hist.cu", "hist_sweep<T, SPLIT, MASK, FULL, KEEP, MI>(",
+         "hist_sweep<T, SPLIT, MASK, FULL, false, MI>(")]),
+    "k9_keep_dropped": ("pbc_hist", [
+        ("tile_hist.cu", "if (RULE == kMaskKeep) m = m && keep_pair_of(o.w, bp[q]);", "")]),
+    "k4_mi_fold_box_lo_dropped": ("pbc_stress", [
+        ("cluster_sweep.cuh", "d = d + ((e + (li - lj)) - shift_lo);",
+         "d = d + (e + (li - lj));")]),
+    "k5_composed_species_dropped": ("pbc_hist", [
+        ("lag_hist.cu", "    if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);",
+         "    if (MASK && !KEEP) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);")]),
+    "mi_walk_prune_open": ("pbc_stress or pbc_hist", [
+        ("cluster_sweep.cuh", "return near_box_mi<SPLIT>(box, b, bl, thr, mib);",
+         "return near_box<SPLIT>(box, b, bl, thr);")]),
 }
 
 # the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
@@ -199,6 +225,8 @@ _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_ker
             "pbc_lag_reduce": "lag_pairs.load_kernel()",
             "pbc_lag_forces": "lag_pairs.load_forces_kernel()",
             "pbc_tile_reduce": "tile_pairs.load_kernel()",
+            "pbc_stress": "lag_pairs.load_stress_kernel(); tile_pairs.load_stress_kernel()",
+            "pbc_hist": "lag_pairs.load_hist_kernel(); tile_pairs.load_hist_kernel()",
             "table_kernels": "lag_pairs.load_kernel(); lag_pairs.load_forces_kernel(); "
                              "tile_pairs.load_kernel(); tile_pairs.load_forces_kernel()",
             "species_kernels": "lag_pairs.load_kernel(); lag_pairs.load_forces_kernel(); "

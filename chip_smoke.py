@@ -49,9 +49,19 @@ launches counted over each timed window (`pbc_main_path`: the rebuild, the MD st
 and the Verlet-skin steady state of the thin box, with ghost images and
 with the minimum image, and of the cube), their f64-grade parity on every
 path at n = 1e6 against the oracle run on numpy ghost images
-(`pbc_parity`), and each instance alone at n = 1e7 (`pbc_alone`). It
-prints one JSON line per phase. Any failed phase
-exits non-zero. The last line is the contract line
+(`pbc_parity`), and each instance alone at n = 1e7 (`pbc_alone`). Then
+the pair potentials and species (the term table in K1, K3, K6 and K7).
+Then the periodic observables and the barostat: the new instances (K4 and
+K5 with the keep mask, the minimum image and both, K5 also with the keep
+mask composed with a species mask; K8 and K9 with the keep mask) against
+their plain versions at n = 2e5 (`pbc_obs_vs_plain`), `pbc_stress_fused`,
+`rdf` and `pbc_virial` at n = 1e7 on the thin box and the cube through the
+entry points, each call's launches counted (`pbc_obs_main_path`),
+`md_run_npt` on the cube (`npt_main_path`), their split parity at n = 1e6
+against the oracle on numpy ghost images (`pbc_obs_parity`), and each new
+instance alone at n = 1e7 (in `stress_alone` and `hist_alone`). It prints
+one JSON line per phase, with the phase's seconds. Any failed phase exits
+non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit as nvidia-smi reports them.
 
@@ -159,6 +169,9 @@ N_PROTEIN = 2000
 N_PROTEIN_LARGE = 200_000
 N_JOIN_QUERIES = 4096
 SAMPLE_CHAINS, SAMPLE_BURNIN, SAMPLE_DRAWS, SAMPLE_CUTOFF = 1024, 200, 50, 4.0
+# the lockstep NUTS sampler's run, cut for the script's time (host-bound,
+# one flag read per leaf): tests/test_psssh.py's 100 burn-in steps, 25 draws
+NUTS_BURNIN, NUTS_DRAWS = 100, 25
 TOL_SDF_F32 = 1e-4  # f32 SDF sums of ~1e3 terms in another order, 2-ulp exp
 TOL_REL = 1e-6  # against the exact-f64 oracle
 TOL_KERNEL = 1e-10  # a kernel against its plain version, f64 totals
@@ -194,8 +207,15 @@ TOL_HIST = 1e-4  # split histograms: cumulative deviation over the total
 PLAIN_LIMIT_S = 10.0  # a plain pass slower than this at n = 1e7 is timed at 1e6
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the previous line
+    (the phase's own time)."""
+    now = time.perf_counter()
+    seconds, _LAST_EMIT[0] = now - _LAST_EMIT[0], now
+    print(json.dumps({"phase": phase, "phase_seconds": seconds, **fields}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -302,6 +322,43 @@ def stencil_candidates(skeys: torch.Tensor, info) -> int:
     candidates = int((counts * (counts - 1) // 2).sum())
     for off in half_stencil(info).tolist():
         nb = cell_keys + off
+        idx = torch.searchsorted(cell_keys, nb).clamp(max=cell_keys.shape[0] - 1)
+        hit = cell_keys[idx] == nb
+        candidates += int((counts * torch.where(hit, counts[idx], 0)).sum())
+    return candidates
+
+
+def periodic_stencil_candidates(skeys: torch.Tensor, strides, folds=(0, 0, 0)) -> int:
+    """`stencil_candidates` of a periodic box's sorted keys: same-cell pairs
+    plus the half-stencil neighbour-cell products on the keys' grid (the
+    ghost-extended one where ghosts were made), an axis with ``folds[a] =
+    m > 0`` wrapping after its m cells (a minimum-image fold: the last
+    cell's neighbour is the first). With m >= 3 (the box spans more than
+    two cutoffs) each pair of cells is counted once."""
+    from zelll_tpu_torch.core.geometry import SENTINEL_KEY, rel_offsets
+
+    real = skeys[skeys != SENTINEL_KEY]
+    cell_keys, counts = torch.unique_consecutive(real, return_counts=True)
+    s = [int(v) for v in torch.as_tensor(strides).tolist()]
+    # strides are the exclusive products of (shape + 4) in the axis order,
+    # so the digits of the key shifted by 2 per axis are each axis's cell
+    # index + 2 (ghost cells sit at -1 and shape)
+    order = sorted(range(len(s)), key=lambda a: s[a])
+    shifted = cell_keys.long() + 2 * sum(s)
+    coords = [None] * len(s)
+    for k, a in enumerate(order):
+        digit = shifted // s[a]
+        if k + 1 < len(s):
+            digit = digit % (s[order[k + 1]] // s[a])
+        coords[a] = digit - 2
+    candidates = int((counts * (counts - 1) // 2).sum())
+    rel = rel_offsets(len(s))
+    for off in rel[: len(rel) // 2]:
+        nb = torch.zeros_like(shifted)
+        for a in range(len(s)):
+            c = coords[a] + int(off[a])
+            nb += (c % folds[a] if folds[a] else c) * s[a]
+        nb = nb.to(cell_keys.dtype)
         idx = torch.searchsorted(cell_keys, nb).clamp(max=cell_keys.shape[0] - 1)
         hit = cell_keys[idx] == nb
         candidates += int((counts * torch.where(hit, counts[idx], 0)).sum())
@@ -1396,7 +1453,8 @@ def sdf_eval_main_path(dev) -> dict:
 def psssh_sample_main_path(dev) -> dict:
     """`sample_surface` on the 2000-atom protein with the defaults of the JAX
     package's benchmarks/psssh_sample.py (1024 chains, 200 burn-in, 50 draws,
-    cutoff 4) for the HMC and lockstep NUTS samplers: draws/s on the host
+    cutoff 4) for the HMC sampler, and the lockstep NUTS sampler with
+    NUTS_BURNIN and NUTS_DRAWS (cut for the script's time): draws/s on the host
     clock, K12 launches (zeroed just before each run, read just after), and
     the sample quality of tests/test_psssh.py: >= 95 % valid, median
     |sdf - 1.05| < 0.5. Then one leapfrog step's gradient call: host ms per
@@ -1407,22 +1465,23 @@ def psssh_sample_main_path(dev) -> dict:
     pos, radii = protein(N_PROTEIN)
     sdf = SmoothDistanceField(pos, radii, cutoff=SAMPLE_CUTOFF, device=dev)
     out = {}
-    for sampler in ("hmc", "nuts-batched"):
+    for sampler, burnin, draws in (("hmc", SAMPLE_BURNIN, SAMPLE_DRAWS),
+                                   ("nuts-batched", NUTS_BURNIN, NUTS_DRAWS)):
         torch.cuda.synchronize()
         reset_launches()
         ms, pts = host_ms(lambda: sample_surface(
-            sdf, chains=SAMPLE_CHAINS, burnin=SAMPLE_BURNIN, draws=SAMPLE_DRAWS, seed=0,
+            sdf, chains=SAMPLE_CHAINS, burnin=burnin, draws=draws, seed=0,
             sampler=sampler))
         launches = read_launches()
         vals, _, ok = sdf.evaluate(pts)
         median = float(np.median(np.abs(vals[ok] - sdf.surface_radius)))
-        check(pts.shape == (SAMPLE_CHAINS * SAMPLE_DRAWS, 3) and np.isfinite(pts).all(),
+        check(pts.shape == (SAMPLE_CHAINS * draws, 3) and np.isfinite(pts).all(),
               f"{sampler}: samples of shape {pts.shape}")
         check(launches["join_reduce"] > 0, f"{sampler} never launched K12")
         check(launches["join_fallbacks"] == 0, f"{sampler} took the join's fallback")
         check(ok.mean() >= 0.95 and median < 0.5,
               f"{sampler}: {ok.mean():.3f} valid, median |sdf - 1.05| {median}")
-        out[sampler] = dict(seconds=ms / 1e3, draws=len(pts),
+        out[sampler] = dict(seconds=ms / 1e3, burnin=burnin, draws=len(pts),
                             draws_per_s=len(pts) / (ms / 1e3), valid_share=float(ok.mean()),
                             median_abs_sdf_minus_level=median, launches=launches)
     # where one leapfrog step's gradient call goes: host ms per call, and
@@ -1620,6 +1679,11 @@ def hist_edges_sq(K: int, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.linspace(0.0, CUTOFF, K), dtype=dtype) ** 2
 
 
+def count_diff(got, want) -> int:
+    """The largest difference of two cumulative count vectors (numpy)."""
+    return int(np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64)).max())
+
+
 def stress_err(got: torch.Tensor, want: torch.Tensor) -> tuple:
     """(max |got - want|, max |want|) over the components, in f64."""
     torch.cuda.synchronize()
@@ -1678,7 +1742,7 @@ def obs_vs_plain(dev, n: int) -> dict:
     def hist_case(kernel, got, want, what):
         c, w = combine_count_vec(got), combine_count_vec(want)
         check(np.array_equal(c, w), f"{kernel} counts differ from its plain version ({what})")
-        out[kernel][what] = dict(pairs=int(c[-1]))
+        out[kernel][what] = dict(pairs=int(c[-1]), count_diff=count_diff(c, w))
 
     thin = lj_box(n, CUTOFF)
     cases = {}
@@ -1811,7 +1875,9 @@ def obs_vs_plain(dev, n: int) -> dict:
     # one size (a few near pairs carry the uniform cloud's)
     lattice = {k: max(c["max_abs_err"] for w, c in out[k].items() if w.startswith("lattice"))
                for k in ("K4", "K8")}
-    return dict(n=n, cases=out, max_err_over_max=worst, lattice_max_abs_err=lattice)
+    counts = {k: max(c["count_diff"] for c in out[k].values()) for k in ("K5", "K9")}
+    return dict(n=n, cases=out, max_err_over_max=worst, lattice_max_abs_err=lattice,
+                max_count_diff=counts)
 
 
 def observables_main_path(dev, n: int) -> dict:
@@ -2202,6 +2268,8 @@ def stress_alone(dev, n: int) -> dict:
     out["K8_vs_plain_1e6"] = stress_err(stress_tiles(x, csq, out_dtype=torch.float64),
                                         stress_tiles_plain(x, csq, out_dtype=torch.float64))
     check(out["K8_vs_plain_1e6"][0] <= TOL_KERNEL * out["K8_vs_plain_1e6"][1], "K8 at 1e6")
+    # the periodic instances (K4 keep mask and minimum image, K8 keep mask)
+    out.update(pbc_obs_alone(dev, n, "stress"))
     return dict(n=n, MAXJ=OBS_MAXJ, **out)
 
 
@@ -2321,6 +2389,9 @@ def hist_alone(dev, n: int) -> dict:
         return ms
 
     out["K9_f32"].update(plain_time(k9_plain, n))
+    # the periodic instances (K5 keep mask, species and minimum image, K9
+    # keep mask)
+    out.update(pbc_obs_alone(dev, n, "hist"))
     return dict(n=n, K=HIST_K, MAXJ=HIST_MAXJ, **out)
 
 
@@ -2632,9 +2703,13 @@ def pbc_parity(dev, n: int) -> dict:
     round_box = np.array([ROUND_WIDTH, ROUND_WIDTH, boxes["thin"][2]])
     cells = list(itertools.product(boxes.items(), clouds.items()))
     cells.append((("thin_round", round_box), ("lattice", generate_points_lattice)))
-    for (name, box), (cloud, make) in cells:
-        pts = np.mod(make(n, box), box)
-        e_ref, c_ref, f_ref, f_scale = periodic_reference(pts, box, CUTOFF)
+    clouds = [np.mod(make(n, box), box) for (_, box), (_, make) in cells]
+    # the references (the single-threaded oracle on the host) run in a pool
+    # while the card runs the paths
+    pool = ThreadPoolExecutor(3)
+    refs = [pool.submit(periodic_reference, pts, box, CUTOFF)
+            for ((_, box), _), pts in zip(cells, clouds)]
+    for ((name, box), (cloud, _)), pts, ref in zip(cells, clouds, refs):
         p64 = torch.as_tensor(pts, device=dev)
         hi, lo = split_f64(p64)
         runs = ((("lag", dict(L=L_MAIN)), ("lag_minimage", dict(L=L_MAIN, minimage="auto")),
@@ -2659,6 +2734,7 @@ def pbc_parity(dev, n: int) -> dict:
             check(bool(ok_e) and bool(ok_c) and bool(ok_f),
                   f"periodic parity flags ({name} {cloud} {path})")
             got = f.double().cpu().numpy()
+            e_ref, c_ref, f_ref, f_scale = ref.result()
             row_err = np.linalg.norm(got - f_ref, axis=1)
             errs = dict(energy_rel_err_vs_reference=rel(float(e), e_ref),
                         count_rel_err_vs_reference=rel(c, c_ref),
@@ -2672,6 +2748,7 @@ def pbc_parity(dev, n: int) -> dict:
                       f"periodic {what} {err} > {tol} ({name} {cloud} {path})")
             res[path] = dict(**errs, L=kw.get("L"))
         out[f"{name}_{cloud}"] = dict(n=n, box=box.tolist(), reference_pairs=c_ref, paths=res)
+    pool.shutdown()
     return out
 
 
@@ -3800,6 +3877,719 @@ def pbc_alone(dev, n: int) -> dict:
     return out
 
 
+# -- periodic observables (ops/virial.py, ops/rdf.py: K4 and K5 with the keep
+# mask and the minimum image, K8 and K9 with the keep mask) and the barostat
+# (models/thermostats.py: md_run_npt) ------------------------------------------
+
+NPT_STEPS = 10
+# the barostat's settings on npt_main_path (tests/test_npt.py's form): a
+# target below the start state's pressure, so the box grows a little
+NPT_P_TARGET = 0.0
+NPT_TAU_P = 0.01
+# md_run_npt with beta = 0 against md_step_pbc: the same f32 operations on
+# the same sorted inputs, held to two f32 ulp of the box side
+NPT_BETA0_STEPS = 2
+
+
+def ptxas_functions(log: str, key: str) -> dict:
+    """Each kernel function of a build log whose mangled name holds ``key``:
+    its registers line and its spill line (ptxas -v)."""
+    out, func = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            func = ln.split("'")[1] if "'" in ln else ln.strip()
+            func = func if key in func else None
+        elif func is not None and ("registers" in ln or "spill" in ln):
+            out.setdefault(func, []).append(ln.strip().removeprefix("ptxas info    : "))
+    return out
+
+
+def periodic_images(pts: np.ndarray, box, cutoff: float) -> np.ndarray:
+    """The points of [0, box) and their ghost images (numpy f64): every
+    image within ``cutoff`` of a face, up to 7 for a corner, after the n
+    real rows."""
+    from itertools import product
+
+    box = np.asarray(box, np.float64)
+    low, high = pts < cutoff, pts >= box - cutoff
+    shift = np.where(low, box, np.where(high, -box, 0.0))
+    ext = [pts]
+    for m in product((0, 1), repeat=3):
+        if any(m):
+            m = np.asarray(m, bool)
+            sel = np.all((low | high)[:, m], axis=1)
+            ext.append(pts[sel] + np.where(m, shift[sel], 0.0))
+    return np.concatenate(ext)
+
+
+def periodic_observables(pts: np.ndarray, box, cutoff: float, edges) -> tuple:
+    """Exact-f64 minimum-image stress, virial and cumulative pair counts
+    below each edge of points in [0, box): the oracle's pairs on the points
+    and their ghost images (`periodic_images`), a pair of two real rows
+    weighing 1 and a real-ghost pair 1/2 (its mirror pairs the other end's
+    real row), as `periodic_reference` counts them. Returns (sigma (3, 3),
+    W, cumulative counts (K,))."""
+    from zelll_tpu_torch import oracle
+
+    n = len(pts)
+    ext = periodic_images(pts, box, cutoff)
+    i, j = oracle.pairs(ext, cutoff)
+    i, j = i.astype(np.int64), j.astype(np.int64)
+    real = (i < n).astype(np.int64) + (j < n)
+    keep = real > 0
+    i, j, w = i[keep], j[keep], np.where(real[keep] == 2, 1.0, 0.5)
+    esq = np.asarray(edges, np.float64) ** 2
+    sig, shells = np.zeros((3, 3)), np.zeros(len(esq) + 1)
+    for s in range(0, len(i), 1 << 22):
+        sl = slice(s, s + (1 << 22))
+        d = ext[i[sl]] - ext[j[sl]]
+        dsq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        inv = 1.0 / dsq
+        t = inv**3
+        sig += np.einsum("p,pa,pb->ab", w[sl] * 24 * t * (2 * t - 1) * inv, d, d)
+        shells += np.bincount(np.searchsorted(esq, dsq, side="right"), w[sl],
+                              minlength=len(esq) + 1)
+    cum = np.cumsum(shells[:len(esq)])
+    check(np.all(cum == np.round(cum)), "the periodic observables' half pairs do not pair up")
+    return sig, float(np.trace(sig)), cum
+
+
+def pbc_obs_vs_plain(dev, n: int) -> dict:
+    """The periodic observables' kernel instances against their plain
+    versions on identical sorted inputs (n = 2e5), each alone: K4 and K5
+    with the keep mask (thin box, ghost images on every axis), the minimum
+    image alone (x and y folded, z open) and both (``minimage="auto"``),
+    f32 and split, on the uniform cloud, a jittered lattice, the seam
+    lattices of `pbc_vs_plain` (the rounding box among them, where split
+    mode's fold carries the box's low part), the lattice drifted since its
+    keys were built and the facing clusters of `cluster_gap` (`prune_cases`)
+    on it; K4 with both force factors on the lattice; K5 also with a
+    species mask over a second plane, composed with the keep mask where
+    there is a keep plane (mask id 3); both with the keep mask in f64 on
+    the lattice. K8 and K9 with the keep mask on the ghost-extended cube of
+    `pbc_vs_plain`'s four inputs, maskless, f32 and split, and on the
+    lattice also masked and f64. Stress on f64 outputs to TOL_KERNEL of the
+    largest component (TOL_FAST_FORCES with the fast factor), counts
+    exact at K = HIST_K. ``max_abs_err`` per instance and mode (e.g.
+    ``K4_keep_minimage_f32``): the stress's max |d sigma| on the lattice
+    (the exact factor), the histograms' largest count difference over every
+    input."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcSpeciesPairMask, SpeciesPairMask, combine_count_vec, pair_lag_hist,
+        pair_lag_hist_plain, pair_lag_stress, pair_lag_stress_plain, pbc_keep, suggest_lag,
+    )
+    from zelll_tpu_torch.ops.lj import lj_force_factor, lj_force_factor_fast
+    from zelll_tpu_torch.ops.pbc import suggest_pbc_capacity
+    from zelll_tpu_torch.ops.tile_pairs import (
+        tile_pair_hist, tile_pair_hist_plain, tile_pair_stress, tile_pair_stress_plain,
+    )
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box, seam_cloud,
+    )
+
+    csq = CUTOFF**2
+    f64 = torch.float64
+    esq = hist_edges_sq(HIST_K).to(dev)
+    rng = np.random.default_rng(4)
+    spec_rng = np.random.default_rng(6)
+    thin = np.asarray(lj_box(n, CUTOFF))
+    round_box = np.array([ROUND_WIDTH, ROUND_WIDTH, thin[2]])
+    data = {"uniform": (generate_points_random(n, thin), thin),
+            "lattice": (generate_points_lattice(n, thin), thin),
+            "seam": (seam_cloud(thin, 1.5, 2, (0, 1), rng), thin),
+            "seam_round": (seam_cloud(round_box, 1.5, 2, (0, 1), rng), round_box)}
+    errs = {}
+    lag, tile = {}, {}
+    inst = {"keep": "keep", "both": "keep_minimage", "mi": "minimage"}
+
+    def note(key, err):
+        errs[key] = max(errs.get(key, 0), err)
+    B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
+    caps = {"keep": dict(B=B, G=G, BE=BE), "both": {}, "mi": {}}
+    seam_caps = {"keep": dict(ghosts_per_row=4), "both": {}, "mi": {}}
+
+    def stress_case(got, want, tol, what):
+        err, scale = stress_err(got, want)
+        check(np.isfinite(err) and scale > 0 and err <= tol * scale,
+              f"{what}: max |dsigma| {err} > {tol} x {scale}")
+        return err, err / scale
+
+    def hist_case(got, want, what, key):
+        c, c_p = combine_count_vec(got), combine_count_vec(want)
+        check(np.array_equal(c, c_p) and c[-1] > 0, f"{what}: counts {c} vs {c_p}")
+        note(key, count_diff(c, c_p))
+        return int(c[-1])
+
+    for kind in ("keep", "mi", "both"):
+        cases = {tag: pbc_sorted(pts, box, kind, dev,
+                                 **(seam_caps if tag.startswith("seam") else caps)[kind])
+                 for tag, (pts, box) in data.items()}
+        cases["drifted"] = drifted(cases["lattice"])
+        lat = cases["lattice"]
+        cases["cluster_gap"] = (*prune_cases(lat[0], lat[1])["cluster_gap"], *lat[2:])
+        for tag, (shi, slo, keys, strides, pay, mib, reach, ok) in cases.items():
+            check(bool(ok), f"the periodic inputs' flag ({kind}, {tag})")
+            L = suggest_lag(keys, strides, reach=reach)
+            keep = None if pay is None else pbc_keep
+            spec = torch.as_tensor(spec_rng.integers(0, 2, len(shi)), dtype=torch.float32,
+                                   device=dev)
+            rules = (("keep" if keep else "none", pay, keep),
+                     ("species", spec, SpeciesPairMask(0, 1)) if pay is None else
+                     ("keep_species", torch.stack([pay, spec], 1), PbcSpeciesPairMask(0, 1)))
+            base = dict(L=L, mi_box=mib, key_reach=reach)
+            for lo in (None, slo):
+                mode = "split" if lo is not None else "f32"
+                what = f"{kind} {tag} {mode}"
+                row = {}
+                factors = ((lj_force_factor, TOL_KERNEL), (lj_force_factor_fast, TOL_FAST_FORCES))
+                for gfn, tol in factors[:2 if tag == "lattice" else 1]:
+                    kw = dict(base, gfn=gfn, out_dtype=f64, pair_mask=keep)
+                    err, rel_err = stress_case(
+                        pair_lag_stress(shi, keys, strides, csq, lo, pay, **kw),
+                        pair_lag_stress_plain(shi, keys, strides, csq, lo, pay, **kw), tol,
+                        f"K4 {what} {gfn.__name__}")
+                    row[f"stress_{gfn.__name__}_err_over_max"] = rel_err
+                    if tag == "lattice" and gfn is lj_force_factor:
+                        note(f"K4_{inst[kind]}_{mode}", err)
+                for rule, p, mask in rules:
+                    key = "K5_" + "_".join(
+                        w for w in ("keep" if pay is not None else "",
+                                    "species" if "species" in rule else "",
+                                    "minimage" if mib is not None else "") if w)
+                    row[f"hist_{rule}_pairs"] = hist_case(
+                        pair_lag_hist(shi, keys, strides, esq, lo, p, pair_mask=mask, **base),
+                        pair_lag_hist_plain(shi, keys, strides, esq, lo, p, pair_mask=mask,
+                                            **base), f"K5 {what} {rule}", f"{key}_{mode}")
+                lag[what] = row
+            if kind == "keep" and tag == "lattice":
+                pos64, p64 = shi.double() + slo.double(), pay.double()
+                err, rel_err = stress_case(
+                    pair_lag_stress(pos64, keys, strides, csq, None, p64, L=L, pair_mask=keep),
+                    pair_lag_stress_plain(pos64, keys, strides, csq, None, p64, L=L,
+                                          pair_mask=keep), TOL_KERNEL, "K4 keep f64")
+                note("K4_keep_f64", err)
+                pairs = {}
+                for rule, p, mask in (("keep", p64, keep), ("keep_species",
+                                                            torch.stack([p64, spec.double()], 1),
+                                                            PbcSpeciesPairMask(1, 1))):
+                    pairs[rule] = hist_case(
+                        pair_lag_hist(pos64, keys, strides, esq.double(), None, p, L=L,
+                                      pair_mask=mask),
+                        pair_lag_hist_plain(pos64, keys, strides, esq.double(), None, p, L=L,
+                                            pair_mask=mask), f"K5 {rule} f64", f"K5_{rule}_f64")
+                lag["keep lattice f64"] = dict(stress_err_over_max=rel_err, **pairs)
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    cdata = {"uniform": generate_points_random(n, cube),
+             "lattice": generate_points_lattice(n, cube),
+             "seam": seam_cloud(cube, 2.5, 2, (0,), rng)}
+    Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+    ccases = {tag: pbc_sorted(pts, cube, "keep", dev,
+                              **(dict(ghosts_per_row=3) if tag == "seam" else
+                                 dict(B=Bc, G=Gc, BE=BEc)))
+              for tag, pts in cdata.items()}
+    ccases["drifted"] = drifted(ccases["lattice"])
+    for tag, (shi, slo, keys, strides, pay, _, _, ok) in ccases.items():
+        check(bool(ok), f"the periodic cube's flag ({tag})")
+        maxj = probe_maxj(keys, strides)
+        runs = [(False, shi, None, pay), (False, shi, slo, pay)]
+        if tag == "lattice":
+            runs += [(True, shi, None, pay), (True, shi, slo, pay),
+                     (False, shi.double() + slo.double(), None, pay.double())]
+        for bandmask, pos, lo, p in runs:
+            mode = "f64" if pos.dtype == f64 else "split" if lo is not None else "f32"
+            what = f"{tag} {'masked' if bandmask else 'maskless'} {mode}"
+            kw = dict(MAXJ=maxj, bandmask=bandmask, pair_mask=pbc_keep)
+            got, ok_k = tile_pair_stress(pos, keys, strides, csq, lo, p, out_dtype=f64, **kw)
+            want, ok_p = tile_pair_stress_plain(pos, keys, strides, csq, lo, p, out_dtype=f64,
+                                                **kw)
+            check(bool(ok_k) and bool(ok_p), f"K8 keep coverage ({what})")
+            err, rel_err = stress_case(got, want, TOL_KERNEL, f"K8 keep {what}")
+            e = esq.to(pos.dtype)
+            got, ok_k = tile_pair_hist(pos, keys, strides, e, lo, p, **kw)
+            want, ok_p = tile_pair_hist_plain(pos, keys, strides, e, lo, p, **kw)
+            check(bool(ok_k) and bool(ok_p), f"K9 keep coverage ({what})")
+            masked = "masked_" if bandmask else ""
+            tile[what] = dict(stress_err_over_max=rel_err, hist_pairs=hist_case(
+                got, want, f"K9 keep {what}", f"K9_keep_{masked}{mode}"))
+            if tag == "lattice":
+                note(f"K8_keep_{masked}{mode}", err)
+    return dict(n=n, K=HIST_K, thin_box=thin.tolist(), cube_side=side, lag=lag, tile=tile,
+                max_abs_err=errs)
+
+
+def pbc_obs_main_path(dev, n: int) -> dict:
+    """The periodic observables at n = 1e7 through the entry points, nothing
+    cut. The thin box (lj_box, uniform: benchmarks/rdf_bench.py's fixture):
+    `pbc_stress_fused` with ``minimage="auto"`` (K4 with the minimum image
+    and the keep mask), f32 and split, and with ghost images on every axis
+    (K4 with the keep mask), `rdf` with K = 32 edges linspace(0, 10, 32) and
+    ``minimage="auto"`` (K5 with both rules) and its species partial
+    (species uniform in {0, 1} from default_rng(0): K5 with the minimum
+    image and the keep mask composed with the species mask), and
+    `pbc_virial` with ``minimage="auto"`` (K1). The cube (side
+    (n / 0.01)^(1/3), MAXJ 24: benchmarks/observables_bench.py's pbc cells):
+    `pbc_virial(path="tile")` (K6 with the keep mask),
+    `pbc_stress_fused(path="tile")` (K8) and `rdf(path="tile")` (K9). Each
+    call's ms (CUDA events; the histograms read their counts back) and host
+    ms, its ratio to `pbc_pair_sum`'s periodic energy call on the same box
+    in the same mode (timed here, as `pbc_main_path` times it), and its
+    launches over the timed calls and their warm-up, exact per call; every
+    flag True, finite results, trace(sigma) against W, and g(r) near 1 past
+    the first shells (an ideal gas at this density)."""
+    from zelll_tpu_torch.ops.lag_pairs import split_f64
+    from zelll_tpu_torch.ops.pbc import minimage_axes, pbc_pair_sum, suggest_pbc_capacity
+    from zelll_tpu_torch.ops.rdf import rdf
+    from zelll_tpu_torch.ops.virial import pbc_stress_fused, pbc_virial
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    o = [0.0] * 3
+    out = {}
+    edges = np.linspace(0.0, CUTOFF, HIST_K)
+    thin = np.asarray(lj_box(n, CUTOFF))
+    hi, lo = split_f64(torch.as_tensor(generate_points_random(n, thin), device=dev))
+    species = torch.as_tensor(np.random.default_rng(0).integers(0, 2, n), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def cell(name, fn, expect, pos, base=None):
+        t = timed_call(lambda i: fn(pos + (i % 2) * 1e-6), PBC_REPS, expect)
+        row = dict(ms=t["ms"], host_ms=t["host_ms"], launches=t["launches"], calls=t["calls"])
+        if base is not None:
+            row.update(energy_call=base, x_over_energy_call=t["ms"] / out[base]["ms"])
+        out[name] = row
+        return t["out"]
+
+    Bm, Gm = suggest_pbc_capacity(n, thin, CUTOFF, axes=~minimage_axes(thin, CUTOFF))
+    B, G, BE = suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)
+    kwm = dict(B=Bm, G=Gm, minimage="auto")
+    kwg = dict(B=B, G=G, BE=BE)
+    Lm = probe_pbc_lag(lambda L: pbc_pair_sum(hi, o, thin, CUTOFF, L=L, **kwm)[1], L_MAIN)
+    Lg = probe_pbc_lag(lambda L: pbc_pair_sum(hi, o, thin, CUTOFF, L=L, **kwg)[1], L_MAIN)
+    cell("thin_energy_minimage", lambda p: pbc_pair_sum(p, o, thin, CUTOFF, L=Lm, **kwm),
+         {"lag_reduce": 1}, hi)
+    cell("thin_energy_ghosts", lambda p: pbc_pair_sum(p, o, thin, CUTOFF, L=Lg, **kwg),
+         {"lag_reduce": 1}, hi)
+    sig = cell("thin_stress_minimage_f32",
+               lambda p: pbc_stress_fused(p, o, thin, CUTOFF, L=Lm, **kwm),
+               {"lag_stress": 1}, hi, "thin_energy_minimage")
+    sig_s = cell("thin_stress_minimage_split",
+                 lambda p: pbc_stress_fused(p, o, thin, CUTOFF, L=Lm, positions_lo=lo, **kwm),
+                 {"lag_stress": 1}, hi, "thin_energy_minimage")
+    sig_g = cell("thin_stress_ghosts_f32",
+                 lambda p: pbc_stress_fused(p, o, thin, CUTOFF, L=Lg),
+                 {"lag_stress": 1}, hi, "thin_energy_ghosts")
+    g = cell("thin_rdf_minimage", lambda p: rdf(p, o, thin, edges, L=Lm, **kwm),
+             {"lag_hist": 1}, hi, "thin_energy_minimage")
+    gs = cell("thin_rdf_minimage_species",
+              lambda p: rdf(p, o, thin, edges, L=Lm, species=species, pair=(0, 1), **kwm),
+              {"lag_hist": 1}, hi, "thin_energy_minimage")
+    w = cell("thin_virial_minimage", lambda p: pbc_virial(p, o, thin, CUTOFF, L=Lm, **kwm),
+             {"lag_reduce": 1}, hi, "thin_energy_minimage")
+    del hi, lo, species
+    peak_thin = torch.cuda.max_memory_allocated()
+
+    def shells_near_one(gv, what):
+        tail = np.asarray(gv)[len(gv) // 2:]
+        check(np.isfinite(gv).all() and 0.95 < float(tail.mean()) < 1.05,
+              f"{what}: g(r) past the first shells {tail.tolist()}")
+        return float(tail.mean())
+
+    def stress_ok(s, what):
+        s = s.double().cpu().numpy()
+        check(np.isfinite(s).all() and np.allclose(s, s.T, rtol=0, atol=0),
+              f"{what}: stress {s.tolist()}")
+        return s
+
+    s32, s_split, s_ghosts = (stress_ok(x[0], k) for x, k in (
+        (sig, "thin minimage f32"), (sig_s, "thin minimage split"), (sig_g, "thin ghosts f32")))
+    thin_check = dict(
+        L_minimage=Lm, L_ghosts=Lg, B=B, G=G, BE=BE, B_minimage=Bm, G_minimage=Gm,
+        virial=float(w[0]), stress_f32_trace=float(np.trace(s32)),
+        stress_split_trace=float(np.trace(s_split)),
+        stress_ghosts_trace=float(np.trace(s_ghosts)),
+        trace_rel_err_vs_virial=rel(float(np.trace(s32)), float(w[0])),
+        ghosts_rel_err_vs_minimage=float(np.abs(s_ghosts - s32).max() / np.abs(s32).max()),
+        rdf_tail_mean=shells_near_one(g[1], "thin rdf"),
+        rdf_species_tail_mean=shells_near_one(gs[1], "thin rdf species (0, 1)"))
+    check(thin_check["trace_rel_err_vs_virial"] <= 1e-4,
+          f"trace(stress) vs virial on the periodic thin box: {thin_check}")
+    check(thin_check["ghosts_rel_err_vs_minimage"] <= 1e-4,
+          f"ghost and minimum-image stress on the periodic thin box: {thin_check}")
+
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    cpos = torch.as_tensor(cube_points(n)[0], dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+    kwc = dict(B=Bc, G=Gc, BE=BEc, path="tile", MAXJ=PBC_MAXJ)
+    cell("cube_energy", lambda p: pbc_pair_sum(p, o, cube, CUTOFF, bandmask=False, **kwc),
+         {"tile_reduce": 1}, cpos)
+    cw = cell("cube_virial", lambda p: pbc_virial(p, o, cube, CUTOFF, bandmask=False, **kwc),
+              {"tile_reduce": 1}, cpos, "cube_energy")
+    # the stress and the histogram take the same capacities by default
+    cs = cell("cube_stress", lambda p: pbc_stress_fused(p, o, cube, CUTOFF, path="tile",
+                                                        MAXJ=PBC_MAXJ),
+              {"tile_stress": 1}, cpos, "cube_energy")
+    cg = cell("cube_rdf", lambda p: rdf(p, o, cube, edges, path="tile", MAXJ=PBC_MAXJ),
+              {"tile_hist": 1}, cpos, "cube_energy")
+    del cpos
+    cs32 = stress_ok(cs[0], "cube")
+    cube_check = dict(B=Bc, G=Gc, BE=BEc, MAXJ=PBC_MAXJ, virial=float(cw[0]),
+                      stress_trace=float(np.trace(cs32)),
+                      trace_rel_err_vs_virial=rel(float(np.trace(cs32)), float(cw[0])),
+                      rdf_tail_mean=shells_near_one(cg[1], "cube rdf"))
+    check(cube_check["trace_rel_err_vs_virial"] <= 1e-4,
+          f"trace(stress) vs virial on the periodic cube: {cube_check}")
+    launches = {}
+    for row in out.values():
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(n=n, K=HIST_K, thin_box=thin.tolist(), cube_side=side, calls=out,
+                launches=launches, thin=thin_check, cube=cube_check,
+                max_memory_allocated=max(peak_thin, torch.cuda.max_memory_allocated()))
+
+
+def npt_main_path(dev, n: int) -> dict:
+    """`md_run_npt(path="tile")` on the cubic periodic MD state (the cube of
+    side (n / 0.01)^(1/3) filled with the MD protocol's start state,
+    `md_states`: a perturbed lattice, v ~ normal(0, 0.3); the uniform cloud
+    of pbc_md_bench.py holds near-coincident pairs whose first kick
+    overflows the f32 kinetic energy, so its pressure is inf), dt 1e-4,
+    NPT_STEPS steps after a one-step warm-up, ``record=True``: ms per step
+    (CUDA events) and host ms,
+    the launches of the run (K7 and K6 with the keep mask, once each per
+    step, exact), the flag, the box above 2 cutoff, the pressure, volume
+    and temperature records (finite), the positions wrapped into the final
+    box, and the box grown where the pressure starts above the target;
+    one step's device time by kernel and busy share (`profile_steps`).
+    Then ``beta=0`` against `md_step_pbc` on the same state and
+    capacities for NPT_BETA0_STEPS steps: the same box, and positions
+    within two f32 ulp of the box side."""
+    from zelll_tpu_torch.models import md_run_npt
+    from zelll_tpu_torch.ops.pbc import md_step_pbc, suggest_pbc_capacity
+
+    o = [0.0] * 3
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    _, st, _ = md_states(n, tuple(cube), dev)
+    pos, vel = st.positions, st.velocities
+    rows = pos.shape[0]
+    # md_run_npt's own sizing, made explicit so md_step_pbc gets the same
+    B, G = suggest_pbc_capacity(rows, cube / 1.5 ** (1 / 3), CUTOFF)
+    kw = dict(path="tile", MAXJ=PBC_MAXJ, B=B, G=G)
+    # a warm-up step: the first call of the process allocates and loads
+    md_run_npt(pos, vel, o, cube, CUTOFF, MD_DT, steps=1, P_target=NPT_P_TARGET,
+               tau_p=NPT_TAU_P, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    p, v, b, ok, rec = md_run_npt(pos, vel, o, cube, CUTOFF, MD_DT, steps=NPT_STEPS,
+                                  P_target=NPT_P_TARGET, tau_p=NPT_TAU_P, beta=1.0,
+                                  record=True, **kw)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t_host) * 1e3 / NPT_STEPS
+    launches = window_launches({"tile_forces": 1, "tile_reduce": 1}, NPT_STEPS)
+    rec = {k: x.double().cpu().numpy() for k, x in rec.items()}
+    bx = b.double().cpu().numpy()
+    pn = p.double().cpu().numpy()
+    check(bool(ok) and bool((b > 2 * CUTOFF).all()), f"md_run_npt: ok {bool(ok)}, box {bx}")
+    check(all(np.isfinite(x).all() for x in rec.values()) and np.isfinite(pn).all()
+          and (pn >= 0).all() and (pn <= bx).all(),
+          f"md_run_npt records {({k: x.tolist() for k, x in rec.items()})}")
+    # a pressure above the target expands the box (tests/test_npt.py)
+    check(rec["pressure"][0] <= NPT_P_TARGET or rec["volume"][-1] > rec["volume"][0],
+          f"md_run_npt: pressure {rec['pressure'].tolist()}, volume {rec['volume'].tolist()}")
+    # where one step's time goes: two one-step runs under the profiler
+    prof = profile_steps(lambda i: md_run_npt(pos, vel, o, cube, CUTOFF, MD_DT, steps=1,
+                                              P_target=NPT_P_TARGET, tau_p=NPT_TAU_P,
+                                              **kw), 2)
+    res = dict(n=rows, side=side, steps=NPT_STEPS, dt=MD_DT, P_target=NPT_P_TARGET,
+               tau_p=NPT_TAU_P, B=B, G=G, MAXJ=PBC_MAXJ,
+               step_ms=start.elapsed_time(end) / NPT_STEPS, host_step_ms=host_ms,
+               launches=launches, launches_per_step={k: c / NPT_STEPS
+                                                     for k, c in launches.items()},
+               ok=True, box=bx.tolist(), pressure=rec["pressure"].tolist(),
+               volume=rec["volume"].tolist(), temperature=rec["temperature"].tolist(),
+               max_memory_allocated=torch.cuda.max_memory_allocated(), step_profile=prof)
+    del p, v, b
+    p1, _, b1, ok1 = md_run_npt(pos, vel, o, cube, CUTOFF, MD_DT, steps=NPT_BETA0_STEPS,
+                                P_target=NPT_P_TARGET, tau_p=NPT_TAU_P, beta=0.0, **kw)
+    p2, v2 = pos, vel
+    for _ in range(NPT_BETA0_STEPS):
+        p2, v2, ok2 = md_step_pbc(p2, v2, o, cube, CUTOFF, MD_DT, **kw)
+        check(bool(ok2), "md_step_pbc's flag beside md_run_npt(beta=0)")
+    err = float((p1.double() - p2.double()).abs().max())
+    tol = 2.0**-22 * side
+    check(bool(ok1) and np.array_equal(b1.double().cpu().numpy(), cube.astype(np.float32))
+          and err <= tol, f"md_run_npt(beta=0) vs md_step_pbc: max |dx| {err} > {tol}, "
+                          f"box {b1.tolist()}")
+    res.update(beta0_steps=NPT_BETA0_STEPS, beta0_max_abs_dx=err, beta0_tol=tol)
+    return res
+
+
+def pbc_obs_parity(dev, n: int) -> dict:
+    """The periodic observables in split mode against `periodic_observables`
+    (the oracle on numpy ghost images) at n = 1e6, on the thin box's
+    uniform cloud (``minimage="auto"`` and ghost images on every axis), a
+    jittered lattice on the thin box whose folded x and y lengths round in
+    f32 (ROUND_WIDTH; ``minimage="auto"``) and the cube's uniform cloud
+    (tile path): `pbc_stress_fused` within TOL_SPLIT of the largest
+    |sigma_ab|, `pbc_virial` within TOL_SPLIT of W, W = trace(sigma) of the
+    same mode within TOL_REL, and `rdf`'s cumulative counts
+    (`rdf._pbc_cum_hist`) within TOL_HIST of the total."""
+    from zelll_tpu_torch.ops.lag_pairs import combine_count_vec, split_f64
+    from zelll_tpu_torch.ops.rdf import _pbc_cum_hist
+    from zelll_tpu_torch.ops.virial import pbc_stress_fused, pbc_virial
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
+
+    edges = np.linspace(0.0, CUTOFF, HIST_K)
+    side = (n / 0.01) ** (1 / 3)
+    thin = np.asarray(lj_box(n, CUTOFF))
+    round_box = np.array([ROUND_WIDTH, ROUND_WIDTH, thin[2]])
+    cells = (("thin_uniform", thin, generate_points_random,
+              (("lag_minimage", dict(minimage="auto")), ("lag_ghosts", {}))),
+             ("thin_round_lattice", round_box, generate_points_lattice,
+              (("lag_minimage", dict(minimage="auto")),)),
+             ("cubic_uniform", np.array([side] * 3), generate_points_random,
+              (("tile", dict(path="tile", MAXJ=PBC_MAXJ)),)))
+    out = {}
+    o = [0.0] * 3
+    for name, box, make, runs in cells:
+        pts = np.mod(make(n, box), box)
+        sig_ref, w_ref, cum_ref = periodic_observables(pts, box, CUTOFF, edges)
+        scale = float(np.abs(sig_ref).max())
+        hi, lo = split_f64(torch.as_tensor(pts, device=dev))
+        res = {}
+        for path, kw in runs:
+            kw = dict(kw)
+            if path.startswith("lag"):
+                kw["L"] = probe_pbc_lag(lambda L: pbc_virial(
+                    hi, o, box, CUTOFF, positions_lo=lo, **{**kw, "L": L})[1], L_MAIN)
+            sig, ok_s = pbc_stress_fused(hi, o, box, CUTOFF, positions_lo=lo, **kw)
+            w, ok_w = pbc_virial(hi, o, box, CUTOFF, positions_lo=lo, out_dtype=torch.float64,
+                                 **kw)
+            packed, ok_h = _pbc_cum_hist(hi, o, box, edges, positions_lo=lo, B=None, G=None,
+                                         M=1024, **{"L": L_MAIN, **kw})
+            check(bool(ok_s) and bool(ok_w) and bool(ok_h),
+                  f"periodic observables' flags ({name} {path})")
+            s = sig.double().cpu().numpy()
+            cum = combine_count_vec(packed).astype(np.float64)
+            errs = dict(stress_err_vs_reference=float(np.abs(s - sig_ref).max()) / scale,
+                        virial_rel_err_vs_reference=rel(float(w), w_ref),
+                        trace_rel_err_vs_virial=rel(float(np.trace(s)), float(w)),
+                        hist_cum_dev_vs_reference=float(np.abs(cum - cum_ref).max())
+                        / max(cum_ref[-1], 1.0))
+            tols = dict(stress_err_vs_reference=TOL_SPLIT, virial_rel_err_vs_reference=TOL_SPLIT,
+                        trace_rel_err_vs_virial=TOL_REL, hist_cum_dev_vs_reference=TOL_HIST)
+            for what, err in errs.items():
+                check(np.isfinite(err) and err <= tols[what],
+                      f"periodic {what} {err} > {tols[what]} ({name} {path})")
+            res[path] = dict(**errs, L=kw.get("L"))
+        out[name] = dict(n=n, box=box.tolist(), reference_w=w_ref,
+                         reference_pairs=float(cum_ref[-1]), paths=res)
+    return out
+
+
+def pbc_obs_alone(dev, n: int, which: str) -> dict:
+    """The periodic observables' instances alone at the main path's shapes
+    (n = 1e7, sorted as `pbc_obs_main_path` sorts them, split coordinates
+    of the same points): ``which="stress"``: K4 with the keep mask and the
+    minimum image (thin ``minimage="auto"``, f32 and split) and with the
+    keep mask (thin, ghost images, f32), K8 with the keep mask (the
+    ghost-extended cube, maskless, MAXJ 24, f32); ``which="hist"``: K5
+    with both rules, f32 and split, and with the species mask composed
+    (f32), K9 with the keep mask (the cube, f32). Each: ms and the launches
+    counted in its timed runs, one plain call's ms (held to the kernel's
+    result; at 1e6 where one at 1e7 would take over PLAIN_LIMIT_S), the work
+    of the function (the half-stencil candidates of its keys, the folded
+    axes wrapping, as the open rows charge them; the cutoff pairs, which
+    the keep test is charged on, and the kept ones; the lag window's
+    candidates beside them) and its bound, the share of it, the lane
+    evaluations per candidate the cluster prune leaves
+    (`ops/cluster_prune.py`), and the ptxas lines of the instance's kernel
+    functions."""
+    from zelll_tpu_torch.ops import lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops.cluster_prune import (
+        CLUSTER, lag_cluster_entries, tile_cluster_entries,
+    )
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcKeepTerm, PbcSpeciesPairMask, combine_count, combine_count_vec, count_term,
+        pair_lag_hist_plain, pair_lag_reduce, pair_lag_stress_plain, pbc_keep,
+    )
+    from zelll_tpu_torch.ops.pbc import minimage_axes, suggest_pbc_capacity
+    from zelll_tpu_torch.ops.tile_pairs import (
+        hist_tiles, hist_tiles_plain, reduce_tiles, stress_tiles, stress_tiles_plain,
+        tile_inputs,
+    )
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    stress = which == "stress"
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    esq = hist_edges_sq(HIST_K).to(dev)
+    per_pair = INSTR_PER_STRESS_PAIR if stress else int(np.ceil(np.log2(HIST_K)))
+    kernel = "K4" if stress else "K5"
+    wrapper = lag_pairs.pair_lag_stress if stress else lag_pairs.pair_lag_hist
+    out = {}
+
+    box = np.asarray(lj_box(n, CUTOFF))
+
+    def thin_sorted(m, kind):
+        box = np.asarray(lj_box(m, CUTOFF))
+        if kind == "both":
+            caps = dict(zip(("B", "G"), suggest_pbc_capacity(
+                m, box, CUTOFF, axes=~minimage_axes(box, CUTOFF))))
+        else:
+            caps = dict(zip(("B", "G", "BE"),
+                            suggest_pbc_capacity(m, box, CUTOFF, with_multi=True)))
+        return pbc_sorted(np.mod(generate_points_random(m, box), box), box, kind, dev, **caps)
+
+    def run(shi, keys, strides, lo, pay, mib, reach, L, mask):
+        strides = torch.as_tensor(strides, dtype=torch.int32, device=dev)
+        if stress:
+            return lag_pairs._lag_stress_cuda(
+                shi, keys, strides, csq, lo, pay, L=L, gfn=lag_pairs.lj_force_factor,
+                pair_mask=mask, mi_box=mib, key_reach=reach, out_dtype=torch.float64)
+        return lag_pairs._lag_hist_cuda(shi, keys, strides, esq, lo, pay, L=L, pair_mask=mask,
+                                        mi_box=mib, key_reach=reach)
+
+    def plain(shi, keys, strides, lo, pay, mib, reach, L, mask):
+        if stress:
+            return pair_lag_stress_plain(shi, keys, strides, csq, lo, pay, L=L,
+                                         pair_mask=mask, mi_box=mib, key_reach=reach,
+                                         out_dtype=torch.float64)
+        return pair_lag_hist_plain(shi, keys, strides, esq, lo, pay, L=L, pair_mask=mask,
+                                   mi_box=mib, key_reach=reach)
+
+    def agree(got, want, what):
+        if stress:
+            err, scale = stress_err(got, want)
+            check(err <= TOL_KERNEL * scale, f"{what}: {err} > {TOL_KERNEL} x {scale}")
+            return err / scale
+        c, c_p = combine_count_vec(got), combine_count_vec(want)
+        check(np.array_equal(c, c_p), f"{what}: counts")
+        return count_diff(c, c_p)
+
+    rows_of = (("keep_minimage", "both", (None, "lo"), False),
+               ("keep", "keep", (None,), False))
+    if not stress:
+        rows_of = (("keep_minimage", "both", (None, "lo"), False),
+                   ("keep_species_minimage", "both", (None,), True))
+    spec = torch.as_tensor(np.random.default_rng(0).integers(0, 2, 2 * n), dtype=torch.float32,
+                           device=dev)
+    for name, kind, los, species in rows_of:
+        shi, slo, keys, strides, pay, mib, reach, ok = thin_sorted(n, kind)
+        check(bool(ok), f"{kernel}_{name}: the periodic inputs' flag")
+        rows = shi.shape[0]
+        L = probe_pbc_lag(lambda L: lag_pairs.lag_coverage_ok(keys, strides, L, reach=reach),
+                          L_MAIN)
+        p, mask = (pay, pbc_keep) if not species else \
+            (torch.stack([pay, spec[:rows]], 1), PbcSpeciesPairMask(0, 1))
+        # the work of the function: the half-stencil candidates of its keys,
+        # the folded axes wrapping (the lag window, beside them, holds more
+        # on the ghost-extended box)
+        folds = tuple(int(np.ceil(box[a] / CUTOFF)) if mib is not None and float(mib[a]) > 0
+                      else 0 for a in range(3))
+        candidates = periodic_stencil_candidates(keys, strides, folds)
+        kw = dict(L=L, mi_box=mib, key_reach=reach)
+        cut_pairs = combine_count(pair_lag_reduce(shi, keys, strides, csq, None, None,
+                                                  term=count_term, out_dtype=torch.int32, **kw))
+        # the pairs the function evaluates: those kept (and, for the
+        # histogram, its species' pairs: the last cumulative count)
+        pairs = combine_count(pair_lag_reduce(shi, keys, strides, csq, None, pay,
+                                              term=PbcKeepTerm(count_term),
+                                              out_dtype=torch.int32, **kw)) if stress else \
+            int(combine_count_vec(run(shi, keys, strides, None, p, mib, reach, L, mask))[-1])
+        row = out.setdefault(f"{kernel}_{name}", dict(
+            rows=rows, L=L, candidates=candidates,
+            window_candidates=window_candidates(keys, strides, L, reach),
+            cutoff_pairs=cut_pairs, pairs=pairs))
+        for lo in (None if t is None else slo for t in los):
+            mode = "split" if lo is not None else "f32"
+            split = lo is not None
+            ms, launches = timed_launches(
+                lambda: run(shi, keys, strides, lo, p, mib, reach, L, mask), wrapper)
+            planes = (6 if split else 3) + 1 + 1 + (1 if species else 0)
+            per_candidate = INSTR_PER_CANDIDATE[split] + \
+                (2 * INSTR_MI_FOLD[split] if mib is not None else 0)
+            b = bound(rows * 4 * planes, candidates * per_candidate + cut_pairs * INSTR_KEEP
+                      + (cut_pairs if species else 0) * INSTR_KEEP + pairs * per_pair)
+            lanes = int(lag_cluster_entries(shi.t(), None if lo is None else lo.t(), keys,
+                                            strides, csq, L, half=True, mi_box=mib,
+                                            reach=reach).sum()) * CLUSTER
+            row[mode] = dict(ms=ms, launches=launches, **b, share_of_bound=b["bound_ms"] / ms,
+                             pruned_evaluations=lanes,
+                             pruned_evaluations_per_candidate=lanes / candidates)
+            if mode == "f32" or name == "keep_minimage":
+                plain_ms, want = once_ms(lambda: plain(shi, keys, strides, lo, p, mib, reach,
+                                                       L, mask))
+                got = run(shi, keys, strides, lo, p, mib, reach, L, mask)
+                row[mode].update(plain_ms=plain_ms, plain_n=n, err_over_max=agree(
+                    got, want, f"{kernel}_{name} {mode} at n = {n}"))
+                del want, got
+        del shi, slo, keys, pay, p
+    maxj = PBC_MAXJ
+
+    def cube_inp(m):
+        cb = np.array([(m / 0.01) ** (1 / 3)] * 3)
+        Bc, Gc, BEc = suggest_pbc_capacity(m, cb, CUTOFF, with_multi=True)
+        shi, _, keys, strides, pay, _, _, ok = pbc_sorted(
+            np.random.default_rng(7).random((m, 3)) * cb, cb, "keep", dev, B=Bc, G=Gc, BE=BEc)
+        check(bool(ok), "the periodic cube's flag")
+        inp = tile_inputs(shi.t().contiguous(), keys, strides, CB=CB, MAXJ=maxj,
+                          bandmask=False)
+        check(bool(inp.coverage_ok), f"coverage on the periodic cube at MAXJ {maxj}")
+        return shi, keys, strides, pay, inp
+
+    tname = "K8_keep" if stress else "K9_keep"
+    tile_run = (lambda inp, pay: stress_tiles(inp, csq, payload=pay, pair_mask=pbc_keep,
+                                              out_dtype=torch.float64)) if stress else \
+        (lambda inp, pay: hist_tiles(inp, esq, payload=pay, pair_mask=pbc_keep))
+    tile_plain = (lambda inp, pay: stress_tiles_plain(inp, csq, payload=pay, pair_mask=pbc_keep,
+                                                      out_dtype=torch.float64)) if stress else \
+        (lambda inp, pay: hist_tiles_plain(inp, esq, payload=pay, pair_mask=pbc_keep))
+    shi, keys, strides, pay, inp = cube_inp(n)
+    rows = shi.shape[0]
+    candidates = periodic_stencil_candidates(keys, strides)
+    cut_pairs = combine_count(reduce_tiles(inp, csq, term=count_term, out_dtype=torch.int32))
+    pairs = combine_count(reduce_tiles(inp, csq, term=PbcKeepTerm(count_term), payload=pay,
+                                       out_dtype=torch.int32))
+    ms, launches = timed_launches(lambda: tile_run(inp, pay),
+                                  tile_pairs.tile_pair_stress if stress
+                                  else tile_pairs.tile_pair_hist)
+    b = bound(rows * 4 * (3 + 1 + 1) + inp.bounds.numel() * 4,
+              candidates * INSTR_PER_CANDIDATE[False] + cut_pairs * INSTR_KEEP + pairs * per_pair)
+    lanes = int(tile_cluster_entries(inp, csq, half=True).sum()) * CLUSTER
+    out[tname] = dict(rows=rows, MAXJ=maxj, candidates=candidates, cutoff_pairs=cut_pairs,
+                      pairs=pairs, f32=dict(ms=ms, launches=launches, **b,
+                                            share_of_bound=b["bound_ms"] / ms,
+                                            pruned_evaluations=lanes,
+                                            pruned_evaluations_per_candidate=lanes / candidates))
+    del shi, keys, pay, inp
+
+    def tile_plain_ms(m):
+        _, _, _, p, x = cube_inp(m)
+        ms, want = once_ms(lambda: tile_plain(x, p))
+        out[tname]["f32"][f"err_over_max_at_{m}"] = agree(tile_run(x, p), want,
+                                                          f"{tname} at n = {m}")
+        return ms
+
+    out[tname]["f32"].update(plain_time(tile_plain_ms, n))
+    log = (lag_pairs.load_stress_kernel if stress else lag_pairs.load_hist_kernel).log
+    tlog = (tile_pairs.load_stress_kernel if stress else tile_pairs.load_hist_kernel).log
+    out[f"{kernel}_periodic_ptxas"] = ptxas_functions(log, "_pbc_kernel")
+    out[f"{'K8' if stress else 'K9'}_keep_ptxas"] = ptxas_functions(tlog, "_keep_kernel")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4303,11 +5093,21 @@ def main() -> None:
     emit("species_main_path", **spm)
     pmp = potentials_main_path(dev, N_MAIN)
     emit("potentials_main_path", **pmp)
-    pvp = potentials_vs_plain(dev, N_PARITY)
+    # at N_CHECK (2e5) rather than 1e6, for the script's time
+    pvp = potentials_vs_plain(dev, N_CHECK)
     emit("potentials_vs_plain", **pvp)
     emit("species_pbc", **species_pbc(dev, N_PARITY))
 
-    # -- 21. every ported kernel ---------------------------------------------------
+    # -- 21. periodic observables (K4 and K5 keep mask and minimum image, K8 and
+    # K9 keep mask) and the barostat ------------------------------------------
+    pov = pbc_obs_vs_plain(dev, N_CHECK)
+    emit("pbc_obs_vs_plain", **pov)
+    pom = pbc_obs_main_path(dev, N_MAIN)
+    emit("pbc_obs_main_path", **pom)
+    emit("npt_main_path", **npt_main_path(dev, N_MAIN))
+    emit("pbc_obs_parity", **pbc_obs_parity(dev, N_PARITY))
+
+    # -- 22. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
@@ -4404,10 +5204,12 @@ def main() -> None:
     } for name, replaces, row, err in (
         ("lag_stress", "zelll_tpu/ops/pallas_pairs.py:1018", sa["K4_split"],
          ov["lattice_max_abs_err"]["K4"]),
-        ("lag_hist", "zelll_tpu/ops/pallas_pairs.py:1314", ha["K5_f32"], 0),
+        ("lag_hist", "zelll_tpu/ops/pallas_pairs.py:1314", ha["K5_f32"],
+         ov["max_count_diff"]["K5"]),
         ("tile_stress", "zelll_tpu/ops/tile_pairs.py:735", sa["K8_f32"],
          ov["lattice_max_abs_err"]["K8"]),
-        ("tile_hist", "zelll_tpu/ops/tile_pairs.py:453", ha["K9_f32"], 0),
+        ("tile_hist", "zelll_tpu/ops/tile_pairs.py:453", ha["K9_f32"],
+         ov["max_count_diff"]["K9"]),
     )), *({
         "name": name,
         "route": "cuda",
@@ -4435,9 +5237,46 @@ def main() -> None:
         ("tile_reduce_keep", "tile_reduce", "K6", "K6_keep", ("cube_tile", "cube_steady"),
          "zelll_tpu/ops/tile_pairs.py:259 (n_payload=1; ops/pbc.py:864-873)",
          "periodic keep mask over the payload row, cube with ghost images, f32 lj_term"),
+    )), *({
+        "name": name,
+        "route": "cuda",
+        "source": f"zelll_tpu_torch/csrc/{src}.cu",
+        "replaces": replaces,
+        "instance": instance,
+        "launches": sum(pom["calls"][c]["launches"].get(src, 0) for c in cells),
+        "max_abs_err": pov["max_abs_err"][f"{row}_f32"],
+        "ms": (sa if src.endswith("stress") else ha)[row]["f32"]["ms"],
+        "plain_ms": (sa if src.endswith("stress") else ha)[row]["f32"]["plain_ms"],
+        "plain_n": (sa if src.endswith("stress") else ha)[row]["f32"]["plain_n"],
+        "bound_ms": (sa if src.endswith("stress") else ha)[row]["f32"]["bound_ms"],
+        "bound_by": (sa if src.endswith("stress") else ha)[row]["f32"]["bound_by"],
+        "share_of_bound": (sa if src.endswith("stress") else ha)[row]["f32"]["share_of_bound"],
+        "library_ms": None,
+    } for name, src, kernel, row, cells, replaces, instance in (
+        ("lag_stress_keep_minimage", "lag_stress", "K4", "K4_keep_minimage",
+         ("thin_stress_minimage_f32", "thin_stress_minimage_split"),
+         "zelll_tpu/ops/pallas_pairs.py:1018 (sorted_payload, pair_mask; mi_box, key_reach)",
+         "keep mask and minimum image, thin box minimage='auto', f32"),
+        ("lag_stress_keep", "lag_stress", "K4", "K4_keep", ("thin_stress_ghosts_f32",),
+         "zelll_tpu/ops/pallas_pairs.py:1018 (sorted_payload, pair_mask)",
+         "periodic keep mask, thin box with ghost images, f32"),
+        ("lag_hist_keep_minimage", "lag_hist", "K5", "K5_keep_minimage",
+         ("thin_rdf_minimage",),
+         "zelll_tpu/ops/pallas_pairs.py:1314 (sorted_payload, pair_mask; mi_box, key_reach)",
+         "keep mask and minimum image, thin box minimage='auto', K = 32, f32"),
+        ("lag_hist_keep_species_minimage", "lag_hist", "K5", "K5_keep_species_minimage",
+         ("thin_rdf_minimage_species",),
+         "zelll_tpu/ops/pallas_pairs.py:1314 (two payload planes; mi_box, key_reach)",
+         "keep mask composed with the species mask (mask id 3), minimum image, f32"),
+        ("tile_stress_keep", "tile_stress", "K8", "K8_keep", ("cube_stress",),
+         "zelll_tpu/ops/tile_pairs.py:735 (payload row, pair_mask)",
+         "periodic keep mask over the payload row, cube with ghost images, f32"),
+        ("tile_hist_keep", "tile_hist", "K9", "K9_keep", ("cube_rdf",),
+         "zelll_tpu/ops/tile_pairs.py:453 (payload row, pair_mask)",
+         "periodic keep mask over the payload row, cube with ghost images, K = 32, f32"),
     )), *table_rows(spm, pmp)]}), flush=True)
 
-    # -- 22. the card, then the contract line -----------------------------------
+    # -- 23. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

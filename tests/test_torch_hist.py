@@ -10,17 +10,28 @@ are checked tie-free first: no pair's f32 dsq lies within 4 ulp of an edge,
 since XLA:CPU may contract the JAX kernel's dsq into fused multiply-adds,
 where the port rounds every product. Against brute force the brute force
 repeats the port's rounding. Each JAX kernel runs once per configuration
-under one `jax.jit`; the tile ones with CB=1 (see tests/test_torch_stress.py)."""
+under one `jax.jit`; the tile ones with CB=1 (see tests/test_torch_stress.py).
+
+The periodic `rdf` (ghost images and the minimum image, lag and tile,
+species partials) runs in f64 and is held exactly to the JAX package's
+`_pbc_cum_hist` counts and to a numpy minimum-image brute force, g(r)
+through the same normalisation to 1e-12; those data are checked tie-free
+against the brute force's f64 dsq (no dsq within 1e-12 of a squared edge:
+the ghost shift and the fold round the separation otherwise than the
+brute force's round(d / box))."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_stress import edge_cluster
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
+from zelll_tpu.ops.rdf import _pbc_cum_hist as jax_pbc_cum_hist
 from zelll_tpu.ops.rdf import _species_mask as jax_species_mask
+from zelll_tpu.ops.rdf import rdf as jax_rdf
 from zelll_tpu.ops.rdf import rdf_normalize as jax_rdf_normalize
 from zelll_tpu.ops.rdf import rdf_normalize_partial as jax_rdf_normalize_partial
 from zelll_tpu.ops.pallas_pairs import combine_count_vec as jax_combine_count_vec
@@ -37,6 +48,7 @@ from zelll_tpu_torch.ops.lag_pairs import (
 )
 from zelll_tpu_torch.ops.rdf import (
     pair_distance_histogram,
+    rdf,
     rdf_normalize,
     rdf_normalize_partial,
 )
@@ -82,6 +94,41 @@ def brute_shells(pts, edges):
         i, j = np.nonzero(np.arange(s, s + len(d))[:, None] < np.arange(len(pts))[None, :])
         out += np.histogram(dist[i, j], bins=np.asarray(edges))[0]
     return out
+
+
+def pbc_shells(pts, box, edges, species=None, pair=None):
+    """Minimum-image shell counts of unique pairs (f64, tests/test_rdf.py's
+    brute_hist_pbc), optionally of the species pair {a, b}; asserts that no
+    dsq lies within 1e-12 of a squared edge."""
+    d = pts[:, None] - pts[None]
+    d -= box * np.round(d / box)
+    dsq = (d * d).sum(-1)
+    i, j = np.triu_indices(len(pts), 1)
+    keep = np.ones(len(i), bool)
+    if species is not None:
+        a, b = pair
+        keep = ((species[i] == a) & (species[j] == b)) | ((species[i] == b) & (species[j] == a))
+    dsq = dsq[i, j][keep]
+    esq = np.asarray(edges, np.float64) ** 2
+    assert np.abs(dsq[:, None] - esq[None, :]).min() > 1e-12
+    return np.histogram(np.sqrt(dsq), bins=edges)[0]
+
+
+def pbc_g(counts, edges, n, box, species=None, pair=None):
+    """The port's normalisation of shell counts (held to the JAX package's
+    in `test_rdf_normalization_and_packing_match_jax`)."""
+    vol = float(np.prod(box))
+    if pair is None:
+        return rdf_normalize(counts, edges, n, vol)[1]
+    na, nb = int((species == pair[0]).sum()), int((species == pair[1]).sum())
+    return rdf_normalize_partial(counts, edges, na, nb, vol, pair[0] == pair[1])[1]
+
+
+# periodic rdf configurations (tests/test_rdf.py): ghost images on a cube,
+# a partial fold (x and y, z ghosts) and "auto" on a narrow box (x and y)
+PBC_RDF = {"ghosts": (600, (8.0, 8.0, 8.0), np.linspace(0.2, 2.0, 10), False, 9),
+           "minimage": (400, (2.2, 2.2, 40.0), np.linspace(0.2, 1.0, 9), "auto", 50),
+           "minimage_narrow": (300, (2.2, 2.4, 2.6), np.linspace(0.3, 1.0, 7), "auto", 52)}
 
 
 def _sorted(pts, cutoff, cols=()):
@@ -139,6 +186,42 @@ def test_lag_hist_matches_jax(mode):
     counts = combine_count_vec(got)
     np.testing.assert_array_equal(counts, jax_combine_count_vec(np.asarray(want)))
     np.testing.assert_array_equal(counts, cumulative(dsq, esq))
+    if mode != "species":
+        return
+    # periodic: `rdf` on the lag path (K5 with the keep mask, the minimum
+    # image and both) and its species partial (the keep mask composed with
+    # the species mask, or the species mask under a full fold), in f64,
+    # against the JAX package's counts (one jitted call) and the brute force
+    cases = {}
+    for name, (n, box, edges, mi, seed) in PBC_RDF.items():
+        r = np.random.default_rng(seed)
+        box = np.asarray(box)
+        cases[name] = (r.uniform(0, 1, (n, 3)) * box, box, edges, mi, r.integers(0, 2, n))
+
+    @jax.jit
+    def ref(inputs):
+        out = {}
+        for name, (_, box, edges, mi, _) in cases.items():
+            p, spec = inputs[name]
+            kw = dict(positions_lo=None, B=None, G=None, M=512, L=512, interpret=True,
+                      minimage=mi)
+            out[name] = jax_pbc_cum_hist(p, np.zeros(3), box, edges, **kw)
+            out[name + "_species"] = jax_pbc_cum_hist(p, np.zeros(3), box, edges,
+                                                      species=spec, pair=(0, 1), **kw)
+        return out
+
+    want = jax.tree_util.tree_map(np.asarray, ref({k: (v[0], v[4]) for k, v in cases.items()}))
+    for name, (pts, box, edges, mi, spec) in cases.items():
+        for tag, kw in ((name, {}), (name + "_species", dict(species=spec, pair=(0, 1)))):
+            r_mid, g, ok = rdf(torch.as_tensor(pts), np.zeros(3), box, edges, L=512,
+                               minimage=mi, **kw)
+            wc = jax_combine_count_vec(want[tag][0])
+            assert ok and bool(want[tag][1]), tag
+            shells = pbc_shells(pts, box, edges, kw.get("species"), kw.get("pair"))
+            np.testing.assert_array_equal(wc[1:] - wc[:-1], shells, err_msg=tag)
+            np.testing.assert_allclose(g, pbc_g(shells, edges, len(pts), box, **kw),
+                                       rtol=1e-12)
+            np.testing.assert_array_equal(r_mid, 0.5 * (edges[1:] + edges[:-1]))
 
 
 TILE_CASES = {  # (n, side, cutoff, bandmask, species pair, split, flag)
@@ -178,6 +261,22 @@ def test_tile_hist_matches_jax(case):
         dsq = dsq[dsq < esq[-1]]
         assert_tie_free(dsq, esq)
         np.testing.assert_array_equal(counts, cumulative(dsq, esq))
+    if case != "maskless":
+        return
+    # periodic: `rdf(path="tile")` (K9 with the keep mask over the payload
+    # row) against the JAX package's counts and the brute force, f64
+    box, edges = np.full(3, 9.0), np.linspace(0.3, 2.2, 8)
+    pts = np.random.default_rng(29).uniform(0, 1, (500, 3)) * box
+    want, ok_j = jax.jit(lambda p: jax_pbc_cum_hist(
+        p, np.zeros(3), box, edges, positions_lo=None, B=None, G=None, M=512,
+        L=512, interpret=True, path="tile", CB=1, MAXJ=16))(pts)
+    _, g, ok = rdf(torch.as_tensor(pts), np.zeros(3), box, edges, path="tile", CB=1,
+                   MAXJ=16)
+    wc = jax_combine_count_vec(np.asarray(want))
+    shells = pbc_shells(pts, box, edges)
+    assert ok and bool(ok_j)
+    np.testing.assert_array_equal(wc[1:] - wc[:-1], shells)
+    np.testing.assert_allclose(g, pbc_g(shells, edges, len(pts), box), rtol=1e-12)
 
 
 @pytest.mark.parametrize("path", ["lag", "tile"])
@@ -330,3 +429,42 @@ def test_rdf_normalization_and_packing_match_jax():
     packed = np.array([[3, 0, 70000], [65535, 5, 1]], np.int32)
     np.testing.assert_array_equal(combine_count_vec(torch.as_tensor(packed)),
                                   jax_combine_count_vec(packed))
+    # `rdf`'s periodic paths against the brute force (plain versions, f64):
+    # lag and tile with ghost images, the minimum image, species partials of
+    # both kinds and same-species pairs; its refusals match the JAX
+    # package's
+    for name, (n, box, edges, mi, seed) in PBC_RDF.items():
+        r = np.random.default_rng(seed + 1)
+        box = np.asarray(box)
+        pts, spec = r.uniform(0, 1, (n, 3)) * box, r.integers(0, 3, n)
+        runs = [dict(L=512, minimage=mi), dict(L=512, minimage=mi, species=spec, pair=(1, 1)),
+                dict(L=512, minimage=mi, species=spec, pair=(0, 2))]
+        if mi is False:
+            runs.append(dict(path="tile", MAXJ=16))
+        for kw in runs:
+            _, g, ok = rdf(torch.as_tensor(pts), np.zeros(3), box, edges, **kw)
+            shells = pbc_shells(pts, box, edges, kw.get("species"), kw.get("pair"))
+            assert ok, (name, kw)
+            np.testing.assert_allclose(
+                g, pbc_g(shells, edges, n, box, kw.get("species"), kw.get("pair")),
+                rtol=1e-12, err_msg=name)
+    # default capacities as the JAX package sizes them (BE = B), on a box
+    # whose edge cluster holds more rows near two faces than
+    # `suggest_pbc_capacity(with_multi=True)`'s BE (tests/test_torch_stress.py)
+    pts, box = edge_cluster()
+    edges = np.linspace(0.2, 1.0, 5)
+    want = pbc_g(pbc_shells(pts, box, edges), edges, len(pts), box)
+    for kw in (dict(L=512), dict(path="tile", MAXJ=16)):
+        _, g, ok = rdf(torch.as_tensor(pts), np.zeros(3), box, edges, **kw)
+        assert ok, kw
+        np.testing.assert_allclose(g, want, rtol=1e-12)
+    box, pts = np.full(3, 8.0), np.random.default_rng(5).uniform(0, 8.0, (64, 3))
+    spec = np.zeros(64, int)
+    for fn, x in ((rdf, torch.as_tensor(pts)), (jax_rdf, jnp.asarray(pts))):
+        with pytest.raises(ValueError, match="path='lag'"):
+            fn(x, np.zeros(3), box, EDGES, path="tile", species=spec, pair=(0, 0))
+        with pytest.raises(ValueError, match="lag-path"):
+            fn(x, np.zeros(3), np.array([2.2, 2.2, 40.0]), np.linspace(0.2, 1.0, 5),
+               path="tile", minimage="auto")
+    with pytest.raises(ValueError, match="go together"):
+        rdf(torch.as_tensor(pts), np.zeros(3), box, EDGES, species=spec)

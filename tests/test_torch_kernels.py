@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1 to K9 and K12) against their plain PyTorch
-versions on the card.
+versions on the card, the periodic instances among them.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed. On a machine with a CUDA card and nvcc:
@@ -1135,6 +1135,160 @@ def test_tile_hist_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(ValueError):
         tile_pair_hist(shi, keys, strides, esq, min_islot=3)
 
+
+
+# -- the observables' periodic instances: K4, K5, K8 and K9 -------------------
+
+
+def _pbc_cube_cases(n, device, rng):
+    """Ghost-extended cubes at the benchmark's density (keep kind of
+    `_pbc_sorted`): the uniform cloud, a jittered lattice, a seam lattice
+    (two layers of spacing 2.5 at each x face) and the lattice drifted
+    since its keys were built."""
+    side = (n / 0.01) ** (1 / 3)
+    box = np.array([side] * 3)
+    data = {"uniform": generate_points_random(n, box),
+            "lattice": generate_points_lattice(n, box),
+            "seam": seam_cloud(box, 2.5, 2, (0,), rng)}
+    cases = {tag: _pbc_sorted(pts, box, "keep", device) for tag, pts in data.items()}
+    cases["drifted"] = _drifted(cases["lattice"], rng)
+    return cases
+
+
+@pytest.mark.gpu
+def test_pbc_stress_kernels_match_plain_on_card(cuda_device):
+    """K4's and K8's periodic instances against their plain versions on the
+    same sorted CUDA tensors, f64 stress to 1e-10 of the largest component
+    (TOL_FAST_FORCES with the fast factor): K4 with the keep mask (ghost
+    images on every axis), the minimum image alone (x and y folded, z open)
+    and both, on the five inputs of `_pbc_cases` (n = 20,000: the seam
+    lattices fail a fold or a prune without periodic images, the rounding
+    box a split fold without the box's low part), f32 and split, and the
+    keep mask in f64; K8 with the keep mask on the ghost-extended cubes of
+    `_pbc_cube_cases` (n = 50,000), masked and maskless, f32, split and
+    f64. Other masks, pair_weight and an f64 minimum image raise."""
+    from zelll_tpu_torch.ops.lag_pairs import pbc_keep, suggest_lag
+
+    csq = CUTOFF**2
+    f64 = torch.float64
+    for (kind, tag), (shi, slo, keys, strides, pay, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        L = suggest_lag(keys, strides, reach=reach)
+        mask = None if pay is None else pbc_keep
+        for plo in (None, slo):
+            for gfn, tol in ((lj_force_factor, 1e-10), (lj_force_factor_fast, TOL_FAST_FORCES)):
+                kw = dict(L=L, gfn=gfn, out_dtype=f64, pair_mask=mask, mi_box=mib,
+                          key_reach=reach)
+                before = pair_lag_stress.launches
+                got = pair_lag_stress(shi, keys, strides, csq, plo, pay, **kw)
+                assert pair_lag_stress.launches == before + 1
+                _assert_stress(got, pair_lag_stress_plain(shi, keys, strides, csq, plo, pay,
+                                                          **kw), tol)
+        if kind == "keep":
+            pos64, pay64 = shi.double() + slo.double(), pay.double()
+            kw = dict(L=L, pair_mask=pbc_keep)
+            got = pair_lag_stress(pos64, keys, strides, csq, None, pay64, **kw)
+            assert got.dtype == f64
+            _assert_stress(got, pair_lag_stress_plain(pos64, keys, strides, csq, None, pay64,
+                                                      **kw), 1e-10)
+    with pytest.raises(ValueError, match="pair mask"):
+        pair_lag_stress(shi, keys, strides, csq, None, pay, pair_mask=SpeciesPairMask(0, 1),
+                        mi_box=mib, key_reach=reach)
+    with pytest.raises(ValueError, match="pair_weight"):
+        pair_lag_stress(shi, keys, strides, csq, None, pay, pair_weight=lambda a, b: a)
+    with pytest.raises(ValueError, match="minimum image"):
+        pair_lag_stress(shi.double(), keys, strides, csq, mi_box=mib, key_reach=reach)
+    rng = np.random.default_rng(7)
+    for tag, (shi, slo, keys, strides, pay, _, _) in \
+            _pbc_cube_cases(50_000, cuda_device, rng).items():
+        maxj = _maxj(keys, strides)
+        for bandmask in (False, True):
+            for pos, plo, p in ((shi, None, pay), (shi, slo, pay),
+                                (shi.double() + slo.double(), None, pay.double())):
+                for gfn, tol in ((lj_force_factor, 1e-10),
+                                 (lj_force_factor_fast, TOL_FAST_FORCES)):
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, gfn=gfn, out_dtype=f64,
+                              pair_mask=pbc_keep)
+                    before = tile_pair_stress.launches
+                    got, ok = tile_pair_stress(pos, keys, strides, csq, plo, p, **kw)
+                    assert tile_pair_stress.launches == before + 1
+                    want, ok_p = tile_pair_stress_plain(pos, keys, strides, csq, plo, p, **kw)
+                    assert bool(ok) and bool(ok_p), tag
+                    _assert_stress(got, want, tol)
+    with pytest.raises(ValueError, match="pair mask"):
+        tile_pair_stress(shi, keys, strides, csq, None, pay, MAXJ=maxj,
+                         pair_mask=SpeciesPairMask(0, 1))
+    with pytest.raises(ValueError, match="pair_weight"):
+        tile_pair_stress(shi, keys, strides, csq, None, pay, MAXJ=maxj,
+                         pair_weight=lambda a, b: a)
+
+
+@pytest.mark.gpu
+def test_pbc_hist_kernels_match_plain_on_card(cuda_device):
+    """K5's and K9's periodic instances against their plain versions on the
+    same sorted CUDA tensors, counts exact at K = 32: K5 with the keep
+    mask, the minimum image and both on the inputs of `_pbc_cases`
+    (n = 20,000), f32 and split, with no species, a species mask (composed
+    with the keep mask over two planes where there is a keep plane) and the
+    keep mask in f64; K9 with the keep mask on the ghost-extended cubes of
+    `_pbc_cube_cases` (n = 50,000), masked and maskless, f32, split and
+    f64. Other masks and an f64 minimum image raise."""
+    from zelll_tpu_torch.ops.lag_pairs import PbcSpeciesPairMask, pbc_keep, suggest_lag
+
+    esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64) ** 2
+    rng = np.random.default_rng(8)
+    for (kind, tag), (shi, slo, keys, strides, pay, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        L = suggest_lag(keys, strides, reach=reach)
+        spec = torch.as_tensor(rng.integers(0, 2, len(shi)), dtype=torch.float32,
+                               device=cuda_device)
+        rules = [(pay, None if pay is None else pbc_keep)]
+        if pay is None:
+            rules.append((spec, SpeciesPairMask(0, 1)))
+        else:
+            rules.append((torch.stack([pay, spec], 1), PbcSpeciesPairMask(0, 1)))
+        for plo in (None, slo):
+            for p, mask in rules:
+                kw = dict(L=L, pair_mask=mask, mi_box=mib, key_reach=reach)
+                before = pair_lag_hist.launches
+                got = pair_lag_hist(shi, keys, strides, esq.float(), plo, p, **kw)
+                assert pair_lag_hist.launches == before + 1
+                want = pair_lag_hist_plain(shi, keys, strides, esq.float(), plo, p, **kw)
+                c = combine_count_vec(got)
+                np.testing.assert_array_equal(c, combine_count_vec(want), err_msg=f"{kind} {tag}")
+                assert c[-1] > 0, (kind, tag)
+        if kind == "keep":
+            pos64 = shi.double() + slo.double()
+            for p, mask in ((pay.double(), pbc_keep),
+                            (torch.stack([pay, spec], 1).double(), PbcSpeciesPairMask(1, 1))):
+                got = pair_lag_hist(pos64, keys, strides, esq, None, p, L=L, pair_mask=mask)
+                want = pair_lag_hist_plain(pos64, keys, strides, esq, None, p, L=L,
+                                           pair_mask=mask)
+                np.testing.assert_array_equal(combine_count_vec(got), combine_count_vec(want))
+    with pytest.raises(ValueError, match="pair mask"):
+        pair_lag_hist(shi, keys, strides, esq.float(), None, torch.stack([pay, spec], 1),
+                      pair_mask=lambda w, s, v, t: w == v, mi_box=mib, key_reach=reach)
+    with pytest.raises(ValueError, match="minimum image"):
+        pair_lag_hist(shi.double(), keys, strides, esq, mi_box=mib, key_reach=reach)
+    for tag, (shi, slo, keys, strides, pay, _, _) in \
+            _pbc_cube_cases(50_000, cuda_device, rng).items():
+        maxj = _maxj(keys, strides)
+        for bandmask in (False, True):
+            for pos, plo, p in ((shi, None, pay), (shi, slo, pay),
+                                (shi.double() + slo.double(), None, pay.double())):
+                kw = dict(MAXJ=maxj, bandmask=bandmask, pair_mask=pbc_keep)
+                e = esq.to(pos.dtype)
+                before = tile_pair_hist.launches
+                got, ok = tile_pair_hist(pos, keys, strides, e, plo, p, **kw)
+                assert tile_pair_hist.launches == before + 1
+                want, ok_p = tile_pair_hist_plain(pos, keys, strides, e, plo, p, **kw)
+                assert bool(ok) and bool(ok_p), tag
+                c = combine_count_vec(got)
+                np.testing.assert_array_equal(c, combine_count_vec(want), err_msg=tag)
+                assert c[-1] > 0, tag
+    with pytest.raises(ValueError, match="pair mask"):
+        tile_pair_hist(shi, keys, strides, esq.float(), None, torch.stack([pay, pay], 1),
+                       MAXJ=maxj, pair_mask=PbcSpeciesPairMask(0, 1))
 
 
 # -- pair potentials and species: the term table's instances ---------------

@@ -15,6 +15,15 @@ the seeds, a species pair mask. It checks:
 * the plain K5 (`pair_lag_hist`) and K9 (`tile_pair_hist`): flag up and
   cumulative counts exactly the brute force's.
 
+Every sixth seed also draws a periodic box (cubic, thin or slab, each axis
+over 2 cutoffs, 3-D, f64) and one of its paths in turn: ghost images on
+the lag path or on the tile path (the keep mask), or ``minimage="auto"``
+(the minimum image, and the keep mask where ghost axes remain). It holds
+`pbc_stress_fused` to a numpy minimum-image brute force (1e-9 of each
+component's sum of |terms|) and `rdf`'s counts (`rdf._pbc_cum_hist`, with
+a species partial on half of them) to the brute force's exactly, on edges
+no pair's f64 dsq lies within 1e-12 of.
+
 Everything runs the plain versions on CPU tensors and calls no JAX."""
 
 import numpy as np
@@ -35,7 +44,9 @@ from zelll_tpu_torch.ops.lag_pairs import (
     split_f64,
     suggest_lag,
 )
+from zelll_tpu_torch.ops.rdf import _pbc_cum_hist
 from zelll_tpu_torch.ops.tile_pairs import tile_pair_hist, tile_pair_stress
+from zelll_tpu_torch.ops.virial import pbc_stress_fused
 
 SEEDS = range(222)
 SHAPES = {"cubic": (1.0, 1.0, 1.0), "thin": (0.25, 0.25, 4.0),
@@ -81,6 +92,35 @@ def _case(seed):
         species=species, pair=tuple(sorted(rng.integers(0, 3, 2))) if seed % 4 < 2 else None,
         edges_sq=edges.astype(np.float32 if mode != "f64" else np.float64) ** 2,
         CB=int(rng.choice([1, 2, 4])), bandmask=bool(rng.integers(0, 2)))
+
+
+PBC_PATHS = (dict(path="lag", L=4096), dict(path="tile", MAXJ=64), dict(L=4096, minimage="auto"))
+
+
+def _pbc_case(seed):
+    """A periodic seed's inputs: (f64 points in [0, box), box, cutoff, path
+    options, species, pair or None, edges), and its minimum-image pairs'
+    separations (d, dsq) and species."""
+    rng = np.random.default_rng(22000 + seed)
+    cutoff = float(rng.uniform(0.7, 1.6))
+    aspect = np.asarray(SHAPES[list(SHAPES)[seed % len(SHAPES)]])
+    box = np.maximum(rng.uniform(2.5, 4.0) * aspect / aspect.min(), 2.2) * cutoff
+    n = int(rng.integers(30, 300))
+    pts = rng.uniform(0, 1, (n, 3)) * box
+    d = pts[:, None] - pts[None]
+    d -= box * np.round(d / box)
+    dsq = (d * d).sum(-1)
+    pts = pts[~np.triu(dsq < (0.02 * cutoff) ** 2, 1).any(0)]
+    i, j = np.triu_indices(len(pts), 1)
+    d = pts[j] - pts[i]
+    d -= box * np.round(d / box)
+    species = rng.integers(0, 3, len(pts))
+    edges = np.sort(rng.uniform(0, cutoff, int(rng.integers(1, 33))))
+    edges[-1] = cutoff
+    pair = tuple(sorted(rng.integers(0, 3, 2))) if seed % 4 < 2 else None
+    return dict(pts=pts, box=box, cutoff=cutoff, kw=PBC_PATHS[(seed // 6) % 3], d=d,
+                dsq=(d * d).sum(1), si=species[i], sj=species[j], species=species,
+                pair=pair, edges=edges)
 
 
 def _pairs(c, mask=None):
@@ -149,6 +189,17 @@ def test_stress_vs_bruteforce(seed):
     for got in (lag, tile.numpy()):
         assert got.shape == (dim, dim)
         assert np.all(np.abs(got - ref) <= 1e-9 * mag)
+    if seed % 6:
+        return
+    p = _pbc_case(seed)
+    m = (p["dsq"] < p["cutoff"] ** 2) & (p["dsq"] > 0)
+    d, dsq = p["d"][m], p["dsq"][m]
+    tt = (1.0 / dsq) ** 3
+    terms = (24 * tt * (2 * tt - 1) / dsq)[:, None, None] * d[:, :, None] * d[:, None, :]
+    sig, ok = pbc_stress_fused(torch.as_tensor(p["pts"]), np.zeros(3), p["box"], p["cutoff"],
+                               B=len(p["pts"]), G=7 * len(p["pts"]), **p["kw"])
+    assert bool(ok) and sig.dtype == torch.float64
+    assert np.all(np.abs(sig.numpy() - terms.sum(0)) <= 1e-9 * np.abs(terms).sum(0))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -173,3 +224,24 @@ def test_hist_vs_bruteforce(seed):
     assert bool(ok)
     np.testing.assert_array_equal(combine_count_vec(lag), want)
     np.testing.assert_array_equal(combine_count_vec(tile), want)
+    if seed % 6:
+        return
+    p = _pbc_case(seed)
+    esq, dsq = p["edges"] ** 2, p["dsq"]
+    kw = dict(p["kw"])
+    kw.setdefault("L", 256)
+    spec = {}
+    if p["pair"] is not None:
+        a, b = p["pair"]
+        keep = ((p["si"] == a) & (p["sj"] == b)) | ((p["si"] == b) & (p["sj"] == a))
+        dsq = dsq[keep]
+        if kw.get("path") == "tile":  # one payload row on tile: the lag path
+            kw = dict(L=4096)
+        spec = dict(species=p["species"], pair=p["pair"])
+    assert np.abs(dsq[:, None] - esq[None, :]).min() > 1e-12
+    packed, ok = _pbc_cum_hist(torch.as_tensor(p["pts"]), np.zeros(3), p["box"], p["edges"],
+                               positions_lo=None, B=len(p["pts"]), G=7 * len(p["pts"]),
+                               M=1024, **spec, **kw)
+    assert bool(ok)
+    np.testing.assert_array_equal(combine_count_vec(packed),
+                                  np.array([(dsq < e).sum() for e in esq], np.int64))

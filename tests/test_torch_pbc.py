@@ -10,7 +10,8 @@ f32 coordinates to the f64-grade 1e-6; energies, forces and positions to
 unstable sorts, ROADMAP queue 3). Ghost rows may come in another order
 than JAX's, so ghost sets are compared as sorted rows. Six JAX
 executables are compiled here, each under one jax.jit (ROADMAP Tier-1
-budget)."""
+budget), and the JAX package's NPT loop (one jitted scan): the periodic
+virial rides the paths' call, `md_run_npt`'s records are held to 1e-9."""
 
 import jax
 import jax.numpy as jnp
@@ -22,10 +23,14 @@ from xla_release import release_xla_executables  # noqa: F401
 
 import zelll_tpu.ops.pbc as jpbc
 from zelll_tpu.models import lj_md as jax_md
+from zelll_tpu.models.thermostats import md_run_npt as jax_md_run_npt
+from zelll_tpu.ops.virial import pbc_virial as jax_pbc_virial
 from zelll_tpu_torch.core.geometry import key_window
 from zelll_tpu_torch.models import lj_md
 from zelll_tpu_torch.models.lj_md import MDState
+from zelll_tpu_torch.models.thermostats import md_run_npt
 from zelll_tpu_torch.ops import pbc
+from zelll_tpu_torch.ops.virial import pbc_virial
 from zelll_tpu_torch.ops.lag_pairs import (
     PbcKeepTerm,
     combine_count,
@@ -389,9 +394,9 @@ def test_pbc_payload_instances_plain():
 
 def test_pbc_paths_match_jax():
     """`pbc_pair_sum` on the lag, tile and xla paths and with the minimum
-    image, and `pbc_lj_forces` with the minimum image, on one input through
-    both packages (the JAX ones in one jitted call): counts exact, energies
-    and forces to 1e-9."""
+    image, `pbc_lj_forces` with the minimum image, and `pbc_virial` on the
+    same paths, on one input through both packages (the JAX ones in one
+    jitted call): counts exact, energies, virials and forces to 1e-9."""
     box, cutoff = np.array([2.5, 2.5, 12.0]), 1.0
     pts = uniform(160, box, 17)
     o = np.zeros(3)
@@ -408,7 +413,12 @@ def test_pbc_paths_match_jax():
                                   B=B, G=G, BE=BE, K=48, out_dtype=jnp.int32),
             mi=jpbc.pbc_lj_energy(p, o, box, cutoff, minimage="auto", interpret=True, **lag),
             mi_forces=jpbc.pbc_lj_forces(p, o, box, cutoff, minimage="auto",
-                                         interpret=True, **lag))
+                                         interpret=True, **lag),
+            w_lag=jax_pbc_virial(p, o, box, cutoff, interpret=True, BE=BE, **lag),
+            w_tile=jax_pbc_virial(p, o, box, cutoff, path="tile", B=B, G=G, BE=BE, CB=1,
+                                  MAXJ=16, interpret=True),
+            w_xla=jax_pbc_virial(p, o, box, cutoff, path="xla", B=B, G=G, BE=BE, K=48),
+            w_mi=jax_pbc_virial(p, o, box, cutoff, minimage="auto", interpret=True, **lag))
 
     want = jax.tree_util.tree_map(np.asarray, ref(jnp.asarray(pts)))
     P = t64(pts)
@@ -418,11 +428,15 @@ def test_pbc_paths_match_jax():
                                MAXJ=16),
         xla=pbc.pbc_count_pairs(P, o, box, cutoff, path="xla", B=B, G=G, BE=BE, K=48),
         mi=pbc.pbc_lj_energy(P, o, box, cutoff, minimage="auto", **lag),
-        mi_forces=pbc.pbc_lj_forces(P, o, box, cutoff, minimage="auto", **lag))
+        mi_forces=pbc.pbc_lj_forces(P, o, box, cutoff, minimage="auto", **lag),
+        w_lag=pbc_virial(P, o, box, cutoff, BE=BE, **lag),
+        w_tile=pbc_virial(P, o, box, cutoff, path="tile", B=B, G=G, BE=BE, CB=1, MAXJ=16),
+        w_xla=pbc_virial(P, o, box, cutoff, path="xla", B=B, G=G, BE=BE, K=48),
+        w_mi=pbc_virial(P, o, box, cutoff, minimage="auto", **lag))
     for key in got:
         assert bool(got[key][1]) and bool(want[key][1]), key
     assert got["xla"][0] == (int(want["xla"][0][0]) << 16) + int(want["xla"][0][1])
-    for key in ("lag", "tile", "mi"):
+    for key in ("lag", "tile", "mi", "w_lag", "w_tile", "w_xla", "w_mi"):
         assert rel(float(got[key][0]), float(want[key][0])) <= 1e-9, key
     fw = want["mi_forces"][0]
     assert np.abs(got["mi_forces"][0].numpy() - fw).max() <= 1e-9 * np.abs(fw).max()
@@ -466,6 +480,27 @@ def test_pbc_md_loops_match_jax():
         a, b = _rows(s.positions, s.velocities, box), _rows(js.positions, js.velocities, box)
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
         assert rel(float(e), float(je)) <= 1e-9, name
+
+    # the Berendsen barostat (tests/test_npt.py): a hot gas above the target
+    # pressure, `md_run_npt` on the lag path with records, both packages
+    gpts = lattice(np.full(3, 6.0), 6.0 / 5, 0.04, 16)
+    gvel = np.random.default_rng(16).normal(0, 3.0, gpts.shape)
+    gvel -= gvel.mean(0)
+    kw = dict(steps=4, P_target=0.05, tau_p=0.05, beta=1.0, record=True)
+    p, v, b, ok, rec = md_run_npt(t64(gpts), t64(gvel), o, np.full(3, 6.0), 1.5, 2e-3,
+                                  L=512, **kw)
+    jp, jv, jb, jok, jrec = jax_md_run_npt(jnp.asarray(gpts), jnp.asarray(gvel),
+                                           jnp.zeros(3), jnp.full(3, 6.0), 1.5, 2e-3, M=512,
+                                           L=512, interpret=True, **kw)
+    assert bool(ok) and bool(jok)
+    for key in ("pressure", "volume", "temperature"):
+        np.testing.assert_allclose(rec[key].numpy(), np.asarray(jrec[key]), rtol=1e-9,
+                                   err_msg=key)
+    assert rec["volume"][-1] > rec["volume"][0] and rec["pressure"][0] > 0.05
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=1e-12)
+    for a, c in ((p, jp), (v, jv)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=0,
+                                   atol=1e-9 * np.abs(np.asarray(c)).max())
 
 
 def test_pbc_md_loops_vs_stepwise():

@@ -14,7 +14,13 @@ f32; the port sums the same f32 products in f64 in another order);
 against brute force over the same f32 products, 1e-9 of the sum of |terms|
 (the order of f64 sums); f64 coordinates 1e-10; split coordinates 2e-6
 (the JAX package's parity bar, benchmarks/tpu_parity.py), against the
-exact f64 stress of the f64 points."""
+exact f64 stress of the f64 points.
+
+Periodic boxes (`pbc_virial`, `pbc_stress`, `pbc_stress_fused` with ghost
+images and the minimum image): in f64 against a numpy minimum-image brute
+force to 1e-9 of the largest component (tests/test_virial.py's bar) and
+against the JAX package's functions to 1e-10 of it (the same f64 terms in
+another order); split minimum image to 2e-6."""
 
 import jax
 import jax.numpy as jnp
@@ -25,23 +31,29 @@ from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
 from zelll_tpu.ops import virial as jax_virial
+from zelll_tpu.ops.pbc import minimage_axes as jax_minimage_axes
 from zelll_tpu.ops.pallas_pairs import pair_lag_stress as jax_lag_stress
 from zelll_tpu.ops.tile_pairs import tile_pair_stress as jax_tile_stress
 from zelll_tpu_torch.core import build
 from zelll_tpu_torch.ops.lag_pairs import (
     SpeciesPairMask,
     pair_lag_stress,
+    pbc_keep,
     split_f64,
     suggest_lag,
 )
 from zelll_tpu_torch.ops.lj import lj_force_factor_fast, lj_virial_term
 from zelll_tpu_torch.ops.tile_pairs import tile_lj_rebuild_energy, tile_pair_stress
+from zelll_tpu_torch.ops.pbc import minimage_axes, pbc_extend, suggest_pbc_capacity
 from zelll_tpu_torch.ops.virial import (
     fused_stress_open,
     fused_virial,
     kinetic_energy,
     kinetic_stress,
     pair_stress_open,
+    pbc_stress,
+    pbc_stress_fused,
+    pbc_virial,
     pressure,
     pressure_tensor,
     virial_rebuild,
@@ -84,6 +96,37 @@ def _sorted(pts, cutoff, dtype=np.float32):
             g.info.strides.numpy())
 
 
+def brute_stress_pbc(pts, box, cutoff):
+    """Minimum-image virial W and stress over unique pairs (f64 numpy,
+    tests/test_virial.py's oracle_pbc). Returns (W, sigma)."""
+    pts, box = np.asarray(pts, np.float64), np.asarray(box, np.float64)
+    d = pts[:, None, :] - pts[None, :, :]
+    d -= box * np.round(d / box)
+    dsq = (d * d).sum(-1)
+    np.fill_diagonal(dsq, np.inf)
+    within = np.triu(dsq < cutoff * cutoff)
+    t = 1.0 / np.where(within, dsq, 1.0)
+    t3 = t * t * t
+    g = np.where(within, 24.0 * t3 * (2.0 * t3 - 1.0) * t, 0.0)
+    return float((g * np.where(within, dsq, 0.0)).sum()), np.einsum("ij,ija,ijb->ab", g, d, d)
+
+
+def pbc_points(n=256, box=(4.3, 5.1, 6.7), seed=0):
+    """tests/test_virial.py's make_pbc: uniform points in [0, box), f64."""
+    box = np.asarray(box, np.float64)
+    return np.random.default_rng(seed).uniform(0, 1, (n, 3)) * box, box
+
+
+def edge_cluster(seed=0):
+    """2000 uniform points in a 16^3 box and 200 within 0.9 of the x and
+    y faces' shared edge (z in [4, 12)), f64: more rows near two faces
+    than `suggest_pbc_capacity`'s BE, fewer near one than its B."""
+    rng = np.random.default_rng(seed)
+    box = np.full(3, 16.0)
+    edge = np.column_stack([rng.uniform(0, 0.9, (200, 2)), rng.uniform(4, 12, 200)])
+    return np.concatenate([rng.uniform(0, 1, (2000, 3)) * box, edge]), box
+
+
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return np.abs(got - want).max() / np.abs(want).max()
@@ -112,6 +155,36 @@ def test_lag_stress_matches_jax(n, box, cutoff):
                           torch.as_tensor(strides), cutoff**2, L=L,
                           out_dtype=torch.float64).numpy()
     assert np.all(np.abs(g64 - ref) <= 1e-9 * mag)
+    if n != 900:
+        return
+    # periodic: `pbc_stress_fused` on the lag path with ghost images (the
+    # keep mask), an explicit fold of x (y and z ghosts) and "auto" on a box
+    # whose axes are all narrow (x and y fold, the largest keeps ghosts), in
+    # f64, against the JAX package's (one jitted call) and the
+    # minimum-image brute force
+    cases = {"ghosts": (pbc_points(seed=10), 1.0, False),
+             "fold_x": (pbc_points(256, (2.5, 2.5, 40.0), 42), 1.0, (True, False, False)),
+             "auto": (pbc_points(200, (3.1, 3.3, 3.7), 41), 1.2, "auto")}
+    auto = minimage_axes(cases["auto"][0][1], 1.2)
+    assert auto.tolist() == jax_minimage_axes(cases["auto"][0][1], 1.2).tolist() == [
+        True, True, False]
+
+    @jax.jit
+    def ref_pbc(p):
+        return {k: jax_virial.pbc_stress_fused(p[k], np.zeros(3), box, c, M=512, L=512,
+                                               interpret=True, minimage=mi)
+                for k, ((_, box), c, mi) in cases.items()}
+
+    want = jax.tree_util.tree_map(np.asarray, ref_pbc({k: v[0][0] for k, v in cases.items()}))
+    for k, ((pts, box), c, mi) in cases.items():
+        sig, ok = pbc_stress_fused(torch.as_tensor(pts), np.zeros(3), box, c, L=512,
+                                   minimage=mi)
+        w_ref, s_ref = brute_stress_pbc(pts, box, c)
+        assert bool(ok) and bool(want[k][1]), k
+        scale = np.abs(s_ref).max()
+        assert np.abs(sig.numpy() - s_ref).max() <= 1e-9 * scale, k
+        assert np.abs(sig.numpy() - want[k][0]).max() <= 1e-10 * scale, k
+        assert abs(float(torch.trace(sig)) - w_ref) <= 1e-9 * abs(w_ref), k
 
 
 def test_lag_stress_split_matches_jax():
@@ -130,6 +203,23 @@ def test_lag_stress_split_matches_jax():
     assert _rel(got, want) <= 1e-6
     ref, _ = brute_stress(g.sorted_pos.numpy(), 1.2)
     assert _rel(got, ref) <= 2e-6
+    # periodic split: a box 4096 from the origin (tests/test_virial.py), the
+    # minimum image (split mode's fold carries the two-diff residual), and
+    # ghost images on the lag and tile paths (split ghosts), f64-grade
+    # against the brute force; the minimum image also against the JAX
+    # package's (the box is exact in f32, where the two fold alike)
+    (pts, box), o = pbc_points(256, (2.5, 2.5, 40.0), 43), np.full(3, 4096.0)
+    phi, plo = split_f64(torch.as_tensor(pts + 4096.0))
+    _, s_ref = brute_stress_pbc(pts, box, 1.0)
+    want = np.asarray(jax.jit(lambda p, q: jax_virial.pbc_stress_fused(
+        p, o, box, 1.0, M=512, L=512, interpret=True, minimage="auto",
+        positions_lo=q))(phi.numpy(), plo.numpy())[0], np.float64)
+    for kw in (dict(L=512, minimage="auto"), dict(L=512), dict(path="tile", MAXJ=16)):
+        sig, ok = pbc_stress_fused(phi, o, box, 1.0, positions_lo=plo, **kw)
+        assert bool(ok) and sig.dtype == torch.float32
+        assert _rel(sig, s_ref) <= 2e-6, kw
+    sig, _ = pbc_stress_fused(phi, o, box, 1.0, positions_lo=plo, L=512, minimage="auto")
+    assert _rel(sig, want) <= 1e-6
 
 
 @pytest.mark.parametrize("bandmask", [False, True], ids=["maskless", "masked"])
@@ -155,6 +245,20 @@ def test_tile_stress_matches_jax(bandmask):
                              torch.as_tensor(strides), 1.5**2, MAXJ=1, CB=1,
                              bandmask=bandmask)
     assert not bool(ok)
+    if bandmask:
+        return
+    # periodic: `pbc_stress_fused(path="tile")` (K8's keep rule over the
+    # payload row) against the JAX package's and the brute force, f64
+    (pts, box), c = pbc_points(seed=11), 1.0
+    want, ok_j = jax.jit(lambda p: jax_virial.pbc_stress_fused(
+        p, np.zeros(3), box, c, path="tile", MAXJ=16, CB=1, interpret=True))(pts)
+    sig, ok = pbc_stress_fused(torch.as_tensor(pts), np.zeros(3), box, c, path="tile",
+                               MAXJ=16, CB=1)
+    _, s_ref = brute_stress_pbc(pts, box, c)
+    assert bool(ok) and bool(ok_j)
+    scale = np.abs(s_ref).max()
+    assert np.abs(sig.numpy() - s_ref).max() <= 1e-9 * scale
+    assert np.abs(sig.numpy() - np.asarray(want)).max() <= 1e-10 * scale
 
 
 STRESS_BOXES = {"thin": ((3.0, 3.0, 60.0), "lag"), "cubic": ((9.0, 9.0, 9.0), "tile")}
@@ -276,14 +380,66 @@ def test_payload_rules_on_cpu():
         got = kernel(*args, min_islot=250, **kw)
         got = got[0] if isinstance(got, tuple) else got
         assert _rel(got, ref(j >= 250, 1.0)) <= 1e-10
+    # the periodic rules (plain versions, f64): the keep mask over the
+    # shift-sign plane on every path of `pbc_stress_fused`, the minimum
+    # image (`mi_box`/`key_reach`) alone and with the keep mask, the
+    # bucketed `pbc_stress` (half-weights) and the virial's three paths,
+    # each against the minimum-image brute force; trace(sigma) = W
+    for (pts, box), c in ((pbc_points(seed=3), 1.0),
+                          (pbc_points(200, (3.0, 3.0, 3.0), 4), 1.2)):
+        w_ref, s_ref = brute_stress_pbc(pts, box, c)
+        x, o = torch.as_tensor(pts), np.zeros(3)
+        scale = np.abs(s_ref).max()
+        for sig, ok in (pbc_stress(x, o, box, c),
+                        pbc_stress_fused(x, o, box, c, L=512),
+                        pbc_stress_fused(x, o, box, c, path="tile", MAXJ=16),
+                        pbc_stress_fused(x, o, box, c, L=512, minimage=(True, True, False)),
+                        pbc_stress_fused(x, o, box, c, L=512, minimage=(True, True, True))):
+            assert bool(ok)
+            assert np.abs(sig.numpy() - s_ref).max() <= 1e-9 * scale
+            assert abs(float(torch.trace(sig)) - w_ref) <= 1e-9 * abs(w_ref)
+        for path, kw in (("lag", dict(L=512)), ("tile", dict(MAXJ=16)), ("xla", dict(K=32))):
+            w, ok = pbc_virial(x, o, box, c, path=path, **kw)
+            assert bool(ok) and abs(float(w) - w_ref) <= 1e-9 * abs(w_ref), path
+    # default capacities as the JAX package sizes them (BE = B): a cluster
+    # at an edge of the box holds more rows near two faces than
+    # `suggest_pbc_capacity(with_multi=True)`'s BE, which would drop the flag
+    (pts, box), o = edge_cluster(), np.zeros(3)
+    x = torch.as_tensor(pts)
+    B, G, BE = suggest_pbc_capacity(len(pts), box, 1.0, with_multi=True)
+    assert not bool(pbc_extend(x, o, box, 1.0, B=B, G=G, BE=BE)[-1])
+    assert bool(pbc_extend(x, o, box, 1.0, B=B, G=G)[-1])
+    w_ref, s_ref = brute_stress_pbc(pts, box, 1.0)
+    for sig, ok in (pbc_stress_fused(x, o, box, 1.0, L=512),
+                    pbc_stress_fused(x, o, box, 1.0, path="tile", MAXJ=16)):
+        assert bool(ok)
+        assert np.abs(sig.numpy() - s_ref).max() <= 1e-9 * np.abs(s_ref).max()
+    # the keep mask is the JAX package's `_pbc_keep_mask` and symmetric
+    wv = torch.tensor([0.0, 1.0, -1.0])
+    np.testing.assert_array_equal(
+        pbc_keep(wv[:, None], wv[None, :]).numpy(),
+        np.asarray(jax_virial._pbc_keep_mask(jnp.asarray(wv.numpy())[:, None],
+                                             jnp.asarray(wv.numpy())[None, :])))
 
 
 def test_refusals():
     pts = torch.as_tensor(np.random.default_rng(0).uniform(0, 3, (50, 3)))
     sp, keys, strides = _sorted(pts.numpy(), 1.0, np.float64)
     args = (torch.as_tensor(sp), torch.as_tensor(keys), torch.as_tensor(strides), 1.0)
-    with pytest.raises(ValueError, match="not ported yet"):
-        pair_lag_stress(*args, mi_box=torch.ones(3))
+    # the minimum image is a lag-path feature, and split coordinates fuse in
+    # 3-D only, in both packages (tests/test_virial.py)
+    (p3, box), o = pbc_points(64, (2.5, 2.5, 40.0), 44), np.zeros(3)
+    with pytest.raises(ValueError, match="lag-path"):
+        pbc_stress_fused(torch.as_tensor(p3), o, box, 1.0, path="tile", minimage="auto")
+    with pytest.raises(ValueError, match="lag-path"):
+        jax_virial.pbc_stress_fused(jnp.asarray(p3), o, box, 1.0, path="tile",
+                                    minimage="auto")
+    hi2, lo2 = split_f64(torch.as_tensor(p3[:, :2]))
+    with pytest.raises(ValueError, match="only fused for dim == 3"):
+        pbc_stress_fused(hi2, o[:2], box[:2], 1.0, positions_lo=lo2)
+    with pytest.raises(ValueError, match="only fused for dim == 3"):
+        jax_virial.pbc_stress_fused(jnp.asarray(hi2.numpy()), o[:2], box[:2], 1.0,
+                                    positions_lo=jnp.asarray(lo2.numpy()))
     with pytest.raises(ValueError, match="go together"):
         pair_lag_stress(*args, pair_mask=SpeciesPairMask(0, 1))
     with pytest.raises(ValueError, match="go together"):

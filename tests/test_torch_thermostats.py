@@ -1,9 +1,12 @@
-"""The port's NVT thermostats (zelll_tpu_torch.models.thermostats) on the
-CPU, mirroring tests/test_thermostats.py. The port draws its noise from a
-torch.Generator and the JAX package from a PRNG key, so the two random
-streams differ: these tests hold the port to the same statistics and
-limits as the JAX tests hold the JAX package, and to the JAX package's
-deterministic functions exactly."""
+"""The port's thermostats and barostat (zelll_tpu_torch.models.thermostats)
+on the CPU, mirroring tests/test_thermostats.py and tests/test_npt.py. The
+port draws its noise from a torch.Generator and the JAX package from a
+PRNG key, so the two random streams differ: these tests hold the port to
+the same statistics and limits as the JAX tests hold the JAX package, and
+to the JAX package's deterministic functions exactly. The barostat has no
+noise: `md_run_npt` with beta = 0 is the periodic NVE trajectory of
+`md_step_pbc`, exactly (tests/test_torch_pbc.py holds it to the JAX
+package's records)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,15 +14,19 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
+from zelll_tpu.models.thermostats import berendsen_box_mu as jax_berendsen_box_mu
 from zelll_tpu.models.thermostats import berendsen_rescale as jax_berendsen_rescale
 from zelll_tpu.models.thermostats import kinetic_temperature as jax_kinetic_temperature
 from zelll_tpu_torch.models.lj_md import MDState, md_run
 from zelll_tpu_torch.models.thermostats import (
+    berendsen_box_mu,
     berendsen_rescale,
     kinetic_temperature,
     md_run_langevin,
+    md_run_npt,
     ou_step,
 )
+from zelll_tpu_torch.ops.pbc import md_step_pbc, suggest_pbc_capacity
 
 
 def lattice(k=6, spacing=1.2, jitter=0.02, seed=0):
@@ -45,6 +52,21 @@ def test_zero_gamma_reduces_to_nve():
     assert bool(ok1) and bool(ok2)
     assert torch.equal(st_nvt.positions, st_nve.positions)
     assert torch.equal(st_nvt.velocities, st_nve.velocities)
+    # the barostat off (beta = 0): `md_run_npt` is the periodic NVE
+    # trajectory of `md_step_pbc` at the same capacities, bitwise, on both
+    # paths, and the box stays
+    box, o = np.full(3, 7.2), np.zeros(3)
+    p0, v0 = torch.as_tensor(pts), torch.as_tensor(vel)
+    B, G = suggest_pbc_capacity(len(pts), box / 1.5 ** (1 / 3), cutoff)
+    for path, kw in (("lag", dict(L=512, B=B, G=G)), ("tile", dict(MAXJ=16, B=B, G=G))):
+        p1, v1, b1, ok = md_run_npt(p0, v0, o, box, cutoff, dt, steps=steps, P_target=1.0,
+                                    tau_p=1.0, beta=0.0, path=path, **kw)
+        assert bool(ok) and b1.tolist() == box.tolist()
+        p2, v2 = p0, v0
+        for _ in range(steps):
+            p2, v2, ok2 = md_step_pbc(p2, v2, o, box, cutoff, dt, path=path, **kw)
+            assert bool(ok2)
+        assert torch.equal(p1, p2) and torch.equal(v1, v2), path
 
 
 def test_ou_step_statistics():
@@ -101,3 +123,19 @@ def test_berendsen_rescale_direction():
         rtol=1e-6)
     v3 = berendsen_rescale(torch.as_tensor(v), kT_target=2.0 * t0, tau=10.0, dt=1.0)
     assert float(kinetic_temperature(v3)) > t0
+    # the box scale: expand above the target pressure, shrink below it, the
+    # clip, beta = 0 exactly 1 (tests/test_npt.py), and the JAX package's
+    # value to the last bit
+    for args, kw in (((2.0, 1.0, 1.0, 0.01), {}), ((0.5, 1.0, 1.0, 0.01), {}),
+                     ((1e9, 1.0, 1.0, 1.0), {}), ((-1e9, 1.0, 1.0, 1.0), {}),
+                     ((5.0, 1.0, 1.0, 0.01), dict(beta=0.0)),
+                     ((0.3, 0.1, 0.5, 0.02), dict(beta=2.0, dim=2, clip=0.1))):
+        mu = float(berendsen_box_mu(*args, **kw))
+        assert mu == float(jax_berendsen_box_mu(*args, **kw)), (args, kw)
+    assert float(berendsen_box_mu(2.0, 1.0, 1.0, 0.01)) > 1.0
+    assert float(berendsen_box_mu(0.5, 1.0, 1.0, 0.01)) < 1.0
+    assert float(berendsen_box_mu(1e9, 1.0, 1.0, 1.0)) <= 1.02
+    assert float(berendsen_box_mu(-1e9, 1.0, 1.0, 1.0)) >= 0.98
+    assert float(berendsen_box_mu(5.0, 1.0, 1.0, 0.01, beta=0.0)) == 1.0
+    p = torch.tensor(2.0, dtype=torch.float32)
+    assert berendsen_box_mu(p, 1.0, 1.0, 0.01).dtype == torch.float32

@@ -30,7 +30,7 @@
 // --fmad=false (ops/_build.py), as the kernels' bitwise agreement with
 // their plain versions does too.
 //
-// Minimum image (K1 and K3 with mi_box, near_box_mi): on a folded axis of
+// Minimum image (K1, K3, K4 and K5 with mi_box, near_box_mi): on a folded axis of
 // box length bx a pair's separation is s - k bx with s = fl(o - b) and k in
 // {-1, 0, 1} (mi_axis), so the gap is taken to the nearest of the images
 // b, b - bx and b + bx: a j point at x = 29.9 and a cluster at x = 0.1 of a
@@ -823,6 +823,82 @@ __device__ __forceinline__ void block_fold_n(const Acc (&acc)[N], Acc* partial) 
       const Acc v = warp_sum(lane < WARPS ? warp_sums[k][lane] : Acc(0));
       if (lane == 0) partial[static_cast<int64_t>(N) * blockIdx.x + k] = v;
     }
+  }
+}
+
+// ---- the periodic instances of K4, K5, K8 and K9 --------------------------
+//
+// ops/pbc.py's observables add the keep mask (K4, K5, K8, K9) and the minimum
+// image (K4, K5) to the stress and histogram kernels, as new kernels beside
+// the open-boundary ones, so those keep their names and code.
+
+// The periodic keep mask (keep_pair) over a plane in the coordinates' type.
+template <typename T>
+__device__ __forceinline__ bool keep_pair_of(T wi, T wj) {
+  return wi * wj == T(0) && wi + wj >= T(0);
+}
+
+// What a periodic instance takes beside its Args (a second kernel
+// parameter): the keep mask's shift-sign plane (or null) and the minimum
+// image's box lengths, 0 on open axes, with their f32 low parts (split mode).
+template <typename T>
+struct Periodic {
+  const T* w;
+  float3 mib;
+  float3 mibl;
+};
+
+// A periodic lane's own shift sign and minimum-image box.
+template <typename T>
+struct PbcLane {
+  T pw;
+  float3 mib;
+  float3 mibl;
+};
+
+// The strict gap test of ClusterPrune<float, SPLIT> under minimum image on
+// the axes where mib > 0 (near_box_mi; f32 and split coordinates).
+template <bool SPLIT>
+struct ClusterPruneMi {
+  Box box;
+  float thr;
+  float3 mib;
+  __device__ __forceinline__ ClusterPruneMi(float4 h, float4 l, bool real, float csq,
+                                            float3 mib_)
+      : box(cluster_box<SPLIT>(h, l, real)), thr(prune_threshold<SPLIT>(csq)), mib(mib_) {}
+  __device__ __forceinline__ bool near(float4 b, float4 bl) const {
+    return near_box_mi<SPLIT>(box, b, bl, thr, mib);
+  }
+};
+
+// sep_dsq, and with MI each axis folded to its minimum image (mi_axis, in
+// the order of lag_pairs.mi_fold; f32 and split coordinates only).
+template <bool SPLIT, bool MI, typename V, typename T = decltype(V::x)>
+__device__ __forceinline__ T sep_dsq_pbc(const V& h, float4 l, const V& b, float4 bl,
+                                         const PbcLane<T>* pl, T& dx, T& dy, T& dz) {
+  if constexpr (MI) {
+    static_assert(sizeof(T) == sizeof(float), "the minimum image takes f32 coordinates");
+    float sh, shl;
+    dx = mi_axis<SPLIT>(h.x, b.x, l.x, bl.x, pl->mib.x, pl->mibl.x, sh, shl);
+    dy = mi_axis<SPLIT>(h.y, b.y, l.y, bl.y, pl->mib.y, pl->mibl.y, sh, shl);
+    dz = mi_axis<SPLIT>(h.z, b.z, l.z, bl.z, pl->mib.z, pl->mibl.z, sh, shl);
+    T dsq = dx * dx;
+    dsq = dsq + dy * dy;
+    dsq = dsq + dz * dz;
+    return dsq;
+  } else {
+    return sep_dsq<SPLIT>(h, l, b, bl, dx, dy, dz);
+  }
+}
+
+template <bool SPLIT, bool MI, typename V, typename T = decltype(V::x)>
+__device__ __forceinline__ T sep_dsq_pbc(const V& h, float4 l, const V& b, float4 bl,
+                                         const PbcLane<T>* pl) {
+  if constexpr (MI) {
+    T dx, dy, dz;
+    return sep_dsq_pbc<SPLIT, MI>(h, l, b, bl, pl, dx, dy, dz);
+  } else {
+    return sep_dsq<SPLIT>(h, l, b, bl);
   }
 }
 

@@ -15,8 +15,20 @@
 // f32 dsq of the split separations, as in K1 and the TPU kernel. There is
 // no dsq > 0 test: coincident pairs count in every bin whose edge is above
 // 0, as in the reference. Masks: none, or the species pair mask of
-// ops/rdf.py (keep {w_i, w_j} == {a, b}) over one payload plane; mask id 2
-// is left for the periodic keep mask.
+// ops/rdf.py (keep {w_i, w_j} == {a, b}) over one payload plane.
+//
+// Periodic boxes (ops/rdf.py's rdf) add instances under a new kernel name,
+// lag_hist_pbc_kernel, with the periodic arguments as a second kernel
+// parameter (Periodic), so the open-boundary instances keep their names
+// and code:
+//   KEEP (mask ids 2 and 3): the periodic keep mask rdf._pbc_keep over the
+//     shift-sign plane (0 real, +/-1 ghost, in the coordinates' type), read
+//     into a buffer of its own for survivors of the prune; mask id 3
+//     composes it with the species mask over the payload plane
+//     (rdf._pbc_species_mask, two planes), each a lane mask of phase A.
+//   MI (f32 and split): in-kernel minimum image, as in K4 (mi_axis per
+//     axis, the widened key window, ClusterPruneMi's prune); the bins see
+//     the folded separations, the image distances.
 //
 // What it does not copy: the TPU kernel compares every pair with all K
 // edges and adds K int32 planes of a revisited VMEM block. Here each pair
@@ -99,8 +111,12 @@ constexpr int kMaxDim = 3;
 constexpr int kMaxBins = 2048;
 constexpr int kMaxLag = 1 << 27;  // 32 x min(L, n) partners fit a 32-bit bin
 constexpr size_t kDefaultDynShared = 32 << 10;  // launches without an opt-in
+// The pair masks (lag_pairs._MASK_*): none, the species pair, the periodic
+// keep mask, and both (two planes)
 constexpr int kMaskNone = 0;
 constexpr int kMaskSpecies = 1;
+constexpr int kMaskKeep = 2;
+constexpr int kMaskKeepSpecies = 3;
 
 template <typename T>
 struct Args {
@@ -143,19 +159,24 @@ struct SweepArgs {
 
 // Sweeps entries [0, cnt) of the warp's buffers (cnt <= 32, warp-uniform;
 // FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the lag
-// range, dsq < edges[K - 1], the species mask), phase B bins each hit, in
-// ascending q.
-template <typename T, bool SPLIT, bool MASK, bool FULL,
+// range, dsq < edges[K - 1], the species mask, with KEEP the keep mask of
+// the lane's and the entry's shift signs pl->pw and bw[q]), phase B bins
+// each hit, in ascending q. MI folds each separation to its minimum image
+// (pl->mib).
+template <typename T, bool SPLIT, bool MASK, bool FULL, bool KEEP = false, bool MI = false,
           typename V = typename Vec4Of<T>::type>
 __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
                                            const float4* bl, const T* bp, int cnt,
-                                           const SweepArgs<T>& sa) {
+                                           const SweepArgs<T>& sa,
+                                           const PbcLane<T>* pl = nullptr,
+                                           const T* bw = nullptr) {
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   unsigned hits = 0u;
   auto hit = [&](int q) {
     const V b = bh[q];
-    const T dsq = sep_dsq<SPLIT>(o.h, o.l, b, SPLIT ? bl[q] : zero);
+    const T dsq = sep_dsq_pbc<SPLIT, MI>(o.h, o.l, b, SPLIT ? bl[q] : zero, pl);
     bool m = static_cast<unsigned>(tag_from(b.w) - o.jlo) < o.span && dsq < sa.csq;
+    if constexpr (KEEP) m = m && keep_pair_of(pl->pw, bw[q]);
     if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);
     if (m) hits |= 1u << q;
   };
@@ -169,14 +190,16 @@ __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
   while (hits != 0u) {
     const int q = __ffs(static_cast<int>(hits)) - 1;
     hits &= hits - 1u;
-    const T dsq = sep_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero);
+    const T dsq = sep_dsq_pbc<SPLIT, MI>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero, pl);
     atomicAdd(&sa.bins[first_bin_above(sa.edges, sa.K, dsq)], 1u);
   }
 }
 
 // What the one-sided walk of cluster_sweep.cuh asks of K5: the payload
-// plane beside the coordinates (species mask), and the sweep.
-template <typename T, bool SPLIT, bool MASK, typename V = typename Vec4Of<T>::type>
+// plane beside the coordinates (species mask) and the keep plane (KEEP),
+// read for survivors only, and the sweep.
+template <typename T, bool SPLIT, bool MASK, bool KEEP = false, bool MI = false,
+          typename V = typename Vec4Of<T>::type>
 struct HistSweeper {
   const HistLane<T>& o;
   const V* bh;
@@ -184,18 +207,28 @@ struct HistSweeper {
   T* bp;
   const T* pay;
   const SweepArgs<T>& sa;
+  const PbcLane<T>* pl = nullptr;
+  T* bw = nullptr;
+  const T* w = nullptr;
   __device__ __forceinline__ void store(int at, int j) {
     if (MASK) bp[at] = pay[j];
+    if constexpr (KEEP) bw[at] = w[j];
   }
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    hist_sweep<T, SPLIT, MASK, FULL>(o, bh + at, bl + at, bp + at, cnt, sa);
+    if constexpr (KEEP || MI)
+      hist_sweep<T, SPLIT, MASK, FULL, KEEP, MI>(o, bh + at, bl + at, bp + at, cnt, sa, pl,
+                                                 KEEP ? bw + at : nullptr);
+    else
+      hist_sweep<T, SPLIT, MASK, FULL>(o, bh + at, bl + at, bp + at, cnt, sa);
   }
   __device__ __forceinline__ void shift(int done, int cnt, int lane) {
     if (MASK) shift_front<1, false>(bp, bp, done, cnt, lane);
+    if constexpr (KEEP) shift_front<1, false>(bw, bw, done, cnt, lane);
   }
 };
 
+// The open-boundary instances
 template <typename T, bool SPLIT, bool MASK>
 __global__ void __launch_bounds__(kBlock) lag_hist_kernel(Args<T> a) {
   using V = typename Vec4Of<T>::type;
@@ -256,26 +289,106 @@ __global__ void __launch_bounds__(kBlock) lag_hist_kernel(Args<T> a) {
   }
 }
 
-template <typename T, bool SPLIT, bool MASK>
-int launch_mask(const Args<T>& a, cudaStream_t s) {
+// The periodic instances: the keep mask (alone or with the species mask),
+// the minimum image (f32 and split), or both; p beside Args. The kernel
+// above's body, with the keep plane's buffer, the lane's shift sign and
+// box, and the minimum-image prune: a body shared by both kernels moved the
+// open instances' SASS (chip_compare.py sass), so each keeps its own.
+template <typename T, bool SPLIT, bool MASK, bool KEEP, bool MI>
+__global__ void __launch_bounds__(kBlock) lag_hist_pbc_kernel(Args<T> a, Periodic<T> p) {
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kWarps][kBuf];
+  __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
+  __shared__ T buf_pay[kWarps][MASK ? kBuf : 1];
+  __shared__ T buf_w[kWarps][KEEP ? kBuf : 1];
+  // the K edges, then each warp's K bins
+  extern __shared__ double dyn[];
+  T* sedges = reinterpret_cast<T*>(dyn);
+  unsigned* bins = reinterpret_cast<unsigned*>(sedges + a.K);
+  for (int k = threadIdx.x; k < a.K; k += kBlock) sedges[k] = a.edges[k];
+  for (int k = threadIdx.x; k < kWarps * a.K; k += kBlock) bins[k] = 0u;
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  HistLane<T> o;
+  o.h = real ? load_row(a.pos, a.dim, i, 0) : vzero;
+  o.l = SPLIT && real ? load_row(a.lo, a.dim, i, 0) : zero;
+  o.w = MASK && real ? a.pay[i] : T(0);
+  const PbcLane<T> pl{KEEP && real ? p.w[i] : T(0), p.mib, p.mibl};
+  // the lane's partners [jlo, i - 1], as above (the window W widened by the
+  // caller for the minimum image)
+  int jlo = i;
+  if (real) {
+    const int32_t lo_key = load_key(a.keys, i, a.spacing) - *a.w_key;
+    int r = i;
+    jlo = i > a.L ? i - a.L : 0;
+    while (jlo < r) {
+      const int m = jlo + (r - jlo) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else jlo = m + 1;
+    }
+  }
+  o.jlo = jlo;
+  o.span = real ? static_cast<unsigned>(i - jlo) : 0u;
+  __syncthreads();
+  SweepArgs<T> sa{sedges[a.K - 1], sedges, a.K, a.ma, a.mb, bins + w * a.K};
+  if (base < a.n) {
+    const int first = __shfl_sync(kAll, jlo, 0);
+    const int last = min(base + kWarp, a.n) - 2;
+    HistSweeper<T, SPLIT, MASK, KEEP, MI> sw{o, buf_hi[w], buf_lo[w], buf_pay[w], a.pay, sa,
+                                             &pl, buf_w[w], p.w};
+    if constexpr (MI) {
+      const ClusterPruneMi<SPLIT> prune(o.h, o.l, real, sa.csq, p.mib);
+      one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, buf_hi[w],
+                            buf_lo[w], sw);
+    } else {
+      const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
+      one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, buf_hi[w],
+                            buf_lo[w], sw);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < a.K; k += kBlock) {
+    unsigned long long sum = 0ULL;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) sum += bins[v * a.K + k];
+    if (sum != 0ULL) atomicAdd(&a.counts[k], sum);
+  }
+}
+
+// Launches kernel with the dynamic shared memory of K edges and 4 x K bins.
+template <typename T, typename Kernel, typename... P>
+int launch_kernel(Kernel kernel, const Args<T>& a, cudaStream_t s, const P&... extra) {
   const int blocks = (a.n + kBlock - 1) / kBlock;
   const size_t shared = static_cast<size_t>(a.K) * (sizeof(T) + kWarps * sizeof(unsigned));
   if (shared > kDefaultDynShared) {
     // past the default 48 KB of a block with the buffers (up to 10 KB)
     const cudaError_t err = cudaFuncSetAttribute(
-        lag_hist_kernel<T, SPLIT, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lag_hist_kernel<T, SPLIT, MASK><<<blocks, kBlock, shared, s>>>(a);
+  kernel<<<blocks, kBlock, shared, s>>>(a, extra...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool SPLIT, bool MASK>
+int launch_rule(const Args<T>& a, const Periodic<T>& p, bool keep, bool mi, cudaStream_t s) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (keep && mi) return launch_kernel(lag_hist_pbc_kernel<T, SPLIT, MASK, true, true>, a, s, p);
+    if (mi) return launch_kernel(lag_hist_pbc_kernel<T, SPLIT, MASK, false, true>, a, s, p);
+  }
+  if (keep) return launch_kernel(lag_hist_pbc_kernel<T, SPLIT, MASK, true, false>, a, s, p);
+  return launch_kernel(lag_hist_kernel<T, SPLIT, MASK>, a, s);
 }
 
 template <typename T, bool SPLIT>
 int launch(const void* pos, const float* lo, const void* pay,
            const int32_t* keys, const int32_t* w_key, const void* edges, int n,
            int dim, int L, int spacing, int K, int mask, double ma, double mb,
-           unsigned long long* counts, cudaStream_t s) {
+           unsigned long long* counts, const Periodic<T>& p, bool mi, cudaStream_t s) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.lo = lo;
@@ -291,8 +404,10 @@ int launch(const void* pos, const float* lo, const void* pay,
   a.ma = static_cast<T>(ma);
   a.mb = static_cast<T>(mb);
   a.counts = counts;
-  if (mask != kMaskNone) return launch_mask<T, SPLIT, true>(a, s);
-  return launch_mask<T, SPLIT, false>(a, s);
+  const bool keep = mask == kMaskKeep || mask == kMaskKeepSpecies;
+  if (mask == kMaskSpecies || mask == kMaskKeepSpecies)
+    return launch_rule<T, SPLIT, true>(a, p, keep, mi, s);
+  return launch_rule<T, SPLIT, false>(a, p, keep, mi, s);
 }
 
 }  // namespace
@@ -304,35 +419,50 @@ int zelll_lag_hist_max_bins() { return kMaxBins; }
 
 // pos: (n, dim) row-major f32 (f64 != 0: f64); lo: (n, dim) f32 low parts
 // or null (f32 only); pay: (n,) payload plane in the coordinates' type, or
-// null without a mask; keys: (n,) int32 ascending, SENTINEL_KEY rows last;
-// w_key: one int32 on the device; edges: (K,) ascending squared edges in
-// the coordinates' type on the device; mask: 0 none, 1 species pair
-// {ma, mb}; counts: (K,) int64 on the device, zeroed by the caller, to
-// which the kernel adds each pair's first bin above its dsq. Returns the
-// CUDA error of the launch (0 on success).
+// null without the species mask; keys: (n,) int32 ascending, SENTINEL_KEY
+// rows last; w_key: one int32 on the device (the caller's window, widened
+// for the minimum image); edges: (K,) ascending squared edges in the
+// coordinates' type on the device; mask: 0 none, 1 species pair {ma, mb}
+// over pay, 2 the periodic keep mask over keep, 3 both; counts: (K,) int64
+// on the device, zeroed by the caller, to which the kernel adds each pair's
+// first bin above its dsq; keep: (n,) shift signs in the coordinates' type
+// (masks 2 and 3) or null; mi != 0 (f32 only) folds the axes whose box
+// length mbx, mby, mbz is > 0 to the minimum image, in split mode less the
+// low parts mlx, mly, mlz of the host box lengths. Returns the CUDA error of
+// the launch (0 on success).
 int zelll_lag_hist(const void* pos, const void* lo, const void* pay,
                    const void* keys, const void* w_key, const void* edges,
                    int n, int dim, int L, int spacing, int K, int mask,
-                   double ma, double mb, int f64, void* counts, void* stream) {
+                   double ma, double mb, int f64, void* counts, void* stream,
+                   const void* keep, int mi, float mbx, float mby, float mbz,
+                   float mlx, float mly, float mlz) {
+  const bool species = mask == kMaskSpecies || mask == kMaskKeepSpecies;
+  const bool kp = mask == kMaskKeep || mask == kMaskKeepSpecies;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
       L < 1 || (L < n ? L : n) >= kMaxLag || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      K < 1 || K > kMaxBins || (mask != kMaskNone && mask != kMaskSpecies) ||
-      (mask != kMaskNone && pay == nullptr) || (f64 != 0 && lo != nullptr))
+      K < 1 || K > kMaxBins || mask < kMaskNone || mask > kMaskKeepSpecies ||
+      species != (pay != nullptr) || kp != (keep != nullptr) ||
+      (f64 != 0 && lo != nullptr) || (f64 != 0 && mi != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* l = static_cast<const float*>(lo);
   const auto* k = static_cast<const int32_t*>(keys);
   const auto* w = static_cast<const int32_t*>(w_key);
   auto* out = static_cast<unsigned long long*>(counts);
   auto s = static_cast<cudaStream_t>(stream);
+  const float3 mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
+  const float3 mibl = mi != 0 ? make_float3(mlx, mly, mlz) : make_float3(0.0f, 0.0f, 0.0f);
   if (f64 != 0)
     return launch<double, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
-                                 ma, mb, out, s);
+                                 ma, mb, out,
+                                 Periodic<double>{static_cast<const double*>(keep), mib, mibl},
+                                 false, s);
+  const Periodic<float> p{static_cast<const float*>(keep), mib, mibl};
   if (l != nullptr)
     return launch<float, true>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
-                               ma, mb, out, s);
+                               ma, mb, out, p, mi != 0, s);
   return launch<float, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask, ma,
-                              mb, out, s);
+                              mb, out, p, mi != 0, s);
 }
 
 }  // extern "C"

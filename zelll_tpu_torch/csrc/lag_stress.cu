@@ -67,6 +67,27 @@
 // select, never multiply, so the inf of a masked-out dsq = 0 cannot reach a
 // sum.
 //
+// Periodic boxes (ops/virial.py's pbc_stress_fused) add instances under a
+// new kernel name, lag_stress_pbc_kernel, with the periodic arguments as a
+// second kernel parameter (Periodic), so the open-boundary instances keep
+// their names and code:
+//   KEEP: the TPU kernel's payload pair mask virial._pbc_keep_mask. One
+//     plane w holds each slot's shift sign (0 real, +/-1 ghost) in the
+//     coordinates' type; an entry carries its w in a third buffer beside
+//     the coordinates, read for survivors of the prune only, the lane its
+//     own in a register, and phase A keeps a pair only where (w_i w_j == 0)
+//     & (w_i + w_j >= 0) (keep_pair_of). d_a d_b is the same for a pair and
+//     its mirror image, so the one image kept carries the whole term.
+//   MI (f32 and split): in-kernel minimum image (pallas_pairs.py::
+//     _mi_pair_d, mi_box / key_reach): each separation is folded by one box
+//     length where |s| > box / 2 (mi_axis; split mode carries the two-diff
+//     of the hi difference and the box's own low part into the low term,
+//     as K1 and K3 do), the key window W is the caller's widened
+//     sum(strides * reach), and the walk's prune takes the gap to the
+//     nearest periodic image of each j point (ClusterPruneMi, near_box_mi).
+//     The folded d_a d_b is the image pair's outer product.
+// Both compose, with each force factor.
+//
 // Accumulation: each lane sums the six upper-triangle products (xx, xy,
 // xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds its
 // lanes in a fixed order (block_fold_n) and writes six partials. The caller
@@ -107,24 +128,38 @@ struct Args {
   double* partial;        // 6 per block
 };
 
-// What the one-sided walk of cluster_sweep.cuh asks of K4: no further
-// planes, and the sweep.
-template <typename T, bool SPLIT, int GFN, typename V = typename Vec4Of<T>::type>
+// What the one-sided walk of cluster_sweep.cuh asks of K4: the keep
+// plane beside the coordinates (KEEP, read for survivors only), and the
+// sweep.
+template <typename T, bool SPLIT, int GFN, bool KEEP = false, bool MI = false,
+          typename V = typename Vec4Of<T>::type>
 struct LagStressSweeper {
   StressLane<T>& o;
   const V* bh;
   const float4* bl;
   T csq;
-  __device__ __forceinline__ void store(int, int) {}
+  const PbcLane<T>* pl = nullptr;
+  T* bw = nullptr;
+  const T* w = nullptr;
+  __device__ __forceinline__ void store(int at, int j) {
+    if constexpr (KEEP) bw[at] = w[j];
+  }
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    stress_sweep<T, SPLIT, GFN, false, FULL>(o, bh + at, bl + at, nullptr, cnt, csq, 0, 0);
+    if constexpr (KEEP || MI)
+      stress_sweep<T, SPLIT, GFN, false, FULL, KEEP, MI>(o, bh + at, bl + at, nullptr, cnt,
+                                                         csq, 0, 0, pl, KEEP ? bw + at : nullptr);
+    else
+      stress_sweep<T, SPLIT, GFN, false, FULL>(o, bh + at, bl + at, nullptr, cnt, csq, 0, 0);
   }
-  __device__ __forceinline__ void shift(int, int, int) {}
+  __device__ __forceinline__ void shift(int done, int cnt, int lane) {
+    if constexpr (KEEP) shift_front<1, false>(bw, bw, done, cnt, lane);
+  }
 };
 
-template <typename T, bool SPLIT, int GFN>
-__global__ void __launch_bounds__(kBlock) lag_stress_kernel(Args<T> a) {
+// The kernel's body; KEEP and MI (the periodic instances) read p.
+template <typename T, bool SPLIT, int GFN, bool KEEP, bool MI>
+__device__ __forceinline__ void lag_stress_body(const Args<T>& a, const Periodic<T>& p) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kWarps][kBuf];
   __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
@@ -135,6 +170,11 @@ __global__ void __launch_bounds__(kBlock) lag_stress_kernel(Args<T> a) {
   const bool real = i < a.n;
   V* bh = buf_hi[w];
   float4* bl = buf_lo[w];
+  T* bw = nullptr;
+  if constexpr (KEEP) {
+    __shared__ T buf_w[kWarps][kBuf];
+    bw = buf_w[w];
+  }
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const V vzero = V{T(0), T(0), T(0), T(0)};
   StressLane<T> o;
@@ -162,17 +202,64 @@ __global__ void __launch_bounds__(kBlock) lag_stress_kernel(Args<T> a) {
     // the union of the lanes' ranges: jlo ascends with i
     const int first = __shfl_sync(kAll, jlo, 0);
     const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
-    const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
-    LagStressSweeper<T, SPLIT, GFN> sw{o, bh, bl, a.csq};
-    one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
+    if constexpr (KEEP || MI) {
+      const PbcLane<T> pl{KEEP && real ? p.w[i] : T(0), p.mib, p.mibl};
+      LagStressSweeper<T, SPLIT, GFN, KEEP, MI> sw{o, bh, bl, a.csq, &pl, bw, p.w};
+      if constexpr (MI) {
+        const ClusterPruneMi<SPLIT> prune(o.h, o.l, real, a.csq, p.mib);
+        one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
+      } else {
+        const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
+        one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
+      }
+    } else {
+      // the open instances as they were built before the periodic ones
+      // (their SASS, chip_compare.py sass)
+      const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
+      LagStressSweeper<T, SPLIT, GFN> sw{o, bh, bl, a.csq};
+      one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
+    }
   }
   block_fold_n<kWarps>(o.acc, a.partial);
+}
+
+// The open-boundary instances
+template <typename T, bool SPLIT, int GFN>
+__global__ void __launch_bounds__(kBlock) lag_stress_kernel(Args<T> a) {
+  lag_stress_body<T, SPLIT, GFN, false, false>(a, Periodic<T>{});
+}
+
+// The periodic instances: the keep mask, the minimum image (f32 and split),
+// or both; p beside Args, so the instances above keep their code
+template <typename T, bool SPLIT, int GFN, bool KEEP, bool MI>
+__global__ void __launch_bounds__(kBlock) lag_stress_pbc_kernel(Args<T> a, Periodic<T> p) {
+  lag_stress_body<T, SPLIT, GFN, KEEP, MI>(a, p);
+}
+
+template <typename T, bool SPLIT, int GFN>
+void launch_rule(const Args<T>& a, const Periodic<T>& p, bool keep, bool mi, int blocks,
+                 cudaStream_t s) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (keep && mi) {
+      lag_stress_pbc_kernel<T, SPLIT, GFN, true, true><<<blocks, kBlock, 0, s>>>(a, p);
+      return;
+    }
+    if (mi) {
+      lag_stress_pbc_kernel<T, SPLIT, GFN, false, true><<<blocks, kBlock, 0, s>>>(a, p);
+      return;
+    }
+  }
+  if (keep)
+    lag_stress_pbc_kernel<T, SPLIT, GFN, true, false><<<blocks, kBlock, 0, s>>>(a, p);
+  else
+    lag_stress_kernel<T, SPLIT, GFN><<<blocks, kBlock, 0, s>>>(a);
 }
 
 template <typename T, bool SPLIT>
 void launch(const void* pos, const float* lo, const int32_t* keys,
             const int32_t* w_key, int n, int dim, int L, int spacing,
-            double csq, int gfn, double* partial, cudaStream_t stream) {
+            double csq, int gfn, double* partial, const Periodic<T>& p, bool keep,
+            bool mi, cudaStream_t stream) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.lo = lo;
@@ -186,9 +273,9 @@ void launch(const void* pos, const float* lo, const int32_t* keys,
   a.partial = partial;
   const int blocks = (n + kBlock - 1) / kBlock;
   if (gfn == kGfnLj)
-    lag_stress_kernel<T, SPLIT, kGfnLj><<<blocks, kBlock, 0, stream>>>(a);
+    launch_rule<T, SPLIT, kGfnLj>(a, p, keep, mi, blocks, stream);
   else
-    lag_stress_kernel<T, SPLIT, kGfnLjFast><<<blocks, kBlock, 0, stream>>>(a);
+    launch_rule<T, SPLIT, kGfnLjFast>(a, p, keep, mi, blocks, stream);
 }
 
 }  // namespace
@@ -200,29 +287,44 @@ int zelll_lag_stress_block() { return kBlock; }
 
 // pos: (n, dim) row-major f32 (f64 != 0: f64); lo: (n, dim) f32 low parts
 // or null (f32 only); keys: (n,) int32 ascending, SENTINEL_KEY rows last;
-// w_key: one int32 on the device; spacing: the padding-key spacing; csq:
-// cutoff^2 in the coordinates' type; partial: ceil(n / block) x 6 doubles
-// (xx, xy, xz, yy, yz, zz per block). Returns cudaGetLastError() after the
-// launch.
+// w_key: one int32 on the device (the caller's window, widened for the
+// minimum image); spacing: the padding-key spacing; csq: cutoff^2 in the
+// coordinates' type; partial: ceil(n / block) x 6 doubles (xx, xy, xz, yy,
+// yz, zz per block); keep: (n,) shift signs in the coordinates' type (the
+// periodic keep mask, lag_pairs.pbc_keep) or null; mi != 0 (f32 only) folds
+// the axes whose box length mbx, mby, mbz is > 0 to the minimum image, in
+// split mode less the low parts mlx, mly, mlz of the host box lengths.
+// Returns cudaGetLastError() after the launch.
 int zelll_lag_stress(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      double csq, int gfn, int f64, void* partial,
-                     void* stream) {
+                     void* stream, const void* keep, int mi, float mbx, float mby,
+                     float mbz, float mlx, float mly, float mlz) {
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim || L < 1 ||
       spacing < 1 || static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (gfn != kGfnLj && gfn != kGfnLjFast) || (f64 != 0 && lo != nullptr))
+      (gfn != kGfnLj && gfn != kGfnLjFast) || (f64 != 0 && lo != nullptr) ||
+      (f64 != 0 && mi != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* l = static_cast<const float*>(lo);
   const auto* k = static_cast<const int32_t*>(keys);
   const auto* w = static_cast<const int32_t*>(w_key);
   auto* out = static_cast<double*>(partial);
   auto s = static_cast<cudaStream_t>(stream);
+  const float3 mib = mi != 0 ? make_float3(mbx, mby, mbz) : make_float3(0.0f, 0.0f, 0.0f);
+  const float3 mibl = mi != 0 ? make_float3(mlx, mly, mlz) : make_float3(0.0f, 0.0f, 0.0f);
+  const bool kp = keep != nullptr;
   if (f64 != 0)
-    launch<double, false>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out, s);
+    launch<double, false>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out,
+                          Periodic<double>{static_cast<const double*>(keep), mib, mibl}, kp,
+                          false, s);
   else if (l != nullptr)
-    launch<float, true>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out, s);
+    launch<float, true>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out,
+                        Periodic<float>{static_cast<const float*>(keep), mib, mibl}, kp,
+                        mi != 0, s);
   else
-    launch<float, false>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out, s);
+    launch<float, false>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out,
+                         Periodic<float>{static_cast<const float*>(keep), mib, mibl}, kp,
+                         mi != 0, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,20 +52,26 @@ struct StressLane {
 // FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the range,
 // with BANDMASK the band, 0 < dsq < csq), phase B adds the six products of
 // each hit, in ascending q. The dsq > 0 test keeps coincident pairs out:
-// g(0) = inf, and inf * 0 would poison every component.
-template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool FULL,
-          typename V = typename Vec4Of<T>::type>
+// g(0) = inf, and inf * 0 would poison every component. The periodic
+// instances: KEEP adds the keep mask of the lane's and the entry's shift
+// signs (pl->pw, bw[q]) to phase A, MI folds each separation to its minimum
+// image (pl->mib; the folded d_a d_b is the image's outer product).
+template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool FULL, bool KEEP = false,
+          bool MI = false, typename V = typename Vec4Of<T>::type>
 __device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
                                              const float4* bl, const int32_t* bk,
                                              int cnt, T csq, int32_t band_lo,
-                                             int32_t band_hi) {
+                                             int32_t band_hi,
+                                             const PbcLane<T>* pl = nullptr,
+                                             const T* bw = nullptr) {
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   unsigned hits = 0u;
   auto hit = [&](int q) {
     const V b = bh[q];
-    const T dsq = sep_dsq<SPLIT>(o.h, o.l, b, SPLIT ? bl[q] : zero);
+    const T dsq = sep_dsq_pbc<SPLIT, MI>(o.h, o.l, b, SPLIT ? bl[q] : zero, pl);
     bool m = static_cast<unsigned>(tag_from(b.w) - o.jlo) < o.span && dsq < csq &&
              dsq > T(0);
+    if constexpr (KEEP) m = m && keep_pair_of(pl->pw, bw[q]);
     if (BANDMASK) {
       const long long diff = static_cast<long long>(o.key) -
                              static_cast<long long>(bk[q]);
@@ -84,7 +90,8 @@ __device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
     const int q = __ffs(static_cast<int>(hits)) - 1;
     hits &= hits - 1u;
     T dx, dy, dz;
-    const T dsq = sep_dsq<SPLIT>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero, dx, dy, dz);
+    const T dsq = sep_dsq_pbc<SPLIT, MI>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero, pl, dx, dy,
+                                         dz);
     const T g = force_factor<GFN>(dsq);
     const T g0 = g * dx;
     const T g1 = g * dy;

@@ -18,8 +18,12 @@
 // each axis' separation d = (hi_i - hi_j) + (lo_i - lo_j) (the f32 dsq
 // decides, as in the TPU kernel). No dsq > 0 test: coincident pairs count
 // in every bin whose edge is above 0. Masks: none, or the species pair
-// mask of ops/rdf.py (keep {w_i, w_j} == {a, b}) over one payload plane;
-// mask id 2 is left for the periodic keep mask.
+// mask of ops/rdf.py (keep {w_i, w_j} == {a, b}) over one payload plane,
+// or (mask id 2, ops/rdf.py's rdf on the tile path) the periodic keep mask
+// rdf._pbc_keep over the shift-sign plane (0 real, +/-1 ghost): (w_i w_j
+// == 0) & (w_i + w_j >= 0), each cross-boundary pair once. Its instances
+// run under a kernel name of their own, tile_hist_keep_kernel, so the
+// open-boundary instances keep their names and code.
 //
 // What it does not copy: the TPU kernel compares every pair with all K
 // edges and packs four 8-bit bins into each int32 of a per-chunk VMEM
@@ -90,8 +94,11 @@ constexpr int kBuf = kWarp + kChunk;
 constexpr int kMaxBands = 5;
 constexpr int kMaxDim = 3;
 constexpr int kMaxBins = 64;
+// The pair masks over the payload plane (lag_pairs._MASK_*): none, the
+// species pair, the periodic keep mask
 constexpr int kMaskNone = 0;
 constexpr int kMaskSpecies = 1;
+constexpr int kMaskKeep = 2;
 
 template <typename T>
 struct Args {
@@ -135,8 +142,9 @@ struct SweepArgs {
 };
 
 // Phase A of one entry: whether it is a hit of the lane (the triangle, the
-// band, dsq < edges[K - 1], the species mask).
-template <typename T, bool SPLIT, bool BANDMASK, bool MASK, typename V>
+// band, dsq < edges[K - 1], the payload plane's mask RULE: the species
+// pair or the keep mask).
+template <typename T, bool SPLIT, bool BANDMASK, int RULE, typename V>
 __device__ __forceinline__ bool hist_hit(const HistLane<T>& o, const V* bh,
                                          const float4* bl, const int32_t* bk,
                                          const T* bp, int q,
@@ -150,14 +158,15 @@ __device__ __forceinline__ bool hist_hit(const HistLane<T>& o, const V* bh,
                            static_cast<long long>(bk[q]);
     m = m && diff >= sa.band_lo && diff <= sa.band_hi;
   }
-  if (MASK) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);
+  if (RULE == kMaskSpecies) m = m && species_pair(o.w, bp[q], sa.ma, sa.mb);
+  if (RULE == kMaskKeep) m = m && keep_pair_of(o.w, bp[q]);
   return m;
 }
 
 // Sweeps entries [0, cnt) of the warp's buffers (cnt <= 32, warp-uniform;
 // FULL: cnt == 32, unrolled): phase A sets the lane's hit bits, phase B
 // bins each hit, in ascending q.
-template <typename T, bool SPLIT, bool BANDMASK, bool MASK, bool FULL,
+template <typename T, bool SPLIT, bool BANDMASK, int RULE, bool FULL,
           typename V = typename Vec4Of<T>::type>
 __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
                                            const float4* bl, const int32_t* bk,
@@ -168,11 +177,11 @@ __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
   if (FULL) {
 #pragma unroll
     for (int q = 0; q < kWarp; ++q)
-      if (hist_hit<T, SPLIT, BANDMASK, MASK>(o, bh, bl, bk, bp, q, sa)) hits |= 1u << q;
+      if (hist_hit<T, SPLIT, BANDMASK, RULE>(o, bh, bl, bk, bp, q, sa)) hits |= 1u << q;
   } else {
 #pragma unroll 4
     for (int q = 0; q < cnt; ++q)
-      if (hist_hit<T, SPLIT, BANDMASK, MASK>(o, bh, bl, bk, bp, q, sa)) hits |= 1u << q;
+      if (hist_hit<T, SPLIT, BANDMASK, RULE>(o, bh, bl, bk, bp, q, sa)) hits |= 1u << q;
   }
   while (hits != 0u) {
     const int q = __ffs(static_cast<int>(hits)) - 1;
@@ -183,9 +192,9 @@ __device__ __forceinline__ void hist_sweep(const HistLane<T>& o, const V* bh,
 }
 
 // What the half-stencil walk of cluster_sweep.cuh asks of K9: the band,
-// the key (band mask) and payload (species mask) planes beside the
-// coordinates, and the sweep.
-template <typename T, bool SPLIT, bool BANDMASK, bool MASK,
+// the key (band mask) and payload (the species or keep mask) planes beside
+// the coordinates, and the sweep.
+template <typename T, bool SPLIT, bool BANDMASK, int RULE,
           typename V = typename Vec4Of<T>::type>
 struct HistSweeper {
   const Args<T>& a;
@@ -201,26 +210,27 @@ struct HistSweeper {
   }
   __device__ __forceinline__ void store(int at, int j) {
     if (BANDMASK) bk[at] = a.keys[j];
-    if (MASK) bp[at] = a.pay[j];
+    if (RULE != kMaskNone) bp[at] = a.pay[j];
   }
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    hist_sweep<T, SPLIT, BANDMASK, MASK, FULL>(o, bh + at, bl + at, bk + at, bp + at, cnt,
+    hist_sweep<T, SPLIT, BANDMASK, RULE, FULL>(o, bh + at, bl + at, bk + at, bp + at, cnt,
                                                sa);
   }
   __device__ __forceinline__ void shift(int done, int cnt, int lane) {
     if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
-    if (MASK) shift_front<1, false>(bp, bp, done, cnt, lane);
+    if (RULE != kMaskNone) shift_front<1, false>(bp, bp, done, cnt, lane);
   }
 };
 
-template <typename T, bool SPLIT, bool BANDMASK, bool MASK>
-__global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
+// The kernel's body: RULE is the payload plane's mask.
+template <typename T, bool SPLIT, bool BANDMASK, int RULE>
+__device__ __forceinline__ void tile_hist_body(const Args<T>& a) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kClusters][kBuf];
   __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
   __shared__ int32_t buf_key[kClusters][BANDMASK ? kBuf : 1];
-  __shared__ T buf_pay[kClusters][MASK ? kBuf : 1];
+  __shared__ T buf_pay[kClusters][RULE != kMaskNone ? kBuf : 1];
   __shared__ T sedges[kMaxBins];
   __shared__ unsigned bins[kClusters][kMaxBins];
   const int c = blockIdx.x;
@@ -243,13 +253,13 @@ __global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
   o.l = SPLIT && real ? load_point(a.lo, a.n, a.dim, i, 0) : zero;
   o.key = a.keys[i];  // keys cover every launched chunk
   o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
-  o.w = MASK && real ? a.pay[i] : T(0);
+  o.w = RULE != kMaskNone && real ? a.pay[i] : T(0);
   __syncthreads();
   SweepArgs<T> sa{sedges[a.K - 1], 0, 0, sedges, a.K, a.ma, a.mb, bins[w]};
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
     const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
-    HistSweeper<T, SPLIT, BANDMASK, MASK> sw{a, o, bh, bl, bk, bp, sa};
+    HistSweeper<T, SPLIT, BANDMASK, RULE> sw{a, o, bh, bl, bk, bp, sa};
     half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
   }
   __syncthreads();
@@ -261,9 +271,24 @@ __global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
   }
 }
 
+// The open-boundary instances: no mask, or the species mask
+template <typename T, bool SPLIT, bool BANDMASK, bool MASK>
+__global__ void __launch_bounds__(kChunk) tile_hist_kernel(Args<T> a) {
+  tile_hist_body<T, SPLIT, BANDMASK, MASK ? kMaskSpecies : kMaskNone>(a);
+}
+
+// The periodic instances: the keep mask over the payload plane, under a
+// kernel name of their own, so the instances above keep their code
 template <typename T, bool SPLIT, bool BANDMASK>
-void launch_mask(const Args<T>& a, bool masked, int blocks, cudaStream_t s) {
-  if (masked)
+__global__ void __launch_bounds__(kChunk) tile_hist_keep_kernel(Args<T> a) {
+  tile_hist_body<T, SPLIT, BANDMASK, kMaskKeep>(a);
+}
+
+template <typename T, bool SPLIT, bool BANDMASK>
+void launch_mask(const Args<T>& a, int mask, int blocks, cudaStream_t s) {
+  if (mask == kMaskKeep)
+    tile_hist_keep_kernel<T, SPLIT, BANDMASK><<<blocks, kChunk, 0, s>>>(a);
+  else if (mask == kMaskSpecies)
     tile_hist_kernel<T, SPLIT, BANDMASK, true><<<blocks, kChunk, 0, s>>>(a);
   else
     tile_hist_kernel<T, SPLIT, BANDMASK, false><<<blocks, kChunk, 0, s>>>(a);
@@ -291,11 +316,10 @@ void launch(const void* pos, const float* lo, const void* pay,
   a.mb = static_cast<T>(mb);
   a.counts = counts;
   const int blocks = (n + kChunk - 1) / kChunk;
-  const bool masked = mask != kMaskNone;
   if (bandmask)
-    launch_mask<T, SPLIT, true>(a, masked, blocks, s);
+    launch_mask<T, SPLIT, true>(a, mask, blocks, s);
   else
-    launch_mask<T, SPLIT, false>(a, masked, blocks, s);
+    launch_mask<T, SPLIT, false>(a, mask, blocks, s);
 }
 
 }  // namespace
@@ -310,7 +334,8 @@ int zelll_tile_hist_chunk() { return kChunk; }
 // null without a mask; keys: the padded (nc_pad * 128,) int32 keys; bounds:
 // (nc_pad, 3 S) int32 (jlo, toff, jnum) per band; bands: (S, 2) int32;
 // edges: (K,) ascending squared edges in the coordinates' type, K <= 64;
-// mask: 0 none, 1 species pair {ma, mb}; counts: (K,) int64 on the device,
+// mask: 0 none, 1 species pair {ma, mb}, 2 the periodic keep mask
+// (lag_pairs.pbc_keep; pay the shift signs); counts: (K,) int64 on the device,
 // zeroed by the caller, to which the kernel adds each pair's first bin
 // above its dsq. Returns cudaGetLastError() after the launch.
 int zelll_tile_hist(const void* pos, const void* lo, const void* pay,
@@ -319,7 +344,7 @@ int zelll_tile_hist(const void* pos, const void* lo, const void* pay,
                     double ma, double mb, int bandmask, int f64, void* counts,
                     void* stream) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands || K < 1 ||
-      K > kMaxBins || (mask != kMaskNone && mask != kMaskSpecies) ||
+      K > kMaxBins || mask < kMaskNone || mask > kMaskKeep ||
       (mask != kMaskNone && pay == nullptr) || (f64 != 0 && lo != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* l = static_cast<const float*>(lo);

@@ -73,6 +73,16 @@
 // coverage flag is False. Masks select, never multiply, so the inf of a
 // masked-out dsq = 0 cannot reach a sum.
 //
+// Periodic boxes (ops/virial.py's pbc_stress_fused on the tile path) add
+// instances under a new kernel name, tile_stress_keep_kernel, with the
+// shift-sign plane w (0 real, +/-1 ghost, in the coordinates' type; the TPU
+// kernel's payload row) as a second kernel parameter, so the open-boundary
+// instances keep their names and code: an entry carries its w in a buffer
+// beside the coordinates, read for survivors of the prune only, and phase A
+// keeps a pair only where (w_i w_j == 0) & (w_i + w_j >= 0) (keep_pair_of,
+// virial._pbc_keep_mask): each cross-boundary pair once, as one of its two
+// images, whose d_a d_b is the same.
+//
 // Accumulation: each lane sums the six upper-triangle products (xx, xy,
 // xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds
 // its lanes in a fixed order (block_fold_n) and writes six partials per own
@@ -116,8 +126,9 @@ struct Args {
 };
 
 // What the half-stencil walk of cluster_sweep.cuh asks of K8: the band,
-// the key plane beside the coordinates (band mask), and the sweep.
-template <typename T, bool SPLIT, int GFN, bool BANDMASK,
+// the key plane beside the coordinates (band mask), the keep plane (KEEP),
+// and the sweep.
+template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool KEEP = false,
           typename V = typename Vec4Of<T>::type>
 struct StressSweeper {
   const Args<T>& a;
@@ -126,25 +137,35 @@ struct StressSweeper {
   const float4* bl;
   int32_t* bk;
   int32_t band_lo, band_hi;
+  const PbcLane<T>* pl = nullptr;
+  T* bw = nullptr;
+  const T* w = nullptr;
   __device__ __forceinline__ void band(int32_t lo, int32_t hi) {
     band_lo = lo;
     band_hi = hi;
   }
   __device__ __forceinline__ void store(int at, int j) {
     if (BANDMASK) bk[at] = a.keys[j];
+    if constexpr (KEEP) bw[at] = w[j];
   }
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    stress_sweep<T, SPLIT, GFN, BANDMASK, FULL>(o, bh + at, bl + at, bk + at, cnt, a.csq,
-                                                band_lo, band_hi);
+    if constexpr (KEEP)
+      stress_sweep<T, SPLIT, GFN, BANDMASK, FULL, KEEP>(o, bh + at, bl + at, bk + at, cnt,
+                                                        a.csq, band_lo, band_hi, pl, bw + at);
+    else
+      stress_sweep<T, SPLIT, GFN, BANDMASK, FULL>(o, bh + at, bl + at, bk + at, cnt, a.csq,
+                                                  band_lo, band_hi);
   }
   __device__ __forceinline__ void shift(int done, int cnt, int lane) {
     if (BANDMASK) shift_front<1, false>(bk, bk, done, cnt, lane);
+    if constexpr (KEEP) shift_front<1, false>(bw, bw, done, cnt, lane);
   }
 };
 
-template <typename T, bool SPLIT, int GFN, bool BANDMASK>
-__global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
+// The kernel's body; KEEP (the periodic instances) reads the plane w.
+template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool KEEP>
+__device__ __forceinline__ void tile_stress_body(const Args<T>& a, const T* w_plane) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kClusters][kBuf];
   __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
@@ -158,6 +179,11 @@ __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
   V* bh = buf_hi[w];
   float4* bl = buf_lo[w];
   int32_t* bk = buf_key[w];
+  T* bw = nullptr;
+  if constexpr (KEEP) {
+    __shared__ T buf_w[kClusters][kBuf];
+    bw = buf_w[w];
+  }
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const V vzero = V{T(0), T(0), T(0), T(0)};
   StressLane<T> o;
@@ -171,24 +197,52 @@ __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
   // a cluster past n holds no particle: its warp only joins the fold
   if (base < a.n) {
     const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
-    StressSweeper<T, SPLIT, GFN, BANDMASK> sw{a, o, bh, bl, bk, 0, 0};
-    half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
+    if constexpr (KEEP) {
+      const PbcLane<T> pl{real ? w_plane[i] : T(0), make_float3(0.0f, 0.0f, 0.0f),
+                          make_float3(0.0f, 0.0f, 0.0f)};
+      StressSweeper<T, SPLIT, GFN, BANDMASK, true> sw{a, o, bh, bl, bk, 0, 0, &pl, bw,
+                                                      w_plane};
+      half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
+    } else {
+      // the open instances as they were built before the periodic ones
+      StressSweeper<T, SPLIT, GFN, BANDMASK> sw{a, o, bh, bl, bk, 0, 0};
+      half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
+    }
   }
   block_fold_n<kClusters>(o.acc, a.partial);
 }
 
+// The open-boundary instances
+template <typename T, bool SPLIT, int GFN, bool BANDMASK>
+__global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
+  tile_stress_body<T, SPLIT, GFN, BANDMASK, false>(a, nullptr);
+}
+
+// The periodic instances: the keep mask over the shift-sign plane w,
+// beside Args, so the instances above keep their code
+template <typename T, bool SPLIT, int GFN, bool BANDMASK>
+__global__ void __launch_bounds__(kChunk) tile_stress_keep_kernel(Args<T> a, const T* w) {
+  tile_stress_body<T, SPLIT, GFN, BANDMASK, true>(a, w);
+}
+
 template <typename T, bool SPLIT, int GFN>
-void launch_mask(const Args<T>& a, bool bandmask, int blocks, cudaStream_t s) {
-  if (bandmask)
+void launch_mask(const Args<T>& a, bool bandmask, const T* keep, int blocks, cudaStream_t s) {
+  if (keep != nullptr) {
+    if (bandmask)
+      tile_stress_keep_kernel<T, SPLIT, GFN, true><<<blocks, kChunk, 0, s>>>(a, keep);
+    else
+      tile_stress_keep_kernel<T, SPLIT, GFN, false><<<blocks, kChunk, 0, s>>>(a, keep);
+  } else if (bandmask) {
     tile_stress_kernel<T, SPLIT, GFN, true><<<blocks, kChunk, 0, s>>>(a);
-  else
+  } else {
     tile_stress_kernel<T, SPLIT, GFN, false><<<blocks, kChunk, 0, s>>>(a);
+  }
 }
 
 template <typename T, bool SPLIT>
 void launch(const void* pos, const float* lo, const int32_t* keys,
             const int32_t* bounds, const int32_t* bands, int n, int dim, int S,
-            double csq, int gfn, bool bandmask, double* partial,
+            double csq, int gfn, bool bandmask, double* partial, const void* keep,
             cudaStream_t s) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
@@ -202,10 +256,11 @@ void launch(const void* pos, const float* lo, const int32_t* keys,
   a.csq = static_cast<T>(csq);
   a.partial = partial;
   const int blocks = (n + kChunk - 1) / kChunk;
+  const T* w = static_cast<const T*>(keep);
   if (gfn == kGfnLj)
-    launch_mask<T, SPLIT, kGfnLj>(a, bandmask, blocks, s);
+    launch_mask<T, SPLIT, kGfnLj>(a, bandmask, w, blocks, s);
   else
-    launch_mask<T, SPLIT, kGfnLjFast>(a, bandmask, blocks, s);
+    launch_mask<T, SPLIT, kGfnLjFast>(a, bandmask, w, blocks, s);
 }
 
 }  // namespace
@@ -220,12 +275,14 @@ int zelll_tile_stress_chunk() { return kChunk; }
 // null (f32 only); keys: the padded (nc_pad * 128,) int32 keys; bounds:
 // (nc_pad, 3 S) int32 (jlo, toff, jnum) per band; bands: (S, 2) int32 on
 // the device; csq: cutoff^2 in the coordinates' type; partial:
-// ceil(n / 128) x 6 doubles (xx, xy, xz, yy, yz, zz per chunk). Returns
-// cudaGetLastError() after the launch.
+// ceil(n / 128) x 6 doubles (xx, xy, xz, yy, yz, zz per chunk); keep: (n,)
+// shift signs in the coordinates' type (the periodic keep mask,
+// lag_pairs.pbc_keep) or null. Returns cudaGetLastError() after the
+// launch.
 int zelll_tile_stress(const void* pos, const void* lo, const void* keys,
                       const void* bounds, const void* bands, int n, int dim,
                       int S, double csq, int gfn, int bandmask, int f64,
-                      void* partial, void* stream) {
+                      void* partial, void* stream, const void* keep) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
       (gfn != kGfnLj && gfn != kGfnLjFast) || (f64 != 0 && lo != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -237,11 +294,11 @@ int zelll_tile_stress(const void* pos, const void* lo, const void* keys,
   auto s = static_cast<cudaStream_t>(stream);
   const bool bm = bandmask != 0;
   if (f64 != 0)
-    launch<double, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, s);
+    launch<double, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, s);
   else if (l != nullptr)
-    launch<float, true>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, s);
+    launch<float, true>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, s);
   else
-    launch<float, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, s);
+    launch<float, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 """End-to-end workloads built on the port's kernels: LJ molecular dynamics
-and its Langevin thermostat, the smooth distance field and its samplers (psssh; the CLI is
+with its Langevin thermostat and Berendsen barostat, the smooth distance field and its samplers (psssh; the CLI is
 ``python -m zelll_tpu_torch.models.psssh``)."""
 
 from .lj_md import (
@@ -21,9 +21,11 @@ from .lj_md import (
 from .nuts import hmc_sample_batched, nuts_sample, nuts_sample_batched
 from .sdf import ELEMENT_RADII, SmoothDistanceField, element_radius
 from .thermostats import (
+    berendsen_box_mu,
     berendsen_rescale,
     kinetic_temperature,
     md_run_langevin,
+    md_run_npt,
     ou_step,
 )
 
@@ -48,8 +50,10 @@ __all__ = [
     "ELEMENT_RADII",
     "SmoothDistanceField",
     "element_radius",
+    "berendsen_box_mu",
     "berendsen_rescale",
     "kinetic_temperature",
     "md_run_langevin",
+    "md_run_npt",
     "ou_step",
 ]

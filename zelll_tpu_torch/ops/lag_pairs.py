@@ -59,6 +59,7 @@ __all__ = [
     "pair_lag_hist_plain",
     "SpeciesPairMask",
     "PbcKeepTerm",
+    "PbcSpeciesPairMask",
     "pbc_keep",
     "mi_fold",
     "lag_coverage_ok",
@@ -427,6 +428,17 @@ def _kernel_mi_box(mi_box, dim: int):
     return 1, tuple(hi.tolist() + pad), tuple(lo.tolist() + pad)
 
 
+def _one_plane(kernel: str, what: str, sorted_payload, n: int, dtype, device):
+    """A kernel's (n,) payload plane, from one payload column, in ``dtype``."""
+    plane = torch.as_tensor(sorted_payload, device=device)
+    if plane.ndim == 2 and plane.shape[1] == 1:
+        plane = plane[:, 0]
+    if tuple(plane.shape) != (n,):
+        raise ValueError(f"{kernel}'s {what} reads one payload plane of {n} "
+                         f"values; got shape {tuple(plane.shape)}")
+    return plane.to(dtype).contiguous()
+
+
 def _keep_plane(kernel: str, term, sorted_payload, n: int, device):
     """What an energy kernel takes for a payload rule: (mask id, the term
     it evaluates, the (n,) f32 plane or None). The payload rules on the
@@ -444,13 +456,7 @@ def _keep_plane(kernel: str, term, sorted_payload, n: int, device):
             "species plane of ops.potentials.lennard_jones_mixed's term, one at "
             "a time; run other payload terms through the plain version or on "
             "CPU tensors")
-    plane = torch.as_tensor(sorted_payload, device=device)
-    if plane.ndim == 2 and plane.shape[1] == 1:
-        plane = plane[:, 0]
-    if tuple(plane.shape) != (n,):
-        raise ValueError(f"{kernel}'s payload rule reads one payload plane of {n} "
-                         f"values; got shape {tuple(plane.shape)}")
-    plane = plane.to(torch.float32).contiguous()
+    plane = _one_plane(kernel, "payload rule", sorted_payload, n, torch.float32, device)
     return (_MASK_NONE, term, plane) if species else (_MASK_PBC_KEEP, term.term, plane)
 
 
@@ -915,11 +921,12 @@ class SpeciesPairMask:
 
 
 # Pair-mask ids the kernels share: none, the species pair mask (the
-# histograms K5 and K9) and the periodic keep mask (the energy kernels K1
-# and K6; the histograms take it with slice 6b).
+# histograms K5 and K9), the periodic keep mask (K1, K4, K5, K6, K8, K9) and
+# both over two planes (K5).
 _MASK_NONE = 0
 _MASK_SPECIES = 1
 _MASK_PBC_KEEP = 2
+_MASK_PBC_KEEP_SPECIES = 3
 
 
 def pbc_keep(wi, wj):
@@ -929,6 +936,25 @@ def pbc_keep(wi, wj):
     each cross-boundary pair once (with its positive-shift ghost) and no
     ghost-ghost pair."""
     return (wi * wj == 0) & (wi + wj >= 0)
+
+
+class PbcSpeciesPairMask:
+    """`pbc_keep` over a shift-sign plane composed with the species pair
+    mask {a, b} over a species plane: the pair mask ``(w_i, s_i, w_j,
+    s_j)`` of a two-column payload (the JAX package's
+    ``rdf._pbc_species_mask``). K5 takes it as mask id 3 over both
+    planes; any other two-plane mask runs on CPU tensors only."""
+
+    __slots__ = ("species",)
+
+    def __init__(self, a, b):
+        self.species = SpeciesPairMask(a, b)
+
+    def __call__(self, wi, si, wj, sj):
+        return pbc_keep(wi, wj) & self.species(si, sj)
+
+    def __repr__(self):
+        return f"PbcSpeciesPairMask({self.species.a!r}, {self.species.b!r})"
 
 
 class PbcKeepTerm:
@@ -1008,7 +1034,7 @@ def pair_lag_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
                           sorted_pos_lo=None, sorted_payload=None, *,
                           L: int = 256, gfn: Callable = lj_force_factor,
                           min_islot=0, pair_mask=None, pair_weight=None,
-                          out_dtype=None):
+                          mi_box=None, key_reach=None, out_dtype=None):
     """Plain PyTorch version of K4, vectorised over slots, one lag at a time.
 
     Same pairs, separations and products as the kernel: for each lag, the
@@ -1018,21 +1044,24 @@ def pair_lag_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
     ``pair_mask`` and the multiplicative ``pair_weight`` receive
     ``(own_0.., j_0..)`` of ``sorted_payload`` ((n, P), own being the larger
     slot), and ``min_islot`` keeps pairs whose larger slot is at or above
-    it. The products are summed in f64 and the (dim, dim) result is cast to
+    it. ``mi_box``/``key_reach`` fold the separations to the minimum image
+    (`mi_fold`) in the widened key window, as `pair_lag_reduce_plain` does.
+    The products are summed in f64 and the (dim, dim) result is cast to
     ``out_dtype`` (default: the positions' dtype).
     """
     n, dim = sorted_pos.shape
     device, dtype = sorted_pos.device, sorted_pos.dtype
     keys = _pad_and_desentinel(sorted_keys, n)
-    w = key_window(strides).to(device)
+    w = key_window(strides, key_reach).to(device)
     csq = torch.as_tensor(cutoff_sq, dtype=dtype, device=device)
     pay = _payload_rows(sorted_payload, n, dtype, device)
+    mib = _mi_box(mi_box, device)
     sig = torch.zeros((dim, dim), dtype=torch.float64, device=device)
     for lag in range(1, min(L, n - 1) + 1):
         keymask = keys[:-lag] >= keys[lag:] - w
         if not bool(keymask.any()):
             break  # keys ascend: no later lag can be in window
-        d, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag)
+        d, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag, mib)
         mask = _lag_pair_mask(keymask & (dsq < csq) & (dsq > 0), lag, pay,
                               min_islot, pair_mask)
         gv = gfn(torch.where(mask, dsq, torch.ones_like(dsq)))
@@ -1048,9 +1077,10 @@ def pair_lag_stress_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 
 def _bind_stress(lib) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zelll_lag_stress.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, ci, ci, vp, vp,
+        vp, ci, cf, cf, cf, cf, cf, cf,
     ]
     lib.zelll_lag_stress.restype = ci
     lib.zelll_lag_stress_block.argtypes = []
@@ -1075,8 +1105,33 @@ def _check_coords(kernel: str, sorted_pos, sorted_pos_lo):
         raise ValueError(f"{kernel} takes 1 <= dim <= 3 and n < 2^31; got {(n, dim)}")
 
 
+def stress_mask_plane(kernel: str, pair_mask, sorted_payload, n: int, dtype, device):
+    """What a stress kernel (K4, K8) takes for ``pair_mask``: the (n,)
+    shift-sign plane of the periodic keep mask in the coordinates' dtype,
+    or None without a mask. Raises on any mask but `pbc_keep` over one
+    payload column."""
+    if pair_mask is None:
+        return None
+    if pair_mask is not pbc_keep:
+        raise ValueError(
+            f"the CUDA kernel {kernel} takes no pair mask but pbc_keep (the "
+            "periodic keep mask over ops.pbc's shift-sign plane); run other "
+            "masks on CPU tensors")
+    return _one_plane(kernel, "keep mask", sorted_payload, n, dtype, device)
+
+
+def _mi_args(kernel: str, mi_box, dim: int, dtype) -> tuple:
+    """(flag, box, box low parts) of a stress or histogram kernel's minimum
+    image (`_kernel_mi_box`), which it takes with f32 coordinates only."""
+    if mi_box is not None and dtype != torch.float32:
+        raise ValueError(f"{kernel} folds the minimum image of float32 (or split) "
+                         f"coordinates only, not {dtype}")
+    mi, box, box_lo = _kernel_mi_box(mi_box, dim)
+    return (mi, *box, *box_lo)
+
+
 def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
-                     *, L, gfn, out_dtype):
+                     sorted_payload, *, L, gfn, pair_mask, mi_box, key_reach, out_dtype):
     """Launch K4 on the current stream and sum its per-block partials."""
     device = sorted_pos.device
     n, dim = sorted_pos.shape
@@ -1090,6 +1145,8 @@ def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     if out_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K4 writes float32 or float64 stress, not {out_dtype}")
     _check_coords("K4", sorted_pos, sorted_pos_lo)
+    keep = stress_mask_plane("K4", pair_mask, sorted_payload, n, dtype, device)
+    mi = _mi_args("K4", mi_box, dim, dtype)
     _check_cuda("sorted_pos", sorted_pos, dtype, (n, dim), device, "K4")
     if sorted_pos_lo is not None:
         _check_cuda("sorted_pos_lo", sorted_pos_lo, torch.float32, (n, dim), device, "K4")
@@ -1097,7 +1154,7 @@ def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     if n == 0:
         return torch.zeros((dim, dim), dtype=out_dtype, device=device)
     lib = load_stress_kernel()
-    w_key = key_window(strides).reshape(1)
+    w_key = key_window(strides, key_reach).reshape(1)
     block = lib.zelll_lag_stress_block()
     partial = torch.empty((-(-n // block), 6), dtype=torch.float64, device=device)
     # cutoff^2 rounded to the coordinates' dtype, as the plain version does
@@ -1108,6 +1165,7 @@ def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
         sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
         _KERNEL_GFNS[gfn], int(dtype == torch.float64), partial.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
+        None if keep is None else keep.data_ptr(), *mi,
     )
     if err != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
@@ -1123,13 +1181,6 @@ def _observable_args(sorted_pos, sorted_keys, strides, sorted_pos_lo, device):
     if sorted_pos_lo is not None:
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
     return device, sorted_pos, sorted_keys, strides, sorted_pos_lo
-
-
-def _refuse_minimage(mi_box, key_reach) -> None:
-    if mi_box is not None or key_reach is not None:
-        raise ValueError("mi_box / key_reach (minimum-image pairs) are not "
-                         "ported yet to the stress and histogram kernels "
-                         "(periodic observables, slice 6b)")
 
 
 def pair_lag_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
@@ -1150,37 +1201,42 @@ def pair_lag_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
     split-precision separations; the cutoff is decided on their f32 dsq,
     as in the JAX kernel. ``out_dtype`` defaults to the positions' dtype;
     with f32 positions ``out_dtype=torch.float64`` returns the f64 sums of
-    the f32 products.
+    the f32 products. ``mi_box`` ((dim,) box lengths, 0 for an open axis)
+    folds each separation to its minimum image (`mi_fold`); pass
+    ``key_reach`` (per-axis cell spans, `key_window`) so the key window
+    admits wrap-adjacent cells.
 
     CUDA tensors run kernel K4, which takes f32 (optionally split) or f64
     coordinates, 1 <= dim <= 3, the force factors `lj_force_factor` and
-    `lj_force_factor_fast`, and no payload rule (``sorted_payload``,
-    ``pair_mask``, ``pair_weight``, ``min_islot``); it raises on anything
-    else. CPU tensors run `pair_lag_stress_plain`, which takes them all.
-    ``mi_box``/``key_reach`` (minimum image) are not ported yet and raise
-    on either device.
+    `lj_force_factor_fast`, the periodic keep mask (``pair_mask`` =
+    `pbc_keep` over one payload plane of shift signs) and, with f32
+    coordinates, the minimum image; it raises on anything else (other
+    masks, ``pair_weight``, ``min_islot != 0``). CPU tensors run
+    `pair_lag_stress_plain`, which takes them all.
     """
     del M
     gfn = gfn or lj_force_factor
     if L < 1:
         raise ValueError(f"L must be >= 1, got {L}")
-    _refuse_minimage(mi_box, key_reach)
     if (sorted_payload is None) != (pair_mask is None and pair_weight is None):
         raise ValueError("pair_mask/pair_weight and sorted_payload go together")
     device, sorted_pos, sorted_keys, strides, sorted_pos_lo = _observable_args(
         sorted_pos, sorted_keys, strides, sorted_pos_lo, device)
     if device.type == "cuda":
-        if sorted_payload is not None or not _is_default_islot(min_islot):
-            raise ValueError("the CUDA kernel takes no payload rule "
-                             "(sorted_payload, pair_mask, pair_weight) and only "
-                             "min_islot=0; run these through pair_lag_stress_plain")
+        if pair_weight is not None or not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel takes no pair_weight and only "
+                             "min_islot=0 (multi-device, slice 9); run these "
+                             "through pair_lag_stress_plain")
         return _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq,
-                                sorted_pos_lo, L=L, gfn=gfn,
+                                sorted_pos_lo, sorted_payload, L=L, gfn=gfn,
+                                pair_mask=pair_mask, mi_box=mi_box,
+                                key_reach=key_reach,
                                 out_dtype=out_dtype or sorted_pos.dtype)
     return pair_lag_stress_plain(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
         L=L, gfn=gfn, min_islot=min_islot, pair_mask=pair_mask,
-        pair_weight=pair_weight, out_dtype=out_dtype)
+        pair_weight=pair_weight, mi_box=mi_box, key_reach=key_reach,
+        out_dtype=out_dtype)
 
 
 # Kernel launches since the last reset; only a launch of K4 adds to it.
@@ -1208,7 +1264,8 @@ def _cumulative_counts(first: torch.Tensor) -> torch.Tensor:
 
 def pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
                         sorted_pos_lo=None, sorted_payload=None, *,
-                        L: int = 256, min_islot=0, pair_mask=None):
+                        L: int = 256, min_islot=0, pair_mask=None, mi_box=None,
+                        key_reach=None):
     """Plain PyTorch version of K5, vectorised over slots, one lag at a time.
 
     Same pairs, separations and bins as the kernel: each pair (i, i - lag)
@@ -1216,22 +1273,24 @@ def pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
     the first bin whose edge is above its dsq, and the prefix sum over the
     bins gives ``count_k = #pairs with dsq < edges_sq[k]``. ``pair_mask``
     receives ``(own_0.., j_0..)`` of ``sorted_payload``; ``min_islot`` keeps
-    pairs whose larger slot is at or above it. Returns (2, K) int32 hi/lo
-    planes (`combine_count_vec`).
+    pairs whose larger slot is at or above it; ``mi_box``/``key_reach`` fold
+    the separations to the minimum image (`mi_fold`) in the widened key
+    window. Returns (2, K) int32 hi/lo planes (`combine_count_vec`).
     """
     n, dim = sorted_pos.shape
     device, dtype = sorted_pos.device, sorted_pos.dtype
     edges = hist_edges(edges_sq, dtype, device)
     K = edges.shape[0]
     keys = _pad_and_desentinel(sorted_keys, n)
-    w = key_window(strides).to(device)
+    w = key_window(strides, key_reach).to(device)
     pay = _payload_rows(sorted_payload, n, dtype, device)
+    mib = _mi_box(mi_box, device)
     first = torch.zeros((K + 1,), dtype=torch.int64, device=device)
     for lag in range(1, min(L, n - 1) + 1):
         keymask = keys[:-lag] >= keys[lag:] - w
         if not bool(keymask.any()):
             break  # keys ascend: no later lag can be in window
-        _, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag)
+        _, dsq, _ = _lag_separations(sorted_pos, sorted_pos_lo, lag, mib)
         mask = _lag_pair_mask(keymask & (dsq < edges[-1]), lag, pay, min_islot,
                               pair_mask)
         b = torch.where(mask, torch.searchsorted(edges, dsq, right=True), K)
@@ -1240,9 +1299,10 @@ def pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
 
 
 def _bind_hist(lib) -> None:
-    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    vp, ci, cd, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_float
     lib.zelll_lag_hist.argtypes = [
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cd, cd, ci, vp, vp,
+        vp, ci, cf, cf, cf, cf, cf, cf,
     ]
     lib.zelll_lag_hist.restype = ci
     lib.zelll_lag_hist_max_bins.argtypes = []
@@ -1254,35 +1314,48 @@ def _bind_hist(lib) -> None:
 load_hist_kernel = kernel_loader(_HIST_SRC, "lag_hist", _bind_hist)
 
 
-def mask_plane(kernel: str, pair_mask, sorted_payload, n: int, dtype, device):
+def mask_plane(kernel: str, pair_mask, sorted_payload, n: int, dtype, device,
+               two_planes: bool = False):
     """What a histogram kernel takes for ``pair_mask``: (mask id, a, b, the
-    (n,) payload plane or None). Raises on any mask but `SpeciesPairMask`
-    over one payload column."""
+    (n,) species plane or None, the (n,) keep plane or None), planes in the
+    coordinates' dtype. The masks: `SpeciesPairMask` and `pbc_keep` over one
+    payload column, and with ``two_planes`` (K5) `PbcSpeciesPairMask` over
+    two (the shift signs, then the species). Raises on any other."""
     if pair_mask is None:
-        return _MASK_NONE, 0.0, 0.0, None
-    if not isinstance(pair_mask, SpeciesPairMask):
-        raise ValueError(
-            f"the CUDA kernel {kernel} takes no pair mask but SpeciesPairMask "
-            "(ops.rdf's species pairs); run other masks on CPU tensors")
-    plane = torch.as_tensor(sorted_payload, device=device)
-    if plane.ndim == 2 and plane.shape[1] == 1:
-        plane = plane[:, 0]
-    if tuple(plane.shape) != (n,):
-        raise ValueError(f"{kernel}'s species mask reads one payload plane of "
-                         f"{n} values; got shape {tuple(plane.shape)}")
-    return (_MASK_SPECIES, float(pair_mask.a), float(pair_mask.b),
-            plane.to(dtype).contiguous())
+        return _MASK_NONE, 0.0, 0.0, None, None
+    if isinstance(pair_mask, SpeciesPairMask):
+        return (_MASK_SPECIES, float(pair_mask.a), float(pair_mask.b),
+                _one_plane(kernel, "species mask", sorted_payload, n, dtype, device), None)
+    if pair_mask is pbc_keep:
+        return (_MASK_PBC_KEEP, 0.0, 0.0, None,
+                _one_plane(kernel, "keep mask", sorted_payload, n, dtype, device))
+    if two_planes and isinstance(pair_mask, PbcSpeciesPairMask):
+        cols = torch.as_tensor(sorted_payload, device=device)
+        if tuple(cols.shape) != (n, 2):
+            raise ValueError(f"{kernel}'s species keep mask reads two payload planes "
+                             f"of {n} values; got shape {tuple(cols.shape)}")
+        cols = cols.to(dtype)
+        sp = pair_mask.species
+        return (_MASK_PBC_KEEP_SPECIES, float(sp.a), float(sp.b),
+                cols[:, 1].contiguous(), cols[:, 0].contiguous())
+    raise ValueError(
+        f"the CUDA kernel {kernel} takes no pair mask but SpeciesPairMask (ops.rdf's "
+        "species pairs), pbc_keep (the periodic keep mask)"
+        + (" and PbcSpeciesPairMask (both)" if two_planes else "")
+        + "; run other masks on CPU tensors")
 
 
 def _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges, sorted_pos_lo,
-                   sorted_payload, *, L, pair_mask):
+                   sorted_payload, *, L, pair_mask, mi_box=None, key_reach=None):
     """Launch K5 on the current stream: (2, K) int32 hi/lo planes."""
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     dtype = sorted_pos.dtype
     K = edges.shape[0]
     _check_coords("K5", sorted_pos, sorted_pos_lo)
-    mask, ma, mb, plane = mask_plane("K5", pair_mask, sorted_payload, n, dtype, device)
+    mask, ma, mb, plane, keep = mask_plane("K5", pair_mask, sorted_payload, n, dtype,
+                                           device, two_planes=True)
+    mi = _mi_args("K5", mi_box, dim, dtype)
     _check_cuda("sorted_pos", sorted_pos, dtype, (n, dim), device, "K5")
     if sorted_pos_lo is not None:
         _check_cuda("sorted_pos_lo", sorted_pos_lo, torch.float32, (n, dim), device, "K5")
@@ -1294,7 +1367,7 @@ def _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges, sorted_pos_lo,
     if K > lib.zelll_lag_hist_max_bins():
         raise ValueError(f"K5 takes at most {lib.zelll_lag_hist_max_bins()} "
                          f"edges; got {K}")
-    w_key = key_window(strides).reshape(1)
+    w_key = key_window(strides, key_reach).reshape(1)
     err = lib.zelll_lag_hist(
         sorted_pos.data_ptr(),
         None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
@@ -1302,6 +1375,7 @@ def _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges, sorted_pos_lo,
         w_key.data_ptr(), edges.data_ptr(), n, dim, L, _pad_spacing(n), K, mask,
         ma, mb, int(dtype == torch.float64), first.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
+        None if keep is None else keep.data_ptr(), *mi,
     )
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
@@ -1325,18 +1399,19 @@ def pair_lag_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=None
     ``sorted_pos_lo`` selects split-precision separations (the bins see
     their f32 dsq, as in the JAX kernel). ``pair_mask`` + ``sorted_payload``
     mask candidate pairs (receiving ``(own_0.., j_0..)``); ``min_islot`` is
-    the distributed ownership rule.
+    the distributed ownership rule. ``mi_box``/``key_reach`` fold the
+    separations to the minimum image, as in `pair_lag_stress`.
 
     CUDA tensors run kernel K5, which takes f32 (optionally split) or f64
-    coordinates, 1 <= dim <= 3, at most 2048 edges, no mask or a
-    `SpeciesPairMask` over one payload plane, and ``min_islot=0``; it
-    raises on anything else. CPU tensors run `pair_lag_hist_plain`.
-    ``mi_box``/``key_reach`` are not ported yet and raise on either device.
+    coordinates, 1 <= dim <= 3, at most 2048 edges, no mask, a
+    `SpeciesPairMask` or `pbc_keep` over one payload plane or a
+    `PbcSpeciesPairMask` over two (shift signs, species), ``min_islot=0``
+    and, with f32 coordinates, the minimum image; it raises on anything
+    else. CPU tensors run `pair_lag_hist_plain`.
     """
     del M
     if L < 1:
         raise ValueError(f"L must be >= 1, got {L}")
-    _refuse_minimage(mi_box, key_reach)
     if (sorted_payload is None) != (pair_mask is None):
         raise ValueError("pair_mask and sorted_payload go together")
     device, sorted_pos, sorted_keys, strides, sorted_pos_lo = _observable_args(
@@ -1348,10 +1423,11 @@ def pair_lag_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=None
         edges = hist_edges(edges_sq, sorted_pos.dtype, device)
         return _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges,
                               sorted_pos_lo, sorted_payload, L=L,
-                              pair_mask=pair_mask)
+                              pair_mask=pair_mask, mi_box=mi_box, key_reach=key_reach)
     return pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
                                sorted_pos_lo, sorted_payload, L=L,
-                               min_islot=min_islot, pair_mask=pair_mask)
+                               min_islot=min_islot, pair_mask=pair_mask,
+                               mi_box=mi_box, key_reach=key_reach)
 
 
 # Kernel launches since the last reset; only a launch of K5 adds to it.

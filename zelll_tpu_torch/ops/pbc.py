@@ -303,14 +303,15 @@ def pbc_extend(positions, origin, box, cutoff, *, B: int, G: int,
     return ext_pos, ext_lo, w, valid, ok
 
 
-def _default_caps(n: int, box, cutoff, B, G, BE):
+def _default_caps(n: int, box, cutoff, B, G, BE, multi: bool = True):
     """(B, G, BE) as given, `suggest_pbc_capacity`'s where B or G is None
-    (BE too, if None then; with B and G given, `pbc_extend` takes BE = B)."""
+    (BE too, if None then and ``multi``; with B and G given, or without
+    ``multi`` as the observables size it, `pbc_extend` takes BE = B)."""
     if B is None or G is None:
         Bd, Gd, BEd = suggest_pbc_capacity(n, box, cutoff, with_multi=True)
         B = Bd if B is None else B
         G = Gd if G is None else G
-        if BE is None:
+        if BE is None and multi:
             BE = BEd
     return B, G, BE
 

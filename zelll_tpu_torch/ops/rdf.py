@@ -1,7 +1,6 @@
-"""Pair-distance histograms and their radial-distribution normalisation,
-open boundaries.
+"""Pair-distance histograms and the radial distribution function.
 
-PyTorch counterpart of the open-boundary part of ``zelll_tpu/ops/rdf.py``.
+PyTorch counterpart of ``zelll_tpu/ops/rdf.py``.
 The histogram accumulates inside a fused pass over the sorted particles
 (kernel K5 on the lag path, ``lag_pairs.pair_lag_hist``; K9 on the tile
 path, ``tile_pairs.tile_pair_hist``), so the pair list never exists:
@@ -10,10 +9,17 @@ pairs with ``edges[k] <= r < edges[k+1]``. The grid is binned at
 ``edges[-1]``, the effective cutoff. Partial histograms restrict to
 unordered species pairs {a, b} through a payload pair mask, still one pass.
 
-The flag goes False when the lag bound L or the tile capacity MAXJ is too
-small (grow it and run again); a result with a false flag is never
-trustworthy. The periodic ``rdf`` of the JAX module is not ported yet
-(ROADMAP queue 1).
+`rdf` is the periodic counterpart with the ideal-gas shell normalisation
+``g(r_k) = 2 V h_k / (N (N-1) Vshell_k)``: the counts come from one fused
+pass over the ghost-image extension of ``ops.pbc`` (K5 or K9 with the keep
+mask over the shift-sign plane, each cross pair once), or on the lag path
+over the minimum-image binning (K5 with the minimum image, and the keep
+mask where ghost axes remain). Species partials compose the keep mask with
+the species pair mask over two payload planes (K5).
+
+The flag goes False when the lag bound L, the tile capacity MAXJ or the
+periodic capacities are too small (grow them and run again); a result with
+a false flag is never trustworthy.
 """
 
 from __future__ import annotations
@@ -24,10 +30,18 @@ import torch
 from .._device import resolve_device
 from ..core.binning import compute_keys, sort_by_key
 from ..core.geometry import GridInfo, aabb_from_positions
-from .lag_pairs import SpeciesPairMask, combine_count_vec, lag_coverage_ok, pair_lag_hist
+from .lag_pairs import (
+    PbcSpeciesPairMask,
+    SpeciesPairMask,
+    combine_count_vec,
+    lag_coverage_ok,
+    pair_lag_hist,
+    pbc_keep,
+)
+from .pbc import _default_caps, _ghost_bins, _minimage_bins, _prepare, _resolve_minimage
 from .tile_pairs import tile_pair_hist
 
-__all__ = ["pair_distance_histogram", "rdf_normalize", "rdf_normalize_partial"]
+__all__ = ["pair_distance_histogram", "rdf", "rdf_normalize", "rdf_normalize_partial"]
 
 
 _SPECIES_MASKS: dict = {}
@@ -101,6 +115,117 @@ def pair_distance_histogram(positions, edges, *, positions_lo=None, M: int = 102
                            MAXJ=MAXJ, species=species, pair=pair)
     cum = combine_count_vec(packed)
     return cum[1:] - cum[:-1], bool(ok)
+
+
+_PBC_SPECIES_MASKS: dict = {}
+
+
+def _pbc_species_mask(a: int, b: int) -> PbcSpeciesPairMask:
+    """The cached keep mask composed with the species pairs {a, b}, over the
+    payload columns (shift sign, species)."""
+    fn = _PBC_SPECIES_MASKS.get((a, b))
+    if fn is None:
+        fn = _PBC_SPECIES_MASKS[(a, b)] = PbcSpeciesPairMask(a, b)
+    return fn
+
+
+def _pbc_cum_hist(positions, origin, box, edges, *, positions_lo, B, G, M, L,
+                  path="lag", CB=8, MAXJ=8, species=None, pair=None, minimage=False):
+    """(2, K) packed cumulative minimum-image pair counts and the flag:
+    the minimum-image binning and K5 (``minimage`` on the lag path), or the
+    ghost-image extension's sort with the shift-sign plane (and the species,
+    ghosts taking their parent's) and K5 or K9."""
+    n, dim = positions.shape
+    dtype = positions.dtype
+    cutoff = float(edges[-1])
+    edges_sq = torch.as_tensor(np.asarray(edges, np.float64)).to(dtype) ** 2
+    mimask = _resolve_minimage(box, cutoff, minimage, dim)
+    if mimask.any():
+        if path != "lag":
+            raise ValueError(
+                "minimage is a lag-path feature (narrow axes are the lag "
+                f"kernel's regime); got path={path!r}")
+        # species ride the binning as an extra column (ghosts on the axes
+        # that keep them take their parent's); the pair mask composes with
+        # the shift-sign plane only where ghost axes remain
+        spec = None if species is None else \
+            torch.as_tensor(species, device=positions.device).to(dtype).reshape(-1)
+        out = _minimage_bins(positions, origin, box, cutoff, mimask, B=B, G=G,
+                             positions_lo=positions_lo, need_perm=False, extra=spec)
+        bins, sp, slo, payload, reach, mi_box, ok = out[:7]
+        mask = None if payload is None else pbc_keep
+        if species is not None:
+            if payload is None:
+                payload, mask = out[7], _species_mask(*pair)
+            else:
+                payload, mask = torch.cat([payload, out[7]], 1), _pbc_species_mask(*pair)
+        packed = pair_lag_hist(sp, bins.sorted_keys, bins.info.strides, edges_sq, slo,
+                               payload, M=M, L=L, pair_mask=mask, mi_box=mi_box,
+                               key_reach=reach)
+        ok = ok & lag_coverage_ok(bins.sorted_keys, bins.info.strides, L, reach=reach)
+        return packed, ok
+    if path not in ("lag", "tile"):
+        raise ValueError(f"unknown path {path!r} (lag | tile)")
+    if species is not None and path == "tile":
+        # the packed layout has one payload row, taken by the shift signs
+        raise ValueError("species-resolved PBC histograms need path='lag' "
+                         "(one payload row on tile)")
+    # sized as the JAX package sizes it: BE = B
+    B, G, BE = _default_caps(n, box, cutoff, B, G, None, multi=False)
+    bins, sp, slo, signs, ok, *spec = _ghost_bins(
+        positions, origin, box, cutoff, B=B, G=G, BE=BE, positions_lo=positions_lo,
+        need_perm=False, extra=species)
+    if path == "tile":
+        packed, cov = tile_pair_hist(sp, bins.sorted_keys, bins.info.strides, edges_sq,
+                                     slo, signs[:, 0], CB=CB, MAXJ=MAXJ, pair_mask=pbc_keep)
+        return packed, ok & cov
+    payload, mask = signs, pbc_keep
+    if species is not None:
+        payload, mask = torch.cat([signs, spec[0]], 1), _pbc_species_mask(*pair)
+    packed = pair_lag_hist(sp, bins.sorted_keys, bins.info.strides, edges_sq, slo,
+                           payload, M=M, L=L, pair_mask=mask)
+    return packed, ok & lag_coverage_ok(bins.sorted_keys, bins.info.strides, L)
+
+
+def rdf(positions, origin, box, edges, *, positions_lo=None, B: int | None = None,
+        G: int | None = None, M: int = 1024, L: int = 256, path: str = "lag",
+        CB: int = 8, MAXJ=8, species=None, pair: tuple[int, int] | None = None,
+        minimage=False, device=None):
+    """Radial distribution function g(r) under orthorhombic PBC (minimum
+    image; each ``box > 2 edges[-1]``, as every ``ops.pbc`` path needs).
+    Host-syncing; returns (r_mid, g, coverage_ok as a bool).
+
+    The shell counts come from one fused histogram pass over the
+    ghost-extended sort (K5 on the lag path, K9 on the tile path, the
+    realistic cubic geometry); the normalisation is the ideal-gas shell
+    count at the box density. ``species`` ((n,) small non-negative ints)
+    with ``pair=(a, b)`` gives the partial g_AB (lag path: the species plane
+    rides the kernel payload beside the shift-sign plane). ``minimage``
+    ("auto", False or a per-axis mask; lag path) folds the narrow axes in
+    K5 instead of building their ghost images (`pbc._minimage_bins`); the
+    binned distances are image distances, and species compose.
+    B and G default to `pbc.suggest_pbc_capacity`'s and BE to B, as in the
+    JAX package.
+    """
+    if (species is None) != (pair is None):
+        raise ValueError("species and pair go together")
+    positions, positions_lo = _prepare(positions, positions_lo, device)
+    edges = np.asarray(edges, np.float64).reshape(-1)
+    packed, ok = _pbc_cum_hist(positions, origin, box, edges, positions_lo=positions_lo,
+                               B=B, G=G, M=M, L=L, path=path, CB=CB, MAXJ=MAXJ,
+                               species=species, pair=pair, minimage=minimage)
+    cum = combine_count_vec(packed)
+    counts = cum[1:] - cum[:-1]
+    vol = float(np.prod(np.asarray(box, np.float64)))
+    if pair is None:
+        r_mid, g = rdf_normalize(counts, edges, positions.shape[0], vol)
+    else:
+        # the species counts where the species lie (two scalar reads)
+        sp = torch.as_tensor(species, device=positions.device)
+        na, nb = int((sp == pair[0]).sum()), int((sp == pair[1]).sum())
+        r_mid, g = rdf_normalize_partial(counts, edges, na, nb, vol,
+                                         same=pair[0] == pair[1])
+    return r_mid, g, bool(ok)
 
 
 def _shell_volumes(edges) -> tuple[np.ndarray, np.ndarray]:

@@ -68,6 +68,7 @@ from .lag_pairs import (
     lj_term_fast,
     mask_plane,
     split_cutoff_test,
+    stress_mask_plane,
     symmetric_stress,
 )
 from .lj import lj_force_factor, lj_force_factor_fast, lj_virial_term
@@ -890,7 +891,7 @@ def _check_tile_observable(kernel: str, inp: TileInputs):
 def _bind_stress(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_tile_stress.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, ci, vp, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, ci, vp, vp, vp,
     ]
     lib.zelll_tile_stress.restype = ci
     lib.zelll_tile_stress_chunk.argtypes = []
@@ -906,14 +907,16 @@ load_stress_kernel = kernel_loader(_CSRC / "tile_stress.cu", "tile_stress",
 
 
 def stress_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
-                 out_dtype=None) -> torch.Tensor:
+                 out_dtype=None, payload=None, pair_mask=None) -> torch.Tensor:
     """Launch K8 on the current stream and sum its per-chunk partials.
 
     Takes ``inp`` from `tile_inputs` (the half stencil) with f32 (optionally
-    split) or f64 planes on a CUDA device, and the force factors
-    `lj_force_factor` and `lj_force_factor_fast`; raises on anything else.
-    Returns the symmetric (dim, dim) stress in ``out_dtype`` (default: the
-    planes' dtype; float64 gives the f64 sums of f32 products).
+    split) or f64 planes on a CUDA device, the force factors
+    `lj_force_factor` and `lj_force_factor_fast`, and no mask or
+    `lag_pairs.pbc_keep` over one sorted (n,) payload plane of shift signs;
+    raises on anything else. Returns the symmetric (dim, dim) stress in
+    ``out_dtype`` (default: the planes' dtype; float64 gives the f64 sums of
+    f32 products).
     """
     if gfn not in _KERNEL_GFNS:
         raise ValueError(
@@ -927,6 +930,7 @@ def stress_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
     if out_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K8 writes float32 or float64 stress, not {out_dtype}")
     _check_tile_observable("K8", inp)
+    keep = stress_mask_plane("K8", pair_mask, payload, n, pos.dtype, pos.device)
     if n == 0:
         return torch.zeros((dim, dim), dtype=out_dtype, device=pos.device)
     lib = load_stress_kernel()
@@ -938,6 +942,7 @@ def stress_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
         n, dim, inp.bands.shape[0], csq, _KERNEL_GFNS[gfn], int(inp.bandmask),
         int(pos.dtype == torch.float64), partial.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream,
+        None if keep is None else keep.data_ptr(),
     )
     if err != 0:
         raise RuntimeError(f"K8 launch failed: CUDA error {err}")
@@ -973,11 +978,12 @@ def _tile_pair_stress(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo
         sorted_pos, sorted_keys, strides, sorted_pos_lo, CB=CB, MAXJ=MAXJ,
         bandmask=bandmask, device=device)
     if device.type == "cuda" and not plain:
-        if sorted_payload is not None or not _is_default_islot(min_islot):
-            raise ValueError("the CUDA kernel takes no payload rule "
-                             "(sorted_payload, pair_mask, pair_weight) and only "
-                             "min_islot=0; run these through tile_pair_stress_plain")
-        sig = stress_tiles(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype)
+        if pair_weight is not None or not _is_default_islot(min_islot):
+            raise ValueError("the CUDA kernel takes no pair_weight and only "
+                             "min_islot=0 (multi-device, slice 9); run these "
+                             "through tile_pair_stress_plain")
+        sig = stress_tiles(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype,
+                           payload=sorted_payload, pair_mask=pair_mask)
     else:
         sig = stress_tiles_plain(inp, cutoff_sq, gfn=gfn, out_dtype=out_dtype,
                                  safe_term=safe_term, payload=sorted_payload,
@@ -1009,8 +1015,10 @@ def tile_pair_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
 
     CUDA tensors run kernel K8, which takes f32 (optionally split) or f64
     coordinates, the force factors `lj_force_factor` and
-    `lj_force_factor_fast`, no payload rule and ``min_islot=0``, and raises
-    on anything else. CPU tensors run `stress_tiles_plain`.
+    `lj_force_factor_fast`, no mask or the periodic keep mask
+    (``pair_mask`` = `lag_pairs.pbc_keep` over the shift-sign plane) and
+    ``min_islot=0``, and raises on anything else (``pair_weight``, other
+    masks). CPU tensors run `stress_tiles_plain`.
     """
     return _tile_pair_stress(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
@@ -1082,8 +1090,8 @@ def hist_tiles(inp: TileInputs, edges_sq, *, payload=None,
 
     Takes ``inp`` from `tile_inputs` (the half stencil) with f32 (optionally
     split) or f64 planes on a CUDA device, K <= 64 ascending edges, and no
-    mask or a `lag_pairs.SpeciesPairMask` over one payload plane; raises on
-    anything else.
+    mask, a `lag_pairs.SpeciesPairMask` or `lag_pairs.pbc_keep` over one
+    payload plane; raises on anything else.
     """
     pos = inp.pos
     dim, n = pos.shape
@@ -1092,8 +1100,10 @@ def hist_tiles(inp: TileInputs, edges_sq, *, payload=None,
     K = edges.shape[0]
     if K > TILE_HIST_MAX_BINS:
         raise ValueError(f"tile histogram: K = {K} > {TILE_HIST_MAX_BINS} edges")
-    mask, ma, mb, plane = mask_plane("K9", pair_mask, payload, n, pos.dtype,
-                                     pos.device)
+    mask, ma, mb, species, keep = mask_plane("K9", pair_mask, payload, n, pos.dtype,
+                                             pos.device)
+    # K9's one payload plane holds the species or the shift signs
+    plane = species if keep is None else keep
     first = torch.zeros((K,), dtype=torch.int64, device=pos.device)
     if n == 0:
         return _cumulative_counts(first)
@@ -1161,9 +1171,9 @@ def tile_pair_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=Non
     ``min_islot`` is the ownership rule.
 
     CUDA tensors run kernel K9, which takes f32 (optionally split) or f64
-    coordinates, no mask or a `lag_pairs.SpeciesPairMask`, and
-    ``min_islot=0``, and raises on anything else. CPU tensors run
-    `hist_tiles_plain`.
+    coordinates, no mask, a `lag_pairs.SpeciesPairMask` or the periodic
+    keep mask `lag_pairs.pbc_keep`, and ``min_islot=0``, and raises on
+    anything else. CPU tensors run `hist_tiles_plain`.
     """
     return _tile_pair_hist(
         sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo, sorted_payload,
