@@ -210,6 +210,29 @@ MUTATIONS = {
     "mi_walk_prune_open": ("pbc_stress or pbc_hist", [
         ("cluster_sweep.cuh", "return near_box_mi<SPLIT>(box, b, bl, thr, mib);",
          "return near_box<SPLIT>(box, b, bl, thr);")]),
+    # the term table in K2, K4 and K8: K2's term without the table's mode
+    # and shift (the energy form alone), the stress sweep's force factor read
+    # in the energy form (in K4 and in K8, each against its own test), and
+    # one constant of the table dropped in each kernel's C interface
+    "k2_table_mode_dropped": ("table_per_particle", [
+        ("lag_per_particle.cu", "o.acc += static_cast<double>(table_term(",
+         "o.acc += static_cast<double>(table_energy(")]),
+    "k2_table_constant_dropped": ("table_per_particle", [
+        ("lag_per_particle.cu",
+         "const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);",
+         "TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);\n  t.p[1] = 0.0f;")]),
+    "k4_table_gfn_as_energy": ("table_lag_stress", [
+        ("stress_sweep.cuh", "g = table_gfn(dsq, *tab);", "g = table_energy(dsq, *tab);")]),
+    "k4_table_constant_dropped": ("table_lag_stress", [
+        ("lag_stress.cu",
+         "const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);",
+         "TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);\n  t.p[2] = 0.0f;")]),
+    "k8_table_gfn_as_energy": ("table_tile_stress", [
+        ("stress_sweep.cuh", "g = table_gfn(dsq, *tab);", "g = table_energy(dsq, *tab);")]),
+    "k8_table_constant_dropped": ("table_tile_stress", [
+        ("tile_stress.cu",
+         "const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);",
+         "TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);\n  t.p[2] = 0.0f;")]),
 }
 
 # the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
@@ -230,7 +253,10 @@ _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_ker
             "table_kernels": "lag_pairs.load_kernel(); lag_pairs.load_forces_kernel(); "
                              "tile_pairs.load_kernel(); tile_pairs.load_forces_kernel()",
             "species_kernels": "lag_pairs.load_kernel(); lag_pairs.load_forces_kernel(); "
-                               "tile_pairs.load_kernel()"}
+                               "tile_pairs.load_kernel()",
+            "table_per_particle": "lag_pairs.load_per_particle_kernel()",
+            "table_lag_stress": "lag_pairs.load_stress_kernel()",
+            "table_tile_stress": "tile_pairs.load_stress_kernel()"}
 
 
 def emit(kind: str, **fields) -> None:

@@ -59,7 +59,17 @@ their plain versions at n = 2e5 (`pbc_obs_vs_plain`), `pbc_stress_fused`,
 entry points, each call's launches counted (`pbc_obs_main_path`),
 `md_run_npt` on the cube (`npt_main_path`), their split parity at n = 1e6
 against the oracle on numpy ghost images (`pbc_obs_parity`), and each new
-instance alone at n = 1e7 (in `stress_alone` and `hist_alone`). It prints
+instance alone at n = 1e7 (in `stress_alone` and `hist_alone`). Then the
+differentiable potentials and the term table in K2, K4 and K8:
+`make_pair_potential`'s value and gradient at n = 1e7 (thin: K1 + K3,
+split and f32; cube: K6 + K7; LJ and a factory's term), each call's
+launches counted and its result held to the direct calls on the same
+sorted inputs (`autodiff_main_path`), its split parity at n = 1e6 against
+the oracle (`autodiff_parity`), the new table instances against their
+plain versions at n = 2e5 (`table_obs_vs_plain`), a factory's gfn through
+`fused_stress_open` and `pbc_stress_fused` at n = 1e6 against an f64
+reference (`factory_obs_main_path`), and each table instance beside its
+LJ instance at n = 1e7 (`table_obs_alone`). It prints
 one JSON line per phase, with the phase's seconds. Any failed phase exits
 non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -4590,6 +4600,636 @@ def pbc_obs_alone(dev, n: int, which: str) -> dict:
     return out
 
 
+# -- differentiable potentials (slice 7) and the term table in K2, K4, K8 ------
+
+# K2 per cutoff pair with a scalar term: the term (the LJ form's 10 FP32
+# instructions: the IEEE division, t*t*t, t3 - 1, 4*t3, the product) and one
+# f64 add at each end, each counted as 2. The table's forms are charged as
+# the LJ form: lennard_jones() is the timed term.
+INSTR_PER_TERM_PAIR = 5 + 5 + 2 * 2
+
+
+def far_potentials() -> dict:
+    """Factories whose pair terms reach the cutoff of 10 at the main path's
+    density (tests/test_torch_kernels.py's periodic table cases): a shifted
+    LJ of sigma 4 and a Morse well at 4.5, which stays bounded at small
+    separations, so that no near pair carries a total."""
+    from zelll_tpu_torch.ops import potentials as P
+
+    return {"shifted_lj_4": P.shifted(P.lennard_jones(1.0, 4.0), CUTOFF),
+            "morse_4_5": P.morse(1.3, 0.5, 4.5)}
+
+
+def direct_energy_forces(x, path: str, split: bool, term, gfn, *, out_dtype, **kw):
+    """The energy and the forces (input order) of the direct calls on the
+    sorted inputs `ops.autodiff.make_pair_potential` builds: keys on an
+    ``auto_order`` grid, one sort (the card's sort is deterministic, so the
+    order is the potential's own)."""
+    from zelll_tpu_torch.core import GridInfo, aabb_from_positions, compute_keys, sort_by_key
+    from zelll_tpu_torch.ops.lag_pairs import pair_lag_forces, pair_lag_reduce, split_f64
+    from zelll_tpu_torch.ops.tile_pairs import tile_pair_forces, tile_pair_reduce
+
+    hi, lo = split_f64(x) if split else (x, None)
+    info = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
+    cols = (hi, lo) if split else (hi,)
+    skeys, perm, sh, *rest = sort_by_key(compute_keys(hi, info), *cols)
+    sl = rest[0] if split else None
+    csq = CUTOFF**2
+    if path == "lag":
+        e = pair_lag_reduce(sh, skeys, info.strides, csq, sl, L=kw["L"], term=term,
+                            out_dtype=out_dtype)
+        f = pair_lag_forces(sh, skeys, info.strides, csq, sl, L=kw["L"], gfn=gfn,
+                            out_dtype=out_dtype)
+    else:
+        e, _ = tile_pair_reduce(sh, skeys, info.strides, csq, sl, MAXJ=kw["MAXJ"], term=term,
+                                out_dtype=out_dtype)
+        f, _ = tile_pair_forces(sh, skeys, info.strides, csq, sl, MAXJ=kw["MAXJ_F"], gfn=gfn,
+                                out_dtype=out_dtype)
+    return e, torch.empty_like(f).index_copy_(0, perm, f)
+
+
+def value_and_grad_fn(pot, x):
+    """``() -> (E, ok, dE/dx)`` of a potential on a leaf copy of ``x``."""
+    def vg():
+        xg = x.detach().requires_grad_(True)
+        e, ok = pot(xg)
+        (g,) = torch.autograd.grad(e, xg)
+        return e.detach(), ok, g
+    return vg
+
+
+def autodiff_main_path(dev, n: int) -> dict:
+    """`make_pair_potential`'s value and gradient through autograd at
+    n = 1e7: the thin path (K1 forward, K3 backward) on the main path's
+    uniform cloud, split and f32, and the cube path (K6, K7) on the cubic
+    MD start state (f32), each with `lj_term` (the handwritten factor) and
+    lennard_jones(0.7, 1.1) of `table_potentials` (its factory's gfn: the
+    term table's instances). Each call's launches are zeroed just before it
+    and read just after: exactly one energy and one forces launch. ms per
+    call from CUDA events, and a profile of 3 calls (device operations and
+    the busy share). The energy and the gradient are held to the direct
+    calls on the same sorted inputs (`direct_energy_forces`): the energy to
+    TOL_TABLE relative, the gradient to TOL_TABLE of the largest force (one
+    sort, deterministic kernels: they should agree bitwise)."""
+    from zelll_tpu_torch.core import GridInfo, aabb_from_positions, compute_keys
+    from zelll_tpu_torch.ops.autodiff import make_pair_potential
+    from zelll_tpu_torch.ops.lag_pairs import lj_term
+    from zelll_tpu_torch.ops.lj import lj_force_factor
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    table = table_potentials()["lennard_jones"]
+    terms = {"lj_term": (lj_term, lj_force_factor), "table": (table.term, table.gfn)}
+    kernels = {"lag": ("lag_reduce", "lag_forces"), "tile": ("tile_reduce", "tile_forces")}
+    pts = generate_points_random(n, lj_box(n, CUTOFF))
+    thin64 = torch.as_tensor(pts, device=dev)
+    del pts
+    side = (n / 0.01) ** (1 / 3)
+    _, cst, _ = md_states(n, (side, side, side), dev)
+    cube = cst.positions
+    del cst
+    cinfo = GridInfo.create(aabb_from_positions(cube), CUTOFF, auto_order=True)
+    ckeys = torch.sort(compute_keys(cube, cinfo))[0]
+    tile_kw = dict(MAXJ=probe_maxj(ckeys, cinfo.strides),
+                   MAXJ_F=probe_maxj(ckeys, cinfo.strides, full=True))
+    del ckeys
+    cells = (("thin_split", "lag", True, thin64, dict(L=L_MAIN)),
+             ("thin_f32", "lag", False, thin64.float(), dict(L=L_MAIN)),
+             ("cube_f32", "tile", False, cube, tile_kw))
+    out, launches = {}, dict.fromkeys(("lag_reduce", "lag_forces", "tile_reduce",
+                                       "tile_forces"), 0)
+    for cell, path, split, x, kw in cells:
+        for tname, (term, gfn) in terms.items():
+            pot = make_pair_potential(CUTOFF, term=term, path=path, split=split, **kw)
+            vg = value_and_grad_fn(pot, x)
+            reset_launches()
+            e, ok, g = vg()
+            torch.cuda.synchronize()
+            counts = read_launches()
+            energy_k, forces_k = kernels[path]
+            others = sum(v for k, v in counts.items() if k not in (energy_k, forces_k))
+            check(counts[energy_k] == 1 and counts[forces_k] == 1 and others == 0,
+                  f"value_and_grad {cell} {tname}: launches {counts}")
+            check(bool(ok), f"value_and_grad {cell} {tname}: coverage")
+            for k in launches:
+                launches[k] += counts[k]
+            e_d, f_d = direct_energy_forces(x, path, split, term, gfn, out_dtype=e.dtype, **kw)
+            scale = float(f_d.abs().max())
+            e_err = rel(float(e), float(e_d))
+            g_err = float((g + f_d).abs().max()) / scale
+            check(np.isfinite(float(e)) and e_err <= TOL_TABLE,
+                  f"value_and_grad {cell} {tname}: energy {float(e)} vs {float(e_d)}")
+            check(np.isfinite(g_err) and g_err <= TOL_TABLE,
+                  f"value_and_grad {cell} {tname}: gradient off -forces by {g_err}")
+            del e, g, e_d, f_d
+            ms = cuda_ms(vg, 5)
+            prof = profile_steps(lambda i: vg(), 3)
+            out[f"{cell}_{tname}"] = dict(
+                ms=ms, energy_rel_err_vs_direct=e_err, grad_err_vs_direct_forces=g_err,
+                launches_per_call={energy_k: 1, forces_k: 1}, profile=prof,
+                sorts_per_call=1, energy_dtype=str(x.dtype))
+    return dict(n=n, cube_rows=cube.shape[0], tile=tile_kw, cells=out, launches=launches)
+
+
+def autodiff_parity(dev, n: int) -> dict:
+    """`make_pair_potential(split=True)` against the exact-f64 oracle at
+    n = 1e6 on the thin box's uniform cloud, on both paths (K1 + K3, and
+    K6 + K7 on the same points): the energy within TOL_REL of the oracle's
+    and ||g + f_ref|| / ||f_ref|| within TOL_REL, as `forces_parity`
+    measures it."""
+    from zelll_tpu_torch import oracle
+    from zelll_tpu_torch.core import GridInfo, aabb_from_positions, compute_keys
+    from zelll_tpu_torch.ops.autodiff import make_pair_potential
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    pts = generate_points_random(n, lj_box(n, CUTOFF))
+    with ThreadPoolExecutor(2) as pool:
+        energy = pool.submit(oracle.lj_energy, pts, CUTOFF)
+        forces = pool.submit(oracle.forces, pts, CUTOFF)
+        x = torch.as_tensor(pts, device=dev)
+        hi = x.float()
+        info = GridInfo.create(aabb_from_positions(hi), CUTOFF, auto_order=True)
+        keys = torch.sort(compute_keys(hi, info))[0]
+        runs = {"lag": dict(L=L_MAIN),
+                "tile": dict(MAXJ=probe_maxj(keys, info.strides),
+                             MAXJ_F=probe_maxj(keys, info.strides, full=True))}
+        got = {}
+        for path, kw in runs.items():
+            e, ok, g = value_and_grad_fn(
+                make_pair_potential(CUTOFF, path=path, split=True, **kw), x)()
+            check(bool(ok), f"autodiff parity coverage ({path})")
+            got[path] = (float(e), g.cpu().numpy())
+        e_ref, n_ref = energy.result()
+        f_ref = forces.result()
+    out = {}
+    for path, (e, g) in got.items():
+        e_err = rel(e, e_ref)
+        g_err = float(np.linalg.norm(g + f_ref) / np.linalg.norm(f_ref))
+        check(e_err <= TOL_REL, f"autodiff energy_rel_err_vs_oracle {e_err} ({path})")
+        check(g_err <= TOL_REL, f"autodiff grad_rel_err_vs_oracle {g_err} ({path})")
+        out[path] = dict(energy_rel_err_vs_oracle=e_err, grad_rel_err_vs_oracle=g_err)
+    return dict(n=n, oracle_pairs=n_ref, paths=out)
+
+
+def stress_scale(plain, *args, gfn, **kw) -> float:
+    """A bound of sum |g d_a d_b| over a stress call's pairs: the trace of
+    the plain version's stress with |gfn| (|d_a d_b| <= (d_a^2 + d_b^2) / 2)."""
+    def absg(dsq):
+        return gfn(dsq).abs()
+
+    out = plain(*args, gfn=absg, out_dtype=torch.float64, **kw)
+    return float(torch.trace(out[0] if isinstance(out, tuple) else out))
+
+
+def table_obs_vs_plain(dev, n: int) -> dict:
+    """The term table's instances of K2, K4 and K8 against their plain
+    versions on identical sorted inputs at n = 2e5, with the factories of
+    `far_potentials` (taken in turns, so that each case runs one): K2 in
+    energy and virial mode (f32: its rows are f32 roundings of f64 sums, so
+    a row may differ by one f32 ulp where the two sums round apart, else by
+    TOL_TABLE of the row's sum of |term|), K4 and K8 on f64 outputs to
+    TOL_TABLE of sum |g d_a d_b| (`stress_scale`). Inputs: the thin box's
+    uniform cloud and jittered lattice and the prune's hard inputs on the
+    lattice (`prune_cases`: the facing clusters and the drifted lattice),
+    f32 and split; K4 also under the keep mask (ghost images), the minimum
+    image and both (`pbc_sorted`), f32 and split; K8 on the cube's uniform
+    cloud, its lattice and the hard inputs on it, maskless and band-masked,
+    and with the keep mask on the ghost-extended cube. The launches of the
+    kernel calls are counted: one per call. K2's count term is held to the
+    plain version exactly on each thin input."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        count_term, pair_lag_per_particle, pair_lag_per_particle_plain, pair_lag_stress,
+        pair_lag_stress_plain, pbc_keep, suggest_lag,
+    )
+    from zelll_tpu_torch.ops.pbc import minimage_axes, suggest_pbc_capacity
+    from zelll_tpu_torch.ops.tile_pairs import tile_pair_stress, tile_pair_stress_plain
+    from zelll_tpu_torch.ops.virial import virial_term_from_gfn
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
+
+    t_start = time.perf_counter()
+    f64 = torch.float64
+    csq = CUTOFF**2
+    pots = list(far_potentials().items())
+    turn = itertools.count()
+    worst = {"K2": 0.0, "K4": 0.0, "K8": 0.0}
+    lattice_abs = dict(worst)
+    checked = dict.fromkeys(worst, 0)
+    reset_launches()
+
+    def note(kernel, abs_err, err, tag):
+        worst[kernel] = max(worst[kernel], err)
+        if tag == "lattice":
+            lattice_abs[kernel] = max(lattice_abs[kernel], abs_err)
+        checked[kernel] += 1
+
+    def pots_of(tag):
+        # on the uniform clouds only the bounded Morse well: the shifted LJ
+        # of sigma 4 overflows f32 at their nearest pairs
+        return pots[1:] if "uniform" in tag else pots
+
+    def stress_case(kernel, fn, plain, args, kw, tag):
+        choice = pots_of(tag)
+        pname, pot = choice[next(turn) % len(choice)]
+        got = fn(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+        want = plain(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+        got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        scale = stress_scale(plain, *args, gfn=pot.gfn, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(np.isfinite(err) and err <= TOL_TABLE * scale,
+              f"{kernel} table {pname} ({tag} {kw}): {err} of {scale}")
+        note(kernel, err, err / scale, tag)
+
+    thin = np.asarray(lj_box(n, CUTOFF))
+    data = {"uniform": generate_points_random(n, thin),
+            "lattice": generate_points_lattice(n, thin)}
+    for tag, pts in data.items():
+        shi, slo, keys, info, _ = sort_split(pts, dev)
+        strides = info.strides
+        L = suggest_lag(keys, strides)
+        cases = {tag: (shi, slo)}
+        if tag == "lattice":
+            cases.update(prune_cases(shi, slo))
+        for ctag, (h, lo) in cases.items():
+            c_k = pair_lag_per_particle(h, keys, strides, csq, L=L, term=count_term)
+            c_p = pair_lag_per_particle_plain(h, keys, strides, csq, L=L, term=count_term)
+            check(bool(torch.equal(c_k, c_p)), f"K2 count ({ctag})")
+            for pname, pot in pots_of(ctag):
+                for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                    got = pair_lag_per_particle(h, keys, strides, csq, L=L, term=term)
+                    want = pair_lag_per_particle_plain(h, keys, strides, csq, L=L, term=term)
+                    scale = pair_lag_per_particle_plain(h, keys, strides, csq, L=L,
+                                                        term=abs_term(term)).double()
+                    torch.cuda.synchronize()
+                    ulp = (torch.nextafter(want, torch.full_like(want, float("inf")))
+                           - want).double()
+                    err = (got.double() - want.double()).abs()
+                    check(bool((err <= torch.maximum(TOL_TABLE * scale, ulp)).all()),
+                          f"K2 table {pname} ({ctag}): {float(err.max())}")
+                    note("K2", float(err.max()), float((err / scale.clamp_min(1e-300)).max()),
+                         ctag)
+            for lo_ in (None, lo):
+                stress_case("K4", pair_lag_stress, pair_lag_stress_plain,
+                            (h, keys, strides, csq, lo_), dict(L=L), ctag)
+        # the periodic rules on the same points folded into the box
+        wrapped = np.mod(pts, thin)
+        for kind in ("keep", "mi", "both"):
+            if kind == "both":
+                caps = dict(zip(("B", "G"), suggest_pbc_capacity(
+                    n, thin, CUTOFF, axes=~minimage_axes(thin, CUTOFF))))
+            elif kind == "keep":
+                caps = dict(zip(("B", "G", "BE"),
+                                suggest_pbc_capacity(n, thin, CUTOFF, with_multi=True)))
+            else:
+                caps = {}
+            sh, sl, k, s, pay, mib, reach, ok = pbc_sorted(wrapped, thin, kind, dev, **caps)
+            check(bool(ok), f"periodic inputs ({kind} {tag})")
+            L = suggest_lag(k, s, reach=reach)
+            for lo_ in (None, sl):
+                stress_case("K4", pair_lag_stress, pair_lag_stress_plain,
+                            (sh, k, s, csq, lo_, pay),
+                            dict(L=L, pair_mask=None if pay is None else pbc_keep, mi_box=mib,
+                                 key_reach=reach), f"{kind}_{tag}")
+        del shi, slo, keys
+    pts, side = cube_points(n)
+    cube = np.array([side] * 3)
+    cdata = {"uniform": pts, "lattice": generate_points_lattice(n, cube)}
+    for tag, pts in cdata.items():
+        shi, slo, keys, info, _ = sort_split(pts, dev)
+        maxj = probe_maxj(keys, info.strides)
+        cases = {tag: (shi, slo)}
+        if tag == "lattice":
+            cases.update(prune_cases(shi, slo))
+        for ctag, (h, lo) in cases.items():
+            combos = ((False, None), (True, lo)) if ctag != "lattice" else \
+                itertools.product((False, True), (None, lo))
+            for bandmask, lo_ in combos:
+                stress_case("K8", tile_pair_stress, tile_pair_stress_plain,
+                            (h, keys, info.strides, csq, lo_),
+                            dict(MAXJ=maxj, bandmask=bandmask), ctag)
+        Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+        sh, sl, k, s, pay, _, _, ok = pbc_sorted(np.mod(pts, cube), cube, "keep", dev,
+                                                 B=Bc, G=Gc, BE=BEc)
+        check(bool(ok), f"the periodic cube's flag ({tag})")
+        kmaxj = probe_maxj(k, s)
+        for bandmask, lo_ in itertools.product((False, True), (None, sl)):
+            stress_case("K8", tile_pair_stress, tile_pair_stress_plain,
+                        (sh, k, s, csq, lo_, pay),
+                        dict(MAXJ=kmaxj, bandmask=bandmask, pair_mask=pbc_keep),
+                        f"keep_{tag}")
+        del shi, slo, keys, sh, sl, k
+    counts = read_launches()
+    check(counts["lag_per_particle"] > 0 and counts["lag_stress"] > 0
+          and counts["tile_stress"] > 0, f"table_obs_vs_plain launches {counts}")
+    return dict(n=n, potentials=[p for p, _ in pots], checks=checked,
+                max_err_of_scale=worst, lattice_max_abs_err=lattice_abs,
+                check_launches={k: v for k, v in counts.items() if v},
+                seconds=time.perf_counter() - t_start)
+
+
+def factory_stress_reference(pts: np.ndarray, box, cutoff: float, gfn) -> np.ndarray:
+    """The exact-f64 stress of ``gfn`` (an f64 torch function) over the
+    oracle's pairs of the points, or, with ``box``, of the points in
+    [0, box) and their numpy ghost images (`periodic_images`; a real-ghost
+    pair weighs 1/2, as `periodic_observables` weighs it)."""
+    from zelll_tpu_torch import oracle
+
+    n = len(pts)
+    ext = pts if box is None else periodic_images(pts, box, cutoff)
+    i, j = oracle.pairs(ext, cutoff)
+    i, j = i.astype(np.int64), j.astype(np.int64)
+    real = (i < n).astype(np.int64) + (j < n)
+    keep = real > 0
+    i, j, w = i[keep], j[keep], np.where(real[keep] == 2, 1.0, 0.5)
+    sig = np.zeros((3, 3))
+    for s in range(0, len(i), 1 << 22):
+        sl = slice(s, s + (1 << 22))
+        d = ext[i[sl]] - ext[j[sl]]
+        dsq = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        g = gfn(torch.as_tensor(dsq)).numpy()
+        sig += np.einsum("p,pa,pb->ab", w[sl] * g, d, d)
+    return sig
+
+
+def factory_obs_main_path(dev, n: int) -> dict:
+    """An ops.potentials factory through the entry points a user calls, at
+    n = 1e6, split: `fused_stress_open(gfn=morse.gfn)` on the thin box's
+    uniform cloud (K4's table instance) and the cube's (``path="tile"``,
+    K8's), `pbc_stress_fused(gfn=...)` on the thin box with
+    ``minimage="auto"`` (K4 keep and minimum image) and with ghost images
+    (K4 keep), and on the cube (``path="tile"``, K8 keep); each within
+    TOL_SPLIT of the largest |sigma_ab| of the exact-f64 stress of the same
+    factory's f64 gfn over the oracle's pairs (`factory_stress_reference`,
+    run on the host beside the card). Then `pair_lag_per_particle(term=...)`
+    (K2's table instance, f32 coordinates) on the thin box's sorted points,
+    whose rows sum to twice `pair_lag_reduce`'s total of the same term
+    (K1's table instance) within 1e-6. Each call's launches are zeroed just
+    before it and read just after: exactly one launch of its kernel (and,
+    for the periodic calls, nothing else: their bins and ghosts are plain
+    torch), so that a factory's gfn is shown to run K4 and K8 on the card,
+    not ``core.pairs``."""
+    from zelll_tpu_torch.ops.lag_pairs import (
+        lag_coverage_ok, pair_lag_per_particle, pair_lag_reduce, split_f64,
+    )
+    from zelll_tpu_torch.ops.virial import fused_stress_open, pbc_stress_fused, pbc_virial
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    pot = far_potentials()["morse_4_5"]
+    thin = np.asarray(lj_box(n, CUTOFF))
+    side = (n / 0.01) ** (1 / 3)
+    cube = np.array([side] * 3)
+    tpts = np.mod(generate_points_random(n, thin), thin)
+    cpts = np.mod(generate_points_random(n, cube), cube)
+    o = [0.0] * 3
+    thi, tlo = split_f64(torch.as_tensor(tpts, device=dev))
+    chi, clo = split_f64(torch.as_tensor(cpts, device=dev))
+    Lm = probe_pbc_lag(lambda L: pbc_virial(thi, o, thin, CUTOFF, positions_lo=tlo,
+                                            minimage="auto", L=L)[1], L_MAIN)
+    Lg = probe_pbc_lag(lambda L: pbc_virial(thi, o, thin, CUTOFF, positions_lo=tlo,
+                                            L=L)[1], L_MAIN)
+    calls = (("fused_stress_open_thin", "lag_stress", "open", thin,
+              lambda: fused_stress_open(thi, CUTOFF, gfn=pot.gfn, L=L_MAIN, positions_lo=tlo)),
+             ("fused_stress_open_cube", "tile_stress", "open", cube,
+              lambda: fused_stress_open(chi, CUTOFF, gfn=pot.gfn, path="tile", MAXJ=OBS_MAXJ,
+                                        positions_lo=clo)),
+             ("pbc_stress_fused_thin_minimage", "lag_stress", "periodic", thin,
+              lambda: pbc_stress_fused(thi, o, thin, CUTOFF, gfn=pot.gfn, L=Lm,
+                                       minimage="auto", positions_lo=tlo)),
+             ("pbc_stress_fused_thin_ghosts", "lag_stress", "periodic", thin,
+              lambda: pbc_stress_fused(thi, o, thin, CUTOFF, gfn=pot.gfn, L=Lg,
+                                       positions_lo=tlo)),
+             ("pbc_stress_fused_cube_tile", "tile_stress", "periodic", cube,
+              lambda: pbc_stress_fused(chi, o, cube, CUTOFF, gfn=pot.gfn, path="tile",
+                                       MAXJ=PBC_MAXJ, positions_lo=clo)))
+    out, launches = {}, {}
+    with ThreadPoolExecutor(3) as pool:
+        refs = {(name, kind): pool.submit(factory_stress_reference,
+                                          tpts if box is thin else cpts,
+                                          None if kind == "open" else box, CUTOFF, pot.gfn)
+                for name, kind, box in (("thin", "open", thin), ("cube", "open", cube),
+                                        ("thin", "periodic", thin),
+                                        ("cube", "periodic", cube))}
+        results = {}
+        for name, kernel, kind, box, fn in calls:
+            reset_launches()
+            sig, ok = fn()
+            torch.cuda.synchronize()
+            counts = read_launches()
+            others = sum(v for k, v in counts.items() if k != kernel)
+            check(counts[kernel] == 1 and others == 0,
+                  f"{name}: expected one launch of {kernel} alone, counted {counts}")
+            check(bool(ok), f"{name}: flag")
+            launches[kernel] = launches.get(kernel, 0) + 1
+            ms, _ = once_ms(fn)
+            results[name] = (sig.double().cpu().numpy(), kind, box, ms)
+        for name, (s, kind, box, ms) in results.items():
+            ref = refs[("thin" if box is thin else "cube", kind)].result()
+            scale = float(np.abs(ref).max())
+            err = float(np.abs(s - ref).max()) / scale
+            check(np.isfinite(err) and err <= TOL_SPLIT,
+                  f"{name}: stress off the f64 reference by {err} of its largest")
+            out[name] = dict(ms=ms, launches=1, stress_err_vs_reference=err,
+                             reference_scale=scale)
+    # K2's table instance through its entry point, held to K1's total
+    sp, _, keys, info, _ = sort_split(tpts, dev)
+    rows = counted(lambda: pair_lag_per_particle(sp, keys, info.strides, CUTOFF**2, L=L_MAIN,
+                                                 term=pot.term), "lag_per_particle")
+    launches["lag_per_particle"] = 1
+    total = pair_lag_reduce(sp, keys, info.strides, CUTOFF**2, L=L_MAIN, term=pot.term,
+                            out_dtype=torch.float64)
+    check(bool(lag_coverage_ok(keys, info.strides, L_MAIN)), "K2 coverage")
+    k2_err = rel(float(rows.double().sum()), 2.0 * float(total))
+    check(k2_err <= TOL_REL, f"K2 table rows vs K1 total: {k2_err}")
+    out["pair_lag_per_particle_thin"] = dict(launches=1, rows_sum_rel_err_vs_k1=k2_err)
+    return dict(n=n, potential="morse(1.3, 0.5, 4.5)", L_minimage=Lm, L_ghosts=Lg, calls=out,
+                launches=launches)
+
+
+def table_obs_alone(dev, n: int) -> dict:
+    """The term table's instances of K2, K4 and K8 alone at n = 1e7, each
+    beside its LJ instance on the same inputs (lennard_jones() through the
+    table against `lj_term` / `lj_force_factor`): K2 (f32) and K4 open
+    (f32 and split) on the main path's thin inputs, K4 with the keep mask
+    and the minimum image (f32) on the thin ``minimage="auto"`` inputs, K8
+    maskless (f32, MAXJ 24) on the cube, and K8 with the keep mask (f32) on
+    the ghost-extended cube. Each: ms of both instances, one plain call's ms
+    (at 1e6 where one at 1e7 would take over PLAIN_LIMIT_S), the work of
+    the function (the half-stencil candidates, the folded axes wrapping;
+    the cutoff pairs, LJ's per-pair count standing for the table's) and its
+    bound, the share of it, and the new functions' ptxas lines."""
+    from zelll_tpu_torch.ops import lag_pairs, tile_pairs
+    from zelll_tpu_torch.ops.lag_pairs import (
+        PbcKeepTerm, combine_count, count_term, lj_term, pair_lag_per_particle,
+        pair_lag_per_particle_plain, pair_lag_reduce, pair_lag_stress, pair_lag_stress_plain,
+        pbc_keep,
+    )
+    from zelll_tpu_torch.ops.lj import lj_force_factor
+    from zelll_tpu_torch.ops.pbc import minimage_axes, suggest_pbc_capacity
+    from zelll_tpu_torch.ops.potentials import lennard_jones
+    from zelll_tpu_torch.ops.tile_pairs import (
+        reduce_tiles, stress_tiles, stress_tiles_plain, tile_inputs,
+    )
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lj_box
+
+    lj = lennard_jones()
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    f64 = torch.float64
+    out = {}
+
+    def row(name, table, ljfn, b, plain=None, **extra):
+        ms, lj_ms = cuda_ms(table, 10), cuda_ms(ljfn, 10)
+        out[name] = dict(ms=ms, lj_ms=lj_ms, table_over_lj=ms / lj_ms, **b,
+                         share_of_bound=b["bound_ms"] / ms, **(plain or {}), **extra)
+
+    thin = np.asarray(lj_box(n, CUTOFF))
+    shi, slo, keys, info, _ = sort_split(generate_points_random(n, thin), dev)
+    strides = info.strides
+    cand = stencil_candidates(keys, info)
+    pairs = combine_count(pair_lag_reduce(shi, keys, strides, csq, L=L_MAIN, term=count_term,
+                                          out_dtype=torch.int32))
+    plain_ms, _ = once_ms(lambda: pair_lag_per_particle_plain(shi, keys, strides, csq,
+                                                              L=L_MAIN, term=lj.term))
+    row("K2_table_f32", lambda: pair_lag_per_particle(shi, keys, strides, csq, L=L_MAIN,
+                                                      term=lj.term),
+        lambda: pair_lag_per_particle(shi, keys, strides, csq, L=L_MAIN, term=lj_term),
+        bound(n * (4 * 4 + 4), cand * INSTR_PER_CANDIDATE[False] + pairs * INSTR_PER_TERM_PAIR),
+        dict(plain_ms=plain_ms, plain_n=n), pairs=pairs, candidates=cand)
+    for tag, lo in (("f32", None), ("split", slo)):
+        plain = None
+        if tag == "split":
+            plain_ms, _ = once_ms(lambda: pair_lag_stress_plain(shi, keys, strides, csq, lo,
+                                                                L=L_MAIN, gfn=lj.gfn))
+            plain = dict(plain_ms=plain_ms, plain_n=n)
+        row(f"K4_table_{tag}",
+            lambda: pair_lag_stress(shi, keys, strides, csq, lo, L=L_MAIN, gfn=lj.gfn),
+            lambda: pair_lag_stress(shi, keys, strides, csq, lo, L=L_MAIN, gfn=lj_force_factor),
+            bound(n * 4 * ((6 if lo is not None else 3) + 1),
+                  cand * INSTR_PER_CANDIDATE[lo is not None] + pairs * INSTR_PER_STRESS_PAIR),
+            plain, pairs=pairs, candidates=cand)
+    del shi, slo, keys
+    # K4 keep + minimum image on the thin minimage="auto" inputs
+    caps = dict(zip(("B", "G"), suggest_pbc_capacity(n, thin, CUTOFF,
+                                                     axes=~minimage_axes(thin, CUTOFF))))
+    sh, _, k, s, pay, mib, reach, ok = pbc_sorted(
+        np.mod(generate_points_random(n, thin), thin), thin, "both", dev, **caps)
+    check(bool(ok), "the minimum-image inputs' flag")
+    s = torch.as_tensor(s, dtype=torch.int32, device=dev)
+    L = probe_pbc_lag(lambda L: lag_pairs.lag_coverage_ok(k, s, L, reach=reach), L_MAIN)
+    kw = dict(L=L, mi_box=mib, key_reach=reach)
+    folds = tuple(int(np.ceil(thin[a] / CUTOFF)) if float(mib[a]) > 0 else 0 for a in range(3))
+    mcand = periodic_stencil_candidates(k, s, folds)
+    cut = combine_count(pair_lag_reduce(sh, k, s, csq, term=count_term,
+                                        out_dtype=torch.int32, **kw))
+    kept = combine_count(pair_lag_reduce(sh, k, s, csq, None, pay, term=PbcKeepTerm(count_term),
+                                         out_dtype=torch.int32, **kw))
+    plain_ms, _ = once_ms(lambda: pair_lag_stress_plain(sh, k, s, csq, None, pay, gfn=lj.gfn,
+                                                        pair_mask=pbc_keep, **kw))
+    row("K4_table_keep_minimage_f32",
+        lambda: pair_lag_stress(sh, k, s, csq, None, pay, gfn=lj.gfn, pair_mask=pbc_keep, **kw),
+        lambda: pair_lag_stress(sh, k, s, csq, None, pay, gfn=lj_force_factor,
+                                pair_mask=pbc_keep, **kw),
+        bound(sh.shape[0] * 4 * (3 + 1 + 1),
+              mcand * (INSTR_PER_CANDIDATE[False] + 2 * INSTR_MI_FOLD[False])
+              + cut * INSTR_KEEP + kept * INSTR_PER_STRESS_PAIR),
+        dict(plain_ms=plain_ms, plain_n=n), rows=sh.shape[0], L=L, pairs=kept,
+        cutoff_pairs=cut, candidates=mcand)
+    del sh, k, pay
+    # K8 maskless on the cube, and with the keep mask on the ghost-extended cube
+    pts, side = cube_points(n)
+    cube = np.array([side] * 3)
+    shi, _, keys, info, _ = sort_split(pts, dev)
+    inp = tile_inputs(shi.t().contiguous(), keys, info.strides, CB=CB, MAXJ=OBS_MAXJ,
+                      bandmask=False)
+    check(bool(inp.coverage_ok), "K8 table coverage on the cube")
+    ccand = stencil_candidates(keys, info)
+    cpairs = combine_count(reduce_tiles(inp, csq, term=count_term, out_dtype=torch.int32))
+
+    def k8_plain(m):
+        h, _, kk, inf, _ = sort_split(cube_points(m)[0], dev)
+        x = tile_inputs(h.t().contiguous(), kk, inf.strides, CB=CB, MAXJ=OBS_MAXJ,
+                        bandmask=False)
+        return once_ms(lambda: stress_tiles_plain(x, csq, gfn=lj.gfn))[0]
+
+    row("K8_table_f32", lambda: stress_tiles(inp, csq, gfn=lj.gfn),
+        lambda: stress_tiles(inp, csq, gfn=lj_force_factor),
+        bound(n * 4 * (3 + 1) + inp.bounds.numel() * 4,
+              ccand * INSTR_PER_CANDIDATE[False] + cpairs * INSTR_PER_STRESS_PAIR),
+        plain_time(k8_plain, n), pairs=cpairs, candidates=ccand, MAXJ=OBS_MAXJ)
+    del shi, keys, inp
+    Bc, Gc, BEc = suggest_pbc_capacity(n, cube, CUTOFF, with_multi=True)
+
+    def keep_inp(m):
+        cb = np.array([(m / 0.01) ** (1 / 3)] * 3)
+        bc, gc, bec = suggest_pbc_capacity(m, cb, CUTOFF, with_multi=True)
+        h, _, kk, ss, p, _, _, ok = pbc_sorted(
+            np.random.default_rng(7).random((m, 3)) * cb, cb, "keep", dev, B=bc, G=gc, BE=bec)
+        check(bool(ok), "the periodic cube's flag")
+        x = tile_inputs(h.t().contiguous(), kk, ss, CB=CB, MAXJ=PBC_MAXJ, bandmask=False)
+        check(bool(x.coverage_ok), f"coverage on the periodic cube at MAXJ {PBC_MAXJ}")
+        return h, kk, ss, p, x
+
+    sh, k, s, pay, kinp = keep_inp(n)
+    kcand = periodic_stencil_candidates(k, s)
+    kcut = combine_count(reduce_tiles(kinp, csq, term=count_term, out_dtype=torch.int32))
+    kkept = combine_count(reduce_tiles(kinp, csq, term=PbcKeepTerm(count_term), payload=pay,
+                                       out_dtype=torch.int32))
+
+    def keep_plain(m):
+        _, _, _, p, x = keep_inp(m)
+        return once_ms(lambda: stress_tiles_plain(x, csq, gfn=lj.gfn, payload=p,
+                                                  pair_mask=pbc_keep))[0]
+
+    row("K8_table_keep_f32",
+        lambda: stress_tiles(kinp, csq, gfn=lj.gfn, payload=pay, pair_mask=pbc_keep),
+        lambda: stress_tiles(kinp, csq, gfn=lj_force_factor, payload=pay, pair_mask=pbc_keep),
+        bound(sh.shape[0] * 4 * (3 + 1 + 1) + kinp.bounds.numel() * 4,
+              kcand * INSTR_PER_CANDIDATE[False] + kcut * INSTR_KEEP
+              + kkept * INSTR_PER_STRESS_PAIR),
+        plain_time(keep_plain, n), rows=sh.shape[0], pairs=kkept, cutoff_pairs=kcut,
+        candidates=kcand, MAXJ=PBC_MAXJ)
+    del sh, k, pay, kinp
+    out.update(K2_table_ptxas=ptxas_functions(lag_pairs.load_per_particle_kernel.log,
+                                              "table_kernel"),
+               K4_table_ptxas=ptxas_functions(lag_pairs.load_stress_kernel.log, "_table_"),
+               K8_table_ptxas=ptxas_functions(tile_pairs.load_stress_kernel.log, "_table_"))
+    return dict(n=n, instances=out)
+
+
+def obs_table_rows(tov, foc, toa) -> list:
+    """The kernels line's rows of the term table's instances of K2, K4 and
+    K8 (from `table_obs_alone`: ms beside the LJ instance's, plain ms,
+    bound; launches from `factory_obs_main_path`'s calls through the entry
+    points; max_abs_err: the largest error of `table_obs_vs_plain` on the
+    lattice, over its scale)."""
+    rows = []
+    for name, src, replaces, key, instance, launches, kernel in (
+            ("lag_per_particle_table", "lag_per_particle", "zelll_tpu/ops/pallas_pairs.py:401",
+             "K2_table_f32", "term table, lennard_jones(), f32",
+             foc["calls"]["pair_lag_per_particle_thin"]["launches"], "K2"),
+            ("lag_stress_table", "lag_stress", "zelll_tpu/ops/pallas_pairs.py:1018",
+             "K4_table_split", "term table, lennard_jones(), open, split",
+             foc["calls"]["fused_stress_open_thin"]["launches"], "K4"),
+            ("lag_stress_table_keep_minimage", "lag_stress", "zelll_tpu/ops/pallas_pairs.py:1018",
+             "K4_table_keep_minimage_f32", "term table, keep mask and minimum image, f32",
+             foc["calls"]["pbc_stress_fused_thin_minimage"]["launches"], "K4"),
+            ("tile_stress_table", "tile_stress", "zelll_tpu/ops/tile_pairs.py:735",
+             "K8_table_f32", "term table, lennard_jones(), maskless, f32",
+             foc["calls"]["fused_stress_open_cube"]["launches"], "K8"),
+            ("tile_stress_table_keep", "tile_stress", "zelll_tpu/ops/tile_pairs.py:735",
+             "K8_table_keep_f32", "term table, keep mask, maskless, f32",
+             foc["calls"]["pbc_stress_fused_cube_tile"]["launches"], "K8")):
+        r = toa["instances"][key]
+        rows.append(dict(name=name, route="cuda", source=f"zelll_tpu_torch/csrc/{src}.cu",
+                         replaces=replaces, instance=instance, launches=launches,
+                         max_abs_err=tov["lattice_max_abs_err"][kernel],
+                         max_err_of_scale=tov["max_err_of_scale"][kernel],
+                         ms=r["ms"], lj_instance_ms=r["lj_ms"], plain_ms=r["plain_ms"],
+                         plain_n=r["plain_n"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         share_of_bound=r["share_of_bound"], library_ms=None))
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5107,7 +5747,18 @@ def main() -> None:
     emit("npt_main_path", **npt_main_path(dev, N_MAIN))
     emit("pbc_obs_parity", **pbc_obs_parity(dev, N_PARITY))
 
-    # -- 22. every ported kernel ---------------------------------------------------
+    # -- 22. differentiable potentials (K1 + K3, K6 + K7) and the term table in
+    # K2, K4 and K8 -----------------------------------------------------------
+    emit("autodiff_main_path", **autodiff_main_path(dev, N_MAIN))
+    emit("autodiff_parity", **autodiff_parity(dev, N_PARITY))
+    tov = table_obs_vs_plain(dev, N_CHECK)
+    emit("table_obs_vs_plain", **tov)
+    foc = factory_obs_main_path(dev, N_PARITY)
+    emit("factory_obs_main_path", **foc)
+    toa = table_obs_alone(dev, N_MAIN)
+    emit("table_obs_alone", **toa)
+
+    # -- 23. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
@@ -5274,9 +5925,9 @@ def main() -> None:
         ("tile_hist_keep", "tile_hist", "K9", "K9_keep", ("cube_rdf",),
          "zelll_tpu/ops/tile_pairs.py:453 (payload row, pair_mask)",
          "periodic keep mask over the payload row, cube with ghost images, K = 32, f32"),
-    )), *table_rows(spm, pmp)]}), flush=True)
+    )), *table_rows(spm, pmp), *obs_table_rows(tov, foc, toa)]}), flush=True)
 
-    # -- 23. the card, then the contract line -----------------------------------
+    # -- 24. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -1642,3 +1642,268 @@ def test_species_kernels_match_plain_on_card(cuda_device):
         pair_lag_forces(shi, keys, strides, csq, None, pay, gfn=lambda d, a, b: d)
     with pytest.raises(ValueError, match="sorted_payload"):
         pair_lag_forces(shi, keys, strides, csq, gfn=pot.gfn)
+
+
+def _stress_scale(plain, *args, gfn, **kw):
+    """A bound of sum |g d_a d_b| over a stress call's pairs: the trace of
+    the plain version's stress with |gfn| (|d_a d_b| <= (d_a^2 + d_b^2) / 2)."""
+    def absg(dsq):
+        return gfn(dsq).abs()
+
+    out = plain(*args, gfn=absg, out_dtype=torch.float64, **kw)
+    return float(torch.trace(out[0] if isinstance(out, tuple) else out))
+
+
+def _stress_close(got, want, scale, what):
+    torch.cuda.synchronize()
+    err = float((got.double() - want.double()).abs().max())
+    assert np.isfinite(err) and err <= TOL_TABLE_ENERGY * scale, (what, err, scale)
+
+
+@pytest.mark.gpu
+def test_table_per_particle_kernel_matches_plain_on_card(cuda_device):
+    """K2's term-table instance against its plain version on the same sorted
+    CUDA tensors: every factory of ops.potentials (`_table_potentials`) in
+    energy and virial mode on the thin table lattice, and the LJ and Morse
+    terms on the prune's hard inputs (facing clusters, drifted), f32. K2
+    writes f32 rows, each the f32 rounding of an f64 sum: a row may differ
+    from the plain version's by one f32 ulp where the two f64 sums (summed
+    in another order) round apart, else by TOL_TABLE_ENERGY of the row's sum
+    of |term|. f64 coordinates with a table term, the species term and a
+    force factor raise."""
+    from zelll_tpu_torch.ops.lag_pairs import suggest_lag
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed
+    from zelll_tpu_torch.ops.virial import virial_term_from_gfn
+
+    rng = np.random.default_rng(21)
+    csq = TABLE_CUTOFF**2
+    pots = _table_potentials()
+    hard = ("lennard_jones", "morse")
+    for name, (shi, _, keys, strides) in _table_lattice((8, 8, 320), cuda_device, rng).items():
+        L = suggest_lag(keys, strides)
+        for pname, pot in pots.items():
+            if name != "lattice" and pname not in hard:
+                continue
+            for term in (pot.term, virial_term_from_gfn(pot.gfn)):
+                before = pair_lag_per_particle.launches
+                got = pair_lag_per_particle(shi, keys, strides, csq, L=L, term=term)
+                assert pair_lag_per_particle.launches == before + 1
+                want = pair_lag_per_particle_plain(shi, keys, strides, csq, L=L, term=term)
+                scale = pair_lag_per_particle_plain(shi, keys, strides, csq, L=L,
+                                                    term=_abs_term(term)).double()
+                torch.cuda.synchronize()
+                assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+                ulp = (torch.nextafter(want, torch.full_like(want, float("inf"))) - want).double()
+                err = (got.double() - want.double()).abs()
+                assert bool((err <= torch.maximum(TOL_TABLE_ENERGY * scale, ulp)).all()), \
+                    (name, pname, float(err.max()))
+    with pytest.raises(ValueError, match="float32 coordinates only"):
+        pair_lag_per_particle(shi.double(), keys, strides, csq, L=L, term=pots["morse"].term)
+    with pytest.raises(ValueError, match="but lennard_jones_mixed"):
+        pair_lag_per_particle(shi, keys, strides, csq, L=L,
+                              term=lennard_jones_mixed((1.0,), (1.0,)).term)
+    with pytest.raises(ValueError, match="but lennard_jones_mixed"):
+        pair_lag_per_particle(shi, keys, strides, csq, L=L, term=pots["morse"].gfn)
+
+
+@pytest.mark.gpu
+def test_table_lag_stress_kernel_matches_plain_on_card(cuda_device):
+    """K4's term-table instances against their plain version on the same
+    sorted CUDA tensors, f64 stress to TOL_TABLE_ENERGY of sum |g d_a d_b|
+    (`_stress_scale`): every factory's gfn on the thin table lattice and the
+    LJ and Morse factors on the prune's hard inputs, f32 and split (the open
+    rule); the shifted LJ(1, 4) and a Morse factor that reach cutoff 10 on
+    the periodic inputs of `_pbc_cases` (the lattice, the rounding seam box
+    and the drifted lattice) under the keep mask, the minimum image and
+    both, f32 and split. A derived factor (no spec) and f64 coordinates
+    with a table factor raise."""
+    from zelll_tpu_torch.ops.autodiff import gfn_from_term
+    from zelll_tpu_torch.ops.lag_pairs import pbc_keep, suggest_lag
+    from zelll_tpu_torch.ops.potentials import lennard_jones, morse, shifted
+
+    rng = np.random.default_rng(22)
+    f64 = torch.float64
+    csq = TABLE_CUTOFF**2
+    pots = _table_potentials()
+    hard = ("lennard_jones", "morse")
+    for name, (shi, slo, keys, strides) in _table_lattice((8, 8, 320), cuda_device, rng).items():
+        L = suggest_lag(keys, strides)
+        for plo in (None, slo):
+            for pname, pot in pots.items():
+                if name != "lattice" and pname not in hard:
+                    continue
+                args = (shi, keys, strides, csq, plo)
+                before = pair_lag_stress.launches
+                got = pair_lag_stress(*args, L=L, gfn=pot.gfn, out_dtype=f64)
+                assert pair_lag_stress.launches == before + 1
+                want = pair_lag_stress_plain(*args, L=L, gfn=pot.gfn, out_dtype=f64)
+                scale = _stress_scale(pair_lag_stress_plain, *args, L=L, gfn=pot.gfn)
+                _stress_close(got, want, scale, (name, plo is not None, pname))
+    with pytest.raises(ValueError, match="but lennard_jones_mixed"):
+        pair_lag_stress(shi, keys, strides, csq, L=L, gfn=gfn_from_term(pots["morse"].term))
+    with pytest.raises(ValueError, match="float32 coordinates only"):
+        pair_lag_stress(shi.double(), keys, strides, csq, L=L, gfn=pots["morse"].gfn)
+    periodic = {"shifted": shifted(lennard_jones(1.0, 4.0), CUTOFF),
+                "morse": morse(1.3, 0.5, 4.5)}
+    for (kind, tag), (shi, slo, keys, strides, pay, mib, reach) in \
+            _pbc_cases(20_000, cuda_device).items():
+        if tag not in ("lattice", "seam_round", "drifted"):
+            continue
+        L = suggest_lag(keys, strides, reach=reach)
+        mask = None if pay is None else pbc_keep
+        for plo in (None, slo):
+            for pname, pot in periodic.items():
+                args = (shi, keys, strides, CUTOFF**2, plo, pay)
+                kw = dict(L=L, pair_mask=mask, mi_box=mib, key_reach=reach)
+                before = pair_lag_stress.launches
+                got = pair_lag_stress(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+                assert pair_lag_stress.launches == before + 1
+                want = pair_lag_stress_plain(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+                scale = _stress_scale(pair_lag_stress_plain, *args, gfn=pot.gfn, **kw)
+                _stress_close(got, want, scale, (kind, tag, plo is not None, pname))
+
+
+@pytest.mark.gpu
+def test_table_tile_stress_kernel_matches_plain_on_card(cuda_device):
+    """K8's term-table instances against their plain version on the same
+    sorted CUDA tensors, f64 stress to TOL_TABLE_ENERGY of sum |g d_a d_b|:
+    every factory's gfn on the cubic table lattice and the LJ and Morse
+    factors on the prune's hard inputs, f32 and split, maskless and
+    band-masked (open); the shifted LJ(1, 4) and a Morse factor at cutoff 10
+    with the keep mask on the ghost-extended cubes of `_pbc_cube_cases`
+    (lattice, seam, drifted), f32 and split, maskless and band-masked. A
+    derived factor and f64 planes with a table factor raise."""
+    from zelll_tpu_torch.ops.autodiff import gfn_from_term
+    from zelll_tpu_torch.ops.lag_pairs import pbc_keep
+    from zelll_tpu_torch.ops.potentials import lennard_jones, morse, shifted
+
+    rng = np.random.default_rng(23)
+    f64 = torch.float64
+    csq = TABLE_CUTOFF**2
+    pots = _table_potentials()
+    hard = ("lennard_jones", "morse")
+    for name, (shi, slo, keys, strides) in _table_lattice((28, 28, 28), cuda_device, rng).items():
+        maxj = _maxj(keys, strides)
+        for plo in (None, slo):
+            for bandmask in (False, True):
+                for pname, pot in pots.items():
+                    if name != "lattice" and pname not in hard:
+                        continue
+                    args = (shi, keys, strides, csq, plo)
+                    kw = dict(MAXJ=maxj, bandmask=bandmask)
+                    before = tile_pair_stress.launches
+                    got, ok = tile_pair_stress(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+                    assert tile_pair_stress.launches == before + 1 and bool(ok)
+                    want, _ = tile_pair_stress_plain(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+                    scale = _stress_scale(tile_pair_stress_plain, *args, gfn=pot.gfn, **kw)
+                    _stress_close(got, want, scale, (name, plo is not None, bandmask, pname))
+    with pytest.raises(ValueError, match="but lennard_jones_mixed"):
+        tile_pair_stress(shi, keys, strides, csq, MAXJ=maxj,
+                         gfn=gfn_from_term(pots["morse"].term))
+    with pytest.raises(ValueError, match="float32 coordinates only"):
+        tile_pair_stress(shi.double(), keys, strides, csq, MAXJ=maxj, gfn=pots["morse"].gfn)
+    periodic = {"shifted": shifted(lennard_jones(1.0, 4.0), CUTOFF),
+                "morse": morse(1.3, 0.5, 4.5)}
+    for tag, (shi, slo, keys, strides, pay, _, _) in \
+            _pbc_cube_cases(50_000, cuda_device, rng).items():
+        if tag == "uniform":
+            continue
+        maxj = _maxj(keys, strides)
+        for plo in (None, slo):
+            for bandmask in (False, True):
+                for pname, pot in periodic.items():
+                    args = (shi, keys, strides, CUTOFF**2, plo, pay)
+                    kw = dict(MAXJ=maxj, bandmask=bandmask, pair_mask=pbc_keep)
+                    before = tile_pair_stress.launches
+                    got, ok = tile_pair_stress(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+                    assert tile_pair_stress.launches == before + 1 and bool(ok)
+                    want, _ = tile_pair_stress_plain(*args, gfn=pot.gfn, out_dtype=f64, **kw)
+                    scale = _stress_scale(tile_pair_stress_plain, *args, gfn=pot.gfn, **kw)
+                    _stress_close(got, want, scale, (tag, plo is not None, bandmask, pname))
+
+
+@pytest.mark.gpu
+def test_make_pair_potential_on_card(cuda_device):
+    """`ops.autodiff.make_pair_potential` on CUDA tensors: each call with its
+    gradient launches exactly one energy kernel and one forces kernel (K1
+    and K3 on the lag path, K6 and K7 on the tile path), the energy equals
+    the direct call on the same sorted inputs and the gradient minus the
+    direct forces, for `lj_term` and a factory's term (its own gfn), f32 and
+    split; the same potential on CPU tensors agrees to 1e-5 of the scale (f32
+    plain versions in another order). f64 positions without split, a derived
+    force factor and the species term raise."""
+    from zelll_tpu_torch.ops.autodiff import gfn_from_term, make_pair_potential
+    from zelll_tpu_torch.ops.lag_pairs import suggest_lag
+    from zelll_tpu_torch.ops.potentials import lennard_jones_mixed, morse
+
+    rng = np.random.default_rng(24)
+    n = 20_000
+    thin = generate_points_random(n, lj_box(n, CUTOFF))
+    side = (n / 0.01) ** (1 / 3)
+    cube = generate_points_lattice(n, (side, side, side))
+    mo = morse(1.3, 0.5, 4.5)
+    for path, pts in (("lag", thin), ("tile", cube)):
+        pts = pts + rng.uniform(-0.1, 0.1, pts.shape)
+        hi64 = torch.as_tensor(pts, device=cuda_device)
+        hi32 = hi64.float()
+        info = GridInfo.create(aabb_from_positions(hi32), CUTOFF, auto_order=True)
+        keys, perm = torch.sort(compute_keys(hi32, info))
+        L = suggest_lag(keys, info.strides)
+        maxj, fmaxj = _maxj(keys, info.strides), _full_maxj(keys, info.strides)
+        for split in (False, True):
+            x = (hi64 if split else hi32).clone()
+            for term in (lj_term, mo.term):
+                pot = make_pair_potential(CUTOFF, term=term, path=path, L=L, MAXJ=maxj,
+                                          MAXJ_F=fmaxj, split=split)
+                counts = (pair_lag_reduce.launches, pair_lag_forces.launches,
+                          tile_pair_reduce.launches, tile_pair_forces.launches)
+                xg = x.clone().requires_grad_(True)
+                e, ok = pot(xg)
+                (g,) = torch.autograd.grad(e, xg)
+                torch.cuda.synchronize()
+                after = (pair_lag_reduce.launches, pair_lag_forces.launches,
+                         tile_pair_reduce.launches, tile_pair_forces.launches)
+                diff = [a - b for a, b in zip(after, counts)]
+                assert diff == ([1, 1, 0, 0] if path == "lag" else [0, 0, 1, 1]), diff
+                assert bool(ok) and g.dtype == x.dtype
+                # the direct calls on the same sorted inputs
+                if split:
+                    h, lo = split_f64(x)
+                    skeys, p, sh, sl = sort_by_key(compute_keys(h, info), h, lo)
+                else:
+                    skeys, p, sh = sort_by_key(compute_keys(x, info), x)
+                    sl = None
+                gfn = lj_force_factor if term is lj_term else mo.gfn
+                if path == "lag":
+                    e_d = pair_lag_reduce(sh, skeys, info.strides, CUTOFF**2, sl, L=L,
+                                          term=term, out_dtype=e.dtype)
+                    f_d = pair_lag_forces(sh, skeys, info.strides, CUTOFF**2, sl, L=L, gfn=gfn,
+                                          out_dtype=g.dtype)
+                else:
+                    e_d, _ = tile_pair_reduce(sh, skeys, info.strides, CUTOFF**2, sl, MAXJ=maxj,
+                                              term=term, out_dtype=e.dtype)
+                    f_d, _ = tile_pair_forces(sh, skeys, info.strides, CUTOFF**2, sl,
+                                              MAXJ=fmaxj, gfn=gfn, out_dtype=g.dtype)
+                f_in = torch.empty_like(f_d).index_copy_(0, p, f_d)
+                scale = float(f_in.abs().max())
+                e = e.detach()
+                assert abs(float(e) - float(e_d)) <= 1e-12 * abs(float(e_d)), (path, split)
+                assert float((g + f_in).abs().max()) <= 1e-12 * scale, (path, split)
+                # the plain versions on the CPU
+                cpot = make_pair_potential(CUTOFF, term=term, path=path, L=L, MAXJ=maxj,
+                                           MAXJ_F=fmaxj, split=split, device="cpu")
+                xc = x.cpu().requires_grad_(True)
+                ec, okc = cpot(xc)
+                (gc,) = torch.autograd.grad(ec, xc)
+                assert bool(okc)
+                assert abs(float(ec) - float(e)) <= 1e-5 * abs(float(ec))
+                assert float((gc - g.cpu()).abs().max()) <= 1e-5 * scale, (path, split)
+    with pytest.raises(ValueError, match="float32 coordinates"):
+        make_pair_potential(CUTOFF, L=L)(hi64)
+    with pytest.raises(ValueError, match="ops.potentials"):
+        xg = hi32.clone().requires_grad_(True)
+        e, _ = make_pair_potential(CUTOFF, term=mo.term, gfn=gfn_from_term(mo.term), path="tile",
+                                   MAXJ=maxj, MAXJ_F=fmaxj)(xg)
+        torch.autograd.grad(e, xg)
+    with pytest.raises(ValueError, match="species plane"):
+        make_pair_potential(CUTOFF, term=lennard_jones_mixed((1.0,), (1.0,)).term)

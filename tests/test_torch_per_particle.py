@@ -137,6 +137,17 @@ def test_refusals():
         _lag_per_particle_cuda(pts, keys, strides, 1.0, L=8, term=lambda d: d)
     with pytest.raises(ValueError, match="float32 or float64"):
         _lag_per_particle_cuda(pts.half(), keys, strides, 1.0, L=8, term=count_term)
+    # the term table: a factory's term with f64 coordinates, and the species
+    # term (K2 reads no payload plane)
+    from zelll_tpu_torch.ops import potentials as P
+
+    with pytest.raises(ValueError, match="float32 coordinates only"):
+        _lag_per_particle_cuda(pts, keys, strides, 1.0, L=8, term=P.morse().term)
+    with pytest.raises(ValueError, match="but lennard_jones_mixed"):
+        _lag_per_particle_cuda(pts.float(), keys, strides, 1.0, L=8,
+                               term=P.lennard_jones_mixed((1.0,), (1.0,)).term)
+    with pytest.raises(ValueError, match="but lennard_jones_mixed"):
+        _lag_per_particle_cuda(pts.float(), keys, strides, 1.0, L=8, term=P.morse().gfn)
     # any term runs on the plain path
     out = pair_lag_per_particle(pts, keys, strides, 4.0, L=64, term=lambda d: d)
     assert out.shape == (50,) and bool((out >= 0).all())

@@ -12,7 +12,14 @@ f64 brute force, as the JAX package's own test holds its kernels; species
 MD, species PBC forces and the sorted-extremes path to 1e-9 relative
 against the JAX package (sums in another order through unstable sorts);
 pair counts, flags and the species rule exact. JAX runs under jax.jit,
-one executable per call (ROADMAP Tier-1 budget)."""
+one executable per call (ROADMAP Tier-1 budget).
+
+The differentiable potentials (`ops.autodiff.make_pair_potential`) mirror
+tests/test_autodiff.py: energies to 1e-9 and gradients to 1e-8 against an
+f64 brute force (relative, as there), split gradients to 2e-6 of the
+largest force, `gfn_from_term` and a factory's default gfn to 1e-12 of the
+largest factor, `torch.func.grad` against `torch.autograd.grad` to 1e-12,
+and one jitted call of the JAX package's `make_pair_potential` to 1e-9."""
 
 import functools
 
@@ -26,11 +33,12 @@ from xla_release import release_xla_executables  # noqa: F401
 
 import zelll_tpu.ops.pbc as jpbc
 import zelll_tpu.ops.potentials as JP
+from zelll_tpu.ops.autodiff import make_pair_potential as jax_make_pair_potential
 from zelll_tpu.models import lj_md as jax_md
 from zelll_tpu_torch.convert import md_state_from_numpy
 from zelll_tpu_torch.core.binning import bin_and_sort
 from zelll_tpu_torch.models import lj_md
-from zelll_tpu_torch.ops import pbc
+from zelll_tpu_torch.ops import gfn_from_term, lj_force_factor, make_pair_potential, pbc
 from zelll_tpu_torch.ops import potentials as P
 from zelll_tpu_torch.ops.lag_pairs import (
     PbcKeepTerm,
@@ -73,6 +81,143 @@ def sorted_rows(*cols):
     return a[np.lexsort(a.T[::-1])]
 
 
+def lj_np(dsq):
+    inv = 1.0 / dsq
+    i6 = inv * inv * inv
+    return 4.0 * (i6 * i6 - i6)
+
+
+def dlj_np(dsq):
+    # dV/d(dsq) with V = 4 (t^2 - t), t = dsq^-3: -12 t (2t - 1) / dsq
+    inv = 1.0 / dsq
+    i6 = inv * inv * inv
+    return -12.0 * i6 * (2.0 * i6 - 1.0) * inv
+
+
+def brute_energy_forces(pts, cutoff, term, dterm):
+    """tests/test_autodiff.py's O(n^2) f64 oracle: E = sum term(dsq),
+    f_i = -dE/dp_i."""
+    n = len(pts)
+    d = pts[:, None, :] - pts[None, :, :]
+    dsq = (d * d).sum(-1)
+    mask = (dsq < cutoff**2) & ~np.eye(n, dtype=bool)
+    e = 0.5 * (np.where(mask, term(np.where(mask, dsq, 1.0)), 0.0)).sum()
+    w = np.where(mask, dterm(np.where(mask, dsq, 1.0)), 0.0)
+    return e, -2.0 * (w[:, :, None] * d).sum(axis=1)
+
+
+def value_and_grad(pot, pts, **kw):
+    """((E, ok), dE/dp) of a port potential on f64 CPU positions."""
+    x = torch.as_tensor(pts, **kw).requires_grad_(True)
+    e, ok = pot(x)
+    (g,) = torch.autograd.grad(e, x)
+    return (e.detach(), ok), g
+
+
+def check_autodiff():
+    """tests/test_autodiff.py's seven checks on the port's potential (CPU
+    tensors: the plain versions of K1, K3, K6 and K7), a factory's default
+    gfn, and one case against the JAX package's potential."""
+    # the LJ gradient is minus the brute-force forces, on both paths
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(0, 1, (500, 3)) * np.array([4.0, 4.0, 6.0])
+    e_ref, f_ref = brute_energy_forces(pts, 1.0, lj_np, dlj_np)
+    for path in ("lag", "tile"):
+        pot = make_pair_potential(1.0, path=path, M=512, L=512, MAXJ=8)
+        (e, ok), g = value_and_grad(pot, pts)
+        assert bool(ok) and e.dtype == F64 and g.dtype == F64
+        np.testing.assert_allclose(float(e), e_ref, rtol=1e-9)
+        np.testing.assert_allclose(g.numpy(), -f_ref, rtol=1e-8, atol=1e-10)
+        # torch.func.grad composes with the autograd.Function
+        gf, ok_f = torch.func.grad(pot, has_aux=True)(torch.as_tensor(pts))
+        assert bool(ok_f)
+        np.testing.assert_allclose(gf.numpy(), g.numpy(), rtol=1e-12, atol=0)
+
+    # a custom term with the force factor derived by autodiff
+    def soft(dsq):
+        return (1.0 - dsq) ** 2
+
+    def dsoft(dsq):
+        return -2.0 * (1.0 - dsq)
+
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(0, 1, (300, 3)) * 4.0
+    e_ref, f_ref = brute_energy_forces(pts, 1.0, soft, dsoft)
+    (e, ok), g = value_and_grad(make_pair_potential(1.0, term=soft, path="tile", MAXJ=8), pts)
+    assert bool(ok)
+    np.testing.assert_allclose(float(e), e_ref, rtol=1e-9)
+    np.testing.assert_allclose(g.numpy(), -f_ref, rtol=1e-8, atol=1e-12)
+
+    # gfn_from_term matches the handwritten LJ factor
+    dsq = torch.as_tensor(np.linspace(0.3, 2.0, 64))
+    np.testing.assert_allclose(gfn_from_term(lj_term)(dsq).numpy(),
+                               lj_force_factor(dsq).numpy(), rtol=1e-12)
+
+    # the 2-D tile path
+    rng = np.random.default_rng(13)
+    pts = rng.uniform(0, 1, (250, 2)) * 5.0
+    _, f_ref = brute_energy_forces(pts, 1.0, lj_np, dlj_np)
+    (_, ok), g = value_and_grad(make_pair_potential(1.0, path="tile", MAXJ=8), pts)
+    assert bool(ok)
+    np.testing.assert_allclose(g.numpy(), -f_ref, rtol=1e-8, atol=1e-10)
+
+    # an undersized forces capacity poisons the whole gradient with NaN
+    rng = np.random.default_rng(17)
+    pts = rng.uniform(0, 1, (1500, 3)) * 5.0
+    (_, ok), g = value_and_grad(make_pair_potential(1.0, path="tile", MAXJ=8, MAXJ_F=1), pts)
+    assert bool(ok) and bool(torch.isnan(g).all())
+
+    # split gradients in a box 1e4 from the origin, f64-grade
+    rng = np.random.default_rng(23)
+    pts = rng.uniform(0, 1, (400, 3)) * np.array([3.0, 3.0, 40.0])
+    pts[:, 2] += 1e4
+    e_ref, f_ref = brute_energy_forces(pts, 1.0, lj_np, dlj_np)
+    scale = np.abs(f_ref).max()
+    for path in ("lag", "tile"):
+        pot = make_pair_potential(1.0, path=path, M=256, L=128, MAXJ=8, split=True)
+        (e, ok), g = value_and_grad(pot, pts)
+        assert bool(ok)
+        np.testing.assert_allclose(float(e), e_ref, rtol=1e-6)
+        np.testing.assert_allclose(g.numpy() / scale, -f_ref / scale, atol=2e-6)
+
+    # a factory's term (and a shifted one) takes the factory's own gfn,
+    # which equals the one autodiff derives; through the potential, the
+    # gradient is minus the brute-force forces of that gfn
+    dsq = np.linspace(0.6, 4.0, 61) ** 2
+    for name, args, kw in ALL + [("shifted", (), {})]:
+        pt = (P.shifted(P.lennard_jones(), 2.5) if name == "shifted"
+              else getattr(P, name)(*args, **kw))
+        assert P.factory_gfn(pt.term) is pt.gfn
+        want = pt.gfn(torch.as_tensor(dsq)).numpy()
+        got = gfn_from_term(pt.term)(torch.as_tensor(dsq)).numpy()
+        keep = np.abs(dsq - 2.0 ** (1 / 3) * 1.1**2) > 1e-2 if name == "wca" else slice(None)
+        np.testing.assert_allclose(got[keep], want[keep], rtol=0,
+                                   atol=1e-12 * np.abs(want).max(), err_msg=name)
+    assert P.factory_gfn(lj_term) is None and P.factory_gfn(P.morse().gfn) is None
+    pot = P.morse(1.3, 2.0, 1.1)
+    pts = jittered_lattice((3, 3, 8), seed=9)
+    e_ref, f_ref = brute_energy_forces(
+        pts, 2.5, lambda d: pot.term(torch.as_tensor(d)).numpy(),
+        lambda d: -0.5 * pot.gfn(torch.as_tensor(d)).numpy())
+    (e, ok), g = value_and_grad(make_pair_potential(2.5, term=pot.term, L=512), pts)
+    assert bool(ok)
+    assert abs(float(e) - e_ref) <= 1e-9 * abs(e_ref)
+    np.testing.assert_allclose(g.numpy(), -f_ref, rtol=0, atol=1e-9 * np.abs(f_ref).max())
+    with pytest.raises(ValueError, match="species plane"):
+        make_pair_potential(2.5, term=P.lennard_jones_mixed(*MIXED).term)
+
+    # the JAX package's own potential, jitted (Pallas in interpret mode)
+    rng = np.random.default_rng(19)
+    pts = rng.uniform(0, 1, (200, 3)) * 4.0
+    jpot = jax_make_pair_potential(1.0, path="lag", M=256, L=128, interpret=True)
+    (e_j, ok_j), g_j = jax.jit(jax.value_and_grad(jpot, has_aux=True))(jnp.asarray(pts))
+    (e, ok), g = value_and_grad(make_pair_potential(1.0, path="lag", L=128), pts)
+    assert bool(ok) and bool(ok_j)
+    assert abs(float(e) - float(e_j)) <= 1e-9 * abs(float(e_j))
+    g_j = np.asarray(g_j)
+    np.testing.assert_allclose(g.numpy(), g_j, rtol=0, atol=1e-9 * np.abs(g_j).max())
+
+
 def test_potentials_match_jax():
     """Every factory's term and gfn against the JAX package's (to 1e-12),
     gfn = -2 dV/d(dsq) by autograd, the cache identity, the device spec
@@ -82,7 +227,8 @@ def test_potentials_match_jax():
     rule on 0, 1, S - 1, S, -1 and 0.5 against the JAX package's, and the
     fused energy and forces of every factory (and the mixed pair over a
     species column) through the lag and tile plain paths against an f64
-    brute force (the JAX package's test_fused_energy_and_forces_all_paths)."""
+    brute force (the JAX package's test_fused_energy_and_forces_all_paths);
+    then the differentiable potentials (`check_autodiff`)."""
     dsq = np.linspace(0.6, 4.0, 61) ** 2
     pots = {}
     for name, args, kw in ALL:
@@ -183,6 +329,7 @@ def test_potentials_match_jax():
             w_ref = float(np.where(upper, gfn(safe).numpy() * np.where(within, dsq2, 0.0),
                                    0.0).sum())
             assert abs(float(w) - w_ref) <= 1e-9 * max(abs(w_ref), fscale), name
+    check_autodiff()
 
 
 @functools.partial(jax.jit, static_argnames=("box", "mi", "pot"))

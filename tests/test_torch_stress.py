@@ -351,7 +351,11 @@ def test_coincident_points_are_excluded(path):
 
 def test_payload_rules_on_cpu():
     """The plain versions take the JAX kernels' payload rules: a pair mask,
-    a multiplicative pair weight and min_islot, against brute force."""
+    a multiplicative pair weight and min_islot, against brute force; and
+    the term table's functions (an ops.potentials factory's gfn and term, a
+    shifted term, a virial term) on the plain versions of K2, K4 and K8
+    against the JAX kernels on the same sorted inputs (one jitted call, f64,
+    to 1e-10 of the largest value)."""
     rng = np.random.default_rng(14)
     pts = rng.uniform(0, 1, (500, 3)) * [3.0, 3.0, 30.0]
     sp, keys, strides = _sorted(pts, 1.3, np.float64)
@@ -414,6 +418,42 @@ def test_payload_rules_on_cpu():
                     pbc_stress_fused(x, o, box, 1.0, path="tile", MAXJ=16)):
         assert bool(ok)
         assert np.abs(sig.numpy() - s_ref).max() <= 1e-9 * np.abs(s_ref).max()
+    # the term table's functions on the plain versions of K2, K4 and K8
+    # against the JAX kernels: the JAX potentials' lattice (spacing 1.25 at
+    # cutoff 2.5), sorted in f64
+    import zelll_tpu.ops.potentials as JP
+    from zelll_tpu.ops.pallas_pairs import pair_lag_per_particle as jax_k2
+    from zelll_tpu_torch.ops import potentials as P
+    from zelll_tpu_torch.ops.lag_pairs import pair_lag_per_particle
+
+    cells = np.stack(np.meshgrid(*[np.arange(k) for k in (4, 4, 16)], indexing="ij"), -1)
+    pts = (cells.reshape(-1, 3) + 0.5) * 1.25
+    pts = pts + np.random.default_rng(15).uniform(-0.2, 0.2, pts.shape)
+    sp, keys, strides = _sorted(pts, 2.5, np.float64)
+    L = suggest_lag(keys, strides)
+    jm, tm = JP.morse(1.3, 2.0, 1.1), P.morse(1.3, 2.0, 1.1)
+    js, ts = JP.shifted(JP.lennard_jones(), 2.5), P.shifted(P.lennard_jones(), 2.5)
+
+    @jax.jit
+    def ref_table(p, k, s):
+        k2 = dict(M=1024, L=L, interpret=True)
+        return (jax_k2(p, k, s, 2.5**2, term=js.term, **k2),
+                jax_k2(p, k, s, 2.5**2, term=jm.term, **k2),
+                jax_k2(p, k, s, 2.5**2, term=jax_virial.virial_term_from_gfn(jm.gfn), **k2),
+                jax_lag_stress(p, k, s, 2.5**2, gfn=jm.gfn, M=max(256, L), L=L,
+                               interpret=True),
+                jax_tile_stress(p, k, s, 2.5**2, gfn=jm.gfn, MAXJ=16, CB=1,
+                                interpret=True)[0])
+
+    want = [np.asarray(x) for x in ref_table(sp, keys, strides)]
+    targs = (torch.as_tensor(sp), torch.as_tensor(keys), torch.as_tensor(strides), 2.5**2)
+    got = [pair_lag_per_particle(*targs, L=L, term=t)
+           for t in (ts.term, tm.term, virial_term_from_gfn(tm.gfn))]
+    got += [pair_lag_stress(*targs, L=L, gfn=tm.gfn),
+            tile_pair_stress(*targs, MAXJ=16, CB=1, gfn=tm.gfn)[0]]
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float64
+        assert np.abs(g.numpy() - w).max() <= 1e-10 * np.abs(w).max(), k
     # the keep mask is the JAX package's `_pbc_keep_mask` and symmetric
     wv = torch.tensor([0.0, 1.0, -1.0])
     np.testing.assert_array_equal(
@@ -446,6 +486,23 @@ def test_refusals():
         tile_pair_stress(*args, sorted_payload=torch.zeros(50))
     with pytest.raises(ValueError, match="unknown path"):
         fused_stress_open(pts, 1.0, path="xla")
+    # K4 and K8 take a factory's gfn through the term table with f32 (or
+    # split) coordinates; a derived factor (no spec), an energy term and f64
+    # coordinates raise before anything launches
+    from zelll_tpu_torch.ops import gfn_from_term, lj_term
+    from zelll_tpu_torch.ops import potentials as P
+    from zelll_tpu_torch.ops.lag_pairs import _lag_stress_cuda
+    from zelll_tpu_torch.ops.tile_pairs import stress_tiles, tile_inputs
+
+    k4 = dict(L=8, pair_mask=None, mi_box=None, key_reach=None, out_dtype=torch.float64)
+    inp = tile_inputs(args[0].t().contiguous(), args[1], args[2], MAXJ=4)
+    for gfn, what in ((gfn_from_term(lj_term), "but lennard_jones_mixed"),
+                      (P.morse().term, "but lennard_jones_mixed"),
+                      (P.morse().gfn, "float32 coordinates only")):
+        with pytest.raises(ValueError, match=what):
+            _lag_stress_cuda(*args, None, None, gfn=gfn, **k4)
+        with pytest.raises(ValueError, match=what):
+            stress_tiles(inp, 1.0, gfn=gfn)
 
 
 def test_kinetic_terms_and_pressure_goldens():

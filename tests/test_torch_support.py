@@ -126,6 +126,11 @@ def test_import_without_jax_and_compute_on_cpu():
         "assert ok and c.sum() == h.sum()\n"
         "st, ok = z.md_run_langevin(st, 1.6, 1e-4, 0.1, 1.0, 0, steps=2)\n"
         "assert bool(ok) and st.positions.shape == (216, 3)\n"
+        "from zelll_tpu_torch.ops import make_pair_potential\n"
+        "x = torch.tensor(pts, requires_grad=True)\n"
+        "e, ok = make_pair_potential(1.0, path='tile', device='cpu')(x)\n"
+        "e.backward()\n"
+        "assert bool(ok) and bool(torch.isfinite(x.grad).all())\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'zelll_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -10,7 +10,9 @@
 //     0 < dsq < csq            (strict cutoff; coincident particles excluded)
 //
 // with dsq = (d0 d0 + d1 d1) + d2 d2, d = pos_p - pos_q, and term the
-// count (1) or LJ 4 t3 (t3 - 1) with t = 1/dsq by true division, t3 = t^3.
+// count (1), LJ 4 t3 (t3 - 1) with t = 1/dsq by true division, t3 = t^3,
+// or (f32 coordinates) any factory's energy or virial of
+// ops/potentials.py through the device term table (pair_table.cuh).
 // Both ends of a pair receive its term. Coordinates are f32 or f64 and
 // the output has their type.
 //
@@ -57,8 +59,8 @@
 //      a broadcast and sets the lane's hit bit where jlo_i <= j <= jhi_i
 //      (one unsigned range test) and 0 < dsq < csq hold (dsq > 0 also
 //      drops the own slot, as the plain version's lag >= 1 does); phase B
-//      adds the hits' popcount for the count (exact in f64), or the LJ term
-//      of each hit in ascending q.
+//      adds the hits' popcount for the count (exact in f64), or the LJ (or
+//      table) term of each hit in ascending q.
 // Every pair is evaluated from both ends, and both evaluations agree
 // bitwise (IEEE subtraction is exactly antisymmetric), so each end adds the
 // same term. The prune drops no pair that counts (cluster_sweep.cuh says
@@ -67,6 +69,14 @@
 // brute force, in f64 too). Sentinel rows are slots below n, so they join
 // their cluster's box; a box that spans to them keeps every candidate,
 // which is correct and only slow.
+//
+// The term table (TERM = kSumTable, f32 only): the table's kind, mode,
+// constants and shift (a TermTable) come as a second kernel parameter
+// beside Args, to lag_per_particle_table_kernel, so the instances above keep
+// their parameters and code; phase B evaluates table_term once per hit,
+// off the unrolled phase A, in the table's energy or virial mode. The
+// species term needs a payload plane that K2 does not read, so the C
+// interface refuses it.
 //
 // Accumulation: each lane sums its terms in f64, for both coordinate types,
 // and writes its sum once in the coordinates' type: no scatter, no atomics,
@@ -93,6 +103,7 @@ constexpr int kBuf = 2 * kWarp;  // a warp's buffer: a sweep + a cluster
 // are also the kernel's template values
 constexpr int kSumLj = 0;
 constexpr int kSumCount = 1;
+constexpr int kSumTable = 3;  // lag_pairs._TERM_TABLE
 
 template <typename T>
 struct Args {
@@ -127,10 +138,11 @@ __device__ __forceinline__ T lj_value(T dsq) {
 
 // Sweeps entries [0, cnt) of the warp's buffer (cnt <= 32, warp-uniform;
 // FULL: cnt == 32, unrolled): phase A sets the lane's hit bits (the range,
-// 0 < dsq < csq), phase B adds the count of the hits, or their LJ terms in
-// ascending q.
+// 0 < dsq < csq), phase B adds the count of the hits, or their LJ terms
+// (the table's terms: tab) in ascending q.
 template <typename T, int TERM, bool FULL, typename V = typename Vec4Of<T>::type>
-__device__ __forceinline__ void sum_sweep(SumLane<T>& o, const V* bh, int cnt, T csq) {
+__device__ __forceinline__ void sum_sweep(SumLane<T>& o, const V* bh, int cnt, T csq,
+                                          const TermTable* tab = nullptr) {
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   unsigned hits = 0u;
   auto hit = [&](int q) {
@@ -154,7 +166,12 @@ __device__ __forceinline__ void sum_sweep(SumLane<T>& o, const V* bh, int cnt, T
   while (hits != 0u) {
     const int q = __ffs(static_cast<int>(hits)) - 1;
     hits &= hits - 1u;
-    o.acc += static_cast<double>(lj_value(sep_dsq<false>(o.h, zero, bh[q], zero)));
+    // the table's term as a discarded branch: the LJ instances' code is as
+    // it was before the table came in
+    if constexpr (TERM == kSumTable)
+      o.acc += static_cast<double>(table_term(sep_dsq<false>(o.h, zero, bh[q], zero), *tab));
+    else
+      o.acc += static_cast<double>(lj_value(sep_dsq<false>(o.h, zero, bh[q], zero)));
   }
 }
 
@@ -165,16 +182,22 @@ struct SumSweeper {
   SumLane<T>& o;
   const V* bh;
   T csq;
+  const TermTable* tab = nullptr;
   __device__ __forceinline__ void store(int, int) {}
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    sum_sweep<T, TERM, FULL>(o, bh + at, cnt, csq);
+    if constexpr (TERM == kSumTable)
+      sum_sweep<T, TERM, FULL>(o, bh + at, cnt, csq, tab);
+    else
+      sum_sweep<T, TERM, FULL>(o, bh + at, cnt, csq);
   }
   __device__ __forceinline__ void shift(int, int, int) {}
 };
 
+// The kernel's body; the table instances read tab.
 template <typename T, int TERM>
-__global__ void __launch_bounds__(kBlock) lag_per_particle_kernel(Args<T> a) {
+__device__ __forceinline__ void lag_per_particle_body(const Args<T>& a,
+                                                      const TermTable* tab = nullptr) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kWarps][kBuf];
   const int w = threadIdx.x / kWarp;
@@ -217,15 +240,28 @@ __global__ void __launch_bounds__(kBlock) lag_per_particle_kernel(Args<T> a) {
   const int first = __shfl_sync(kAll, jlo, 0);
   const int last = __reduce_max_sync(kAll, real ? jhi : -1);
   const ClusterPrune<T, false> prune(o.h, zero, real, a.csq);
-  SumSweeper<T, TERM> sw{o, bh, a.csq};
+  SumSweeper<T, TERM> sw{o, bh, a.csq, tab};
   one_sided_walk<false, true>(a.pos, nullptr, 3, first, last, lane, prune, bh, nullptr, sw,
                               a.n);
   if (real) a.out[i] = static_cast<T>(o.acc);
 }
 
+template <typename T, int TERM>
+__global__ void __launch_bounds__(kBlock) lag_per_particle_kernel(Args<T> a) {
+  lag_per_particle_body<T, TERM>(a);
+}
+
+// The term table's instance (f32): the table beside Args, so the instances
+// above keep their parameters and code
+__global__ void __launch_bounds__(kBlock) lag_per_particle_table_kernel(Args<float> a,
+                                                                        TermTable tab) {
+  lag_per_particle_body<float, kSumTable>(a, &tab);
+}
+
 template <typename T>
 int launch(const void* pos, const void* keys, const void* w_key, int n, int L,
-           int spacing, double csq, int term, void* out, cudaStream_t s) {
+           int spacing, double csq, int term, void* out, const TermTable& t,
+           cudaStream_t s) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.keys = static_cast<const int32_t*>(keys);
@@ -236,6 +272,12 @@ int launch(const void* pos, const void* keys, const void* w_key, int n, int L,
   a.csq = static_cast<T>(csq);
   a.out = static_cast<T*>(out);
   const int blocks = (n + kBlock - 1) / kBlock;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (term == kSumTable) {
+      lag_per_particle_table_kernel<<<blocks, kBlock, 0, s>>>(a, t);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
   if (term == kSumLj)
     lag_per_particle_kernel<T, kSumLj><<<blocks, kBlock, 0, s>>>(a);
   else
@@ -251,19 +293,27 @@ extern "C" {
 // int32 ascending, SENTINEL_KEY rows last; w_key: one int32 on the device;
 // spacing: the padding-key spacing, (INT32_MAX - INT32_MAX / 2 - 1) / n at
 // least 1; csq: cutoff^2, rounded here to the coordinates' type; term: 0
-// for LJ, 1 for the count; out: (n,) of the coordinates' type. Returns
+// for LJ, 1 for the count, 3 (f32 only) for the device term table's term
+// (tkind, tmode and tvals: pair_table.cuh's kind, its energy or virial
+// mode and 6 floats, its 5 constants and the shift, in host memory; not
+// the species term); out: (n,) of the coordinates' type. Returns
 // cudaGetLastError() after the launch.
 int zelll_lag_per_particle(const void* pos, const void* keys, const void* w_key,
                            int n, int L, int spacing, double csq, int term,
-                           int f64, void* out, void* stream) {
+                           int f64, void* out, void* stream, int tkind, int tmode,
+                           const float* tvals) {
+  const bool table = term == kSumTable;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || L < 1 || spacing < 1 ||
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (term != kSumLj && term != kSumCount))
+      (term != kSumLj && term != kSumCount && !table) ||
+      (table && (f64 != 0 || tmode == kTableModeGfn ||
+                 !term_table_ok(tkind, tmode, false, nullptr, 0))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);
   auto s = static_cast<cudaStream_t>(stream);
   if (f64 != 0)
-    return launch<double>(pos, keys, w_key, n, L, spacing, csq, term, out, s);
-  return launch<float>(pos, keys, w_key, n, L, spacing, csq, term, out, s);
+    return launch<double>(pos, keys, w_key, n, L, spacing, csq, term, out, t, s);
+  return launch<float>(pos, keys, w_key, n, L, spacing, csq, term, out, t, s);
 }
 
 }  // extern "C"

@@ -15,8 +15,10 @@
 // separation d = (hi_i - hi_j) + (lo_i - lo_j); the pair decision is the
 // f32 dsq of the split separations, as in K1 and the TPU kernel. Force
 // factors: LJ g = 24 t (2t - 1) inv with inv = 1/dsq by true division, or
-// inv = rsqrt(dsq)^2; t = inv^3. Coordinates are f32 (optionally with f32
-// low parts) or f64, 1-3 axes (absent axes read 0).
+// inv = rsqrt(dsq)^2; t = inv^3; or (f32 coordinates, optionally split) any
+// factory's force factor of ops/potentials.py through the device term
+// table (pair_table.cuh). Coordinates are f32 (optionally with f32 low
+// parts) or f64, 1-3 axes (absent axes read 0).
 //
 // What it does not copy: the TPU kernel's rolling VMEM window, lane rolls,
 // per-component Kahan sums and sequential grid. Padding rows (SENTINEL_KEY)
@@ -88,6 +90,13 @@
 //     The folded d_a d_b is the image pair's outer product.
 // Both compose, with each force factor.
 //
+// The term table (GFN = kGfnTable, f32 and split) adds instances under new
+// kernel names, lag_stress_table_kernel and lag_stress_table_pbc_kernel
+// (each of the four rules: open, KEEP, MI, KEEP and MI), with the table as a
+// further kernel parameter, so the instances above keep their parameters and
+// code. stress_sweep evaluates the table's force factor once per hit in
+// phase B, off the unrolled phase A.
+//
 // Accumulation: each lane sums the six upper-triangle products (xx, xy,
 // xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds its
 // lanes in a fixed order (block_fold_n) and writes six partials. The caller
@@ -141,12 +150,16 @@ struct LagStressSweeper {
   const PbcLane<T>* pl = nullptr;
   T* bw = nullptr;
   const T* w = nullptr;
+  const TermTable* tab = nullptr;
   __device__ __forceinline__ void store(int at, int j) {
     if constexpr (KEEP) bw[at] = w[j];
   }
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    if constexpr (KEEP || MI)
+    if constexpr (GFN == kGfnTable)
+      stress_sweep<T, SPLIT, kGfnTable, false, FULL, KEEP, MI>(
+          o, bh + at, bl + at, nullptr, cnt, csq, 0, 0, pl, KEEP ? bw + at : nullptr, tab);
+    else if constexpr (KEEP || MI)
       stress_sweep<T, SPLIT, GFN, false, FULL, KEEP, MI>(o, bh + at, bl + at, nullptr, cnt,
                                                          csq, 0, 0, pl, KEEP ? bw + at : nullptr);
     else
@@ -157,9 +170,11 @@ struct LagStressSweeper {
   }
 };
 
-// The kernel's body; KEEP and MI (the periodic instances) read p.
+// The kernel's body; KEEP and MI (the periodic instances) read p, the table
+// instances tab.
 template <typename T, bool SPLIT, int GFN, bool KEEP, bool MI>
-__device__ __forceinline__ void lag_stress_body(const Args<T>& a, const Periodic<T>& p) {
+__device__ __forceinline__ void lag_stress_body(const Args<T>& a, const Periodic<T>& p,
+                                                const TermTable* tab = nullptr) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kWarps][kBuf];
   __shared__ float4 buf_lo[kWarps][SPLIT ? kBuf : 1];
@@ -204,7 +219,7 @@ __device__ __forceinline__ void lag_stress_body(const Args<T>& a, const Periodic
     const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
     if constexpr (KEEP || MI) {
       const PbcLane<T> pl{KEEP && real ? p.w[i] : T(0), p.mib, p.mibl};
-      LagStressSweeper<T, SPLIT, GFN, KEEP, MI> sw{o, bh, bl, a.csq, &pl, bw, p.w};
+      LagStressSweeper<T, SPLIT, GFN, KEEP, MI> sw{o, bh, bl, a.csq, &pl, bw, p.w, tab};
       if constexpr (MI) {
         const ClusterPruneMi<SPLIT> prune(o.h, o.l, real, a.csq, p.mib);
         one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
@@ -216,7 +231,7 @@ __device__ __forceinline__ void lag_stress_body(const Args<T>& a, const Periodic
       // the open instances as they were built before the periodic ones
       // (their SASS, chip_compare.py sass)
       const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, a.csq);
-      LagStressSweeper<T, SPLIT, GFN> sw{o, bh, bl, a.csq};
+      LagStressSweeper<T, SPLIT, GFN> sw{o, bh, bl, a.csq, nullptr, nullptr, nullptr, tab};
       one_sided_walk<SPLIT>(a.pos, a.lo, a.dim, first, last, lane, prune, bh, bl, sw);
     }
   }
@@ -234,6 +249,34 @@ __global__ void __launch_bounds__(kBlock) lag_stress_kernel(Args<T> a) {
 template <typename T, bool SPLIT, int GFN, bool KEEP, bool MI>
 __global__ void __launch_bounds__(kBlock) lag_stress_pbc_kernel(Args<T> a, Periodic<T> p) {
   lag_stress_body<T, SPLIT, GFN, KEEP, MI>(a, p);
+}
+
+// The term table's instances (f32 and split): the table beside Args (and
+// Periodic), so the instances above keep their parameters and code
+template <bool SPLIT>
+__global__ void __launch_bounds__(kBlock) lag_stress_table_kernel(Args<float> a,
+                                                                  TermTable tab) {
+  lag_stress_body<float, SPLIT, kGfnTable, false, false>(a, Periodic<float>{}, &tab);
+}
+
+template <bool SPLIT, bool KEEP, bool MI>
+__global__ void __launch_bounds__(kBlock) lag_stress_table_pbc_kernel(Args<float> a,
+                                                                      Periodic<float> p,
+                                                                      TermTable tab) {
+  lag_stress_body<float, SPLIT, kGfnTable, KEEP, MI>(a, p, &tab);
+}
+
+template <bool SPLIT>
+void launch_table(const Args<float>& a, const Periodic<float>& p, const TermTable& t,
+                  bool keep, bool mi, int blocks, cudaStream_t s) {
+  if (keep && mi)
+    lag_stress_table_pbc_kernel<SPLIT, true, true><<<blocks, kBlock, 0, s>>>(a, p, t);
+  else if (mi)
+    lag_stress_table_pbc_kernel<SPLIT, false, true><<<blocks, kBlock, 0, s>>>(a, p, t);
+  else if (keep)
+    lag_stress_table_pbc_kernel<SPLIT, true, false><<<blocks, kBlock, 0, s>>>(a, p, t);
+  else
+    lag_stress_table_kernel<SPLIT><<<blocks, kBlock, 0, s>>>(a, t);
 }
 
 template <typename T, bool SPLIT, int GFN>
@@ -259,7 +302,7 @@ template <typename T, bool SPLIT>
 void launch(const void* pos, const float* lo, const int32_t* keys,
             const int32_t* w_key, int n, int dim, int L, int spacing,
             double csq, int gfn, double* partial, const Periodic<T>& p, bool keep,
-            bool mi, cudaStream_t stream) {
+            bool mi, const TermTable& t, cudaStream_t stream) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.lo = lo;
@@ -272,6 +315,12 @@ void launch(const void* pos, const float* lo, const int32_t* keys,
   a.csq = static_cast<T>(csq);
   a.partial = partial;
   const int blocks = (n + kBlock - 1) / kBlock;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (gfn == kGfnTable) {
+      launch_table<SPLIT>(a, p, t, keep, mi, blocks, stream);
+      return;
+    }
+  }
   if (gfn == kGfnLj)
     launch_rule<T, SPLIT, kGfnLj>(a, p, keep, mi, blocks, stream);
   else
@@ -294,17 +343,25 @@ int zelll_lag_stress_block() { return kBlock; }
 // periodic keep mask, lag_pairs.pbc_keep) or null; mi != 0 (f32 only) folds
 // the axes whose box length mbx, mby, mbz is > 0 to the minimum image, in
 // split mode less the low parts mlx, mly, mlz of the host box lengths.
+// gfn 2 (f32 only) takes the device term table's force factor (tkind,
+// tmode and tvals: pair_table.cuh's kind, its gfn mode and 6 floats, its 5
+// constants and the shift, in host memory; not the species factor).
 // Returns cudaGetLastError() after the launch.
 int zelll_lag_stress(const void* pos, const void* lo, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      double csq, int gfn, int f64, void* partial,
                      void* stream, const void* keep, int mi, float mbx, float mby,
-                     float mbz, float mlx, float mly, float mlz) {
+                     float mbz, float mlx, float mly, float mlz, int tkind, int tmode,
+                     const float* tvals) {
+  const bool table = gfn == kGfnTable;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim || L < 1 ||
       spacing < 1 || static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
-      (gfn != kGfnLj && gfn != kGfnLjFast) || (f64 != 0 && lo != nullptr) ||
-      (f64 != 0 && mi != 0))
+      (gfn != kGfnLj && gfn != kGfnLjFast && !table) || (f64 != 0 && lo != nullptr) ||
+      (f64 != 0 && mi != 0) ||
+      (table && (f64 != 0 || tmode != kTableModeGfn ||
+                 !term_table_ok(tkind, tmode, false, nullptr, 0))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);
   const auto* l = static_cast<const float*>(lo);
   const auto* k = static_cast<const int32_t*>(keys);
   const auto* w = static_cast<const int32_t*>(w_key);
@@ -316,15 +373,15 @@ int zelll_lag_stress(const void* pos, const void* lo, const void* keys,
   if (f64 != 0)
     launch<double, false>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out,
                           Periodic<double>{static_cast<const double*>(keep), mib, mibl}, kp,
-                          false, s);
+                          false, t, s);
   else if (l != nullptr)
     launch<float, true>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out,
                         Periodic<float>{static_cast<const float*>(keep), mib, mibl}, kp,
-                        mi != 0, s);
+                        mi != 0, t, s);
   else
     launch<float, false>(pos, l, k, w, n, dim, L, spacing, csq, gfn, out,
                          Periodic<float>{static_cast<const float*>(keep), mib, mibl}, kp,
-                         mi != 0, s);
+                         mi != 0, t, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,11 @@
 // lane's own point, range and six sums, and the two-phase sweep of a warp's
 // buffer with six products per hit. Include it after cluster_sweep.cuh. K3
 // and K7 keep their own f32 force factor (and the names kGfnLj and
-// force_factor), so they do not include this header.
+// force_factor), so they do not include this header. GFN = kGfnTable takes
+// any factory's force factor through the device term table (pair_table.cuh,
+// f32 coordinates): the table comes in through a pointer beside the sweep's
+// arguments, so the LJ instances keep their code, and it is evaluated once
+// per hit in phase B, off the unrolled phase A.
 
 #pragma once
 
@@ -14,6 +18,7 @@ namespace {
 constexpr int kComps = 6;  // xx, xy, xz, yy, yz, zz
 constexpr int kGfnLj = 0;
 constexpr int kGfnLjFast = 1;
+constexpr int kGfnTable = 2;  // lag_pairs._GFN_TABLE, tile_pairs._GFN_TABLE
 
 __device__ __forceinline__ float recip_sqrt(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double recip_sqrt(double x) { return rsqrt(x); }
@@ -55,7 +60,8 @@ struct StressLane {
 // g(0) = inf, and inf * 0 would poison every component. The periodic
 // instances: KEEP adds the keep mask of the lane's and the entry's shift
 // signs (pl->pw, bw[q]) to phase A, MI folds each separation to its minimum
-// image (pl->mib; the folded d_a d_b is the image's outer product).
+// image (pl->mib; the folded d_a d_b is the image's outer product). GFN =
+// kGfnTable evaluates the table tab's force factor per hit.
 template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool FULL, bool KEEP = false,
           bool MI = false, typename V = typename Vec4Of<T>::type>
 __device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
@@ -63,7 +69,8 @@ __device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
                                              int cnt, T csq, int32_t band_lo,
                                              int32_t band_hi,
                                              const PbcLane<T>* pl = nullptr,
-                                             const T* bw = nullptr) {
+                                             const T* bw = nullptr,
+                                             const TermTable* tab = nullptr) {
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   unsigned hits = 0u;
   auto hit = [&](int q) {
@@ -92,7 +99,13 @@ __device__ __forceinline__ void stress_sweep(StressLane<T>& o, const V* bh,
     T dx, dy, dz;
     const T dsq = sep_dsq_pbc<SPLIT, MI>(o.h, o.l, bh[q], SPLIT ? bl[q] : zero, pl, dx, dy,
                                          dz);
-    const T g = force_factor<GFN>(dsq);
+    // the table's form as a discarded branch: the LJ instances' code is as
+    // it was before the table came in
+    T g;
+    if constexpr (GFN == kGfnTable)
+      g = table_gfn(dsq, *tab);
+    else
+      g = force_factor<GFN>(dsq);
     const T g0 = g * dx;
     const T g1 = g * dy;
     const T g2 = g * dz;

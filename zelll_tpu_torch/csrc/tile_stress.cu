@@ -83,6 +83,14 @@
 // virial._pbc_keep_mask): each cross-boundary pair once, as one of its two
 // images, whose d_a d_b is the same.
 //
+// The term table (GFN = kGfnTable: any factory's force factor of
+// ops/potentials.py through pair_table.cuh, f32 and split, maskless and
+// band-masked, open and with the keep mask) adds instances under a new
+// kernel name, tile_stress_table_kernel, with the keep plane (or null) and
+// the table as further kernel parameters, so the instances above keep their
+// parameters and code. stress_sweep evaluates the table's force factor once
+// per hit in phase B, off the unrolled phase A.
+//
 // Accumulation: each lane sums the six upper-triangle products (xx, xy,
 // xz, yy, yz, zz; absent axes give 0) in f64 registers; the block folds
 // its lanes in a fixed order (block_fold_n) and writes six partials per own
@@ -140,6 +148,7 @@ struct StressSweeper {
   const PbcLane<T>* pl = nullptr;
   T* bw = nullptr;
   const T* w = nullptr;
+  const TermTable* tab = nullptr;
   __device__ __forceinline__ void band(int32_t lo, int32_t hi) {
     band_lo = lo;
     band_hi = hi;
@@ -150,7 +159,11 @@ struct StressSweeper {
   }
   template <bool FULL>
   __device__ __forceinline__ void sweep(int at, int cnt) {
-    if constexpr (KEEP)
+    if constexpr (GFN == kGfnTable)
+      stress_sweep<T, SPLIT, kGfnTable, BANDMASK, FULL, KEEP>(
+          o, bh + at, bl + at, bk + at, cnt, a.csq, band_lo, band_hi, pl,
+          KEEP ? bw + at : nullptr, tab);
+    else if constexpr (KEEP)
       stress_sweep<T, SPLIT, GFN, BANDMASK, FULL, KEEP>(o, bh + at, bl + at, bk + at, cnt,
                                                         a.csq, band_lo, band_hi, pl, bw + at);
     else
@@ -163,9 +176,11 @@ struct StressSweeper {
   }
 };
 
-// The kernel's body; KEEP (the periodic instances) reads the plane w.
+// The kernel's body; KEEP (the periodic instances) reads the plane w, the
+// table instances tab.
 template <typename T, bool SPLIT, int GFN, bool BANDMASK, bool KEEP>
-__device__ __forceinline__ void tile_stress_body(const Args<T>& a, const T* w_plane) {
+__device__ __forceinline__ void tile_stress_body(const Args<T>& a, const T* w_plane,
+                                                 const TermTable* tab = nullptr) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kClusters][kBuf];
   __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
@@ -201,11 +216,12 @@ __device__ __forceinline__ void tile_stress_body(const Args<T>& a, const T* w_pl
       const PbcLane<T> pl{real ? w_plane[i] : T(0), make_float3(0.0f, 0.0f, 0.0f),
                           make_float3(0.0f, 0.0f, 0.0f)};
       StressSweeper<T, SPLIT, GFN, BANDMASK, true> sw{a, o, bh, bl, bk, 0, 0, &pl, bw,
-                                                      w_plane};
+                                                      w_plane, tab};
       half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
     } else {
       // the open instances as they were built before the periodic ones
-      StressSweeper<T, SPLIT, GFN, BANDMASK> sw{a, o, bh, bl, bk, 0, 0};
+      StressSweeper<T, SPLIT, GFN, BANDMASK> sw{a, o, bh, bl, bk, 0, 0, nullptr, nullptr,
+                                                nullptr, tab};
       half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
     }
   }
@@ -223,6 +239,25 @@ __global__ void __launch_bounds__(kChunk) tile_stress_kernel(Args<T> a) {
 template <typename T, bool SPLIT, int GFN, bool BANDMASK>
 __global__ void __launch_bounds__(kChunk) tile_stress_keep_kernel(Args<T> a, const T* w) {
   tile_stress_body<T, SPLIT, GFN, BANDMASK, true>(a, w);
+}
+
+// The term table's instances (f32 and split, maskless and band-masked, open
+// and with the keep mask): the keep plane and the table beside Args, so the
+// instances above keep their parameters and code
+template <bool SPLIT, bool BANDMASK, bool KEEP>
+__global__ void __launch_bounds__(kChunk) tile_stress_table_kernel(Args<float> a,
+                                                                   const float* w,
+                                                                   TermTable tab) {
+  tile_stress_body<float, SPLIT, kGfnTable, BANDMASK, KEEP>(a, w, &tab);
+}
+
+template <bool SPLIT, bool BANDMASK>
+void launch_table_keep(const Args<float>& a, const float* keep, const TermTable& t,
+                       int blocks, cudaStream_t s) {
+  if (keep != nullptr)
+    tile_stress_table_kernel<SPLIT, BANDMASK, true><<<blocks, kChunk, 0, s>>>(a, keep, t);
+  else
+    tile_stress_table_kernel<SPLIT, BANDMASK, false><<<blocks, kChunk, 0, s>>>(a, keep, t);
 }
 
 template <typename T, bool SPLIT, int GFN>
@@ -243,7 +278,7 @@ template <typename T, bool SPLIT>
 void launch(const void* pos, const float* lo, const int32_t* keys,
             const int32_t* bounds, const int32_t* bands, int n, int dim, int S,
             double csq, int gfn, bool bandmask, double* partial, const void* keep,
-            cudaStream_t s) {
+            const TermTable& t, cudaStream_t s) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.lo = lo;
@@ -257,6 +292,15 @@ void launch(const void* pos, const float* lo, const int32_t* keys,
   a.partial = partial;
   const int blocks = (n + kChunk - 1) / kChunk;
   const T* w = static_cast<const T*>(keep);
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (gfn == kGfnTable) {
+      if (bandmask)
+        launch_table_keep<SPLIT, true>(a, w, t, blocks, s);
+      else
+        launch_table_keep<SPLIT, false>(a, w, t, blocks, s);
+      return;
+    }
+  }
   if (gfn == kGfnLj)
     launch_mask<T, SPLIT, kGfnLj>(a, bandmask, w, blocks, s);
   else
@@ -277,15 +321,22 @@ int zelll_tile_stress_chunk() { return kChunk; }
 // the device; csq: cutoff^2 in the coordinates' type; partial:
 // ceil(n / 128) x 6 doubles (xx, xy, xz, yy, yz, zz per chunk); keep: (n,)
 // shift signs in the coordinates' type (the periodic keep mask,
-// lag_pairs.pbc_keep) or null. Returns cudaGetLastError() after the
-// launch.
+// lag_pairs.pbc_keep) or null. gfn 2 (f32 only) takes the device term
+// table's force factor (tkind, tmode and tvals: pair_table.cuh's kind, its
+// gfn mode and 6 floats, its 5 constants and the shift, in host memory;
+// not the species factor). Returns cudaGetLastError() after the launch.
 int zelll_tile_stress(const void* pos, const void* lo, const void* keys,
                       const void* bounds, const void* bands, int n, int dim,
                       int S, double csq, int gfn, int bandmask, int f64,
-                      void* partial, void* stream, const void* keep) {
+                      void* partial, void* stream, const void* keep, int tkind,
+                      int tmode, const float* tvals) {
+  const bool table = gfn == kGfnTable;
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
-      (gfn != kGfnLj && gfn != kGfnLjFast) || (f64 != 0 && lo != nullptr))
+      (gfn != kGfnLj && gfn != kGfnLjFast && !table) || (f64 != 0 && lo != nullptr) ||
+      (table && (f64 != 0 || tmode != kTableModeGfn ||
+                 !term_table_ok(tkind, tmode, false, nullptr, 0))))
     return static_cast<int>(cudaErrorInvalidValue);
+  const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);
   const auto* l = static_cast<const float*>(lo);
   const auto* k = static_cast<const int32_t*>(keys);
   const auto* b = static_cast<const int32_t*>(bounds);
@@ -294,11 +345,11 @@ int zelll_tile_stress(const void* pos, const void* lo, const void* keys,
   auto s = static_cast<cudaStream_t>(stream);
   const bool bm = bandmask != 0;
   if (f64 != 0)
-    launch<double, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, s);
+    launch<double, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, t, s);
   else if (l != nullptr)
-    launch<float, true>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, s);
+    launch<float, true>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, t, s);
   else
-    launch<float, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, s);
+    launch<float, false>(pos, l, k, b, bd, n, dim, S, csq, gfn, bm, out, keep, t, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -196,6 +196,33 @@ def forces_gfn_arg(kernel: str, gfn, kernel_gfns: dict, table_id: int, species: 
     return table_id, spec
 
 
+def observable_table_arg(kernel: str, fn, kernel_fns: dict, table_id: int, *,
+                         gfn: bool, dtype):
+    """The enum of an observables kernel (K2's term; K4's and K8's force
+    factor) and its spec: one of the kernel's own functions, or, with f32
+    coordinates, the function of an ops.potentials factory through the
+    device term table (``gfn``: a force factor; else an energy or virial
+    term). These kernels read no payload, so the species functions of
+    lennard_jones_mixed are refused, as is any other callable."""
+    if fn in kernel_fns:
+        return kernel_fns[fn], None
+    spec = term_spec(fn)
+    what = "force factors" if gfn else "terms"
+    if spec is None or spec.kind == KIND_MIXED_LJ or (spec.mode == MODE_GFN) != gfn:
+        names = " and ".join(getattr(f, "__name__", str(f)) for f in kernel_fns)
+        table = "gfn" if gfn else "energy and virial terms"
+        raise ValueError(
+            f"the CUDA kernel {kernel} takes the {what} {names}, and the {table} of every "
+            "ops.potentials factory but lennard_jones_mixed (the device term table); "
+            f"run other {what} through the plain version or on CPU tensors")
+    if dtype != torch.float32:
+        raise ValueError(
+            f"{kernel} evaluates the term table with float32 coordinates only (split "
+            f"ones are float32 planes), not {dtype}; run float64 coordinates with a "
+            "table function on CPU tensors")
+    return table_id, spec
+
+
 # Split mode's tie band: |dsq - csq| <= _TIE_BAND * csq holds every pair
 # whose f32 dsq can fall on the other side of the cutoff from its f64 dsq
 # (the f32 dsq of split separations is within 6 x 2^-24 of it).
@@ -801,7 +828,7 @@ def pair_lag_per_particle_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
 def _bind_per_particle(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_lag_per_particle.argtypes = [
-        vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, vp, vp,
+        vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, vp, vp, ci, ci, vp,
     ]
     lib.zelll_lag_per_particle.restype = ci
 
@@ -812,6 +839,11 @@ load_per_particle_kernel = kernel_loader(_PER_PARTICLE_SRC, "lag_per_particle",
                                          _bind_per_particle)
 
 
+# The terms K2 implements, by the enum value it takes; a factory's energy or
+# virial runs as the term table (_TERM_TABLE).
+_PER_PARTICLE_TERMS = {lj_term: 0, count_term: 1}
+
+
 def _lag_per_particle_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, *, L,
                            term):
     """Launch K2 on the current stream. Returns (n,) sums in the positions'
@@ -819,11 +851,8 @@ def _lag_per_particle_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, *, L,
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     dtype = sorted_pos.dtype
-    if term not in (lj_term, count_term):
-        raise ValueError(
-            "the CUDA kernel implements lj_term and count_term only; run "
-            "other terms through pair_lag_per_particle_plain or on CPU tensors"
-        )
+    targ, spec = observable_table_arg("K2", term, _PER_PARTICLE_TERMS, _TERM_TABLE,
+                                      gfn=False, dtype=dtype)
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K2 takes float32 or float64 coordinates, not {dtype}")
     if n >= 2**31:
@@ -841,8 +870,9 @@ def _lag_per_particle_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, *, L,
     csq = float(torch.as_tensor(cutoff_sq, dtype=dtype))
     err = lib.zelll_lag_per_particle(
         planes.data_ptr(), sorted_keys.data_ptr(), w_key.data_ptr(), n, L,
-        _pad_spacing(n), csq, _KERNEL_TERMS[term], int(dtype == torch.float64),
+        _pad_spacing(n), csq, targ, int(dtype == torch.float64),
         out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        *(_NO_TABLE if spec is None else table_args(spec, device))[:3],
     )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
@@ -863,9 +893,14 @@ def pair_lag_per_particle(sorted_pos, sorted_keys, strides, cutoff_sq, *,
     `lag_coverage_ok` is False. ``M`` (the TPU kernel's block rows) is
     accepted and has no effect. Returns (n,) in the positions' dtype.
 
-    CUDA tensors run kernel K2, which takes f32 or f64 coordinates and the
-    terms `lj_term` and `count_term`, and raises on anything else. CPU
-    tensors run `pair_lag_per_particle_plain`.
+    CUDA tensors run kernel K2, which takes f32 or f64 coordinates with the
+    terms `lj_term` and `count_term`, and f32 coordinates with the energy or
+    virial term of every `ops.potentials` factory but
+    `lennard_jones_mixed` (the device term table: `shifted` terms and
+    `ops.virial.virial_term_from_gfn` of a factory's gfn among them); it
+    raises on anything else (other callables, the species term, a table
+    term with f64 coordinates). CPU tensors run
+    `pair_lag_per_particle_plain`, which takes any term.
     """
     del M
     if L < 1:
@@ -1080,7 +1115,7 @@ def _bind_stress(lib) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zelll_lag_stress.argtypes = [
         vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_double, ci, ci, vp, vp,
-        vp, ci, cf, cf, cf, cf, cf, cf,
+        vp, ci, cf, cf, cf, cf, cf, cf, ci, ci, vp,
     ]
     lib.zelll_lag_stress.restype = ci
     lib.zelll_lag_stress_block.argtypes = []
@@ -1136,12 +1171,8 @@ def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     dtype = sorted_pos.dtype
-    if gfn not in _KERNEL_GFNS:
-        raise ValueError(
-            "the CUDA kernel implements lj_force_factor and "
-            "lj_force_factor_fast only; run other force factors through "
-            "pair_lag_stress_plain or on CPU tensors"
-        )
+    garg, spec = observable_table_arg("K4", gfn, _KERNEL_GFNS, _GFN_TABLE, gfn=True,
+                                      dtype=dtype)
     if out_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K4 writes float32 or float64 stress, not {out_dtype}")
     _check_coords("K4", sorted_pos, sorted_pos_lo)
@@ -1163,9 +1194,10 @@ def _lag_stress_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
         sorted_pos.data_ptr(),
         None if sorted_pos_lo is None else sorted_pos_lo.data_ptr(),
         sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
-        _KERNEL_GFNS[gfn], int(dtype == torch.float64), partial.data_ptr(),
+        garg, int(dtype == torch.float64), partial.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
         None if keep is None else keep.data_ptr(), *mi,
+        *(_NO_TABLE if spec is None else table_args(spec, device))[:3],
     )
     if err != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
@@ -1208,11 +1240,14 @@ def pair_lag_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
 
     CUDA tensors run kernel K4, which takes f32 (optionally split) or f64
     coordinates, 1 <= dim <= 3, the force factors `lj_force_factor` and
-    `lj_force_factor_fast`, the periodic keep mask (``pair_mask`` =
-    `pbc_keep` over one payload plane of shift signs) and, with f32
-    coordinates, the minimum image; it raises on anything else (other
-    masks, ``pair_weight``, ``min_islot != 0``). CPU tensors run
-    `pair_lag_stress_plain`, which takes them all.
+    `lj_force_factor_fast`, with f32 (or split) coordinates the gfn of
+    every `ops.potentials` factory but `lennard_jones_mixed` (the device
+    term table), the periodic keep mask (``pair_mask`` = `pbc_keep` over
+    one payload plane of shift signs) and, with f32 coordinates, the
+    minimum image; it raises on anything else (other force factors and
+    masks, a table gfn with f64 coordinates, ``pair_weight``,
+    ``min_islot != 0``). CPU tensors run `pair_lag_stress_plain`, which
+    takes them all.
     """
     del M
     gfn = gfn or lj_force_factor

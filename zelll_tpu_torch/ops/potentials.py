@@ -42,6 +42,7 @@ __all__ = [
     "PairPotential",
     "TermSpec",
     "buckingham",
+    "factory_gfn",
     "gaussian",
     "harmonic",
     "lennard_jones",
@@ -101,9 +102,26 @@ def _tag(fn: Callable, kind: int, params, mode: int, shift: float = 0.0,
     return fn
 
 
+# Each factory's gfn by its spec (gfn mode, no shift): `factory_gfn`.
+_GFNS: dict = {}
+
+
 def _pair(kind: int, params, term: Callable, gfn: Callable) -> PairPotential:
-    return PairPotential(_tag(term, kind, params, MODE_ENERGY),
-                         _tag(gfn, kind, params, MODE_GFN))
+    pot = PairPotential(_tag(term, kind, params, MODE_ENERGY),
+                        _tag(gfn, kind, params, MODE_GFN))
+    _GFNS[gfn.table] = gfn
+    return pot
+
+
+def factory_gfn(term: Callable) -> Callable | None:
+    """The gfn of the factory whose energy ``term`` is (a factory's term or
+    a `shifted` one: the same kind and constants in gfn mode, no shift), or
+    None for any other callable. The gfn carries its spec, so the forces
+    and stress kernels run it on the card."""
+    spec = getattr(term, "table", None)
+    if not isinstance(spec, TermSpec) or spec.mode != MODE_ENERGY:
+        return None
+    return _GFNS.get(spec._replace(shift=0.0, mode=MODE_GFN))
 
 
 def _cube(x):

@@ -59,6 +59,7 @@ from .lag_pairs import (
     _keep_plane,
     energy_term_arg,
     forces_gfn_arg,
+    observable_table_arg,
     table_args,
     _pack_count,
     _pad_and_desentinel,
@@ -892,6 +893,7 @@ def _bind_stress(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_tile_stress.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_double, ci, ci, ci, vp, vp, vp,
+        ci, ci, vp,
     ]
     lib.zelll_tile_stress.restype = ci
     lib.zelll_tile_stress_chunk.argtypes = []
@@ -912,18 +914,16 @@ def stress_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
 
     Takes ``inp`` from `tile_inputs` (the half stencil) with f32 (optionally
     split) or f64 planes on a CUDA device, the force factors
-    `lj_force_factor` and `lj_force_factor_fast`, and no mask or
+    `lj_force_factor` and `lj_force_factor_fast`, with f32 (or split)
+    planes the gfn of every `ops.potentials` factory but
+    `lennard_jones_mixed` (the device term table), and no mask or
     `lag_pairs.pbc_keep` over one sorted (n,) payload plane of shift signs;
     raises on anything else. Returns the symmetric (dim, dim) stress in
     ``out_dtype`` (default: the planes' dtype; float64 gives the f64 sums of
     f32 products).
     """
-    if gfn not in _KERNEL_GFNS:
-        raise ValueError(
-            "the CUDA kernel implements lj_force_factor and "
-            "lj_force_factor_fast only; run other force factors through "
-            "tile_pair_stress_plain or on CPU tensors"
-        )
+    garg, spec = observable_table_arg("K8", gfn, _KERNEL_GFNS, _GFN_TABLE, gfn=True,
+                                      dtype=inp.pos.dtype)
     pos = inp.pos
     dim, n = pos.shape
     out_dtype = out_dtype or pos.dtype
@@ -939,10 +939,11 @@ def stress_tiles(inp: TileInputs, cutoff_sq, *, gfn: Callable = lj_force_factor,
     err = lib.zelll_tile_stress(
         pos.data_ptr(), None if inp.lo is None else inp.lo.data_ptr(),
         inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
-        n, dim, inp.bands.shape[0], csq, _KERNEL_GFNS[gfn], int(inp.bandmask),
+        n, dim, inp.bands.shape[0], csq, garg, int(inp.bandmask),
         int(pos.dtype == torch.float64), partial.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream,
         None if keep is None else keep.data_ptr(),
+        *(_NO_TABLE if spec is None else table_args(spec, pos.device))[:3],
     )
     if err != 0:
         raise RuntimeError(f"K8 launch failed: CUDA error {err}")
@@ -1015,10 +1016,13 @@ def tile_pair_stress(sorted_pos, sorted_keys, strides, cutoff_sq,
 
     CUDA tensors run kernel K8, which takes f32 (optionally split) or f64
     coordinates, the force factors `lj_force_factor` and
-    `lj_force_factor_fast`, no mask or the periodic keep mask
-    (``pair_mask`` = `lag_pairs.pbc_keep` over the shift-sign plane) and
-    ``min_islot=0``, and raises on anything else (``pair_weight``, other
-    masks). CPU tensors run `stress_tiles_plain`.
+    `lj_force_factor_fast`, with f32 (or split) coordinates the gfn of
+    every `ops.potentials` factory but `lennard_jones_mixed` (the device
+    term table), no mask or the periodic keep mask (``pair_mask`` =
+    `lag_pairs.pbc_keep` over the shift-sign plane) and ``min_islot=0``,
+    and raises on anything else (other force factors, a table gfn with f64
+    coordinates, ``pair_weight``, other masks). CPU tensors run
+    `stress_tiles_plain`, which takes any ``gfn``.
     """
     return _tile_pair_stress(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,

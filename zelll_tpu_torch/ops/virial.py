@@ -203,7 +203,11 @@ def fused_stress_open(positions, cutoff, *, gfn: Callable | None = None,
     ``MAXJ``) for cubic and wide ones. ``positions_lo`` (f32 low parts,
     `lag_pairs.split_f64`) gives f64-grade stress from f32 coordinates.
     Returns ((dim, dim) in the positions' dtype, ok); never trust a result
-    with a false flag.
+    with a false flag. On the card ``gfn`` (default `lj_force_factor`) is
+    `lj_force_factor`, `lj_force_factor_fast` or, with f32 coordinates
+    (optionally split), the gfn of any `ops.potentials` factory but
+    `lennard_jones_mixed`, which K4 and K8 evaluate through the device term
+    table; other callables run on CPU tensors.
 
     Other dimensions than 3 go to `pair_stress_open` (the bucketed path);
     a split request cannot be honoured there, so it raises.
@@ -239,8 +243,12 @@ def pbc_stress_fused(positions, origin, box, cutoff, *, gfn: Callable | None = N
     (`pbc._minimage_bins`): d (x) d on the folded separation is the image
     pair's outer product, so only the axes that keep ghosts need the keep
     mask. Returns ((dim, dim), ok); never trust a result with a false flag.
-    Other dimensions than 3 go to `pbc_stress`, where a split request
-    cannot be honoured, so it raises.
+    On the card ``gfn`` takes what `fused_stress_open`'s does: the LJ
+    factors and, with f32 (or split) coordinates, the gfn of any
+    `ops.potentials` factory but `lennard_jones_mixed` (K4's and K8's term
+    table instances, on every layout: ghost images on either path and
+    ``minimage``). Other dimensions than 3 go to `pbc_stress`, where a split
+    request cannot be honoured, so it raises.
     """
     positions, positions_lo = _prepare(positions, positions_lo, device)
     n, dim = positions.shape
