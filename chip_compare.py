@@ -60,8 +60,8 @@ MUTATIONS = {
         ("cluster_sweep.cuh", "keep[k] = keep[k] && prune.near(b[k], b_lo[k]);",
          "keep[k] = keep[k] && k < CLUSTERS - 1 && prune.near(b[k], b_lo[k]);")]),
     "k9_triangle_le": ("tile_hist", [
-        ("tile_hist.cu", "o.span = real ? static_cast<unsigned>(i) + 1u : 0u;",
-         "o.span = real ? static_cast<unsigned>(i) + 2u : 0u;")]),
+        ("tile_hist.cu", "o.span = own ? static_cast<unsigned>(i) + 1u : 0u;",
+         "o.span = own ? static_cast<unsigned>(i) + 2u : 0u;")]),
     "k9_bin_le": ("tile_hist", [
         ("cluster_sweep.cuh", "if (dsq < edges[mid])", "if (dsq <= edges[mid])")]),
     "k9_species_dropped": ("tile_hist", [
@@ -233,6 +233,59 @@ MUTATIONS = {
         ("tile_stress.cu",
          "const TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);",
          "TermTable t = make_term_table(tkind, tmode, tvals, nullptr, 0);\n  t.p[2] = 0.0f;")]),
+    # the ownership rule (min_islot) of K1, K5, K6 and K9: the rule dropped,
+    # `>` for `>=`, and the rule applied to the pair's smaller slot (j >=
+    # min_islot) instead of its larger one, the lane's own i
+    "k1_islot_dropped": ("islot_lag_reduce", [
+        ("lag_reduce.cu", "  if constexpr (ISLOT) own = own && i >= min_islot;\n", "")]),
+    "k1_islot_gt": ("islot_lag_reduce", [
+        ("lag_reduce.cu", "own = own && i >= min_islot;", "own = own && i > min_islot;")]),
+    "k1_islot_smaller_slot": ("islot_lag_reduce", [
+        ("lag_reduce.cu", "  if constexpr (ISLOT) own = own && i >= min_islot;\n", ""),
+        ("lag_reduce.cu", "  o.jlo = jlo;\n  o.span = own ? static_cast<unsigned>(i - jlo) : 0u;",
+         "  o.jlo = ISLOT ? max(jlo, min_islot) : jlo;\n"
+         "  o.span = own && i > o.jlo ? static_cast<unsigned>(i - o.jlo) : 0u;")]),
+    "k5_islot_dropped": ("islot_lag_hist", [
+        ("lag_hist.cu", "  const bool own = real && i >= min_islot;\n", "  const bool own = real;\n")]),
+    "k5_islot_gt": ("islot_lag_hist", [
+        ("lag_hist.cu", "const bool own = real && i >= min_islot;",
+         "const bool own = real && i > min_islot;")]),
+    "k5_islot_smaller_slot": ("islot_lag_hist", [
+        ("lag_hist.cu", "  const bool own = real && i >= min_islot;\n", "  const bool own = real;\n"),
+        ("lag_hist.cu", "  o.jlo = jlo;\n  o.span = own ? static_cast<unsigned>(i - jlo) : 0u;",
+         "  o.jlo = max(jlo, min_islot);\n"
+         "  o.span = own && i > o.jlo ? static_cast<unsigned>(i - o.jlo) : 0u;")]),
+    # K6 and K9: every entry carries its slot, and the lane's range starts
+    # at min_islot
+    "k6_islot_dropped": ("islot_tile_reduce", [
+        ("tile_reduce.cu", "  if constexpr (ISLOT) own = own && i >= min_islot;\n", "")]),
+    "k6_islot_gt": ("islot_tile_reduce", [
+        ("tile_reduce.cu", "own = own && i >= min_islot;", "own = own && i > min_islot;")]),
+    "k6_islot_smaller_slot": ("islot_tile_reduce", [
+        ("tile_reduce.cu", "  if constexpr (ISLOT) own = own && i >= min_islot;\n", ""),
+        ("tile_reduce.cu",
+         "  o.jlo = -1;         // band 0 pairs with w < i, the other bands always\n"
+         "  o.span = own ? static_cast<unsigned>(i) + 1u : 0u;",
+         "  o.jlo = ISLOT ? min_islot : -1;\n"
+         "  o.span = own && i > o.jlo ? static_cast<unsigned>(i - o.jlo) : 0u;"),
+        ("tile_reduce.cu", "load_slot(a.pos, a.n, a.dim, j, s == 0 ? j : -1)",
+         "load_slot(a.pos, a.n, a.dim, j, ISLOT || s == 0 ? j : -1)")]),
+    "k9_islot_dropped": ("islot_tile_hist", [
+        ("tile_hist.cu", "  if constexpr (ISLOT) own = own && i >= min_islot;\n", "")]),
+    "k9_islot_gt": ("islot_tile_hist", [
+        ("tile_hist.cu", "own = own && i >= min_islot;", "own = own && i > min_islot;")]),
+    "k9_islot_smaller_slot": ("islot_tile_hist", [
+        ("tile_hist.cu", "  if constexpr (ISLOT) own = own && i >= min_islot;\n", ""),
+        ("tile_hist.cu", "  unsigned span;\n  T w;\n};", "  unsigned span;\n  T w;\n  int lo;\n};"),
+        ("tile_hist.cu", "  o.w = RULE != kMaskNone && real ? a.pay[i] : T(0);\n",
+         "  o.w = RULE != kMaskNone && real ? a.pay[i] : T(0);\n"
+         "  o.lo = ISLOT ? min_islot : -1;\n"),
+        ("tile_hist.cu",
+         "bool m = static_cast<unsigned>(tag_from(b.w) + 1) < o.span && dsq < sa.csq;",
+         "bool m = static_cast<unsigned>(tag_from(b.w) + 1) < o.span && tag_from(b.w) >= o.lo "
+         "&& dsq < sa.csq;"),
+        ("cluster_sweep.cuh", "load_point(a.pos, a.n, a.dim, j, s == 0 ? j : -1)",
+         "load_point(a.pos, a.n, a.dim, j, j)")]),
 }
 
 # the kernels whose SASS `sass` compares: every sweep on cluster_sweep.cuh
@@ -256,7 +309,11 @@ _LOADERS = {"tile_hist": "tile_pairs.load_hist_kernel()", "join": "join.load_ker
                                "tile_pairs.load_kernel()",
             "table_per_particle": "lag_pairs.load_per_particle_kernel()",
             "table_lag_stress": "lag_pairs.load_stress_kernel()",
-            "table_tile_stress": "tile_pairs.load_stress_kernel()"}
+            "table_tile_stress": "tile_pairs.load_stress_kernel()",
+            "islot_lag_reduce": "lag_pairs.load_kernel()",
+            "islot_tile_reduce": "tile_pairs.load_kernel()",
+            "islot_lag_hist": "lag_pairs.load_hist_kernel()",
+            "islot_tile_hist": "tile_pairs.load_hist_kernel()"}
 
 
 def emit(kind: str, **fields) -> None:

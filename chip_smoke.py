@@ -69,7 +69,13 @@ the oracle (`autodiff_parity`), the new table instances against their
 plain versions at n = 2e5 (`table_obs_vs_plain`), a factory's gfn through
 `fused_stress_open` and `pbc_stress_fused` at n = 1e6 against an f64
 reference (`factory_obs_main_path`), and each table instance beside its
-LJ instance at n = 1e7 (`table_obs_alone`). It prints
+LJ instance at n = 1e7 (`table_obs_alone`). Then the slab decomposition
+(`zelll_tpu_torch.parallel`) on 4 shards of the card: the min_islot
+instances of K1, K5, K6 and K9 against their plain versions on the slab
+path's own halo-extended blocks (`slab_vs_plain`), and the entry points
+at n = 1e7 on the thin box (lag kernels) and the cube (tile kernels)
+against the single-device calls, each instance then alone on a shard's
+block (`slab_main_path`). It prints
 one JSON line per phase, with the phase's seconds. Any failed phase exits
 non-zero. The last line is the contract line
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -180,8 +186,9 @@ N_PROTEIN_LARGE = 200_000
 N_JOIN_QUERIES = 4096
 SAMPLE_CHAINS, SAMPLE_BURNIN, SAMPLE_DRAWS, SAMPLE_CUTOFF = 1024, 200, 50, 4.0
 # the lockstep NUTS sampler's run, cut for the script's time (host-bound,
-# one flag read per leaf): tests/test_psssh.py's 100 burn-in steps, 25 draws
-NUTS_BURNIN, NUTS_DRAWS = 100, 25
+# one flag read per leaf): half of tests/test_psssh.py's 100 burn-in steps,
+# 25 draws
+NUTS_BURNIN, NUTS_DRAWS = 50, 25
 TOL_SDF_F32 = 1e-4  # f32 SDF sums of ~1e3 terms in another order, 2-ulp exp
 TOL_REL = 1e-6  # against the exact-f64 oracle
 TOL_KERNEL = 1e-10  # a kernel against its plain version, f64 totals
@@ -586,13 +593,16 @@ def _kernel_wrappers():
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch count, the join's fallback count and the
-    histogram ladder's retries."""
+    """Zero every kernel's launch count (and those of the min_islot
+    instances), the join's fallback count and the histogram ladder's
+    retries."""
     from zelll_tpu_torch import CellGrid
     from zelll_tpu_torch.ops.join import join_reduce
 
     for fn in _kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "islot_launches"):
+            fn.islot_launches = 0
     join_reduce.fallbacks = 0
     CellGrid.distance_histogram.retries = 0
 
@@ -601,7 +611,10 @@ def read_launches() -> dict:
     from zelll_tpu_torch import CellGrid
     from zelll_tpu_torch.ops.join import join_reduce
 
-    return dict(**{name: fn.launches for name, fn in _kernel_wrappers().items()},
+    wrappers = _kernel_wrappers()
+    return dict(**{name: fn.launches for name, fn in wrappers.items()},
+                **{f"{name}_islot": fn.islot_launches for name, fn in wrappers.items()
+                   if hasattr(fn, "islot_launches")},
                 join_fallbacks=join_reduce.fallbacks,
                 hist_ladder_retries=CellGrid.distance_histogram.retries)
 
@@ -2086,7 +2099,7 @@ def oracle_shells(pts: np.ndarray, i: np.ndarray, j: np.ndarray, edges) -> tuple
 
 
 def obs_parity(dev, n: int) -> dict:
-    """The observables against the exact-f64 oracle at n = 1e6 (sums over
+    """The observables against the exact-f64 oracle at n (main: 5e5; sums over
     `oracle.pairs`): split stress on both paths and the split virial within
     TOL_SPLIT of max |sigma| (of |W|); the f32 rows within tpu_parity.py's
     f32_tol against the f64 stress of the f32 coordinates; split histograms
@@ -2688,7 +2701,7 @@ def periodic_reference(pts: np.ndarray, box, cutoff: float):
 
 def pbc_parity(dev, n: int) -> dict:
     """f64-grade periodic energy, pair count and forces on each path against
-    `periodic_reference` at n = 1e6: the thin box with ghost images (lag),
+    `periodic_reference` at n (main: 5e5): the thin box with ghost images (lag),
     with ``minimage="auto"`` (lag) and through `core.pairs` (xla, in f64:
     that path has no split mode), and the cube with ghost images (tile, and
     xla in f64). Split coordinates of f64 points wrapped into the box, on
@@ -3291,7 +3304,7 @@ def species_reference(pts: np.ndarray, spec: np.ndarray, box, cutoff: float):
 def species_pbc(dev, n: int) -> dict:
     """`pbc_lj_forces(species=)` with ``minimage=False`` (ghost images on
     every axis, K3's species factor) and ``"auto"`` (x and y folded, z
-    ghosts, K3's species factor with the minimum image) at n = 1e6 on the
+    ghosts, K3's species factor with the minimum image) at n (main: 5e5) on the
     thin box, split coordinates of f64 points, the uniform cloud and a
     jittered lattice, species 0 and 1 from default_rng(0), the mixed pair:
     each row of the entry point's forces against `species_reference` (to
@@ -4346,7 +4359,7 @@ def npt_main_path(dev, n: int) -> dict:
 
 def pbc_obs_parity(dev, n: int) -> dict:
     """The periodic observables in split mode against `periodic_observables`
-    (the oracle on numpy ghost images) at n = 1e6, on the thin box's
+    (the oracle on numpy ghost images) at n (main: 5e5), on the thin box's
     uniform cloud (``minimage="auto"`` and ghost images on every axis), a
     jittered lattice on the thin box whose folded x and y lengths round in
     f32 (ROUND_WIDTH; ``minimage="auto"``) and the cube's uniform cloud
@@ -5230,6 +5243,668 @@ def obs_table_rows(tov, foc, toa) -> list:
     return rows
 
 
+# -- the slab decomposition on one card (parallel/domain.py, min_islot) --------
+
+SLAB_SHARDS = 4
+SLAB_STEPS = 5
+SLAB_REPS = 5
+SLAB_GAP_SITES = (128 * 8, 128 * 40)  # prune_cases' facing clusters
+# A sharded f32 total against the single-device one, on the same sorted
+# points: each shard's total and the single-device total are f64 sums of
+# the same f32 terms, each rounded once to f32, and psum adds the D = 4 f32
+# shard totals in f32, so they differ by at most D + 1 = 5 roundings of
+# 2^-24 of a total without cancellation (the uniform clouds' LJ totals are
+# carried by their near pairs); 8 x 2^-24 with slack.
+TOL_SLAB = 8 * 2.0**-24
+# The sharded gradient against the single-device forces, over the largest
+# force: each row sums the same f32 pair forces, in the order of its own
+# block's sweep.
+TOL_SLAB_GRAD = 1e-5
+
+
+def slab_halo(pos, cutoff: float, dev) -> tuple:
+    """The rows each slab boundary needs from its neighbour, counted as the
+    path's own halo check counts them (`domain._halo_needed` on each
+    shard's sorted block of the points in `partition_by_slab` order, both
+    sides), and the halo H the slab path takes: 1.25 times the largest,
+    rounded up to 1024."""
+    from zelll_tpu_torch.core import bin_and_sort
+    from zelll_tpu_torch.parallel import domain, mesh
+
+    def body(p):
+        info = domain._global_grid_info(p, cutoff)
+        bins, _ = bin_and_sort(p, cutoff, max_cells=1, info=info)
+        return (torch.stack(domain._halo_needed(bins.sorted_keys, info.strides)),)
+
+    run = mesh.shard_map(body, mesh.make_mesh(SLAB_SHARDS, devices=dev), (mesh.AXIS,),
+                         (mesh.AXIS,))
+    most = int(run(torch.as_tensor(pos, dtype=torch.float32, device=dev))[0].max())
+    return most, -(-int(1.25 * most) // 1024) * 1024
+
+
+def slab_blocks(parts, cutoff: float, H: int, dev, tile: bool = False,
+                right: bool = False) -> dict:
+    """Each shard's halo-extended [left ghosts | own] block of the slab path
+    (with ``right``, [left ghosts | own | right ghosts], the forces' block,
+    whose [left ghosts | own] prefix `slab_left` takes) on a
+    SLAB_SHARDS-shard mesh of the card, built by the path's own helper
+    (`domain.slab_block`: the global grid, the local sort, the halo
+    exchange and, for the tile kernels, the key-safe ring-wraparound
+    ghosts). Returns dict(blocks=[(ext, keys)], strides, H_eff)."""
+    from zelll_tpu_torch.parallel import domain, mesh
+
+    def body(pos):
+        b = domain.slab_block(pos, cutoff, H, right=right, wrap_safe=tile)
+        return b.ext, b.keys, b.info.strides, torch.tensor(b.H_eff)
+
+    run = mesh.shard_map(body, mesh.make_mesh(SLAB_SHARDS, devices=dev), (mesh.AXIS,),
+                         (mesh.AXIS, mesh.AXIS, None, None))
+    ext, keys, strides, H_eff = run(torch.as_tensor(parts, dtype=torch.float32, device=dev))
+    m = ext.shape[0] // SLAB_SHARDS
+    blocks = [(ext[k * m:(k + 1) * m].contiguous(), keys[k * m:(k + 1) * m].contiguous())
+              for k in range(SLAB_SHARDS)]
+    return dict(blocks=blocks, strides=strides, H_eff=int(H_eff), right=right)
+
+
+def slab_left(sb: dict, k: int) -> tuple:
+    """Shard k's [left ghosts | own] block (ext, keys) of `slab_blocks`: a
+    prefix of the ``right`` block."""
+    ext, keys = sb["blocks"][k]
+    m = ext.shape[0] - sb["H_eff"] if sb["right"] else ext.shape[0]
+    return ext[:m], keys[:m]
+
+
+def slab_maxj(sb: dict, full: bool) -> int:
+    """The tile windows the slab path's blocks need, from a ``right`` build
+    of `slab_blocks` (the key-safe wraparound ghosts in place):
+    `probe_maxj` of each shard's [left ghosts | own] block (the energy's
+    and the histogram's), or with ``full`` of its [left ghosts | own |
+    right ghosts] block (the forces'); the largest band's over the shards,
+    plus 1. With ``full`` the last shard's chunk that holds its last owned
+    rows and its first right ghosts (whose keys lie above the box) reaches
+    back over a whole cell layer in its backward bands, so this is far
+    above the global probe; the kernels walk each chunk's own windows, so
+    that costs the one chunk alone."""
+    keys = [sb["blocks"][k][1] if full else slab_left(sb, k)[1] for k in range(SLAB_SHARDS)]
+    return max(max(probe_maxj(k, sb["strides"], full=full)) for k in keys) + 1
+
+
+def slab_inputs(pts: np.ndarray, cutoff: float, H: int, dev, tile: bool) -> tuple:
+    """({name: (ext, keys, min_islot values)}, strides, H_eff): the blocks
+    of `slab_blocks` (shard 0, with the wraparound ghosts, and shard 1),
+    shard 1 also as the prune's hard inputs (`cluster_gap`'s facing
+    clusters, and the rows moved by up to 2.5 % of a cutoff since their
+    keys were built), each held at min_islot 0, 1, 31, 33, H_eff, n - 1
+    and n, the facing clusters also at the later cluster of each gap site
+    (32 and 40 past it)."""
+    from zelll_tpu_torch.parallel import partition_by_slab
+    from zelll_tpu_torch.utils.datagen import cluster_gap
+
+    parts, _ = partition_by_slab(pts, cutoff, SLAB_SHARDS)
+    sb = slab_blocks(parts, cutoff, H, dev, tile)
+    (e0, k0), (e1, k1) = sb["blocks"][:2]
+    out = {"shard0": (e0, k0), "shard1": (e1, k1)}
+    p64 = e1.double()
+    gap = cluster_gap(p64.cpu().numpy(), cutoff, SLAB_GAP_SITES)
+    drift = p64 + torch.as_tensor(np.random.default_rng(5).uniform(
+        -0.025 * cutoff, 0.025 * cutoff, tuple(p64.shape)), device=dev)
+    out["cluster_gap"] = (torch.as_tensor(gap, dtype=torch.float32, device=dev), k1)
+    out["drifted"] = (drift.float(), k1)
+    n = e0.shape[0]
+    islots = sorted({0, 1, 31, 33, sb["H_eff"], n - 1, n})
+    gap = sorted({*islots, *(s + d for s in SLAB_GAP_SITES for d in (32, 40))})
+    return ({name: (ext, keys, gap if name == "cluster_gap" else islots)
+             for name, (ext, keys) in out.items()}, sb["strides"], sb["H_eff"])
+
+
+def islot_launch(wrapper, islot: int, fn):
+    """``fn()``, which must launch ``wrapper``'s kernel once, through its
+    min_islot instance where ``islot`` != 0."""
+    before = (wrapper.launches, wrapper.islot_launches)
+    out = fn()
+    check((wrapper.launches, wrapper.islot_launches) == (before[0] + 1,
+                                                         before[1] + int(islot != 0)),
+          f"expected one launch of {wrapper.__name__} (min_islot {islot})")
+    return out
+
+
+def slab_vs_plain(dev, n: int) -> dict:
+    """Each min_islot instance of K1, K5, K6 and K9 against its plain
+    version on the slab path's own halo-extended blocks (`slab_inputs`: 4
+    shards of n points; the thin box for K1 and K5, the cube for K6 and
+    K9; the uniform cloud, the jittered lattice, and on the lattice the
+    prune's hard inputs), at every min_islot of `slab_inputs`: LJ f64
+    totals to TOL_KERNEL, the histograms' bins exactly (f32 and f64
+    coordinates); the term table (lennard_jones(0.7, 1.1)) and the species
+    term (lennard_jones_mixed over a species plane) of K1 and K6 on a
+    jittered lattice at POT_CUTOFF to TOL_TABLE of the sum of |term| over
+    the block's pairs (islots from 0 up, so the first is the whole block).
+    Returns the cases and each instance's largest error."""
+    from zelll_tpu_torch.ops import potentials as P
+    from zelll_tpu_torch.ops.lag_pairs import (
+        combine_count_vec, pair_lag_hist, pair_lag_hist_plain, pair_lag_reduce,
+        pair_lag_reduce_plain,
+    )
+    from zelll_tpu_torch.ops.tile_pairs import (
+        tile_pair_hist, tile_pair_hist_plain, tile_pair_reduce, tile_pair_reduce_plain,
+    )
+    from zelll_tpu_torch.utils.datagen import (
+        generate_points_lattice, generate_points_random, lj_box,
+    )
+
+    f64 = torch.float64
+    csq = CUTOFF**2
+    esq = hist_edges_sq(HIST_K)
+    errs = dict.fromkeys(("K1", "K1_table", "K1_species", "K6", "K6_table", "K6_species"), 0.0)
+    errs.update(dict.fromkeys(("K5_f32", "K5_f64", "K9_f32", "K9_f64"), 0))
+    cases = {}
+    side = (n / 0.01) ** (1 / 3)
+    thin = {"uniform": generate_points_random(n, lj_box(n, CUTOFF)),
+            "lattice": generate_points_lattice(n, lj_box(n, CUTOFF))}
+    cube = {"uniform": cube_points(n)[0],
+            "lattice": generate_points_lattice(n, (side, side, side))}
+    for box, data, tile, H in (("thin", thin, False, 2048), ("cube", cube, True, n // 8)):
+        for kind, pts in data.items():
+            inputs, strides, H_eff = slab_inputs(pts, CUTOFF, H, dev, tile)
+            for name, (ext, keys, islots) in inputs.items():
+                if kind == "uniform" and name in ("cluster_gap", "drifted"):
+                    continue
+                maxj = probe_maxj(keys, strides) if tile else None
+                pairs = 0
+                for k in islots:
+                    if tile:
+                        kw = dict(MAXJ=maxj, min_islot=k, out_dtype=f64)
+                        got, ok = islot_launch(tile_pair_reduce, k, lambda: tile_pair_reduce(
+                            ext, keys, strides, csq, **kw))
+                        want, ok_p = tile_pair_reduce_plain(ext, keys, strides, csq, **kw)
+                        check(bool(ok) and bool(ok_p), f"K6 coverage ({box} {kind} {name})")
+                    else:
+                        kw = dict(L=L_MAIN, min_islot=k, out_dtype=f64)
+                        got = islot_launch(pair_lag_reduce, k, lambda: pair_lag_reduce(
+                            ext, keys, strides, csq, **kw))
+                        want = pair_lag_reduce_plain(ext, keys, strides, csq, **kw)
+                    kernel = "K6" if tile else "K1"
+                    got, want = float(got), float(want)
+                    check(np.isfinite(got) and rel(got, want) <= TOL_KERNEL,
+                          f"{kernel} min_islot {k}: {got} vs plain {want} ({box} {kind} {name})")
+                    if kind == "lattice":
+                        errs[kernel] = max(errs[kernel], abs(got - want))
+                    for pos in (ext, ext.double()):
+                        tag = f"{'K9' if tile else 'K5'}_{'f64' if pos.dtype == f64 else 'f32'}"
+                        if tile:
+                            h, ok = islot_launch(tile_pair_hist, k, lambda: tile_pair_hist(
+                                pos, keys, strides, esq, MAXJ=maxj, min_islot=k))
+                            hp, _ = tile_pair_hist_plain(pos, keys, strides, esq.to(pos.dtype),
+                                                         MAXJ=maxj, min_islot=k)
+                            check(bool(ok), f"K9 coverage ({box} {kind} {name})")
+                        else:
+                            h = islot_launch(pair_lag_hist, k, lambda: pair_lag_hist(
+                                pos, keys, strides, esq, L=L_MAIN, min_islot=k))
+                            hp = pair_lag_hist_plain(pos, keys, strides, esq.to(pos.dtype),
+                                                     L=L_MAIN, min_islot=k)
+                        h, hp = combine_count_vec(h), combine_count_vec(hp)
+                        diff = int(np.abs(h - hp).max())
+                        check(diff == 0, f"{tag} min_islot {k}: bins off by {diff} "
+                              f"({box} {kind} {name})")
+                        errs[tag] = max(errs[tag], diff)
+                        if k == H_eff:
+                            pairs = int(hp[-1])
+                cases[f"{box}_{kind}_{name}"] = dict(rows=ext.shape[0], H_eff=H_eff,
+                                                    islots=islots, owned_pairs=pairs)
+    # the term table and the species term at POT_CUTOFF
+    rng = np.random.default_rng(17)
+    table = table_potentials()["lennard_jones"]
+    mixed = P.lennard_jones_mixed(MIXED_EPS, MIXED_SIGMA)
+    m = max(round(n ** (1 / 3)), 16)
+    cells = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    pot_cube = (cells + 0.5) * POT_SPACING + rng.uniform(-0.2, 0.2, cells.shape)
+    pcsq = POT_CUTOFF**2
+    for box, pts, tile, H in (("thin", pot_lattice(n, rng), False, 1024),
+                              ("cube", pot_cube, True, len(pot_cube) // 8)):
+        inputs, strides, H_eff = slab_inputs(pts, POT_CUTOFF, H, dev, tile)
+        for name, (ext, keys, islots) in inputs.items():
+            sp = species_plane(ext.shape[0], rng, dev)
+            maxj = probe_maxj(keys, strides) if tile else None
+            for tname, term, pay in (("table", table.term, None), ("species", mixed.term, sp)):
+                kernel = f"{'K6' if tile else 'K1'}_{tname}"
+                scale = None  # the sum of |term| over every pair of the block
+                for k in islots:
+                    if tile:
+                        kw = dict(MAXJ=maxj, min_islot=k, out_dtype=f64)
+                        got, ok = islot_launch(tile_pair_reduce, k, lambda: tile_pair_reduce(
+                            ext, keys, strides, pcsq, None, pay, term=term, **kw))
+                        want, _ = tile_pair_reduce_plain(ext, keys, strides, pcsq, None, pay,
+                                                         term=term, **kw)
+                        if scale is None:
+                            scale, _ = tile_pair_reduce_plain(ext, keys, strides, pcsq, None,
+                                                              pay, term=abs_term(term), **kw)
+                        check(bool(ok), f"K6 coverage ({box} {name})")
+                    else:
+                        p = None if pay is None else pay[:, None]
+                        kw = dict(L=512, min_islot=k, out_dtype=f64)
+                        got = islot_launch(pair_lag_reduce, k, lambda: pair_lag_reduce(
+                            ext, keys, strides, pcsq, None, p, term=term, **kw))
+                        want = pair_lag_reduce_plain(ext, keys, strides, pcsq, None, p,
+                                                     term=term, **kw)
+                        if scale is None:
+                            scale = pair_lag_reduce_plain(ext, keys, strides, pcsq, None, p,
+                                                          term=abs_term(term), **kw)
+                    err = energy_check(got, want, scale, f"{kernel} min_islot {k} {box} {name}")
+                    errs[kernel] = max(errs[kernel], err)
+            cases[f"pot_{box}_{name}"] = dict(rows=ext.shape[0], H_eff=H_eff, islots=islots)
+    return dict(n=n, shards=SLAB_SHARDS, cases=cases, max_err=errs)
+
+
+def slab_alone(dev, sb: dict, cutoff: float, tile: bool, maxj, terms,
+               plain_sb: dict | None = None) -> dict:
+    """The min_islot instances alone on shard 1's halo-extended [left
+    ghosts | own] block of the main path's points (``sb``, `slab_blocks`;
+    no wraparound ghosts): ms over 10 runs (K1 through
+    `pair_lag_reduce`, K5 through its launch function, K6 and K9 through
+    `reduce_tiles` and `hist_tiles` on prepared window bounds, as the alone
+    phases time them), one plain pass, the bound of the work the rule
+    leaves (the candidates whose larger slot is owned: the lag-window
+    candidates of the owned rows for K1 and K5, the half-stencil candidates
+    of the block less those among its ghosts for K6 and K9; the owned
+    cutoff pairs), the lane evaluations the cluster prune leaves in the
+    owned clusters (each cluster at or above min_islot // 32, the boundary
+    one with its whole box) per owned half-stencil candidate, as the open
+    instances' rows count them, and the results against the plain version:
+    LJ's f64 total to TOL_KERNEL, the term table's and the species term's
+    to TOL_TABLE of the plain sum of |term| (`energy_check`), the
+    histograms' bins exactly; a mismatch fails the phase.
+    ``terms``: {instance: (term, whether it reads a species plane)}.
+    ``plain_sb`` (the tile path): the blocks of a smaller partition, on
+    whose shard 1 block the plain histograms are timed and checked
+    (``plain_rows``), as `plain_time` does for passes that would take
+    seconds."""
+    from zelll_tpu_torch.core import key_window
+    from zelll_tpu_torch.ops import lag_pairs
+    from zelll_tpu_torch.ops.cluster_prune import (
+        CLUSTER, lag_cluster_entries, tile_cluster_entries,
+    )
+    from zelll_tpu_torch.ops.lag_pairs import combine_count_vec, hist_edges
+    from zelll_tpu_torch.ops.tile_pairs import (
+        hist_tiles, hist_tiles_plain, reduce_tiles, reduce_tiles_plain, tile_inputs,
+    )
+
+    ext, keys = slab_left(sb, 1)
+    strides, k = sb["strides"], sb["H_eff"]
+    rows = ext.shape[0]
+    csq = torch.tensor(cutoff, dtype=torch.float32) ** 2
+    f64 = torch.float64
+    per_pair = int(np.ceil(np.log2(HIST_K)))
+    esq = hist_edges_sq(HIST_K).to(dev)
+    stencil = (periodic_stencil_candidates(keys, strides)
+               - periodic_stencil_candidates(keys[:k], strides))
+    if tile:
+        inp = tile_inputs(ext.t().contiguous(), keys, strides, CB=CB, MAXJ=maxj, bandmask=False)
+        check(bool(inp.coverage_ok), "K6 coverage failed on the slab block")
+        candidates = stencil
+        owned = tile_cluster_entries(inp, csq, half=True)
+        extra = inp.bounds.numel() * 4
+    else:
+        first = torch.searchsorted(keys, keys - key_window(strides))
+        slots = torch.arange(rows, device=dev)
+        candidates = int(torch.clamp(slots - first, max=L_MAIN)[k:].sum())
+        owned = lag_cluster_entries(ext.t(), None, keys, strides, csq, L_MAIN, half=True)
+        extra = 0
+    lanes = int(owned[k // CLUSTER:].sum()) * CLUSTER
+    pairs = int(combine_count_vec(
+        hist_tiles(inp, esq, min_islot=k) if tile else
+        lag_pairs._lag_hist_cuda(ext, keys, strides, esq, None, None, L=L_MAIN,
+                                 pair_mask=None, min_islot=k))[-1])
+    out = dict(rows=rows, H_eff=k, owned_candidates=candidates,
+               owned_stencil_candidates=stencil, owned_pairs=pairs, pruned_evaluations=lanes,
+               pruned_evaluations_per_candidate=lanes / stencil)
+    for name, (term, species) in terms.items():
+        plane = species_plane(rows, np.random.default_rng(4), dev, odd=False) if species else None
+        if tile:
+            def run(plain=False, term=term, plane=plane):
+                fn = reduce_tiles_plain if plain else reduce_tiles
+                return fn(inp, csq, term=term, payload=plane, min_islot=k, out_dtype=f64)
+        else:
+            def run(plain=False, term=term, plane=plane):
+                fn = lag_pairs.pair_lag_reduce_plain if plain else lag_pairs.pair_lag_reduce
+                return fn(ext, keys, strides, csq, None,
+                          None if plane is None else plane[:, None], L=L_MAIN, term=term,
+                          out_dtype=f64, min_islot=k)
+        ms = cuda_ms(run, 10)
+        plain_ms, want = once_ms(lambda: run(True))
+        got, want = float(run()), float(want)
+        what = f"{'K6' if tile else 'K1'} min_islot {name} alone"
+        if name == "lj":
+            check(np.isfinite(got) and rel(got, want) <= TOL_KERNEL,
+                  f"{what}: {got} vs plain {want}")
+            scale = err = None
+        else:
+            scale = float(run(True, term=abs_term(term)))
+            err = energy_check(got, want, scale, what)
+        per = INSTR_PER_PAIR if name == "lj" else INSTR_PER_TERM_PAIR
+        b = bound(rows * 4 * (3 + 1 + (plane is not None)) + extra,
+                  candidates * INSTR_PER_CANDIDATE[False] + pairs * per)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, **b, share_of_bound=b["bound_ms"] / ms,
+                         energy=got, plain_energy=want, rel_err=rel(got, want),
+                         abs_err=abs(got - want), abs_term_sum=scale, err_of_abs_sum=err)
+    if tile and plain_sb is not None:
+        pb = plain_sb
+        p_ext, p_keys = slab_left(pb, 1)
+    for tag, pos in (("f32", ext), ("f64", ext.double())):
+        plain_rows = rows
+        if tile:
+            x = inp if tag == "f32" else tile_inputs(pos.t().contiguous(), keys, strides, CB=CB,
+                                                     MAXJ=maxj, bandmask=False)
+            px = x
+            if plain_sb is not None:
+                pp = p_ext if tag == "f32" else p_ext.double()
+                px = tile_inputs(pp.t().contiguous(), p_keys, pb["strides"], CB=CB,
+                                 MAXJ=maxj, bandmask=False)
+                plain_rows = pp.shape[0]
+
+            def run(plain=False, x=x, px=px, k=k, pk=pb["H_eff"] if plain_sb is not None else k):
+                if plain:
+                    return hist_tiles_plain(px, esq, min_islot=pk)
+                return hist_tiles(x, esq, min_islot=k)
+        else:
+            edges = hist_edges(esq, pos.dtype, dev)
+
+            def run(plain=False, pos=pos, edges=edges):
+                if plain:
+                    return lag_pairs.pair_lag_hist_plain(pos, keys, strides, edges, L=L_MAIN,
+                                                         min_islot=k)
+                return lag_pairs._lag_hist_cuda(pos, keys, strides, edges, None, None,
+                                                L=L_MAIN, pair_mask=None, min_islot=k)
+        ms = cuda_ms(run, 10)
+        plain_ms, want = once_ms(lambda: run(True))
+        got = run() if plain_rows == rows else hist_tiles(px, esq, min_islot=pb["H_eff"])
+        diff = int(np.abs(combine_count_vec(got) - combine_count_vec(want)).max())
+        check(diff == 0, f"{'K9' if tile else 'K5'} min_islot {tag} alone: bins off by {diff}")
+        b = bound(rows * (pos.element_size() * 3 + 4) + extra + HIST_K * 8,
+                  candidates * INSTR_PER_CANDIDATE[False] + pairs * per_pair)
+        out[f"hist_{tag}"] = dict(ms=ms, plain_ms=plain_ms, plain_rows=plain_rows, **b,
+                                  share_of_bound=b["bound_ms"] / ms, max_count_diff=diff)
+    lib = (lag_pairs.load_kernel, lag_pairs.load_hist_kernel)
+    if tile:
+        from zelll_tpu_torch.ops import tile_pairs
+
+        lib = (tile_pairs.load_kernel, tile_pairs.load_hist_kernel)
+    out["ptxas"] = {**ptxas_functions(lib[0].log, "islot"), **ptxas_functions(lib[1].log, "islot")}
+    return out
+
+
+def slab_main_path(dev, n: int) -> dict:
+    """The slab decomposition at n = 1e7 over SLAB_SHARDS shards of the one
+    card, through its entry points (`zelll_tpu_torch.parallel`), on the
+    bench protocol's thin box (30 x 30 x n/9, cutoff 10, uniform) with
+    ``use_pallas`` (K1, K5, K3) and its cube (uniform, density 0.01) with
+    ``use_tile`` (K6, K9, K7): `partition_by_slab` on the host (its time
+    apart), `sharded_lj_energy`, `sharded_pair_hist` (f32 and f64
+    coordinates), `make_sharded_potential`'s value and gradient with LJ and
+    with lennard_jones(0.7, 1.1) (the term table), `sharded_lj_energy` with
+    lennard_jones_mixed's species column (``n_payload=1``), and
+    `sharded_md_step` (a warm-up and SLAB_STEPS steps) on the MD protocol's
+    lattice start state of the same box. Each call's launches are zeroed
+    just before it and read just after, and must be exact; ms per call
+    from CUDA events and the busy share from a profile. It checks every
+    coverage flag; the histograms' bins (the last one the pair count) equal
+    to the single-device histogram of the same points; the energies equal
+    to the single-device calls' to TOL_SLAB; the gradients equal to the
+    single-device potential's to TOL_SLAB_GRAD of the largest; and one
+    shard equal to the single-device call on the same sorted points,
+    bitwise. Then each min_islot instance alone (`slab_alone`). Each box's
+    halo-extended blocks are built once (`slab_blocks`), for the windows
+    and for `slab_alone`; ``setup_s`` holds the host seconds of its set-up
+    steps."""
+    from zelll_tpu_torch.core import bin_and_sort
+    from zelll_tpu_torch.ops import potentials as P
+    from zelll_tpu_torch.ops.autodiff import make_pair_potential
+    from zelll_tpu_torch.ops.lag_pairs import (
+        combine_count_vec, lj_term, pair_lag_hist, pair_lag_reduce,
+    )
+    from zelll_tpu_torch.ops.tile_pairs import tile_pair_hist, tile_pair_reduce
+    from zelll_tpu_torch.parallel import (
+        make_mesh, make_sharded_potential, partition_by_slab, sharded_lj_energy,
+        sharded_md_step, sharded_pair_hist,
+    )
+    from zelll_tpu_torch.utils.datagen import generate_points_random, lattice_cloud, lj_box
+
+    D = SLAB_SHARDS
+    mesh, one = make_mesh(D, devices=dev), make_mesh(1, devices=dev)
+    table = table_potentials()["lennard_jones"]
+    mixed = P.lennard_jones_mixed(MIXED_EPS, MIXED_SIGMA)
+    edges = np.linspace(0.0, CUTOFF, HIST_K)
+    # the sharded histogram's squared edges: squared in f64, then rounded to
+    # f32 (as the JAX package's sharded_pair_hist does)
+    esq = torch.as_tensor(edges**2, dtype=torch.float32, device=dev)
+    side = (n / 0.01) ** (1 / 3)
+    out, rows = {}, {}
+    for box, use_tile in (("thin", False), ("cube", True)):
+        setup_s, lap = {}, [time.perf_counter()]
+
+        def done(step):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            setup_s[step] = setup_s.get(step, 0.0) + now - lap[0]
+            lap[0] = now
+
+        pts = (cube_points(n)[0] if use_tile else
+               generate_points_random(n, lj_box(n, CUTOFF)))
+        done("points")
+        parts, n_local = partition_by_slab(pts, CUTOFF, D)
+        done("partition_by_slab")
+        host_s = setup_s["partition_by_slab"]
+        del pts
+        pos = torch.as_tensor(parts, dtype=torch.float32, device=dev)
+        del parts
+        needed, H = slab_halo(pos, CUTOFF, dev)
+        bins, pos_s = bin_and_sort(pos, CUTOFF, auto_order=True)
+        skeys, strides = bins.sorted_keys, bins.info.strides
+        del bins
+        slabs = slab_blocks(pos, CUTOFF, H, dev, tile=use_tile, right=True)
+        maxj = slab_maxj(slabs, full=False) if use_tile else None
+        maxj_f = slab_maxj(slabs, full=True) if use_tile else None
+        done("halo_blocks_windows")
+        path = dict(use_tile=True, MAXJ=maxj) if use_tile else dict(use_pallas=True, L=L_MAIN)
+        kern = "tile" if use_tile else "lag"
+        energy_k, hist_k, forces_k = f"{kern}_reduce", f"{kern}_hist", f"{kern}_forces"
+        csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+        cell = dict(n=n, shards=D, n_local=n_local, halo_needed=needed, H=H,
+                    partition_host_s=host_s, MAXJ=maxj, MAXJ_F=maxj_f, setup_s=setup_s,
+                    calls={})
+        launches = {}
+
+        def call(name, fn, expect, instance=None, reps=SLAB_REPS, profile=True):
+            r = timed_call(fn, reps, expect)
+            res = r.pop("out")
+            if instance is not None:
+                key = energy_k if instance.startswith(kern + "_reduce") else hist_k
+                launches[instance] = launches.get(instance, 0) + r["launches"][key + "_islot"]
+            if profile:
+                prof = profile_steps(fn, 3)
+                r.update(device_busy_share=prof["device_busy_share"],
+                         device_ops_per_call=prof["device_ops_per_step"])
+            cell["calls"][name] = r
+            return res
+
+        islot = {energy_k: D, energy_k + "_islot": D}
+        # the energy, against the single-device call on the same points
+        efn = sharded_lj_energy(mesh, cutoff=CUTOFF, H=H, **path)
+        e, ok = call("sharded_lj_energy", lambda i: efn(pos), islot, f"{energy_k}_islot")
+        if use_tile:
+            e1, ok1 = tile_pair_reduce(pos_s, skeys, strides, csq, MAXJ=maxj)
+        else:
+            e1, ok1 = pair_lag_reduce(pos_s, skeys, strides, csq, L=L_MAIN), True
+        check(bool(ok1), f"single-device coverage ({box})")
+        e_err = rel(float(e), float(e1))
+        check(np.isfinite(float(e)) and e_err <= TOL_SLAB,
+              f"sharded energy {float(e)} vs single-device {float(e1)} ({box})")
+        # one shard: the single-device call on the same (stable) sort
+        e_one, ok = sharded_lj_energy(one, cutoff=CUTOFF, H=H, **path)(pos)
+        check(bool(ok) and float(e_one) == float(e1),
+              f"one shard {float(e_one)} vs single device {float(e1)} ({box})")
+        cell.update(energy=float(e), single_device_energy=float(e1), energy_rel_err=e_err)
+        # the histograms, against the single-device ones (f32 and f64)
+        hkw = dict(MAXJ=maxj) if use_tile else dict(L=L_MAIN)
+        hexp = {hist_k: D, hist_k + "_islot": D}
+        for tag, x, xs in (("f32", pos, pos_s), ("f64", pos.double(), pos_s.double())):
+            hfn = sharded_pair_hist(mesh, edges, H=H, use_tile=use_tile, **hkw)
+            h, ok = call(f"sharded_pair_hist_{tag}", lambda i, x=x: hfn(x), hexp,
+                         f"{hist_k}_islot_{tag}", profile=tag == "f32")
+            if use_tile:
+                h1, ok1 = tile_pair_hist(xs, skeys, strides, esq, MAXJ=maxj)
+            else:
+                h1, ok1 = pair_lag_hist(xs, skeys, strides, esq, L=L_MAIN), True
+            h, h1 = combine_count_vec(h), combine_count_vec(h1)
+            check(bool(ok1) and np.array_equal(h, h1),
+                  f"sharded histogram != single device ({box} {tag}): "
+                  f"{int(np.abs(h - h1).max())}")
+            cell[f"pairs_{tag}"] = int(h[-1])
+        check(cell["pairs_f32"] > 0, f"no pair counted ({box})")
+        # the species column (lennard_jones_mixed) as the payload
+        spec = species_plane(pos.shape[0], np.random.default_rng(3), dev, odd=False)
+        with_spec = torch.cat([pos, spec[:, None]], 1)
+        sfn = sharded_lj_energy(mesh, cutoff=CUTOFF, H=H, n_payload=1, term=mixed.term, **path)
+        es, ok = call("sharded_lj_energy_species", lambda i: sfn(with_spec), islot,
+                      f"{energy_k}_islot_species", profile=False)
+        sb, ss = bin_and_sort(with_spec, CUTOFF, auto_order=True)
+        sp = ss[:, 3].contiguous()
+        if use_tile:
+            es1, _ = tile_pair_reduce(ss[:, :3].contiguous(), sb.sorted_keys, strides, csq,
+                                      None, sp, MAXJ=maxj, term=mixed.term)
+        else:
+            es1 = pair_lag_reduce(ss[:, :3].contiguous(), sb.sorted_keys, strides, csq, None,
+                                  sp[:, None], L=L_MAIN, term=mixed.term)
+        del with_spec, sb, ss
+        check(rel(float(es), float(es1)) <= TOL_SLAB,
+              f"sharded species energy {float(es)} vs {float(es1)} ({box})")
+        cell["species_energy_rel_err"] = rel(float(es), float(es1))
+        # the potential's value and gradient, against the single-device one
+        grad_exp = {energy_k: D, energy_k + "_islot": D, forces_k: D}
+        tkw = dict(path="tile", MAXJ=maxj, MAXJ_F=max(probe_maxj(skeys, strides, full=True)) + 1
+                   ) if use_tile else dict(L=L_MAIN)
+        for tname, term in (("lj", None), ("table", table.term)):
+            pot = make_sharded_potential(mesh, cutoff=CUTOFF, H=H, term=term,
+                                         MAXJ_F=maxj_f, **path)
+            vg = value_and_grad_fn(pot, pos)
+            e, g, ok = call(f"make_sharded_potential_{tname}",
+                            lambda i, vg=vg: (lambda r: (r[0], r[2], r[1]))(vg()), grad_exp,
+                            f"{energy_k}_islot" + ("" if tname == "lj" else "_table"))
+            single = make_pair_potential(CUTOFF, term=term or lj_term, **tkw)
+            e1, ok1, g1 = value_and_grad_fn(single, pos)()
+            check(bool(ok1), f"single-device potential coverage ({box} {tname})")
+            g_err = float((g - g1).abs().max()) / float(g1.abs().max())
+            check(rel(float(e), float(e1)) <= TOL_SLAB and g_err <= TOL_SLAB_GRAD,
+                  f"sharded potential {tname} ({box}): energy {float(e)} vs {float(e1)}, "
+                  f"gradient off by {g_err}")
+            cell[f"potential_{tname}"] = dict(energy_rel_err=rel(float(e), float(e1)),
+                                              grad_err_of_max=g_err)
+            del g, g1
+        done("calls")
+        # the MD step on the protocol's lattice start state of this box
+        rng = np.random.default_rng(0)
+        mbox = (side, side, side) if use_tile else lj_box(n, CUTOFF)
+        mparts, _ = partition_by_slab(lattice_cloud(n, mbox, rng), CUTOFF, D)
+        mpos = torch.as_tensor(mparts, dtype=torch.float32, device=dev)
+        mvel = torch.as_tensor(rng.normal(0, 0.3, mparts.shape), dtype=torch.float32,
+                               device=dev)
+        del mparts
+        mneeded, mH = slab_halo(mpos, CUTOFF, dev)
+        if use_tile:
+            msb = slab_blocks(mpos, CUTOFF, mH, dev, tile=True, right=True)
+            mkw = dict(use_tile=True, MAXJ=slab_maxj(msb, full=True))
+            del msb
+        else:
+            mkw = dict(use_pallas=True, L=L_MAIN)
+        done("md_setup")
+        step = sharded_md_step(mesh, cutoff=CUTOFF, H=mH, dt=MD_DT, **mkw)
+        reset_launches()
+        mpos, mvel, e, ok = step(mpos, mvel)
+        check(bool(ok), f"sharded MD warm-up coverage ({box})")
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flags, t_host = [], time.perf_counter()
+        start.record()
+        for _ in range(SLAB_STEPS):
+            mpos, mvel, e, ok = step(mpos, mvel)
+            flags.append(ok)
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t_host) * 1e3 / SLAB_STEPS
+        check(all(bool(f) for f in flags) and np.isfinite(float(e)),
+              f"sharded MD coverage or energy ({box})")
+        per_step = {forces_k: D, energy_k: D, energy_k + "_islot": D}
+        md_launches = window_launches(per_step, SLAB_STEPS + 1)
+        launches[f"{energy_k}_islot"] += md_launches[energy_k + "_islot"]
+        prof = profile_steps(lambda i: step(mpos, mvel), 3)
+        cell["calls"]["sharded_md_step"] = dict(
+            step_ms=start.elapsed_time(end) / SLAB_STEPS, host_step_ms=host_ms,
+            steps=SLAB_STEPS, halo_needed=mneeded, H=mH, launches=md_launches,
+            energy=float(e), device_busy_share=prof["device_busy_share"],
+            device_ops_per_step=prof["device_ops_per_step"], MAXJ=mkw.get("MAXJ"))
+        del mpos, mvel, step
+        done("md")
+        # each min_islot instance alone on shard 1's block
+        terms = {"lj": (lj_term, False), "table": (table.term, False),
+                 "species": (mixed.term, True)}
+        plain_sb = slab_blocks(partition_by_slab(cube_points(N_PARITY)[0], CUTOFF, D)[0],
+                               CUTOFF, H, dev, tile=True) if use_tile else None
+        cell["alone"] = slab_alone(dev, slabs, CUTOFF, use_tile, maxj, terms, plain_sb)
+        done("alone")
+        cell["launches"] = launches
+        rows[box] = (cell["alone"], launches)
+        out[box] = cell
+        del pos, pos_s, skeys, slabs, plain_sb
+    return dict(n=n, shards=D, cells=out, rows=rows)
+
+
+def slab_rows(svp, smp) -> list:
+    """The kernels line's rows of the min_islot instances of K1, K5, K6 and
+    K9: ms, plain ms and bound alone on a shard's block at n = 1e7
+    (`slab_alone`), launches on the slab main path (`slab_main_path`'s
+    calls), max_abs_err from `slab_vs_plain` (the lattice's absolute
+    error, or the table and species terms' error over the sum of |term|;
+    the histograms' largest count difference)."""
+    out = []
+    for box, src, kernel, replaces in (
+            ("thin", "lag_reduce", "K1", "zelll_tpu/ops/pallas_pairs.py:1001 (min_islot, :925)"),
+            ("cube", "tile_reduce", "K6", "zelll_tpu/ops/tile_pairs.py:1451 (min_islot)")):
+        alone, launches = smp["rows"][box]
+        for inst, tag, what in (("lj", "", "LJ"), ("table", "_table", "term table"),
+                                ("species", "_species", "species term")):
+            r = alone[inst]
+            out.append(dict(
+                name=f"{src}_islot{tag}", route="cuda",
+                source=f"zelll_tpu_torch/csrc/{src}.cu", replaces=replaces,
+                instance=f"min_islot (slab ownership), {what}, open f32",
+                launches=launches.get(f"{src}_islot{tag}", 0),
+                max_abs_err=svp["max_err"][f"{kernel}{tag}"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                share_of_bound=r["share_of_bound"],
+                pruned_evaluations_per_candidate=alone["pruned_evaluations_per_candidate"],
+                library_ms=None))
+    for box, src, kernel, replaces in (
+            ("thin", "lag_hist", "K5", "zelll_tpu/ops/pallas_pairs.py:1529 (min_islot)"),
+            ("cube", "tile_hist", "K9", "zelll_tpu/ops/tile_pairs.py:654 (min_islot)")):
+        alone, launches = smp["rows"][box]
+        for tag in ("f32", "f64"):
+            r = alone[f"hist_{tag}"]
+            out.append(dict(
+                name=f"{src}_islot" + ("" if tag == "f32" else "_f64"), route="cuda",
+                source=f"zelll_tpu_torch/csrc/{src}.cu", replaces=replaces,
+                instance=f"min_islot (slab ownership), no mask, open {tag}, K = {HIST_K}",
+                launches=launches.get(f"{src}_islot_{tag}", 0),
+                max_abs_err=svp["max_err"][f"{kernel}_{tag}"], ms=r["ms"],
+                plain_ms=r["plain_ms"], plain_rows=r["plain_rows"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"],
+                share_of_bound=r["share_of_bound"],
+                pruned_evaluations_per_candidate=alone["pruned_evaluations_per_candidate"],
+                library_ms=None))
+    for row in out:
+        check(row["launches"] > 0, f"the slab main path never launched {row['name']}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5712,7 +6387,9 @@ def main() -> None:
     emit("obs_vs_plain", **ov)
     obs = observables_main_path(dev, N_MAIN)
     emit("observables_main_path", **obs)
-    emit("obs_parity", **obs_parity(dev, N_PARITY))
+    # the parity phases at half N_PARITY (5e5), every check kept, for the
+    # script's time
+    emit("obs_parity", **obs_parity(dev, N_PARITY // 2))
     sa = stress_alone(dev, N_MAIN)
     emit("stress_alone", **sa)
     ha = hist_alone(dev, N_MAIN)
@@ -5724,7 +6401,7 @@ def main() -> None:
     emit("pbc_vs_plain", **pv)
     pbc = pbc_main_path(dev, N_MAIN)
     emit("pbc_main_path", **pbc)
-    emit("pbc_parity", **pbc_parity(dev, N_PARITY))
+    emit("pbc_parity", **pbc_parity(dev, N_PARITY // 2))
     pa = pbc_alone(dev, N_MAIN)
     emit("pbc_alone", **pa)
 
@@ -5736,7 +6413,7 @@ def main() -> None:
     # at N_CHECK (2e5) rather than 1e6, for the script's time
     pvp = potentials_vs_plain(dev, N_CHECK)
     emit("potentials_vs_plain", **pvp)
-    emit("species_pbc", **species_pbc(dev, N_PARITY))
+    emit("species_pbc", **species_pbc(dev, N_PARITY // 2))
 
     # -- 21. periodic observables (K4 and K5 keep mask and minimum image, K8 and
     # K9 keep mask) and the barostat ------------------------------------------
@@ -5745,7 +6422,7 @@ def main() -> None:
     pom = pbc_obs_main_path(dev, N_MAIN)
     emit("pbc_obs_main_path", **pom)
     emit("npt_main_path", **npt_main_path(dev, N_MAIN))
-    emit("pbc_obs_parity", **pbc_obs_parity(dev, N_PARITY))
+    emit("pbc_obs_parity", **pbc_obs_parity(dev, N_PARITY // 2))
 
     # -- 22. differentiable potentials (K1 + K3, K6 + K7) and the term table in
     # K2, K4 and K8 -----------------------------------------------------------
@@ -5758,7 +6435,14 @@ def main() -> None:
     toa = table_obs_alone(dev, N_MAIN)
     emit("table_obs_alone", **toa)
 
-    # -- 23. every ported kernel ---------------------------------------------------
+    # -- 23. the slab decomposition on SLAB_SHARDS shards of the card, with the
+    # min_islot instances of K1, K5, K6 and K9 -----------------------------------
+    svp = slab_vs_plain(dev, N_CHECK // 8)
+    emit("slab_vs_plain", **svp)
+    smp = slab_main_path(dev, N_MAIN)
+    emit("slab_main_path", **{k: v for k, v in smp.items() if k != "rows"})
+
+    # -- 24. every ported kernel ---------------------------------------------------
     split_k1 = k1["split"]
     k12_sdf = k12["float64"]["sdf"]
     f32_k3 = k3["f32"]
@@ -5925,9 +6609,10 @@ def main() -> None:
         ("tile_hist_keep", "tile_hist", "K9", "K9_keep", ("cube_rdf",),
          "zelll_tpu/ops/tile_pairs.py:453 (payload row, pair_mask)",
          "periodic keep mask over the payload row, cube with ghost images, K = 32, f32"),
-    )), *table_rows(spm, pmp), *obs_table_rows(tov, foc, toa)]}), flush=True)
+    )), *table_rows(spm, pmp), *obs_table_rows(tov, foc, toa),
+        *slab_rows(svp, smp)]}), flush=True)
 
-    # -- 24. the card, then the contract line -----------------------------------
+    # -- 25. the card, then the contract line -----------------------------------
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -11,7 +11,9 @@ import pytest
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
+import torch_slab
 from zelll_tpu.core.binning import bin_and_sort as jax_bin_and_sort
+from zelll_tpu.parallel import partition_by_slab as jax_partition_by_slab
 from zelll_tpu_torch.core import SENTINEL_KEY, bin_and_sort, build, build_bins
 
 TABLE = ("keys", "sorted_keys", "cell_keys", "cell_counts", "cell_starts",
@@ -48,6 +50,8 @@ def test_stable_sort_matches_jax_exactly():
     _assert_table_equal(jb, tb)
     np.testing.assert_array_equal(tb.perm.numpy(), np.asarray(jb.perm))
     np.testing.assert_array_equal(tpos, jpos)
+    # the slab decomposition's host key sort (parallel.partition_by_slab)
+    torch_slab.partition_matches_jax(jax_partition_by_slab)
 
 
 def test_valid_padding_matches_jax():
@@ -111,6 +115,9 @@ def test_stable_order_within_cells_and_unsort():
     for c in np.unique(keys):
         assert (np.diff(perm[keys[perm] == c]) > 0).all()
     np.testing.assert_array_equal(grid.unsort(grid.sorted_pos).numpy(), pts)
+    # the slab decomposition's global and distributed re-sorts
+    # (parallel.repartition, repartition_exchange and its ring form)
+    torch_slab.repartitions()
 
 
 @pytest.mark.parametrize("n", [0, 1])

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_slab
 from test_torch_stress import edge_cluster
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
@@ -359,6 +360,8 @@ def test_hist_coverage_flags():
     assert not ok
     _, ok = pair_distance_histogram(torch.as_tensor(pts), edges, path="tile", MAXJ=1)
     assert not ok
+    # the slab decomposition's histograms (parallel.sharded_pair_hist)
+    torch_slab.histograms()
 
 
 def test_tile_hist_limits_raise_on_both_packages():

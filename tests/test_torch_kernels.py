@@ -259,8 +259,8 @@ def test_tile_reduce_kernel_matches_plain_on_card(cuda_device):
 
     with pytest.raises(ValueError):
         tile_pair_reduce(shi, keys, strides, csq, MAXJ=maxj, term=lambda d: d)
-    with pytest.raises(ValueError):
-        tile_pair_reduce(shi, keys, strides, csq, MAXJ=maxj, min_islot=5)
+    with pytest.raises(ValueError, match="ownership rule"):
+        tile_pair_reduce(shi, keys, strides, csq, slo, MAXJ=maxj, min_islot=5)
     with pytest.raises(ValueError):
         tile_pair_reduce(shi.double(), keys, strides, csq, MAXJ=maxj)
 
@@ -531,7 +531,7 @@ def test_pbc_lag_reduce_kernel_matches_plain_on_card(cuda_device):
         pair_lag_reduce(shi, keys, strides, csq, None, pay, term=lambda d, a, b: d, **kw)
     with pytest.raises(ValueError, match="payload rule"):
         pair_lag_reduce(shi, keys, strides, csq, None, pay, **kw)
-    with pytest.raises(ValueError, match="slice 9"):
+    with pytest.raises(ValueError, match="ownership rule"):
         pair_lag_reduce(shi, keys, strides, csq, None, pay, term=PbcKeepTerm(lj_term),
                         min_islot=5, **kw)
     with pytest.raises(ValueError):
@@ -577,7 +577,7 @@ def test_pbc_tile_reduce_kernel_matches_plain_on_card(cuda_device):
     drifted since its keys
     were built; masked and maskless, f32 and split, lj_term, lj_term_fast
     and count_term: counts exact, f64 totals to 1e-10 (TOL_FAST). Other
-    payload rules and min_islot raise."""
+    payload rules, and min_islot with the keep mask, raise."""
     from zelll_tpu_torch.ops.lag_pairs import PbcKeepTerm
 
     n = 50_000
@@ -613,7 +613,7 @@ def test_pbc_tile_reduce_kernel_matches_plain_on_card(cuda_device):
     with pytest.raises(ValueError, match="payload rule"):
         tile_pair_reduce(shi, keys, strides, csq, None, pay, MAXJ=maxj,
                          term=lambda d, a, b: d)
-    with pytest.raises(ValueError, match="slice 9"):
+    with pytest.raises(ValueError, match="ownership rule"):
         tile_pair_reduce(shi, keys, strides, csq, None, pay, MAXJ=maxj,
                          term=PbcKeepTerm(lj_term), min_islot=5)
 
@@ -992,8 +992,8 @@ def test_lag_hist_kernel_matches_plain_on_card(cuda_device):
         np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError):
         pair_lag_hist(shi, keys, strides, esq, None, spec.float(), pair_mask=lambda a, b: a == b)
-    with pytest.raises(ValueError):
-        pair_lag_hist(shi, keys, strides, esq, min_islot=3)
+    with pytest.raises(ValueError, match="ownership rule"):
+        pair_lag_hist(shi, keys, strides, esq, slo, min_islot=3)
 
 
 @pytest.mark.gpu
@@ -1132,8 +1132,8 @@ def test_tile_hist_kernel_matches_plain_on_card(cuda_device):
             np.testing.assert_array_equal(combine_count_vec(got), combine_count_vec(want))
     with pytest.raises(ValueError):
         tile_pair_hist(shi, keys, strides, torch.linspace(0, 9, 65, device=cuda_device))
-    with pytest.raises(ValueError):
-        tile_pair_hist(shi, keys, strides, esq, min_islot=3)
+    with pytest.raises(ValueError, match="ownership rule"):
+        tile_pair_hist(shi, keys, strides, esq, slo, min_islot=3)
 
 
 
@@ -1907,3 +1907,266 @@ def test_make_pair_potential_on_card(cuda_device):
         torch.autograd.grad(e, xg)
     with pytest.raises(ValueError, match="species plane"):
         make_pair_potential(CUTOFF, term=lennard_jones_mixed((1.0,), (1.0,)).term)
+
+
+# -- the distributed ownership rule (min_islot) in K1, K5, K6 and K9 ----------
+
+ISLOT_SHARDS = 4
+
+
+def _slab_ext(pts, cutoff, H, device, tile=False):
+    """Every shard's halo-extended [left ghosts | own] block of a 4-shard
+    slab partition of ``pts``, built by the slab path's own helpers
+    (`parallel.domain`: the partition, the global grid, the local sort, the
+    halo exchange and, for the tile kernels, the key-safe wraparound
+    ghosts: `domain.slab_block`), in f32 on the card. Returns ([(ext,
+    keys)] per shard, strides, H_eff)."""
+    from zelll_tpu_torch.parallel import domain, mesh
+
+    parts, _ = domain.partition_by_slab(pts, cutoff, ISLOT_SHARDS)
+
+    def body(pos):
+        b = domain.slab_block(pos, cutoff, H, wrap_safe=tile)
+        return b.ext, b.keys, b.info.strides, torch.tensor(b.H_eff)
+
+    run = mesh.shard_map(body, mesh.make_mesh(ISLOT_SHARDS, devices=device), (mesh.AXIS,),
+                         (mesh.AXIS, mesh.AXIS, None, None))
+    ext, keys, strides, H_eff = run(torch.as_tensor(parts, dtype=torch.float32, device=device))
+    m = ext.shape[0] // ISLOT_SHARDS
+    shards = [(ext[k * m:(k + 1) * m].contiguous(), keys[k * m:(k + 1) * m].contiguous())
+              for k in range(ISLOT_SHARDS)]
+    return shards, strides, int(H_eff)
+
+
+def _islot_cases(pts, cutoff, H, device, tile=False):
+    """{name: (ext, keys, strides, min_islot values)}: each shard's block
+    (shard 0 with the wraparound ghosts), and shard 1's block as the
+    prune's hard inputs (the facing clusters of `cluster_gap` and the rows
+    drifted since their keys were built). The min_islot values: 0, 1, 31,
+    33, H_eff, n - 1, n, and the later clusters of the gap sites (32 and 40
+    past each)."""
+    shards, strides, H_eff = _slab_ext(pts, cutoff, H, device, tile)
+    out = {}
+    for k, (ext, keys) in enumerate(shards):
+        out[f"shard{k}"] = (ext, keys)
+    ext, keys = shards[1]
+    gap = cluster_gap(ext.double().cpu().numpy(), cutoff, GAP_SITES)
+    drift = ext.double() + torch.as_tensor(np.random.default_rng(5).uniform(
+        -0.02 * cutoff, 0.02 * cutoff, tuple(ext.shape)), device=device)
+    out["cluster_gap"] = (torch.as_tensor(gap, dtype=torch.float32, device=device), keys)
+    out["drifted"] = (drift.float(), keys)
+    n = shards[0][0].shape[0]
+    islots = sorted({0, 1, 31, 33, H_eff, n - 1, n,
+                     *(s + d for s in GAP_SITES for d in (32, 40))})
+    return {name: (ext, keys, strides, islots) for name, (ext, keys) in out.items()}, H_eff
+
+
+def _thin_slab_points(n, rng):
+    return generate_points_random(n, lj_box(n, CUTOFF)), generate_points_lattice(
+        n, lj_box(n, CUTOFF))
+
+
+def _cube_slab_points(n):
+    side = (n / 0.01) ** (1 / 3)
+    rng = np.random.default_rng(4)
+    return rng.uniform(0, side, (n, 3)), generate_points_lattice(n, (side, side, side))
+
+
+def _table_slab_points(shape, rng):
+    cells = np.stack(np.meshgrid(*[np.arange(k) for k in shape], indexing="ij"), -1)
+    return (cells.reshape(-1, 3) + 0.5) * 1.25 + rng.uniform(
+        -0.2, 0.2, (int(np.prod(shape)), 3))
+
+
+def _counted(wrapper, islot, fn):
+    """``fn()``, which must launch ``wrapper``'s kernel once, and its
+    min_islot instance once where ``islot`` != 0."""
+    before = (wrapper.launches, wrapper.islot_launches)
+    out = fn()
+    assert (wrapper.launches, wrapper.islot_launches) == (
+        before[0] + 1, before[1] + int(islot != 0))
+    return out
+
+
+@pytest.mark.gpu
+def test_islot_lag_reduce_kernel_matches_plain_on_card(cuda_device):
+    """K1's min_islot instances against its plain version on the slab
+    path's halo-extended blocks (`_islot_cases`: the thin uniform cloud,
+    the jittered lattice and the prune's hard inputs; 4 shards, min_islot
+    from 0 to n): LJ f64 totals to 1e-10; the term table
+    (lennard_jones(0.7, 1.1)) and the species term (lennard_jones_mixed
+    over a species plane) on a jittered lattice at cutoff 2.5, to
+    TOL_TABLE_ENERGY of the sum of |term|. Split coordinates, the keep mask
+    and count_term with min_islot raise."""
+    from zelll_tpu_torch.ops.potentials import lennard_jones, lennard_jones_mixed
+
+    rng = np.random.default_rng(21)
+    f64 = torch.float64
+    csq = torch.tensor(CUTOFF, dtype=torch.float32) ** 2
+    n = 80_000
+    for kind, pts in zip(("uniform", "lattice"), _thin_slab_points(n, rng)):
+        cases, H_eff = _islot_cases(pts, CUTOFF, 2048, cuda_device)
+        assert 0 < H_eff < n // ISLOT_SHARDS
+        for name, (ext, keys, strides, islots) in cases.items():
+            if kind == "uniform" and name in ("cluster_gap", "drifted"):
+                continue
+            for k in islots:
+                got = _counted(pair_lag_reduce, k, lambda: pair_lag_reduce(
+                    ext, keys, strides, csq, min_islot=k, out_dtype=f64))
+                want = pair_lag_reduce_plain(ext, keys, strides, csq, min_islot=k,
+                                             out_dtype=f64)
+                cnt = combine_count(pair_lag_reduce_plain(
+                    ext, keys, strides, csq, min_islot=k, term=count_term,
+                    out_dtype=torch.int32))
+                torch.cuda.synchronize()
+                assert cnt > 0 or k >= ext.shape[0] - 1, (kind, name, k)
+                np.testing.assert_allclose(float(got), float(want), rtol=1e-10,
+                                           err_msg=f"{kind} {name} {k}")
+    table = lennard_jones(0.7, 1.1)
+    mixed = lennard_jones_mixed((1.0, 0.5, 0.8), (1.0, 1.2, 0.9))
+    tcsq = TABLE_CUTOFF**2
+    cases, _ = _islot_cases(_table_slab_points((8, 8, 320), rng), TABLE_CUTOFF, 512,
+                            cuda_device)
+    for name, (ext, keys, strides, islots) in cases.items():
+        pay = _species_plane(ext.shape[0], rng, cuda_device)[:, None]
+        for term, p in ((table.term, None), (mixed.term, pay)):
+            for k in islots:
+                kw = dict(min_islot=k, out_dtype=f64, L=512)
+                got = _counted(pair_lag_reduce, k, lambda: pair_lag_reduce(
+                    ext, keys, strides, tcsq, None, p, term=term, **kw))
+                want = pair_lag_reduce_plain(ext, keys, strides, tcsq, None, p, term=term, **kw)
+                scale = pair_lag_reduce_plain(ext, keys, strides, tcsq, None, p,
+                                              term=_abs_term(term), **kw)
+                _energy_close(got, want, scale, (name, k, p is not None))
+    ext, keys, strides, _ = cases["shard1"]
+    from zelll_tpu_torch.ops.lag_pairs import PbcKeepTerm
+
+    for bad in (dict(sorted_pos_lo=torch.zeros_like(ext)), dict(term=count_term),
+                dict(term=PbcKeepTerm(lj_term), sorted_payload=torch.zeros_like(ext[:, 0]))):
+        with pytest.raises(ValueError, match="ownership rule"):
+            pair_lag_reduce(ext, keys, strides, tcsq, min_islot=7, **bad)
+
+
+@pytest.mark.gpu
+def test_islot_tile_reduce_kernel_matches_plain_on_card(cuda_device):
+    """K6's min_islot instances against its plain version on the slab
+    path's halo-extended blocks with key-safe wraparound ghosts (the cube's
+    uniform cloud and jittered lattice and the prune's hard inputs; 4
+    shards; min_islot from 0 to n): LJ f64 totals to 1e-10, the term table
+    and the species row on a jittered lattice at cutoff 2.5 to
+    TOL_TABLE_ENERGY. Split coordinates, the band mask and the keep mask
+    with min_islot raise."""
+    from zelll_tpu_torch.ops.lag_pairs import PbcKeepTerm
+    from zelll_tpu_torch.ops.potentials import lennard_jones, lennard_jones_mixed
+
+    rng = np.random.default_rng(22)
+    f64 = torch.float64
+    csq = CUTOFF**2
+    n = 80_000
+    for kind, pts in zip(("uniform", "lattice"), _cube_slab_points(n)):
+        cases, H_eff = _islot_cases(pts, CUTOFF, 12_000, cuda_device, tile=True)
+        assert 0 < H_eff < n // ISLOT_SHARDS
+        for name, (ext, keys, strides, islots) in cases.items():
+            if kind == "uniform" and name in ("cluster_gap", "drifted"):
+                continue
+            maxj = _maxj(keys, strides)
+            for k in islots:
+                kw = dict(MAXJ=maxj, min_islot=k, out_dtype=f64)
+                got, ok = _counted(tile_pair_reduce, k, lambda: tile_pair_reduce(
+                    ext, keys, strides, csq, **kw))
+                want, ok_p = tile_pair_reduce_plain(ext, keys, strides, csq, **kw)
+                torch.cuda.synchronize()
+                assert bool(ok) and bool(ok_p), (kind, name)
+                np.testing.assert_allclose(float(got), float(want), rtol=1e-10,
+                                           err_msg=f"{kind} {name} {k}")
+    table = lennard_jones(0.7, 1.1)
+    mixed = lennard_jones_mixed((1.0, 0.5, 0.8), (1.0, 1.2, 0.9))
+    tcsq = TABLE_CUTOFF**2
+    cases, _ = _islot_cases(_table_slab_points((28, 28, 28), rng), TABLE_CUTOFF, 3000,
+                            cuda_device, tile=True)
+    for name, (ext, keys, strides, islots) in cases.items():
+        sp = _species_plane(ext.shape[0], rng, cuda_device)
+        maxj = _maxj(keys, strides)
+        for term, p in ((table.term, None), (mixed.term, sp)):
+            for k in islots:
+                kw = dict(MAXJ=maxj, min_islot=k, out_dtype=f64, term=term)
+                got, ok = _counted(tile_pair_reduce, k, lambda: tile_pair_reduce(
+                    ext, keys, strides, tcsq, None, p, **kw))
+                want, _ = tile_pair_reduce_plain(ext, keys, strides, tcsq, None, p, **kw)
+                kw["term"] = _abs_term(term)
+                scale, _ = tile_pair_reduce_plain(ext, keys, strides, tcsq, None, p, **kw)
+                assert bool(ok)
+                _energy_close(got, want, scale, (name, k, p is not None))
+    ext, keys, strides, _ = cases["shard1"]
+    maxj = _maxj(keys, strides)
+    for bad in (dict(sorted_pos_lo=torch.zeros_like(ext)), dict(bandmask=True),
+                dict(term=PbcKeepTerm(lj_term), sorted_payload=torch.zeros_like(ext[:, 0]))):
+        with pytest.raises(ValueError, match="ownership rule"):
+            tile_pair_reduce(ext, keys, strides, tcsq, MAXJ=maxj, min_islot=7, **bad)
+
+
+@pytest.mark.gpu
+def test_islot_lag_hist_kernel_matches_plain_on_card(cuda_device):
+    """K5's min_islot instances (f32 and f64 coordinates) against its plain
+    version on the slab path's halo-extended blocks of the thin box (the
+    uniform cloud, the jittered lattice, the prune's hard inputs; 4
+    shards; min_islot from 0 to n): counts exact at K = 32. Split
+    coordinates and a pair mask with min_islot raise."""
+    rng = np.random.default_rng(23)
+    n = 80_000
+    esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64).float() ** 2
+    for kind, pts in zip(("uniform", "lattice"), _thin_slab_points(n, rng)):
+        cases, _ = _islot_cases(pts, CUTOFF, 2048, cuda_device)
+        for name, (ext, keys, strides, islots) in cases.items():
+            if kind == "uniform" and name in ("cluster_gap", "drifted"):
+                continue
+            for pos in (ext, ext.double()):
+                for k in islots:
+                    got = _counted(pair_lag_hist, k, lambda: pair_lag_hist(
+                        pos, keys, strides, esq, min_islot=k))
+                    want = pair_lag_hist_plain(pos, keys, strides, esq.to(pos.dtype),
+                                               min_islot=k)
+                    got, want = combine_count_vec(got), combine_count_vec(want)
+                    assert want[-1] > 0 or k >= ext.shape[0] - 1, (kind, name, k)
+                    np.testing.assert_array_equal(got, want, err_msg=f"{kind} {name} {k}")
+    ext, keys, strides, _ = cases["shard1"]
+    spec = torch.zeros_like(ext[:, 0])
+    for bad in (dict(sorted_pos_lo=torch.zeros_like(ext)),
+                dict(sorted_payload=spec, pair_mask=SpeciesPairMask(0, 0))):
+        with pytest.raises(ValueError, match="ownership rule"):
+            pair_lag_hist(ext, keys, strides, esq, min_islot=7, **bad)
+
+
+@pytest.mark.gpu
+def test_islot_tile_hist_kernel_matches_plain_on_card(cuda_device):
+    """K9's min_islot instances (f32 and f64 coordinates) against its plain
+    version on the slab path's halo-extended blocks of the cube with
+    key-safe wraparound ghosts (the uniform cloud, the jittered lattice,
+    the prune's hard inputs; 4 shards; min_islot from 0 to n): counts exact
+    at K = 32. Split coordinates, the band mask and a pair mask with
+    min_islot raise."""
+    n = 80_000
+    esq = torch.linspace(0, CUTOFF, 32, dtype=torch.float64).float() ** 2
+    for kind, pts in zip(("uniform", "lattice"), _cube_slab_points(n)):
+        cases, _ = _islot_cases(pts, CUTOFF, 12_000, cuda_device, tile=True)
+        for name, (ext, keys, strides, islots) in cases.items():
+            if kind == "uniform" and name in ("cluster_gap", "drifted"):
+                continue
+            maxj = _maxj(keys, strides)
+            for pos in (ext, ext.double()):
+                for k in islots:
+                    got, ok = _counted(tile_pair_hist, k, lambda: tile_pair_hist(
+                        pos, keys, strides, esq, MAXJ=maxj, min_islot=k))
+                    want, ok_p = tile_pair_hist_plain(pos, keys, strides, esq.to(pos.dtype),
+                                                      MAXJ=maxj, min_islot=k)
+                    assert bool(ok) and bool(ok_p), (kind, name)
+                    got, want = combine_count_vec(got), combine_count_vec(want)
+                    assert want[-1] > 0 or k >= ext.shape[0] - 1, (kind, name, k)
+                    np.testing.assert_array_equal(got, want, err_msg=f"{kind} {name} {k}")
+    ext, keys, strides, _ = cases["shard1"]
+    maxj = _maxj(keys, strides)
+    spec = torch.zeros_like(ext[:, 0])
+    for bad in (dict(sorted_pos_lo=torch.zeros_like(ext)), dict(bandmask=True),
+                dict(sorted_payload=spec, pair_mask=SpeciesPairMask(0, 0))):
+        with pytest.raises(ValueError, match="ownership rule"):
+            tile_pair_hist(ext, keys, strides, esq, MAXJ=maxj, min_islot=7, **bad)

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_slab
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
@@ -206,6 +207,9 @@ def test_coverage_and_suggest_lag_match_jax():
     for L in (64, 128, 256, 512):
         want = bool(cov(jnp.asarray(keys), jnp.asarray(strides), L=L))
         assert bool(lag_coverage_ok(torch.as_tensor(keys), torch.as_tensor(strides), L)) == want
+    # the slab decomposition's energies and coverage flags
+    # (parallel.sharded_lj_energy) on 8 CPU shards
+    torch_slab.energies()
 
 
 def test_plain_takes_any_term(thin):

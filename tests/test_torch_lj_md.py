@@ -12,13 +12,17 @@ Seven JAX configurations are called here (ROADMAP Tier-1 budget); `md_step`
 is also held to a hand integration with brute-force forces, as
 tests/test_forces_md.py holds JAX's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_slab
+from jax.sharding import NamedSharding, PartitionSpec
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
+import zelll_tpu.parallel as jax_parallel
 from zelll_tpu.models import lj_md as jax_md
 from zelll_tpu_torch.convert import md_state_from_numpy
 from zelll_tpu_torch.models import lj_md
@@ -89,6 +93,12 @@ def test_md_step_matches_manual_integration_and_jax():
     np.testing.assert_allclose(v2, v_ref, rtol=1e-9,
                                atol=1e-12 * max(1.0, np.abs(v_ref).max()))
     np.testing.assert_allclose(p2, p_ref, rtol=1e-9)
+    # the slab decomposition's MD step (parallel.sharded_md_step): one step
+    # and one repartition_exchange against the JAX package's on 8 devices,
+    # and its paths against brute force and the single-device forces
+    sharding = NamedSharding(jax_parallel.make_mesh(8), PartitionSpec("z", None))
+    torch_slab.md_step_and_repartition_match_jax(jax_parallel, jax, jnp, sharding)
+    torch_slab.md_steps()
 
 
 def test_md_step_split_matches_jax():

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_slab
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
@@ -228,7 +229,9 @@ def test_potentials_match_jax():
     fused energy and forces of every factory (and the mixed pair over a
     species column) through the lag and tile plain paths against an f64
     brute force (the JAX package's test_fused_energy_and_forces_all_paths);
-    then the differentiable potentials (`check_autodiff`)."""
+    then the differentiable potentials (`check_autodiff`) and their
+    sharded form with the species energy of the slab decomposition
+    (`torch_slab.potentials`)."""
     dsq = np.linspace(0.6, 4.0, 61) ** 2
     pots = {}
     for name, args, kw in ALL:
@@ -330,6 +333,7 @@ def test_potentials_match_jax():
                                    0.0).sum())
             assert abs(float(w) - w_ref) <= 1e-9 * max(abs(w_ref), fscale), name
     check_autodiff()
+    torch_slab.potentials()
 
 
 @functools.partial(jax.jit, static_argnames=("box", "mi", "pot"))

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_slab
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
@@ -131,6 +132,12 @@ def test_import_without_jax_and_compute_on_cpu():
         "e, ok = make_pair_potential(1.0, path='tile', device='cpu')(x)\n"
         "e.backward()\n"
         "assert bool(ok) and bool(torch.isfinite(x.grad).all())\n"
+        "from zelll_tpu_torch.parallel import make_mesh, partition_by_slab, sharded_md_step\n"
+        "parts, _ = partition_by_slab(pts, 1.0, 2)\n"
+        "x = torch.as_tensor(parts)\n"
+        "_, _, e, ok = sharded_md_step(make_mesh(2, devices='cpu'), cutoff=1.0, H=150,\n"
+        "                              use_pallas=True)(x, torch.zeros_like(x))\n"
+        "assert bool(ok) and np.isfinite(float(e))\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'zelll_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -184,6 +191,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
         CellGrid(pts)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pair_lag_per_particle(pts, np.zeros(100, np.int32), np.ones(3, np.int32), 1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_slab.make_mesh(4)
+    # the slab decomposition's mesh of shards and its collectives, on the CPU
+    torch_slab.mesh_semantics()
     # a CPU tensor selects the plain path
     e, _ = fused_lj_rebuild_energy(torch.as_tensor(pts), 1.0)
     assert e.device.type == "cpu"

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_slab
 from torch_threads import one_torch_thread  # noqa: F401
 from xla_release import release_xla_executables  # noqa: F401
 
@@ -256,6 +257,8 @@ def test_plain_takes_payload_min_islot_and_any_term():
     np.testing.assert_allclose(float(got), want, rtol=1e-12)
     e, _ = tile_pair_reduce_plain(*args, CB=2, MAXJ=6, term=lj_term)
     assert float(e) == float(tile_pair_reduce(*args, CB=2, MAXJ=6)[0])
+    # min_islot's caller: the slab decomposition's tile path
+    torch_slab.tile_backend()
 
 
 def test_rejects_what_jax_rejects():

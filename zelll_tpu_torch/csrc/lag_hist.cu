@@ -30,6 +30,15 @@
 //     axis, the widened key window, ClusterPruneMi's prune); the bins see
 //     the folded separations, the image distances.
 //
+// The distributed ownership rule (min_islot, pallas_pairs.py:1430-1529;
+// parallel/domain.py's sharded_pair_hist) adds lag_hist_islot_kernel, open
+// coordinates (f32 and f64) without a mask, min_islot a runtime kernel
+// parameter beside Args: only pairs whose larger slot, the lane's own i,
+// is at or above min_islot count. As in K1, a lane below it pairs with
+// nothing, a cluster wholly below it skips its walk, and the boundary
+// cluster takes its box and union range from its owned lanes. It is a
+// kernel of its own, so the existing kernels keep their code.
+//
 // What it does not copy: the TPU kernel compares every pair with all K
 // edges and adds K int32 planes of a revisited VMEM block. Here each pair
 // goes to the first edge above its dsq, found by a binary search over the
@@ -294,6 +303,67 @@ __global__ void __launch_bounds__(kBlock) lag_hist_kernel(Args<T> a) {
 // above's body, with the keep plane's buffer, the lane's shift sign and
 // box, and the minimum-image prune: a body shared by both kernels moved the
 // open instances' SASS (chip_compare.py sass), so each keeps its own.
+// The distributed instances: lag_hist_kernel<T, false, false> with the
+// ownership rule, pairs counted only where the lane's i (their larger slot)
+// is at or above min_islot
+template <typename T>
+__global__ void __launch_bounds__(kBlock) lag_hist_islot_kernel(Args<T> a, int min_islot) {
+  using V = typename Vec4Of<T>::type;
+  __shared__ V buf_hi[kWarps][kBuf];
+  __shared__ float4 buf_lo[kWarps][1];
+  __shared__ T buf_pay[kWarps][1];
+  // the K edges, then each warp's K bins
+  extern __shared__ double dyn[];
+  T* sedges = reinterpret_cast<T*>(dyn);
+  unsigned* bins = reinterpret_cast<unsigned*>(sedges + a.K);
+  for (int k = threadIdx.x; k < a.K; k += kBlock) sedges[k] = a.edges[k];
+  for (int k = threadIdx.x; k < kWarps * a.K; k += kBlock) bins[k] = 0u;
+  const int w = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
+  const int i = base + lane;
+  const bool real = i < a.n;
+  const bool own = real && i >= min_islot;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const V vzero = V{T(0), T(0), T(0), T(0)};
+  HistLane<T> o;
+  o.h = own ? load_row(a.pos, a.dim, i, 0) : vzero;
+  o.l = zero;
+  o.w = T(0);
+  // the lane's partners [jlo, i - 1], as in lag_hist_kernel
+  int jlo = i;
+  if (own) {
+    const int32_t lo_key = load_key(a.keys, i, a.spacing) - *a.w_key;
+    int r = i;
+    jlo = i > a.L ? i - a.L : 0;
+    while (jlo < r) {
+      const int m = jlo + (r - jlo) / 2;
+      if (load_key(a.keys, m, a.spacing) >= lo_key) r = m; else jlo = m + 1;
+    }
+  }
+  o.jlo = jlo;
+  o.span = own ? static_cast<unsigned>(i - jlo) : 0u;
+  __syncthreads();
+  SweepArgs<T> sa{sedges[a.K - 1], sedges, a.K, a.ma, a.mb, bins + w * a.K};
+  // a cluster past n, or wholly below min_islot, only joins the final sum
+  if (base < a.n && base + kWarp > min_islot) {
+    // the union of the owned lanes' ranges starts at the first owned lane's
+    const int first = __shfl_sync(kAll, jlo, max(min_islot - base, 0));
+    const int last = min(base + kWarp, a.n) - 2;
+    const ClusterPrune<T, false> prune(o.h, o.l, own, sa.csq);
+    HistSweeper<T, false, false> sw{o, buf_hi[w], buf_lo[w], buf_pay[w], a.pay, sa};
+    one_sided_walk<false>(a.pos, a.lo, a.dim, first, last, lane, prune, buf_hi[w],
+                          buf_lo[w], sw);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < a.K; k += kBlock) {
+    unsigned long long sum = 0ULL;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) sum += bins[v * a.K + k];
+    if (sum != 0ULL) atomicAdd(&a.counts[k], sum);
+  }
+}
+
 template <typename T, bool SPLIT, bool MASK, bool KEEP, bool MI>
 __global__ void __launch_bounds__(kBlock) lag_hist_pbc_kernel(Args<T> a, Periodic<T> p) {
   using V = typename Vec4Of<T>::type;
@@ -388,7 +458,8 @@ template <typename T, bool SPLIT>
 int launch(const void* pos, const float* lo, const void* pay,
            const int32_t* keys, const int32_t* w_key, const void* edges, int n,
            int dim, int L, int spacing, int K, int mask, double ma, double mb,
-           unsigned long long* counts, const Periodic<T>& p, bool mi, cudaStream_t s) {
+           unsigned long long* counts, const Periodic<T>& p, bool mi, int min_islot,
+           cudaStream_t s) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.lo = lo;
@@ -404,6 +475,9 @@ int launch(const void* pos, const float* lo, const void* pay,
   a.ma = static_cast<T>(ma);
   a.mb = static_cast<T>(mb);
   a.counts = counts;
+  if constexpr (!SPLIT) {
+    if (min_islot != 0) return launch_kernel(lag_hist_islot_kernel<T>, a, s, min_islot);
+  }
   const bool keep = mask == kMaskKeep || mask == kMaskKeepSpecies;
   if (mask == kMaskSpecies || mask == kMaskKeepSpecies)
     return launch_rule<T, SPLIT, true>(a, p, keep, mi, s);
@@ -428,14 +502,16 @@ int zelll_lag_hist_max_bins() { return kMaxBins; }
 // first bin above its dsq; keep: (n,) shift signs in the coordinates' type
 // (masks 2 and 3) or null; mi != 0 (f32 only) folds the axes whose box
 // length mbx, mby, mbz is > 0 to the minimum image, in split mode less the
-// low parts mlx, mly, mlz of the host box lengths. Returns the CUDA error of
-// the launch (0 on success).
+// low parts mlx, mly, mlz of the host box lengths. min_islot != 0 counts only
+// the pairs whose larger slot is at or above it (the distributed ownership
+// rule; no lo, mask 0, mi 0). Returns the CUDA error of the launch (0 on
+// success).
 int zelll_lag_hist(const void* pos, const void* lo, const void* pay,
                    const void* keys, const void* w_key, const void* edges,
                    int n, int dim, int L, int spacing, int K, int mask,
                    double ma, double mb, int f64, void* counts, void* stream,
                    const void* keep, int mi, float mbx, float mby, float mbz,
-                   float mlx, float mly, float mlz) {
+                   float mlx, float mly, float mlz, int min_islot) {
   const bool species = mask == kMaskSpecies || mask == kMaskKeepSpecies;
   const bool kp = mask == kMaskKeep || mask == kMaskKeepSpecies;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
@@ -443,7 +519,8 @@ int zelll_lag_hist(const void* pos, const void* lo, const void* pay,
       static_cast<int64_t>(spacing) * n > kSentinelKey - kPadKeyBase ||
       K < 1 || K > kMaxBins || mask < kMaskNone || mask > kMaskKeepSpecies ||
       species != (pay != nullptr) || kp != (keep != nullptr) ||
-      (f64 != 0 && lo != nullptr) || (f64 != 0 && mi != 0))
+      (f64 != 0 && lo != nullptr) || (f64 != 0 && mi != 0) ||
+      (min_islot != 0 && (lo != nullptr || mask != kMaskNone || mi != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* l = static_cast<const float*>(lo);
   const auto* k = static_cast<const int32_t*>(keys);
@@ -456,13 +533,13 @@ int zelll_lag_hist(const void* pos, const void* lo, const void* pay,
     return launch<double, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
                                  ma, mb, out,
                                  Periodic<double>{static_cast<const double*>(keep), mib, mibl},
-                                 false, s);
+                                 false, min_islot, s);
   const Periodic<float> p{static_cast<const float*>(keep), mib, mibl};
   if (l != nullptr)
     return launch<float, true>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask,
-                               ma, mb, out, p, mi != 0, s);
+                               ma, mb, out, p, mi != 0, min_islot, s);
   return launch<float, false>(pos, l, pay, k, w, edges, n, dim, L, spacing, K, mask, ma,
-                              mb, out, p, mi != 0, s);
+                              mb, out, p, mi != 0, min_islot, s);
 }
 
 }  // extern "C"

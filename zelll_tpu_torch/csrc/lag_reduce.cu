@@ -82,6 +82,19 @@
 //     (near_box_mi).
 // Both compose, with each term, f32 and split.
 //
+// The distributed ownership rule (the TPU kernel's `distributed` flag with
+// min_islot, pallas_pairs.py:925-928; parallel/domain.py's halo): only
+// pairs whose larger slot is at or above min_islot count. Here the larger
+// slot is always the lane's own i, so the rule is a lane mask: a lane
+// below min_islot pairs with nothing (span 0), a cluster wholly below it
+// skips its walk, and the boundary cluster (min_islot need not be a
+// multiple of 32) takes its box and its union range from its owned lanes
+// only. It runs as new instances (ISLOT, lag_reduce_islot_kernel and
+// lag_reduce_islot_table_kernel, min_islot a runtime kernel parameter
+// beside Args) on open f32 coordinates with LJ, the term table and the
+// species term, the terms the slab path reaches; the existing instances
+// keep their code (their ISLOT branches are discarded at compile time).
+//
 // Pair potentials and species (ops/potentials.py) add instances under new
 // template values, so the existing instances keep their names and code:
 //   TERM = kTermTable: any factory's energy or virial through the device
@@ -157,9 +170,11 @@ __device__ __forceinline__ float4 load_row(const float* rows, int dim, int j,
   return v;
 }
 
-// tab: the table's term (kTermTable, kTermSpecies), else null
-template <bool SPLIT, int TERM, typename Acc, bool KEEP, bool MI>
-__device__ __forceinline__ void lag_reduce_body(const Args& a, const TermTable* tab = nullptr) {
+// tab: the table's term (kTermTable, kTermSpecies), else null; min_islot:
+// the ownership rule's first owned slot (ISLOT)
+template <bool SPLIT, int TERM, typename Acc, bool KEEP, bool MI, bool ISLOT = false>
+__device__ __forceinline__ void lag_reduce_body(const Args& a, const TermTable* tab = nullptr,
+                                                int min_islot = 0) {
   // the payload plane: the keep mask's shift signs or the species
   constexpr bool PLANE = KEEP || TERM == kTermSpecies;
   __shared__ float4 buf_hi[kWarps][kBuf];
@@ -170,6 +185,10 @@ __device__ __forceinline__ void lag_reduce_body(const Args& a, const TermTable* 
   const int base = blockIdx.x * kBlock + w * kWarp;  // the cluster's first slot
   const int i = base + lane;
   const bool real = i < a.n;
+  // the lanes whose pairs count: the real ones, and with ISLOT those at or
+  // above min_islot (the lane's i is the larger slot of each of its pairs)
+  bool own = real;
+  if constexpr (ISLOT) own = own && i >= min_islot;
   float4* bh = buf_hi[w];
   float4* bl = buf_lo[w];
   float* bw = buf_w[w];
@@ -185,7 +204,7 @@ __device__ __forceinline__ void lag_reduce_body(const Args& a, const TermTable* 
   // the lane's partners [jlo, i - 1]: the smallest j in [max(i - L, 0), i]
   // with key_j >= key_i - W (j = i holds), by binary search over the keys
   int jlo = i;
-  if (real) {
+  if (own) {
     const int32_t lo_key = load_key(a.keys, i, a.spacing) - *a.w_key;
     int l = i > a.L ? i - a.L : 0, r = i;
     while (l < r) {
@@ -195,13 +214,19 @@ __device__ __forceinline__ void lag_reduce_body(const Args& a, const TermTable* 
     jlo = l;
   }
   o.jlo = jlo;
-  o.span = real ? static_cast<unsigned>(i - jlo) : 0u;
-  // a cluster past n holds no particle: its warp only joins the fold
-  if (base < a.n) {
-    // the union of the lanes' ranges: jlo ascends with i
-    const int first = __shfl_sync(kAll, jlo, 0);
+  o.span = own ? static_cast<unsigned>(i - jlo) : 0u;
+  // a cluster past n holds no particle, nor (ISLOT) one wholly below
+  // min_islot any owned one: its warp only joins the fold
+  bool live = base < a.n;
+  if constexpr (ISLOT) live = live && base + kWarp > min_islot;
+  if (live) {
+    // the union of the owned lanes' ranges: jlo ascends with i, so it
+    // starts at the first owned lane's
+    int lead = 0;
+    if constexpr (ISLOT) lead = max(min_islot - base, 0);
+    const int first = __shfl_sync(kAll, jlo, lead);
     const int last = min(base + kWarp, a.n) - 2;  // the last real slot - 1
-    const Box box = cluster_box<SPLIT>(o.h, o.l, real);
+    const Box box = cluster_box<SPLIT>(o.h, o.l, own);
     const float thr = prune_threshold<SPLIT>(a.csq);
     const unsigned below = (1u << lane) - 1u;
     int cnt = 0;  // entries in the buffer, warp-uniform
@@ -255,6 +280,19 @@ __global__ void __launch_bounds__(kBlock) lag_reduce_pbc_kernel(Args a) {
 template <bool SPLIT, int TERM, bool KEEP, bool MI>
 __global__ void __launch_bounds__(kBlock) lag_reduce_table_kernel(Args a, TermTable tab) {
   lag_reduce_body<SPLIT, TERM, double, KEEP, MI>(a, &tab);
+}
+
+// The distributed instances (ISLOT): open f32 coordinates, min_islot a
+// runtime parameter beside Args (and the table)
+template <int TERM>
+__global__ void __launch_bounds__(kBlock) lag_reduce_islot_kernel(Args a, int min_islot) {
+  lag_reduce_body<false, TERM, double, false, false, true>(a, nullptr, min_islot);
+}
+
+template <int TERM>
+__global__ void __launch_bounds__(kBlock) lag_reduce_islot_table_kernel(Args a, TermTable tab,
+                                                                        int min_islot) {
+  lag_reduce_body<false, TERM, double, false, false, true>(a, &tab, min_islot);
 }
 
 template <bool SPLIT>
@@ -322,14 +360,17 @@ int zelll_lag_reduce_block() { return kBlock; }
 // tvals: pair_table.cuh's kind, mode and 6 floats, its 5 constants and the
 // shift, in host memory) into double partials with any rule; term 4 the
 // species term (lennard_jones_mixed: w the (n,) species plane, mix the
-// device (ns * ns) float2 table), f32 and open only. Returns
+// device (ns * ns) float2 table), f32 and open only. min_islot != 0 keeps
+// only the pairs whose larger slot is at or above it (the distributed
+// ownership rule), with LJ (term 0), the table or the species term into
+// double partials, on open f32 coordinates (no lo, mask 0, mi 0). Returns
 // cudaGetLastError() after the launch.
 int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                      const void* w_key, int n, int dim, int L, int spacing,
                      float csq, int term, int int_out, int mask, int mi, float mbx,
                      float mby, float mbz, float mlx, float mly, float mlz,
                      void* partial, void* stream, int tkind, int tmode,
-                     const float* tvals, const void* mix, int ns) {
+                     const float* tvals, const void* mix, int ns, int min_islot) {
   const bool table = term == kArgTable, species = term == kArgSpecies;
   if (n <= 0 || n > kSentinelKey - 2 * kWarp || dim < 1 || dim > kMaxDim ||
       L < 1 || spacing < 1 ||
@@ -339,7 +380,9 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void*
       ((mask == kMaskKeep || species) != (w != nullptr)) ||
       ((table || species) &&
        (int_out != 0 || !term_table_ok(tkind, tmode, species, mix, ns))) ||
-      (species && (lo != nullptr || mask != kMaskNone || mi != 0)))
+      (species && (lo != nullptr || mask != kMaskNone || mi != 0)) ||
+      (min_islot != 0 && (lo != nullptr || mask != kMaskNone || mi != 0 || int_out != 0 ||
+                          (term != kArgLj && !table && !species))))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -358,7 +401,14 @@ int zelll_lag_reduce(const void* pos, const void* lo, const void* w, const void*
   const TermTable t = make_term_table(tkind, tmode, tvals, mix, ns);
   auto s = static_cast<cudaStream_t>(stream);
   const bool keep = mask == kMaskKeep;
-  if (species)
+  const int blocks = (n + kBlock - 1) / kBlock;
+  if (min_islot != 0 && species)
+    lag_reduce_islot_table_kernel<kTermSpecies><<<blocks, kBlock, 0, s>>>(a, t, min_islot);
+  else if (min_islot != 0 && table)
+    lag_reduce_islot_table_kernel<kTermTable><<<blocks, kBlock, 0, s>>>(a, t, min_islot);
+  else if (min_islot != 0)
+    lag_reduce_islot_kernel<kTermLj><<<blocks, kBlock, 0, s>>>(a, min_islot);
+  else if (species)
     lag_reduce_table_kernel<false, kTermSpecies, false, false>
         <<<(n + kBlock - 1) / kBlock, kBlock, 0, s>>>(a, t);
   else if (table && a.lo != nullptr)

@@ -25,6 +25,16 @@
 // run under a kernel name of their own, tile_hist_keep_kernel, so the
 // open-boundary instances keep their names and code.
 //
+// The distributed ownership rule (min_islot, tile_pairs.py:534-536;
+// parallel/domain.py's sharded_pair_hist) adds tile_hist_islot_kernel, open
+// coordinates (f32 and f64) without the band mask or a payload rule,
+// min_islot a runtime kernel parameter beside Args: only pairs whose larger
+// slot, the lane's own i on the half stencil, is at or above min_islot
+// count. As in K6, a lane below it pairs with nothing, a cluster wholly
+// below it skips its walk, and the boundary cluster takes its box from its
+// owned lanes; the existing instances keep their code (their ISLOT
+// branches are discarded at compile time).
+//
 // What it does not copy: the TPU kernel compares every pair with all K
 // edges and packs four 8-bit bins into each int32 of a per-chunk VMEM
 // accumulator (a Mosaic workaround that caps sum(MAXJ) at 255, a limit the
@@ -224,8 +234,9 @@ struct HistSweeper {
 };
 
 // The kernel's body: RULE is the payload plane's mask.
-template <typename T, bool SPLIT, bool BANDMASK, int RULE>
-__device__ __forceinline__ void tile_hist_body(const Args<T>& a) {
+// min_islot: the ownership rule's first owned slot (ISLOT)
+template <typename T, bool SPLIT, bool BANDMASK, int RULE, bool ISLOT = false>
+__device__ __forceinline__ void tile_hist_body(const Args<T>& a, int min_islot = 0) {
   using V = typename Vec4Of<T>::type;
   __shared__ V buf_hi[kClusters][kBuf];
   __shared__ float4 buf_lo[kClusters][SPLIT ? kBuf : 1];
@@ -242,6 +253,10 @@ __device__ __forceinline__ void tile_hist_body(const Args<T>& a) {
   const int base = c * kChunk + w * kWarp;  // the own cluster's first slot
   const int i = base + lane;
   const bool real = i < a.n;
+  // the lanes whose pairs count: the real ones, and with ISLOT those at or
+  // above min_islot (the lane's i is the larger slot of each of its pairs)
+  bool own = real;
+  if constexpr (ISLOT) own = own && i >= min_islot;
   V* bh = buf_hi[w];
   float4* bl = buf_lo[w];
   int32_t* bk = buf_key[w];
@@ -252,13 +267,16 @@ __device__ __forceinline__ void tile_hist_body(const Args<T>& a) {
   o.h = real ? load_point(a.pos, a.n, a.dim, i, 0) : vzero;
   o.l = SPLIT && real ? load_point(a.lo, a.n, a.dim, i, 0) : zero;
   o.key = a.keys[i];  // keys cover every launched chunk
-  o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
+  o.span = own ? static_cast<unsigned>(i) + 1u : 0u;
   o.w = RULE != kMaskNone && real ? a.pay[i] : T(0);
   __syncthreads();
   SweepArgs<T> sa{sedges[a.K - 1], 0, 0, sedges, a.K, a.ma, a.mb, bins[w]};
-  // a cluster past n holds no particle: its warp only joins the fold
-  if (base < a.n) {
-    const ClusterPrune<T, SPLIT> prune(o.h, o.l, real, sa.csq);
+  // a cluster past n holds no particle, nor (ISLOT) one wholly below
+  // min_islot any owned one: its warp only joins the fold
+  bool live = base < a.n;
+  if constexpr (ISLOT) live = live && base + kWarp > min_islot;
+  if (live) {
+    const ClusterPrune<T, SPLIT> prune(o.h, o.l, own, sa.csq);
     HistSweeper<T, SPLIT, BANDMASK, RULE> sw{a, o, bh, bl, bk, bp, sa};
     half_stencil_walk<kClusters, SPLIT, BANDMASK>(a, c, base, lane, prune, bh, bl, sw);
   }
@@ -284,6 +302,13 @@ __global__ void __launch_bounds__(kChunk) tile_hist_keep_kernel(Args<T> a) {
   tile_hist_body<T, SPLIT, BANDMASK, kMaskKeep>(a);
 }
 
+// The distributed instances (ISLOT): open coordinates, no band mask or
+// payload rule, min_islot a runtime parameter beside Args
+template <typename T>
+__global__ void __launch_bounds__(kChunk) tile_hist_islot_kernel(Args<T> a, int min_islot) {
+  tile_hist_body<T, false, false, kMaskNone, true>(a, min_islot);
+}
+
 template <typename T, bool SPLIT, bool BANDMASK>
 void launch_mask(const Args<T>& a, int mask, int blocks, cudaStream_t s) {
   if (mask == kMaskKeep)
@@ -299,7 +324,7 @@ void launch(const void* pos, const float* lo, const void* pay,
             const int32_t* keys, const int32_t* bounds, const int32_t* bands,
             const void* edges, int n, int dim, int S, int K, int mask,
             double ma, double mb, bool bandmask, unsigned long long* counts,
-            cudaStream_t s) {
+            int min_islot, cudaStream_t s) {
   Args<T> a;
   a.pos = static_cast<const T*>(pos);
   a.lo = lo;
@@ -316,7 +341,9 @@ void launch(const void* pos, const float* lo, const void* pay,
   a.mb = static_cast<T>(mb);
   a.counts = counts;
   const int blocks = (n + kChunk - 1) / kChunk;
-  if (bandmask)
+  if (min_islot != 0)
+    tile_hist_islot_kernel<T><<<blocks, kChunk, 0, s>>>(a, min_islot);
+  else if (bandmask)
     launch_mask<T, SPLIT, true>(a, mask, blocks, s);
   else
     launch_mask<T, SPLIT, false>(a, mask, blocks, s);
@@ -337,15 +364,18 @@ int zelll_tile_hist_chunk() { return kChunk; }
 // mask: 0 none, 1 species pair {ma, mb}, 2 the periodic keep mask
 // (lag_pairs.pbc_keep; pay the shift signs); counts: (K,) int64 on the device,
 // zeroed by the caller, to which the kernel adds each pair's first bin
-// above its dsq. Returns cudaGetLastError() after the launch.
+// above its dsq. min_islot != 0 counts only the pairs whose larger slot is
+// at or above it (the distributed ownership rule; no lo, no band mask,
+// mask 0). Returns cudaGetLastError() after the launch.
 int zelll_tile_hist(const void* pos, const void* lo, const void* pay,
                     const void* keys, const void* bounds, const void* bands,
                     const void* edges, int n, int dim, int S, int K, int mask,
                     double ma, double mb, int bandmask, int f64, void* counts,
-                    void* stream) {
+                    void* stream, int min_islot) {
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands || K < 1 ||
       K > kMaxBins || mask < kMaskNone || mask > kMaskKeep ||
-      (mask != kMaskNone && pay == nullptr) || (f64 != 0 && lo != nullptr))
+      (mask != kMaskNone && pay == nullptr) || (f64 != 0 && lo != nullptr) ||
+      (min_islot != 0 && (lo != nullptr || bandmask != 0 || mask != kMaskNone)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* l = static_cast<const float*>(lo);
   const auto* k = static_cast<const int32_t*>(keys);
@@ -356,13 +386,13 @@ int zelll_tile_hist(const void* pos, const void* lo, const void* pay,
   const bool bm = bandmask != 0;
   if (f64 != 0)
     launch<double, false>(pos, l, pay, k, b, bd, edges, n, dim, S, K, mask, ma,
-                          mb, bm, out, s);
+                          mb, bm, out, min_islot, s);
   else if (l != nullptr)
     launch<float, true>(pos, l, pay, k, b, bd, edges, n, dim, S, K, mask, ma,
-                        mb, bm, out, s);
+                        mb, bm, out, 0, s);
   else
     launch<float, false>(pos, l, pay, k, b, bd, edges, n, dim, S, K, mask, ma,
-                         mb, bm, out, s);
+                         mb, bm, out, min_islot, s);
   return static_cast<int>(cudaGetLastError());
 }
 

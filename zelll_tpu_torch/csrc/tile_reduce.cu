@@ -88,6 +88,19 @@
 // payload row, read as the keep plane is, and each pair's (eps_ij,
 // sigma_ij) from the S x S table.
 //
+// The distributed ownership rule (the TPU kernel's `distributed` flag with
+// min_islot, tile_pairs.py:145-150; parallel/domain.py's halo): only pairs
+// whose larger slot is at or above min_islot count. Every pair of the half
+// stencil has its larger slot on the own side (band 0's triangle j < i,
+// the other bands' cells lie below the own cell in key order), so the rule
+// is a lane mask on i: a lane below min_islot pairs with nothing (span 0),
+// a cluster wholly below it skips its walk, and the boundary cluster takes
+// its box from its owned lanes only. It runs as new instances (ISLOT,
+// tile_reduce_islot_kernel, min_islot a runtime kernel parameter beside
+// Args) on open f32 coordinates without the band mask (the packed path's
+// default), with LJ, the term table and the species row, the terms the
+// slab path reaches; the existing instances keep their code.
+//
 // Accumulation: each lane sums its f32 terms in f64 (integer terms in
 // int64); the block folds its lanes in a fixed order (block_fold) and
 // writes one partial per own chunk. The caller sums the partials. No float
@@ -146,8 +159,9 @@ __device__ __forceinline__ float4 load_slot(const float* planes, int n,
   return v;
 }
 
-template <bool SPLIT, int TERM, bool BANDMASK, typename Acc, bool KEEP>
-__device__ __forceinline__ void tile_reduce_body(const Args& a) {
+// min_islot: the ownership rule's first owned slot (ISLOT)
+template <bool SPLIT, int TERM, bool BANDMASK, typename Acc, bool KEEP, bool ISLOT = false>
+__device__ __forceinline__ void tile_reduce_body(const Args& a, int min_islot = 0) {
   // the payload row: the keep mask's shift signs or the species
   constexpr bool PLANE = KEEP || TERM == kTermSpecies;
   __shared__ float4 buf_hi[kClusters][kBuf];
@@ -160,6 +174,10 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
   const int base = c * kChunk + w * kWarp;  // the own cluster's first slot
   const int i = base + lane;
   const bool real = i < a.n;
+  // the lanes whose pairs count: the real ones, and with ISLOT those at or
+  // above min_islot (the lane's i is the larger slot of each of its pairs)
+  bool own = real;
+  if constexpr (ISLOT) own = own && i >= min_islot;
   float4* bh = buf_hi[w];
   float4* bl = buf_lo[w];
   int32_t* bk = buf_key[w];
@@ -170,12 +188,15 @@ __device__ __forceinline__ void tile_reduce_body(const Args& a) {
   o.l = SPLIT && real ? load_slot(a.lo, a.n, a.dim, i, 0) : zero;
   o.key = a.keys[i];  // keys cover every launched chunk
   o.jlo = -1;         // band 0 pairs with w < i, the other bands always
-  o.span = real ? static_cast<unsigned>(i) + 1u : 0u;
+  o.span = own ? static_cast<unsigned>(i) + 1u : 0u;
   o.acc = Acc(0);
   o.pw = PLANE && real ? a.w[i] : 0.0f;
-  // a cluster past n holds no particle: its warp only joins the fold
-  if (base < a.n) {
-    const Box box = cluster_box<SPLIT>(o.h, o.l, real);
+  // a cluster past n holds no particle, nor (ISLOT) one wholly below
+  // min_islot any owned one: its warp only joins the fold
+  bool live = base < a.n;
+  if constexpr (ISLOT) live = live && base + kWarp > min_islot;
+  if (live) {
+    const Box box = cluster_box<SPLIT>(o.h, o.l, own);
     const float thr = prune_threshold<SPLIT>(a.csq);
     const unsigned below = (1u << lane) - 1u;
     int cnt = 0;  // entries in the buffer, warp-uniform
@@ -262,6 +283,13 @@ __global__ void __launch_bounds__(kChunk) tile_reduce_keep_kernel(Args a) {
   tile_reduce_body<SPLIT, TERM, BANDMASK, Acc, true>(a);
 }
 
+// The distributed instances (ISLOT): open f32 coordinates, no band mask,
+// min_islot a runtime parameter beside Args
+template <int TERM>
+__global__ void __launch_bounds__(kChunk) tile_reduce_islot_kernel(Args a, int min_islot) {
+  tile_reduce_body<false, TERM, false, double, false, true>(a, min_islot);
+}
+
 template <bool SPLIT, int TERM, bool BANDMASK, typename Acc>
 void launch_keep(const Args& a, bool keep, int blocks, cudaStream_t s) {
   if (keep)
@@ -321,13 +349,16 @@ int zelll_tile_reduce_chunk() { return kChunk; }
 // tvals: pair_table.cuh's kind, mode and 6 floats, its 5 constants and the
 // shift, in host memory) into double partials, open or with the keep mask;
 // term 5 the species term (lennard_jones_mixed: w the (n,) species plane,
-// mix the device (ns * ns) float2 table), f32 and open only. Returns
-// cudaGetLastError() after the launch.
+// mix the device (ns * ns) float2 table), f32 and open only. min_islot != 0
+// keeps only the pairs whose larger slot is at or above it (the
+// distributed ownership rule), with LJ (term 0), the table or the species
+// term into double partials, on f32 coordinates without the band mask
+// (no lo, bandmask 0, mask 0). Returns cudaGetLastError() after the launch.
 int zelll_tile_reduce(const void* pos, const void* lo, const void* w, const void* keys,
                       const void* bounds, const void* bands, int n, int dim,
                       int S, float csq, int term, int int_out, int bandmask,
                       int mask, void* partial, void* stream, int tkind, int tmode,
-                      const float* tvals, const void* mix, int ns) {
+                      const float* tvals, const void* mix, int ns, int min_islot) {
   const bool table = term == kTermTable, species = term == kTermSpecies;
   if (n <= 0 || dim < 1 || dim > kMaxDim || S < 1 || S > kMaxBands ||
       (term != kTermLj && term != kTermLjFast && term != kTermCount &&
@@ -336,7 +367,9 @@ int zelll_tile_reduce(const void* pos, const void* lo, const void* w, const void
       ((mask == kMaskKeep || species) != (w != nullptr)) ||
       ((table || species) &&
        (int_out != 0 || !term_table_ok(tkind, tmode, species, mix, ns))) ||
-      (species && (lo != nullptr || mask != kMaskNone)))
+      (species && (lo != nullptr || mask != kMaskNone)) ||
+      (min_islot != 0 && (lo != nullptr || bandmask != 0 || mask != kMaskNone ||
+                          int_out != 0 || (term != kTermLj && !table && !species))))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.pos = static_cast<const float*>(pos);
@@ -353,7 +386,13 @@ int zelll_tile_reduce(const void* pos, const void* lo, const void* w, const void
   a.tab = make_term_table(tkind, tmode, tvals, mix, ns);
   const int blocks = (n + kChunk - 1) / kChunk;
   auto s = static_cast<cudaStream_t>(stream);
-  if (species && bandmask != 0)
+  if (min_islot != 0 && species)
+    tile_reduce_islot_kernel<kTermSpecies><<<blocks, kChunk, 0, s>>>(a, min_islot);
+  else if (min_islot != 0 && table)
+    tile_reduce_islot_kernel<kTermTable><<<blocks, kChunk, 0, s>>>(a, min_islot);
+  else if (min_islot != 0)
+    tile_reduce_islot_kernel<kTermLj><<<blocks, kChunk, 0, s>>>(a, min_islot);
+  else if (species && bandmask != 0)
     tile_reduce_kernel<false, kTermSpecies, true, double><<<blocks, kChunk, 0, s>>>(a);
   else if (species)
     tile_reduce_kernel<false, kTermSpecies, false, double><<<blocks, kChunk, 0, s>>>(a);

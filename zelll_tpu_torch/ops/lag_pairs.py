@@ -416,7 +416,7 @@ def _bind_reduce(lib) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.zelll_lag_reduce.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, ci, ci, ci, cf, cf, cf, cf, cf, cf,
-        vp, vp, ci, ci, vp, vp, ci,
+        vp, vp, ci, ci, vp, vp, ci, ci,
     ]
     lib.zelll_lag_reduce.restype = ctypes.c_int
     lib.zelll_lag_reduce_block.argtypes = []
@@ -488,12 +488,19 @@ def _keep_plane(kernel: str, term, sorted_payload, n: int, device):
 
 
 def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
-                     sorted_payload, *, L, term, out_dtype, mi_box, key_reach):
+                     sorted_payload, *, L, term, out_dtype, mi_box, key_reach,
+                     min_islot=0):
     """Launch K1 on the current stream and sum its per-block partials."""
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     mask, term, plane = _keep_plane("K1", term, sorted_payload, n, device)
     targ, spec = energy_term_arg("K1", term, _KERNEL_TERMS, _TERM_TABLE)
+    islot = islot_arg(
+        "K1", min_islot, why="on open f32 coordinates (no sorted_pos_lo, mi_box or keep "
+        "mask) with lj_term, a factory's term or the species term, into float sums",
+        supported=(sorted_pos_lo is None and mi_box is None and mask == _MASK_NONE
+                  and targ in (_KERNEL_TERMS[lj_term], _TERM_TABLE, _TERM_SPECIES)
+                  and out_dtype != torch.int32))
     if out_dtype not in (torch.float32, torch.float64, torch.int32):
         raise ValueError(f"K1 writes float32, float64 or int32 sums, not {out_dtype}")
     if spec is not None and out_dtype == torch.int32:
@@ -526,11 +533,13 @@ def _lag_reduce_cuda(sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
         sorted_keys.data_ptr(), w_key.data_ptr(), n, dim, L, _pad_spacing(n), csq,
         targ, int(integer), mask, mi, *box, *box_lo, partial.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
-        *(_NO_TABLE if spec is None else table_args(spec, device)),
+        *(_NO_TABLE if spec is None else table_args(spec, device)), islot,
     )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     pair_lag_reduce.launches += 1
+    if islot:
+        pair_lag_reduce.islot_launches += 1
     total = partial.sum()
     return _pack_count(total) if integer else total.to(out_dtype)
 
@@ -570,8 +579,10 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     keep mask (a `PbcKeepTerm` of one of those terms over one payload
     plane) and the species plane of `ops.potentials.lennard_jones_mixed`'s
     term (open, f32). It raises on anything else: other callables and
-    payload terms, and ``min_islot != 0`` (multi-device, slice 9). CPU
-    tensors run `pair_lag_reduce_plain`, which takes them all.
+    payload terms. ``min_islot != 0`` runs K1's ownership instances, on
+    open f32 coordinates with `lj_term`, a factory's term or the species
+    term, into float sums; with anything else it raises. CPU tensors run
+    `pair_lag_reduce_plain`, which takes them all.
     """
     del M
     if L < 1:
@@ -583,22 +594,20 @@ def pair_lag_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     if sorted_pos_lo is not None:
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
     if device.type == "cuda":
-        if not _is_default_islot(min_islot):
-            raise ValueError("the CUDA kernel K1 takes only min_islot=0 "
-                             "(multi-device, slice 9); run others through "
-                             "pair_lag_reduce_plain")
         return _lag_reduce_cuda(
             sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo,
             sorted_payload, L=L, term=term, out_dtype=out_dtype or sorted_pos.dtype,
-            mi_box=mi_box, key_reach=key_reach)
+            mi_box=mi_box, key_reach=key_reach, min_islot=min_islot)
     return pair_lag_reduce_plain(
         sorted_pos, sorted_keys, strides, cutoff_sq, sorted_pos_lo, sorted_payload,
         L=L, term=term, out_dtype=out_dtype, min_islot=min_islot, mi_box=mi_box,
         key_reach=key_reach)
 
 
-# Kernel launches since the last reset; only a launch of K1 adds to it.
+# Kernel launches since the last reset; only a launch of K1 adds to it, and
+# to islot_launches only a launch of its min_islot instances.
 pair_lag_reduce.launches = 0
+pair_lag_reduce.islot_launches = 0
 
 
 # The force factors the K3 kernel implements, by the enum value it takes;
@@ -1015,6 +1024,23 @@ def _is_default_islot(min_islot) -> bool:
     return isinstance(min_islot, int) and min_islot == 0
 
 
+def islot_arg(kernel: str, min_islot, *, supported: bool, why: str = "") -> int:
+    """The ownership rule's first owned slot as the kernels take it: a host
+    int (one read from the device for a tensor). A kernel runs its
+    ``min_islot`` instances (the distributed ownership rule of
+    ``parallel``) where ``supported``, the inputs ``why`` names, and
+    raises on anything else."""
+    value = int(min_islot)
+    if not -2**31 <= value < 2**31:
+        raise ValueError(f"{kernel} takes min_islot as an int32; got {value}")
+    if value != 0 and not supported:
+        raise ValueError(
+            f"the CUDA kernel {kernel} runs min_islot != 0 (the distributed "
+            f"ownership rule) {why}; run other inputs through its plain "
+            "version or on CPU tensors")
+    return value
+
+
 def _payload_rows(sorted_payload, n: int, dtype, device):
     """The payload as (n, P) rows in the coordinates' dtype, or None."""
     if sorted_payload is None:
@@ -1337,7 +1363,7 @@ def _bind_hist(lib) -> None:
     vp, ci, cd, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_float
     lib.zelll_lag_hist.argtypes = [
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cd, cd, ci, vp, vp,
-        vp, ci, cf, cf, cf, cf, cf, cf,
+        vp, ci, cf, cf, cf, cf, cf, cf, ci,
     ]
     lib.zelll_lag_hist.restype = ci
     lib.zelll_lag_hist_max_bins.argtypes = []
@@ -1381,13 +1407,17 @@ def mask_plane(kernel: str, pair_mask, sorted_payload, n: int, dtype, device,
 
 
 def _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges, sorted_pos_lo,
-                   sorted_payload, *, L, pair_mask, mi_box=None, key_reach=None):
+                   sorted_payload, *, L, pair_mask, mi_box=None, key_reach=None,
+                   min_islot=0):
     """Launch K5 on the current stream: (2, K) int32 hi/lo planes."""
     device = sorted_pos.device
     n, dim = sorted_pos.shape
     dtype = sorted_pos.dtype
     K = edges.shape[0]
     _check_coords("K5", sorted_pos, sorted_pos_lo)
+    islot = islot_arg(
+        "K5", min_islot, why="on open coordinates (no sorted_pos_lo, mi_box or pair mask)",
+        supported=sorted_pos_lo is None and mi_box is None and pair_mask is None)
     mask, ma, mb, plane, keep = mask_plane("K5", pair_mask, sorted_payload, n, dtype,
                                            device, two_planes=True)
     mi = _mi_args("K5", mi_box, dim, dtype)
@@ -1410,11 +1440,13 @@ def _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges, sorted_pos_lo,
         w_key.data_ptr(), edges.data_ptr(), n, dim, L, _pad_spacing(n), K, mask,
         ma, mb, int(dtype == torch.float64), first.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
-        None if keep is None else keep.data_ptr(), *mi,
+        None if keep is None else keep.data_ptr(), *mi, islot,
     )
     if err != 0:
         raise RuntimeError(f"K5 launch failed: CUDA error {err}")
     pair_lag_hist.launches += 1
+    if islot:
+        pair_lag_hist.islot_launches += 1
     return _cumulative_counts(first)
 
 
@@ -1440,9 +1472,10 @@ def pair_lag_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=None
     CUDA tensors run kernel K5, which takes f32 (optionally split) or f64
     coordinates, 1 <= dim <= 3, at most 2048 edges, no mask, a
     `SpeciesPairMask` or `pbc_keep` over one payload plane or a
-    `PbcSpeciesPairMask` over two (shift signs, species), ``min_islot=0``
-    and, with f32 coordinates, the minimum image; it raises on anything
-    else. CPU tensors run `pair_lag_hist_plain`.
+    `PbcSpeciesPairMask` over two (shift signs, species) and, with f32
+    coordinates, the minimum image; ``min_islot != 0`` runs its ownership
+    instances, on open coordinates (f32 or f64) without a mask. It raises
+    on anything else. CPU tensors run `pair_lag_hist_plain`.
     """
     del M
     if L < 1:
@@ -1452,18 +1485,18 @@ def pair_lag_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=None
     device, sorted_pos, sorted_keys, strides, sorted_pos_lo = _observable_args(
         sorted_pos, sorted_keys, strides, sorted_pos_lo, device)
     if device.type == "cuda":
-        if not _is_default_islot(min_islot):
-            raise ValueError("the CUDA kernel takes only min_islot=0; run "
-                             "others through pair_lag_hist_plain")
         edges = hist_edges(edges_sq, sorted_pos.dtype, device)
         return _lag_hist_cuda(sorted_pos, sorted_keys, strides, edges,
                               sorted_pos_lo, sorted_payload, L=L,
-                              pair_mask=pair_mask, mi_box=mi_box, key_reach=key_reach)
+                              pair_mask=pair_mask, mi_box=mi_box, key_reach=key_reach,
+                              min_islot=min_islot)
     return pair_lag_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
                                sorted_pos_lo, sorted_payload, L=L,
                                min_islot=min_islot, pair_mask=pair_mask,
                                mi_box=mi_box, key_reach=key_reach)
 
 
-# Kernel launches since the last reset; only a launch of K5 adds to it.
+# Kernel launches since the last reset; only a launch of K5 adds to it, and
+# to islot_launches only a launch of its min_islot instances.
 pair_lag_hist.launches = 0
+pair_lag_hist.islot_launches = 0

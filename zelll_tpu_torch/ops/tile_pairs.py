@@ -55,6 +55,7 @@ from .lag_pairs import (
     _PAD_KEY_BASE,
     _cumulative_counts,
     _is_default_islot,
+    islot_arg,
     _NO_TABLE,
     _keep_plane,
     energy_term_arg,
@@ -320,7 +321,7 @@ def _bind_reduce(lib) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.zelll_tile_reduce.argtypes = [
         vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, ci, ci, vp, vp,
-        ci, ci, vp, vp, ci,
+        ci, ci, vp, vp, ci, ci,
     ]
     lib.zelll_tile_reduce.restype = ci
     lib.zelll_tile_reduce_chunk.argtypes = []
@@ -346,7 +347,7 @@ def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device,
 
 
 def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
-                 out_dtype=None, payload=None) -> torch.Tensor:
+                 out_dtype=None, payload=None, min_islot=0) -> torch.Tensor:
     """Launch K6 on the current stream and sum its per-chunk partials.
 
     Takes f32 planes on a CUDA device, the terms `lj_term`,
@@ -356,9 +357,12 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
     (``term`` a `PbcKeepTerm` of one of those terms, ``payload`` the
     sorted (n,) shift-sign plane, whose value for each own and j slot the
     kernel reads) and the species plane of
-    `ops.potentials.lennard_jones_mixed`'s term (f32); raises on anything
-    else. Every kahan mode of the JAX package sums the same way here: f64
-    per thread, a fixed fold per block, one partial per own chunk.
+    `ops.potentials.lennard_jones_mixed`'s term (f32). ``min_islot != 0``
+    (the distributed ownership rule) runs its ownership instances, on f32
+    planes without low parts or the band mask, with `lj_term`, a factory's
+    term or the species term, into float sums. It raises on anything else.
+    Every kahan mode of the JAX package sums the same way here: f64 per
+    thread, a fixed fold per block, one partial per own chunk.
     """
     pos = inp.pos
     mask, term, plane = _keep_plane("K6", term, payload, pos.shape[1], pos.device)
@@ -370,6 +374,12 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
     if targ == _TERM_TABLE + 1 and inp.lo is not None:
         raise ValueError("K6's species term runs on f32 coordinates (no low "
                          "parts); run it through tile_pair_reduce_plain")
+    islot = islot_arg(
+        "K6", min_islot, why="on f32 planes without low parts, the band mask or the "
+        "keep mask, with lj_term, a factory's term or the species term, into float sums",
+        supported=(inp.lo is None and not inp.bandmask and mask == 0
+                   and targ in (_KERNEL_TERMS[lj_term], _TERM_TABLE, _TERM_TABLE + 1)
+                   and out_dtype != torch.int32))
     pos = inp.pos
     device = pos.device
     dim, n = pos.shape
@@ -397,11 +407,13 @@ def reduce_tiles(inp: TileInputs, cutoff_sq, *, term: Callable = lj_term,
         inp.keys.data_ptr(), inp.bounds.data_ptr(), inp.bands.data_ptr(),
         n, dim, S, csq, targ, int(integer), int(inp.bandmask), mask,
         partial.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        *(_NO_TABLE if spec is None else table_args(spec, device)),
+        *(_NO_TABLE if spec is None else table_args(spec, device)), islot,
     )
     if err != 0:
         raise RuntimeError(f"K6 launch failed: CUDA error {err}")
     tile_pair_reduce.launches += 1
+    if islot:
+        tile_pair_reduce.islot_launches += 1
     return _finish(partial.sum(), out_dtype, integer)
 
 
@@ -436,13 +448,7 @@ def _tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     sorted_keys = torch.as_tensor(sorted_keys, device=device)
     if sorted_pos_lo is not None:
         sorted_pos_lo = torch.as_tensor(sorted_pos_lo, device=device)
-    distributed = not (isinstance(min_islot, int) and min_islot == 0)
     kernel = device.type == "cuda" and not plain
-    if kernel and distributed:
-        raise ValueError(
-            "the CUDA kernel K6 takes only min_islot=0 (multi-device, slice "
-            "9); run others through tile_pair_reduce_plain"
-        )
     inp = tile_inputs(_planes(sorted_pos), sorted_keys, strides,
                       _planes(sorted_pos_lo), CB=CB, MAXJ=MAXJ, packed=packed,
                       bandmask=bandmask)
@@ -454,10 +460,10 @@ def _tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
 
 def _reduce(inp: TileInputs, cutoff_sq, kernel: bool, **kw) -> torch.Tensor:
     """K6 for ``kernel``, else its plain version (which alone reads
-    ``safe_term`` and ``min_islot``)."""
+    ``safe_term``)."""
     if kernel:
         return reduce_tiles(inp, cutoff_sq, term=kw["term"], out_dtype=kw["out_dtype"],
-                            payload=kw.get("payload"))
+                            payload=kw.get("payload"), min_islot=kw.get("min_islot", 0))
     return reduce_tiles_plain(inp, cutoff_sq, **kw)
 
 
@@ -493,9 +499,10 @@ def tile_pair_reduce(sorted_pos, sorted_keys, strides, cutoff_sq,
     table), two payload rules (the periodic keep mask: a
     `lag_pairs.PbcKeepTerm` of one of those terms over the (n,)
     ``sorted_payload`` plane; the species plane of
-    `ops.potentials.lennard_jones_mixed`'s term, f32) and
-    ``min_islot=0``, and raises on anything else (other callables and
-    payload terms; ``min_islot`` comes with slice 9). CPU tensors run
+    `ops.potentials.lennard_jones_mixed`'s term, f32) and ``min_islot``
+    (its ownership instances: f32 without low parts or the band mask, with
+    `lj_term`, a factory's term or the species term), and raises on
+    anything else (other callables and payload terms). CPU tensors run
     `reduce_tiles_plain`, which takes them all.
     """
     return _tile_pair_reduce(
@@ -521,8 +528,10 @@ def tile_pair_reduce_plain(sorted_pos, sorted_keys, strides, cutoff_sq,
         bandmask=bandmask, safe_term=safe_term, device=device, plain=True)
 
 
-# Kernel launches since the last reset; only a launch of K6 adds to it.
+# Kernel launches since the last reset; only a launch of K6 adds to it, and
+# to islot_launches only a launch of its min_islot instances.
 tile_pair_reduce.launches = 0
+tile_pair_reduce.islot_launches = 0
 
 
 def tile_lj_rebuild_energy(positions, cutoff, positions_lo=None, *, CB: int = 8,
@@ -1074,7 +1083,7 @@ def hist_tiles_plain(inp: TileInputs, edges_sq, *, payload=None, pair_mask=None,
 def _bind_hist(lib) -> None:
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.zelll_tile_hist.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cd, cd, ci, ci, vp, vp,
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cd, cd, ci, ci, vp, vp, ci,
     ]
     lib.zelll_tile_hist.restype = ci
     lib.zelll_tile_hist_chunk.argtypes = []
@@ -1089,13 +1098,15 @@ load_hist_kernel = kernel_loader(_CSRC / "tile_hist.cu", "tile_hist", _bind_hist
 
 
 def hist_tiles(inp: TileInputs, edges_sq, *, payload=None,
-               pair_mask=None) -> torch.Tensor:
+               pair_mask=None, min_islot=0) -> torch.Tensor:
     """Launch K9 on the current stream: (2, K) int32 hi/lo planes.
 
     Takes ``inp`` from `tile_inputs` (the half stencil) with f32 (optionally
     split) or f64 planes on a CUDA device, K <= 64 ascending edges, and no
     mask, a `lag_pairs.SpeciesPairMask` or `lag_pairs.pbc_keep` over one
-    payload plane; raises on anything else.
+    payload plane; ``min_islot != 0`` (the distributed ownership rule) runs
+    its ownership instances, without low parts, the band mask or a mask.
+    It raises on anything else.
     """
     pos = inp.pos
     dim, n = pos.shape
@@ -1108,6 +1119,9 @@ def hist_tiles(inp: TileInputs, edges_sq, *, payload=None,
                                              pos.device)
     # K9's one payload plane holds the species or the shift signs
     plane = species if keep is None else keep
+    islot = islot_arg(
+        "K9", min_islot, why="without low parts, the band mask or a pair mask",
+        supported=inp.lo is None and not inp.bandmask and pair_mask is None)
     first = torch.zeros((K,), dtype=torch.int64, device=pos.device)
     if n == 0:
         return _cumulative_counts(first)
@@ -1118,11 +1132,13 @@ def hist_tiles(inp: TileInputs, edges_sq, *, payload=None,
         inp.bounds.data_ptr(), inp.bands.data_ptr(), edges.data_ptr(), n, dim,
         inp.bands.shape[0], K, mask, ma, mb, int(inp.bandmask),
         int(pos.dtype == torch.float64), first.data_ptr(),
-        torch.cuda.current_stream(pos.device).cuda_stream,
+        torch.cuda.current_stream(pos.device).cuda_stream, islot,
     )
     if err != 0:
         raise RuntimeError(f"K9 launch failed: CUDA error {err}")
     tile_pair_hist.launches += 1
+    if islot:
+        tile_pair_hist.islot_launches += 1
     return _cumulative_counts(first)
 
 
@@ -1147,10 +1163,8 @@ def _tile_pair_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo,
         sorted_pos, sorted_keys, strides, sorted_pos_lo, CB=CB, MAXJ=MAXJ,
         bandmask=bandmask, device=device)
     if device.type == "cuda" and not plain:
-        if not _is_default_islot(min_islot):
-            raise ValueError("the CUDA kernel takes only min_islot=0; run "
-                             "others through tile_pair_hist_plain")
-        packed = hist_tiles(inp, edges_sq, payload=sorted_payload, pair_mask=pair_mask)
+        packed = hist_tiles(inp, edges_sq, payload=sorted_payload, pair_mask=pair_mask,
+                            min_islot=min_islot)
     else:
         packed = hist_tiles_plain(inp, edges_sq, payload=sorted_payload,
                                   pair_mask=pair_mask, min_islot=min_islot)
@@ -1176,7 +1190,8 @@ def tile_pair_hist(sorted_pos, sorted_keys, strides, edges_sq, sorted_pos_lo=Non
 
     CUDA tensors run kernel K9, which takes f32 (optionally split) or f64
     coordinates, no mask, a `lag_pairs.SpeciesPairMask` or the periodic
-    keep mask `lag_pairs.pbc_keep`, and ``min_islot=0``, and raises on
+    keep mask `lag_pairs.pbc_keep`, and ``min_islot`` (its ownership
+    instances: no low parts, band mask or pair mask), and raises on
     anything else. CPU tensors run `hist_tiles_plain`.
     """
     return _tile_pair_hist(
@@ -1197,5 +1212,7 @@ def tile_pair_hist_plain(sorted_pos, sorted_keys, strides, edges_sq,
         bandmask=bandmask, device=device, plain=True)
 
 
-# Kernel launches since the last reset; only a launch of K9 adds to it.
+# Kernel launches since the last reset; only a launch of K9 adds to it, and
+# to islot_launches only a launch of its min_islot instances.
 tile_pair_hist.launches = 0
+tile_pair_hist.islot_launches = 0
